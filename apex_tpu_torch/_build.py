@@ -21,7 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -82,6 +83,16 @@ def _build(name: str) -> str:
     return path
 
 
+def build_all(names: Sequence[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` each, all started
+    together (each build publishes its library atomically, so this only
+    overlaps the compiles that :func:`library` would run one by one)."""
+    todo = sorted(set(names))
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        for f in [pool.submit(_build, n) for n in todo]:
+            f.result()
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
@@ -93,14 +104,19 @@ def library(name: str) -> ctypes.CDLL:
 class Kernel:
     """One C entry point of a kernel library, with its launch count.
 
+    ``library`` names the source (``csrc/<library>.cu``); ``name`` is the
+    kernel's own name in counts and reports (default: the library's).
+
     The C function launches on the stream it is given and returns
     ``cudaGetLastError()`` (0 on success); :meth:`launch` raises on any
     other value and counts only launches that were accepted.  Every
     pointer and the stream pass as ``c_void_p`` — ``argtypes`` is set
     before the first call so ctypes never truncates a 64-bit pointer."""
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence):
-        self.name = name
+    def __init__(self, library: str, symbol: str, argtypes: Sequence,
+                 name: Optional[str] = None):
+        self.library = library
+        self.name = name or library
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -109,7 +125,7 @@ class Kernel:
 
     def function(self):
         if self._fn is None:
-            fn = getattr(library(self.name), self.symbol)
+            fn = getattr(library(self.library), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

@@ -1,0 +1,228 @@
+"""ImageNet AMP training on the card (port of examples/imagenet/main_amp.py:
+ResNet, amp O0/O2/O3, bucketed FusedSGD, the flat grad-accum pipeline).
+
+Data is synthetic ImageNet-shaped batches (the training math, the amp
+plumbing and the throughput accounting are the real thing):
+
+    python -m apex_tpu_torch.examples.imagenet_main_amp --arch resnet50 \
+        --opt-level O2 [--batch-size 128] [--steps 20] [--grad-accum 2] \
+        [--device cpu]
+
+Defaults follow the reference: batch 128 at 224x224 on the card (8 at
+64x64 on the CPU), lr 0.1, momentum 0.9, weight decay 1e-4.  The step
+never syncs the host; the loss is echoed one step in ten.  f32 convs
+and matmuls run in full f32 (TF32 off), as the reference's O2 model
+computes in f32.
+
+Not ported yet (each raises ``NotImplementedError`` naming its item):
+``--ddp`` and ``--sync-bn`` (ROADMAP Queue 1, slice 2 item T2),
+``--checkpoint``, ``--checkpoint-dir`` and ``--preempt-at-step`` (T3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from apex_tpu_torch import amp
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch._tree import tree_map
+from apex_tpu_torch.data import DevicePrefetcher
+from apex_tpu_torch.models import resnet18, resnet34, resnet50, resnet101
+from apex_tpu_torch.optimizers import FusedSGD
+
+ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
+         "resnet50": resnet50, "resnet101": resnet101}
+
+DDP_TODO = "ROADMAP Queue 1, slice 2 item T2 (DDP and SyncBN over NCCL)"
+CKPT_TODO = "ROADMAP Queue 1, slice 2 item T3 (checkpoints)"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="resnet50", choices=sorted(ARCHS))
+    p.add_argument("--opt-level", default="O2",
+                   choices=["O0", "O1", "O2", "O3"])
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="0 = by device (128 on the card, 8 on the CPU)")
+    p.add_argument("--image-size", type=int, default=0,
+                   help="0 = by device (224 on the card, 64 on the CPU)")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="split each batch into N microbatches and "
+                        "accumulate flat (one flat_accumulate per bucket "
+                        "per microbatch, found_inf latched)")
+    p.add_argument("--ddp", action="store_true")
+    p.add_argument("--sync-bn", action="store_true")
+    p.add_argument("--checkpoint", default="")
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--preempt-at-step", type=int, default=None)
+    p.add_argument("--stem-space-to-depth", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="default: the card (cuda); 'cpu' runs the plain "
+                        "PyTorch versions of the kernels")
+    return p.parse_args(argv)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    losses: List[float]           # one per step, read after the run
+    imgs_per_sec: Optional[float]  # over the steps after the first
+    step_seconds: float           # host wall per timed step
+    batch: int
+    image: int
+    device: str
+    opt: Any                      # the FusedSGD (params, masters, state)
+    amp_state: Any
+    batch_stats: Any
+
+
+def synthetic_batches(batch: int, size: int, steps: int, seed: int = 1,
+                      num_classes: int = 1000):
+    """The reference's data: a pool of ``min(4, steps)`` batches from
+    ``numpy.random.default_rng(seed)``, NHWC f32 images and i32 labels
+    in ``[0, num_classes)``, cycled for ``steps``."""
+    nrng = np.random.default_rng(seed)
+    pool = [(nrng.standard_normal((batch, size, size, 3), dtype=np.float32),
+             nrng.integers(0, num_classes, (batch,)).astype(np.int32))
+            for _ in range(min(4, steps))]
+    return (pool[i % len(pool)] for i in range(steps))
+
+
+def train(arch: str = "resnet50", opt_level: str = "O2", batch: int = 0,
+          image: int = 0, steps: int = 20, lr: float = 0.1,
+          momentum: float = 0.9, weight_decay: float = 1e-4,
+          grad_accum: int = 1, device=None, num_classes: int = 1000,
+          width: int = 64, stem_space_to_depth: bool = False,
+          variables=None, seed: int = 0, data=None,
+          log: Optional[Callable[[str], None]] = print,
+          on_step: Optional[Callable[[int], None]] = None) -> TrainResult:
+    """Train ``steps`` steps; the body of :func:`main`.
+
+    ``variables``: optional ``(params, batch_stats)`` f32 trees to start
+    from (default: ``model.init(seed)``).  ``data``: optional iterable of
+    ``(x NHWC f32, y int)`` numpy batches (default: the reference's
+    synthetic pool).  ``on_step(step)`` runs at the end of each step's
+    host work (the step itself is enqueued, not finished)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # the reference's O2 model computes f32 convs and matmuls: no TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+    batch = batch or (128 if dev.type == "cuda" else 8)
+    size = image or (224 if dev.type == "cuda" else 64)
+    if log:
+        log(f"apex_tpu_torch: {arch} amp {opt_level} batch {batch} img "
+            f"{size} on {dev}"
+            + (f" grad-accum {grad_accum} (flat)" if grad_accum > 1 else ""))
+
+    model = ARCHS[arch](num_classes=num_classes, width=width,
+                        stem_space_to_depth=stem_space_to_depth)
+    if variables is None:
+        params, batch_stats = model.init(seed, dev)
+    else:
+        params, batch_stats = variables
+    params, amp_state = amp.initialize(params, opt_level=opt_level,
+                                       device=dev)
+    opt = FusedSGD(params, lr=lr, momentum=momentum,
+                   weight_decay=weight_decay,
+                   master_weights=bool(amp_state.properties.master_weights),
+                   masters=amp_state.master_params)
+
+    def loss_fn(p, bs, x, y):
+        logits, new_bs = model.apply(p, bs, x, train=True)
+        ll = -torch.gather(F.log_softmax(logits.float(), dim=-1), 1,
+                           y.long()[:, None])
+        return ll.mean(), new_bs
+
+    # O2/O3 cast the data input (arg 2) to the model half dtype
+    wrapped_loss = amp_state.wrap_forward(loss_fn, cast_argnums=(2,))
+
+    if grad_accum > 1:
+        pipe = amp_state.flat_pipeline(optimizer=opt)
+
+        def train_step(p, bs, scaler, x, y):
+            def loss_bs(pp, xx, yy):
+                return wrapped_loss(pp, bs, xx, yy)
+
+            (loss, new_bs), flat = pipe.scaled_value_and_grad(
+                loss_bs, scaler, p, x, y, has_aux=True,
+                microbatches=grad_accum)
+            # every microbatch folds BN stats from the same input stats:
+            # average the N candidates (mean of micro-means == the
+            # full-batch mean)
+            new_bs = tree_map(lambda a: a.mean(dim=0), new_bs)
+            return loss, flat, new_bs, flat.found_inf
+    else:
+        def train_step(p, bs, scaler, x, y):
+            (loss, new_bs), grads, found_inf = amp.scaled_value_and_grad(
+                wrapped_loss, scaler, p, bs, x, y, has_aux=True)
+            return loss, grads, new_bs, found_inf
+
+    source = data if data is not None else synthetic_batches(
+        batch, size, steps, num_classes=num_classes)
+    losses: List[torch.Tensor] = []
+    t0 = None
+    done = 0
+    for step, (x, y) in enumerate(DevicePrefetcher(source, depth=2,
+                                                   device=dev)):
+        loss, grads, batch_stats, found_inf = train_step(
+            opt.params, batch_stats, amp_state.scaler, x, y)
+        # branch-free overflow skip: the flag stays on the device
+        opt.step(grads, found_inf=found_inf)
+        amp_state = amp.update_scaler(amp_state, found_inf)
+        losses.append(loss)
+        done = step + 1
+        if step == 0:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()      # the first step warms up
+        if step % 10 == 0 and log:
+            # one step in ten: a console echo, not a per-step sync
+            log(f"step {step:4d} loss {float(loss):.4f} "
+                f"scale {float(amp_state.scaler.loss_scale):.0f}")
+        if on_step is not None:
+            on_step(step)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_timed = done - 1
+    wall = time.perf_counter() - t0 if t0 is not None else 0.0
+    imgs = batch * n_timed / wall if n_timed > 0 and wall > 0 else None
+    if imgs is not None and log:
+        log(f"throughput {imgs:.1f} imgs/sec")
+    return TrainResult(
+        losses=[float(v) for v in torch.stack(losses).cpu()] if losses
+        else [], imgs_per_sec=imgs,
+        step_seconds=wall / n_timed if n_timed > 0 else 0.0, batch=batch,
+        image=size, device=str(dev), opt=opt, amp_state=amp_state,
+        batch_stats=batch_stats)
+
+
+def main(argv=None) -> TrainResult:
+    args = parse_args(argv)
+    if args.ddp or args.sync_bn:
+        raise NotImplementedError(f"--ddp/--sync-bn: {DDP_TODO}")
+    if args.checkpoint or args.checkpoint_dir \
+            or args.preempt_at_step is not None:
+        raise NotImplementedError(
+            f"--checkpoint/--checkpoint-dir/--preempt-at-step: {CKPT_TODO}")
+    return train(arch=args.arch, opt_level=args.opt_level,
+                 batch=args.batch_size, image=args.image_size,
+                 steps=args.steps, lr=args.lr, momentum=args.momentum,
+                 weight_decay=args.weight_decay, grad_accum=args.grad_accum,
+                 device=args.device,
+                 stem_space_to_depth=args.stem_space_to_depth)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -8,34 +8,63 @@ Needs one CUDA card and ``nvcc`` (found through CUDA_HOME, PATH or
 exits non-zero:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — every registered kernel from its ``apex_tpu_torch/csrc``
-   source with ``nvcc`` for sm_90a, with the build seconds and the
-   ptxas register/spill report;
-3. kernel vs plain — each kernel against its plain PyTorch version on
-   the card at the shapes the serving path gives it (f32, TF32 off,
-   ``atol=rtol=1e-4``; rows that see no key must be exactly 0), and its
-   time beside the plain version's, the one-call PyTorch equivalent's
-   and the card's bound;
+2. build — every kernel source under ``apex_tpu_torch/csrc`` with one
+   ``nvcc`` each, all started together, for sm_90a, with the build
+   seconds and the ptxas register/spill report;
+3. kernel vs plain (flash) — the flash-attention kernel against its
+   plain PyTorch version on the card at the shapes the serving path gives
+   it (f32, TF32 off, ``atol=rtol=1e-4``; rows that see no key must be
+   exactly 0), and its time beside the plain version's, the one-call
+   PyTorch equivalent's and the card's bound;
 4. serve — ``apex_tpu_torch.serving.Engine`` at GPT-2 small's widths
    (random weights from seed 0) serves 16 greedy requests, prompts of
    32..900 tokens, 64 new tokens each; every request must complete with
-   its token count, and every prefill must have launched the kernel;
-   The serve repeats 5 times on the warm engine: each repeat prints its
+   its token count, and every prefill must have launched the kernel.
+   The serve repeats 3 times on the warm engine: each repeat prints its
    numbers, a summary gives their median and spread, and every repeat
    must give the first one's tokens;
-5. consistency — for two of those requests, a no-cache greedy recompute
-   (the full prefill forward over prompt + tokens so far, with plain
-   attention, at every step) must give the engine's tokens;
-6. profile — device time by kernel in one admission burst and one
-   decode window, from ``torch.profiler`` (after the measured phases).
+5. consistency (serve) — for two of those requests, a no-cache greedy
+   recompute (plain attention) must give the engine's tokens;
+6. profile (serve) — device time by kernel in one admission burst and
+   one decode window, from ``torch.profiler``;
+7. kernel vs plain (flat) — flat_accumulate, flat_unscale_norm and
+   flat_sgd against their plain twins at ResNet-50's one amp-O2 bucket
+   (25,557,032 elements) and at a ragged length, f32 and bf16 grads, an
+   injected NaN/Inf, first step and nesterov on and off, the overflow
+   gate (p and buf must keep their bits); each timed beside its plain
+   twin, the bytes bound and (flat_sgd) ``torch._fused_sgd_``;
+8. train — ``apex_tpu_torch.examples.imagenet_main_amp.train`` runs
+   ResNet-50, amp O2, batch 128 at 224x224, ``grad_accum=2``: 3 repeats
+   of 9 steps (the first of each a warm-up, so 24 timed), then 4 steps at
+   ``grad_accum=1``; losses must be finite and the kernels' launch
+   counts exact;
+9. consistency (train) — ResNet-18, batch 8 at 64x64, ``grad_accum=2``,
+   from the same seed on the card and on the CPU (plain twins): the
+   first loss within rtol 1e-5; at O2 after 1 step the final f32
+   masters within ten times what the CPU run itself moves by with
+   another summation order (measured in the run), at O0 with lr 0.01
+   after 2 steps within a tenth of the nearest of three wrong updates
+   run on the CPU (lr 4% high, momentum or weight decay dropped); each
+   limit must reject the wrong updates it names; O2 after 3 steps is
+   printed;
+10. profile (train) — device time by kernel over one step at
+    ``grad_accum`` 2 and 1: busy share, the top device items, and the
+    flat kernels' share.
 
-The line before the last is the ``kernels`` JSON record; the last line
-is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+Kernel times are device milliseconds per call, from CUDA events around
+calls queued behind a device-side spin that outlasts the host's
+launching them, so the host's launch overhead is not in them.
+
+The line before the last is the ``kernels`` JSON record (every kernel);
+the last line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is
+imported.  It runs in about two and a half minutes, the kernels' build
+included.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,20 +74,56 @@ F32_PEAK = 67e12        # H100 SXM f32 outside the tensor cores, FLOP/s
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3, bytes/s
 
 
+_SPIN = {}
+
+
+def _spin(ms: float) -> None:
+    """Queue a device-side spin of about ``ms`` milliseconds on the
+    current stream (``torch.cuda._sleep``, its clock calibrated once)."""
+    import torch
+    if not _SPIN:
+        cycles = 20_000_000
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _SPIN["cycles_per_ms"] = cycles / a.elapsed_time(b)
+    torch.cuda._sleep(int(ms * _SPIN["cycles_per_ms"]))
+
+
 def _ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call, by CUDA events."""
+    """Mean device milliseconds per call, by CUDA events around ``iters``
+    calls queued behind a device spin that outlasts the host's launching
+    them, so the events time the device's work and not the host's launch
+    overhead.  Fails if the spin ended before the host had queued the
+    last call (then the time would include host gaps)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        _spin(2.0 * host_ms + 1.0)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        hidden = not start.query()          # the device still spins
+        end.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / iters
+        host_ms *= 4.0
+    raise SystemExit("chip_smoke FAILED: the device spin never outlasted "
+                     "the host's launches")
 
 
 def _check(cond: bool, what: str) -> None:
@@ -180,7 +245,7 @@ GPT2_SMALL = dict(vocab_size=50257, hidden=768, n_layers=12, n_heads=12,
                   n_kv_heads=12, ffn=3072, max_seq=1024, eos_token=50256)
 
 
-SERVE_REPEATS = 5
+SERVE_REPEATS = 3
 
 
 def _serve_once(eng, cfg, lens, rep: int):
@@ -225,7 +290,9 @@ def _serve_once(eng, cfg, lens, rep: int):
            f"flash_fwd launched {launches['flash_fwd']} times over "
            f"{prefills} prefills of {cfg.n_layers} layers")
     for name, n in launches.items():
-        _check(n > 0, f"kernel {name} was never launched on the main path")
+        if name != "flash_fwd":
+            _check(n == 0, f"kernel {name} launched {n} times while "
+                           "serving, a path that does not run it")
     prefill_s, decode_s = eng.prefill_s - prefill_s0, eng.decode_s - decode_s0
     metrics = dict(
         wall=wall, tokens=n_tok, tok_s=n_tok / wall,
@@ -364,13 +431,475 @@ def profile_phase(eng, smi: str) -> None:
     eng.serve()
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+RESNET50_BUCKET = 25_557_032     # ResNet-50's one amp-O2 bucket (elements)
+FLAT_RAGGED = RESNET50_BUCKET + 3
+FLAT_TOL = {"flat_accumulate": (0.0, 0.0), "flat_unscale_norm": (0.0, 1e-5),
+            "flat_sgd": (1e-7, 1e-6)}
+FLAT_SOURCE = "apex_tpu_torch/csrc/multi_tensor.cu"
+FLAT_REPLACES = {
+    "flat_accumulate": "apex_tpu/ops/multi_tensor.py:207 (flat_accumulate, "
+                       "body _accumulate_kernel :190)",
+    "flat_unscale_norm": "apex_tpu/ops/multi_tensor.py:270 "
+                         "(flat_unscale_norm, body _unscale_norm_kernel :255)",
+    "flat_sgd": "apex_tpu/ops/multi_tensor.py:465 (flat_sgd, body "
+                "_sgd_kernel :446)"}
+
+
+def _close(name, got, want, what):
+    import torch
+    atol, rtol = FLAT_TOL[name]
+    err = float((got.float() - want.float()).abs().nan_to_num(0.0).max()) \
+        if got.numel() else 0.0
+    ok = bool(torch.allclose(got.float(), want.float(), atol=atol,
+                             rtol=rtol, equal_nan=True))
+    _check(ok, f"{name} {what}: max_abs_err {err} over tolerance "
+               f"(atol={atol}, rtol={rtol})")
+    return err
+
+
+def _bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_PEAK
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+FLAT_SYMBOL = {"flat_accumulate": "accumulate_kernel",
+               "flat_unscale_norm": "unscale_norm",
+               "flat_sgd": "sgd_kernel"}
+
+
+def _wrapper_device_split(fn, symbol: str, calls: int = 10):
+    """Device time per call of ``fn`` from ``torch.profiler``: of the
+    kernels whose name holds ``symbol``, and of all its device work;
+    and the device kernels it launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    own = total = 0.0
+    count = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.time_range.elapsed_us() / 1e3
+            total += t
+            count += 1
+            if symbol in e.name:
+                own += t
+    _check(own > 0, f"the profiler saw no {symbol} on the device")
+    return own / calls, total / calls, count / calls
+
+
+def flat_kernel_phase(dev, smi: str) -> list:
+    """rows 6, 7, 10 against their plain twins on the card, then timed at
+    the shapes a ResNet-50 O2 grad-accum step gives them."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def vec(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, device=dev).to(dtype)
+
+    worst = {k: 0.0 for k in FLAT_TOL}
+    for n in (RESNET50_BUCKET, FLAT_RAGGED):
+        for gdt in (torch.bfloat16, torch.float32):
+            for poison in (None, "nan", "inf"):
+                acc, g = vec(n), vec(n, gdt)
+                if poison:
+                    g[n // 3] = float(poison)
+                want, wflag = mt.flat_accumulate_ref(acc, g, 1.0)
+                _, flag = mt.flat_accumulate(acc, g)
+                torch.cuda.synchronize()
+                _check(int(flag) == int(wflag) == (poison is not None),
+                       f"flat_accumulate flag {int(flag)} for {poison}")
+                worst["flat_accumulate"] = max(
+                    worst["flat_accumulate"], _close(
+                        "flat_accumulate", acc, want,
+                        f"n={n} g={gdt} poison={poison} flag={int(flag)}"))
+        for poison in (None, "inf"):
+            x = vec(n)
+            if poison:
+                x[n - 1] = float(poison)
+            inv = torch.full((), 1.0 / 2 ** 16, device=dev)
+            want = mt.flat_unscale_norm_ref(x, inv)
+            out, nsq, flag = mt.flat_unscale_norm(x, inv)
+            torch.cuda.synchronize()
+            _check(int(flag) == int(want[2]) == (poison is not None),
+                   f"flat_unscale_norm flag {int(flag)} for {poison}")
+            worst["flat_unscale_norm"] = max(
+                worst["flat_unscale_norm"],
+                _close("flat_unscale_norm", out, want[0],
+                       f"out n={n} poison={poison} flag={int(flag)}"))
+            if poison is None:
+                _close("flat_unscale_norm", nsq, want[1], f"norm_sq n={n}")
+                again = mt.flat_unscale_norm(x, inv)[1]
+                _check(bool(torch.equal(again, nsq)),
+                       "flat_unscale_norm: the sum differs run to run")
+        for gdt in (torch.float32, torch.bfloat16):
+            for nesterov in (False, True):
+                for first in (0, 1):
+                    for gs in (1.0, 1024.0):
+                        p, g, buf = vec(n), vec(n, gdt), vec(n)
+                        kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4,
+                                  nesterov=nesterov,
+                                  first_run=torch.tensor(first, device=dev),
+                                  grad_scale=torch.tensor(gs, device=dev))
+                        wp, wb = mt.flat_sgd_ref(p, g, buf, **kw)
+                        mt.flat_sgd(p, g, buf, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"n={n} g={gdt} nesterov={nesterov} "
+                                f"first={first} grad_scale={gs}")
+                        worst["flat_sgd"] = max(
+                            worst["flat_sgd"],
+                            _close("flat_sgd", p, wp, "p " + what),
+                            _close("flat_sgd", buf, wb, "buf " + what))
+        p, g, buf = vec(n), vec(n, torch.bfloat16), vec(n)
+        g[7] = float("nan")
+        p0, b0 = p.clone(), buf.clone()
+        mt.flat_sgd(p, g, buf, lr=0.1, momentum=0.9, weight_decay=1e-4,
+                    found_inf=torch.ones((), dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(p, p0) and torch.equal(buf, b0)),
+               "flat_sgd with found_inf set changed p or buf")
+        print(f"kernel flat kernels n={n}: flat_accumulate (g f32/bf16, "
+              f"clean/NaN/Inf: flag set exactly when poisoned), "
+              f"flat_unscale_norm (clean/Inf; the sum of squares the same "
+              f"bits on a second run), flat_sgd (g f32/bf16 x nesterov x "
+              f"first x grad_scale 1/1024; found_inf=1 leaves p and buf "
+              f"bit-unchanged) all within tolerance; worst max_abs_err so "
+              f"far {worst} (atol, rtol: {FLAT_TOL})", flush=True)
+
+    # time each at the main path's shapes: acc f32 += bf16 model grads;
+    # unscale of the f32 accumulators; sgd of the f32 masters by the f32
+    # unscaled grads with an f32 momentum buffer
+    n = RESNET50_BUCKET
+    acc, g16, x = vec(n), vec(n, torch.bfloat16), vec(n)
+    p, g, buf = vec(n), vec(n), vec(n)
+    one = torch.ones((), device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    zero_f = torch.zeros((), device=dev)
+    first = torch.zeros((), dtype=torch.int32, device=dev)
+    sgd_kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, first_run=first,
+                  grad_scale=one)
+
+    def sgd_plain():                 # the CPU branch of flat_sgd, on the card
+        wp, wb = mt.flat_sgd_ref(p, g, buf, **sgd_kw)
+        keep = zero_i == 0
+        return torch.where(keep, wp, p), torch.where(keep, wb, buf)
+
+    timings = {
+        "flat_accumulate": (
+            lambda: mt.flat_accumulate(acc, g16),
+            lambda: mt.flat_accumulate_ref(acc, g16), None,
+            (4 + 2 + 4) * n, 2 * n,
+            "null: no one call adds and flags the non-finite RESULT"),
+        "flat_unscale_norm": (
+            lambda: mt.flat_unscale_norm(x, one),
+            lambda: mt.flat_unscale_norm_ref(x, one), None,
+            (4 + 4) * n + 8, 3 * n,
+            "null: no one call unscales, sums squares and flags"),
+        "flat_sgd": (
+            lambda: mt.flat_sgd(p, g, buf, found_inf=zero_i, **sgd_kw),
+            sgd_plain,
+            lambda: torch._fused_sgd_(
+                [p], [g], [buf], weight_decay=1e-4, momentum=0.9, lr=0.1,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False, grad_scale=one, found_inf=zero_f),
+            (4 + 4 + 4 + 4 + 4) * n + 12, 8 * n,
+            "torch._fused_sgd_ (tensor grad_scale and found_inf)"),
+    }
+    entries = []
+    for name, (kern, plain, lib, nbytes, ops, lib_note) in timings.items():
+        ms = _ms(kern, iters=50, warmup=3)
+        own_ms, all_ms, per_call = _wrapper_device_split(
+            kern, FLAT_SYMBOL[name])
+        print(f"profile {name} n={n}, 10 wrapper calls: its kernels "
+              f"{own_ms:.4f} ms a call, all device work {all_ms:.4f} ms a "
+              f"call in {per_call:g} device kernels (the rest: the "
+              f"wrapper's fills and scalar ops) [{smi}]", flush=True)
+        plain_ms = _ms(plain, iters=10, warmup=2)
+        lib_ms = _ms(lib, iters=50, warmup=3) if lib else None
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"time {name} n={n}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'%.4f ms' % lib_ms if lib_ms else 'n/a'} ({lib_note}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops} "
+              f"FLOP), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s = "
+              f"{100 * bound_ms / ms:.1f}% of the HBM bound [{smi}]",
+              flush=True)
+        atol, rtol = FLAT_TOL[name]
+        entries.append(dict(
+            name=name, route="cuda", source=FLAT_SOURCE,
+            replaces=FLAT_REPLACES[name], launches=0,
+            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            atol=atol, rtol=rtol))
+    return entries
+
+
+TRAIN = dict(arch="resnet50", opt_level="O2", batch=128, image=224)
+TRAIN_REPEATS, TRAIN_STEPS, ACCUM = 3, 9, 2
+
+
+def _train_once(dev, grad_accum: int, steps: int, step_events=None):
+    """One run of the trainer with the launch counts zeroed just before
+    it; returns the result and the counts read just after."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+
+    def on_step(step):
+        if step_events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            step_events.append(ev)
+
+    _build.reset_launch_counts()
+    res = main_amp.train(device=dev, grad_accum=grad_accum, steps=steps,
+                         log=None, on_step=on_step, **TRAIN)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    _check(all(math.isfinite(v) for v in res.losses),
+           f"train: non-finite loss {res.losses}")
+    want = {"flash_fwd": 0, "flat_accumulate": grad_accum * steps
+            if grad_accum > 1 else 0,
+            "flat_unscale_norm": steps if grad_accum > 1 else 0,
+            "flat_sgd": steps}
+    _check(launches == want, f"train grad_accum={grad_accum}: launches "
+                             f"{launches}, expected {want}")
+    return res, launches
+
+
+def train_phase(dev, smi: str, entries: list) -> None:
+    import numpy as np
+    import torch
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for rep in range(TRAIN_REPEATS):
+        events = []
+        res, launches = _train_once(dev, ACCUM, TRAIN_STEPS, events)
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        runs.append((res, launches, step_ms))
+        print(f"train {rep + 1}/{TRAIN_REPEATS} resnet50 O2 batch "
+              f"{res.batch} {res.image}x{res.image} grad_accum {ACCUM}: "
+              f"{TRAIN_STEPS} steps, {res.imgs_per_sec:.1f} imgs/s over "
+              f"the {TRAIN_STEPS - 1} after the first, "
+              f"{1e3 * res.step_seconds:.2f} ms/step (host clock), device "
+              f"ms/step median {float(np.median(step_ms)):.2f} (CUDA events "
+              f"between steps), losses {[round(v, 4) for v in res.losses]}, "
+              f"launches {launches} [{smi}]", flush=True)
+    imgs = [r.imgs_per_sec for r, _, _ in runs]
+    ms = [1e3 * r.step_seconds for r, _, _ in runs]
+    print(f"train summary resnet50 O2 b128 224 grad_accum {ACCUM}: imgs/s "
+          f"median {float(np.median(imgs)):.1f} (min {min(imgs):.1f}, max "
+          f"{max(imgs):.1f}); ms/step median {float(np.median(ms)):.2f} "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}) over {TRAIN_REPEATS} "
+          f"repeats, {TRAIN_REPEATS * (TRAIN_STEPS - 1)} timed steps; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          f" GiB [{smi}]", flush=True)
+    res1, launches1 = _train_once(dev, 1, 4)
+    print(f"train resnet50 O2 b128 224 grad_accum 1: 4 steps, "
+          f"{res1.imgs_per_sec:.1f} imgs/s over the 3 after the first, "
+          f"{1e3 * res1.step_seconds:.2f} ms/step, losses "
+          f"{[round(v, 4) for v in res1.losses]}, launches {launches1} "
+          f"[{smi}]", flush=True)
+    first_launches = runs[0][1]
+    for e in entries:
+        e["launches"] = first_launches[e["name"]]
+
+
+CONSIST = dict(arch="resnet18", batch=8, image=64, grad_accum=2, seed=0,
+               log=None)
+FIRST_LOSS_RTOL = 1e-5
+ORDER_FACTOR = MUTANT_FACTOR = 10.0
+# wrong updates, run on the CPU, that show what a limit rejects
+MUTANTS = {"lr 4% high": lambda lr: dict(lr=1.04 * lr),
+           "momentum dropped": lambda lr: dict(momentum=0.0),
+           "weight decay dropped": lambda lr: dict(weight_decay=0.0)}
+# (opt level, lr, steps, what sets the masters' limit, the mutants the
+# limit must reject): "order" is ORDER_FACTOR x the CPU's own
+# summation-order yardstick, "mutants" the nearest of the named wrong
+# updates / MUTANT_FACTOR, None prints the reading only
+CONSIST_CASES = (
+    ("O2", 0.1, 1, "order", ("lr 4% high",)),
+    ("O0", 0.01, 2, "mutants", tuple(MUTANTS)),
+    ("O2", 0.1, 3, None, ()))
+
+
+def _gap(got, want, init) -> float:
+    """||got - want|| / ||want - init|| over every leaf (L2): how far two
+    runs' weights are apart, as a share of how far training moved them."""
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+    den = sum(float(((b - o) ** 2).sum()) for b, o in zip(want, init))
+    return math.sqrt(num / den)
+
+
+def _loss_rel(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def train_consistency_phase(dev) -> None:
+    """ResNet-18, batch 8 at 64x64, ``grad_accum=2``, from the same seed
+    on the card (kernels, cuDNN) and on the CPU (plain twins, oneDNN),
+    in the cases of ``CONSIST_CASES``.
+
+    The first loss comes from identical weights: rtol 1e-5.  After that
+    the runs differ by the order in which each convolution sums, which
+    the CPU run shows by itself with oneDNN off (the summation-order
+    yardstick, measured in this run).  The final f32 masters (the f32
+    params at O0) are compared by their gap as a share of their
+    displacement (``_gap``), the later losses within ten times the
+    yardstick's loss difference.  At O2 after one step (``first_run``)
+    the masters' limit is ten times the yardstick; it must reject an lr
+    4% high.  At O0 after two steps (the momentum blend) the yardstick
+    moves from one CPU to another by four orders of magnitude, so the
+    limit is a tenth of the gap of the nearest wrong update (``MUTANTS``,
+    run on the CPU): the card must be ten times closer to the CPU's
+    update than dropping weight decay or momentum, or a 4% lr error,
+    would put it.  O2 after three steps is printed and held only to its
+    first loss."""
+    import torch
+    from apex_tpu_torch._tree import tree_leaves, tree_map
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+    from apex_tpu_torch.models import resnet18
+
+    params, stats = resnet18().init(CONSIST["seed"], "cpu")
+    init = [t.numpy() for t in tree_leaves(params)]
+
+    def run(device, opt_level, steps, **hypers):
+        var = tuple(tree_map(lambda t: t.to(device), v)
+                    for v in (params, stats))
+        res = main_amp.train(device=device, opt_level=opt_level,
+                             steps=steps, variables=var, **CONSIST,
+                             **hypers)
+        work = (res.opt.masters if res.opt.masters is not None
+                else res.opt.params)
+        return res.losses, [m.float().cpu().numpy()
+                            for m in tree_leaves(work)]
+
+    for opt_level, lr, steps, limit, must_reject in CONSIST_CASES:
+        card_l, card_m = run(dev, opt_level, steps, lr=lr)
+        cpu_l, cpu_m = run("cpu", opt_level, steps, lr=lr)
+        torch.backends.mkldnn.enabled = False
+        try:
+            order_l, order_m = run("cpu", opt_level, steps, lr=lr)
+        finally:
+            torch.backends.mkldnn.enabled = True
+        _check(all(math.isfinite(v) for v in card_l + cpu_l),
+               f"train consistency: non-finite loss {card_l} {cpu_l}")
+        rel0 = abs(card_l[0] - cpu_l[0]) / abs(cpu_l[0])
+        rel, gap = _loss_rel(card_l, cpu_l), _gap(card_m, cpu_m, init)
+        order_rel = _loss_rel(order_l, cpu_l)
+        order_gap = _gap(order_m, cpu_m, init)
+        mutants = {}
+        for name, hypers in (MUTANTS.items() if limit else ()):
+            mut_l, mut_m = run("cpu", opt_level, steps,
+                               **{"lr": lr, **hypers(lr)})
+            mutants[name] = _gap(mut_m, cpu_m, init)
+        rel_tol = max(FIRST_LOSS_RTOL, ORDER_FACTOR * order_rel)
+        gap_tol = {"order": ORDER_FACTOR * order_gap, None: math.inf,
+                   "mutants": min([mutants[k] for k in must_reject]
+                                  or [math.inf]) / MUTANT_FACTOR}[limit]
+        held = {"order": f"tol {gap_tol:.3e} = {ORDER_FACTOR:g} x the "
+                         "yardstick",
+                "mutants": f"tol {gap_tol:.3e} = the nearest named wrong "
+                           f"update / {MUTANT_FACTOR:g}",
+                None: "printed only"}[limit]
+        print(f"consistency train resnet18 {opt_level} lr {lr} b8 64x64 "
+              f"grad_accum 2, {steps} step(s): card losses "
+              f"{[round(v, 6) for v in card_l]}, cpu "
+              f"{[round(v, 6) for v in cpu_l]}; first loss rel diff "
+              f"{rel0:.3e} (tol {FIRST_LOSS_RTOL}), max loss rel diff "
+              f"{rel:.3e} ({f'tol {rel_tol:.3e}' if limit else held}), "
+              f"masters' gap {gap:.3e} of their displacement ({held}); "
+              f"cpu summation-order yardstick: loss {order_rel:.3e}, gap "
+              f"{order_gap:.3e}"
+              + ("; wrong updates on the cpu (gap): " + ", ".join(
+                  f"{k} {g:.3e} ({'rejected' if g > gap_tol else 'passes'}"
+                  f"{', must be rejected' if k in must_reject else ''})"
+                  for k, g in mutants.items()) if mutants else ""),
+              flush=True)
+        _check(rel0 <= FIRST_LOSS_RTOL,
+               f"train consistency: first loss differs by {rel0}")
+        if limit is None:
+            continue
+        _check(rel <= rel_tol, f"train consistency {opt_level}: losses "
+                               f"differ by {rel}")
+        _check(gap <= gap_tol, f"train consistency {opt_level}: masters' "
+                               f"gap {gap} after {steps} step(s)")
+        for name in must_reject:
+            _check(mutants[name] > gap_tol,
+                   f"train consistency {opt_level}: the limit after "
+                   f"{steps} step(s) does not reject '{name}'")
+
+
+def train_profile_phase(dev, smi: str, grad_accum: int) -> None:
+    """Device time by kernel over one training step (the second of a
+    2-step run; the first warms up), from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step):
+        if step == 0:
+            prof.start()
+            clock["t0"] = time.perf_counter()
+        else:
+            torch.cuda.synchronize()
+            clock["wall"] = time.perf_counter() - clock["t0"]
+            prof.stop()
+
+    main_amp.train(device=dev, grad_accum=grad_accum, steps=2, log=None,
+                   on_step=on_step, **TRAIN)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    wall = 1e3 * clock["wall"]
+    flat = sum(t for name, (t, _) in by_name.items()
+               if any(k in name for k in FLAT_SYMBOL.values()))
+    flat /= 1e3
+    print(f"profile train step resnet50 O2 b128 grad_accum {grad_accum}: "
+          f"wall "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}"
+          f"%), {sum(c for _, c in by_name.values())} device kernels; split:"
+          f" flat tail (accumulate/unscale/sgd) {flat:.3f} ms "
+          f"({100 * flat / busy:.2f}% of busy), forward+backward and other "
+          f"device work {busy - flat:.2f} ms, rest (device idle) "
+          f"{wall - busy:.2f} ms [{smi}]", flush=True)
+    for name, (t_us, c) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:12]:
+        print(f"profile   {t_us / 1e3:9.3f} ms {c:6d}x {name[:90]}",
+              flush=True)
+    for name, (t_us, c) in sorted(by_name.items()):
+        if any(k in name for k in FLAT_SYMBOL.values()):
+            print(f"profile   flat {t_us / 1e3:9.3f} ms {c:4d}x {name[:80]}",
+                  flush=True)
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     from apex_tpu_torch import _build
-    from apex_tpu_torch.ops import attention  # noqa: F401  registers kernels
+    from apex_tpu_torch.ops import attention, multi_tensor  # noqa: F401
+    # (importing the op modules registers their kernels)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -386,26 +915,46 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+    _build.build_all({k.library for k in _build.KERNELS})
     for k in _build.KERNELS:
-        k.function()                       # builds and loads its library
-    print(f"build {len(_build.KERNELS)} kernel(s) "
+        k.function()                       # loads its library
+    print(f"build {len({k.library for k in _build.KERNELS})} source(s), "
+          f"{len(_build.KERNELS)} kernel(s) "
           f"({', '.join(k.name for k in _build.KERNELS)}) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in sorted(_build.build_logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        spills = sum(1 for line in log.splitlines()
+                     if "spill" in line and not
+                     ("0 bytes spill stores" in line
+                      and "0 bytes spill loads" in line))
+        print(f"ptxas {name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}..{max(regs, default=0)}, "
+              f"{spills} with spills", flush=True)
 
     with torch.no_grad():
         entry = kernel_phase(dev, smi)
         eng, reqs, res = serve_phase(dev, smi, entry)
         consistency_phase(eng, reqs, res)
         profile_phase(eng, smi)
+        del eng
+        flat_entries = flat_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    train_phase(dev, smi, flat_entries)
+    train_consistency_phase(dev)
+    for grad_accum in (ACCUM, 1):
+        train_profile_phase(dev, smi, grad_accum)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
-    print(json.dumps({"kernels": [{k: entry[k] for k in keys}]}))
+    kernels = [{k: e[k] for k in keys} for e in [entry] + flat_entries]
+    _check(len(kernels) == len(_build.KERNELS),
+           f"the kernels line has {len(kernels)} entries for "
+           f"{len(_build.KERNELS)} kernels")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
