@@ -5,10 +5,14 @@ the same functions in PyTorch, and every Pallas kernel on a ported path
 becomes a kernel written by hand for Hopper (``csrc/``, built with
 ``nvcc`` at first use).  It imports neither ``jax`` nor ``apex_tpu``.
 
-Ported so far: the serving path (:mod:`apex_tpu_torch.serving`) and
-its one kernel, the flash-attention forward
-(:func:`apex_tpu_torch.ops.flash_attention`).  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+Ported so far: the serving path (:mod:`apex_tpu_torch.serving`) with
+the flash-attention forward kernel; the ImageNet training path (amp,
+bucketed :class:`~apex_tpu_torch.optimizers.FusedSGD`, the flat
+gradient pipeline, ResNet) with the flat accumulate / unscale-norm / SGD
+kernels; and BERT MLM pretraining (:mod:`apex_tpu_torch.models.bert`,
+:class:`~apex_tpu_torch.optimizers.FusedLAMB`, FusedLayerNorm,
+contrib.xentropy) with the LayerNorm, l2norm and LAMB kernels.  Entry
+points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

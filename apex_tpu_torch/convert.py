@@ -14,6 +14,7 @@ scale/bias/mean/var as (C,) vectors): the tree then flattens in the
 reference's order with the reference's shapes, so the bucket plan built
 over it has the reference's ``layout()`` and the same bucket bytes.  The
 forward takes torch's OIHW and (out, in) views of those kernels at use.
+:func:`bert_from_jax` does the same for the flax BERT's ``params``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,20 @@ def params_from_jax(tree, device=None):
     return conv(tree)
 
 
+def _from_numpy(tree, dev):
+    """Nested dicts of numpy leaves -> the same dicts of tensors on
+    ``dev``, each leaf keeping its float dtype (f32, or bf16 after amp
+    O2's cast)."""
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, dev) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(dev)
+
+
 def resnet_from_jax(params, batch_stats, device=None):
     """The flax ResNet's ``(params, batch_stats)`` with numpy leaves ->
     the port's trees (same names, same layouts, each leaf keeping its
@@ -46,15 +61,13 @@ def resnet_from_jax(params, batch_stats, device=None):
     (default: the card).  Flatten order, and so the bucket plan, is the
     reference's."""
     dev = resolve_device(device)
+    return _from_numpy(params, dev), _from_numpy(batch_stats, dev)
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(dev)
 
-    return conv(params), conv(batch_stats)
+def bert_from_jax(params, device=None):
+    """The flax BERT's ``params`` with numpy leaves -> the port's tree
+    (:mod:`apex_tpu_torch.models.bert` keeps flax's names and layouts:
+    ``embed/weight`` (V, h), linear weights (in, out), LayerNorm
+    ``weight``/``bias``), each leaf keeping its float dtype, on
+    ``device`` (default: the card)."""
+    return _from_numpy(params, resolve_device(device))

@@ -1,35 +1,46 @@
 // Flat-buffer streaming kernels of the training path, for Hopper (sm_90a).
 //
-// Replace three TPU kernels of apex_tpu/ops/multi_tensor.py:
+// Replace six TPU kernels of apex_tpu/ops/multi_tensor.py:
 //   flat_accumulate   (:207, body _accumulate_kernel :190)
 //   flat_unscale_norm (:270, body _unscale_norm_kernel :255)
+//   flat_l2norm       (:325, body _l2norm_kernel :314)
 //   flat_sgd          (:465, body _sgd_kernel :446)
+//   flat_lamb stage 1 (:878, body _lamb_moment_kernel :824)
+//   flat_lamb stage 2 (:897, body _apply_update_kernel :838)
 // Each takes a whole flat bucket (ResNet-50 in amp O2 is one bucket of
-// 25,557,032 elements) and touches every element once.
+// 25,557,032 elements, BERT-Large one of 334,096,384) and touches every
+// element once.
 //
 // What bounds them: bytes.  Each does a handful of f32 operations per
-// 8-20 bytes it moves, against the card's ~20 f32 operations per byte of
+// 2-26 bytes it moves, against the card's ~20 f32 operations per byte of
 // HBM bandwidth, so the least time is the bytes over 3.35 TB/s.  The
 // design is the plain streaming shape: a fixed grid of 256-thread blocks
 // walks the buffer in a grid-stride loop, four elements a thread a step
-// through one vector load per operand (16 bytes for f32, 8 for bf16), and
-// a scalar loop takes the ragged tail (n not a multiple of 4).  The TPU
-// kernels' (rows, 128) tiles and zero padding exist for VMEM and are not
-// carried over: the kernels guard with n.
+// through one vector load per operand (16 bytes for f32 and i32, 8 for
+// bf16), and a scalar loop takes the ragged tail (n not a multiple of 4).
+// The TPU kernels' (rows, 128) tiles and zero padding exist for VMEM and
+// are not carried over: the kernels guard with n.
 //
-// Arithmetic is f32 with every rounding explicit (__fmul_rn/__fadd_rn,
-// no contraction into FMAs), in the order of the TPU kernel bodies, so
-// the plain PyTorch twins (apex_tpu_torch/ops/multi_tensor.py) reproduce
-// it up to the one place the twin divides where the kernel multiplies by
-// the reciprocal (flat_sgd's grad scale, as in the reference).
+// Arithmetic is f32 with every rounding explicit (__fmul_rn/__fadd_rn/
+// __fdiv_rn/__fsqrt_rn, no contraction into FMAs), in the order of the
+// TPU kernel bodies, so the plain PyTorch twins
+// (apex_tpu_torch/ops/multi_tensor.py) reproduce it up to the one place
+// the twin divides where the kernel multiplies by the reciprocal
+// (flat_sgd's grad scale, as in the reference).
 //
 // Scalars that live on the device (the unscale factor, the first-step
-// select, the overflow flag) are read through device pointers, so no
-// caller syncs the host to launch.  Non-finite means !(|x| < inf), the
-// TPU kernels' _all_finite test.  The flag of a launch is an OR across
-// blocks (atomicOr: order-free); the squared norm of flat_unscale_norm is
+// select, the LAMB bias corrections and clip factor, the overflow flag)
+// are read through device pointers, so no caller syncs the host to
+// launch.  Non-finite means !(|x| < inf), the TPU kernels' _all_finite
+// test.  The flag of a launch is an OR across blocks (atomicOr:
+// order-free); a sum over the buffer (flat_unscale_norm, flat_l2norm) is
 // summed per block and then over the blocks in a fixed order by a second
 // one-block launch, never with float atomics, so a run is deterministic.
+//
+// The in-place kernels with an overflow gate (flat_sgd, both LAMB
+// stages) return before writing anything when the flag is set: the
+// reference selects the old values on a skipped step, which an in-place
+// update would already have destroyed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -180,22 +191,152 @@ unscale_norm_kernel(const X* __restrict__ x, X* __restrict__ out,
   }
 }
 
+// The one-block second pass of every buffer-wide sum: the partials in a
+// fixed order (then the root when `root`), and the OR of the partial
+// flags when there are any.
 __global__ void __launch_bounds__(COMBINE_THREADS)
-unscale_norm_combine(const float* __restrict__ partial_sum,
-                     const int* __restrict__ partial_flag, int n_partials,
-                     float* __restrict__ norm_sq, int* __restrict__ flag) {
+sum_combine(const float* __restrict__ partial_sum,
+            const int* __restrict__ partial_flag, int n_partials, bool root,
+            float* __restrict__ out, int* __restrict__ flag) {
   float s = 0.f;
   bool any_bad = false;
   for (int i = threadIdx.x; i < n_partials; i += COMBINE_THREADS) {
     s = __fadd_rn(s, partial_sum[i]);
-    any_bad |= partial_flag[i] != 0;
+    if (partial_flag != nullptr) any_bad |= partial_flag[i] != 0;
   }
   const bool block_bad = __syncthreads_or(any_bad);
   const float total = block_sum(s);
   if (threadIdx.x == 0) {
-    *norm_sq = total;
-    *flag = block_bad ? 1 : 0;
+    *out = root ? __fsqrt_rn(total) : total;
+    if (flag != nullptr) *flag = block_bad ? 1 : 0;
   }
+}
+
+// ---------------------------------------------------------------------------
+// flat_l2norm: the square root of the f32 sum of squares of a flat buffer
+// (the global-gradient-norm prologue of LAMB).  Pass 1 leaves one partial
+// per block; the combine sums them in a fixed order and takes the root.
+// ---------------------------------------------------------------------------
+template <typename X>
+__global__ void __launch_bounds__(THREADS)
+sumsq_kernel(const X* __restrict__ x, float* __restrict__ partial_sum,
+             int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  float sq = 0.f;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 y = load4(x, i);
+    sq = __fadd_rn(sq, __fmul_rn(y.x, y.x));
+    sq = __fadd_rn(sq, __fmul_rn(y.y, y.y));
+    sq = __fadd_rn(sq, __fmul_rn(y.z, y.z));
+    sq = __fadd_rn(sq, __fmul_rn(y.w, y.w));
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    const float y = load1(x, i);
+    sq = __fadd_rn(sq, __fmul_rn(y, y));
+  }
+  const float total = block_sum(sq);
+  if (threadIdx.x == 0) partial_sum[blockIdx.x] = total;
+}
+
+// ---------------------------------------------------------------------------
+// flat_lamb stage 1: Adam moments in place on m and v, and the raw update
+// m_hat / (sqrt(v_hat) + eps) + wd * p into `update`; g is scaled by
+// gmul = clip / grad_scale.  c1r, c2r (the bias corrections) and gmul are
+// device scalars.
+// ---------------------------------------------------------------------------
+struct LambHypers {
+  float b1, omb1, b2, omb2, eps, wd;   // omb = 1 - b, rounded to f32 once
+};
+
+__device__ __forceinline__ float lamb_elem(float pv, float gv, float& m,
+                                           float& v, const LambHypers& h,
+                                           float c1r, float c2r,
+                                           float gmul) {
+  const float g = __fmul_rn(gv, gmul);
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
+  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(h.omb2, g), g));
+  const float denom = __fadd_rn(__fsqrt_rn(__fmul_rn(v, c2r)), h.eps);
+  return __fadd_rn(__fdiv_rn(__fmul_rn(m, c1r), denom), __fmul_rn(h.wd, pv));
+}
+
+template <typename P, typename G>
+__global__ void __launch_bounds__(THREADS)
+lamb_moment_kernel(const P* __restrict__ p, const G* __restrict__ g,
+                   float* __restrict__ m, float* __restrict__ v,
+                   float* __restrict__ update, LambHypers h,
+                   const float* __restrict__ c1r_p,
+                   const float* __restrict__ c2r_p,
+                   const float* __restrict__ gmul_p,
+                   const int* __restrict__ found_inf, int64_t n) {
+  if (found_inf != nullptr && *found_inf != 0) return;
+  const float c1r = *c1r_p, c2r = *c2r_p, gmul = *gmul_p;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 pv = load4(p, i), gv = load4(g, i);
+    F4 mv = load4(m, i), vv = load4(v, i);
+    F4 u;
+    u.x = lamb_elem(pv.x, gv.x, mv.x, vv.x, h, c1r, c2r, gmul);
+    u.y = lamb_elem(pv.y, gv.y, mv.y, vv.y, h, c1r, c2r, gmul);
+    u.z = lamb_elem(pv.z, gv.z, mv.z, vv.z, h, c1r, c2r, gmul);
+    u.w = lamb_elem(pv.w, gv.w, mv.w, vv.w, h, c1r, c2r, gmul);
+    store4(m, i, mv);
+    store4(v, i, vv);
+    store4(update, i, u);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    float mi = m[i], vi = v[i];
+    update[i] = lamb_elem(load1(p, i), load1(g, i), mi, vi, h, c1r, c2r, gmul);
+    m[i] = mi;
+    v[i] = vi;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flat_lamb stage 2: p -= factor[seg[i]] * update in place, where factor
+// is the per-segment lr * trust ratio.  The reference gathers the factor
+// into a per-element buffer first ((lr * trust)[seg_ids]); reading it per
+// segment here gives the same value with one (num_segments,) table in
+// place of a 4-byte-per-element buffer.
+// ---------------------------------------------------------------------------
+template <typename P>
+__global__ void __launch_bounds__(THREADS)
+lamb_apply_kernel(P* __restrict__ p, const float* __restrict__ update,
+                  const float* __restrict__ factor,
+                  const int* __restrict__ seg_ids,
+                  const int* __restrict__ found_inf, int64_t n) {
+  if (found_inf != nullptr && *found_inf != 0) return;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 pv = load4(p, i), uv = load4(update, i);
+    const int4 s = reinterpret_cast<const int4*>(seg_ids)[i];
+    F4 r;
+    r.x = __fsub_rn(pv.x, __fmul_rn(factor[s.x], uv.x));
+    r.y = __fsub_rn(pv.y, __fmul_rn(factor[s.y], uv.y));
+    r.z = __fsub_rn(pv.z, __fmul_rn(factor[s.z], uv.z));
+    r.w = __fsub_rn(pv.w, __fmul_rn(factor[s.w], uv.w));
+    store4(p, i, r);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    store1(p, i, __fsub_rn(load1(p, i), __fmul_rn(factor[seg_ids[i]],
+                                                  update[i])));
+  }
+}
+
+template <typename P, typename G>
+void launch_lamb_moments(int blocks, cudaStream_t st, const void* p,
+                         const void* g, float* m, float* v, float* update,
+                         const LambHypers& h, const float* c1r,
+                         const float* c2r, const float* gmul,
+                         const int* found_inf, int64_t n) {
+  lamb_moment_kernel<P, G><<<blocks, THREADS, 0, st>>>(
+      static_cast<const P*>(p), static_cast<const G*>(g), m, v, update, h,
+      c1r, c2r, gmul, found_inf, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -324,8 +465,9 @@ extern "C" int apex_flat_unscale_norm(const void* x, void* out, int dtype,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  unscale_norm_combine<<<1, COMBINE_THREADS, 0, st>>>(
-      ps, pf, blocks, static_cast<float*>(norm_sq), static_cast<int*>(flag));
+  sum_combine<<<1, COMBINE_THREADS, 0, st>>>(
+      ps, pf, blocks, false, static_cast<float*>(norm_sq),
+      static_cast<int*>(flag));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,6 +502,93 @@ extern "C" int apex_flat_sgd(void* p, int p_dtype, const void* g, int g_dtype,
                                      nesterov, use_momentum, n);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two launches: the sweep (`blocks` partials) and the one-block combine,
+// which writes the root of the total to `norm`.
+extern "C" int apex_flat_l2norm(const void* x, int dtype, void* norm,
+                                void* partial_sum, long long n, int blocks,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ps = static_cast<float*>(partial_sum);
+  switch (dtype) {
+    case F32:
+      sumsq_kernel<float><<<blocks, THREADS, 0, st>>>(
+          static_cast<const float*>(x), ps, n);
+      break;
+    case BF16:
+      sumsq_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), ps, n);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_combine<<<1, COMBINE_THREADS, 0, st>>>(
+      ps, nullptr, blocks, true, static_cast<float*>(norm), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 1 of LAMB.  found_inf may be null (no gate).
+extern "C" int apex_flat_lamb_moments(
+    const void* p, int p_dtype, const void* g, int g_dtype, void* m, void* v,
+    void* update, float beta1, float one_minus_beta1, float beta2,
+    float one_minus_beta2, float eps, float weight_decay, const void* c1r,
+    const void* c2r, const void* gmul, const void* found_inf, long long n,
+    int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const LambHypers h{beta1, one_minus_beta1, beta2, one_minus_beta2, eps,
+                     weight_decay};
+  float* mm = static_cast<float*>(m);
+  float* vv = static_cast<float*>(v);
+  float* u = static_cast<float*>(update);
+  const float* a = static_cast<const float*>(c1r);
+  const float* b = static_cast<const float*>(c2r);
+  const float* gm = static_cast<const float*>(gmul);
+  const int* fi = static_cast<const int*>(found_inf);
+  if (p_dtype == F32 && g_dtype == F32) {
+    launch_lamb_moments<float, float>(blocks, st, p, g, mm, vv, u, h, a, b,
+                                      gm, fi, n);
+  } else if (p_dtype == F32 && g_dtype == BF16) {
+    launch_lamb_moments<float, __nv_bfloat16>(blocks, st, p, g, mm, vv, u, h,
+                                              a, b, gm, fi, n);
+  } else if (p_dtype == BF16 && g_dtype == BF16) {
+    launch_lamb_moments<__nv_bfloat16, __nv_bfloat16>(blocks, st, p, g, mm,
+                                                      vv, u, h, a, b, gm, fi,
+                                                      n);
+  } else if (p_dtype == BF16 && g_dtype == F32) {
+    launch_lamb_moments<__nv_bfloat16, float>(blocks, st, p, g, mm, vv, u, h,
+                                              a, b, gm, fi, n);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2 of LAMB.  found_inf may be null (no gate).
+extern "C" int apex_flat_lamb_apply(void* p, int p_dtype, const void* update,
+                                    const void* factor, const void* seg_ids,
+                                    const void* found_inf, long long n,
+                                    int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* u = static_cast<const float*>(update);
+  const float* f = static_cast<const float*>(factor);
+  const int* seg = static_cast<const int*>(seg_ids);
+  const int* fi = static_cast<const int*>(found_inf);
+  switch (p_dtype) {
+    case F32:
+      lamb_apply_kernel<float><<<blocks, THREADS, 0, st>>>(
+          static_cast<float*>(p), u, f, seg, fi, n);
+      break;
+    case BF16:
+      lamb_apply_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
+          static_cast<__nv_bfloat16*>(p), u, f, seg, fi, n);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,7 @@ them.  Gradients are packed once per backward (:meth:`pack_grads`, one
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,11 +59,14 @@ class BucketPlan:
     writeback is one cast-copy per bucket."""
 
     def __init__(self, treedef: TreeDef, buckets: Sequence[Bucket],
-                 max_bucket_bytes: Optional[int] = None):
+                 max_bucket_bytes: Optional[int] = None,
+                 device: Optional[torch.device] = None):
         self.treedef = treedef
         self.buckets = tuple(buckets)
         self.n_leaves = sum(len(b.leaves) for b in self.buckets)
         self.max_bucket_bytes = max_bucket_bytes
+        self.device = torch.device("cpu") if device is None else device
+        self._seg_ids: Dict[int, torch.Tensor] = {}
 
     @classmethod
     def from_tree(cls, work: Tree, model: Optional[Tree] = None,
@@ -102,7 +105,8 @@ class BucketPlan:
                 specs.append(LeafSpec(i, tuple(w.shape), size, offset))
                 offset += size
             buckets.append(Bucket(wdt, mdt, tuple(specs), offset))
-        return cls(treedef, buckets, max_bucket_bytes=max_bucket_bytes)
+        return cls(treedef, buckets, max_bucket_bytes=max_bucket_bytes,
+                   device=work_leaves[0].device)
 
     # ---- packing ---------------------------------------------------------
     def pack(self, tree: Tree, dtypes=None) -> List[torch.Tensor]:
@@ -171,14 +175,39 @@ class BucketPlan:
             bufs, [b.model_dtype for b in self.buckets]))
 
     # ---- optimizer-state packing ----------------------------------------
-    # SGD's one state field (the momentum buffer) mirrors the params, so
-    # it packs and unpacks like them; the reference's per-leaf scalar and
-    # vector fields (NovoGrad, LAMB) come with those optimizers.
+    # SGD's and LAMB's state fields (momentum; exp_avg, exp_avg_sq)
+    # mirror the params, so they pack and unpack like them; the
+    # reference's per-leaf scalar and vector fields (NovoGrad, fp8) come
+    # with those optimizers.
     def pack_state_field(self, field: Tree) -> List[torch.Tensor]:
         return self.pack(field)
 
     def unpack_state_field(self, bufs) -> Tree:
         return tree_unflatten(self.treedef, self._unpack_leaves(bufs))
+
+    # ---- segment metadata ------------------------------------------------
+    def segment_ids(self, bucket_index: int) -> torch.Tensor:
+        """Sorted i32 element -> bucket-local leaf map of one bucket, on
+        the plan's device (built once, then cached): the per-tensor
+        index the segmented LAMB step reads."""
+        ids = self._seg_ids.get(bucket_index)
+        if ids is None:
+            b = self.buckets[bucket_index]
+            dev = self.device
+            ids = torch.repeat_interleave(
+                torch.arange(len(b.leaves), dtype=torch.int32, device=dev),
+                torch.tensor([s.size for s in b.leaves], device=dev),
+                output_size=b.size)
+            self._seg_ids[bucket_index] = ids
+        return ids
+
+    def num_segments(self, bucket_index: int) -> int:
+        return len(self.buckets[bucket_index].leaves)
+
+    def segment_sizes(self, bucket_index: int) -> Tuple[int, ...]:
+        """The run lengths of :meth:`segment_ids` (the leaves' sizes in
+        bucket order), as host ints."""
+        return tuple(s.size for s in self.buckets[bucket_index].leaves)
 
     # ---- description -------------------------------------------------------
     def describe(self) -> List[dict]:

@@ -24,6 +24,12 @@ from apex_tpu_torch import _build
 
 _NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+BACKWARD_TODO = (
+    "flash_attention on the card is forward only: its backward kernels "
+    "(ROADMAP Queue 2 rows 2-3, dq and dk/dv) are not ported yet, so a "
+    "call that would need gradients for q, k or v raises rather than "
+    "return an output with none; run it under torch.no_grad(), or on the "
+    "CPU, where flash_attention_ref is differentiable")
 
 FLASH_FWD = _build.Kernel(
     "flash_fwd", "apex_flash_fwd_f32",
@@ -98,7 +104,10 @@ def flash_attention(q, k, v, causal: bool = False,
                     segment_ids: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None
                     ) -> torch.Tensor:
-    """Scaled-dot-product attention, (B, H, S, D) layout, forward only.
+    """Scaled-dot-product attention, (B, H, S, D) layout, forward only
+    on the card: with grad enabled and any of q, k, v requiring grad it
+    raises ``NotImplementedError`` there (the backward kernels are not
+    ported), never an output detached from them.
 
     ``segment_ids``: optional ``(q_ids (B, Sq), kv_ids (B, Sk))``;
     attention is masked where the ids differ.  k/v may carry fewer
@@ -112,6 +121,8 @@ def flash_attention(q, k, v, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    segment_ids=segment_ids)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(BACKWARD_TODO)
     return _flash_fwd_cuda(q, k, v, causal, scale, segment_ids)
 
 

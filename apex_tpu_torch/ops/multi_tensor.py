@@ -1,14 +1,20 @@
-"""Flat-buffer kernels of the training path, and their plain twins.
+"""Flat-buffer kernels of the training paths, and their plain twins.
 
-The port of three TPU kernels of ``apex_tpu.ops.multi_tensor``:
+The port of six TPU kernels of ``apex_tpu.ops.multi_tensor``:
 
 - :func:`flat_accumulate` — ``acc += g * scale`` in place over an f32
   accumulator bucket, with the non-finite flag of the RESULT (so one bad
   microbatch latches through every later add);
 - :func:`flat_unscale_norm` — ``out = x * inv_scale`` plus the squared
   L2 norm of the unscaled values and the non-finite flag, from one read;
+- :func:`flat_l2norm` — the L2 norm of a flat buffer (f32 sums), LAMB's
+  global-gradient-norm prologue;
 - :func:`flat_sgd` — one SGD step (weight decay, momentum, dampening,
-  nesterov) in place on the param and momentum buckets.
+  nesterov) in place on the param and momentum buckets;
+- :func:`flat_lamb` — one LAMB step: stage 1 (moments in place plus the
+  raw update) and stage 2 (``p -= lr * trust * update`` in place), with
+  the per-tensor trust ratios between them from
+  :func:`flat_segment_sumsq` (plain PyTorch, as the reference's is XLA).
 
 A tensor on the card goes to the hand-written kernel of
 ``csrc/multi_tensor.cu``; a tensor on the CPU goes to the plain twin
@@ -18,19 +24,20 @@ nothing falls back: a tensor on the card that the kernel does not take
 raises.
 
 Scalars that live on the device (``inv_scale``, ``first_run``,
-``found_inf``) pass to a kernel as device pointers, never through a
-host read; the host-side hypers (``lr``, ``momentum``, ...) are Python
-floats passed by value.  :func:`flat_sgd` takes the optional overflow
-flag itself: on the card the kernel writes nothing when it is set, on
+``found_inf``, LAMB's step clock and clip factor) pass to a kernel as
+device pointers, never through a host read; the host-side hypers
+(``lr``, ``momentum``, ...) are Python floats passed by value.
+:func:`flat_sgd` and :func:`flat_lamb` take the optional overflow flag
+themselves: on the card the kernels write nothing when it is set, on
 the CPU the twin's result is selected away with ``torch.where`` — both
-leave p and the momentum buffer as they were, the reference's
-select-on-skip, and neither syncs the host.
+leave every buffer as it was, the reference's select-on-skip, and
+neither syncs the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,7 +48,8 @@ THREADS = 256           # threads per block of the streaming kernels
 MAX_BLOCKS = 1024       # the grid's cap: same for every card, so the
 #                         per-block partial sums (and the norm) are too
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = {torch.float32: 16, torch.bfloat16: 8}   # one 4-element vector
+# one 4-element vector
+_ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int32: 16}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -56,6 +64,16 @@ SGD = _build.Kernel(
     "multi_tensor", "apex_flat_sgd",
     [_P, _I, _P, _I, _P, _F, _F, _F, _F, _P, _P, _P, _I, _I, _L, _I, _P],
     name="flat_sgd")
+L2NORM = _build.Kernel(
+    "multi_tensor", "apex_flat_l2norm", [_P, _I, _P, _P, _L, _I, _P],
+    name="flat_l2norm")
+LAMB_MOMENTS = _build.Kernel(
+    "multi_tensor", "apex_flat_lamb_moments",
+    [_P, _I, _P, _I, _P, _P, _P] + [_F] * 6 + [_P] * 4 + [_L, _I, _P],
+    name="flat_lamb_moments")
+LAMB_APPLY = _build.Kernel(
+    "multi_tensor", "apex_flat_lamb_apply",
+    [_P, _I, _P, _P, _P, _P, _L, _I, _P], name="flat_lamb_apply")
 
 Scalar = Union[float, torch.Tensor]
 
@@ -107,6 +125,12 @@ def flat_unscale_norm_ref(x: torch.Tensor, inv_scale: Scalar, out_dtype=None
     return y.to(out_dtype), torch.sum(y * y), _nonfinite(y)
 
 
+def flat_l2norm_ref(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of a flat buffer, summed in f32."""
+    xf = _f32(x)
+    return torch.sqrt(torch.sum(xf * xf))
+
+
 def flat_sgd_ref(p, g, momentum_buf, *, lr, momentum=0.0, dampening=0.0,
                  weight_decay=0.0, nesterov=False, first_run=False,
                  grad_scale: Scalar = 1.0):
@@ -128,6 +152,98 @@ def flat_sgd_ref(p, g, momentum_buf, *, lr, momentum=0.0, dampening=0.0,
         buf = momentum_buf
         step = gf
     return (pf - _f32_value(lr) * step).to(p.dtype), buf
+
+
+def flat_segment_sumsq(x: torch.Tensor, sizes: Sequence[int]
+                       ) -> torch.Tensor:
+    """Per-segment sum of squares of a flat buffer, f32 sums; ``(len(sizes),)``.
+
+    The segments are consecutive runs of ``sizes`` elements (a bucket's
+    leaves in order).  The reference takes the sorted element-to-segment
+    ids and reduces them with XLA's sorted segment sum; the port takes
+    the run lengths (:meth:`BucketPlan.segment_sizes`) so that each run
+    reduces on its own without a host read and without atomics (the
+    ``index_add_`` a segment sum would be on the card is atomic, and its
+    order changes from run to run): ``torch._foreach_norm`` over views of
+    the buffer sums each run in fixed per-chunk partials and a per-run
+    cleanup, the same bits every run.  The sum of squares is the square
+    of that norm, within f32 rounding of the reference's."""
+    norms = torch._foreach_norm(torch.split(x, list(sizes)), 2,
+                                dtype=torch.float32)
+    return torch.stack(norms).square()
+
+
+def _lamb_trust_factor(p, update, sizes, lr, weight_decay, use_nvlamb):
+    """Per-segment ``lr * trust`` (f32, ``(len(sizes),)``), trust the
+    per-tensor ``||p|| / ||update||`` (1 where either norm is 0).  The
+    reference gathers it into a per-element buffer (``[seg_ids]``); the
+    stage-2 kernel reads it per segment instead, and the plain twin
+    gathers."""
+    p_norm = torch.sqrt(flat_segment_sumsq(p, sizes))
+    u_norm = torch.sqrt(flat_segment_sumsq(update, sizes))
+    trust = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
+                        torch.ones_like(p_norm))
+    if not use_nvlamb and float(weight_decay) == 0.0:
+        # standard LAMB exempts decay-free tensors from layer adaptation;
+        # NVLAMB applies the trust ratio to every layer
+        trust = torch.ones_like(trust)
+    return _f32_value(lr) * trust
+
+
+def _lamb_scalars(beta1, beta2, step, bias_correction, grad_scale,
+                  clip_coeff, device):
+    """``(c1r, c2r, gmul)``: the bias corrections ``1 / (1 - beta**step)``
+    and the gradient multiplier ``clip / grad_scale``, as 0-d f32 tensors
+    on ``device`` (``step``, ``grad_scale`` and ``clip_coeff`` may be
+    device scalars: nothing is read back)."""
+    if bias_correction:
+        t = _as_f32_scalar(step, device)
+        b1 = torch.full((), _f32_value(beta1), device=device)
+        b2 = torch.full((), _f32_value(beta2), device=device)
+        c1r = 1.0 / (1.0 - b1 ** t)
+        c2r = 1.0 / (1.0 - b2 ** t)
+    else:
+        c1r = c2r = torch.ones((), device=device)
+    gmul = (_as_f32_scalar(clip_coeff, device)
+            / _as_f32_scalar(grad_scale, device))
+    return c1r, c2r, gmul
+
+
+def _one_minus(b) -> float:
+    return float(np.float32(1.0) - np.float32(b))
+
+
+def _lamb_moments_ref(p, g, m, v, c1r, c2r, gmul, *, beta1, beta2, eps,
+                      weight_decay):
+    """Stage 1 in plain PyTorch (``_lamb_moment_kernel``): returns
+    ``(m, v, update)``, out of place."""
+    gf = _f32(g) * gmul
+    m = _f32_value(beta1) * m + _one_minus(beta1) * gf
+    v = _f32_value(beta2) * v + _one_minus(beta2) * gf * gf
+    update = ((m * c1r) / (torch.sqrt(v * c2r) + _f32_value(eps))
+              + _f32_value(weight_decay) * _f32(p))
+    return m, v, update
+
+
+def _lamb_apply_ref(p, update, factor, seg_ids):
+    """Stage 2 in plain PyTorch (``_apply_update_kernel``): ``p -
+    factor[seg_ids] * update`` in p's dtype, out of place."""
+    return (_f32(p) - factor[seg_ids.long()] * update).to(p.dtype)
+
+
+def flat_lamb_ref(p, g, m, v, seg_ids, sizes, *, lr, beta1, beta2, eps,
+                  weight_decay=0.0, step=1, bias_correction=True,
+                  grad_scale: Scalar = 1.0, clip_coeff: Scalar = 1.0,
+                  use_nvlamb=False):
+    """One LAMB step, out of place; returns ``(p, m, v)``."""
+    c1r, c2r, gmul = _lamb_scalars(beta1, beta2, step, bias_correction,
+                                   grad_scale, clip_coeff, p.device)
+    m, v, update = _lamb_moments_ref(p, g, m, v, c1r, c2r, gmul,
+                                     beta1=beta1, beta2=beta2, eps=eps,
+                                     weight_decay=weight_decay)
+    factor = _lamb_trust_factor(_f32(p), update, sizes, lr, weight_decay,
+                                use_nvlamb)
+    return _lamb_apply_ref(p, update, factor, seg_ids), m, v
 
 
 # ---------------------------------------------------------------------------
@@ -278,3 +394,121 @@ def flat_sgd(p: torch.Tensor, g: torch.Tensor, momentum_buf: torch.Tensor, *,
                        int(bool(nesterov)), int(use_momentum), n,
                        grid_blocks(n), _stream(dev))
     return p, momentum_buf
+
+
+def flat_l2norm(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of a flat buffer (f32 or bf16), summed in f32; a 0-d
+    f32 tensor on ``x``'s device."""
+    if x.device.type == "cpu":
+        return flat_l2norm_ref(x)
+    fn, dev, n = "flat_l2norm", x.device, x.numel()
+    _check(fn, "x", x, dev, n, tuple(_DTYPE_CODE))
+    norm = torch.zeros((), dtype=torch.float32, device=dev)
+    if n:
+        blocks = grid_blocks(n)
+        part_sum = torch.empty(blocks, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            L2NORM.launch(x.data_ptr(), _DTYPE_CODE[x.dtype], norm.data_ptr(),
+                          part_sum.data_ptr(), n, blocks, _stream(dev))
+    return norm
+
+
+def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, seg_ids: torch.Tensor, sizes: Sequence[int],
+              *, lr, beta1, beta2, eps, weight_decay=0.0, step=1,
+              bias_correction=True, grad_scale: Scalar = 1.0,
+              clip_coeff: Scalar = 1.0, use_nvlamb=False,
+              found_inf: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One LAMB step over a flat bucket in place on ``p`` (f32 or bf16),
+    ``m`` and ``v`` (f32); returns them.
+
+    The reference's two launches: stage 1 updates the moments and writes
+    the raw update ``m_hat / (sqrt(v_hat) + eps) + wd * p`` (g scaled by
+    ``clip_coeff / grad_scale``); the per-tensor trust ratios come from
+    segment norms over ``sizes`` (:func:`_lamb_trust_factor`); stage 2
+    applies ``p -= lr * trust[seg_ids] * update``.  ``seg_ids`` is the
+    bucket's sorted i32 element-to-leaf map and ``sizes`` its run lengths
+    (the reference's ``num_segments`` is ``len(sizes)``).  ``step``,
+    ``grad_scale`` and ``clip_coeff`` may be device scalars;
+    ``found_inf`` (optional device i32/bool scalar) leaves ``p``, ``m``
+    and ``v`` untouched when set."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, step=step,
+              bias_correction=bias_correction, grad_scale=grad_scale,
+              clip_coeff=clip_coeff, use_nvlamb=use_nvlamb)
+    if p.device.type == "cpu":
+        new_p, new_m, new_v = flat_lamb_ref(p, g, m, v, seg_ids, sizes, **kw)
+        if found_inf is not None:
+            keep = found_inf.to(p.device) == 0
+            new_p = torch.where(keep, new_p, p)
+            new_m = torch.where(keep, new_m, m)
+            new_v = torch.where(keep, new_v, v)
+        p.copy_(new_p)
+        m.copy_(new_m)
+        v.copy_(new_v)
+        return p, m, v
+    fn, dev, n = "flat_lamb", p.device, p.numel()
+    _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "g", g, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "m", m, dev, n, (torch.float32,))
+    _check(fn, "v", v, dev, n, (torch.float32,))
+    _check(fn, "seg_ids", seg_ids, dev, n, (torch.int32,))
+    if sum(sizes) != n:
+        raise ValueError(f"{fn}: segment sizes sum to {sum(sizes)}, the "
+                         f"bucket has {n} elements")
+    _host_float(fn, "lr", lr)
+    for name, x in (("step", step), ("grad_scale", grad_scale),
+                    ("clip_coeff", clip_coeff)):
+        if isinstance(x, torch.Tensor) and (x.device != dev
+                                            or x.numel() != 1):
+            raise ValueError(f"{fn}: {name} must be one element on {dev}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    c1r, c2r, gmul = _lamb_scalars(beta1, beta2, step, bias_correction,
+                                   grad_scale, clip_coeff, dev)
+    gate = (None if found_inf is None else
+            _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
+    if n == 0:
+        return p, m, v
+    update = torch.empty(n, dtype=torch.float32, device=dev)
+    _lamb_moments(p, g, m, v, update, c1r, c2r, gmul, beta1=beta1,
+                  beta2=beta2, eps=eps, weight_decay=weight_decay, gate=gate)
+    # the twin's norms are of f32 p: the same bits for a bf16 p
+    factor = _lamb_trust_factor(p if p.dtype == torch.float32 else _f32(p),
+                                update, sizes, lr, weight_decay, use_nvlamb)
+    _lamb_apply(p, update, factor, seg_ids, gate=gate)
+    return p, m, v
+
+
+def _lamb_moments(p, g, m, v, update, c1r, c2r, gmul, *, beta1, beta2, eps,
+                  weight_decay, gate=None) -> None:
+    """Launch stage 1 (``csrc/multi_tensor.cu`` ``lamb_moment_kernel``):
+    m, v in place, the raw update into ``update``; the wrapper
+    :func:`flat_lamb` has checked the buffers."""
+    fn, dev, n = "flat_lamb", p.device, p.numel()
+    b1, b2, eps_f, wd = (_f32_value(_host_float(fn, k, x)) for k, x in
+                         (("beta1", beta1), ("beta2", beta2), ("eps", eps),
+                          ("weight_decay", weight_decay)))
+    with torch.cuda.device(dev):
+        LAMB_MOMENTS.launch(
+            p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
+            _DTYPE_CODE[g.dtype], m.data_ptr(), v.data_ptr(),
+            update.data_ptr(), b1, _one_minus(b1), b2, _one_minus(b2),
+            eps_f, wd, c1r.data_ptr(), c2r.data_ptr(), gmul.data_ptr(),
+            None if gate is None else gate.data_ptr(), n, grid_blocks(n),
+            _stream(dev))
+
+
+def _lamb_apply(p, update, factor, seg_ids, gate=None) -> None:
+    """Launch stage 2 (``lamb_apply_kernel``): ``p -= factor[seg_ids] *
+    update`` in place, ``factor`` the per-segment f32 table."""
+    dev, n = p.device, p.numel()
+    if factor.dtype != torch.float32 or not factor.is_contiguous():
+        raise TypeError("flat_lamb: the trust factor must be a contiguous "
+                        "f32 table")
+    with torch.cuda.device(dev):
+        LAMB_APPLY.launch(p.data_ptr(), _DTYPE_CODE[p.dtype],
+                          update.data_ptr(), factor.data_ptr(),
+                          seg_ids.data_ptr(),
+                          None if gate is None else gate.data_ptr(), n,
+                          grid_blocks(n), _stream(dev))

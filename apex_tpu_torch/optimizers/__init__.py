@@ -1,3 +1,6 @@
-"""Fused optimizers of the port (so far: FusedSGD, the training path's)."""
+"""Fused optimizers of the port: FusedSGD (the ImageNet path's) and
+FusedLAMB (BERT's)."""
 
+from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
+    FusedLAMB, FusedMixedPrecisionLamb)
 from apex_tpu_torch.optimizers.fused_sgd import FusedSGD  # noqa: F401

@@ -4,8 +4,9 @@ The port of ``apex_tpu.optimizers._base``.  Construct with a params tree,
 call ``step(grads)``.  On the bucketed path (the default) a one-time
 :class:`~apex_tpu_torch.multi_tensor_apply.packer.BucketPlan` packs the
 params, the f32 masters (O2) and the optimizer state into flat buckets
-that stay packed between steps; ``step`` runs ONE flat kernel per bucket,
-in place, then refreshes the model bucket from the masters with one
+that stay packed between steps; ``step`` runs an optional prologue over
+all buckets (LAMB's global gradient norm), then ONE flat kernel chain per
+bucket, in place, then refreshes the model bucket from the masters with one
 cast-copy.  The params the model computes with (:attr:`params`) are
 views into the model bucket, so they see every step without an unpack.
 ``fuse_buckets=False`` (or a tree the packer declines) runs the per-leaf
@@ -188,10 +189,17 @@ class FusedOptimizerBase:
         raise NotImplementedError
 
     def _flat_bucket_step(self, bucket_index: int, p, g, state, step,
-                          grad_scale, hypers, found_inf) -> None:
+                          grad_scale, hypers, found_inf, extra) -> None:
         """One bucket's kernel, in place on ``p`` and ``state``; writes
-        nothing when ``found_inf`` is set."""
+        nothing when ``found_inf`` is set.  ``extra`` is what
+        :meth:`_flat_prologue` returned (LAMB's global clip factor)."""
         raise NotImplementedError
+
+    def _flat_prologue(self, work_bufs, grad_bufs, step, grad_scale,
+                       hypers):
+        """Cross-bucket prologue of the bucketed step, computed once
+        before the per-bucket kernels (default: nothing)."""
+        return None
 
     def _full_step(self, params, masters, opt_state, grads, step,
                    grad_scale, hypers, found_inf=None):
@@ -210,17 +218,19 @@ class FusedOptimizerBase:
     def _full_step_flat(self, grads, step, grad_scale, hypers,
                         found_inf=None) -> None:
         """Bucketed step: grads pack (one concatenate per bucket) unless
-        they arrive packed from the flat pipeline; then ONE kernel per
-        bucket in place, then the model buckets refresh from the
-        masters."""
+        they arrive packed from the flat pipeline; then the prologue over
+        all buckets, ONE kernel chain per bucket in place, and the model
+        buckets refresh from the masters."""
         work_bufs = (self._master_bufs if self._master_bufs is not None
                      else self._param_bufs)
         grad_bufs = (list(grads) if self._plan.is_packed(grads)
                      else self._plan.pack(grads))
+        extra = self._flat_prologue(work_bufs, grad_bufs, step, grad_scale,
+                                    hypers)
         for bi, (p, g) in enumerate(zip(work_bufs, grad_bufs)):
             state = {k: v[bi] for k, v in self.opt_state.items()}
             self._flat_bucket_step(bi, p, g, state, step, grad_scale,
-                                   hypers, found_inf)
+                                   hypers, found_inf, extra)
         if self._master_bufs is not None:
             for pb, wb in zip(self._param_bufs, self._master_bufs):
                 pb.copy_(wb)

@@ -48,6 +48,6 @@ class FusedSGD(FusedOptimizerBase):
                                                    [b for _, b in out])})
 
     def _flat_bucket_step(self, bucket_index, p, g, state, step, grad_scale,
-                          hypers, found_inf):
+                          hypers, found_inf, extra):
         mt.flat_sgd(p, g, state["momentum_buffer"], found_inf=found_inf,
                     **self._kw(hypers, step, grad_scale))

@@ -321,3 +321,193 @@ def test_fused_sgd_on_card_never_reaches_the_plain_twin(cuda, monkeypatch,
     opt.step({k: torch.ones_like(v) for k, v in params.items()})
     torch.cuda.synchronize()
     assert mt.SGD.launches - before == len(opt._plan.buckets) == 1
+
+
+# ---------------------------------------------------------------------------
+# the BERT path: flash under autograd, LayerNorm, flat_l2norm, flat_lamb
+# ---------------------------------------------------------------------------
+#
+# The LayerNorm kernels sum each row in a fixed shuffle tree, the twins
+# in torch's order: f32 outputs within 1e-5 (rtol and atol), f32 dx
+# within 1e-4, bf16 outputs and dx within one bf16 rounding (2e-2), dw
+# and db (sums over the rows, f32) within 1e-4 of their scale.  The LAMB
+# stages compute in the twin's order with every rounding explicit, and
+# the trust ratios come from the same segment norms on both paths: the
+# kernels must give the twin's bits (tolerance 0).  flat_l2norm sums in
+# another order than the twin: rtol 1e-5, and the same bits every run.
+
+from apex_tpu_torch.ops import layer_norm as ln  # noqa: E402
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_to_drop_gradients_on_card(cuda):
+    q = torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 16, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="rows 2-3"):
+        attn.flash_attention(q, k, k)
+    with torch.no_grad():
+        out = attn.flash_attention(q, k, k)
+    torch.testing.assert_close(out, attn.flash_attention_ref(q.detach(), k, k),
+                               **TOL)
+
+
+LN_CASES = {
+    # name: (rows, h, x dtype, w dtype, rms)
+    "bert_bf16": (4096, 1024, torch.bfloat16, torch.bfloat16, False),
+    "f32": (300, 1024, torch.float32, torch.float32, False),
+    "mixed": (77, 128, torch.bfloat16, torch.float32, False),
+    "rms_bf16": (129, 4096, torch.bfloat16, torch.bfloat16, True),
+    "rms_f32_wide": (9, 32768, torch.float32, torch.float32, True),
+    "one_row": (1, 256, torch.float32, torch.bfloat16, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LN_CASES))
+def test_layer_norm_kernels_match_plain_on_card(cuda, case):
+    rows, h, xdt, wdt, rms = LN_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = (torch.randn(rows, h, generator=g, device=cuda) * 3 + 1).to(xdt)
+    w = (torch.randn(h, generator=g, device=cuda) * 0.1 + 1).to(wdt)
+    b = (torch.randn(h, generator=g, device=cuda) * 0.1).to(wdt)
+    dy = torch.randn(rows, h, generator=g, device=cuda).to(xdt)
+    f0, b0 = ln.LN_FWD.launches, ln.LN_BWD.launches
+    y = ln._fwd_2d(x, w, b, 1e-5, rms)
+    dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert (ln.LN_FWD.launches - f0, ln.LN_BWD.launches - b0) == (1, 1)
+    wy = ln._fwd_2d_ref(x, w, b, 1e-5, rms)
+    wdx, wdw, wdb = ln._bwd_2d_ref(x, w, dy, 1e-5, rms)
+    half = xdt == torch.bfloat16
+    torch.testing.assert_close(y, wy, **(dict(atol=2e-2, rtol=2e-2) if half
+                                         else dict(atol=1e-5, rtol=1e-5)))
+    torch.testing.assert_close(dx, wdx, **(dict(atol=2e-2, rtol=2e-2) if half
+                                           else dict(atol=1e-4, rtol=1e-4)))
+    for got, want in ((dw, wdw), (db, wdb)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    again = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    assert torch.equal(again[1], dw) and torch.equal(again[0], dx)
+
+
+@pytest.mark.cuda
+def test_fused_layer_norm_autograd_runs_the_kernels_on_card(cuda):
+    x = torch.randn(6, 5, 256, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.ones(256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(256, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    f0, b0 = ln.LN_FWD.launches, ln.LN_BWD.launches
+    ln.fused_layer_norm(x, w, b).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ln.LN_FWD.launches - f0, ln.LN_BWD.launches - b0) == (1, 1)
+    assert x.grad.dtype == w.grad.dtype == b.grad.dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ln._fwd_2d(x.detach().half().reshape(-1, 256), w, b, 1e-5, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_l2norm_matches_plain_on_card(cuda, n, dtype):
+    x = _vec(n, dtype, cuda, 13)
+    before = mt.L2NORM.launches
+    got = mt.flat_l2norm(x)
+    torch.cuda.synchronize()
+    assert mt.L2NORM.launches == before + 1
+    torch.testing.assert_close(got, mt.flat_l2norm_ref(x), rtol=1e-5, atol=0)
+    assert torch.equal(mt.flat_l2norm(x), got)
+
+
+def _lamb_bucket(sizes, pdt, gdt, device):
+    n = sum(sizes)
+    p = _vec(n, pdt, device, 14)
+    g = _vec(n, gdt, device, 15) * 1e-2
+    m = _vec(n, torch.float32, device, 16) * 1e-3
+    v = _vec(n, torch.float32, device, 17).abs() * 1e-4
+    seg = torch.repeat_interleave(
+        torch.arange(len(sizes), dtype=torch.int32),
+        torch.tensor(sizes)).to(device)
+    return p, g, m, v, seg
+
+
+LAMB_CASES = {
+    # name: (p dtype, g dtype, nvlamb, bias correction, clip, scale, wd)
+    "masters_bf16_grads": (torch.float32, torch.bfloat16, False, True, 0.3,
+                           1.0, 0.01),
+    "f32_nvlamb_scaled": (torch.float32, torch.float32, True, True, 1.0,
+                          1024.0, 0.01),
+    "no_decay": (torch.float32, torch.bfloat16, False, False, 1.0, 1.0,
+                 0.0),
+    "bf16_params": (torch.bfloat16, torch.bfloat16, False, True, 0.5, 1.0,
+                    0.01),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[1], [3, 1024, 5], [70001, 4, 333]])
+@pytest.mark.parametrize("case", sorted(LAMB_CASES))
+def test_flat_lamb_matches_plain_on_card(cuda, sizes, case):
+    pdt, gdt, nv, bc, clip, gs, wd = LAMB_CASES[case]
+    p, g, m, v, seg = _lamb_bucket(sizes, pdt, gdt, cuda)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=wd,
+              step=torch.tensor(3, dtype=torch.int32, device=cuda),
+              bias_correction=bc, grad_scale=torch.tensor(gs, device=cuda),
+              clip_coeff=torch.tensor(clip, device=cuda), use_nvlamb=nv)
+    want = mt.flat_lamb_ref(p, g, m, v, seg, sizes, **kw)
+    before = (mt.LAMB_MOMENTS.launches, mt.LAMB_APPLY.launches)
+    got = mt.flat_lamb(p.clone(), g, m.clone(), v.clone(), seg, sizes, **kw)
+    torch.cuda.synchronize()
+    assert (mt.LAMB_MOMENTS.launches, mt.LAMB_APPLY.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+def test_flat_lamb_found_inf_gate_on_card(cuda, flag):
+    p, g, m, v, seg = _lamb_bucket([4099, 7], torch.float32, torch.bfloat16,
+                                   cuda)
+    g[5] = float("nan")
+    p0, m0, v0 = p.clone(), m.clone(), v.clone()
+    mt.flat_lamb(p, g, m, v, seg, [4099, 7], lr=1e-3, beta1=0.9,
+                 beta2=0.999, eps=1e-6, weight_decay=0.01,
+                 found_inf=torch.tensor(flag, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    for a, b in ((p, p0), (m, m0), (v, v0)):
+        assert torch.equal(a, b) == bool(flag)
+
+
+@pytest.mark.cuda
+def test_fused_lamb_on_card_never_reaches_the_plain_twin(cuda, monkeypatch):
+    """The bucketed step runs one flat_l2norm, one stage 1 and one stage 2
+    per bucket, never the twin, and reads nothing back to the host."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    def plain(*a, **k):
+        raise AssertionError("a plain twin ran on the card")
+
+    monkeypatch.setattr(mt, "flat_lamb_ref", plain)
+    monkeypatch.setattr(mt, "flat_l2norm_ref", plain)
+    params = {"w": _vec(1027, torch.bfloat16, cuda, 18).reshape(13, 79),
+              "b": _vec(5, torch.bfloat16, cuda, 19)}
+    opt = FusedLAMB(params, lr=1e-3, weight_decay=0.01)
+    grads = {k: torch.ones_like(t) for k, t in params.items()}
+    opt.step(grads, found_inf=torch.zeros((), dtype=torch.int32,
+                                          device=cuda))
+    torch.cuda.synchronize()
+    before = [k.launches for k in (mt.L2NORM, mt.LAMB_MOMENTS,
+                                   mt.LAMB_APPLY)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(grads, found_inf=torch.zeros((), dtype=torch.int32,
+                                              device=cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    got = [k.launches - b for k, b in zip(
+        (mt.L2NORM, mt.LAMB_MOMENTS, mt.LAMB_APPLY), before)]
+    assert got == [len(opt._plan.buckets)] * 3 == [1, 1, 1]
+    assert all(bool(torch.isfinite(t.float()).all())
+               for t in opt.params.values())
