@@ -1,1 +1,1 @@
-"""Contrib modules of the port (so far: xentropy)."""
+"""Contrib modules of the port (so far: xentropy, multihead_attn)."""

@@ -15,6 +15,13 @@ reference's order with the reference's shapes, so the bucket plan built
 over it has the reference's ``layout()`` and the same bucket bytes.  The
 forward takes torch's OIHW and (out, in) views of those kernels at use.
 :func:`bert_from_jax` does the same for the flax BERT's ``params``.
+:func:`gpt_block_from_jax` takes the flax GPT block stack of
+``examples/gpt/train_block.py`` (or a flax ``SelfMultiheadAttn``'s
+params): the port keeps their names and layouts but two,
+a Dense's ``kernel`` (in, out) is ``weight`` (the port's linear layers'
+name) and the norm-add LayerNorm ``FusedLayerNorm_0`` is ``norm``.  In
+the GPT block's dicts both renames keep the sorted key order, so its
+tree flattens, packs and buckets as the reference's.
 """
 
 from __future__ import annotations
@@ -71,3 +78,22 @@ def bert_from_jax(params, device=None):
     ``weight``/``bias``), each leaf keeping its float dtype, on
     ``device`` (default: the card)."""
     return _from_numpy(params, resolve_device(device))
+
+
+_RENAMES = {"kernel": "weight", "FusedLayerNorm_0": "norm"}
+
+
+def _renamed(tree):
+    if isinstance(tree, dict):
+        return {_RENAMES.get(k, k): _renamed(v) for k, v in tree.items()}
+    return tree
+
+
+def gpt_block_from_jax(params, device=None):
+    """The flax ``GPTBlocks``' ``params`` (``embed``, ``pos``,
+    ``block<i>/{attn, ln2, fc1, fc2}``, ``lnf``) with numpy leaves -> the
+    tree of :class:`apex_tpu_torch.examples.gpt_train_block.GPTBlocks`,
+    each leaf keeping its float dtype, on ``device`` (default: the
+    card).  A flax ``SelfMultiheadAttn``'s own ``params`` convert the
+    same way to the port's module tree."""
+    return _from_numpy(_renamed(params), resolve_device(device))

@@ -1,0 +1,434 @@
+// Flash-attention backward for Hopper (sm_90a), on the CUDA cores: two
+// kernels, dq and dk/dv, that recompute the probabilities from the
+// forward's logsumexp.
+//
+// Replaces the TPU kernels of apex_tpu/ops/attention.py::_bwd_pallas
+// without dropout: the dq call (:670, body _dq_kernel :503) and the dk/dv
+// call (:702, body _dkv_kernel :544).  Same semantics as the forward
+// (csrc/flash_fwd.cu): q/dO (B,H,Sq,D), k/v (B,HK,Sk,D) contiguous, f32
+// or bf16; lse and di = rowsum(dO * O) are f32 (B*H, Sq); the causal,
+// segment and length masks of the forward; grouped-query heads (query
+// head h reads kv head h / (H/HK), and dk/dv sum over the H/HK query
+// heads of their group).
+//
+// Arithmetic, in the reference body's order: s = (q.k) * scale,
+// p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
+// has lse = -1e30, so exp overflows to inf there; a multiply by a 0/1
+// mask would give NaN), dp = dO.v, ds = p * (dp - di) * scale.  bf16
+// rounds where the reference's dtype casts do: p before dV += p^T dO,
+// ds before dQ += ds K and dK += ds^T Q; every sum is f32 and each
+// result rounds to the dtype once.  Products of bf16 values are exact in
+// f32, so converting on load and running f32 FMAs computes the MXU's
+// bf16-products-f32-sums function.
+//
+// What bounds it: arithmetic, as for the forward (about S/4 operations
+// per byte moved against the card's 20 for f32 outside the tensor
+// cores).  Design, simple first:
+//
+// - dq: one CTA per (b*h, 64 query rows), the forward's geometry (a row
+//   split over D/32 threads holding q, dO and the dq accumulator as
+//   float4 chunks); it walks the key/value rows in tiles of 32 staged
+//   through shared memory as f32, stops at the diagonal tile under the
+//   causal mask, and writes dq once.
+// - dk/dv: one CTA per (b*hk, 64 key rows), a key row split over D/16
+//   threads holding k, v and the two accumulators (64 registers of
+//   operands at any D); it walks the query group's
+//   heads in order and, within each, the query rows from the first that
+//   can see its block (causal) in tiles of 32 (q, dO, lse, di, ids
+//   staged in shared memory), then writes dk and dv once.
+//
+// No atomics and no cross-CTA sums: every output element is owned by one
+// thread group that sums in a fixed order, so a run gives the same bits
+// every time (ROADMAP Queue 2 idiom (a)).  No wgmma, TMA or warp
+// specialisation yet.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;          // dq: query rows per CTA
+constexpr int BK = 32;          // dq: key rows per shared-memory tile
+constexpr int BKV = 64;         // dk/dv: key rows per CTA
+constexpr int BQT = 32;         // dk/dv: query rows per shared-memory tile
+
+enum Dtype { F32 = 0, BF16 = 1 };
+
+template <int D>
+struct GeoQ {                                   // dq: 32 columns a thread
+  static constexpr int DPT = D < 32 ? D : 32;
+  static constexpr int TPR = D / DPT;           // threads per query row
+  static constexpr int C4 = DPT / 4;
+  static constexpr int THREADS = BQ * TPR;
+};
+
+template <int D>
+struct GeoKV {                                  // dk/dv: 16 columns a thread
+  static constexpr int DPT = 16;
+  static constexpr int TPR = D / DPT;           // threads per key row
+  static constexpr int C4 = DPT / 4;
+  static constexpr int THREADS = BKV * TPR;
+};
+
+__device__ __forceinline__ float4 load4(const float* p, size_t i4) {
+  return reinterpret_cast<const float4*>(p)[i4];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, size_t i4) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i4];
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, size_t i4, float4 v) {
+  reinterpret_cast<float4*>(p)[i4] = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, size_t i4, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  reinterpret_cast<uint2*>(p)[i4] = u;
+}
+
+// x as a GEMM operand of the reference: unchanged in f32, rounded to
+// bf16 for bf16 (its `.astype(dtype)` before the dot).
+template <typename T>
+__device__ __forceinline__ float operand(float x) { return x; }
+template <>
+__device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float4 axpy4(float p, float4 x, float4 y) {
+  return make_float4(fmaf(p, x.x, y.x), fmaf(p, x.y, y.y),
+                     fmaf(p, x.z, y.z), fmaf(p, x.w, y.w));
+}
+
+// Sum over the TPR neighbouring lanes that share a row.
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// p = exp(s*scale - lse) where visible, else exactly 0; and
+// ds = p * (dp - di) * scale, each step rounded once (no contraction).
+__device__ __forceinline__ float prob(bool ok, float dot, float scale,
+                                      float lse) {
+  return ok ? expf(__fsub_rn(__fmul_rn(dot, scale), lse)) : 0.f;
+}
+
+__device__ __forceinline__ float dscore(float p, float dp, float di,
+                                        float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, di)), scale);
+}
+
+// ---------------------------------------------------------------------------
+// dq: dq[row] = sum over visible cols of ds[row, col] * k[col]
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(GeoQ<D>::THREADS)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ di,
+                T* __restrict__ dq, const int* __restrict__ q_ids,
+                const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                int Sk, int causal, float scale) {
+  using G = GeoQ<D>;
+  constexpr int D4 = D / 4;
+  __shared__ float4 ks[BK][D4];
+  __shared__ float4 vs[BK][D4];
+  __shared__ int kid[BK];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / HK);
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x;
+  const int part = tid % G::TPR;
+  const int row = q0 + tid / G::TPR;
+  const bool row_ok = row < Sq;
+  const bool seg = q_ids != nullptr;
+
+  const size_t kvb = (size_t)(b * HK + hk) * Sk * D4;
+  const size_t qrow = (size_t)bh * Sq + (row_ok ? row : 0);
+  const size_t qoff = qrow * D4;
+
+  float4 qr[G::C4], dr[G::C4], acc[G::C4];
+#pragma unroll
+  for (int c = 0; c < G::C4; ++c) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[c] = row_ok ? load4(q, qoff + c * G::TPR + part) : z;
+    dr[c] = row_ok ? load4(dout, qoff + c * G::TPR + part) : z;
+    acc[c] = z;
+  }
+  const float lse_r = row_ok ? lse[qrow] : 0.f;
+  const float di_r = row_ok ? di[qrow] : 0.f;
+  const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
+
+  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();
+    for (int i = tid; i < BK * D4; i += G::THREADS) {
+      const int j = i / D4, c = i % D4, col = k0 + j;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      ks[j][c] = col < Sk ? load4(k, kvb + (size_t)col * D4 + c) : z;
+      vs[j][c] = col < Sk ? load4(v, kvb + (size_t)col * D4 + c) : z;
+    }
+    if (seg) {
+      for (int j = tid; j < BK; j += G::THREADS) {
+        const int col = k0 + j;
+        kid[j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float sd = 0.f, pd = 0.f;
+#pragma unroll
+      for (int c = 0; c < G::C4; ++c) {
+        sd = dot4(qr[c], ks[j][c * G::TPR + part], sd);
+        pd = dot4(dr[c], vs[j][c * G::TPR + part], pd);
+      }
+      sd = row_sum<G::TPR>(sd);
+      pd = row_sum<G::TPR>(pd);
+      const int col = k0 + j;
+      const bool ok = row_ok && col < Sk && (!causal || col <= row) &&
+                      (!seg || kid[j] == qid);
+      const float p = prob(ok, sd, scale, lse_r);
+      const float ds = operand<T>(dscore(p, pd, di_r, scale));
+#pragma unroll
+      for (int c = 0; c < G::C4; ++c)
+        acc[c] = axpy4(ds, ks[j][c * G::TPR + part], acc[c]);
+    }
+  }
+
+  if (row_ok) {
+#pragma unroll
+    for (int c = 0; c < G::C4; ++c) store4(dq, qoff + c * G::TPR + part, acc[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: for a key row col of kv head hk, over the query heads h of its
+// group and their visible rows r (in a fixed order):
+//   dv[col] += p[r, col] * dO[r];  dk[col] += ds[r, col] * q[r]
+// ---------------------------------------------------------------------------
+// CTAs an SM the register budget must allow: bf16 fits 128 registers,
+// two CTAs at D <= 64; f32 takes one CTA rather than spill its float4
+// operands (at D = 128 its 512 threads cap it at 128 all the same)
+template <typename T, int D>
+struct DkvMinBlocks {
+  static constexpr int value =
+      (sizeof(T) == 4 || GeoKV<D>::THREADS > 256) ? 1 : 2;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(GeoKV<D>::THREADS, DkvMinBlocks<T, D>::value)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ di,
+                 T* __restrict__ dk, T* __restrict__ dv,
+                 const int* __restrict__ q_ids,
+                 const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                 int Sk, int causal, float scale) {
+  using G = GeoKV<D>;
+  constexpr int D4 = D / 4;
+  __shared__ float4 qs[BQT][D4];
+  __shared__ float4 dos[BQT][D4];
+  __shared__ float lses[BQT];
+  __shared__ float dis[BQT];
+  __shared__ int qid[BQT];
+
+  const int bhk = blockIdx.y;
+  const int b = bhk / HK;
+  const int hk = bhk % HK;
+  const int group = H / HK;
+  const int c0 = blockIdx.x * BKV;
+  const int tid = threadIdx.x;
+  const int part = tid % G::TPR;
+  const int col = c0 + tid / G::TPR;
+  const bool col_ok = col < Sk;
+  const bool seg = q_ids != nullptr;
+
+  const size_t kvoff = ((size_t)bhk * Sk + (col_ok ? col : 0)) * D4;
+  float4 kr[G::C4], vr[G::C4], dka[G::C4], dva[G::C4];
+#pragma unroll
+  for (int c = 0; c < G::C4; ++c) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    kr[c] = col_ok ? load4(k, kvoff + c * G::TPR + part) : z;
+    vr[c] = col_ok ? load4(v, kvoff + c * G::TPR + part) : z;
+    dka[c] = z;
+    dva[c] = z;
+  }
+  const int kid = (seg && col_ok) ? kv_ids[(size_t)b * Sk + col] : 0;
+
+  // causal: rows before c0 see none of this block's keys
+  const int rstart = causal ? (min(c0, Sq) / BQT) * BQT : 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const size_t rowb = (size_t)(b * H + hk * group + hh) * Sq;
+    for (int r0 = rstart; r0 < Sq; r0 += BQT) {
+      __syncthreads();
+      for (int i = tid; i < BQT * D4; i += G::THREADS) {
+        const int j = i / D4, c = i % D4, r = r0 + j;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        qs[j][c] = r < Sq ? load4(q, (rowb + r) * D4 + c) : z;
+        dos[j][c] = r < Sq ? load4(dout, (rowb + r) * D4 + c) : z;
+      }
+      for (int j = tid; j < BQT; j += G::THREADS) {
+        const int r = r0 + j;
+        lses[j] = r < Sq ? lse[rowb + r] : 0.f;
+        dis[j] = r < Sq ? di[rowb + r] : 0.f;
+        qid[j] = (seg && r < Sq) ? q_ids[(size_t)b * Sq + r] : 0;
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int i = 0; i < BQT; ++i) {
+        float sd = 0.f, pd = 0.f;
+#pragma unroll
+        for (int c = 0; c < G::C4; ++c) {
+          sd = dot4(kr[c], qs[i][c * G::TPR + part], sd);
+          pd = dot4(vr[c], dos[i][c * G::TPR + part], pd);
+        }
+        sd = row_sum<G::TPR>(sd);
+        pd = row_sum<G::TPR>(pd);
+        const int r = r0 + i;
+        const bool ok = col_ok && r < Sq && (!causal || col <= r) &&
+                        (!seg || qid[i] == kid);
+        const float p = prob(ok, sd, scale, lses[i]);
+        const float pv = operand<T>(p);
+        const float ds = operand<T>(dscore(p, pd, dis[i], scale));
+#pragma unroll
+        for (int c = 0; c < G::C4; ++c) {
+          dva[c] = axpy4(pv, dos[i][c * G::TPR + part], dva[c]);
+          dka[c] = axpy4(ds, qs[i][c * G::TPR + part], dka[c]);
+        }
+      }
+    }
+  }
+
+  if (col_ok) {
+#pragma unroll
+    for (int c = 0; c < G::C4; ++c) {
+      store4(dk, kvoff + c * G::TPR + part, dka[c]);
+      store4(dv, kvoff + c * G::TPR + part, dva[c]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *di;
+  const int *q_ids, *kv_ids;
+  int B, H, HK, Sq, Sk, causal;
+  float scale;
+  cudaStream_t st;
+};
+
+template <typename T, int D>
+void launch_dq(const Args& a, void* dq) {
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  flash_dq_kernel<T, D><<<grid, GeoQ<D>::THREADS, 0, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk,
+      a.causal, a.scale);
+}
+
+template <typename T, int D>
+void launch_dkv(const Args& a, void* dk, void* dv) {
+  const dim3 grid((a.Sk + BKV - 1) / BKV, a.B * a.HK);
+  flash_dkv_kernel<T, D><<<grid, GeoKV<D>::THREADS, 0, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
+      a.HK, a.Sq, a.Sk, a.causal, a.scale);
+}
+
+template <typename T>
+int dispatch_dq(const Args& a, int D, void* dq) {
+  switch (D) {
+    case 16: launch_dq<T, 16>(a, dq); break;
+    case 32: launch_dq<T, 32>(a, dq); break;
+    case 64: launch_dq<T, 64>(a, dq); break;
+    case 128: launch_dq<T, 128>(a, dq); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_dkv(const Args& a, int D, void* dk, void* dv) {
+  switch (D) {
+    case 16: launch_dkv<T, 16>(a, dk, dv); break;
+    case 32: launch_dkv<T, 32>(a, dk, dv); break;
+    case 64: launch_dkv<T, 64>(a, dk, dv); break;
+    case 128: launch_dkv<T, 128>(a, dk, dv); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* di, const void* q_ids,
+               const void* kv_ids, int B, int H, int HK, int Sq, int Sk,
+               int causal, float scale, void* stream) {
+  return Args{q, k, v, dout,
+              static_cast<const float*>(lse), static_cast<const float*>(di),
+              static_cast<const int*>(q_ids), static_cast<const int*>(kv_ids),
+              B, H, HK, Sq, Sk, causal, scale,
+              static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  dtype: 0 float32, 1
+// bfloat16 (q, k, v, dout and the gradients alike); lse and di f32
+// (B*H, Sq); q_ids/kv_ids both null or both set.  Each launches on
+// `stream`, allocates nothing, and returns cudaGetLastError() after the
+// launch (0 when it was accepted).
+extern "C" int apex_flash_dq(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* di,
+                             void* dq, const void* q_ids, const void* kv_ids,
+                             int dtype, int B, int H, int HK, int Sq, int Sk,
+                             int D, int causal, float scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
+                           Sq, Sk, causal, scale, stream);
+  switch (dtype) {
+    case F32: return dispatch_dq<float>(a, D, dq);
+    case BF16: return dispatch_dq<__nv_bfloat16>(a, D, dq);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* di, void* dk, void* dv,
+                              const void* q_ids, const void* kv_ids,
+                              int dtype, int B, int H, int HK, int Sq, int Sk,
+                              int D, int causal, float scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
+                           Sq, Sk, causal, scale, stream);
+  switch (dtype) {
+    case F32: return dispatch_dkv<float>(a, D, dk, dv);
+    case BF16: return dispatch_dkv<__nv_bfloat16>(a, D, dk, dv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,18 +1,19 @@
 // Flat-buffer streaming kernels of the training path, for Hopper (sm_90a).
 //
-// Replace six TPU kernels of apex_tpu/ops/multi_tensor.py:
+// Replace seven TPU kernels of apex_tpu/ops/multi_tensor.py:
 //   flat_accumulate   (:207, body _accumulate_kernel :190)
 //   flat_unscale_norm (:270, body _unscale_norm_kernel :255)
 //   flat_l2norm       (:325, body _l2norm_kernel :314)
+//   flat_adam         (:402, body _adam_kernel :351)
 //   flat_sgd          (:465, body _sgd_kernel :446)
 //   flat_lamb stage 1 (:878, body _lamb_moment_kernel :824)
 //   flat_lamb stage 2 (:897, body _apply_update_kernel :838)
 // Each takes a whole flat bucket (ResNet-50 in amp O2 is one bucket of
-// 25,557,032 elements, BERT-Large one of 334,096,384) and touches every
-// element once.
+// 25,557,032 elements, BERT-Large one of 334,096,384, the GPT-2-small
+// block stack one of 124,046,592) and touches every element once.
 //
 // What bounds them: bytes.  Each does a handful of f32 operations per
-// 2-26 bytes it moves, against the card's ~20 f32 operations per byte of
+// 2-28 bytes it moves, against the card's ~20 f32 operations per byte of
 // HBM bandwidth, so the least time is the bytes over 3.35 TB/s.  The
 // design is the plain streaming shape: a fixed grid of 256-thread blocks
 // walks the buffer in a grid-stride loop, four elements a thread a step
@@ -24,21 +25,22 @@
 // Arithmetic is f32 with every rounding explicit (__fmul_rn/__fadd_rn/
 // __fdiv_rn/__fsqrt_rn, no contraction into FMAs), in the order of the
 // TPU kernel bodies, so the plain PyTorch twins
-// (apex_tpu_torch/ops/multi_tensor.py) reproduce it up to the one place
+// (apex_tpu_torch/ops/multi_tensor.py) reproduce it up to the places
 // the twin divides where the kernel multiplies by the reciprocal
-// (flat_sgd's grad scale, as in the reference).
+// (the grad scale of flat_sgd and flat_adam, as in the reference: the
+// same bits when the scale is a power of two).
 //
 // Scalars that live on the device (the unscale factor, the first-step
-// select, the LAMB bias corrections and clip factor, the overflow flag)
-// are read through device pointers, so no caller syncs the host to
-// launch.  Non-finite means !(|x| < inf), the TPU kernels' _all_finite
-// test.  The flag of a launch is an OR across blocks (atomicOr:
+// select, the LAMB and Adam bias corrections, Adam's learning rate, the
+// LAMB clip factor, the overflow flag) are read through device
+// pointers, so no caller syncs the host to launch.  Non-finite means
+// !(|x| < inf), the TPU kernels' _all_finite test.  The flag of a launch is an OR across blocks (atomicOr:
 // order-free); a sum over the buffer (flat_unscale_norm, flat_l2norm) is
 // summed per block and then over the blocks in a fixed order by a second
 // one-block launch, never with float atomics, so a run is deterministic.
 //
-// The in-place kernels with an overflow gate (flat_sgd, both LAMB
-// stages) return before writing anything when the flag is set: the
+// The in-place kernels with an overflow gate (flat_sgd, flat_adam, both
+// LAMB stages) return before writing anything when the flag is set: the
 // reference selects the old values on a skipped step, which an in-place
 // update would already have destroyed.
 
@@ -340,6 +342,85 @@ void launch_lamb_moments(int blocks, cudaStream_t st, const void* p,
 }
 
 // ---------------------------------------------------------------------------
+// flat_adam: one Adam (adam_w_mode 0: L2 decay folded into g) or AdamW
+// (1: decoupled decay) step in place on p, m and v, in the order of the
+// reference body:
+//   g = g * inv_scale [+ wd * p];  m = b1*m + (1-b1)*g;
+//   v = b2*v + ((1-b2)*g)*g;  u = (m*c1r) / (sqrt(v*c2r) + eps) [+ wd*p];
+//   p = p - lr * u.
+// lr, c1r, c2r (the bias corrections, 1 without them) and inv_scale are
+// device scalars; when the overflow flag is set the kernel writes
+// nothing, so p, m and v keep every bit.
+// ---------------------------------------------------------------------------
+struct AdamHypers {
+  float b1, omb1, b2, omb2, eps, wd;   // omb = 1 - b, rounded to f32 once
+};
+
+template <bool ADAMW>
+__device__ __forceinline__ float adam_elem(float pv, float gv, float& m,
+                                           float& v, const AdamHypers& h,
+                                           float lr, float c1r, float c2r,
+                                           float inv) {
+  float g = __fmul_rn(gv, inv);
+  if (!ADAMW) g = __fadd_rn(g, __fmul_rn(h.wd, pv));
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
+  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(h.omb2, g), g));
+  const float denom = __fadd_rn(__fsqrt_rn(__fmul_rn(v, c2r)), h.eps);
+  float u = __fdiv_rn(__fmul_rn(m, c1r), denom);
+  if (ADAMW) u = __fadd_rn(u, __fmul_rn(h.wd, pv));
+  return __fsub_rn(pv, __fmul_rn(lr, u));
+}
+
+template <typename P, typename G, bool ADAMW>
+__global__ void __launch_bounds__(THREADS)
+adam_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
+            float* __restrict__ v, AdamHypers h, const float* __restrict__ lr_p,
+            const float* __restrict__ c1r_p, const float* __restrict__ c2r_p,
+            const float* __restrict__ inv_p,
+            const int* __restrict__ found_inf, int64_t n) {
+  if (found_inf != nullptr && *found_inf != 0) return;
+  const float lr = *lr_p, c1r = *c1r_p, c2r = *c2r_p, inv = *inv_p;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 pv = load4(p, i), gv = load4(g, i);
+    F4 mv = load4(m, i), vv = load4(v, i);
+    F4 r;
+    r.x = adam_elem<ADAMW>(pv.x, gv.x, mv.x, vv.x, h, lr, c1r, c2r, inv);
+    r.y = adam_elem<ADAMW>(pv.y, gv.y, mv.y, vv.y, h, lr, c1r, c2r, inv);
+    r.z = adam_elem<ADAMW>(pv.z, gv.z, mv.z, vv.z, h, lr, c1r, c2r, inv);
+    r.w = adam_elem<ADAMW>(pv.w, gv.w, mv.w, vv.w, h, lr, c1r, c2r, inv);
+    store4(p, i, r);
+    store4(m, i, mv);
+    store4(v, i, vv);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    float mi = m[i], vi = v[i];
+    store1(p, i, adam_elem<ADAMW>(load1(p, i), load1(g, i), mi, vi, h, lr,
+                                  c1r, c2r, inv));
+    m[i] = mi;
+    v[i] = vi;
+  }
+}
+
+template <typename P, typename G>
+void launch_adam(int blocks, cudaStream_t st, void* p, const void* g,
+                 float* m, float* v, const AdamHypers& h, const float* lr,
+                 const float* c1r, const float* c2r, const float* inv,
+                 const int* found_inf, int adam_w_mode, int64_t n) {
+  P* pp = static_cast<P*>(p);
+  const G* gg = static_cast<const G*>(g);
+  if (adam_w_mode) {
+    adam_kernel<P, G, true><<<blocks, THREADS, 0, st>>>(
+        pp, gg, m, v, h, lr, c1r, c2r, inv, found_inf, n);
+  } else {
+    adam_kernel<P, G, false><<<blocks, THREADS, 0, st>>>(
+        pp, gg, m, v, h, lr, c1r, c2r, inv, found_inf, n);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // flat_sgd: torch.optim.SGD's update (weight decay, momentum, dampening,
 // nesterov) in place on p and buf.  `first` selects buf = g (the first
 // step).  When the overflow flag is set the kernel writes nothing: p and
@@ -589,6 +670,44 @@ extern "C" int apex_flat_lamb_apply(void* p, int p_dtype, const void* update,
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One Adam/AdamW step.  found_inf may be null (no gate).
+extern "C" int apex_flat_adam(void* p, int p_dtype, const void* g, int g_dtype,
+                              void* m, void* v, float beta1,
+                              float one_minus_beta1, float beta2,
+                              float one_minus_beta2, float eps,
+                              float weight_decay, const void* lr,
+                              const void* c1r, const void* c2r,
+                              const void* inv_scale, const void* found_inf,
+                              int adam_w_mode, long long n, int blocks,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AdamHypers h{beta1, one_minus_beta1, beta2, one_minus_beta2, eps,
+                     weight_decay};
+  float* mm = static_cast<float*>(m);
+  float* vv = static_cast<float*>(v);
+  const float* l = static_cast<const float*>(lr);
+  const float* a = static_cast<const float*>(c1r);
+  const float* b = static_cast<const float*>(c2r);
+  const float* inv = static_cast<const float*>(inv_scale);
+  const int* fi = static_cast<const int*>(found_inf);
+  if (p_dtype == F32 && g_dtype == F32) {
+    launch_adam<float, float>(blocks, st, p, g, mm, vv, h, l, a, b, inv, fi,
+                              adam_w_mode, n);
+  } else if (p_dtype == F32 && g_dtype == BF16) {
+    launch_adam<float, __nv_bfloat16>(blocks, st, p, g, mm, vv, h, l, a, b,
+                                      inv, fi, adam_w_mode, n);
+  } else if (p_dtype == BF16 && g_dtype == BF16) {
+    launch_adam<__nv_bfloat16, __nv_bfloat16>(blocks, st, p, g, mm, vv, h, l,
+                                              a, b, inv, fi, adam_w_mode, n);
+  } else if (p_dtype == BF16 && g_dtype == F32) {
+    launch_adam<__nv_bfloat16, float>(blocks, st, p, g, mm, vv, h, l, a, b,
+                                      inv, fi, adam_w_mode, n);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

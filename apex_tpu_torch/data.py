@@ -1,5 +1,6 @@
 """Host -> device input pipeline (port of ``apex_tpu.data.DevicePrefetcher``,
-itself the reference's ``data_prefetcher`` of its ImageNet example).
+itself the reference's ``data_prefetcher`` of its ImageNet example), and
+:func:`pack_sequences` (port of ``apex_tpu.data.pack_sequences``).
 
 Each host batch (a tree of numpy arrays or CPU tensors) is copied into
 pinned host memory and sent to the card with ``non_blocking`` copies on
@@ -82,3 +83,58 @@ class DevicePrefetcher:
                 t.record_stream(stream)
         self._issue()
         return batch
+
+
+def pack_sequences(sequences, max_len: int, pad_id: int = 0):
+    """Pack variable-length token sequences into fixed (B, max_len) rows
+    for segment-masked attention (the reference's fmha packed varlen
+    contract; the flash kernels' ``segment_ids`` do the masking).
+
+    First-fit-decreasing bin packing on the host (numpy).  Returns a
+    dict of (B, max_len) int32 arrays: ``tokens`` (``pad_id`` in each
+    row's tail), ``segment_ids`` (1, 2, ... per packed sequence, 0 on
+    padding), ``q_segment_ids`` / ``kv_segment_ids`` (the attention
+    form: padding carries -1 on the query side and -2 on the key side,
+    so pad rows attend nowhere and output exact zeros) and
+    ``positions`` (0-based within each sequence, 0 on padding).  A
+    sequence longer than ``max_len``, or an empty one, raises."""
+    seqs = [np.asarray(s, dtype=np.int32).reshape(-1) for s in sequences]
+    too_long = [i for i, s in enumerate(seqs) if len(s) > max_len]
+    if too_long:
+        raise ValueError(
+            f"pack_sequences: sequence(s) {too_long[:5]} longer than "
+            f"max_len={max_len}; truncate or split before packing")
+    empty = [i for i, s in enumerate(seqs) if len(s) == 0]
+    if empty:
+        raise ValueError(
+            f"pack_sequences: sequence(s) {empty[:5]} are empty; "
+            f"filter them out (and their labels) before packing")
+
+    order = sorted(range(len(seqs)), key=lambda i: -len(seqs[i]))
+    bins = []          # [free, [seq_idx, ...]]
+    for i in order:
+        need = len(seqs[i])
+        for b in bins:
+            if b[0] >= need:
+                b[0] -= need
+                b[1].append(i)
+                break
+        else:
+            bins.append([max_len - need, [i]])
+
+    rows = len(bins)
+    tokens = np.full((rows, max_len), pad_id, dtype=np.int32)
+    segment_ids = np.zeros((rows, max_len), dtype=np.int32)
+    positions = np.zeros((rows, max_len), dtype=np.int32)
+    for r, (_, members) in enumerate(bins):
+        off = 0
+        for seg, i in enumerate(members, start=1):
+            n = len(seqs[i])
+            tokens[r, off:off + n] = seqs[i]
+            segment_ids[r, off:off + n] = seg
+            positions[r, off:off + n] = np.arange(n)
+            off += n
+    return {"tokens": tokens, "segment_ids": segment_ids,
+            "positions": positions,
+            "q_segment_ids": np.where(segment_ids > 0, segment_ids, -1),
+            "kv_segment_ids": np.where(segment_ids > 0, segment_ids, -2)}

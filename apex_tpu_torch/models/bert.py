@@ -14,9 +14,8 @@ the reference's.
 Attention: with an ``attention_mask`` (the padded batch) the additive
 mask ``(1 - m) * -10000`` goes through :func:`attention_ref` (plain
 f32, as in the reference); without one, or with a packed batch's
-``segment_ids``, through :func:`flash_attention`, which on the card is
-forward only until its backward kernels are ported (ROADMAP Queue 2 rows
-2-3).
+``segment_ids``, through :func:`flash_attention`, forward and backward
+(on the card the hand-written flash kernels, with gradients).
 
 Precision is the reference's: every layer computes in ``dtype`` (bf16
 under amp O2), the norms in f32 with the input's storage dtype, the

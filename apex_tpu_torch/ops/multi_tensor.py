@@ -1,6 +1,6 @@
 """Flat-buffer kernels of the training paths, and their plain twins.
 
-The port of six TPU kernels of ``apex_tpu.ops.multi_tensor``:
+The port of seven TPU kernels of ``apex_tpu.ops.multi_tensor``:
 
 - :func:`flat_accumulate` — ``acc += g * scale`` in place over an f32
   accumulator bucket, with the non-finite flag of the RESULT (so one bad
@@ -11,6 +11,8 @@ The port of six TPU kernels of ``apex_tpu.ops.multi_tensor``:
   global-gradient-norm prologue;
 - :func:`flat_sgd` — one SGD step (weight decay, momentum, dampening,
   nesterov) in place on the param and momentum buckets;
+- :func:`flat_adam` — one Adam or AdamW step (bias correction on or off)
+  in place on the param and both moment buckets;
 - :func:`flat_lamb` — one LAMB step: stage 1 (moments in place plus the
   raw update) and stage 2 (``p -= lr * trust * update`` in place), with
   the per-tensor trust ratios between them from
@@ -24,10 +26,11 @@ nothing falls back: a tensor on the card that the kernel does not take
 raises.
 
 Scalars that live on the device (``inv_scale``, ``first_run``,
-``found_inf``, LAMB's step clock and clip factor) pass to a kernel as
-device pointers, never through a host read; the host-side hypers
-(``lr``, ``momentum``, ...) are Python floats passed by value.
-:func:`flat_sgd` and :func:`flat_lamb` take the optional overflow flag
+``found_inf``, the LAMB and Adam step clock, LAMB's clip factor, Adam's
+learning rate) pass to a kernel as device pointers, never through a host
+read; the other hypers (``momentum``, the betas, ...) are Python floats
+passed by value.  :func:`flat_sgd`, :func:`flat_adam` and
+:func:`flat_lamb` take the optional overflow flag
 themselves: on the card the kernels write nothing when it is set, on
 the CPU the twin's result is selected away with ``torch.where`` — both
 leave every buffer as it was, the reference's select-on-skip, and
@@ -74,6 +77,10 @@ LAMB_MOMENTS = _build.Kernel(
 LAMB_APPLY = _build.Kernel(
     "multi_tensor", "apex_flat_lamb_apply",
     [_P, _I, _P, _P, _P, _P, _L, _I, _P], name="flat_lamb_apply")
+ADAM = _build.Kernel(
+    "multi_tensor", "apex_flat_adam",
+    [_P, _I, _P, _I, _P, _P] + [_F] * 6 + [_P] * 5 + [_I, _L, _I, _P],
+    name="flat_adam")
 
 Scalar = Union[float, torch.Tensor]
 
@@ -190,20 +197,27 @@ def _lamb_trust_factor(p, update, sizes, lr, weight_decay, use_nvlamb):
     return _f32_value(lr) * trust
 
 
+def _bias_corrections(beta1, beta2, step, bias_correction, device):
+    """``(c1r, c2r)``: ``1 / (1 - beta**step)`` (1 without bias
+    correction), as 0-d f32 tensors on ``device``; ``step`` may be a
+    device scalar (nothing is read back)."""
+    if not bias_correction:
+        one = torch.ones((), device=device)
+        return one, one
+    t = _as_f32_scalar(step, device)
+    b1 = torch.full((), _f32_value(beta1), device=device)
+    b2 = torch.full((), _f32_value(beta2), device=device)
+    return 1.0 / (1.0 - b1 ** t), 1.0 / (1.0 - b2 ** t)
+
+
 def _lamb_scalars(beta1, beta2, step, bias_correction, grad_scale,
                   clip_coeff, device):
     """``(c1r, c2r, gmul)``: the bias corrections ``1 / (1 - beta**step)``
     and the gradient multiplier ``clip / grad_scale``, as 0-d f32 tensors
     on ``device`` (``step``, ``grad_scale`` and ``clip_coeff`` may be
     device scalars: nothing is read back)."""
-    if bias_correction:
-        t = _as_f32_scalar(step, device)
-        b1 = torch.full((), _f32_value(beta1), device=device)
-        b2 = torch.full((), _f32_value(beta2), device=device)
-        c1r = 1.0 / (1.0 - b1 ** t)
-        c2r = 1.0 / (1.0 - b2 ** t)
-    else:
-        c1r = c2r = torch.ones((), device=device)
+    c1r, c2r = _bias_corrections(beta1, beta2, step, bias_correction,
+                                 device)
     gmul = (_as_f32_scalar(clip_coeff, device)
             / _as_f32_scalar(grad_scale, device))
     return c1r, c2r, gmul
@@ -246,6 +260,29 @@ def flat_lamb_ref(p, g, m, v, seg_ids, sizes, *, lr, beta1, beta2, eps,
     return _lamb_apply_ref(p, update, factor, seg_ids), m, v
 
 
+def flat_adam_ref(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
+                  adam_w_mode=True, bias_correction=True,
+                  grad_scale: Scalar = 1.0):
+    """One Adam (``adam_w_mode=False``: L2 decay folded into the
+    gradient) or AdamW (decoupled decay) step, out of place; returns
+    ``(p, m, v)``.  Divides by ``grad_scale`` (the kernel multiplies by
+    its reciprocal).  ``lr``, ``step`` and ``grad_scale`` may be device
+    scalars."""
+    dev = p.device
+    pf = _f32(p)
+    gf = _f32(g) / _as_f32_scalar(grad_scale, dev)
+    wd = _f32_value(weight_decay)
+    if not adam_w_mode:
+        gf = gf + wd * pf
+    m = _f32_value(beta1) * m + _one_minus(beta1) * gf
+    v = _f32_value(beta2) * v + _one_minus(beta2) * gf * gf
+    c1r, c2r = _bias_corrections(beta1, beta2, step, bias_correction, dev)
+    update = (m * c1r) / (torch.sqrt(v * c2r) + _f32_value(eps))
+    if adam_w_mode:
+        update = update + wd * pf
+    return (pf - _as_f32_scalar(lr, dev) * update).to(p.dtype), m, v
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: CUDA tensor -> kernel, CPU tensor -> twin
 # ---------------------------------------------------------------------------
@@ -275,6 +312,15 @@ def _device_scalar(fn: str, name: str, v, device, dtype) -> torch.Tensor:
                              f"{device}, got {tuple(v.shape)} on {v.device}")
         return v.reshape(()).to(dtype).contiguous()
     return torch.full((), v, dtype=dtype, device=device)
+
+
+def _inv_scale(fn: str, grad_scale: Scalar, device) -> torch.Tensor:
+    """``1 / grad_scale`` as a 0-d f32 device tensor (no host read)."""
+    if isinstance(grad_scale, torch.Tensor):
+        return 1.0 / _device_scalar(fn, "grad_scale", grad_scale, device,
+                                    torch.float32)
+    return torch.full((), float(np.float32(1.0) / np.float32(grad_scale)),
+                      dtype=torch.float32, device=device)
 
 
 def _host_float(fn: str, name: str, v) -> float:
@@ -376,12 +422,7 @@ def flat_sgd(p: torch.Tensor, g: torch.Tensor, momentum_buf: torch.Tensor, *,
     hyper = [_host_float(fn, k, v) for k, v in
              (("lr", lr), ("momentum", momentum), ("dampening", dampening),
               ("weight_decay", weight_decay))]
-    if isinstance(grad_scale, torch.Tensor):
-        inv = 1.0 / _device_scalar(fn, "grad_scale", grad_scale, dev,
-                                   torch.float32)
-    else:
-        inv = torch.full((), float(np.float32(1.0) / np.float32(grad_scale)),
-                         dtype=torch.float32, device=dev)
+    inv = _inv_scale(fn, grad_scale, dev)
     first = _device_scalar(fn, "first_run", first_run, dev, torch.int32)
     gate = (None if found_inf is None else
             _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
@@ -512,3 +553,58 @@ def _lamb_apply(p, update, factor, seg_ids, gate=None) -> None:
                           seg_ids.data_ptr(),
                           None if gate is None else gate.data_ptr(), n,
                           grid_blocks(n), _stream(dev))
+
+
+def flat_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, *, lr, beta1, beta2, eps, weight_decay=0.0,
+              step=1, adam_w_mode=True, bias_correction=True,
+              grad_scale: Scalar = 1.0,
+              found_inf: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Adam/AdamW step over a flat bucket in place on ``p`` (f32 or
+    bf16), ``m`` and ``v`` (f32); ``g`` f32 or bf16; returns ``(p, m,
+    v)``.  ``lr``, ``step`` (1-based) and ``grad_scale`` may be device
+    scalars (the kernel reads ``lr``, the bias corrections and ``1 /
+    grad_scale`` through pointers); ``found_inf`` (optional device
+    i32/bool scalar) leaves ``p``, ``m`` and ``v`` untouched when set."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, step=step, adam_w_mode=adam_w_mode,
+              bias_correction=bias_correction, grad_scale=grad_scale)
+    if p.device.type == "cpu":
+        new_p, new_m, new_v = flat_adam_ref(p, g, m, v, **kw)
+        if found_inf is not None:
+            keep = found_inf.to(p.device) == 0
+            new_p = torch.where(keep, new_p, p)
+            new_m = torch.where(keep, new_m, m)
+            new_v = torch.where(keep, new_v, v)
+        p.copy_(new_p)
+        m.copy_(new_m)
+        v.copy_(new_v)
+        return p, m, v
+    fn, dev, n = "flat_adam", p.device, p.numel()
+    _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "g", g, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "m", m, dev, n, (torch.float32,))
+    _check(fn, "v", v, dev, n, (torch.float32,))
+    b1, b2, eps_f, wd = (_f32_value(_host_float(fn, k, x)) for k, x in
+                         (("beta1", beta1), ("beta2", beta2), ("eps", eps),
+                          ("weight_decay", weight_decay)))
+    if isinstance(step, torch.Tensor) and (step.device != dev
+                                           or step.numel() != 1):
+        raise ValueError(f"{fn}: step must be one element on {dev}, got "
+                         f"{tuple(step.shape)} on {step.device}")
+    lr_t = _device_scalar(fn, "lr", lr, dev, torch.float32)
+    c1r, c2r = _bias_corrections(beta1, beta2, step, bias_correction, dev)
+    inv = _inv_scale(fn, grad_scale, dev)
+    gate = (None if found_inf is None else
+            _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
+    if n:
+        with torch.cuda.device(dev):
+            ADAM.launch(p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
+                        _DTYPE_CODE[g.dtype], m.data_ptr(), v.data_ptr(), b1,
+                        _one_minus(b1), b2, _one_minus(b2), eps_f, wd,
+                        lr_t.data_ptr(), c1r.data_ptr(), c2r.data_ptr(),
+                        inv.data_ptr(), None if gate is None else
+                        gate.data_ptr(), int(bool(adam_w_mode)), n,
+                        grid_blocks(n), _stream(dev))
+    return p, m, v

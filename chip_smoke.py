@@ -70,10 +70,44 @@ exits non-zero:
     of each LAMB stage per bucket, a step);
 13. profile (BERT) — one step under ``torch.profiler``: busy share, the
     largest device items, the five kernels' share;
-14. consistency (BERT) — a 2-layer BERT at BERT-Large's widths, one O2
-    step on the card and on the CPU from the same seed: the masters
-    within a tenth of the nearest of three wrong updates run on the CPU
-    (trust ratio, global clip or weight decay dropped).
+14. train (BERT, flash) — the same BERT-Large step on the example's
+    default unmasked 8 x 512 batch and on a packed one (``--packed``),
+    both through flash attention with gradients: 2 warm-up and 4 timed
+    steps each, finite losses, exact launch counts (24 flash forwards,
+    dq and dk/dv a step besides the LayerNorm and LAMB counts);
+15. consistency (BERT) — a 2-layer BERT at BERT-Large's widths, one O2
+    step on the card and on the CPU from the same seed, on a padded and
+    on an unmasked batch: the masters within a tenth of the nearest of
+    three wrong updates run on the CPU (trust ratio, global clip or
+    weight decay dropped);
+16. kernel vs plain (attention training) — the flash forward with its
+    logsumexp and the dq, dk/dv kernels against their twins on the card
+    at the GPT block's (8, 12, 512, 64) bf16 causal, BERT-Large's (8,
+    16, 512, 64) bf16 unmasked and packed with pad rows, grouped-query
+    heads (12 to 4) at Sq = 200, and f32 (within 1e-4; bf16 within 2e-2,
+    one bf16 rounding); rows that see no key (and keys no row sees) give
+    exact zeros; the same bits on a second run; each timed beside its
+    twin, its bound and SDPA's forward or backward;
+17. kernel vs plain (Adam) — flat_adam at GPT-2 small's one O2 bucket
+    (124,046,592 elements) and a ragged length, AdamW and Adam with and
+    without bias correction: the twin's bits exactly; with ``found_inf``
+    set p, m and v keep theirs; timed beside its twin, the bytes bound
+    and ``torch._fused_adamw_``;
+18. train (GPT block) — ``apex_tpu_torch.examples.gpt_train_block`` at
+    GPT-2 small's widths (12 x 768, 12 heads, seq 512, batch 8, vocab
+    50257), amp O2, FusedAdam lr 3e-4: 2 warm-up and 8 timed steps, ms
+    per step, tokens/s, peak memory, finite losses and exact launch
+    counts (12 flash forwards, dq and dk/dv, 25 LayerNorm forwards and
+    backwards, one flat_unscale_norm and one flat_adam per bucket, a
+    step);
+19. profile (GPT block) — one step under ``torch.profiler``: busy share,
+    the largest device items, the port's kernels' share;
+20. consistency (GPT block) — a 2-layer stack at GPT-2 small's widths,
+    one O2 step (bf16 model) and two O0 steps (f32 model) on the card
+    and on the CPU from one seed (FusedAdam eps 1e-4): the masters within
+    a tenth of the nearest wrong update run on the CPU that each case
+    names (O2: attention not causal, bias correction dropped; O0: those
+    and lr 4% high).
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -484,8 +518,8 @@ def _close(name, got, want, what):
     return err
 
 
-def _bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_PEAK
+def _bound(nbytes: float, ops: float, peak: float = F32_PEAK):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1206,41 +1240,14 @@ def bert_batches(rng, n, batch, seq, lengths, vocab, device):
 
 def bert_setup(model, params, device, **lamb):
     """amp O2 over ``params`` (f32, moved to ``device``) and a FusedLAMB
-    over the result, as ``examples/bert/pretrain_mlm.py:111-115``;
-    returns ``(opt, amp_state, step)``, ``step(amp_state, tokens,
-    labels, mask) -> (loss, amp_state)`` its training step
-    (``:80-89,132-137``)."""
-    from apex_tpu_torch import amp
-    from apex_tpu_torch._tree import tree_map
-    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
-    from apex_tpu_torch.optimizers import FusedLAMB
-    import torch
-
-    params = tree_map(lambda t: t.to(device), params)
-    params, amp_state = amp.initialize(params, opt_level="O2", device=device)
-    opt = FusedLAMB(params, master_weights=bool(
-        amp_state.properties.master_weights),
-        masters=amp_state.master_params, **{**BERT_LAMB, **lamb})
-    del params
-    vocab = model.vocab_size
-
-    def loss_fn(p, tokens, labels, attention_mask):
-        logits = model.mlm_logits(p, tokens, attention_mask=attention_mask)
-        flat = logits.transpose(0, 1).reshape(-1, vocab)
-        losses = softmax_cross_entropy_loss(flat, labels.reshape(-1),
-                                            smoothing=0.0, padding_idx=-1)
-        n = torch.clamp((labels.reshape(-1) != -1).sum(), min=1)
-        return losses.sum() / n
-
-    wrapped = amp_state.wrap_forward(loss_fn, cast_argnums=())
-
-    def step(state, tokens, labels, mask):
-        loss, grads, found_inf = amp.scaled_value_and_grad(
-            wrapped, state.scaler, opt.params, tokens, labels, mask)
-        opt.step(grads, found_inf=found_inf)
-        return loss, amp.update_scaler(state, found_inf)
-
-    return opt, amp_state, step
+    over the result, with the training step of
+    ``examples/bert/pretrain_mlm.py``, through its port
+    (``apex_tpu_torch.examples.bert_pretrain_mlm.setup``); returns
+    ``(opt, amp_state, step)``, ``step(amp_state, tokens, labels,
+    attention_mask=None, segment_ids=None, positions=None) -> (loss,
+    amp_state)``."""
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+    return pretrain.setup(model, params, device, **{**BERT_LAMB, **lamb})
 
 
 def _bert_launches_expected(steps: int, buckets: int) -> dict:
@@ -1336,13 +1343,14 @@ BERT_MUTANTS = {"trust ratio dropped": None,
 def bert_consistency_phase(dev) -> None:
     """One O2 FusedLAMB step (eps 1e-4: ``BERT_CONSIST_LAMB``) of a
     2-layer BERT at BERT-L's widths (hidden 1024, 16 heads, vocab 30528),
-    batch 2 x 128 padded, from the same seed on the card (kernels) and on
-    the CPU (plain twins).  The first
-    loss comes from identical weights but bf16 activations summed in each
-    device's order: rtol 2e-3.  The final f32 masters' gap (``_gap``: as
-    a share of their displacement) must be under a tenth of the nearest
-    of three wrong updates run on the CPU (the trust ratio, the global
-    clip or the weight decay dropped), so the limit rejects each."""
+    batch 2 x 128, padded (the masked attention) and unmasked (flash
+    attention with gradients), from the same seed on the card (kernels)
+    and on the CPU (plain twins).  The first loss comes from identical
+    weights but bf16 activations summed in each device's order: rtol
+    2e-3.  The final f32 masters' gap (``_gap``: as a share of their
+    displacement) must be under a tenth of the nearest of three wrong
+    updates run on the CPU (the trust ratio, the global clip or the
+    weight decay dropped), so the limit rejects each."""
     import numpy as np
     import torch
     from apex_tpu_torch._tree import tree_leaves
@@ -1355,53 +1363,61 @@ def bert_consistency_phase(dev) -> None:
                       dtype=torch.bfloat16)
     params = model.init(0, "cpu")
     init = [t.numpy() for t in tree_leaves(params)]
-    rng = np.random.default_rng(2)
-    (batch,) = bert_batches(rng, 1, cfg["batch"], cfg["seq"],
-                            cfg["lengths"], model.vocab_size, "cpu")
+    (padded,) = bert_batches(np.random.default_rng(2), 1, cfg["batch"],
+                             cfg["seq"], cfg["lengths"], model.vocab_size,
+                             "cpu")
+    rng = np.random.default_rng(3)
+    batches = {
+        "padded": dict(zip(("tokens", "labels", "attention_mask"),
+                           padded[:3])),
+        "unmasked": {k: torch.from_numpy(rng.integers(
+            0, model.vocab_size, (cfg["batch"], cfg["seq"])))
+            for k in ("tokens", "labels")}}
 
-    def run(device, **lamb):
+    def run(device, inputs, **lamb):
         opt, state, step = bert_setup(model, params, device,
                                       **{**BERT_CONSIST_LAMB, **lamb})
-        loss, state = step(state, *(t.to(device) for t in batch[:3]))
+        loss, state = step(state, **{k: t.to(device)
+                                     for k, t in inputs.items()})
         return float(loss), [m.float().cpu().numpy()
                              for m in tree_leaves(opt.masters)]
 
-    card_l, card_m = run(dev)
-    cpu_l, cpu_m = run("cpu")
-    gaps = {}
-    for name, lamb in BERT_MUTANTS.items():
-        if lamb is None:                      # every trust ratio 1
-            real = mt._lamb_trust_factor
-            mt._lamb_trust_factor = (lambda p, u, sizes, lr, wd, nv:
-                                     torch.full((len(sizes),),
-                                                mt._f32_value(lr)))
-            try:
-                _, mut_m = run("cpu")
-            finally:
-                mt._lamb_trust_factor = real
-        else:
-            _, mut_m = run("cpu", **lamb)
-        gaps[name] = _gap(mut_m, cpu_m, init)
-    rel0 = abs(card_l - cpu_l) / abs(cpu_l)
-    gap = _gap(card_m, cpu_m, init)
-    limit = min(gaps.values()) / MUTANT_FACTOR
-    print(f"consistency train bert 2x1024 vocab 30528 O2 FusedLAMB b"
-          f"{cfg['batch']} s{cfg['seq']} padded, 1 step: card loss "
-          f"{card_l:.6f}, cpu {cpu_l:.6f} (rel diff {rel0:.3e}, tol "
-          f"{BERT_FIRST_LOSS_RTOL}); masters' gap {gap:.3e} of their "
-          f"displacement, tol {limit:.3e} = the nearest wrong update / "
-          f"{MUTANT_FACTOR:g}; wrong updates on the cpu (gap): "
-          + ", ".join(f"{k} {g:.3e} ({'rejected' if g > limit else 'passes'})"
-                      for k, g in gaps.items()), flush=True)
-    _check(rel0 <= BERT_FIRST_LOSS_RTOL,
-           f"bert consistency: first loss differs by {rel0}")
-    _check(gap <= limit, f"bert consistency: masters' gap {gap} over "
-                         f"{limit}")
-    for name, g in gaps.items():
-        _check(g > limit, f"bert consistency: the limit does not reject "
-                          f"'{name}'")
-
-
+    for kind, inputs in batches.items():
+        card_l, card_m = run(dev, inputs)
+        cpu_l, cpu_m = run("cpu", inputs)
+        gaps = {}
+        for name, lamb in BERT_MUTANTS.items():
+            if lamb is None:                      # every trust ratio 1
+                real = mt._lamb_trust_factor
+                mt._lamb_trust_factor = (lambda p, u, sizes, lr, wd, nv:
+                                         torch.full((len(sizes),),
+                                                    mt._f32_value(lr)))
+                try:
+                    _, mut_m = run("cpu", inputs)
+                finally:
+                    mt._lamb_trust_factor = real
+            else:
+                _, mut_m = run("cpu", inputs, **lamb)
+            gaps[name] = _gap(mut_m, cpu_m, init)
+        rel0 = abs(card_l - cpu_l) / abs(cpu_l)
+        gap = _gap(card_m, cpu_m, init)
+        limit = min(gaps.values()) / MUTANT_FACTOR
+        print(f"consistency train bert 2x1024 vocab 30528 O2 FusedLAMB b"
+              f"{cfg['batch']} s{cfg['seq']} {kind}, 1 step: card loss "
+              f"{card_l:.6f}, cpu {cpu_l:.6f} (rel diff {rel0:.3e}, tol "
+              f"{BERT_FIRST_LOSS_RTOL}); masters' gap {gap:.3e} of their "
+              f"displacement, tol {limit:.3e} = the nearest wrong update / "
+              f"{MUTANT_FACTOR:g}; wrong updates on the cpu (gap): "
+              + ", ".join(f"{k} {g:.3e} "
+                          f"({'rejected' if g > limit else 'passes'})"
+                          for k, g in gaps.items()), flush=True)
+        _check(rel0 <= BERT_FIRST_LOSS_RTOL,
+               f"bert consistency {kind}: first loss differs by {rel0}")
+        _check(gap <= limit, f"bert consistency {kind}: masters' gap {gap} "
+                             f"over {limit}")
+        for name, g in gaps.items():
+            _check(g > limit, f"bert consistency {kind}: the limit does not "
+                              f"reject '{name}'")
 
 
 def bert_profile_phase(dev, smi: str, step, amp_state, batches) -> None:
@@ -1443,6 +1459,573 @@ def bert_profile_phase(dev, smi: str, step, amp_state, batches) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the GPT block path (and BERT's unmasked and packed batches): flash
+# attention with gradients, flat_adam
+# ---------------------------------------------------------------------------
+
+BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core rate, FLOP/s
+FLASH_BWD_SOURCE = "apex_tpu_torch/csrc/flash_bwd.cu"
+# kernel: (source, replaces, (names of its device kernels, a call's count))
+GPT_KERNELS = {
+    "flash_dq": (FLASH_BWD_SOURCE,
+                 "apex_tpu/ops/attention.py:670 (_bwd_pallas dq call, body "
+                 "_dq_kernel :503)", (("flash_dq_kernel",), 1)),
+    "flash_dkv": (FLASH_BWD_SOURCE,
+                  "apex_tpu/ops/attention.py:702 (_bwd_pallas dk/dv call, "
+                  "body _dkv_kernel :544)", (("flash_dkv_kernel",), 1)),
+    "flat_adam": (FLAT_SOURCE,
+                  "apex_tpu/ops/multi_tensor.py:402 (flat_adam, body "
+                  "_adam_kernel :351)", (("adam_kernel",), 1)),
+}
+# the attention kernels against their twins: f32 within 1e-4 (sums in
+# another order); bf16 within one bf16 rounding of each output, plus the
+# forward's p rounded against the running row max where the twin rounds
+# it against the final one (2e-2); lse (f32) within 1e-4
+ATTN_TOL = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
+ATTN_CASES = (
+    # name, b, h, hk, s, d, causal, segment ids, dtype
+    ("gpt2_block", 8, 12, 12, 512, 64, True, None, "bf16"),
+    ("bert_large_unmasked", 8, 16, 16, 512, 64, False, None, "bf16"),
+    ("bert_large_packed", 8, 16, 16, 512, 64, False, "packed", "bf16"),
+    ("gqa_12_to_4_s200", 2, 12, 4, 200, 64, True, "ragged", "bf16"),
+    ("f32_gqa_s300", 2, 12, 4, 300, 64, True, "ragged", "f32"),
+    ("f32_d128_packed", 2, 8, 8, 256, 128, False, "packed", "f32"),
+)
+GPT_BUCKET = 124_046_592        # GPT-2 small's one amp-O2 bucket (elements)
+ADAM_RAGGED = 70_001
+GPT = dict(layers=12, hidden=768, heads=12, seq=512, batch=8, vocab=50257,
+           lr=3e-4, warmup=2, steps=8)
+LN_PER_GPT_STEP = 2 * GPT["layers"] + 1   # 2 per block + the final norm
+
+
+def _dtype(name):
+    import torch
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def _pairs(seg, b, h, s, causal, dev) -> int:
+    """The (row, col) pairs attention must compute, over every head."""
+    vis = _visible(seg, s, s, causal, dev)
+    return int(vis.sum()) * h * (b if vis.shape[0] == 1 else 1)
+
+
+def _attn_costs(b, h, hk, s, d, elt, pairs):
+    """(bytes, FLOP) of the forward, dq and dk/dv: each input read once,
+    each output written once; 2 FLOP a multiply-add, over the visible
+    pairs (forward q.k and p.v; dq also dO.v and ds.k; dk/dv q.k, dO.v,
+    p.dO and ds.q)."""
+    qb, kvb, rows = elt * b * h * s * d, elt * b * hk * s * d, 4 * b * h * s
+    return {"flash_fwd": (2 * qb + 2 * kvb + rows, 4.0 * d * pairs),
+            "flash_dq": (3 * qb + 2 * kvb + 2 * rows, 6.0 * d * pairs),
+            "flash_dkv": (2 * qb + 4 * kvb + 2 * rows, 8.0 * d * pairs)}
+
+
+def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg):
+    """The dq and dk/dv kernels, each launched on its own with the
+    arguments the wrapper gives them (to time each)."""
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    (b, h, hk, sq, sk, d), code, qp, kp = attn._geometry(q, k, v, seg)
+    di = (do.float() * o.float()).sum(dim=-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    common = (code, b, h, hk, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+              torch.cuda.current_stream().cuda_stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), di.data_ptr())
+    return (lambda: attn.FLASH_DQ.launch(*ins, dq.data_ptr(), qp, kp,
+                                         *common),
+            lambda: attn.FLASH_DKV.launch(*ins, dk.data_ptr(), dv.data_ptr(),
+                                          qp, kp, *common))
+
+
+def attn_train_kernel_phase(dev, smi: str) -> dict:
+    """The forward with lse and the dq, dk/dv kernels against their twins
+    on the card (the twins' backward takes the kernel's o and lse, so each
+    kernel is held on the same inputs), then timed at the GPT block's and
+    BERT-L's shapes beside the twins, SDPA and the bound.  Returns the
+    worst error of each kernel and the GPT-shape timing rows."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES:
+        dt = _dtype(dtn)
+        q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
+                                   device=dev).to(dt)
+                       for n in (h, hk, hk, h))
+        seg = {None: None, "packed": _packed_ids(b, s, dev),
+               "ragged": _ragged_ids([s, s // 3 + 1] * (b // 2), s,
+                                     dev)}[kind]
+        o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True)
+        grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)
+        torch.cuda.synchronize()
+        wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg)
+        wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg)
+        atol, rtol = ATTN_TOL[dtn]
+        what = f"{name} q={tuple(q.shape)} k={tuple(k.shape)} {dtn}"
+        errs = [_held("flash_fwd", o, wo, atol, rtol, "o " + what),
+                _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)]
+        errs += [_held(kn, g, w, atol, rtol, f"{gn} {what}")
+                 for kn, gn, g, w in zip(("flash_dq", "flash_dkv",
+                                          "flash_dkv"), ("dq", "dk", "dv"),
+                                         grads, wgrads)]
+        if seg is not None:
+            for t, ids in zip((o,) + grads, (seg[0], seg[0], seg[1],
+                                             seg[1])):
+                pad = (ids < 0)[:, None, :, None].expand_as(t)
+                _check(bool(torch.all(t[pad] == 0)),
+                       f"{what}: a row that sees no key (or a key no row "
+                       "sees) is not exactly 0")
+        again_o, again_lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg,
+                                                  True)
+        again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)
+        _check(bool(torch.equal(again_o, o) and torch.equal(again_lse, lse)
+                    and all(torch.equal(a, g) for a, g in zip(again, grads))),
+               f"flash attention {what}: the result differs run to run")
+        if dtn == "bf16" and b == 8:
+            worst["flash_fwd"] = max(worst["flash_fwd"], errs[0])
+            worst["flash_dq"] = max(worst["flash_dq"], errs[2])
+            worst["flash_dkv"] = max(worst["flash_dkv"], *errs[3:])
+        print(f"kernel flash train {what} causal={causal} seg={kind}: "
+              f"max_abs_err o {errs[0]:.3e}, lse {errs[1]:.3e}, dq "
+              f"{errs[2]:.3e}, dk {errs[3]:.3e}, dv {errs[4]:.3e} (atol="
+              f"{atol}, rtol={rtol}); exact zeros where nothing is seen; "
+              "the same bits on a second run", flush=True)
+        del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
+
+    rows = {}
+    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES[:2]:
+        dt = _dtype(dtn)
+        q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
+                                   device=dev).to(dt)
+                       for n in (h, hk, hk, h))
+        o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)
+        dq_fn, dkv_fn = _bwd_kernel_calls(q, k, v, o, lse, do, causal, None)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                 is_causal=causal)
+        bwd_plain = lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, causal)
+        bwd_lib = lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                              retain_graph=True)
+        times = {
+            "flash_fwd": (
+                lambda: attn._flash_fwd_cuda(q, k, v, causal, None, None,
+                                             True),
+                lambda: attn.flash_fwd_ref(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                "SDPA forward"),
+            "flash_dq": (dq_fn, bwd_plain, bwd_lib,
+                         "SDPA backward: dq, dk and dv in one call; plain: "
+                         "flash_bwd_ref, all three"),
+            "flash_dkv": (dkv_fn, bwd_plain, bwd_lib,
+                          "SDPA backward: dq, dk and dv in one call; plain: "
+                          "flash_bwd_ref, all three"),
+        }
+        costs = _attn_costs(b, h, hk, s, d, 2, _pairs(None, b, h, s, causal,
+                                                      dev))
+        for kname, (kern, plain, lib, note) in times.items():
+            ms = _ms(kern, iters=10, warmup=2)
+            plain_ms = _ms(plain, iters=3, warmup=1)
+            lib_ms = _ms(lib, iters=10, warmup=2)
+            nbytes, ops = costs[kname]
+            bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+            print(f"time {kname} {name} q={tuple(q.shape)} bf16 causal="
+                  f"{causal}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {lib_ms:.4f} ms ({note}), bound {bound_ms:.4f} "
+                  f"ms ({bound_by}: {nbytes} B, {ops:.4e} FLOP at the bf16 "
+                  f"rate), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+                  f"{100 * bound_ms / ms:.2f}% of the bound [{smi}]",
+                  flush=True)
+            if name == "gpt2_block":
+                rows[kname] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib_ms)
+        del q, k, v, do, o, lse, qq, kk, vv, out
+    return dict(worst=worst, rows=rows)
+
+
+def adam_kernel_phase(dev, smi: str) -> dict:
+    """flat_adam against its twin on the card at GPT-2 small's O2 bucket
+    and a ragged length: AdamW and Adam, with and without bias
+    correction, f32 masters and bf16 grads; the twin's bits exactly (the
+    grad scale a power of two); with ``found_inf`` set p, m and v keep
+    theirs; then timed beside the twin, the bound and
+    ``torch._fused_adamw_``."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def vec(n, scale=1.0, dtype=torch.float32):
+        return (torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
+
+    worst = 0.0
+    for n in (ADAM_RAGGED, GPT_BUCKET):     # the bucket's buffers stay
+        p, g = vec(n, 0.02), vec(n, 1e-3, torch.bfloat16)
+        m, v = vec(n, 1e-4), vec(n, 1e-3).square()
+        for aw in (True, False):
+            for bc in (True, False):
+                kw = dict(lr=torch.tensor(3e-4, device=dev), beta1=0.9,
+                          beta2=0.999, eps=1e-8, weight_decay=0.01,
+                          step=torch.tensor(3, dtype=torch.int32,
+                                            device=dev),
+                          adam_w_mode=aw, bias_correction=bc,
+                          grad_scale=torch.tensor(1.0 if bc else 65536.0,
+                                                  device=dev))
+                want = mt.flat_adam_ref(p, g, m, v, **kw)
+                got = mt.flat_adam(p.clone(), g, m.clone(), v.clone(),
+                                   found_inf=torch.zeros(
+                                       (), dtype=torch.int32, device=dev),
+                                   **kw)
+                torch.cuda.synchronize()
+                for nm, a, w in zip("pmv", got, want):
+                    worst = max(worst, _held(
+                        "flat_adam", a, w, 0.0, 0.0,
+                        f"{nm} n={n} adam_w_mode={aw} bias_correction={bc}"))
+                del want, got
+        p0, m0, v0 = p.clone(), m.clone(), v.clone()
+        bad = g.clone()
+        bad[n // 2] = float("inf")
+        mt.flat_adam(p, bad, m, v, lr=3e-4, beta1=0.9, beta2=0.999,
+                     eps=1e-8, weight_decay=0.01,
+                     found_inf=torch.ones((), dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(p, p0) and torch.equal(m, m0)
+                    and torch.equal(v, v0)),
+               "flat_adam with found_inf set changed p, m or v")
+        del p0, m0, v0, bad
+        print(f"kernel flat_adam n={n}: AdamW and Adam x bias correction on "
+              f"and off (masters f32, grads bf16, step 3, grad scale 1 or "
+              f"65536) equal to the twin's bits; found_inf=1 leaves p, m "
+              f"and v bit-unchanged", flush=True)
+
+    _check(p.numel() == GPT_BUCKET, "flat_adam is timed at the bucket")
+    n = GPT_BUCKET
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    kw = dict(lr=torch.tensor(3e-4, device=dev), beta1=0.9, beta2=0.999,
+              eps=1e-8, weight_decay=0.01, step=step,
+              grad_scale=torch.ones((), device=dev))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    g32 = g.float()
+    fstep = step.float()
+    nbytes, ops = (4 + 4 + 2 + 4 + 4 + 4 + 4) * n, 16 * n
+    ms = _ms(lambda: mt.flat_adam(p, g, m, v, found_inf=zero, **kw),
+             iters=20, warmup=3)
+    plain_ms = _ms(lambda: mt.flat_adam_ref(p, g, m, v, **kw), iters=5,
+                   warmup=1)
+    lib_ms = _ms(lambda: torch._fused_adamw_(
+        [p], [g32], [m], [v], [], [fstep], lr=3e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        iters=20, warmup=3)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"time flat_adam n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library {lib_ms:.4f} ms (torch._fused_adamw_, f32 grads: 2 "
+          f"bytes an element more), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes} B, {ops} FLOP), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+          f"= {100 * bound_ms / ms:.1f}% of the HBM bound [{smi}]",
+          flush=True)
+    return dict(worst=worst, row=dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=lib_ms))
+
+
+def _gpt_launches_expected(steps: int, buckets: int) -> dict:
+    from apex_tpu_torch import _build
+    want = {k.name: 0 for k in _build.KERNELS}
+    L = GPT["layers"]
+    want.update({"flash_fwd": L * steps, "flash_dq": L * steps,
+                 "flash_dkv": L * steps,
+                 "layer_norm_fwd": LN_PER_GPT_STEP * steps,
+                 "layer_norm_bwd": LN_PER_GPT_STEP * steps,
+                 "flat_unscale_norm": buckets * steps,
+                 "flat_adam": buckets * steps})
+    return want
+
+
+def gpt_train_phase(dev, smi: str, entries: list):
+    """GPT-2 small's block stack (12 x 768, 12 heads, seq 512, batch 8,
+    vocab 50257), amp O2, FusedAdam lr 3e-4, through the example's API
+    (``apex_tpu_torch.examples.gpt_train_block.setup``): warm-up steps,
+    then timed steps with the launch counts zeroed just before them and
+    read just after."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import gpt_train_block as ex
+
+    t0 = time.perf_counter()
+    model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
+                         GPT["layers"], max_seq=GPT["seq"])
+    params = model.init(0, "cpu")
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = ex.setup(model, params, dev, opt_level="O2", lr=GPT["lr"])
+    del params
+    sizes = [b.size for b in s.opt._plan.buckets]
+    _check(sizes == [GPT_BUCKET], f"gpt: O2 buckets {sizes}, expected one "
+                                  f"of {GPT_BUCKET}")
+    print(f"gpt-2 small block stack: {sum(sizes)} parameters in one O2 "
+          f"bucket, init and setup {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    tokens = ex.synthetic_tokens(GPT["batch"], GPT["seq"], GPT["vocab"],
+                                 device=dev)
+    state = s.amp_state
+    for _ in range(GPT["warmup"]):
+        loss, state = s.step(state, tokens)
+    torch.cuda.synchronize()
+    steps = GPT["steps"]
+    _build.reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        loss, state = s.step(state, tokens)
+        losses.append(loss)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    losses = [float(x) for x in losses]
+    _check(all(math.isfinite(x) for x in losses),
+           f"gpt train: non-finite loss {losses}")
+    want = _gpt_launches_expected(steps, len(sizes))
+    _check(launches == want, f"gpt train: launches {launches}, expected "
+                             f"{want}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    toks = GPT["batch"] * GPT["seq"]
+    print(f"train gpt-2 small block stack O2 FusedAdam b{GPT['batch']} "
+          f"s{GPT['seq']}: {steps} timed steps after {GPT['warmup']} "
+          f"warm-up, {1e3 * wall / steps:.2f} ms/step (host clock), device "
+          f"ms/step median {float(np.median(step_ms)):.2f} (min "
+          f"{min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA events between "
+          f"steps), {toks * steps / wall:.1f} tokens/s, losses "
+          f"{[round(x, 4) for x in losses]}, loss scale "
+          f"{float(state.scaler.loss_scale):.0f}, peak device memory "
+          f"{peak:.2f} GiB, launches {launches} ({GPT['layers']} flash fwd, "
+          f"dq and dk/dv, {LN_PER_GPT_STEP} LN fwd and bwd, one "
+          f"flat_unscale_norm and one flat_adam per bucket, a step) [{smi}]",
+          flush=True)
+    for e in entries:
+        if e["name"] in ("flash_dq", "flash_dkv", "flat_adam"):
+            e["launches"] = launches[e["name"]]
+    return s, state, tokens
+
+
+# the device kernels of the GPT step that the port owns
+GPT_OWN = {"flash_fwd": ("flash_fwd_kernel",),
+           "flash_dq": ("flash_dq_kernel",),
+           "flash_dkv": ("flash_dkv_kernel",),
+           "layer_norm": ("ln_fwd_kernel", "ln_bwd_"),
+           "flat_unscale_norm": ("unscale_norm", "sum_combine"),
+           "flat_adam": ("adam_kernel",)}
+
+
+def gpt_profile_phase(dev, smi: str, s, state, tokens) -> None:
+    """Device time by kernel over one GPT block training step, from
+    ``torch.profiler``: the busy share, the largest device items and the
+    port's kernels' share of busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    loss, state = s.step(state, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, state = s.step(state, tokens)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    ours = {k: sum(t for name, (t, _) in by_name.items()
+                   if _owns(name, syms)) / 1e3
+            for k, syms in GPT_OWN.items()}
+    total = sum(ours.values())
+    print(f"profile train step gpt-2 small O2 b{GPT['batch']} s{GPT['seq']}"
+          f": wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%), "
+          f"{sum(c for _, c in by_name.values())} device kernels; the "
+          f"port's kernels {total:.3f} ms ({100 * total / busy:.2f}% of "
+          f"busy): " + ", ".join(f"{k} {t:.3f} ms" for k, t in ours.items())
+          + f"; rest (device idle) {wall - busy:.2f} ms [{smi}]", flush=True)
+    for name, (t_us, c) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:14]:
+        print(f"profile   {t_us / 1e3:9.3f} ms {c:6d}x {name[:90]}",
+              flush=True)
+
+
+GPT_CONSIST = dict(layers=2, batch=2, seq=128)
+GPT_MUTANTS = ("attention not causal", "bias correction dropped",
+               "lr 4% high")
+# eps of the check's FusedAdam (the main run keeps 1e-8): at 1e-8 Adam's
+# first steps move each element by about lr * sign(g), so every gradient
+# near the rounding of its sums jumps by up to 2 lr between two summation
+# orders.  Measured on a CPU (one thread against all, this config): at
+# eps 1e-8 the O2 masters move by 3.8e-2 of their displacement, at 1e-4
+# by 8.7e-3; at O0 (f32 model) by 1.3e-4 and 2.0e-6.
+GPT_CONSIST_ADAM = dict(eps=1e-4)
+# (opt level, model dtype, steps, first-loss rtol, the wrong updates the
+# masters' limit must reject).  At O2 one bf16 step is as far from
+# another summation order as lr 4% high is from the right update (8.7e-3
+# against 4.0e-2 on the CPU), so O2 names the two structural mutants and
+# O0 (f32, the same CPU noise 2.0e-6) all three; the others are printed.
+GPT_CONSIST_CASES = (
+    ("O2", "bf16", 1, 2e-3, ("attention not causal",
+                             "bias correction dropped")),
+    ("O0", "f32", 2, 1e-5, GPT_MUTANTS))
+
+
+def gpt_consistency_phase(dev) -> None:
+    """A 2-layer GPT block stack at GPT-2 small's widths (hidden 768, 12
+    heads, vocab 50257), batch 2 x 128, from the same seed on the card
+    (kernels) and on the CPU (plain twins): one O2 step with the model in
+    bf16, and two O0 steps with the model in f32.  The first loss within
+    its rtol (f32: 1e-5; bf16 activations summed in each device's order:
+    2e-3); the final f32 masters' gap (``_gap``) under a tenth of the
+    nearest of the wrong updates the case names (``GPT_CONSIST_CASES``;
+    attention not causal, Adam's bias correction dropped, lr 4% high),
+    run on the CPU, so the limit rejects each it names.  FusedAdam's eps
+    is ``GPT_CONSIST_ADAM``'s."""
+    import torch
+    from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch.contrib.multihead_attn import _common
+    from apex_tpu_torch.examples import gpt_train_block as ex
+
+    cfg = GPT_CONSIST
+    base = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
+                        cfg["layers"], max_seq=GPT["seq"])
+    params = base.init(0, "cpu")
+    init = [t.numpy() for t in tree_leaves(params)]
+    tokens = ex.synthetic_tokens(cfg["batch"], cfg["seq"], GPT["vocab"],
+                                 seed=3, device="cpu")
+
+    def run(device, opt_level, dtn, steps, mutant=None):
+        model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
+                             cfg["layers"], max_seq=GPT["seq"],
+                             dtype=_dtype(dtn))
+        adam = dict(GPT_CONSIST_ADAM)
+        lr = GPT["lr"] * (1.04 if mutant == "lr 4% high" else 1.0)
+        if mutant == "bias correction dropped":
+            adam["bias_correction"] = False
+        real = _common.flash_attention
+        if mutant == "attention not causal":
+            _common.flash_attention = (lambda q, k, v, causal=False, **kw:
+                                       real(q, k, v, causal=False, **kw))
+        try:
+            s = ex.setup(model, params, device, opt_level=opt_level, lr=lr,
+                         **adam)
+            state, losses = s.amp_state, []
+            for _ in range(steps):
+                loss, state = s.step(state, tokens.to(device))
+                losses.append(float(loss))
+        finally:
+            _common.flash_attention = real
+        work = s.opt.masters if s.opt.masters is not None else s.opt.params
+        return losses, [m.float().cpu().numpy() for m in tree_leaves(work)]
+
+    for opt_level, dtn, steps, loss_rtol, must_reject in GPT_CONSIST_CASES:
+        card_l, card_m = run(dev, opt_level, dtn, steps)
+        cpu_l, cpu_m = run("cpu", opt_level, dtn, steps)
+        gaps = {name: _gap(run("cpu", opt_level, dtn, steps, name)[1], cpu_m,
+                           init) for name in GPT_MUTANTS}
+        _check(all(math.isfinite(x) for x in card_l + cpu_l),
+               f"gpt consistency: non-finite loss {card_l} {cpu_l}")
+        rel0 = abs(card_l[0] - cpu_l[0]) / abs(cpu_l[0])
+        gap = _gap(card_m, cpu_m, init)
+        limit = min(gaps[k] for k in must_reject) / MUTANT_FACTOR
+        print(f"consistency train gpt 2x768 vocab 50257 {opt_level} (model "
+              f"{dtn}) FusedAdam eps {GPT_CONSIST_ADAM['eps']:g} b"
+              f"{cfg['batch']} s{cfg['seq']}, {steps} step(s): card losses "
+              f"{[round(x, 6) for x in card_l]}, cpu "
+              f"{[round(x, 6) for x in cpu_l]} (first rel diff {rel0:.3e}, "
+              f"tol {loss_rtol}); masters' gap {gap:.3e} of their "
+              f"displacement, tol {limit:.3e} = the nearest named wrong "
+              f"update / {MUTANT_FACTOR:g}; wrong updates on the cpu (gap): "
+              + ", ".join(f"{k} {g:.3e} ("
+                          f"{'rejected' if g > limit else 'passes'}"
+                          f"{', must be rejected' if k in must_reject else ''}"
+                          ")" for k, g in gaps.items()), flush=True)
+        _check(rel0 <= loss_rtol,
+               f"gpt consistency {opt_level}: first loss differs by {rel0}")
+        _check(gap <= limit, f"gpt consistency {opt_level}: masters' gap "
+                             f"{gap} over {limit}")
+        for name in must_reject:
+            _check(gaps[name] > limit, f"gpt consistency {opt_level}: the "
+                                       f"limit does not reject '{name}'")
+
+
+BERT_FLASH = dict(warmup=2, steps=4)
+
+
+def bert_flash_train_phase(dev, smi: str, params) -> None:
+    """BERT-L at amp O2 with FusedLAMB on the example's default unmasked
+    8 x 512 batch and on a packed one (``--packed``), both through flash
+    attention with gradients: warm-up steps, then timed steps with exact
+    launch counts (24 flash forwards, dq and dk/dv a step)."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+    from apex_tpu_torch.models import bert_large
+
+    model = bert_large(dtype=torch.bfloat16, max_seq_len=BERT["seq"])
+    for packed in (False, True):
+        opt, state, step = bert_setup(model, params, dev)
+        inputs, real, kept = pretrain.synthetic_batch(
+            model.vocab_size, BERT["batch"], BERT["seq"], packed, dev)
+        for _ in range(BERT_FLASH["warmup"]):
+            loss, state = step(state, **inputs)
+        torch.cuda.synchronize()
+        steps = BERT_FLASH["steps"]
+        _build.reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        losses = []
+        for i in range(steps):
+            loss, state = step(state, **inputs)
+            losses.append(loss)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = sorted(a.elapsed_time(b) for a, b in zip(events,
+                                                           events[1:]))
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        losses = [float(x) for x in losses]
+        _check(all(math.isfinite(x) for x in losses),
+               f"bert flash train: non-finite loss {losses}")
+        want = _bert_launches_expected(steps, len(opt._plan.buckets))
+        want.update({k: BERT_LAYERS * steps for k in ("flash_fwd",
+                                                      "flash_dq",
+                                                      "flash_dkv")})
+        _check(launches == want, f"bert flash train: launches {launches}, "
+                                 f"expected {want}")
+        kind = "packed" if packed else "unmasked"
+        print(f"train bert-large O2 FusedLAMB b{BERT['batch']} s{BERT['seq']}"
+              f" {kind} (flash attention with gradients): {steps} timed steps"
+              f" after {BERT_FLASH['warmup']} warm-up, "
+              f"{1e3 * wall / steps:.2f} ms/step (host clock), device "
+              f"ms/step {[round(x, 2) for x in step_ms]} (CUDA events "
+              f"between steps, sorted), "
+              f"{real * steps / wall:.1f} real tokens/s "
+              f"({real} real of {BERT['batch'] * BERT['seq']} a "
+              f"step, {kept} sequences), losses "
+              f"{[round(x, 4) for x in losses]}, launches {launches} "
+              f"[{smi}]", flush=True)
+        del opt, state, step, inputs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1480,13 +2063,17 @@ def main() -> int:
         regs = [int(w) for line in log.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
                 if nxt == "registers,"]
-        spills = sum(1 for line in log.splitlines()
-                     if "spill" in line and not
-                     ("0 bytes spill stores" in line
-                      and "0 bytes spill loads" in line))
+        spilled, entry = [], None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill" in line and not ("0 bytes spill stores" in line
+                                          and "0 bytes spill loads" in line):
+                spilled.append(f"{entry} ({line.strip()})")
         print(f"ptxas {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
-              f"{spills} with spills", flush=True)
+              f"{len(spilled)} with spills"
+              + "".join(f"; {s}" for s in spilled), flush=True)
 
     with torch.no_grad():
         entry = kernel_phase(dev, smi)
@@ -1515,15 +2102,36 @@ def main() -> int:
     opt, amp_state, step, batches = bert_train_phase(dev, smi, bert_entries,
                                                      bert_params)
     bert_profile_phase(dev, smi, step, amp_state, batches)
-    del opt, amp_state, step, batches, bert_params
+    del opt, amp_state, step, batches
     torch.cuda.empty_cache()
+    bert_flash_train_phase(dev, smi, bert_params)
+    del bert_params
     bert_consistency_phase(dev)
+
+    with torch.no_grad():
+        attn_res = attn_train_kernel_phase(dev, smi)
+        adam_res = adam_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    rows = dict(attn_res["rows"], flat_adam=adam_res["row"])
+    worst = dict(attn_res["worst"], flat_adam=adam_res["worst"])
+    gpt_entries = [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=0, max_abs_err=worst[name],
+             atol=0.0 if name == "flat_adam" else ATTN_TOL["bf16"][0],
+             rtol=0.0 if name == "flat_adam" else ATTN_TOL["bf16"][1],
+             **rows[name])
+        for name, (source, replaces, _) in GPT_KERNELS.items()]
+    s, state, tokens = gpt_train_phase(dev, smi, gpt_entries)
+    gpt_profile_phase(dev, smi, s, state, tokens)
+    del s, state, tokens
+    torch.cuda.empty_cache()
+    gpt_consistency_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [{k: e[k] for k in keys}
-               for e in [entry] + flat_entries + bert_entries]
+               for e in [entry] + flat_entries + bert_entries + gpt_entries]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "
            f"{len(_build.KERNELS)} kernels")

@@ -10,6 +10,11 @@ The flash-attention kernel is held against its plain PyTorch version
 ``atol=rtol=1e-4`` (the kernel sums each row in its own order and uses
 the online softmax).  The engine on the card must give the CPU
 engine's greedy tokens and must not sync the host inside a window.
+Under autograd the forward with lse and the dq, dk/dv kernels are held
+against ``flash_fwd_ref``/``flash_bwd_ref`` (bf16 within one bf16
+rounding, 2e-2; f32 1e-4) and must give the same bits twice; the flat
+kernels of the training paths against their twins (tolerances by the
+kernels' sections below); a GPT block step must not sync the host.
 """
 
 import numpy as np
@@ -324,7 +329,8 @@ def test_fused_sgd_on_card_never_reaches_the_plain_twin(cuda, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
-# the BERT path: flash under autograd, LayerNorm, flat_l2norm, flat_lamb
+# training through flash attention (the GPT block and BERT's unmasked and
+# packed batches), then the BERT path's LayerNorm, flat_l2norm, flat_lamb
 # ---------------------------------------------------------------------------
 #
 # The LayerNorm kernels sum each row in a fixed shuffle tree, the twins
@@ -339,16 +345,69 @@ def test_fused_sgd_on_card_never_reaches_the_plain_twin(cuda, monkeypatch,
 from apex_tpu_torch.ops import layer_norm as ln  # noqa: E402
 
 
+FLASH_TRAIN_CASES = {
+    # name: (b, h, hk, s, d, causal, seg kind, dtype)
+    "gpt_bf16_causal": (2, 12, 12, 256, 64, True, None, torch.bfloat16),
+    "bert_bf16_packed": (2, 16, 16, 192, 64, False, "packed",
+                         torch.bfloat16),
+    "gqa_s200_f32": (2, 12, 4, 200, 64, True, "ragged", torch.float32),
+    "d16_f32_packed": (1, 2, 2, 77, 16, True, "packed", torch.float32),
+    "d128_bf16_gqa": (1, 4, 2, 130, 128, False, "ragged", torch.bfloat16),
+    "d32_f32": (3, 2, 1, 64, 32, False, None, torch.float32),
+}
+# f32: the kernels sum in their own order (1e-4, the forward's bound);
+# bf16: one bf16 rounding of each output, plus the forward's p rounded
+# against the running row max where the twin rounds it against the final
+# one (2e-2, the LayerNorm kernels' bf16 bound)
+FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
 @pytest.mark.cuda
-def test_flash_attention_refuses_to_drop_gradients_on_card(cuda):
+@pytest.mark.parametrize("name", sorted(FLASH_TRAIN_CASES))
+def test_flash_attention_gradients_on_card_match_the_twins(cuda, name):
+    """Under autograd on the card: the forward with lse, then the dq and
+    dk/dv kernels, each once, against the twins on the same inputs; rows
+    that see no key give exact zeros; a second run gives the same bits."""
+    b, h, hk, s, d, causal, kind, dt = FLASH_TRAIN_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, do = (torch.randn(b, n, s, d, generator=g, device=cuda).to(dt)
+                   for n in (h, hk, hk, h))
+    seg = None if kind is None else _seg(kind, b, s, cuda)
+    counts = [kk.launches for kk in (attn.FLASH_FWD, attn.FLASH_DQ,
+                                     attn.FLASH_DKV)]
+
+    def run():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = attn.flash_attention(qq, kk, vv, causal=causal, segment_ids=seg)
+        o.backward(do)
+        return o.detach(), qq.grad, kk.grad, vv.grad
+
+    got = run()
+    torch.cuda.synchronize()
+    assert [kk.launches - c for kk, c in zip(
+        (attn.FLASH_FWD, attn.FLASH_DQ, attn.FLASH_DKV), counts)] == [1, 1, 1]
+    wo, lse = attn.flash_fwd_ref(q, k, v, causal, None, seg)
+    want = (wo,) + attn.flash_bwd_ref(q, k, v, got[0], lse, do, causal, None,
+                                      seg)
+    for a, w in zip(got, want):
+        assert a.dtype == dt
+        torch.testing.assert_close(a, w, **FLASH_TOL[dt])
+    _, klse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True)
+    torch.testing.assert_close(klse, lse, atol=1e-4, rtol=1e-5)
+    if seg is not None:
+        pad = seg[0] < 0                                  # (B, S)
+        for t in got:
+            assert torch.all(t.transpose(1, 2)[pad] == 0)
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_dropout_on_card(cuda):
     q = torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
-    k = torch.randn(1, 2, 16, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="rows 2-3"):
-        attn.flash_attention(q, k, k)
-    with torch.no_grad():
-        out = attn.flash_attention(q, k, k)
-    torch.testing.assert_close(out, attn.flash_attention_ref(q.detach(), k, k),
-                               **TOL)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attn.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
 
 
 LN_CASES = {
@@ -511,3 +570,110 @@ def test_fused_lamb_on_card_never_reaches_the_plain_twin(cuda, monkeypatch):
     assert got == [len(opt._plan.buckets)] * 3 == [1, 1, 1]
     assert all(bool(torch.isfinite(t.float()).all())
                for t in opt.params.values())
+
+
+# ---------------------------------------------------------------------------
+# the GPT block path: flat_adam, FusedAdam, one training step
+# ---------------------------------------------------------------------------
+#
+# flat_adam computes in the twin's order with every rounding explicit and
+# reads the twin's bias corrections: the twin's bits exactly at a
+# power-of-two grad scale (the kernel multiplies by the reciprocal where
+# the twin divides).
+
+ADAM_CASES = {
+    # name: (p dtype, g dtype, adam_w_mode, bias_correction, grad scale)
+    "masters_bf16_grads_adamw": (torch.float32, torch.bfloat16, True, True,
+                                 1.0),
+    "f32_adam_l2_scaled": (torch.float32, torch.float32, False, True,
+                           1024.0),
+    "no_bias_correction": (torch.float32, torch.bfloat16, True, False, 1.0),
+    "bf16_params_l2_no_bc": (torch.bfloat16, torch.bfloat16, False, False,
+                             65536.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1027, 70001])
+@pytest.mark.parametrize("case", sorted(ADAM_CASES))
+def test_flat_adam_matches_plain_on_card(cuda, n, case):
+    pdt, gdt, aw, bc, gs = ADAM_CASES[case]
+    p, g = _vec(n, pdt, cuda, 22), _vec(n, gdt, cuda, 23) * 1e-2
+    m = _vec(n, torch.float32, cuda, 24) * 1e-3
+    v = _vec(n, torch.float32, cuda, 25).square() * 1e-5
+    kw = dict(lr=torch.tensor(3e-4, device=cuda), beta1=0.9, beta2=0.999,
+              eps=1e-8, weight_decay=0.01,
+              step=torch.tensor(4, dtype=torch.int32, device=cuda),
+              adam_w_mode=aw, bias_correction=bc,
+              grad_scale=torch.tensor(gs, device=cuda))
+    want = mt.flat_adam_ref(p, g, m, v, **kw)
+    before = mt.ADAM.launches
+    got = mt.flat_adam(p.clone(), g, m.clone(), v.clone(), **kw)
+    torch.cuda.synchronize()
+    assert mt.ADAM.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+def test_flat_adam_found_inf_gate_on_card(cuda, flag):
+    """With the flag set the kernel writes nothing: p, m and v keep their
+    bits; with it clear the step lands."""
+    n = 4099
+    p, m = _vec(n, torch.float32, cuda, 26), _vec(n, torch.float32, cuda, 27)
+    v = _vec(n, torch.float32, cuda, 28).square()
+    g = _vec(n, torch.bfloat16, cuda, 29)
+    g[3] = float("inf")
+    p0, m0, v0 = p.clone(), m.clone(), v.clone()
+    mt.flat_adam(p, g, m, v, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                 found_inf=torch.tensor(flag, dtype=torch.int32,
+                                        device=cuda))
+    torch.cuda.synchronize()
+    for a, b in ((p, p0), (m, m0), (v, v0)):
+        assert torch.equal(a, b) == bool(flag)
+
+
+@pytest.mark.cuda
+def test_fused_adam_on_card_never_reaches_the_plain_twin(cuda, monkeypatch):
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    def plain(*a, **k):
+        raise AssertionError("flat_adam_ref ran on the card")
+
+    monkeypatch.setattr(mt, "flat_adam_ref", plain)
+    params = {"w": _vec(1027, torch.bfloat16, cuda, 30).reshape(13, 79),
+              "b": _vec(5, torch.bfloat16, cuda, 31)}
+    opt = FusedAdam(params, lr=1e-3, weight_decay=0.01)
+    before = mt.ADAM.launches
+    opt.step({k: torch.ones_like(t) for k, t in params.items()})
+    torch.cuda.synchronize()
+    assert mt.ADAM.launches - before == len(opt._plan.buckets) == 1
+
+
+@pytest.mark.cuda
+def test_gpt_block_step_never_syncs_the_host(cuda):
+    """One O2 step of a 2-layer GPT block stack on the card under the sync
+    debugger, after a warm-up step: the kernels of the path launch their
+    exact counts and nothing reads back."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import gpt_train_block as ex
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = ex.GPTBlocks(vocab=512, hidden=128, heads=4, layers=2,
+                         max_seq=128)
+    s = ex.setup(model, model.init(0, "cpu"), cuda)
+    tokens = ex.synthetic_tokens(2, 64, 512, device=cuda)
+    loss, state = s.step(s.amp_state, tokens)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, state = s.step(state, tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = {k.name: k.launches for k in _build.KERNELS if k.launches}
+    assert got == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
+                   "layer_norm_fwd": 5, "layer_norm_bwd": 5,
+                   "flat_unscale_norm": 1, "flat_adam": 1}
+    assert bool(torch.isfinite(loss))
