@@ -1,1 +1,2 @@
-"""Contrib modules of the port (so far: xentropy, multihead_attn)."""
+"""Contrib modules of the port (so far: xentropy, multihead_attn,
+clip_grad)."""

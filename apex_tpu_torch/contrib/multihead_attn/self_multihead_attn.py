@@ -5,12 +5,13 @@
 (T, B, E) inputs; one packed (E, 3E) in-projection, or separate q/k/v
 projections; 1/sqrt(Dh) scaling; the optional fused "norm-add"
 (LayerNorm on the input, residual add on the output); boolean or
-additive key-padding masks; an optional causal attention mask.  As in
-the port's models, the module is an object holding its settings:
-``init(generator, device)`` returns its parameters as a nested dict
-(flax's names, with ``weight`` for a projection's ``(in, out)`` kernel
-and ``norm`` for the norm-add LayerNorm), and ``__call__(params,
-query, ...)`` applies it.
+additive key-padding masks; an optional causal attention mask
+(``attn_mask="causal"``; any other value is no mask, as in the
+reference).  As in the port's models, the module is an object holding
+its settings: ``init(generator, device)`` returns its parameters as a
+nested dict (flax's names, with ``weight`` for a projection's ``(in,
+out)`` kernel and ``norm`` for the norm-add LayerNorm), and
+``__call__(params, query, ...)`` applies it.
 """
 
 from __future__ import annotations
@@ -74,11 +75,10 @@ class SelfMultiheadAttn:
                  is_training: bool = True):
         """``query`` (T, B, E); ``key``/``value`` are accepted for the
         reference's signature (self-attention uses ``query`` for all
-        three).  ``attn_mask``: None or ``"causal"``.  Returns ``(out (T,
-        B, E), probs or None)``."""
-        if attn_mask not in (None, "causal"):
-            raise ValueError(f"attn_mask must be None or 'causal', got "
-                             f"{attn_mask!r}")
+        three).  ``attn_mask``: ``"causal"`` for the triangular mask;
+        any other value (None included) means no attention mask, as in
+        the reference, whose fast path has only the triangular one.
+        Returns ``(out (T, B, E), probs or None)``."""
         residual = x = query
         if self.include_norm_add:
             x = self.norm(params["norm"], x)

@@ -1,11 +1,15 @@
 // Flat-buffer streaming kernels of the training path, for Hopper (sm_90a).
 //
-// Replace seven TPU kernels of apex_tpu/ops/multi_tensor.py:
+// Replace eleven TPU kernels of apex_tpu/ops/multi_tensor.py:
+//   flat_scale        (:115, body _scale_kernel :90)
+//   flat_axpby        (:162, body _axpby_kernel :141)
 //   flat_accumulate   (:207, body _accumulate_kernel :190)
 //   flat_unscale_norm (:270, body _unscale_norm_kernel :255)
 //   flat_l2norm       (:325, body _l2norm_kernel :314)
 //   flat_adam         (:402, body _adam_kernel :351)
 //   flat_sgd          (:465, body _sgd_kernel :446)
+//   flat_adagrad      (:554, body _adagrad_kernel :528)
+//   flat_novograd     (:775, body _novograd_apply_kernel :715)
 //   flat_lamb stage 1 (:878, body _lamb_moment_kernel :824)
 //   flat_lamb stage 2 (:897, body _apply_update_kernel :838)
 // Each takes a whole flat bucket (ResNet-50 in amp O2 is one bucket of
@@ -40,12 +44,14 @@
 // one-block launch, never with float atomics, so a run is deterministic.
 //
 // The in-place kernels with an overflow gate (flat_sgd, flat_adam, both
-// LAMB stages) return before writing anything when the flag is set: the
+// LAMB stages, flat_adagrad, flat_novograd) return before writing
+// anything when the flag is set: the
 // reference selects the old values on a skipped step, which an in-place
 // update would already have destroyed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -54,7 +60,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int COMBINE_THREADS = 1024;
 
-enum Dtype { F32 = 0, BF16 = 1 };
+enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
 
 struct F4 {
   float x, y, z, w;
@@ -72,6 +78,13 @@ __device__ __forceinline__ F4 load4(const __nv_bfloat16* p, int64_t i) {
   return {a.x, a.y, b.x, b.y};
 }
 
+__device__ __forceinline__ F4 load4(const __half* p, int64_t i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return {a.x, a.y, b.x, b.y};
+}
+
 __device__ __forceinline__ void store4(float* p, int64_t i, F4 v) {
   reinterpret_cast<float4*>(p)[i] = make_float4(v.x, v.y, v.z, v.w);
 }
@@ -85,13 +98,28 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, int64_t i, F4 v) {
   reinterpret_cast<uint2*>(p)[i] = u;
 }
 
+__device__ __forceinline__ void store4(__half* p, int64_t i, F4 v) {
+  __half2 a = __floats2half2_rn(v.x, v.y);
+  __half2 b = __floats2half2_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  reinterpret_cast<uint2*>(p)[i] = u;
+}
+
 __device__ __forceinline__ float load1(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
+__device__ __forceinline__ float load1(const __half* p, int64_t i) {
+  return __half2float(p[i]);
+}
 __device__ __forceinline__ void store1(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store1(__half* p, int64_t i, float v) {
+  p[i] = __float2half_rn(v);
 }
 
 __device__ __forceinline__ bool bad(float v) { return !(fabsf(v) < INFINITY); }
@@ -492,6 +520,258 @@ void launch_sgd(int blocks, cudaStream_t st, void* p, const void* g, float* buf,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Host-side dtype dispatch of the kernels below: calls fn(Tag<T>{}) with
+// the storage type of a dtype code (f16 only where HALF is set); false
+// for a code the kernel does not take.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+template <bool HALF, typename Fn>
+bool with_dtype(int code, Fn&& fn) {
+  switch (code) {
+    case F32:
+      fn(Tag<float>{});
+      return true;
+    case BF16:
+      fn(Tag<__nv_bfloat16>{});
+      return true;
+    case F16:
+      if constexpr (HALF) {
+        fn(Tag<__half>{});
+        return true;
+      }
+      return false;
+    default:
+      return false;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flat_scale: out = x * s in f32, stored in out's dtype; the flag is of
+// the f32 product before the cast (a finite f32 that rounds to inf in
+// bf16 or f16 does not flag, as in the reference).  s is a device scalar.
+// Each element is read and written by one thread, so out may alias x
+// when the dtypes agree (no __restrict__ between them).
+// ---------------------------------------------------------------------------
+template <typename X, typename O>
+__global__ void __launch_bounds__(THREADS)
+scale_kernel(const X* x, O* out, const float* __restrict__ s_p,
+             int* __restrict__ flag, int64_t n) {
+  const float s = *s_p;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  bool any_bad = false;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 y = map4(load4(x, i), [&](float v, int) { return __fmul_rn(v, s); });
+    store4(out, i, y);
+    any_bad |= bad(y.x) | bad(y.y) | bad(y.z) | bad(y.w);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    const float y = __fmul_rn(load1(x, i), s);
+    store1(out, i, y);
+    any_bad |= bad(y);
+  }
+  if (__syncthreads_or(any_bad) && threadIdx.x == 0) atomicOr(flag, 1);
+}
+
+// ---------------------------------------------------------------------------
+// flat_axpby: out = a*x + b*y in f32 (each product and the sum rounded
+// once: no FMA contraction, so the twin's bits hold), stored in out's
+// dtype; the flag is of the f32 result.  a and b are device scalars.
+// ---------------------------------------------------------------------------
+template <typename X, typename Y, typename O>
+__global__ void __launch_bounds__(THREADS)
+axpby_kernel(const X* x, const Y* y, O* out, const float* __restrict__ a_p,
+             const float* __restrict__ b_p, int* __restrict__ flag,
+             int64_t n) {
+  const float a = *a_p, b = *b_p;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  bool any_bad = false;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 xv = load4(x, i), yv = load4(y, i);
+    const F4 r = map4(xv, [&](float xe, int k) {
+      return __fadd_rn(__fmul_rn(a, xe), __fmul_rn(b, lane(yv, k)));
+    });
+    store4(out, i, r);
+    any_bad |= bad(r.x) | bad(r.y) | bad(r.z) | bad(r.w);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    const float r = __fadd_rn(__fmul_rn(a, load1(x, i)), __fmul_rn(b, load1(y, i)));
+    store1(out, i, r);
+    any_bad |= bad(r);
+  }
+  if (__syncthreads_or(any_bad) && threadIdx.x == 0) atomicOr(flag, 1);
+}
+
+// ---------------------------------------------------------------------------
+// flat_adagrad: one Adagrad step in place on p and h, in the order of the
+// reference body:
+//   g = g * inv_scale + wd * p;  h = h + g*g;  p = p - (lr*g) / (sqrt(h) + eps).
+// lr and inv_scale are device scalars; with the overflow flag set the
+// kernel writes nothing.  18 bytes an element at f32 p, bf16 g.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float adagrad_elem(float pv, float gv, float& h,
+                                              float eps, float wd, float lr,
+                                              float inv) {
+  const float g = __fadd_rn(__fmul_rn(gv, inv), __fmul_rn(wd, pv));
+  h = __fadd_rn(h, __fmul_rn(g, g));
+  return __fsub_rn(pv, __fdiv_rn(__fmul_rn(lr, g),
+                                 __fadd_rn(__fsqrt_rn(h), eps)));
+}
+
+template <typename P, typename G>
+__global__ void __launch_bounds__(THREADS)
+adagrad_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ h,
+               float eps, float wd, const float* __restrict__ lr_p,
+               const float* __restrict__ inv_p,
+               const int* __restrict__ found_inf, int64_t n) {
+  if (found_inf != nullptr && *found_inf != 0) return;
+  const float lr = *lr_p, inv = *inv_p;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 pv = load4(p, i), gv = load4(g, i);
+    F4 hv = load4(h, i);
+    F4 r;
+    r.x = adagrad_elem(pv.x, gv.x, hv.x, eps, wd, lr, inv);
+    r.y = adagrad_elem(pv.y, gv.y, hv.y, eps, wd, lr, inv);
+    r.z = adagrad_elem(pv.z, gv.z, hv.z, eps, wd, lr, inv);
+    r.w = adagrad_elem(pv.w, gv.w, hv.w, eps, wd, lr, inv);
+    store4(p, i, r);
+    store4(h, i, hv);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    float hi = h[i];
+    store1(p, i, adagrad_elem(load1(p, i), load1(g, i), hi, eps, wd, lr, inv));
+    h[i] = hi;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flat_novograd (the apply step): in place on p and m, in the order of the
+// reference body, with the per-segment normalizer denom = sqrt(v) + eps
+// (computed before the launch) DIVIDING the unscaled gradient, as the
+// plain twin does (the reference's kernel multiplies by a gathered
+// 1/denom):
+//   gn = (g * inv_scale) / denom[seg]  [+ wd * p  if REG_INSIDE];
+//   m  = first ? gn : b1*m + (AVG ? (1-b1)*gn : gn);
+//   p  = p - lr * (REG_INSIDE ? m : m + wd * p).
+// The segment of an element comes from the (num_segments + 1) table of
+// segment starts: each thread finds the segment of its first element by
+// bisection, then walks the table forward as its grid-stride loop moves
+// up the buffer.  So no per-element segment id is read, and the kernel
+// moves 18 bytes an element at f32 p and m, bf16 g (the reference's
+// gathered per-element 1/denom would be 4 more, a per-element i32 id
+// the same).  lr, inv_scale and first are device scalars; with the
+// overflow flag set the kernel writes nothing.
+// ---------------------------------------------------------------------------
+struct NovoHypers {
+  float b1, omb1, wd;   // omb1 = 1 - b1, rounded to f32 once
+};
+
+template <bool AVG, bool REG_INSIDE>
+__device__ __forceinline__ float novograd_elem(float pv, float gv, float& m,
+                                               float denom,
+                                               const NovoHypers& h, float lr,
+                                               float inv, bool first) {
+  float gn = __fdiv_rn(__fmul_rn(gv, inv), denom);
+  if (REG_INSIDE) gn = __fadd_rn(gn, __fmul_rn(h.wd, pv));
+  m = first ? gn : __fadd_rn(__fmul_rn(h.b1, m), AVG ? __fmul_rn(h.omb1, gn) : gn);
+  const float u = REG_INSIDE ? m : __fadd_rn(m, __fmul_rn(h.wd, pv));
+  return __fsub_rn(pv, __fmul_rn(lr, u));
+}
+
+// The segment holding element i, at or after `seg` (offs[seg] <= i).
+__device__ __forceinline__ int seek_segment(const int64_t* __restrict__ offs,
+                                            int seg, int64_t i) {
+  while (i >= offs[seg + 1]) ++seg;
+  return seg;
+}
+
+// The segment holding element i: the last start <= i, by bisection.
+__device__ __forceinline__ int find_segment(const int64_t* __restrict__ offs,
+                                            int num_segments, int64_t i) {
+  int lo = 0, hi = num_segments - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (offs[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+template <typename P, typename G, bool AVG, bool REG_INSIDE>
+__global__ void __launch_bounds__(THREADS)
+novograd_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
+                const float* __restrict__ denom,
+                const int64_t* __restrict__ offs, int num_segments,
+                NovoHypers h, const float* __restrict__ lr_p,
+                const float* __restrict__ inv_p,
+                const int* __restrict__ first_p,
+                const int* __restrict__ found_inf, int64_t n) {
+  if (found_inf != nullptr && *found_inf != 0) return;
+  const float lr = *lr_p, inv = *inv_p;
+  const bool first = *first_p != 0;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t n4 = n / 4;
+  // the first element this thread touches; later ones only grow
+  int seg = find_segment(offs, num_segments, tid < n4 ? 4 * tid : n4 * 4 + tid);
+  for (int64_t i = tid; i < n4; i += stride) {
+    const F4 pv = load4(p, i), gv = load4(g, i);
+    F4 mv = load4(m, i);
+    F4 r;
+    seg = seek_segment(offs, seg, 4 * i);
+    r.x = novograd_elem<AVG, REG_INSIDE>(pv.x, gv.x, mv.x, denom[seg], h, lr, inv, first);
+    seg = seek_segment(offs, seg, 4 * i + 1);
+    r.y = novograd_elem<AVG, REG_INSIDE>(pv.y, gv.y, mv.y, denom[seg], h, lr, inv, first);
+    seg = seek_segment(offs, seg, 4 * i + 2);
+    r.z = novograd_elem<AVG, REG_INSIDE>(pv.z, gv.z, mv.z, denom[seg], h, lr, inv, first);
+    seg = seek_segment(offs, seg, 4 * i + 3);
+    r.w = novograd_elem<AVG, REG_INSIDE>(pv.w, gv.w, mv.w, denom[seg], h, lr, inv, first);
+    store4(p, i, r);
+    store4(m, i, mv);
+  }
+  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
+    seg = seek_segment(offs, seg, i);
+    float mi = m[i];
+    store1(p, i, novograd_elem<AVG, REG_INSIDE>(load1(p, i), load1(g, i), mi,
+                                                denom[seg], h, lr, inv, first));
+    m[i] = mi;
+  }
+}
+
+template <typename P, typename G>
+void launch_novograd(int blocks, cudaStream_t st, void* p, const void* g,
+                     float* m, const float* denom, const int64_t* offs,
+                     int num_segments, const NovoHypers& h, const float* lr,
+                     const float* inv, const int* first, const int* found_inf,
+                     int grad_averaging, int reg_inside, int64_t n) {
+  P* pp = static_cast<P*>(p);
+  const G* gg = static_cast<const G*>(g);
+#define APEX_NOVOGRAD(AVG, RIM)                                           \
+  novograd_kernel<P, G, AVG, RIM><<<blocks, THREADS, 0, st>>>(            \
+      pp, gg, m, denom, offs, num_segments, h, lr, inv, first, found_inf, n)
+  if (grad_averaging && reg_inside) {
+    APEX_NOVOGRAD(true, true);
+  } else if (grad_averaging) {
+    APEX_NOVOGRAD(true, false);
+  } else if (reg_inside) {
+    APEX_NOVOGRAD(false, true);
+  } else {
+    APEX_NOVOGRAD(false, false);
+  }
+#undef APEX_NOVOGRAD
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream`,
@@ -709,5 +989,113 @@ extern "C" int apex_flat_adam(void* p, int p_dtype, const void* g, int g_dtype,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = x * scale (x and out each f32, bf16 or f16).  The wrapper zeroes
+// the flag.
+extern "C" int apex_flat_scale(const void* x, int x_dtype, void* out,
+                               int out_dtype, const void* scale, void* flag,
+                               long long n, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  int* f = static_cast<int*>(flag);
+  bool ok = false;
+  with_dtype<true>(x_dtype, [&](auto xt) {
+    using X = typename decltype(xt)::type;
+    ok = with_dtype<true>(out_dtype, [&](auto ot) {
+      using O = typename decltype(ot)::type;
+      scale_kernel<X, O><<<blocks, THREADS, 0, st>>>(
+          static_cast<const X*>(x), static_cast<O*>(out), s, f, n);
+    });
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = a*x + b*y (x, y and out each f32, bf16 or f16).  The wrapper
+// zeroes the flag.
+extern "C" int apex_flat_axpby(const void* x, int x_dtype, const void* y,
+                               int y_dtype, void* out, int out_dtype,
+                               const void* a, const void* b, void* flag,
+                               long long n, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ap = static_cast<const float*>(a);
+  const float* bp = static_cast<const float*>(b);
+  int* f = static_cast<int*>(flag);
+  bool ok = false;
+  with_dtype<true>(x_dtype, [&](auto xt) {
+    using X = typename decltype(xt)::type;
+    with_dtype<true>(y_dtype, [&](auto yt) {
+      using Y = typename decltype(yt)::type;
+      ok = with_dtype<true>(out_dtype, [&](auto ot) {
+        using O = typename decltype(ot)::type;
+        axpby_kernel<X, Y, O><<<blocks, THREADS, 0, st>>>(
+            static_cast<const X*>(x), static_cast<const Y*>(y),
+            static_cast<O*>(out), ap, bp, f, n);
+      });
+    });
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One Adagrad step (p and g each f32 or bf16, h f32).  found_inf may be
+// null (no gate).
+extern "C" int apex_flat_adagrad(void* p, int p_dtype, const void* g,
+                                 int g_dtype, void* h, float eps,
+                                 float weight_decay, const void* lr,
+                                 const void* inv_scale, const void* found_inf,
+                                 long long n, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* hh = static_cast<float*>(h);
+  const float* l = static_cast<const float*>(lr);
+  const float* inv = static_cast<const float*>(inv_scale);
+  const int* fi = static_cast<const int*>(found_inf);
+  bool ok = false;
+  with_dtype<false>(p_dtype, [&](auto pt) {
+    using P = typename decltype(pt)::type;
+    ok = with_dtype<false>(g_dtype, [&](auto gt) {
+      using G = typename decltype(gt)::type;
+      adagrad_kernel<P, G><<<blocks, THREADS, 0, st>>>(
+          static_cast<P*>(p), static_cast<const G*>(g), hh, eps, weight_decay,
+          l, inv, fi, n);
+    });
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The NovoGrad apply step (p and g each f32 or bf16, m f32); denom is the
+// per-segment sqrt(v) + eps, seg_offsets the (num_segments + 1) i64
+// segment starts.  found_inf may be null (no gate).
+extern "C" int apex_flat_novograd(
+    void* p, int p_dtype, const void* g, int g_dtype, void* m,
+    const void* denom, const void* seg_offsets, int num_segments, float beta1,
+    float one_minus_beta1, float weight_decay, const void* lr,
+    const void* inv_scale, const void* first_run, const void* found_inf,
+    int grad_averaging, int reg_inside_moment, long long n, int blocks,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_segments < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const NovoHypers h{beta1, one_minus_beta1, weight_decay};
+  float* mm = static_cast<float*>(m);
+  const float* d = static_cast<const float*>(denom);
+  const int64_t* offs = static_cast<const int64_t*>(seg_offsets);
+  const float* l = static_cast<const float*>(lr);
+  const float* inv = static_cast<const float*>(inv_scale);
+  const int* first = static_cast<const int*>(first_run);
+  const int* fi = static_cast<const int*>(found_inf);
+  bool ok = false;
+  with_dtype<false>(p_dtype, [&](auto pt) {
+    using P = typename decltype(pt)::type;
+    ok = with_dtype<false>(g_dtype, [&](auto gt) {
+      using G = typename decltype(gt)::type;
+      launch_novograd<P, G>(blocks, st, p, g, mm, d, offs, num_segments, h, l,
+                            inv, first, fi, grad_averaging, reg_inside_moment,
+                            n);
+    });
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

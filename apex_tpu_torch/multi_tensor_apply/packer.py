@@ -24,6 +24,7 @@ import torch
 
 from apex_tpu_torch._tree import (TreeDef, leaf_paths, tree_flatten,
                                   tree_leaves, tree_unflatten)
+from apex_tpu_torch.ops.multi_tensor import segment_offsets
 
 Tree = Any
 
@@ -67,6 +68,7 @@ class BucketPlan:
         self.max_bucket_bytes = max_bucket_bytes
         self.device = torch.device("cpu") if device is None else device
         self._seg_ids: Dict[int, torch.Tensor] = {}
+        self._seg_offsets: Dict[int, torch.Tensor] = {}
 
     @classmethod
     def from_tree(cls, work: Tree, model: Optional[Tree] = None,
@@ -175,14 +177,38 @@ class BucketPlan:
             bufs, [b.model_dtype for b in self.buckets]))
 
     # ---- optimizer-state packing ----------------------------------------
-    # SGD's and LAMB's state fields (momentum; exp_avg, exp_avg_sq)
-    # mirror the params, so they pack and unpack like them; the
-    # reference's per-leaf scalar and vector fields (NovoGrad, fp8) come
-    # with those optimizers.
+    # A state field whose leaves mirror the params (momentum, exp_avg,
+    # exp_avg_sq, Adagrad's sum) packs and unpacks like them; a field
+    # whose leaves are all 0-d (NovoGrad's per-tensor second moment) packs
+    # into one f32 (num leaves,) vector per bucket, indexed by the
+    # bucket-local leaf ordinal.  The reference's per-leaf (H,) vector
+    # layout (the fp8 amax history) comes with the fp8 slots (ROADMAP
+    # T4).
     def pack_state_field(self, field: Tree) -> List[torch.Tensor]:
+        leaves = tree_leaves(field)
+        if len(leaves) != self.n_leaves:
+            raise ValueError("state field does not mirror the plan's tree")
+        if all(l.dim() == 0 for l in leaves):
+            return [torch.stack([leaves[s.index].to(torch.float32)
+                                 for s in b.leaves]) for b in self.buckets]
         return self.pack(field)
 
     def unpack_state_field(self, bufs) -> Tree:
+        """Buffers -> per-leaf tree in the buffers' dtypes (views): 0-d
+        leaves from a per-leaf-scalar field (every buffer exactly (num
+        leaves,) where the flat layout would not be), else leaves at the
+        params' shapes.  Where the two layouts coincide (every param a
+        scalar) they agree element for element."""
+        scalar = all(tuple(bufs[bi].shape) == (len(b.leaves),)
+                     for bi, b in enumerate(self.buckets))
+        flat = all(bufs[bi].numel() == b.size
+                   for bi, b in enumerate(self.buckets))
+        if scalar and not flat:
+            leaves: List[Optional[torch.Tensor]] = [None] * self.n_leaves
+            for bi, b in enumerate(self.buckets):
+                for j, s in enumerate(b.leaves):
+                    leaves[s.index] = bufs[bi][j]
+            return tree_unflatten(self.treedef, leaves)
         return tree_unflatten(self.treedef, self._unpack_leaves(bufs))
 
     # ---- segment metadata ------------------------------------------------
@@ -200,6 +226,17 @@ class BucketPlan:
                 output_size=b.size)
             self._seg_ids[bucket_index] = ids
         return ids
+
+    def segment_offsets(self, bucket_index: int) -> torch.Tensor:
+        """The i64 ``(num leaves + 1,)`` table of one bucket's leaf starts
+        and its end, on the plan's device (built once, then cached): the
+        segment table the NovoGrad kernel walks."""
+        offs = self._seg_offsets.get(bucket_index)
+        if offs is None:
+            offs = segment_offsets(self.segment_sizes(bucket_index),
+                                   self.device)
+            self._seg_offsets[bucket_index] = offs
+        return offs
 
     def num_segments(self, bucket_index: int) -> int:
         return len(self.buckets[bucket_index].leaves)

@@ -222,7 +222,9 @@ def flash_attention(q, k, v, causal: bool = False,
     ``segment_ids``: optional ``(q_ids (B, Sq), kv_ids (B, Sk))``;
     attention is masked where the ids differ.  k/v may carry fewer
     heads than q (``H % HK == 0``): query head ``h`` attends kv head
-    ``h // (H // HK)``.  ``scale`` defaults to ``1/sqrt(D)``.  The
+    ``h // (H // HK)``.  Mixed q/k/v dtypes are promoted to one
+    (``torch.promote_types``) first.  ``scale`` defaults to
+    ``1/sqrt(D)``.  The
     logsumexp is computed only when a gradient will be needed (grad
     enabled and any of q, k, v requiring it).  ``dropout_rate > 0``
     raises ``NotImplementedError`` (:data:`DROPOUT_TODO`) on every
@@ -238,6 +240,12 @@ def flash_attention(q, k, v, causal: bool = False,
                          f"got {dropout_rate!r}")
     if rate > 0.0:
         raise NotImplementedError(DROPOUT_TODO)
+    # one dtype for q, k and v (the reference promotes before the kernel
+    # or its fallback, so both paths agree on mixed inputs)
+    if not (q.dtype == k.dtype == v.dtype):
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         q_ids, kv_ids = (None, None) if segment_ids is None else segment_ids
         return _FlashAttention.apply(q, k, v, q_ids, kv_ids, bool(causal),

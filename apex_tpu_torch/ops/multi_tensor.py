@@ -1,6 +1,6 @@
 """Flat-buffer kernels of the training paths, and their plain twins.
 
-The port of seven TPU kernels of ``apex_tpu.ops.multi_tensor``:
+The port of the eleven TPU kernels of ``apex_tpu.ops.multi_tensor``:
 
 - :func:`flat_accumulate` — ``acc += g * scale`` in place over an f32
   accumulator bucket, with the non-finite flag of the RESULT (so one bad
@@ -16,7 +16,15 @@ The port of seven TPU kernels of ``apex_tpu.ops.multi_tensor``:
 - :func:`flat_lamb` — one LAMB step: stage 1 (moments in place plus the
   raw update) and stage 2 (``p -= lr * trust * update`` in place), with
   the per-tensor trust ratios between them from
-  :func:`flat_segment_sumsq` (plain PyTorch, as the reference's is XLA).
+  :func:`flat_segment_sumsq` (plain PyTorch, as the reference's is XLA);
+- :func:`flat_scale` — ``out = x * scale`` plus the non-finite flag of
+  the f32 product (contrib.clip_grad's scale pass);
+- :func:`flat_axpby` — ``out = a * x + b * y`` plus the flag;
+- :func:`flat_adagrad` — one Adagrad step in place on the param and
+  sum-of-squares buckets;
+- :func:`flat_novograd` — one NovoGrad step: the per-tensor second
+  moment from segment norms (plain PyTorch, as the reference's is XLA),
+  then one kernel in place on the param and first-moment buckets.
 
 A tensor on the card goes to the hand-written kernel of
 ``csrc/multi_tensor.cu``; a tensor on the CPU goes to the plain twin
@@ -29,8 +37,9 @@ Scalars that live on the device (``inv_scale``, ``first_run``,
 ``found_inf``, the LAMB and Adam step clock, LAMB's clip factor, Adam's
 learning rate) pass to a kernel as device pointers, never through a host
 read; the other hypers (``momentum``, the betas, ...) are Python floats
-passed by value.  :func:`flat_sgd`, :func:`flat_adam` and
-:func:`flat_lamb` take the optional overflow flag
+passed by value.  :func:`flat_sgd`, :func:`flat_adam`,
+:func:`flat_lamb`, :func:`flat_adagrad` and :func:`flat_novograd` take
+the optional overflow flag
 themselves: on the card the kernels write nothing when it is set, on
 the CPU the twin's result is selected away with ``torch.where`` — both
 leave every buffer as it was, the reference's select-on-skip, and
@@ -40,6 +49,7 @@ neither syncs the host.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -51,8 +61,11 @@ THREADS = 256           # threads per block of the streaming kernels
 MAX_BLOCKS = 1024       # the grid's cap: same for every card, so the
 #                         per-block partial sums (and the norm) are too
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# flat_scale and flat_axpby also read and write f16
+_IO_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # one 4-element vector
-_ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int32: 16}
+_ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.float16: 8,
+          torch.int32: 16, torch.int64: 8}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -81,6 +94,20 @@ ADAM = _build.Kernel(
     "multi_tensor", "apex_flat_adam",
     [_P, _I, _P, _I, _P, _P] + [_F] * 6 + [_P] * 5 + [_I, _L, _I, _P],
     name="flat_adam")
+SCALE = _build.Kernel(
+    "multi_tensor", "apex_flat_scale", [_P, _I, _P, _I, _P, _P, _L, _I, _P],
+    name="flat_scale")
+AXPBY = _build.Kernel(
+    "multi_tensor", "apex_flat_axpby",
+    [_P, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _P], name="flat_axpby")
+ADAGRAD = _build.Kernel(
+    "multi_tensor", "apex_flat_adagrad",
+    [_P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _L, _I, _P],
+    name="flat_adagrad")
+NOVOGRAD = _build.Kernel(
+    "multi_tensor", "apex_flat_novograd",
+    [_P, _I, _P, _I, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I,
+     _L, _I, _P], name="flat_novograd")
 
 Scalar = Union[float, torch.Tensor]
 
@@ -103,6 +130,13 @@ def _nonfinite(x: torch.Tensor) -> torch.Tensor:
 def _f32_value(v) -> float:
     """``v`` rounded to f32, as the Python float torch then takes exactly."""
     return float(np.float32(v))
+
+
+def _as_flag(v, device) -> torch.Tensor:
+    """A bool or device scalar as a 0-d bool tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.bool)
+    return torch.full((), bool(v), device=device)
 
 
 def _as_f32_scalar(v: Scalar, device) -> torch.Tensor:
@@ -148,9 +182,7 @@ def flat_sgd_ref(p, g, momentum_buf, *, lr, momentum=0.0, dampening=0.0,
     gf = _f32(g) / _as_f32_scalar(grad_scale, dev)
     gf = gf + _f32_value(weight_decay) * pf
     if momentum != 0.0:
-        first = (first_run.to(device=dev, dtype=torch.bool)
-                 if isinstance(first_run, torch.Tensor)
-                 else torch.full((), bool(first_run), device=dev))
+        first = _as_flag(first_run, dev)
         mom = _f32_value(momentum)
         keep = float(np.float32(1.0) - np.float32(dampening))
         buf = torch.where(first, gf, mom * momentum_buf + keep * gf)
@@ -171,13 +203,24 @@ def flat_segment_sumsq(x: torch.Tensor, sizes: Sequence[int]
     the run lengths (:meth:`BucketPlan.segment_sizes`) so that each run
     reduces on its own without a host read and without atomics (the
     ``index_add_`` a segment sum would be on the card is atomic, and its
-    order changes from run to run): ``torch._foreach_norm`` over views of
-    the buffer sums each run in fixed per-chunk partials and a per-run
-    cleanup, the same bits every run.  The sum of squares is the square
-    of that norm, within f32 rounding of the reference's."""
-    norms = torch._foreach_norm(torch.split(x, list(sizes)), 2,
-                                dtype=torch.float32)
-    return torch.stack(norms).square()
+    order changes from run to run): on the card ``torch._foreach_norm``
+    over views of the buffer sums each run in fixed per-chunk partials and
+    a per-run cleanup, the same bits every run; on the CPU each run is a
+    ``torch.sum`` (cascade summation), since the CPU's f32 norm loses
+    precision with the run's length (a relative 1e-3 at tens of millions
+    of elements).  The sum of squares is the square of that norm, within
+    f32 rounding of the reference's."""
+    return segment_norms(x, sizes).square()
+
+
+def segment_norms(x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """Per-segment L2 norm of a flat buffer (f32, ``(len(sizes),)``): the
+    root of :func:`flat_segment_sumsq`, from the same fixed-order sums."""
+    runs = torch.split(x, list(sizes))
+    if x.device.type == "cpu":
+        return torch.stack([torch.sum(r * r) for r in map(_f32, runs)]
+                           ).sqrt()
+    return torch.stack(torch._foreach_norm(runs, 2, dtype=torch.float32))
 
 
 def _lamb_trust_factor(p, update, sizes, lr, weight_decay, use_nvlamb):
@@ -283,6 +326,89 @@ def flat_adam_ref(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
     return (pf - _as_f32_scalar(lr, dev) * update).to(p.dtype), m, v
 
 
+def flat_scale_ref(x: torch.Tensor, scale: Scalar, out_dtype=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x * scale in out_dtype, found_inf)``: the product in f32, the
+    flag over the f32 product (before the cast)."""
+    out_dtype = out_dtype or x.dtype
+    y = _f32(x) * _as_f32_scalar(scale, x.device)
+    return y.to(out_dtype), _nonfinite(y)
+
+
+def flat_axpby_ref(a: Scalar, x: torch.Tensor, b: Scalar, y: torch.Tensor,
+                   out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(a * x + b * y in out_dtype, found_inf)``: f32, each product and
+    the sum rounded once, the flag over the f32 result."""
+    out_dtype = out_dtype or x.dtype
+    dev = x.device
+    r = (_as_f32_scalar(a, dev) * _f32(x)
+         + _as_f32_scalar(b, dev) * _f32(y))
+    return r.to(out_dtype), _nonfinite(r)
+
+
+def flat_adagrad_ref(p, g, h, *, lr, eps, weight_decay=0.0,
+                     grad_scale: Scalar = 1.0):
+    """One Adagrad step, out of place; returns ``(p, h)``, ``h`` the
+    running f32 sum of squared (decayed) gradients.  Divides by
+    ``grad_scale`` (the kernel multiplies by its reciprocal); ``lr`` and
+    ``grad_scale`` may be device scalars."""
+    dev = p.device
+    pf = _f32(p)
+    gf = _f32(g) / _as_f32_scalar(grad_scale, dev)
+    gf = gf + _f32_value(weight_decay) * pf
+    h = h + gf * gf
+    return ((pf - _as_f32_scalar(lr, dev) * gf
+             / (torch.sqrt(h) + _f32_value(eps))).to(p.dtype), h)
+
+
+def _novograd_second_moment(g, v_seg, sizes, *, beta2, eps, first,
+                            init_zero, grad_scale):
+    """NovoGrad's per-tensor second moment and normalizer: ``(v, denom)``,
+    both f32 ``(len(sizes),)``.  ``v`` is ``||g / grad_scale||^2`` on the
+    first step (times ``1 - beta2`` with ``init_zero``) and ``beta2 * v
+    + (1 - beta2) * ||g / grad_scale||^2`` after; ``denom = sqrt(v) +
+    eps``.  The norm of each segment is taken of the raw ``g`` and then
+    divided by ``grad_scale`` (no scaled copy of the bucket), within f32
+    rounding of the reference's norm of the scaled values.  Plain
+    PyTorch on both paths, so kernel and twin read the same ``denom``."""
+    dev = g.device
+    gn_sq = (segment_norms(g, sizes)
+             / _as_f32_scalar(grad_scale, dev)).square()
+    omb2 = _one_minus(beta2)
+    run = _f32_value(beta2) * v_seg + omb2 * gn_sq
+    v = torch.where(first, omb2 * gn_sq if init_zero else gn_sq, run)
+    return v, torch.sqrt(v) + _f32_value(eps)
+
+
+def flat_novograd_ref(p, g, m, v_seg, sizes: Sequence[int], *, lr, beta1,
+                      beta2, eps, weight_decay=0.0, first_run=False,
+                      grad_averaging=True, init_zero=False,
+                      reg_inside_moment=False, grad_scale: Scalar = 1.0):
+    """One NovoGrad step over a flat bucket of ``len(sizes)`` segments,
+    out of place; returns ``(p, m, v_seg)``.  ``v_seg`` is the per-tensor
+    second moment (f32, one per segment).  The normalized gradient is
+    ``(g / grad_scale) / denom[segment]``, a division, as the kernel
+    computes it (the reference's kernel multiplies by a gathered ``1 /
+    denom``); ``lr``, ``first_run`` and ``grad_scale`` may be device
+    scalars."""
+    dev = p.device
+    first = _as_flag(first_run, dev)
+    v, denom = _novograd_second_moment(
+        g, v_seg, sizes, beta2=beta2, eps=eps, first=first,
+        init_zero=init_zero, grad_scale=grad_scale)
+    pf = _f32(p)
+    wd = _f32_value(weight_decay)
+    # denom per element (no host-to-device copy of the sizes)
+    per_elt = torch.cat([d.expand(n) for d, n in zip(denom, sizes)])
+    gn = (_f32(g) / _as_f32_scalar(grad_scale, dev)) / per_elt
+    if reg_inside_moment:
+        gn = gn + wd * pf
+    coeff = _one_minus(beta1) if grad_averaging else 1.0
+    m = torch.where(first, gn, _f32_value(beta1) * m + coeff * gn)
+    update = m if reg_inside_moment else m + wd * pf
+    return (pf - _as_f32_scalar(lr, dev) * update).to(p.dtype), m, v
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: CUDA tensor -> kernel, CPU tensor -> twin
 # ---------------------------------------------------------------------------
@@ -321,6 +447,18 @@ def _inv_scale(fn: str, grad_scale: Scalar, device) -> torch.Tensor:
                                     torch.float32)
     return torch.full((), float(np.float32(1.0) / np.float32(grad_scale)),
                       dtype=torch.float32, device=device)
+
+
+def _gate(fn: str, found_inf, device) -> Optional[torch.Tensor]:
+    return (None if found_inf is None else
+            _device_scalar(fn, "found_inf", found_inf, device, torch.int32))
+
+
+def _keep_unless(found_inf, new, old):
+    """The CPU twins' overflow skip: ``old`` where the flag is set."""
+    if found_inf is None:
+        return new
+    return torch.where(found_inf.to(old.device) == 0, new, old)
 
 
 def _host_float(fn: str, name: str, v) -> float:
@@ -406,13 +544,9 @@ def flat_sgd(p: torch.Tensor, g: torch.Tensor, momentum_buf: torch.Tensor, *,
             p, g, momentum_buf, lr=lr, momentum=momentum,
             dampening=dampening, weight_decay=weight_decay,
             nesterov=nesterov, first_run=first_run, grad_scale=grad_scale)
-        if found_inf is not None:
-            keep = found_inf.to(p.device) == 0
-            new_p = torch.where(keep, new_p, p)
-            new_b = torch.where(keep, new_b, momentum_buf)
-        p.copy_(new_p)
+        p.copy_(_keep_unless(found_inf, new_p, p))
         if new_b is not momentum_buf:
-            momentum_buf.copy_(new_b)
+            momentum_buf.copy_(_keep_unless(found_inf, new_b, momentum_buf))
         return p, momentum_buf
     fn, dev, n = "flat_sgd", p.device, p.numel()
     use_momentum = momentum != 0.0
@@ -424,8 +558,7 @@ def flat_sgd(p: torch.Tensor, g: torch.Tensor, momentum_buf: torch.Tensor, *,
               ("weight_decay", weight_decay))]
     inv = _inv_scale(fn, grad_scale, dev)
     first = _device_scalar(fn, "first_run", first_run, dev, torch.int32)
-    gate = (None if found_inf is None else
-            _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
+    gate = _gate(fn, found_inf, dev)
     if n:
         with torch.cuda.device(dev):
             SGD.launch(p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
@@ -479,15 +612,9 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
               bias_correction=bias_correction, grad_scale=grad_scale,
               clip_coeff=clip_coeff, use_nvlamb=use_nvlamb)
     if p.device.type == "cpu":
-        new_p, new_m, new_v = flat_lamb_ref(p, g, m, v, seg_ids, sizes, **kw)
-        if found_inf is not None:
-            keep = found_inf.to(p.device) == 0
-            new_p = torch.where(keep, new_p, p)
-            new_m = torch.where(keep, new_m, m)
-            new_v = torch.where(keep, new_v, v)
-        p.copy_(new_p)
-        m.copy_(new_m)
-        v.copy_(new_v)
+        for old, new in zip((p, m, v), flat_lamb_ref(p, g, m, v, seg_ids,
+                                                     sizes, **kw)):
+            old.copy_(_keep_unless(found_inf, new, old))
         return p, m, v
     fn, dev, n = "flat_lamb", p.device, p.numel()
     _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
@@ -507,8 +634,7 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                              f"got {tuple(x.shape)} on {x.device}")
     c1r, c2r, gmul = _lamb_scalars(beta1, beta2, step, bias_correction,
                                    grad_scale, clip_coeff, dev)
-    gate = (None if found_inf is None else
-            _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
+    gate = _gate(fn, found_inf, dev)
     if n == 0:
         return p, m, v
     update = torch.empty(n, dtype=torch.float32, device=dev)
@@ -571,15 +697,8 @@ def flat_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
               weight_decay=weight_decay, step=step, adam_w_mode=adam_w_mode,
               bias_correction=bias_correction, grad_scale=grad_scale)
     if p.device.type == "cpu":
-        new_p, new_m, new_v = flat_adam_ref(p, g, m, v, **kw)
-        if found_inf is not None:
-            keep = found_inf.to(p.device) == 0
-            new_p = torch.where(keep, new_p, p)
-            new_m = torch.where(keep, new_m, m)
-            new_v = torch.where(keep, new_v, v)
-        p.copy_(new_p)
-        m.copy_(new_m)
-        v.copy_(new_v)
+        for old, new in zip((p, m, v), flat_adam_ref(p, g, m, v, **kw)):
+            old.copy_(_keep_unless(found_inf, new, old))
         return p, m, v
     fn, dev, n = "flat_adam", p.device, p.numel()
     _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
@@ -596,8 +715,7 @@ def flat_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     lr_t = _device_scalar(fn, "lr", lr, dev, torch.float32)
     c1r, c2r = _bias_corrections(beta1, beta2, step, bias_correction, dev)
     inv = _inv_scale(fn, grad_scale, dev)
-    gate = (None if found_inf is None else
-            _device_scalar(fn, "found_inf", found_inf, dev, torch.int32))
+    gate = _gate(fn, found_inf, dev)
     if n:
         with torch.cuda.device(dev):
             ADAM.launch(p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
@@ -608,3 +726,168 @@ def flat_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                         gate.data_ptr(), int(bool(adam_w_mode)), n,
                         grid_blocks(n), _stream(dev))
     return p, m, v
+
+
+def flat_scale(x: torch.Tensor, scale: Scalar, out_dtype=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = x * scale`` over a flat buffer (f32, bf16 or f16), in
+    ``out_dtype`` (default x's); returns ``(out, found_inf i32)``, the
+    flag over the f32 product before the cast.  ``scale`` may be a device
+    scalar (read by the kernel through its pointer)."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return flat_scale_ref(x, scale, out_dtype)
+    fn, dev, n = "flat_scale", x.device, x.numel()
+    _check(fn, "x", x, dev, n, tuple(_IO_CODE))
+    if out_dtype not in _IO_CODE:
+        raise TypeError(f"{fn} kernel writes f32, bf16 or f16, asked for "
+                        f"{out_dtype}")
+    s = _device_scalar(fn, "scale", scale, dev, torch.float32)
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            SCALE.launch(x.data_ptr(), _IO_CODE[x.dtype], out.data_ptr(),
+                         _IO_CODE[out_dtype], s.data_ptr(), flag.data_ptr(),
+                         n, grid_blocks(n), _stream(dev))
+    return out, flag
+
+
+def flat_axpby(a: Scalar, x: torch.Tensor, b: Scalar, y: torch.Tensor,
+               out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = a * x + b * y`` over flat buffers (each f32, bf16 or f16),
+    in ``out_dtype`` (default x's); returns ``(out, found_inf i32)``, the
+    flag over the f32 result.  ``a`` and ``b`` may be device scalars."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return flat_axpby_ref(a, x, b, y, out_dtype)
+    fn, dev, n = "flat_axpby", x.device, x.numel()
+    _check(fn, "x", x, dev, n, tuple(_IO_CODE))
+    _check(fn, "y", y, dev, n, tuple(_IO_CODE))
+    if out_dtype not in _IO_CODE:
+        raise TypeError(f"{fn} kernel writes f32, bf16 or f16, asked for "
+                        f"{out_dtype}")
+    at = _device_scalar(fn, "a", a, dev, torch.float32)
+    bt = _device_scalar(fn, "b", b, dev, torch.float32)
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            AXPBY.launch(x.data_ptr(), _IO_CODE[x.dtype], y.data_ptr(),
+                         _IO_CODE[y.dtype], out.data_ptr(),
+                         _IO_CODE[out_dtype], at.data_ptr(), bt.data_ptr(),
+                         flag.data_ptr(), n, grid_blocks(n), _stream(dev))
+    return out, flag
+
+
+def flat_adagrad(p: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *, lr,
+                 eps, weight_decay=0.0, grad_scale: Scalar = 1.0,
+                 found_inf: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Adagrad step over a flat bucket in place on ``p`` (f32 or
+    bf16) and ``h`` (f32, the running sum of squares); ``g`` f32 or bf16;
+    returns ``(p, h)``.  ``lr`` and ``grad_scale`` may be device scalars
+    (the kernel reads ``lr`` and ``1 / grad_scale`` through pointers);
+    ``found_inf`` (optional device i32/bool scalar) leaves ``p`` and
+    ``h`` untouched when set."""
+    kw = dict(lr=lr, eps=eps, weight_decay=weight_decay,
+              grad_scale=grad_scale)
+    if p.device.type == "cpu":
+        for old, new in zip((p, h), flat_adagrad_ref(p, g, h, **kw)):
+            old.copy_(_keep_unless(found_inf, new, old))
+        return p, h
+    fn, dev, n = "flat_adagrad", p.device, p.numel()
+    _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "g", g, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "h", h, dev, n, (torch.float32,))
+    eps_f, wd = (_f32_value(_host_float(fn, k, x)) for k, x in
+                 (("eps", eps), ("weight_decay", weight_decay)))
+    lr_t = _device_scalar(fn, "lr", lr, dev, torch.float32)
+    inv = _inv_scale(fn, grad_scale, dev)
+    gate = _gate(fn, found_inf, dev)
+    if n:
+        with torch.cuda.device(dev):
+            ADAGRAD.launch(p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
+                           _DTYPE_CODE[g.dtype], h.data_ptr(), eps_f, wd,
+                           lr_t.data_ptr(), inv.data_ptr(),
+                           None if gate is None else gate.data_ptr(), n,
+                           grid_blocks(n), _stream(dev))
+    return p, h
+
+
+def segment_offsets(sizes: Sequence[int], device) -> torch.Tensor:
+    """The i64 ``(len(sizes) + 1,)`` table of segment starts (and the
+    end) that the NovoGrad kernel walks; built once per bucket
+    (:meth:`BucketPlan.segment_offsets`)."""
+    return torch.tensor([0] + list(itertools.accumulate(sizes)),
+                        dtype=torch.int64, device=device)
+
+
+def flat_novograd(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                  v_seg: torch.Tensor, sizes: Sequence[int], *, lr, beta1,
+                  beta2, eps, weight_decay=0.0, first_run=False,
+                  grad_averaging=True, init_zero=False,
+                  reg_inside_moment=False, grad_scale: Scalar = 1.0,
+                  seg_offsets: Optional[torch.Tensor] = None,
+                  found_inf: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One NovoGrad step over a flat bucket of ``len(sizes)`` segments
+    (the bucket's leaves), in place on ``p`` (f32 or bf16), ``m`` (f32)
+    and ``v_seg`` (f32, one per segment); ``g`` f32 or bf16; returns
+    ``(p, m, v_seg)``.
+
+    The per-segment second moment and ``denom = sqrt(v) + eps`` are plain
+    PyTorch (:func:`_novograd_second_moment`, the reference's is XLA);
+    the kernel then applies the step, reading ``denom`` per segment
+    through ``seg_offsets`` (:func:`segment_offsets`, built once per
+    bucket; required for a card tensor, unread on the CPU).  ``lr``,
+    ``first_run`` (``step == 1`` of the device step clock),
+    ``grad_scale`` and ``found_inf`` may be device scalars: no host
+    read.  With ``found_inf`` set the kernel writes nothing and
+    ``v_seg`` keeps its value too."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, first_run=first_run,
+              grad_averaging=grad_averaging, init_zero=init_zero,
+              reg_inside_moment=reg_inside_moment, grad_scale=grad_scale)
+    if p.device.type == "cpu":
+        for old, new in zip((p, m, v_seg), flat_novograd_ref(
+                p, g, m, v_seg, sizes, **kw)):
+            old.copy_(_keep_unless(found_inf, new, old))
+        return p, m, v_seg
+    fn, dev, n = "flat_novograd", p.device, p.numel()
+    _check(fn, "p", p, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "g", g, dev, n, tuple(_DTYPE_CODE))
+    _check(fn, "m", m, dev, n, (torch.float32,))
+    nseg = len(sizes)
+    _check(fn, "v_seg", v_seg, dev, nseg, (torch.float32,))
+    if sum(sizes) != n:
+        raise ValueError(f"{fn}: segment sizes sum to {sum(sizes)}, the "
+                         f"bucket has {n} elements")
+    if seg_offsets is None:
+        raise ValueError(f"{fn}: seg_offsets is required for a card tensor "
+                         f"(segment_offsets(sizes, device), built once)")
+    _check(fn, "seg_offsets", seg_offsets, dev, nseg + 1, (torch.int64,))
+    b1, wd = (_f32_value(_host_float(fn, k, x)) for k, x in
+              (("beta1", beta1), ("weight_decay", weight_decay)))
+    for name, x in (("beta2", beta2), ("eps", eps)):
+        _host_float(fn, name, x)
+    first = _device_scalar(fn, "first_run", first_run, dev, torch.int32)
+    lr_t = _device_scalar(fn, "lr", lr, dev, torch.float32)
+    inv = _inv_scale(fn, grad_scale, dev)
+    gate = _gate(fn, found_inf, dev)
+    if n == 0:
+        return p, m, v_seg
+    v, denom = _novograd_second_moment(
+        g, v_seg, sizes, beta2=beta2, eps=eps, first=first != 0,
+        init_zero=init_zero, grad_scale=grad_scale)
+    with torch.cuda.device(dev):
+        NOVOGRAD.launch(p.data_ptr(), _DTYPE_CODE[p.dtype], g.data_ptr(),
+                        _DTYPE_CODE[g.dtype], m.data_ptr(), denom.data_ptr(),
+                        seg_offsets.data_ptr(), nseg, b1, _one_minus(b1), wd,
+                        lr_t.data_ptr(), inv.data_ptr(), first.data_ptr(),
+                        None if gate is None else gate.data_ptr(),
+                        int(bool(grad_averaging)),
+                        int(bool(reg_inside_moment)), n, grid_blocks(n),
+                        _stream(dev))
+    v_seg.copy_(v if gate is None else torch.where(gate == 0, v, v_seg))
+    return p, m, v_seg

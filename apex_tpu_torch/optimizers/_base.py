@@ -277,6 +277,10 @@ class FusedOptimizerBase:
                                           self.step_count)
         return self.params
 
+    def zero_grad(self):
+        """No-op for parity: gradients are returned by the backward, never
+        stored on the optimizer."""
+
     def rechunk(self, max_bucket_bytes) -> bool:
         raise NotImplementedError(STATE_TODO)
 

@@ -107,7 +107,28 @@ exits non-zero:
     and on the CPU from one seed (FusedAdam eps 1e-4): the masters within
     a tenth of the nearest wrong update run on the CPU that each case
     names (O2: attention not causal, bias correction dropped; O0: those
-    and lr 4% high).
+    and lr 4% high); and three O0 steps with FusedNovoGrad (lr 1e-2,
+    weight decay 0.1, the clip at 1), held to a tenth of the nearest of
+    reg_inside_moment flipped, beta2 used for beta1 and lr 4% high;
+21. kernel vs plain (optimizer tail) — flat_scale, flat_axpby,
+    flat_adagrad and flat_novograd against their twins at GPT-2 small's
+    O2 bucket (124,046,592 elements in its 148 leaves) and at a ragged
+    length: the twin's bits (atol 0), the flag raised by a planted inf
+    and NaN, found_inf keeping every bit, the same bits on a second run;
+    each timed beside its twin, its bytes bound and a one-call PyTorch
+    yardstick where there is one;
+22. train (GPT block, NovoGrad) — the same GPT-2 small step with
+    FusedNovoGrad at the reference's defaults (lr 1e-3) through the flat
+    pipeline with max_grad_norm 1: 2 warm-up and 4 timed steps, ms per
+    step, tokens/s, peak memory, losses finite and falling, exact launch
+    counts (one flat_novograd a bucket a step, no flat_adam), and one
+    profiled step (busy share, the port's kernels' share);
+23. train (legacy fp16_utils) — FP16_Optimizer(FusedAdagrad) with a
+    dynamic loss scale on the GPT stack cut to 2 layers (widths and
+    vocabulary kept, bf16 model): 3 steps of scaled backward, packed
+    master grads, clip_master_grads (flat_l2norm and flat_scale a
+    bucket) and step; the second step's planted inf is skipped with every
+    bit kept and the scale halves; exact launch counts.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -1826,10 +1847,12 @@ GPT_OWN = {"flash_fwd": ("flash_fwd_kernel",),
            "flat_adam": ("adam_kernel",)}
 
 
-def gpt_profile_phase(dev, smi: str, s, state, tokens) -> None:
+def gpt_profile_phase(dev, smi: str, s, state, tokens,
+                      optimizer: str = "FusedAdam", own=None) -> None:
     """Device time by kernel over one GPT block training step, from
     ``torch.profiler``: the busy share, the largest device items and the
-    port's kernels' share of busy time."""
+    port's kernels' (``own``, default ``GPT_OWN``) share of busy time."""
+    own = GPT_OWN if own is None else own
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1849,10 +1872,10 @@ def gpt_profile_phase(dev, smi: str, s, state, tokens) -> None:
     busy = sum(t for t, _ in by_name.values()) / 1e3
     ours = {k: sum(t for name, (t, _) in by_name.items()
                    if _owns(name, syms)) / 1e3
-            for k, syms in GPT_OWN.items()}
+            for k, syms in own.items()}
     total = sum(ours.values())
-    print(f"profile train step gpt-2 small O2 b{GPT['batch']} s{GPT['seq']}"
-          f": wall {wall:.2f} ms, device busy {busy:.2f} ms "
+    print(f"profile train step gpt-2 small O2 {optimizer} b{GPT['batch']} "
+          f"s{GPT['seq']}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), "
           f"{sum(c for _, c in by_name.values())} device kernels; the "
           f"port's kernels {total:.3f} ms ({100 * total / busy:.2f}% of "
@@ -1874,56 +1897,110 @@ GPT_MUTANTS = ("attention not causal", "bias correction dropped",
 # eps 1e-8 the O2 masters move by 3.8e-2 of their displacement, at 1e-4
 # by 8.7e-3; at O0 (f32 model) by 1.3e-4 and 2.0e-6.
 GPT_CONSIST_ADAM = dict(eps=1e-4)
-# (opt level, model dtype, steps, first-loss rtol, the wrong updates the
-# masters' limit must reject).  At O2 one bf16 step is as far from
-# another summation order as lr 4% high is from the right update (8.7e-3
-# against 4.0e-2 on the CPU), so O2 names the two structural mutants and
-# O0 (f32, the same CPU noise 2.0e-6) all three; the others are printed.
+# The NovoGrad case's optimizer: the main run's (betas 0.95/0.98, eps
+# 1e-8, the clip at 1) with lr 1e-2 and weight decay 0.1.  NovoGrad moves
+# an element of a large tensor by about lr / sqrt(its size) a step, so at
+# the main run's lr 1e-3 that is within a few ulps of the param, and
+# another summation order flips its roundings: measured on a CPU (one
+# thread against all, this config, 3 steps) the masters move by 1.1e-5
+# of their displacement at lr 1e-3, wd 0.01 (reg_inside_moment flipped:
+# 6.8e-5, so no tenth of it holds), by 1.2e-6 at lr 1e-2, wd 0.1 (the
+# wrong updates: 9.3e-4, 1.2e-3, 4.0e-2).  The decay makes where it
+# enters (inside the moment or not) change the update.
+NOVO_MUTANTS = ("reg_inside_moment flipped", "beta2 used for beta1",
+                "lr 4% high")
+GPT_CONSIST_NOVO = dict(lr=1e-2, weight_decay=0.1)
+# (optimizer, opt level, model dtype, steps, first-loss rtol, the wrong
+# updates the masters' limit must reject).  At O2 one bf16 step is as far
+# from another summation order as lr 4% high is from the right update
+# (8.7e-3 against 4.0e-2 on the CPU), so O2 names the two structural
+# mutants and O0 (f32, the same CPU noise 2.0e-6) all three; the others
+# are printed.
+# The last column is the weights' seed: NovoGrad runs at two, and prints
+# its first step's gradient gap (card against CPU, same weights) leaf by
+# leaf beside the masters' gap, the floor that the masters' gap sits on
+# when both devices' optimizers agree.
 GPT_CONSIST_CASES = (
-    ("O2", "bf16", 1, 2e-3, ("attention not causal",
-                             "bias correction dropped")),
-    ("O0", "f32", 2, 1e-5, GPT_MUTANTS))
+    ("FusedAdam", "O2", "bf16", 1, 2e-3, ("attention not causal",
+                                          "bias correction dropped"), 0),
+    ("FusedAdam", "O0", "f32", 2, 1e-5, GPT_MUTANTS, 0),
+    ("FusedNovoGrad", "O0", "f32", 3, 1e-5, NOVO_MUTANTS, 0),
+    ("FusedNovoGrad", "O0", "f32", 3, 1e-5, NOVO_MUTANTS, 1))
+
+
+def _gap_leaves(got, want, ref, names, top: int = 3) -> str:
+    """The ``top`` leaves by their share of ``||got - want||^2``, each
+    with its own ``||got - want|| / ||want - ref||``."""
+    sq = [float(((a - b) ** 2).sum()) for a, b in zip(got, want)]
+    own = [float(((b - r) ** 2).sum()) for b, r in zip(want, ref)]
+    total = sum(sq) or 1.0
+    order = sorted(range(len(sq)), key=lambda i: -sq[i])[:top]
+    return ", ".join(f"{names[i]} {sq[i] / total:.3f} (own "
+                     f"{math.sqrt(sq[i] / max(own[i], 1e-30)):.2e})"
+                     for i in order)
 
 
 def gpt_consistency_phase(dev) -> None:
     """A 2-layer GPT block stack at GPT-2 small's widths (hidden 768, 12
     heads, vocab 50257), batch 2 x 128, from the same seed on the card
     (kernels) and on the CPU (plain twins): one O2 step with the model in
-    bf16, and two O0 steps with the model in f32.  The first loss within
+    bf16, and two O0 steps with the model in f32, with FusedAdam; three
+    O0 steps with FusedNovoGrad through the clipped pipeline
+    (:func:`novograd_setup`, ``GPT_CONSIST_NOVO``) at two weight seeds,
+    with the first step's gradient gap.  The first loss within
     its rtol (f32: 1e-5; bf16 activations summed in each device's order:
     2e-3); the final f32 masters' gap (``_gap``) under a tenth of the
     nearest of the wrong updates the case names (``GPT_CONSIST_CASES``;
-    attention not causal, Adam's bias correction dropped, lr 4% high),
-    run on the CPU, so the limit rejects each it names.  FusedAdam's eps
-    is ``GPT_CONSIST_ADAM``'s."""
+    attention not causal, Adam's bias correction dropped, lr 4% high;
+    NovoGrad's reg_inside_moment flipped, beta2 used for beta1, lr 4%
+    high), run on the CPU, so the limit rejects each it names.
+    FusedAdam's eps is ``GPT_CONSIST_ADAM``'s.  Each gap is printed leaf
+    by leaf too (``_gap_leaves``)."""
     import torch
-    from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch._tree import (leaf_paths, tree_flatten, tree_leaves,
+                                      tree_unflatten)
     from apex_tpu_torch.contrib.multihead_attn import _common
     from apex_tpu_torch.examples import gpt_train_block as ex
 
     cfg = GPT_CONSIST
     base = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
-                        cfg["layers"], max_seq=GPT["seq"])
-    params = base.init(0, "cpu")
-    init = [t.numpy() for t in tree_leaves(params)]
+                        cfg["layers"], max_seq=GPT["seq"],
+                        dtype=torch.float32)
     tokens = ex.synthetic_tokens(cfg["batch"], cfg["seq"], GPT["vocab"],
                                  seed=3, device="cpu")
 
-    def run(device, opt_level, dtn, steps, mutant=None):
+    def grads(device):          # the first step's f32 gradients
+        leaves = [t.to(device).requires_grad_() for t in tree_leaves(params)]
+        tok = tokens.to(device)
+        loss = ex.next_token_loss(
+            base(tree_unflatten(treedef, leaves), tok), tok)
+        return [t.cpu().numpy() for t in torch.autograd.grad(loss, leaves)]
+
+    def run(device, optimizer, opt_level, dtn, steps, mutant=None):
         model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
                              cfg["layers"], max_seq=GPT["seq"],
                              dtype=_dtype(dtn))
-        adam = dict(GPT_CONSIST_ADAM)
-        lr = GPT["lr"] * (1.04 if mutant == "lr 4% high" else 1.0)
-        if mutant == "bias correction dropped":
-            adam["bias_correction"] = False
+        high = 1.04 if mutant == "lr 4% high" else 1.0
         real = _common.flash_attention
         if mutant == "attention not causal":
             _common.flash_attention = (lambda q, k, v, causal=False, **kw:
                                        real(q, k, v, causal=False, **kw))
         try:
-            s = ex.setup(model, params, device, opt_level=opt_level, lr=lr,
-                         **adam)
+            if optimizer == "FusedAdam":
+                adam = dict(GPT_CONSIST_ADAM)
+                if mutant == "bias correction dropped":
+                    adam["bias_correction"] = False
+                s = ex.setup(model, params, device, opt_level=opt_level,
+                             lr=GPT["lr"] * high, **adam)
+            else:
+                novo = dict(GPT_CONSIST_NOVO)
+                novo["lr"] *= high
+                if mutant == "reg_inside_moment flipped":
+                    novo["reg_inside_moment"] = True
+                if mutant == "beta2 used for beta1":
+                    novo["beta1"] = 0.98
+                s, _ = novograd_setup(model, params, device, opt_level,
+                                      **novo)
             state, losses = s.amp_state, []
             for _ in range(steps):
                 loss, state = s.step(state, tokens.to(device))
@@ -1933,18 +2010,30 @@ def gpt_consistency_phase(dev) -> None:
         work = s.opt.masters if s.opt.masters is not None else s.opt.params
         return losses, [m.float().cpu().numpy() for m in tree_leaves(work)]
 
-    for opt_level, dtn, steps, loss_rtol, must_reject in GPT_CONSIST_CASES:
-        card_l, card_m = run(dev, opt_level, dtn, steps)
-        cpu_l, cpu_m = run("cpu", opt_level, dtn, steps)
-        gaps = {name: _gap(run("cpu", opt_level, dtn, steps, name)[1], cpu_m,
-                           init) for name in GPT_MUTANTS}
+    for optimizer, opt_level, dtn, steps, loss_rtol, must_reject, seed in \
+            GPT_CONSIST_CASES:
+        params = base.init(seed, "cpu")
+        init = [t.numpy() for t in tree_leaves(params)]
+        treedef = tree_flatten(params)[1]
+        names = leaf_paths(treedef)
+        mutants = GPT_MUTANTS if optimizer == "FusedAdam" else NOVO_MUTANTS
+        case = (optimizer, opt_level, dtn, steps)
+        card_l, card_m = run(dev, *case)
+        cpu_l, cpu_m = run("cpu", *case)
+        gaps = {name: _gap(run("cpu", *case, name)[1], cpu_m, init)
+                for name in mutants}
         _check(all(math.isfinite(x) for x in card_l + cpu_l),
                f"gpt consistency: non-finite loss {card_l} {cpu_l}")
         rel0 = abs(card_l[0] - cpu_l[0]) / abs(cpu_l[0])
         gap = _gap(card_m, cpu_m, init)
         limit = min(gaps[k] for k in must_reject) / MUTANT_FACTOR
+        hyp = (f"FusedAdam eps {GPT_CONSIST_ADAM['eps']:g}"
+               if optimizer == "FusedAdam" else
+               f"FusedNovoGrad lr {GPT_CONSIST_NOVO['lr']:g} weight decay "
+               f"{GPT_CONSIST_NOVO['weight_decay']:g} max_grad_norm "
+               f"{NOVO_GPT['max_grad_norm']:g}")
         print(f"consistency train gpt 2x768 vocab 50257 {opt_level} (model "
-              f"{dtn}) FusedAdam eps {GPT_CONSIST_ADAM['eps']:g} b"
+              f"{dtn}) {hyp} seed {seed} b"
               f"{cfg['batch']} s{cfg['seq']}, {steps} step(s): card losses "
               f"{[round(x, 6) for x in card_l]}, cpu "
               f"{[round(x, 6) for x in cpu_l]} (first rel diff {rel0:.3e}, "
@@ -1955,13 +2044,23 @@ def gpt_consistency_phase(dev) -> None:
                           f"{'rejected' if g > limit else 'passes'}"
                           f"{', must be rejected' if k in must_reject else ''}"
                           ")" for k, g in gaps.items()), flush=True)
-        _check(rel0 <= loss_rtol,
-               f"gpt consistency {opt_level}: first loss differs by {rel0}")
-        _check(gap <= limit, f"gpt consistency {opt_level}: masters' gap "
-                             f"{gap} over {limit}")
+        print("consistency   masters' gap by leaf (share of the gap^2): "
+              + _gap_leaves(card_m, cpu_m, init, names), flush=True)
+        if optimizer == "FusedNovoGrad":
+            g_card, g_cpu = grads(dev), grads("cpu")
+            zero = [0.0 * g for g in g_cpu]
+            print(f"consistency   first-step gradient gap card vs cpu "
+                  f"{_gap(g_card, g_cpu, zero):.3e} of the gradient; by "
+                  f"leaf: " + _gap_leaves(g_card, g_cpu, zero, names),
+                  flush=True)
+        _check(rel0 <= loss_rtol, f"gpt consistency {optimizer} {opt_level}"
+                                  f": first loss differs by {rel0}")
+        _check(gap <= limit, f"gpt consistency {optimizer} {opt_level}: "
+                             f"masters' gap {gap} over {limit}")
         for name in must_reject:
-            _check(gaps[name] > limit, f"gpt consistency {opt_level}: the "
-                                       f"limit does not reject '{name}'")
+            _check(gaps[name] > limit, f"gpt consistency {optimizer} "
+                                       f"{opt_level}: the limit does not "
+                                       f"reject '{name}'")
 
 
 BERT_FLASH = dict(warmup=2, steps=4)
@@ -2026,6 +2125,454 @@ def bert_flash_train_phase(dev, smi: str, params) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the optimizer tail: flat_scale, flat_axpby, flat_adagrad, flat_novograd;
+# GPT-2 small with FusedNovoGrad and the clip; FP16_Optimizer over
+# FusedAdagrad with clip_master_grads
+# ---------------------------------------------------------------------------
+
+_MT = "apex_tpu/ops/multi_tensor.py"
+# kernel: (source, replaces, (names of its device kernels, a call's count))
+OPT_TAIL_KERNELS = {
+    "flat_scale": (FLAT_SOURCE, f"{_MT}:115 (flat_scale :104, body "
+                                "_scale_kernel :90)", (("scale_kernel",), 1)),
+    "flat_axpby": (FLAT_SOURCE, f"{_MT}:162 (flat_axpby :154, body "
+                                "_axpby_kernel :141)", (("axpby_kernel",), 1)),
+    "flat_adagrad": (FLAT_SOURCE, f"{_MT}:554 (flat_adagrad :537, body "
+                                  "_adagrad_kernel :528)",
+                     (("adagrad_kernel",), 1)),
+    "flat_novograd": (FLAT_SOURCE, f"{_MT}:775 (flat_novograd :731, body "
+                                   "_novograd_apply_kernel :715)",
+                      (("novograd_kernel",), 1)),
+}
+TAIL_RAGGED = ADAM_RAGGED       # 70,001: not a multiple of the vector width
+# bytes an element each moves at the timed shapes (each input read once,
+# each output written once) and its f32 operations an element
+TAIL_COST = {"flat_scale": (4 + 4, 1),               # f32 x -> f32 out
+             "flat_axpby": (4 + 4 + 4, 3),           # f32 x, y -> f32 out
+             "flat_adagrad": (4 + 4 + 2 + 4 + 4, 10),  # p, h rw; g bf16
+             "flat_novograd": (4 + 4 + 2 + 4 + 4, 9)}  # p, m rw; g bf16
+# FusedNovoGrad at the reference's defaults (lr 1e-3, betas 0.95/0.98,
+# eps 1e-8, no decay), the flat pipeline's global-norm clip at 1.0
+NOVO_GPT = dict(lr=1e-3, max_grad_norm=1.0, warmup=2, steps=4)
+# FP16_Optimizer(FusedAdagrad(bf16 params), dynamic_loss_scale=True) on
+# the GPT stack cut to 2 layers (widths and vocabulary kept); the step
+# ``bad_step`` gets a planted non-finite gradient
+LEGACY = dict(layers=2, steps=3, bad_step=1, lr=1e-2, max_norm=1.0)
+
+
+def opt_tail_kernel_phase(dev, smi: str, sizes) -> list:
+    """flat_scale, flat_axpby, flat_adagrad and flat_novograd against their
+    twins on the card at GPT-2 small's O2 bucket (``sizes``: its 148
+    leaves, 124,046,592 elements) and at a ragged length: the twin's bits
+    (atol 0: the grad scale a power of two), the non-finite flag on a
+    planted inf and a planted NaN (scale, axpby), the ``found_inf`` gate
+    from such a flag keeping every bit (adagrad, novograd), the same bits
+    on a second run; then each timed beside its twin, its bytes bound and
+    a one-call PyTorch yardstick where there is one."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def vec(n, scale=1.0, dtype=f32):
+        return (torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
+
+    def dev_f(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    one = torch.ones((), device=dev)
+    worst = {k: 0.0 for k in OPT_TAIL_KERNELS}
+
+    def held(name, got, want, what):
+        worst[name] = max(worst[name], *(
+            _held(name, a, w, 0.0, 0.0, what) for a, w in zip(got, want)))
+
+    def same_twice(name, first, second, what):
+        _check(all(bool(torch.equal(a, b)) for a, b in zip(first, second)),
+               f"{name} {what}: the result differs run to run")
+
+    _check(sum(sizes) == GPT_BUCKET, f"tail: GPT sizes sum {sum(sizes)}")
+    for n, segs in ((TAIL_RAGGED, [TAIL_RAGGED - 337, 4, 333]),
+                    (GPT_BUCKET, list(sizes))):
+        x, g = vec(n), vec(n, 1e-2, bf16)
+        for xdt, odt in ((f32, f32), (bf16, bf16), (f32, bf16)):
+            xs, sc = x.to(xdt), dev_f(0.37)
+            got = mt.flat_scale(xs, sc, odt)
+            again = mt.flat_scale(xs, sc, odt)
+            want = mt.flat_scale_ref(xs, sc, odt)
+            what = f"n={n} x {xdt} out {odt}"
+            held("flat_scale", got, want, what)
+            same_twice("flat_scale", got, again, what)
+        for xdt, ydt, odt in ((f32, f32, f32), (f32, bf16, f32),
+                              (bf16, bf16, bf16)):
+            xs, ys, a, b = x.to(xdt), g.to(ydt), dev_f(0.7), dev_f(-1.3)
+            got = mt.flat_axpby(a, xs, b, ys, odt)
+            again = mt.flat_axpby(a, xs, b, ys, odt)
+            want = mt.flat_axpby_ref(a, xs, b, ys, odt)
+            what = f"n={n} x {xdt} y {ydt} out {odt}"
+            held("flat_axpby", got, want, what)
+            same_twice("flat_axpby", got, again, what)
+        for poison in ("inf", "nan"):
+            for at in (n // 2, n - 1):
+                bad = x.clone()
+                bad[at] = float(poison)
+                flags = [mt.flat_scale(bad, 2.0)[1],
+                         mt.flat_scale(bad, 1.0, bf16)[1],
+                         mt.flat_axpby(1.0, bad, 2.0, g)[1],
+                         mt.flat_axpby(1.0, g, 2.0, bad)[1]]
+                _check([int(f) for f in flags] == [1, 1, 1, 1],
+                       f"tail flags {[int(f) for f in flags]} on a {poison} "
+                       f"at {at} of {n}")
+        p, h = vec(n, 0.02), vec(n, 1e-3).square()
+        for wd, gs in ((0.0, 1.0), (0.01, 1024.0)):
+            kw = dict(lr=dev_f(1e-2), eps=1e-10, weight_decay=wd,
+                      grad_scale=dev_f(gs))
+            got = mt.flat_adagrad(p.clone(), g, h.clone(), found_inf=zero_i,
+                                  **kw)
+            again = mt.flat_adagrad(p.clone(), g, h.clone(), **kw)
+            want = mt.flat_adagrad_ref(p, g, h, **kw)
+            what = f"n={n} p f32 g bf16 wd={wd} grad_scale={gs}"
+            held("flat_adagrad", got, want, what)
+            same_twice("flat_adagrad", got, again, what)
+            del got, again, want
+        m, v = vec(n, 1e-3), vec(len(segs), 1e-1).square()
+        offs = mt.segment_offsets(segs, dev)
+        for avg, rim, iz, first in ((True, False, False, 0),
+                                    (True, False, False, 1),
+                                    (False, True, True, 1),
+                                    (True, True, False, 0),
+                                    (False, False, True, 0)):
+            kw = dict(lr=dev_f(1e-3), beta1=0.95, beta2=0.98, eps=1e-8,
+                      weight_decay=0.01,
+                      first_run=torch.tensor(first, dtype=torch.int32,
+                                             device=dev),
+                      grad_averaging=avg, init_zero=iz,
+                      reg_inside_moment=rim, grad_scale=dev_f(4.0))
+            got = mt.flat_novograd(p.clone(), g, m.clone(), v.clone(), segs,
+                                   seg_offsets=offs, found_inf=zero_i, **kw)
+            again = mt.flat_novograd(p.clone(), g, m.clone(), v.clone(),
+                                     segs, seg_offsets=offs, **kw)
+            want = mt.flat_novograd_ref(p, g, m, v, segs, **kw)
+            what = (f"n={n} in {len(segs)} segments, p f32 g bf16, "
+                    f"grad_averaging={avg} reg_inside_moment={rim} "
+                    f"init_zero={iz} first={first}")
+            held("flat_novograd", got, want, what)
+            same_twice("flat_novograd", got, again, what)
+            del got, again, want
+        for poison in ("inf", "nan"):
+            bad = g.clone()
+            bad[n - 1] = float(poison)
+            flag = mt.flat_unscale_norm(bad, one)[2]
+            _check(int(flag) == 1, f"flat_unscale_norm missed a {poison}")
+            old = [t.clone() for t in (p, h, m, v)]
+            mt.flat_adagrad(p, bad, h, lr=1e-2, eps=1e-10, found_inf=flag)
+            mt.flat_novograd(p, bad, m, v, segs, lr=1e-3, beta1=0.95,
+                             beta2=0.98, eps=1e-8, seg_offsets=offs,
+                             found_inf=flag)
+            torch.cuda.synchronize()
+            _check(all(bool(torch.equal(a, b))
+                       for a, b in zip((p, h, m, v), old)),
+                   f"flat_adagrad/flat_novograd with found_inf set by a "
+                   f"{poison} changed a buffer (n={n})")
+        print(f"kernel tail n={n}: flat_scale (f32/bf16 in and out), "
+              f"flat_axpby (f32 and bf16 x, y), flat_adagrad (decay and "
+              f"grad scale on and off), flat_novograd ({len(segs)} segments"
+              f"; grad averaging x reg inside the moment, init_zero, first "
+              f"step) equal to the twin's bits, the same bits on a second "
+              f"run; a planted inf and NaN raise the flag of flat_scale and "
+              f"flat_axpby, and found_inf from them leaves p, h, m and v "
+              f"bit-unchanged", flush=True)
+        del x, g, p, h, m, v
+
+    n = GPT_BUCKET
+    x, y, g = vec(n), vec(n), vec(n, 1e-3, bf16)
+    p, h, m = vec(n, 0.02), vec(n, 1e-3).square(), vec(n, 1e-4)
+    v = vec(len(sizes), 1e-1).square()
+    offs = mt.segment_offsets(sizes, dev)
+    a, b, lr_ada, lr_novo = dev_f(0.7), dev_f(-1.3), dev_f(1e-2), dev_f(1e-3)
+    later = torch.zeros((), dtype=torch.int32, device=dev)   # not step 1
+    ada_kw = dict(lr=lr_ada, eps=1e-10, weight_decay=0.0, grad_scale=one)
+    novo_kw = dict(lr=lr_novo, beta1=0.95, beta2=0.98, eps=1e-8,
+                   first_run=later, grad_scale=one)
+    keep = zero_i == 0
+
+    def adagrad_plain():             # the CPU branch of flat_adagrad
+        wp, wh = mt.flat_adagrad_ref(p, g, h, **ada_kw)
+        return torch.where(keep, wp, p), torch.where(keep, wh, h)
+
+    def novograd_plain():            # the CPU branch of flat_novograd
+        wp, wm, wv = mt.flat_novograd_ref(p, g, m, v, sizes, **novo_kw)
+        return (torch.where(keep, wp, p), torch.where(keep, wm, m),
+                torch.where(keep, wv, v))
+
+    x_lib, found_f = x.clone(), torch.zeros((), device=dev)
+    g32, steps_t = g.float(), torch.ones((), device=dev)
+
+    def adagrad_lib():
+        torch._fused_adagrad_([p], [g32], [h], [steps_t], lr=1e-2,
+                              lr_decay=0.0, weight_decay=0.0, eps=1e-10,
+                              maximize=False)
+
+    timings = {
+        "flat_scale": (
+            lambda: mt.flat_scale(x, one), lambda: mt.flat_scale_ref(x, one),
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                [x_lib], found_f, one),
+            "torch._amp_foreach_non_finite_check_and_unscale_ (in place; it "
+            "flags the INPUT, where flat_scale flags the f32 product)"),
+        "flat_axpby": (
+            lambda: mt.flat_axpby(a, x, b, y),
+            lambda: mt.flat_axpby_ref(a, x, b, y), None,
+            "null: no one PyTorch call computes a*x + b*y (torch.add takes "
+            "no factor on x) and flags the result"),
+        "flat_adagrad": (
+            lambda: mt.flat_adagrad(p, g, h, found_inf=zero_i, **ada_kw),
+            adagrad_plain, adagrad_lib,
+            "torch._fused_adagrad_ (f32 grads: 20 bytes an element, 2 more)"),
+        "flat_novograd": (
+            lambda: mt.flat_novograd(p, g, m, v, sizes, seg_offsets=offs,
+                                     found_inf=zero_i, **novo_kw),
+            novograd_plain, None,
+            "null: PyTorch has no NovoGrad; the wrapper's time includes its "
+            "per-segment norms (torch._foreach_norm over g) before the "
+            "kernel"),
+    }
+    entries = []
+    for name, (kern, plain, lib, note) in timings.items():
+        source, replaces, (symbols, per_call) = OPT_TAIL_KERNELS[name]
+        ms = _ms(kern, iters=20, warmup=3)
+        own_ms, all_ms, _ = _wrapper_device_split(kern, symbols, per_call)
+        plain_ms = _ms(plain, iters=5, warmup=1)
+        lib_ms = _ms(lib, iters=20, warmup=3) if lib else None
+        per_elt, flop = TAIL_COST[name]
+        nbytes, ops = per_elt * n, flop * n
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"time {name} n={n}: wrapper {ms:.4f} ms (its kernel "
+              f"{own_ms:.4f} ms; the profiler captured {all_ms:.4f} ms of "
+              f"device work a call), plain {plain_ms:.4f} ms, "
+              f"library {'%.4f ms' % lib_ms if lib_ms else 'n/a'} ({note}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops} FLOP)"
+              f", {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s = "
+              f"{100 * bound_ms / ms:.1f}% of the bound; the kernel alone "
+              f"{100 * bound_ms / own_ms:.1f}% [{smi}]", flush=True)
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=0, max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            atol=0.0, rtol=0.0))
+    return entries
+
+
+def novograd_setup(model, params, device, opt_level: str = "O2",
+                   lr: float = NOVO_GPT["lr"],
+                   max_grad_norm: float = NOVO_GPT["max_grad_norm"], **novo):
+    """The GPT block step of ``gpt_train_block.setup`` built from the
+    port's public API with ``FusedNovoGrad`` in the place of
+    ``FusedAdam`` and the flat pipeline's global-norm clip on (its
+    ``clip_coef`` folds into the optimizer's grad scale).  Returns the
+    ``Setup`` and the list that each step appends its pre-clip gradient
+    norm to (device scalars)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch._tree import tree_map
+    from apex_tpu_torch.examples import gpt_train_block as ex
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+
+    params = tree_map(lambda t: t.to(device), params)
+    params, amp_state = amp.initialize(params, opt_level=opt_level,
+                                       device=device)
+    opt = FusedNovoGrad(params, lr=lr, master_weights=bool(
+        amp_state.properties.master_weights),
+        masters=amp_state.master_params, **novo)
+    del params
+    pipe = amp_state.flat_pipeline(optimizer=opt,
+                                   max_grad_norm=max_grad_norm)
+    wrapped = amp_state.wrap_forward(
+        lambda p, tokens: ex.next_token_loss(model(p, tokens), tokens),
+        cast_argnums=())
+    norms = []
+
+    def step(state, tokens):
+        loss, flat = pipe.scaled_value_and_grad(wrapped, state.scaler,
+                                                opt.params, tokens)
+        opt.step(flat)
+        norms.append(flat.grad_norm)
+        return loss, amp.update_scaler(state, flat.found_inf)
+
+    return ex.Setup(model=model, opt=opt, amp_state=amp_state,
+                    step=step), norms
+
+
+def novograd_train_phase(dev, smi: str, params, entries: list) -> None:
+    """GPT-2 small's block stack (the FusedAdam phase's widths, batch and
+    data, weights from seed 0), amp O2, ``FusedNovoGrad`` at the reference's defaults
+    through the flat pipeline with ``max_grad_norm`` 1: warm-up steps,
+    then timed steps with the launch counts zeroed just before them and
+    read just after (one flat_novograd a bucket a step, no flat_adam);
+    losses finite and falling; one profiled step."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import gpt_train_block as ex
+
+    t0 = time.perf_counter()
+    model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
+                         GPT["layers"], max_seq=GPT["seq"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    s, norms = novograd_setup(model, params, dev, "O2")
+    sizes = [b.size for b in s.opt._plan.buckets]
+    _check(sizes == [GPT_BUCKET], f"novograd: O2 buckets {sizes}")
+    tokens = ex.synthetic_tokens(GPT["batch"], GPT["seq"], GPT["vocab"],
+                                 device=dev)
+    state, losses = s.amp_state, []
+    for _ in range(NOVO_GPT["warmup"]):
+        loss, state = s.step(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = NOVO_GPT["steps"]
+    _build.reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        loss, state = s.step(state, tokens)
+        losses.append(loss)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in norms]
+    _check(all(math.isfinite(x) for x in losses),
+           f"novograd train: non-finite loss {losses}")
+    _check(losses[-1] < losses[0], f"novograd train: the loss did not fall "
+                                   f"{losses}")
+    want = _gpt_launches_expected(steps, len(sizes))
+    want.update(flat_adam=0, flat_novograd=len(sizes) * steps)
+    _check(launches == want, f"novograd train: launches {launches}, "
+                             f"expected {want}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    toks = GPT["batch"] * GPT["seq"]
+    print(f"train gpt-2 small block stack O2 FusedNovoGrad lr "
+          f"{NOVO_GPT['lr']:g} (betas 0.95/0.98, eps 1e-8), max_grad_norm "
+          f"{NOVO_GPT['max_grad_norm']:g}, b{GPT['batch']} s{GPT['seq']}: "
+          f"{steps} timed steps after {NOVO_GPT['warmup']} warm-up (setup "
+          f"and warm-up {setup_s:.1f} s), {1e3 * wall / steps:.2f} ms/step "
+          f"(host clock), device ms/step median "
+          f"{float(np.median(step_ms)):.2f} (min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}), {toks * steps / wall:.1f} tokens/s, losses "
+          f"{[round(x, 4) for x in losses]}, pre-clip grad norms "
+          f"{[round(x, 3) for x in gnorms]} (the clip engaged in "
+          f"{sum(x > NOVO_GPT['max_grad_norm'] for x in gnorms)} of "
+          f"{len(gnorms)}), peak device memory {peak:.2f} "
+          f"GiB, launches {launches} [{smi}]", flush=True)
+    own = dict(GPT_OWN, flat_novograd=("novograd_kernel",))
+    del own["flat_adam"]
+    gpt_profile_phase(dev, smi, s, state, tokens, "FusedNovoGrad", own)
+    for e in entries:
+        if e["name"] == "flat_novograd":
+            e["launches"] = launches["flat_novograd"]
+
+
+def legacy_train_phase(dev, smi: str, params, entries: list) -> None:
+    """The legacy mixed-precision API on the GPT stack cut to
+    ``LEGACY['layers']`` layers (widths and vocabulary kept, the first
+    blocks of the seed-0 weights): the model in bf16
+    (``fp16_utils.tree_to_half``), ``FP16_Optimizer(FusedAdagrad,
+    dynamic_loss_scale=True)`` (f32 masters), and per step the
+    reference's order: gradients of the scaled loss, packed in the
+    optimizer's plan, unscaled to f32 master grads,
+    ``clip_master_grads`` on the packed buffers (flat_l2norm and
+    flat_scale a bucket), then ``step`` (its unscale by 1: the grads come
+    unscaled).  Step ``LEGACY['bad_step']`` gets a planted inf: it is
+    skipped with every bit of params, masters and state kept, and the
+    loss scale halves.  Launch counts exact."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch._tree import tree_map
+    from apex_tpu_torch.amp import value_and_grad
+    from apex_tpu_torch.examples import gpt_train_block as ex
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, tree_to_half
+    from apex_tpu_torch.optimizers import FusedAdagrad
+
+    L = LEGACY["layers"]
+    model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"], L,
+                         max_seq=GPT["seq"])
+    cut = {k: v for k, v in params.items()
+           if not k.startswith("block") or int(k[5:]) < L}
+    half = tree_to_half(tree_map(lambda t: t.to(dev), cut))
+    fopt = FP16_Optimizer(FusedAdagrad(half, lr=LEGACY["lr"]),
+                          dynamic_loss_scale=True)
+    del half
+    opt, plan = fopt.optimizer, fopt.optimizer._plan
+    tokens = ex.synthetic_tokens(GPT["batch"], GPT["seq"], GPT["vocab"],
+                                 device=dev)
+
+    def scaled_loss(p):
+        return fopt.scale(ex.next_token_loss(model(p, tokens), tokens))
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses, norms, scales = [], [], []
+    t0 = time.perf_counter()
+    for i in range(LEGACY["steps"]):
+        scale = fopt.loss_scale
+        (loss, _), grads = value_and_grad(scaled_loss, fopt.params)
+        packed = plan.pack_grads(grads)
+        if i == LEGACY["bad_step"]:
+            packed[0][packed[0].numel() // 3] = float("inf")
+            before = [t.clone() for t in (opt._param_bufs + opt._master_bufs
+                                          + opt.opt_state["sum"])]
+        master = [g.float() / scale for g in packed]
+        clipped, norm = fopt.clip_master_grads(master, LEGACY["max_norm"])
+        fopt.step(clipped, grad_scale_extra=1.0 / scale)
+        losses.append(float(loss) / scale)
+        norms.append(float(norm))
+        scales.append(fopt.loss_scale)
+        bad = i == LEGACY["bad_step"]
+        _check(fopt.overflow == bad, f"legacy step {i}: overflow "
+                                     f"{fopt.overflow}")
+        if bad:
+            after = opt._param_bufs + opt._master_bufs + opt.opt_state["sum"]
+            _check(all(bool(torch.equal(a, b))
+                       for a, b in zip(after, before)),
+                   "legacy: the skipped step changed a buffer")
+            _check(fopt.loss_scale == scale / 2,
+                   f"legacy: the scale went {scale} -> {fopt.loss_scale}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    steps, nb = LEGACY["steps"], len(plan.buckets)
+    want = {k.name: 0 for k in _build.KERNELS}
+    want.update({"flash_fwd": L * steps, "flash_dq": L * steps,
+                 "flash_dkv": L * steps,
+                 "layer_norm_fwd": (2 * L + 1) * steps,
+                 "layer_norm_bwd": (2 * L + 1) * steps,
+                 "flat_l2norm": nb * steps, "flat_scale": nb * steps,
+                 "flat_adagrad": nb * (steps - 1)})
+    _check(launches == want, f"legacy: launches {launches}, expected {want}")
+    _check(all(math.isfinite(x) for x in losses),
+           f"legacy: non-finite loss {losses}")
+    print(f"train legacy fp16_utils: FP16_Optimizer(FusedAdagrad lr "
+          f"{LEGACY['lr']:g}, dynamic loss scale) on the gpt stack at {L} "
+          f"layers (h{GPT['hidden']}, vocab {GPT['vocab']}, bf16 model, "
+          f"{sum(b.size for b in plan.buckets)} params in {nb} bucket(s)), "
+          f"b{GPT['batch']} s{GPT['seq']}, clip_master_grads to "
+          f"{LEGACY['max_norm']:g} on the packed grads: {steps} steps in "
+          f"{wall:.2f} s, losses {[round(x, 4) for x in losses]}, pre-clip "
+          f"norms {[round(x, 3) for x in norms]}, loss scales {scales} (step "
+          f"{LEGACY['bad_step']} had a planted inf: skipped with every bit "
+          f"kept, the scale halved), launches {launches} [{smi}]",
+          flush=True)
+    for e in entries:
+        if e["name"] in ("flat_adagrad", "flat_scale"):
+            e["launches"] = launches[e["name"]]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2033,6 +2580,7 @@ def main() -> int:
         return 1
     from apex_tpu_torch import _build
     from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch.examples import gpt_train_block
     from apex_tpu_torch.models import bert_large
     from apex_tpu_torch.ops import (attention, layer_norm,  # noqa: F401
                                     multi_tensor)
@@ -2127,11 +2675,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     gpt_consistency_phase(dev)
 
+    t0 = time.perf_counter()
+    gpt_params = gpt_train_block.GPTBlocks(
+        GPT["vocab"], GPT["hidden"], GPT["heads"], GPT["layers"],
+        max_seq=GPT["seq"]).init(0, "cpu")
+    gpt_sizes = [t.numel() for t in tree_leaves(gpt_params)]
+    print(f"gpt-2 small init on the cpu: {sum(gpt_sizes)} parameters in "
+          f"{len(gpt_sizes)} tensors, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with torch.no_grad():
+        tail_entries = opt_tail_kernel_phase(dev, smi, gpt_sizes)
+    torch.cuda.empty_cache()
+    novograd_train_phase(dev, smi, gpt_params, tail_entries)
+    torch.cuda.empty_cache()
+    legacy_train_phase(dev, smi, gpt_params, tail_entries)
+    del gpt_params
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [{k: e[k] for k in keys}
-               for e in [entry] + flat_entries + bert_entries + gpt_entries]
+               for e in [entry] + flat_entries + bert_entries + gpt_entries
+               + tail_entries]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "
            f"{len(_build.KERNELS)} kernels")

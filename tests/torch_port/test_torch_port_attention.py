@@ -181,3 +181,23 @@ def test_kernel_launch_raises_on_a_cuda_error_and_counts_only_success():
         assert k.launches == 0
     finally:
         _build.KERNELS.remove(k)
+
+
+def test_mixed_dtypes_promote_as_the_reference_does():
+    """q bf16 with k, v f32: both packages promote the three to f32
+    first, so the result is f32 and within the f32 tolerance; under
+    autograd each gradient comes back in its input's dtype."""
+    q, k, v = _qkv(np.random.default_rng(21), 1, 2, 2, 16, 16, 16)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    want = jattn.flash_attention(jq, jnp.asarray(k), jnp.asarray(v),
+                                 causal=True)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    got = tattn.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                                causal=True)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tq.requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    tattn.flash_attention(tq, tk, torch.from_numpy(v), causal=True).sum(
+        ).backward()
+    assert tq.grad.dtype == torch.bfloat16 and tk.grad.dtype == torch.float32

@@ -677,3 +677,238 @@ def test_gpt_block_step_never_syncs_the_host(cuda):
                    "layer_norm_fwd": 5, "layer_norm_bwd": 5,
                    "flat_unscale_norm": 1, "flat_adam": 1}
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.cuda
+def test_flash_attention_promotes_mixed_dtypes_on_card(cuda):
+    """q bf16 with k, v f32: promoted to f32 before the kernel (the
+    reference's rule), so the f32 kernel runs and matches the twin on the
+    promoted inputs."""
+    q = _vec(2 * 16 * 16, torch.bfloat16, cuda, 32).reshape(1, 2, 16, 16)
+    k = _vec(2 * 16 * 16, torch.float32, cuda, 33).reshape(1, 2, 16, 16)
+    v = _vec(2 * 16 * 16, torch.float32, cuda, 34).reshape(1, 2, 16, 16)
+    got = attn.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    want = attn.flash_attention_ref(q.float(), k, v, causal=True)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer tail: flat_scale, flat_axpby, flat_adagrad, flat_novograd
+# ---------------------------------------------------------------------------
+#
+# Each computes in its twin's order with every rounding explicit: the
+# twin's bits exactly (Adagrad and NovoGrad at a power-of-two grad scale:
+# the kernels multiply by the reciprocal where the twins divide).
+
+IO_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+TAIL_SIZES = [1, 1027, 70001]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TAIL_SIZES)
+@pytest.mark.parametrize("odt", IO_DTYPES)
+@pytest.mark.parametrize("xdt", IO_DTYPES)
+def test_flat_scale_matches_plain_on_card(cuda, xdt, odt, n):
+    x = _vec(n, xdt, cuda, 40)
+    s = torch.tensor(0.37, device=cuda)
+    want = mt.flat_scale_ref(x, s, odt)
+    before = mt.SCALE.launches
+    got = mt.flat_scale(x, s, odt)
+    torch.cuda.synchronize()
+    assert mt.SCALE.launches == before + 1
+    assert got[0].dtype == odt
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
+    assert int(got[1]) == int(want[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odt", IO_DTYPES)
+@pytest.mark.parametrize("ydt", IO_DTYPES)
+@pytest.mark.parametrize("xdt", IO_DTYPES)
+def test_flat_axpby_matches_plain_on_card(cuda, xdt, ydt, odt):
+    n = 70001
+    x, y = _vec(n, xdt, cuda, 41), _vec(n, ydt, cuda, 42)
+    a, b = torch.tensor(0.7, device=cuda), torch.tensor(-1.3, device=cuda)
+    want = mt.flat_axpby_ref(a, x, b, y, odt)
+    before = mt.AXPBY.launches
+    got = mt.flat_axpby(a, x, b, y, odt)
+    torch.cuda.synchronize()
+    assert mt.AXPBY.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
+    assert int(got[1]) == int(want[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", [0, 70000])     # a vector, the tail
+@pytest.mark.parametrize("poison", ["nan", "inf"])
+@pytest.mark.parametrize("op", ["scale", "axpby"])
+def test_scale_and_axpby_flag_a_planted_non_finite_on_card(cuda, op, poison,
+                                                           where):
+    x, y = _vec(70001, torch.float32, cuda, 43), _vec(70001, torch.bfloat16,
+                                                      cuda, 44)
+    x[where] = float(poison)
+    got = (mt.flat_scale(x, 2.0, torch.bfloat16) if op == "scale"
+           else mt.flat_axpby(1.0, x, 2.0, y))
+    torch.cuda.synchronize()
+    assert int(got[1]) == 1
+    # a finite f32 result that rounds to inf in bf16 does not flag
+    big = torch.full((5,), 3.4e38, device=cuda)
+    out, flag = mt.flat_scale(big, 1.0, torch.bfloat16)
+    assert bool(torch.isinf(out.float()).all()) and int(flag) == 0
+
+
+PG_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TAIL_SIZES)
+@pytest.mark.parametrize("pg", range(len(PG_DTYPES)))
+def test_flat_adagrad_matches_plain_on_card(cuda, pg, n):
+    pdt, gdt = PG_DTYPES[pg]
+    p, g = _vec(n, pdt, cuda, 45), _vec(n, gdt, cuda, 46) * 1e-2
+    h = _vec(n, torch.float32, cuda, 47).square() * 1e-3
+    kw = dict(lr=torch.tensor(1e-2, device=cuda), eps=1e-10,
+              weight_decay=0.01, grad_scale=torch.tensor(1024.0,
+                                                         device=cuda))
+    want = mt.flat_adagrad_ref(p, g, h, **kw)
+    before = mt.ADAGRAD.launches
+    got = mt.flat_adagrad(p.clone(), g, h.clone(), **kw)
+    torch.cuda.synchronize()
+    assert mt.ADAGRAD.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+NOVO_SEGMENTS = [[1], [3, 1024, 5], [70001, 4, 333]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", range(len(NOVO_SEGMENTS)))
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("variant", range(16))
+def test_flat_novograd_matches_plain_on_card(cuda, variant, first, segments):
+    """Every dtype pair x grad_averaging x reg_inside_moment (the
+    kernel's template variants), init_zero with them."""
+    pdt, gdt = PG_DTYPES[variant % 4]
+    avg, rim = bool(variant & 4), bool(variant & 8)
+    sizes = NOVO_SEGMENTS[segments]
+    n = sum(sizes)
+    p, g = _vec(n, pdt, cuda, 48), _vec(n, gdt, cuda, 49) * 1e-2
+    m = _vec(n, torch.float32, cuda, 50) * 1e-3
+    v = _vec(len(sizes), torch.float32, cuda, 51).square() * 1e-2
+    kw = dict(lr=torch.tensor(1e-2, device=cuda), beta1=0.95, beta2=0.98,
+              eps=1e-8, weight_decay=0.01,
+              first_run=torch.tensor(first, device=cuda),
+              grad_averaging=avg, init_zero=bool(variant & 1),
+              reg_inside_moment=rim,
+              grad_scale=torch.tensor(4.0, device=cuda))
+    want = mt.flat_novograd_ref(p, g, m, v, sizes, **kw)
+    before = mt.NOVOGRAD.launches
+    got = mt.flat_novograd(p.clone(), g, m.clone(), v.clone(), sizes,
+                           seg_offsets=mt.segment_offsets(sizes, cuda), **kw)
+    torch.cuda.synchronize()
+    assert mt.NOVOGRAD.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [0, 1])
+@pytest.mark.parametrize("op", ["adagrad", "novograd"])
+def test_tail_found_inf_gate_on_card(cuda, op, flag):
+    """With the flag set p and the state keep every bit (NovoGrad's
+    per-segment v too, which is computed outside the kernel); with it
+    clear the step lands."""
+    n = 4099
+    p, m = _vec(n, torch.float32, cuda, 52), _vec(n, torch.float32, cuda, 53)
+    g = _vec(n, torch.bfloat16, cuda, 54)
+    g[3] = float("inf")
+    gate = torch.tensor(flag, dtype=torch.int32, device=cuda)
+    if op == "adagrad":
+        bufs = (p, m.square())
+        old = [t.clone() for t in bufs]
+        mt.flat_adagrad(bufs[0], g, bufs[1], lr=1e-2, eps=1e-10,
+                        found_inf=gate)
+    else:
+        bufs = (p, m, _vec(2, torch.float32, cuda, 55).square())
+        old = [t.clone() for t in bufs]
+        mt.flat_novograd(bufs[0], g, bufs[1], bufs[2], [4000, 99], lr=1e-2,
+                         beta1=0.95, beta2=0.98, eps=1e-8, found_inf=gate,
+                         seg_offsets=mt.segment_offsets([4000, 99], cuda))
+    torch.cuda.synchronize()
+    for a, b in zip(bufs, old):
+        assert torch.equal(a, b) == bool(flag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["FusedNovoGrad", "FusedAdagrad"])
+def test_tail_optimizers_on_card_never_reach_the_twin_or_the_host(
+        cuda, monkeypatch, name):
+    """The bucketed step runs one kernel per bucket, never the plain twin,
+    and (after a warm-up step) reads nothing back to the host."""
+    from apex_tpu_torch import optimizers
+
+    def plain(*a, **k):
+        raise AssertionError("a plain twin ran on the card")
+
+    for twin in ("flat_novograd_ref", "flat_adagrad_ref"):
+        monkeypatch.setattr(mt, twin, plain)
+    kern = {"FusedNovoGrad": mt.NOVOGRAD, "FusedAdagrad": mt.ADAGRAD}[name]
+    params = {"w": _vec(1027, torch.bfloat16, cuda, 56).reshape(13, 79),
+              "b": _vec(5, torch.bfloat16, cuda, 57)}
+    opt = getattr(optimizers, name)(params, lr=1e-3, weight_decay=0.01)
+    grads = {k: torch.ones_like(t) for k, t in params.items()}
+    opt.step(grads, found_inf=torch.zeros((), dtype=torch.int32,
+                                          device=cuda))
+    torch.cuda.synchronize()
+    before = kern.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(grads, found_inf=torch.zeros((), dtype=torch.int32,
+                                              device=cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert kern.launches - before == len(opt._plan.buckets) == 1
+    assert all(bool(torch.isfinite(t.float()).all())
+               for t in opt.params.values())
+
+
+@pytest.mark.cuda
+def test_fp16_optimizer_clip_and_skip_on_card(cuda):
+    """FP16_Optimizer over FusedAdagrad on the card: clip_master_grads on
+    the packed grads launches flat_l2norm and flat_scale once a bucket;
+    a non-finite step is skipped with every bit kept and the scale
+    halved."""
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.optimizers import FusedAdagrad
+
+    params = {"w": _vec(1027, torch.bfloat16, cuda, 58).reshape(13, 79),
+              "b": _vec(5, torch.bfloat16, cuda, 59)}
+    fopt = FP16_Optimizer(FusedAdagrad(params, lr=1e-2),
+                          dynamic_loss_scale=True,
+                          dynamic_loss_args={"init_scale": 2.0 ** 10})
+    plan = fopt.optimizer._plan
+    grads = plan.pack_grads({k: torch.ones_like(t, dtype=torch.float32)
+                             for k, t in params.items()})
+    before = (mt.L2NORM.launches, mt.SCALE.launches)
+    clipped, norm = fopt.clip_master_grads(grads, 1.0)
+    torch.cuda.synchronize()
+    assert (mt.L2NORM.launches - before[0],
+            mt.SCALE.launches - before[1]) == (1, 1)
+    assert abs(float(norm) - 1032 ** 0.5) < 1e-3
+    assert abs(float(torch.linalg.vector_norm(clipped[0])) - 1.0) < 1e-5
+    scaled = [c * fopt.loss_scale for c in clipped]
+    fopt.step(scaled)
+    assert not fopt.overflow
+    masters = [t.clone() for t in fopt.optimizer._master_bufs]
+    scale = fopt.loss_scale
+    bad = [s.clone() for s in scaled]
+    bad[0][5] = float("nan")
+    fopt.step(bad)
+    assert fopt.overflow and fopt.loss_scale == scale / 2
+    for a, b in zip(fopt.optimizer._master_bufs, masters):
+        assert torch.equal(a, b)

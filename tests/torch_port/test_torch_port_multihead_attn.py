@@ -138,3 +138,20 @@ def test_dropout_raises_on_every_branch():
     assert mha(p, x, is_training=False)[0].shape == (T, B, E)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mha(p, x)
+
+
+@pytest.mark.parametrize("attn_mask", ["none", "padding"])
+def test_a_mask_other_than_causal_is_no_mask(attn_mask):
+    """The reference treats any ``attn_mask`` but ``"causal"`` as no
+    attention mask; so does the port: the no-mask result of the flax
+    module, within the file's f32 tolerance."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((T, B, E)).astype(np.float32)
+    jm = JMHA(E, H, bias=True)
+    jp = jm.init(jax.random.key(3), jnp.asarray(x))["params"]
+    want, _ = jm.apply({"params": jp}, jnp.asarray(x), attn_mask=None)
+    tm = SelfMultiheadAttn(E, H, bias=True)
+    tp = gpt_block_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    got, _ = tm(tp, torch.from_numpy(x), attn_mask=attn_mask)
+    _close(got, want, 1e-5)
+    _close(got, tm(tp, torch.from_numpy(x), attn_mask=None)[0], 0.0)
