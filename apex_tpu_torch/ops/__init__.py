@@ -19,5 +19,11 @@ from apex_tpu_torch.ops.multi_tensor import (flat_accumulate,  # noqa: F401
                                              flat_segment_sumsq, flat_sgd,
                                              flat_sgd_ref, flat_unscale_norm,
                                              flat_unscale_norm_ref)
+from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb,  # noqa: F401
+                                     rope_ref)
+from apex_tpu_torch.ops.softmax import (  # noqa: F401
+    generic_scaled_masked_softmax, scaled_masked_softmax,
+    scaled_masked_softmax_ref, scaled_upper_triang_masked_softmax,
+    scaled_upper_triang_masked_softmax_ref, softmax_vjp_ref)
 from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy,  # noqa: F401
                                          softmax_cross_entropy_ref)

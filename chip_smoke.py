@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths, and its
+fused softmax, on one GPU.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,27 @@ exits non-zero:
     vocabulary kept, bf16 model): 3 steps of scaled backward, packed
     master grads, clip_master_grads (flat_l2norm and flat_scale a
     bucket) and step; the second step's planted inf is skipped with every
-    bit kept and the scale halves; exact launch counts.
+    bit kept and the scale halves; exact launch counts;
+24. kernel vs plain (softmax) — softmax_fwd (unmasked and causal),
+    softmax_masked_fwd and softmax_bwd against their plain versions at
+    GPT-2 small's causal (8, 12, 1024, 1024) and BERT-Large's (8, 16,
+    512, 512) scores with Megatron's padding mask (lengths 128..512 from
+    ``default_rng(1)``) and without, bf16, and in f32 and fp16 at BERT's
+    shape, rows of 2048 and 4096 and a ragged row count (f32 forward
+    within 1e-6; bf16/fp16 within one rounding; the backward within
+    1e-5 of max |dx|; fully masked rows exact zeros; the same bits on a
+    second run); off the gate (sk 200, masked sq 12) the plain version
+    with the reference's launches; each timed beside its plain version,
+    its bytes bound and a one-call PyTorch yardstick;
+25. path (softmax attention) — ``FusedScaleMaskSoftmax`` in Megatron's
+    unfused attention (bf16 ``q @ k^T``, the module, ``@ v``), forward
+    and backward, at GPT-2 small's (8, 12, 1024, 64) causal and
+    BERT-Large's (8, 16, 512, 64) with the padding mask: exact launch
+    counts (one softmax forward and one softmax_bwd a step), the output
+    and dq, dk, dv within 2e-2 of each scale of the flash kernels'
+    (causal) or of plain f32 attention with the mask on the alive rows
+    (dead query rows exact zeros), ms per forward + backward and peak
+    memory.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -2573,6 +2594,395 @@ def legacy_train_phase(dev, smi: str, params, entries: list) -> None:
             e["launches"] = launches[e["name"]]
 
 
+# ---------------------------------------------------------------------------
+# transformer.functional: the fused softmax (softmax_fwd, softmax_masked_fwd,
+# softmax_bwd) at GPT-2 small's and BERT-Large's attention widths, and
+# FusedScaleMaskSoftmax inside an unfused attention
+# ---------------------------------------------------------------------------
+
+_SM = "apex_tpu/ops/softmax.py"
+SOFTMAX_SOURCE = "apex_tpu_torch/csrc/softmax.cu"
+SOFTMAX_REPLACES = {
+    "softmax_fwd": f"{_SM}:99 (_rows_call :94, body _plain_fwd_kernel :75)",
+    "softmax_masked_fwd": f"{_SM}:166 (_sms_fwd :143, body "
+                          "_masked_fwd_kernel :69)",
+    "softmax_bwd": f"{_SM}:196 (_softmax_vjp :184, body "
+                   "_softmax_bwd_kernel :87)",
+}
+# the kernels against their plain versions: f32 forward within atol 1e-6
+# (exp's rounding and the sum's order); bf16/fp16 within one rounding of
+# the output dtype (rtol 2^-7 / 2^-10); the backward within 1e-5 of
+# max |dx| (f32 sums in another order, then one rounding in bf16/fp16)
+SOFTMAX_RTOL = {"f32": 0.0, "bf16": 2.0 ** -7, "fp16": 2.0 ** -10}
+SOFTMAX_FWD_ATOL = {"f32": 1e-6, "bf16": 1e-12, "fp16": 2.0 ** -24}
+SOFTMAX_BWD_ATOL = 1e-5                 # of max |dx|
+GPT_ATTN = (8, 12, 1024, 64)            # b, heads, seq, head dim
+BERT_ATTN = (8, 16, 512, 64)
+SOFTMAX_CASES = (
+    # name, x shape (b, np, sq, sk), kind, dtype
+    ("gpt2_small_causal", GPT_ATTN[:3] + GPT_ATTN[2:3], "causal", "bf16"),
+    ("bert_large_masked", BERT_ATTN[:3] + BERT_ATTN[2:3], "masked", "bf16"),
+    ("bert_large_unmasked", BERT_ATTN[:3] + BERT_ATTN[2:3], "unmasked",
+     "bf16"),
+    ("bert_large_masked_f32", BERT_ATTN[:3] + BERT_ATTN[2:3], "masked",
+     "f32"),
+    ("bert_large_unmasked_fp16", BERT_ATTN[:3] + BERT_ATTN[2:3], "unmasked",
+     "fp16"),
+    ("bert_large_masked_fp16", BERT_ATTN[:3] + BERT_ATTN[2:3], "masked",
+     "fp16"),
+    ("causal_f32_s2048", (1, 4, 2048, 2048), "causal", "f32"),
+    ("masked_bf16_s4096", (1, 2, 64, 4096), "masked", "bf16"),
+    ("unmasked_ragged_rows", (1, 3, 7, 384), "unmasked", "bf16"),
+)
+# off the reference's gate: the plain version on the card, and the
+# backward's kernel only where the reference runs it (sk on the gate)
+SOFTMAX_OFF_GATE = (
+    # name, x shape, kind, expected (forward, backward) kernel launches
+    ("sk200_unmasked", (2, 4, 64, 200), "unmasked", (0, 0)),
+    ("sk200_masked", (2, 4, 64, 200), "masked", (0, 0)),
+    ("sk200_causal", (2, 4, 200, 200), "causal", (0, 0)),
+    ("sq12_masked", (2, 4, 12, 512), "masked", (0, 1)),
+)
+SOFTMAX_PATH = dict(warmup=1, steps=3, tol=2e-2)   # tol: of each scale
+
+
+def _sm_dtype(name):
+    import torch
+    return {"f32": torch.float32, "bf16": torch.bfloat16,
+            "fp16": torch.float16}[name]
+
+
+def _bert_padding_mask(b, sq, sk, device):
+    """Megatron's BERT padding mask ``pad_q | pad_k`` (b, 1, sq, sk) bool
+    from the lengths 128..512 of the BERT training phase's first batch
+    (``default_rng(1)``), scaled from 512 to each side's length."""
+    import numpy as np
+    import torch
+    lens = np.random.default_rng(1).integers(BERT["lengths"][0],
+                                             BERT["lengths"][1] + 1, b)
+
+    def pad(n):
+        return np.arange(n)[None, :] >= (lens * n // BERT["seq"])[:, None]
+    m = pad(sq)[:, None, :, None] | pad(sk)[:, None, None, :]
+    return torch.from_numpy(m).to(device)
+
+
+def _softmax_inputs(gen, shape, kind, dtn, dev):
+    import torch
+    dt = _sm_dtype(dtn)
+    x = (torch.randn(shape, generator=gen, device=dev) * 4).to(dt)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+    mask = (_bert_padding_mask(shape[0], shape[2], shape[3], dev)
+            if kind == "masked" else None)
+    return x, dy, mask
+
+
+def _softmax_calls(x, mask, kind, scale):
+    """(the forward kernel's wrapper, its plain version) on x, both
+    taking the mask as the public op hands it to them."""
+    from apex_tpu_torch.ops import softmax as sm
+    b, np_, sq, sk = x.shape
+    if kind == "causal":
+        x3 = x.reshape(b * np_, sq, sk)
+        return (lambda: sm._softmax_fwd(x3, scale, causal=True),
+                lambda: sm.scaled_upper_triang_masked_softmax_ref(x3, scale))
+    if kind == "unmasked":
+        return (lambda: sm._softmax_fwd(x, scale, causal=False),
+                lambda: sm.scaled_masked_softmax_ref(x, None, scale))
+    m8 = sm._byte_mask(mask, b, sq, sk)
+    return (lambda: sm._softmax_masked_fwd(x, m8, scale),
+            lambda: sm.scaled_masked_softmax_ref(x, mask, scale))
+
+
+def _softmax_bytes(shape, kind, elt) -> int:
+    """Each input read once (the causal forward: the lower triangle),
+    each output written once."""
+    b, np_, sq, sk = shape
+    n = b * np_ * sq * sk
+    if kind == "causal":
+        return elt * (b * np_ * sq * (sq + 1) // 2 + n)
+    if kind == "masked":
+        return 2 * elt * n + b * sq * sk
+    return 2 * elt * n
+
+
+def softmax_kernel_phase(dev, smi: str) -> list:
+    """softmax_fwd (unmasked and causal), softmax_masked_fwd and
+    softmax_bwd against their plain versions on the card at GPT-2
+    small's causal (8, 12, 1024, 1024) and BERT-Large's (8, 16, 512,
+    512) masked and unmasked scores (bf16; f32 and fp16 at BERT's;
+    rows of 2048 and 4096 and a ragged row count), within the stated
+    tolerances, exact zeros on dead rows, the same bits on a second run,
+    one launch a call; off the gate the plain version and no forward
+    launch; then the main shapes timed beside the plain version, the
+    bytes bound and a one-call PyTorch yardstick."""
+    import torch
+    from apex_tpu_torch.ops import softmax as sm
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kern = {"causal": sm.SOFTMAX_FWD, "unmasked": sm.SOFTMAX_FWD,
+            "masked": sm.SOFTMAX_MASKED_FWD}
+    worst = {name: 0.0 for name in SOFTMAX_REPLACES}
+    for name, shape, kind, dtn in SOFTMAX_CASES:
+        x, dy, mask = _softmax_inputs(gen, shape, kind, dtn, dev)
+        scale = 1.0 / math.sqrt(64)
+        fwd, plain = _softmax_calls(x, mask, kind, scale)
+        k = kern[kind]
+        before = (k.launches, sm.SOFTMAX_BWD.launches)
+        y = fwd()
+        dx = sm._softmax_bwd(y, dy.reshape(y.shape), scale)
+        torch.cuda.synchronize()
+        _check((k.launches, sm.SOFTMAX_BWD.launches)
+               == (before[0] + 1, before[1] + 1),
+               f"softmax {name}: one launch of {k.name} and of softmax_bwd "
+               f"expected")
+        want_y = plain()
+        want_dx = sm.softmax_vjp_ref(y, dy.reshape(y.shape), scale)
+        what = f"{name} x={tuple(shape)} {dtn} {kind}"
+        e_y = _held(k.name, y, want_y, SOFTMAX_FWD_ATOL[dtn],
+                    SOFTMAX_RTOL[dtn], "y " + what)
+        scale_dx = float(want_dx.float().abs().max())
+        e_dx = _held("softmax_bwd", dx, want_dx,
+                     SOFTMAX_BWD_ATOL * scale_dx, SOFTMAX_RTOL[dtn],
+                     "dx " + what)
+        dead = 0
+        if mask is not None:
+            rows = mask.all(dim=-1, keepdim=True).expand(shape[0], shape[1],
+                                                         shape[2], shape[3])
+            dead = int(rows[..., 0].sum())
+            _check(bool(torch.all(y[rows] == 0) and torch.all(dx[rows] == 0)),
+                   f"softmax {what}: a fully masked row is not exact zeros")
+        if kind == "causal":
+            upper = torch.ones(shape[2], shape[3], dtype=torch.bool,
+                               device=dev).triu(1)
+            _check(bool(torch.all(y[:, upper] == 0)),
+                   f"softmax {what}: the upper triangle is not exact zeros")
+        again_y = fwd()
+        again_dx = sm._softmax_bwd(y, dy.reshape(y.shape), scale)
+        _check(bool(torch.equal(again_y, y) and torch.equal(again_dx, dx)),
+               f"softmax {what}: the result differs run to run")
+        if dtn == "bf16" and shape[0] == 8:
+            worst[k.name] = max(worst[k.name], e_y)
+            worst["softmax_bwd"] = max(worst["softmax_bwd"], e_dx)
+        print(f"kernel softmax {what}: max_abs_err y {e_y:.3e} (atol "
+              f"{SOFTMAX_FWD_ATOL[dtn]:g}, rtol {SOFTMAX_RTOL[dtn]:g}), dx "
+              f"{e_dx:.3e} (atol {SOFTMAX_BWD_ATOL:g} x max|dx| "
+              f"{scale_dx:.3e}); {dead} fully masked rows exact zeros; the "
+              "same bits on a second run", flush=True)
+        del x, dy, mask, y, dx, want_y, want_dx, again_y, again_dx
+
+    for name, shape, kind, (n_fwd, n_bwd) in SOFTMAX_OFF_GATE:
+        x, dy, mask = _softmax_inputs(gen, shape, kind, "bf16", dev)
+        x.requires_grad_()
+        before = {k.name: k.launches for k in (sm.SOFTMAX_FWD,
+                                               sm.SOFTMAX_MASKED_FWD,
+                                               sm.SOFTMAX_BWD)}
+        with torch.enable_grad():
+            if kind == "causal":
+                b, np_, sq, sk = shape
+                y = sm.scaled_upper_triang_masked_softmax(
+                    x.reshape(b * np_, sq, sk), 0.125).reshape(shape)
+                want = sm.scaled_upper_triang_masked_softmax_ref(
+                    x.detach().reshape(b * np_, sq, sk), 0.125
+                ).reshape(shape)
+            else:
+                y = sm.scaled_masked_softmax(x, mask, 0.125)
+                want = sm.scaled_masked_softmax_ref(x.detach(), mask, 0.125)
+            n_after_fwd = sm.SOFTMAX_FWD.launches + \
+                sm.SOFTMAX_MASKED_FWD.launches
+            (dx,) = torch.autograd.grad(y, x, dy)
+        torch.cuda.synchronize()
+        fwd_launches = n_after_fwd - before["softmax_fwd"] - \
+            before["softmax_masked_fwd"]
+        bwd_launches = sm.SOFTMAX_BWD.launches - before["softmax_bwd"]
+        _check((fwd_launches, bwd_launches) == (n_fwd, n_bwd),
+               f"softmax off the gate {name}: launches (fwd, bwd) "
+               f"{(fwd_launches, bwd_launches)}, the reference's gate gives "
+               f"{(n_fwd, n_bwd)}")
+        _check(bool(torch.equal(y.detach(), want)),
+               f"softmax off the gate {name}: not the plain version's bits")
+        print(f"kernel softmax off the gate {name} x={tuple(shape)} {kind}: "
+              f"the plain version's bits, launches forward {fwd_launches}, "
+              f"backward {bwd_launches} (the reference's gate)", flush=True)
+        del x, dy, mask, y, want, dx
+
+    entries, rows = [], {}
+    timed = (("softmax_fwd", SOFTMAX_CASES[0]),
+             ("softmax_masked_fwd", SOFTMAX_CASES[1]),
+             ("softmax_fwd", SOFTMAX_CASES[2]),
+             ("softmax_bwd", SOFTMAX_CASES[0]),
+             ("softmax_bwd", SOFTMAX_CASES[1]))
+    for kname, (name, shape, kind, dtn) in timed:
+        x, dy, mask = _softmax_inputs(gen, shape, kind, dtn, dev)
+        scale = 0.125
+        elt = x.element_size()
+        fwd, plain = _softmax_calls(x, mask, kind, scale)
+        b, np_, sq, sk = shape
+        if kname == "softmax_bwd":
+            y = fwd()
+            kern_fn = lambda: sm._softmax_bwd(y, dy.reshape(y.shape), scale)
+            plain_fn = lambda: sm.softmax_vjp_ref(y, dy.reshape(y.shape),
+                                                  scale)
+            lib_fn = lambda: torch._softmax_backward_data(
+                dy.reshape(y.shape), y, -1, y.dtype)
+            note = ("torch._softmax_backward_data: (dy - sum(y dy)) y "
+                    "without the scale")
+            nbytes = 3 * elt * x.numel()
+        else:
+            kern_fn, plain_fn = fwd, plain
+            nbytes = _softmax_bytes(shape, kind, elt)
+            if kind == "causal":
+                upper = torch.ones(sq, sk, dtype=torch.bool,
+                                   device=dev).triu(1)
+                lib_fn = lambda: torch._masked_softmax(x, upper, -1, 0)
+                note = ("torch._masked_softmax with the (sq, sk) causal "
+                        "mask: no scale, -inf fill")
+            elif kind == "masked":
+                full = mask.expand(shape).contiguous()
+                lib_fn = lambda: torch._masked_softmax(x, full, -1, 2)
+                note = ("torch._masked_softmax with the mask expanded to "
+                        "(b, np, sq, sk) beforehand: no scale, -inf fill, "
+                        "np-fold mask bytes")
+            else:
+                lib_fn = lambda: torch.softmax(x, -1)
+                note = "torch.softmax: no scale"
+        ms = _ms(kern_fn, iters=20, warmup=3)
+        plain_ms = _ms(plain_fn, iters=5, warmup=1)
+        lib_ms = _ms(lib_fn, iters=20, warmup=3)
+        ops = 5.0 * x.numel()
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"time {kname} {name} x={tuple(shape)} {dtn} {kind}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+              f"ms ({note}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} "
+              f"B), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s = "
+              f"{100 * bound_ms / ms:.1f}% of the bound [{smi}]", flush=True)
+        if kname not in rows:
+            rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib_ms)
+        del x, dy, mask
+    for kname, replaces in SOFTMAX_REPLACES.items():
+        entries.append(dict(
+            name=kname, route="cuda", source=SOFTMAX_SOURCE,
+            replaces=replaces, launches=0, max_abs_err=worst[kname],
+            atol=(SOFTMAX_FWD_ATOL["bf16"] if kname != "softmax_bwd"
+                  else SOFTMAX_BWD_ATOL), rtol=SOFTMAX_RTOL["bf16"],
+            **rows[kname]))
+    return entries
+
+
+def _unfused_attention(fsm, q, k, v, mask):
+    """Megatron's core attention around the fused softmax: bf16 scores
+    ``q @ k^T``, ``FusedScaleMaskSoftmax`` (scale 1/sqrt(d)), ``@ v``."""
+    import torch
+    return torch.matmul(fsm(torch.matmul(q, k.transpose(-1, -2)), mask), v)
+
+
+def _attn_grads(fn, q, k, v, do):
+    import torch
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = fn(qq, kk, vv)
+        grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    return (out.detach(),) + grads
+
+
+def softmax_attention_phase(dev, smi: str, entries: list) -> None:
+    """``FusedScaleMaskSoftmax`` inside an unfused attention, forward and
+    backward, at GPT-2 small's attention (causal, (8, 12, 1024, 64) bf16)
+    and BERT-Large's ((8, 16, 512, 64) bf16, the padding mask): warm-up,
+    then steps with the launch counts zeroed just before and read just
+    after (one softmax_fwd or softmax_masked_fwd and one softmax_bwd a
+    step, nothing else of the port's); the output and dq, dk, dv within
+    2e-2 of each one's scale of the flash kernels' (causal) or of plain
+    f32 attention with the same mask on the alive rows (BERT; dead query
+    rows exact zeros); ms per forward + backward and peak memory."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as attn
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    total = {name: 0 for name in SOFTMAX_REPLACES}
+    for name, (b, h, s, d), causal in (("gpt2_small", GPT_ATTN, True),
+                                       ("bert_large", BERT_ATTN, False)):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        fsm = FusedScaleMaskSoftmax(
+            input_in_bf16=True, scale=scale,
+            attn_mask_type=(AttnMaskType.causal if causal
+                            else AttnMaskType.padding))
+        mask = None if causal else _bert_padding_mask(b, s, s, dev)
+        if mask is not None:         # dead query rows get no gradient
+            alive = ~mask.all(dim=-1, keepdim=True)
+            do = do * alive
+        fn = lambda q_, k_, v_: _unfused_attention(fsm, q_, k_, v_, mask)
+        for _ in range(SOFTMAX_PATH["warmup"]):
+            _attn_grads(fn, q, k, v, do)
+        torch.cuda.synchronize()
+        steps = SOFTMAX_PATH["steps"]
+        _build.reset_launch_counts()
+        for _ in range(steps):
+            got = _attn_grads(fn, q, k, v, do)
+        torch.cuda.synchronize()
+        launches = {kk.name: kk.launches for kk in _build.KERNELS}
+        want = {kk.name: 0 for kk in _build.KERNELS}
+        want.update({"softmax_bwd": steps,
+                     ("softmax_fwd" if causal else "softmax_masked_fwd"):
+                     steps})
+        _check(launches == want, f"softmax attention {name}: launches "
+                                 f"{launches}, expected {want}")
+        for kname in total:
+            total[kname] += launches[kname]
+        _check(all(bool(torch.isfinite(t).all()) for t in got),
+               f"softmax attention {name}: non-finite output or gradient")
+        if causal:
+            ref = _attn_grads(lambda q_, k_, v_: attn.flash_attention(
+                q_, k_, v_, causal=True, scale=scale), q, k, v, do)
+            against = "the flash kernels"
+        else:
+            def plain(q_, k_, v_):
+                sc = torch.matmul(q_.float(), k_.float().transpose(-1, -2))
+                p = torch.softmax((sc * scale).masked_fill(mask, -10000.0),
+                                  dim=-1)
+                return torch.matmul(p, v_.float())
+            ref = _attn_grads(plain, q, k, v, do.float())
+            against = "plain f32 attention with the mask"
+            dead = (~alive).expand_as(got[0])
+            _check(bool(torch.all(got[0][dead] == 0)),
+                   f"softmax attention {name}: a dead query row is not 0")
+        errs = []
+        for gname, g, w in zip(("o", "dq", "dk", "dv"), got, ref):
+            diff = (g.float() - w.float()).abs()
+            if not causal and gname == "o":
+                diff = diff * alive      # dead rows: zeros here, mean(v) there
+            err, sc = float(diff.max()), float(w.float().abs().max())
+            _check(err <= SOFTMAX_PATH["tol"] * sc,
+                   f"softmax attention {name} {gname}: max_abs_err {err} "
+                   f"over {SOFTMAX_PATH['tol']} x scale {sc} against "
+                   f"{against}")
+            errs.append(f"{gname} {err:.3e} (scale {sc:.3e})")
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _attn_grads(fn, q, k, v, do)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        ms = _ms(lambda: _attn_grads(fn, q, k, v, do), iters=5, warmup=1)
+        print(f"path softmax attention {name} q=({b}, {h}, {s}, {d}) bf16 "
+              f"{'causal' if causal else 'padding mask'}: "
+              f"FusedScaleMaskSoftmax in q@k^T -> softmax -> @v, "
+              f"{ms:.4f} ms per forward + backward, peak "
+              f"{peak:.1f} MiB above the inputs; against {against}: "
+              f"{', '.join(errs)} (limit {SOFTMAX_PATH['tol']} x scale); "
+              f"launches {dict((kk, launches[kk]) for kk in total)} in "
+              f"{steps} steps [{smi}]", flush=True)
+        del q, k, v, do, got, ref
+    for e in entries:
+        e["launches"] = total[e["name"]]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2583,7 +2993,7 @@ def main() -> int:
     from apex_tpu_torch.examples import gpt_train_block
     from apex_tpu_torch.models import bert_large
     from apex_tpu_torch.ops import (attention, layer_norm,  # noqa: F401
-                                    multi_tensor)
+                                    multi_tensor, softmax)
     # (importing the op modules registers their kernels)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2692,12 +3102,18 @@ def main() -> int:
     del gpt_params
     torch.cuda.empty_cache()
 
+    with torch.no_grad():
+        softmax_entries = softmax_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    softmax_attention_phase(dev, smi, softmax_entries)
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [{k: e[k] for k in keys}
                for e in [entry] + flat_entries + bert_entries + gpt_entries
-               + tail_entries]
+               + tail_entries + softmax_entries]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "
            f"{len(_build.KERNELS)} kernels")

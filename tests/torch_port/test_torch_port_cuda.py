@@ -912,3 +912,182 @@ def test_fp16_optimizer_clip_and_skip_on_card(cuda):
     assert fopt.overflow and fopt.loss_scale == scale / 2
     for a, b in zip(fopt.optimizer._master_bufs, masters):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the fused softmax: softmax_fwd, softmax_masked_fwd, softmax_bwd
+# ---------------------------------------------------------------------------
+
+SOFTMAX_CASES = {
+    # name: (x shape (b, np, sq, sk), kind, dtype)
+    "causal_bf16": ((2, 3, 256, 256), "causal", torch.bfloat16),
+    "causal_f32_wide": ((1, 2, 2048, 2048), "causal", torch.float32),
+    "masked_bf16": ((2, 4, 64, 512), "masked", torch.bfloat16),
+    "masked_fp16_ragged_rows": ((3, 5, 8, 384), "masked", torch.float16),
+    "masked_f32_s4096": ((1, 2, 16, 4096), "masked", torch.float32),
+    "unmasked_bf16_ragged_rows": ((1, 3, 7, 128), "unmasked",
+                                  torch.bfloat16),
+    "unmasked_fp16_s1152": ((2, 2, 8, 1152), "unmasked", torch.float16),
+}
+# one rounding of the output dtype; f32 forward within 1e-6; the
+# backward within 1e-5 of max |dx| (sums in another order)
+SOFTMAX_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+                torch.float16: 2.0 ** -10}
+SOFTMAX_ATOL = {torch.float32: 1e-6, torch.bfloat16: 1e-12,
+                torch.float16: 2.0 ** -24}
+
+
+def _sm_inputs(shape, kind, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    mask = None
+    if kind == "masked":             # ~30% masked, query row 1 all masked
+        mask = torch.rand((shape[0], 1) + shape[2:], generator=g,
+                          device=device) < 0.3
+        mask[:, :, 1] = True
+    return x, dy, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SOFTMAX_CASES))
+def test_softmax_kernels_match_plain_on_card(cuda, case):
+    from apex_tpu_torch.ops import softmax as sm
+    shape, kind, dtype = SOFTMAX_CASES[case]
+    b, np_, sq, sk = shape
+    x, dy, mask = _sm_inputs(shape, kind, dtype, cuda, 14)
+    kern = sm.SOFTMAX_MASKED_FWD if kind == "masked" else sm.SOFTMAX_FWD
+    before = (kern.launches, sm.SOFTMAX_BWD.launches)
+    if kind == "causal":
+        x, dy = x.reshape(b * np_, sq, sk), dy.reshape(b * np_, sq, sk)
+        y = sm._softmax_fwd(x, 0.125, causal=True)
+        want = sm.scaled_upper_triang_masked_softmax_ref(x, 0.125)
+    elif kind == "masked":
+        y = sm._softmax_masked_fwd(x, sm._byte_mask(mask, b, sq, sk), 0.125)
+        want = sm.scaled_masked_softmax_ref(x, mask, 0.125)
+    else:
+        y = sm._softmax_fwd(x, 0.125, causal=False)
+        want = sm.scaled_masked_softmax_ref(x, None, 0.125)
+    dx = sm._softmax_bwd(y, dy, 0.125)
+    torch.cuda.synchronize()
+    assert (kern.launches - before[0],
+            sm.SOFTMAX_BWD.launches - before[1]) == (1, 1)
+    torch.testing.assert_close(y, want, rtol=SOFTMAX_RTOL[dtype],
+                               atol=SOFTMAX_ATOL[dtype])
+    want_dx = sm.softmax_vjp_ref(y, dy, 0.125)
+    torch.testing.assert_close(
+        dx, want_dx, rtol=SOFTMAX_RTOL[dtype],
+        atol=1e-5 * float(want_dx.float().abs().max()))
+    if kind == "masked":             # a fully masked row: exact zeros
+        assert torch.all(y[:, :, 1] == 0) and torch.all(dx[:, :, 1] == 0)
+    if kind == "causal":
+        upper = torch.ones(sq, sk, dtype=torch.bool, device=cuda).triu(1)
+        assert torch.all(y[:, upper] == 0)
+    assert torch.equal(sm._softmax_bwd(y, dy, 0.125), dx)
+    if kind == "masked":
+        again = sm._softmax_masked_fwd(x, sm._byte_mask(mask, b, sq, sk),
+                                       0.125)
+    else:
+        again = sm._softmax_fwd(x, 0.125, causal=kind == "causal")
+    assert torch.equal(again, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["causal", "padding"])
+def test_fused_scale_mask_softmax_runs_the_kernels_on_card(cuda, kind):
+    from apex_tpu_torch.ops import softmax as sm
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+    x, _, mask = _sm_inputs((2, 3, 128, 128), "masked", torch.bfloat16,
+                            cuda, 15)
+    causal = kind == "causal"
+    fsm = FusedScaleMaskSoftmax(
+        attn_mask_type=AttnMaskType.causal if causal else
+        AttnMaskType.padding, scale=0.5)
+    x.requires_grad_()
+    fwd = sm.SOFTMAX_FWD if causal else sm.SOFTMAX_MASKED_FWD
+    before = (fwd.launches, sm.SOFTMAX_BWD.launches)
+    y = fsm(x, None if causal else mask)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches - before[0],
+            sm.SOFTMAX_BWD.launches - before[1]) == (1, 1)
+    assert y.dtype == x.grad.dtype == torch.bfloat16
+    with torch.no_grad():
+        want = (sm.scaled_upper_triang_masked_softmax_ref(
+            x.reshape(6, 128, 128), 0.5).reshape(x.shape) if causal else
+            sm.scaled_masked_softmax_ref(x, mask, 0.5))
+    torch.testing.assert_close(y, want, rtol=2.0 ** -7, atol=1e-12)
+
+
+OFF_GATE = {
+    # name: (x shape, kind, (forward, backward) launches on the gate)
+    "sk200": ((2, 2, 16, 200), "masked", (0, 0)),
+    "sk72_causal": ((1, 2, 72, 72), "causal", (0, 0)),
+    "masked_sq12": ((2, 2, 12, 256), "masked", (0, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(OFF_GATE))
+def test_softmax_off_the_gate_launches_what_the_reference_does(cuda, case):
+    """Off the reference's gate the plain version runs on the card; the
+    backward's gate is sk's alone, so masked with sq % 8 != 0 runs the
+    backward kernel after a plain forward, as the reference does."""
+    from apex_tpu_torch.ops import softmax as sm
+    shape, kind, (n_fwd, n_bwd) = OFF_GATE[case]
+    b, np_, sq, sk = shape
+    x, dy, mask = _sm_inputs(shape, kind, torch.bfloat16, cuda, 16)
+    x.requires_grad_()
+    before = (sm.SOFTMAX_FWD.launches + sm.SOFTMAX_MASKED_FWD.launches,
+              sm.SOFTMAX_BWD.launches)
+    if kind == "causal":
+        y = sm.scaled_upper_triang_masked_softmax(
+            x.reshape(b * np_, sq, sk), 0.5).reshape(shape)
+    else:
+        y = sm.scaled_masked_softmax(x, mask, 0.5)
+    after_fwd = sm.SOFTMAX_FWD.launches + sm.SOFTMAX_MASKED_FWD.launches
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (after_fwd - before[0],
+            sm.SOFTMAX_BWD.launches - before[1]) == (n_fwd, n_bwd)
+    assert torch.isfinite(x.grad.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", [torch.bool, torch.uint8, torch.int32])
+def test_softmax_mask_is_never_copied_across_heads(cuda, mdt):
+    """Peak memory of the masked forward stays within y plus one (b, sq,
+    sk) byte mask (made only for a mask that is not bool or uint8): the
+    mask is read per batch row, never broadcast np-fold."""
+    from apex_tpu_torch.ops import softmax as sm
+    b, np_, sq, sk = 2, 16, 256, 512
+    x, _, mask = _sm_inputs((b, np_, sq, sk), "masked", torch.bfloat16,
+                            cuda, 17)
+    mask = mask.to(mdt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    before = sm.SOFTMAX_MASKED_FWD.launches
+    with torch.no_grad():
+        y = sm.scaled_masked_softmax(x, mask, 0.5)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    allowed = y.numel() * y.element_size() + b * sq * sk
+    assert sm.SOFTMAX_MASKED_FWD.launches == before + 1
+    assert extra <= allowed, (extra, allowed)
+
+
+@pytest.mark.cuda
+def test_softmax_wrappers_reject_what_they_cannot_take(cuda):
+    from apex_tpu_torch.ops import softmax as sm
+    x = torch.randn(1, 2, 8, 128, device=cuda)
+    with pytest.raises(TypeError, match="float32, bfloat16"):
+        sm.scaled_masked_softmax(x.double(), None, 0.5)
+    with pytest.raises(ValueError, match="mask is on cpu"):
+        sm.scaled_masked_softmax(x, torch.zeros(1, 1, 8, 128,
+                                                dtype=torch.bool), 0.5)
+    with pytest.raises(TypeError, match="cannot reshape mask"):
+        sm.scaled_masked_softmax(
+            torch.randn(2, 2, 8, 128, device=cuda),
+            torch.zeros(1, 1, 8, 128, dtype=torch.bool, device=cuda), 0.5)
