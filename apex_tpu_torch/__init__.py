@@ -19,7 +19,10 @@ backward and Adam kernels; and the optimizer tail
 (:class:`~apex_tpu_torch.optimizers.FusedNovoGrad`,
 :class:`~apex_tpu_torch.optimizers.FusedAdagrad`, contrib.clip_grad,
 :mod:`apex_tpu_torch.fp16_utils`) with the NovoGrad, Adagrad, scale and
-axpby kernels.  Entry points run on the card unless the caller passes
+axpby kernels; ``transformer.functional`` with the softmax kernels; and
+the fused cross entropy on its gate (C % 128 == 0) and the Welford
+statistics with their kernels, with ``parallel.SyncBatchNorm`` at world
+size 1.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 

@@ -17,7 +17,13 @@ position), so attention runs through ``flash_attention`` with gradients
 attention, per-sequence positions, padding out of the loss).  Defaults
 follow the reference: batch 8 x 512 on the card (2 x 64 on the CPU), a
 4-layer h128 proxy unless ``--large``, lr 1e-3, weight decay 0.01.  The
-step never syncs the host; the loss is echoed one step in five.
+step never syncs the host; the loss is echoed one step in five.  The
+proxy's vocabulary, 2048, is on the fused cross entropy's gate (C % 128
+== 0), as is any BERT vocabulary padded to a multiple of 128 (Megatron's
+bert-large-uncased, ``bert_large(vocab_size=30592)`` through
+:func:`setup`): on the card its losses and gradient come from the
+``xent_fwd``/``xent_bwd`` kernels, the padding's label -1 included
+(masked by ``padding_idx``).  BERT-Large's 30528 is off the gate.
 
 ``--offload-state`` raises ``NotImplementedError`` (optimizer state
 offload, ROADMAP Queue 1 slice 2 item T4).

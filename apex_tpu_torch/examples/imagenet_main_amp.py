@@ -14,15 +14,24 @@ never syncs the host; the loss is echoed one step in ten.  f32 convs
 and matmuls run in full f32 (TF32 off), as the reference's O2 model
 computes in f32.
 
+``--sync-bn`` runs ResNet with
+:class:`~apex_tpu_torch.parallel.SyncBatchNorm` as the reference's
+``norm_cls`` (``main_amp.py:102-108``).  Without
+``--ddp`` there is one process, so its statistics are the local ones.
+The reference's NHWC model passes ``channel_last=True``; the port's
+ResNet is NCHW (in channels_last memory), so it passes
+``channel_last=False``: the same reduction over N, H and W.
+
 Not ported yet (each raises ``NotImplementedError`` naming its item):
-``--ddp`` and ``--sync-bn`` (ROADMAP Queue 1, slice 2 item T2),
-``--checkpoint``, ``--checkpoint-dir`` and ``--preempt-at-step`` (T3).
+``--ddp`` (ROADMAP Queue 1, slice 2 item T2), ``--checkpoint``,
+``--checkpoint-dir`` and ``--preempt-at-step`` (T3).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, List, Optional
 
@@ -36,11 +45,13 @@ from apex_tpu_torch._tree import tree_map
 from apex_tpu_torch.data import DevicePrefetcher
 from apex_tpu_torch.models import resnet18, resnet34, resnet50, resnet101
 from apex_tpu_torch.optimizers import FusedSGD
+from apex_tpu_torch.parallel import SyncBatchNorm
 
 ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
          "resnet50": resnet50, "resnet101": resnet101}
 
-DDP_TODO = "ROADMAP Queue 1, slice 2 item T2 (DDP and SyncBN over NCCL)"
+DDP_TODO = ("ROADMAP Queue 1, slice 2 item T2 (DDP, and SyncBN over NCCL: "
+            "slice 9)")
 CKPT_TODO = "ROADMAP Queue 1, slice 2 item T3 (checkpoints)"
 
 
@@ -103,11 +114,12 @@ def train(arch: str = "resnet50", opt_level: str = "O2", batch: int = 0,
           momentum: float = 0.9, weight_decay: float = 1e-4,
           grad_accum: int = 1, device=None, num_classes: int = 1000,
           width: int = 64, stem_space_to_depth: bool = False,
-          variables=None, seed: int = 0, data=None,
+          sync_bn: bool = False, variables=None, seed: int = 0, data=None,
           log: Optional[Callable[[str], None]] = print,
           on_step: Optional[Callable[[int], None]] = None) -> TrainResult:
     """Train ``steps`` steps; the body of :func:`main`.
 
+    ``sync_bn``: the norms are ``SyncBatchNorm`` (world size 1).
     ``variables``: optional ``(params, batch_stats)`` f32 trees to start
     from (default: ``model.init(seed)``).  ``data``: optional iterable of
     ``(x NHWC f32, y int)`` numpy batches (default: the reference's
@@ -124,10 +136,16 @@ def train(arch: str = "resnet50", opt_level: str = "O2", batch: int = 0,
     if log:
         log(f"apex_tpu_torch: {arch} amp {opt_level} batch {batch} img "
             f"{size} on {dev}"
-            + (f" grad-accum {grad_accum} (flat)" if grad_accum > 1 else ""))
+            + (f" grad-accum {grad_accum} (flat)" if grad_accum > 1 else "")
+            + (" sync-bn" if sync_bn else ""))
 
+    # the reference passes channel_last=True for its NHWC model; the
+    # port's is NCHW: the same reduction over N, H and W
+    norm_cls = (functools.partial(SyncBatchNorm, channel_last=False)
+                if sync_bn else None)
     model = ARCHS[arch](num_classes=num_classes, width=width,
-                        stem_space_to_depth=stem_space_to_depth)
+                        stem_space_to_depth=stem_space_to_depth,
+                        norm_cls=norm_cls)
     if variables is None:
         params, batch_stats = model.init(seed, dev)
     else:
@@ -210,8 +228,8 @@ def train(arch: str = "resnet50", opt_level: str = "O2", batch: int = 0,
 
 def main(argv=None) -> TrainResult:
     args = parse_args(argv)
-    if args.ddp or args.sync_bn:
-        raise NotImplementedError(f"--ddp/--sync-bn: {DDP_TODO}")
+    if args.ddp:
+        raise NotImplementedError(f"--ddp: {DDP_TODO}")
     if args.checkpoint or args.checkpoint_dir \
             or args.preempt_at_step is not None:
         raise NotImplementedError(
@@ -221,7 +239,8 @@ def main(argv=None) -> TrainResult:
                  steps=args.steps, lr=args.lr, momentum=args.momentum,
                  weight_decay=args.weight_decay, grad_accum=args.grad_accum,
                  device=args.device,
-                 stem_space_to_depth=args.stem_space_to_depth)
+                 stem_space_to_depth=args.stem_space_to_depth,
+                 sync_bn=args.sync_bn)
 
 
 if __name__ == "__main__":

@@ -17,11 +17,16 @@ param comes back bf16.  BatchNorm always computes in f32.
 
 BatchNorm has flax's semantics, not ``torch.nn.BatchNorm2d``'s: the
 running averages move by ``momentum=0.9`` (the weight of the OLD value)
-and the running variance takes the biased batch variance.
+and the running variance takes the biased batch variance.  With
+``norm_cls=SyncBatchNorm`` (:mod:`apex_tpu_torch.parallel`, the
+reference's ``norm_cls``) the norms are that module's, named as flax
+names them: ``SyncBatchNorm_<k>`` with ``weight``/``bias`` and
+``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -93,10 +98,25 @@ class _Scope:
         return f"{cls}_{k}"
 
 
+def _norm_fn(norm_cls: Optional[Callable]) -> Callable:
+    """The norm a ResNet applies: :func:`batch_norm` by default; a module
+    class (or a ``functools.partial`` of one) is built once with no
+    further arguments, as flax builds ``norm_cls()``; any other callable
+    is used as it is, with :func:`batch_norm`'s signature."""
+    if norm_cls is None:
+        return batch_norm
+    factory = (norm_cls.func if isinstance(norm_cls, functools.partial)
+               else norm_cls)
+    return norm_cls() if isinstance(factory, type) else norm_cls
+
+
 class ResNet:
     """``stage_sizes`` blocks of ``block`` ("BasicBlock" or "Bottleneck")
     per stage, ``width`` stem filters.  ``norm_cls``: optional
-    replacement for :func:`batch_norm` with its signature."""
+    replacement for :func:`batch_norm` with its signature, or a norm
+    module class such as ``SyncBatchNorm`` (see :func:`_norm_fn`); its
+    ``name`` (default "BatchNorm") names the norms in the tree and its
+    ``init(c, device)``, where it has one, makes their leaves."""
 
     def __init__(self, stage_sizes: Sequence[int], block: str,
                  num_classes: int = 1000, width: int = 64,
@@ -111,7 +131,8 @@ class ResNet:
         self.num_classes = num_classes
         self.width = width
         self.dtype = dtype
-        self.norm = norm_cls or batch_norm
+        self.norm = _norm_fn(norm_cls)
+        self.norm_name = getattr(self.norm, "name", "BatchNorm")
         self.stem_space_to_depth = stem_space_to_depth
 
     # ---- parameters ------------------------------------------------------
@@ -146,6 +167,8 @@ class ResNet:
             return (w * std).to(dev)
 
         def bn(c):
+            if hasattr(self.norm, "init"):
+                return self.norm.init(c, dev)
             return ({"scale": torch.ones(c, device=dev),
                      "bias": torch.zeros(c, device=dev)},
                     {"mean": torch.zeros(c, device=dev),
@@ -156,7 +179,8 @@ class ResNet:
         params[stem] = (kernel(7, 7, in_channels, self.width)
                         if self.stem_space_to_depth
                         else {"kernel": kernel(7, 7, in_channels, self.width)})
-        params["BatchNorm_0"], stats["BatchNorm_0"] = bn(self.width)
+        top = f"{self.norm_name}_0"
+        params[top], stats[top] = bn(self.width)
         blocks, cout = self._block_specs()
         for name, filters, strides, cin in blocks:
             p, s = {}, {}
@@ -170,7 +194,8 @@ class ResNet:
                 convs.append((1, cin, out_c))
             for ci, (k, a, b) in enumerate(convs):
                 p[f"Conv_{ci}"] = {"kernel": kernel(k, k, a, b)}
-                p[f"BatchNorm_{ci}"], s[f"BatchNorm_{ci}"] = bn(b)
+                norm = f"{self.norm_name}_{ci}"
+                p[norm], s[norm] = bn(b)
             params[name], stats[name] = p, s
         params["Dense_0"] = {"kernel": kernel(cout, self.num_classes),
                              "bias": torch.zeros(self.num_classes,
@@ -189,7 +214,7 @@ class ResNet:
                         stride=strides, padding=padding)
 
     def _norm(self, scope: _Scope, x, train):
-        name = scope.name("BatchNorm")
+        name = scope.name(self.norm_name)
         y, new = self.norm(x, scope.params[name], scope.stats[name], train)
         if new is not None:
             scope.new_stats[name] = new

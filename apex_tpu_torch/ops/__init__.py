@@ -25,5 +25,9 @@ from apex_tpu_torch.ops.softmax import (  # noqa: F401
     generic_scaled_masked_softmax, scaled_masked_softmax,
     scaled_masked_softmax_ref, scaled_upper_triang_masked_softmax,
     scaled_upper_triang_masked_softmax_ref, softmax_vjp_ref)
+from apex_tpu_torch.ops.welford import (welford_combine,  # noqa: F401
+                                        welford_mean_var,
+                                        welford_mean_var_ref)
 from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy,  # noqa: F401
-                                         softmax_cross_entropy_ref)
+                                         softmax_cross_entropy_ref,
+                                         xent_bwd_ref, xent_fwd_ref)

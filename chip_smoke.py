@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths, and its
-fused softmax, on one GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths, its fused
+softmax, cross entropy and Welford statistics, on one GPU.
 
     python3 chip_smoke.py
 
@@ -149,7 +149,40 @@ exits non-zero:
     and dq, dk, dv within 2e-2 of each scale of the flash kernels'
     (causal) or of plain f32 attention with the mask on the alive rows
     (dead query rows exact zeros), ms per forward + backward and peak
-    memory.
+    memory;
+26. kernel vs plain (cross entropy) — xent_fwd and xent_bwd against
+    their plain versions at BERT-L's (4096, 30592) f32 MLM logits
+    (Megatron's padded vocabulary), GPT-2's (8192, 50304) bf16 with
+    ``half_to_float`` and the gate's edge (64, 65536), label smoothing 0
+    and 0.1, labels -1, C and C + 5 (no target term): f32 losses and lse
+    within rtol 1e-5, dx within 1e-6 of max |dx|, half within one
+    rounding, the same bits twice; timed beside the plain version, the
+    bytes bound and ``F.cross_entropy`` (forward; the backward has no
+    one-call yardstick);
+27. train (BERT, vocab 30592) — BERT-Large at the padded vocabulary
+    (the earlier phases' weights, the embedding padded from seed 5),
+    amp O2, FusedLAMB, the unmasked 8 x 512 batch: 2 warm-up and 4
+    timed steps, exact launch counts (one xent_fwd and one xent_bwd a
+    step; the vocab-30528 phases above count none);
+28. BERT proxy — the example's default 4 x h128 model at vocab 2048
+    trains 3 steps on the card with exact launch counts; one O0 step on
+    a packed 2 x 128 batch (labels -1 on padding) on the card and the
+    CPU, the params within a tenth of the nearest of three wrong
+    updates (label smoothing 0.1, padding not masked, lr 4% high);
+29. kernel vs plain (Welford) — welford_mean_var at ResNet-50's
+    SyncBatchNorm inputs at batch 128 and 224x224 ((401,408, 256) bf16
+    and f32, (100,352, 512), (6,272, 2048)), a ragged (100,001, 384) and
+    a large mean (300 + 0.05 noise, against f64 too): mean and var
+    within the reference's tolerances, the count exact, the same bits
+    twice; off the gate (C = 64) the plain version; timed beside the
+    plain version, the bytes bound and ``torch.var_mean`` (f32 input);
+30. train (ResNet-50, ``--sync-bn``) — amp O2, batch 128 at 224x224,
+    grad_accum 2, SyncBatchNorm at world size 1 in turns with plain
+    BatchNorm (2 warm-up and 4 timed steps each, exact launch counts);
+    welford_mean_var on every SyncBatchNorm input of one forward against
+    the module's own statistics; one O0 step of a SyncBN ResNet-18 on
+    the card and the CPU: the params within a tenth of lr 4% high, the
+    running statistics within a tenth of a biased running variance.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -1292,14 +1325,26 @@ def bert_setup(model, params, device, **lamb):
     return pretrain.setup(model, params, device, **{**BERT_LAMB, **lamb})
 
 
-def _bert_launches_expected(steps: int, buckets: int) -> dict:
+def _bert_launches_expected(steps: int, buckets: int,
+                            layers: int = BERT_LAYERS, flash: bool = False,
+                            xent: bool = False) -> dict:
+    """A BERT step's exact launch counts: LayerNorm (the embedding's and
+    two a layer), one flat_l2norm and one of each LAMB stage a bucket;
+    on a flash batch the forward, dq and dk/dv once a layer; one
+    xent_fwd and xent_bwd where the vocabulary is on the cross entropy's
+    gate."""
     from apex_tpu_torch import _build
     want = {k.name: 0 for k in _build.KERNELS}
-    want.update({"layer_norm_fwd": LN_PER_STEP * steps,
-                 "layer_norm_bwd": LN_PER_STEP * steps,
+    want.update({"layer_norm_fwd": (1 + 2 * layers) * steps,
+                 "layer_norm_bwd": (1 + 2 * layers) * steps,
                  "flat_l2norm": buckets * steps,
                  "flat_lamb_moments": buckets * steps,
                  "flat_lamb_apply": buckets * steps})
+    if flash:
+        want.update({k: layers * steps
+                     for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+    if xent:
+        want.update(xent_fwd=steps, xent_bwd=steps)
     return want
 
 
@@ -2124,10 +2169,8 @@ def bert_flash_train_phase(dev, smi: str, params) -> None:
         losses = [float(x) for x in losses]
         _check(all(math.isfinite(x) for x in losses),
                f"bert flash train: non-finite loss {losses}")
-        want = _bert_launches_expected(steps, len(opt._plan.buckets))
-        want.update({k: BERT_LAYERS * steps for k in ("flash_fwd",
-                                                      "flash_dq",
-                                                      "flash_dkv")})
+        want = _bert_launches_expected(steps, len(opt._plan.buckets),
+                                       flash=True)
         _check(launches == want, f"bert flash train: launches {launches}, "
                                  f"expected {want}")
         kind = "packed" if packed else "unmasked"
@@ -2983,6 +3026,581 @@ def softmax_attention_phase(dev, smi: str, entries: list) -> None:
         e["launches"] = total[e["name"]]
 
 
+# ---------------------------------------------------------------------------
+# the fused cross entropy on its gate (xent_fwd, xent_bwd), BERT at vocab
+# 30592 and the example's proxy; Welford and SyncBatchNorm at world size 1
+# ---------------------------------------------------------------------------
+
+_XE = "apex_tpu/ops/xentropy.py"
+XENT_SOURCE = "apex_tpu_torch/csrc/xentropy.cu"
+WELFORD_SOURCE = "apex_tpu_torch/csrc/welford.cu"
+SLICE8_REPLACES = {
+    "xent_fwd": f"{_XE}:115 (_xent_fwd :103, body _fwd_kernel :47)",
+    "xent_bwd": f"{_XE}:141 (_xent_bwd :129, body _bwd_kernel :64)",
+    "welford_mean_var": "apex_tpu/ops/welford.py:83 (welford_mean_var :70, "
+                        "body _welford_kernel :43)",
+}
+XENT_CASES = (
+    # name, rows, C, logits dtype, half_to_float
+    ("bert_large_30592", 4096, 30592, "f32", False),  # BERT-L, Megatron's vocab
+    ("gpt2_50304_h2f", 8192, 50304, "bf16", True),    # GPT-2's, padded alike
+    ("edge_65536", 64, 65536, "f32", False),          # the gate's edge
+)
+# the kernels against their plain versions: f32 losses and lse within
+# rtol 1e-5 (the kernel rescales its sum of exponentials online), dx
+# within 1e-6 of max |dx| (the same formula, exp rounding apart); losses
+# in bf16 within one rounding
+XENT_RTOL = 1e-5
+XENT_DX_ATOL = 1e-6
+HALF_RTOL = 2.0 ** -7
+XENT_VOCAB = 30592          # bert-large-uncased's 30522 padded to 128
+BERT_XENT = dict(warmup=2, steps=4)
+PROXY = dict(steps=3, batch=2, seq=128)
+PROXY_LAMB = dict(eps=1e-4)
+PROXY_FIRST_LOSS_RTOL = 1e-4
+WELFORD_CASES = (
+    # name, rows, C, dtype, mean: ResNet-50's BatchNorm inputs under
+    # --sync-bn at batch 128 and 224x224, a ragged row count, a large mean
+    # (300 + 0.05 noise, tests/test_parallel.py's case)
+    ("r50_401408x256_bf16", 401408, 256, "bf16", 0.0),
+    ("r50_401408x256_f32", 401408, 256, "f32", 0.0),
+    ("r50_100352x512_f32", 100352, 512, "f32", 0.0),
+    ("r50_6272x2048_f32", 6272, 2048, "f32", 0.0),
+    ("ragged_100001x384_bf16", 100001, 384, "bf16", 0.0),
+    ("large_mean_50000x256_f32", 50000, 256, "f32", 300.0),
+)
+WELFORD_ROW = "r50_401408x256_f32"     # the kernels line's (SyncBN's dtype)
+WELFORD_TOL = dict(mean=(1e-6, 1e-5), var=(1e-5, 1e-4))   # (atol, rtol)
+SYNCBN = dict(warmup=2, steps=4)
+
+
+def _xent_inputs(gen, n, c, dtn, dev):
+    """Logits 2 x normal, labels uniform in [0, C) with -1, C and C + 5
+    on the first three rows, dy normal."""
+    import torch
+    x = (torch.randn(n, c, generator=gen, device=dev) * 2).to(_dtype(dtn))
+    labels = torch.randint(0, c, (n,), generator=gen, device=dev)
+    labels[:3] = torch.tensor([-1, c, c + 5], device=dev)
+    dy = torch.randn(n, generator=gen, device=dev)
+    return x, labels, dy
+
+
+def xent_kernel_phase(dev, smi: str) -> list:
+    """xent_fwd and xent_bwd against their plain versions on the card at
+    BERT-L's (4096, 30592) f32 MLM logits, GPT-2's (8192, 50304) bf16 with
+    ``half_to_float`` and the gate's edge (64, 65536), label smoothing 0
+    and 0.1, labels -1, C and C + 5 with no target term; the same bits on
+    a second run; each case timed beside the plain version, the bytes
+    bound and ``F.cross_entropy`` (forward)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import xentropy as tx
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
+    rows = {}
+    for name, n, c, dtn, h2f in XENT_CASES:
+        for s in (0.0, 0.1):
+            x, labels, dy = _xent_inputs(gen, n, c, dtn, dev)
+            before = (tx.XENT_FWD.launches, tx.XENT_BWD.launches)
+            loss, lse = tx._xent_fwd_cuda(x, labels, s, h2f)
+            dyl = dy.to(loss.dtype)
+            dx = tx._xent_bwd_cuda(x, labels, lse, dyl, s, h2f)
+            torch.cuda.synchronize()
+            _check((tx.XENT_FWD.launches, tx.XENT_BWD.launches)
+                   == (before[0] + 1, before[1] + 1),
+                   f"xent {name}: one launch of each kernel expected")
+            want_loss, want_lse = tx.xent_fwd_ref(x, labels, s, h2f)
+            want_dx = tx.xent_bwd_ref(x, labels, lse, dyl, s, h2f)
+            what = f"{name} ({n}, {c}) {dtn} h2f={h2f} s={s}"
+            half = loss.dtype != torch.float32
+            rtol = HALF_RTOL if half else XENT_RTOL
+            e_loss = _held("xent_fwd", loss, want_loss, XENT_RTOL, rtol,
+                           "loss " + what)
+            e_lse = _held("xent_fwd", lse, want_lse, XENT_RTOL, XENT_RTOL,
+                          "lse " + what)
+            scale = float(want_dx.float().abs().max())
+            e_dx = _held("xent_bwd", dx, want_dx, XENT_DX_ATOL * scale,
+                         HALF_RTOL if half else 0.0, "dx " + what)
+            xf = x[:3].float()
+            no_target = torch.logsumexp(xf, 1) - s * xf.mean(1)
+            _held("xent_fwd", loss[:3], no_target.to(loss.dtype), XENT_RTOL,
+                  rtol, "labels -1, C, C + 5 (no target term) " + what)
+            again = tx._xent_fwd_cuda(x, labels, s, h2f)
+            _check(bool(torch.equal(again[0], loss)
+                        and torch.equal(again[1], lse)
+                        and torch.equal(tx._xent_bwd_cuda(
+                            x, labels, lse, dyl, s, h2f), dx)),
+                   f"xent {what}: the result differs run to run")
+            if name == XENT_CASES[0][0]:
+                worst["xent_fwd"] = max(worst["xent_fwd"], e_loss, e_lse)
+                worst["xent_bwd"] = max(worst["xent_bwd"], e_dx)
+            print(f"kernel xent {what}: max_abs_err loss {e_loss:.3e}, lse "
+                  f"{e_lse:.3e} (rtol {XENT_RTOL:g}"
+                  f"{f', {HALF_RTOL:g} in {loss.dtype}' if half else ''}), "
+                  f"dx {e_dx:.3e} (atol {XENT_DX_ATOL:g} x max|dx| "
+                  f"{scale:.3e}); labels -1, C, C + 5 without a target "
+                  "term; the same bits on a second run", flush=True)
+            del again, want_loss, want_lse, want_dx
+            if s == 0.0:
+                del x, labels, dy, loss, lse, dx
+                continue
+            elt, out = x.element_size(), loss.element_size()
+            valid = labels.clamp(0, c - 1)
+            calls = {
+                "xent_fwd": (lambda: tx._xent_fwd_cuda(x, labels, s, h2f),
+                             lambda: tx.xent_fwd_ref(x, labels, s, h2f),
+                             lambda: F.cross_entropy(
+                                 x, valid, reduction="none",
+                                 label_smoothing=s),
+                             n * c * elt + n * (8 + out + 4)),
+                "xent_bwd": (lambda: tx._xent_bwd_cuda(x, labels, lse, dyl,
+                                                       s, h2f),
+                             lambda: tx.xent_bwd_ref(x, labels, lse, dyl, s,
+                                                     h2f),
+                             None, n * c * (elt + out) + n * (8 + 4 + 4))}
+            for kname, (kern, plain, lib, nbytes) in calls.items():
+                ms = _ms(kern, iters=20, warmup=3)
+                plain_ms = _ms(plain, iters=5, warmup=1)
+                lib_ms = _ms(lib, iters=20, warmup=3) if lib else None
+                bound_ms, bound_by = _bound(nbytes, 5.0 * n * c)
+                note = ("F.cross_entropy(reduction='none', label_smoothing), "
+                        "labels clamped into [0, C)" if lib else
+                        "no one PyTorch call computes softmax minus the "
+                        "smoothed one-hot from a saved lse: autograd's "
+                        "cross-entropy backward is nll_loss_backward, then "
+                        "_log_softmax_backward_data")
+                print(f"time {kname} {what}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library "
+                      f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+                      f"({note}), bound {bound_ms:.4f} ms ({bound_by}: "
+                      f"{nbytes} B), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s ="
+                      f" {100 * bound_ms / ms:.1f}% of the bound [{smi}]",
+                      flush=True)
+                if name == XENT_CASES[0][0]:
+                    rows[kname] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=lib_ms)
+            del x, labels, dy, loss, lse, dx, valid, calls
+            torch.cuda.empty_cache()
+    print(f"phase xent kernels {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [dict(name=k, route="cuda", source=XENT_SOURCE,
+                 replaces=SLICE8_REPLACES[k], launches=0,
+                 max_abs_err=worst[k],
+                 atol=XENT_RTOL if k == "xent_fwd" else XENT_DX_ATOL,
+                 rtol=XENT_RTOL if k == "xent_fwd" else 0.0, **rows[k])
+            for k in ("xent_fwd", "xent_bwd")]
+
+
+def bert_xent_train_phase(dev, smi: str, params, entries: list) -> None:
+    """BERT-L at Megatron's padded vocabulary, 30592 (on the cross
+    entropy's gate), amp O2, FusedLAMB, the example's unmasked 8 x 512
+    batch: the earlier phases' weights with the word embedding padded by
+    64 rows from seed 5, 2 warm-up and 4 timed steps, exact launch counts
+    (one xent_fwd and one xent_bwd a step)."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+    from apex_tpu_torch.models import bert_large
+
+    t_phase = time.perf_counter()
+    emb = params["embed"]["weight"]
+    pad = torch.randn(XENT_VOCAB - emb.shape[0], emb.shape[1],
+                      generator=torch.Generator().manual_seed(5)) * 0.02
+    padded = dict(params, embed=dict(params["embed"],
+                                     weight=torch.cat([emb, pad])))
+    model = bert_large(dtype=torch.bfloat16, max_seq_len=BERT["seq"],
+                       vocab_size=XENT_VOCAB)
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt, state, step = bert_setup(model, padded, dev)
+    del padded
+    inputs, real, _ = pretrain.synthetic_batch(XENT_VOCAB, BERT["batch"],
+                                               BERT["seq"], False, dev)
+    for _ in range(BERT_XENT["warmup"]):
+        loss, state = step(state, **inputs)
+    torch.cuda.synchronize()
+    steps = BERT_XENT["steps"]
+    _build.reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        loss, state = step(state, **inputs)
+        losses.append(loss)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    losses = [float(v) for v in losses]
+    _check(all(math.isfinite(v) for v in losses),
+           f"bert xent train: non-finite loss {losses}")
+    want = _bert_launches_expected(steps, len(opt._plan.buckets),
+                                   flash=True, xent=True)
+    _check(launches == want, f"bert xent train: launches {launches}, "
+                             f"expected {want}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"train bert-large vocab {XENT_VOCAB} O2 FusedLAMB b{BERT['batch']}"
+          f" s{BERT['seq']} unmasked (the cross entropy on its gate): "
+          f"{steps} timed steps after {BERT_XENT['warmup']} warm-up, "
+          f"{1e3 * wall / steps:.2f} ms/step (host clock), device ms/step "
+          f"{[round(v, 2) for v in step_ms]} (CUDA events between steps, "
+          f"sorted), {real * steps / wall:.1f} real tokens/s, losses "
+          f"{[round(v, 4) for v in losses]}, peak device memory {peak:.2f} "
+          f"GiB, launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+
+
+def bert_proxy_phase(dev, smi: str) -> None:
+    """The example's default proxy (4 x h128, vocab 2048: on the cross
+    entropy's gate) trains 3 steps on the card through ``train()`` with
+    exact launch counts; then one O0 FusedLAMB step (eps 1e-4) of the
+    proxy on a packed 2 x 128 batch (labels -1 on padding) on the card
+    and on the CPU from one seed: the first loss within rtol 1e-4 (f32
+    on both), the params within a tenth of the nearest of three wrong
+    updates run on the CPU (label smoothing 0.1, the padding not masked,
+    lr 4% high)."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    res = pretrain.train(steps=PROXY["steps"], device=dev, log=None)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    _check(all(math.isfinite(v) for v in res.losses),
+           f"bert proxy: non-finite loss {res.losses}")
+    model = pretrain.model_for(False, PROXY["seq"], "O0")
+    want = _bert_launches_expected(PROXY["steps"],
+                                   len(res.opt._plan.buckets),
+                                   layers=model.num_layers, flash=True,
+                                   xent=True)
+    _check(launches == want, f"bert proxy: launches {launches}, expected "
+                             f"{want}")
+    print(f"train bert proxy ({model.num_layers} x h{model.hidden_size}, "
+          f"vocab {model.vocab_size}) O2 b8 s512 on the card: losses "
+          f"{[round(v, 4) for v in res.losses]}, "
+          f"{res.tokens_per_sec:.1f} tokens/s over the steps after the "
+          f"first, launches {launches} [{smi}]", flush=True)
+
+    params = model.init(0, "cpu")
+    init = [t.numpy() for t in tree_leaves(params)]
+    batch, real, _ = pretrain.synthetic_batch(model.vocab_size,
+                                              PROXY["batch"], PROXY["seq"],
+                                              True, "cpu")
+    real_loss = pretrain.softmax_cross_entropy_loss
+
+    def run(device, lr=1e-3, **loss_kw):
+        def loss(logits, labels, smoothing=0.0, padding_idx=0,
+                 half_to_float=False):
+            kw = dict(smoothing=smoothing, padding_idx=padding_idx,
+                      half_to_float=half_to_float)
+            return real_loss(logits, labels, **{**kw, **loss_kw})
+        pretrain.softmax_cross_entropy_loss = loss
+        try:
+            opt, state, step = pretrain.setup(
+                model, params, device, opt_level="O0", lr=lr, **PROXY_LAMB)
+            out, _ = step(state, **{k: t.to(device)
+                                    for k, t in batch.items()})
+            value = float(out)
+        finally:
+            pretrain.softmax_cross_entropy_loss = real_loss
+        return value, [p.float().cpu().numpy()
+                       for p in tree_leaves(opt.params)]
+
+    card_l, card_p = run(dev)
+    cpu_l, cpu_p = run("cpu")
+    mutants = {"label smoothing 0.1": run("cpu", smoothing=0.1)[1],
+               "padding not masked": run("cpu", padding_idx=-2)[1],
+               "lr 4% high": run("cpu", lr=1.04e-3)[1]}
+    gaps = {k: _gap(v, cpu_p, init) for k, v in mutants.items()}
+    limit = min(gaps.values()) / MUTANT_FACTOR
+    rel0 = abs(card_l - cpu_l) / abs(cpu_l)
+    gap = _gap(card_p, cpu_p, init)
+    print(f"consistency train bert proxy O0 FusedLAMB (eps 1e-4) packed b"
+          f"{PROXY['batch']} s{PROXY['seq']} ({real} real tokens, labels -1 "
+          f"on padding), 1 step: card loss {card_l:.6f}, cpu {cpu_l:.6f} "
+          f"(rel diff {rel0:.3e}, tol {PROXY_FIRST_LOSS_RTOL}); params' gap "
+          f"{gap:.3e} of their displacement, tol {limit:.3e} = the nearest "
+          f"wrong update / {MUTANT_FACTOR:g}; wrong updates on the cpu "
+          "(gap): " + ", ".join(f"{k} {g:.3e}" for k, g in gaps.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    _check(rel0 <= PROXY_FIRST_LOSS_RTOL,
+           f"bert proxy consistency: first loss differs by {rel0}")
+    _check(gap <= limit, f"bert proxy consistency: params' gap {gap} over "
+                         f"{limit}")
+
+
+def welford_kernel_phase(dev, smi: str) -> dict:
+    """welford_mean_var against its plain version on the card at
+    ResNet-50's BatchNorm inputs under --sync-bn (batch 128, 224x224), a
+    ragged row count and a large mean (mean and var within the
+    reference's tolerances, the count exact, the same bits on a second
+    run; at the large mean both against an f64 evaluation); off the gate
+    the plain version and no launch; each case timed beside the plain
+    version, the bytes bound and ``torch.var_mean`` (f32 input)."""
+    import torch
+    from apex_tpu_torch.ops import welford as tw
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst, row = 0.0, None
+    for name, n, c, dtn, mean in WELFORD_CASES:
+        noise = torch.randn(n, c, generator=gen, device=dev)
+        x = (mean + (0.05 if mean else 1.0) * noise).to(_dtype(dtn))
+        del noise
+        before = tw.WELFORD.launches
+        got = tw.welford_mean_var(x)
+        torch.cuda.synchronize()
+        _check(tw.WELFORD.launches == before + 1,
+               f"welford {name}: one launch expected")
+        want = tw.welford_mean_var_ref(x)
+        what = f"{name} ({n}, {c}) {dtn}"
+        e_mean = _held("welford_mean_var", got[0], want[0],
+                       *WELFORD_TOL["mean"], "mean " + what)
+        e_var = _held("welford_mean_var", got[1], want[1],
+                      *WELFORD_TOL["var"], "var " + what)
+        _check(got[2].shape == () and float(got[2]) == float(want[2]) == n,
+               f"welford {what}: count {float(got[2])}, expected {n}")
+        again = tw.welford_mean_var(x)
+        _check(all(bool(torch.equal(a, b)) for a, b in zip(again, got)),
+               f"welford {what}: the result differs run to run")
+        worst = max(worst, e_mean, e_var)
+        f64 = ""
+        if mean:
+            xd = x.double()
+            md, vd = xd.mean(0), xd.var(0, unbiased=False)
+            f64 = (f"; against f64: var rel err kernel "
+                   f"{float(((got[1].double() - vd).abs() / vd).max()):.3e}, "
+                   f"plain "
+                   f"{float(((want[1].double() - vd).abs() / vd).max()):.3e};"
+                   f" mean abs err kernel "
+                   f"{float((got[0].double() - md).abs().max()):.3e}, plain "
+                   f"{float((want[0].double() - md).abs().max()):.3e}")
+            del xd, md, vd
+        print(f"kernel welford {what}: max_abs_err mean {e_mean:.3e} (atol "
+              f"{WELFORD_TOL['mean'][0]:g}, rtol {WELFORD_TOL['mean'][1]:g}),"
+              f" var {e_var:.3e} (atol {WELFORD_TOL['var'][0]:g}, rtol "
+              f"{WELFORD_TOL['var'][1]:g}), count {int(got[2])} exact; the "
+              f"same bits on a second run{f64}", flush=True)
+        nbytes = n * c * x.element_size() + 8 * c + 4
+        ms = _ms(lambda: tw.welford_mean_var(x), iters=20, warmup=3)
+        plain_ms = _ms(lambda: tw.welford_mean_var_ref(x), iters=5, warmup=1)
+        lib_ms = (_ms(lambda: torch.var_mean(x, 0, correction=0), iters=20,
+                      warmup=3) if dtn == "f32" else None)
+        bound_ms, bound_by = _bound(nbytes, 4.0 * n * c)
+        print(f"time welford_mean_var {what}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+              f"(torch.var_mean(x, 0, correction=0)"
+              f"{'' if lib_ms is not None else ': timed on f32 input only'}),"
+              f" bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B), "
+              f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s = "
+              f"{100 * bound_ms / ms:.1f}% of the bound [{smi}]", flush=True)
+        if name == WELFORD_ROW:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
+        del x, got, want, again
+        torch.cuda.empty_cache()
+    x = torch.randn(1000, 64, generator=gen, device=dev)
+    before = tw.WELFORD.launches
+    got = tw.welford_mean_var(x)
+    plain = tw.welford_mean_var_ref(x)
+    _check(tw.WELFORD.launches == before
+           and all(bool(torch.equal(a, b)) for a, b in zip(got, plain)),
+           "welford off the gate (C = 64): a launch, or not the plain "
+           "version's bits")
+    print(f"kernel welford off the gate (1000, 64): the plain version's "
+          f"bits, no launch; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(name="welford_mean_var", route="cuda", source=WELFORD_SOURCE,
+                replaces=SLICE8_REPLACES["welford_mean_var"], launches=0,
+                max_abs_err=worst, atol=WELFORD_TOL["var"][0],
+                rtol=WELFORD_TOL["var"][1], **row)
+
+
+def _syncbn_run(dev, sync_bn: bool):
+    """ResNet-50 O2 b128 224 grad_accum 2: 2 warm-up and 4 timed steps
+    (host clock from a sync after the second step, CUDA events between
+    steps), exact launch counts over all six."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+
+    events, clock = [], {}
+    warm, steps = SYNCBN["warmup"], SYNCBN["steps"]
+
+    def on_step(step):
+        if step == warm - 1:
+            torch.cuda.synchronize()
+            clock["t0"] = time.perf_counter()
+        if step >= warm - 1:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    _build.reset_launch_counts()
+    res = main_amp.train(device=dev, grad_accum=ACCUM, steps=warm + steps,
+                         log=None, on_step=on_step, sync_bn=sync_bn, **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - clock["t0"]
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    _check(all(math.isfinite(v) for v in res.losses),
+           f"syncbn train (sync_bn={sync_bn}): non-finite loss {res.losses}")
+    n = warm + steps
+    want = {k.name: 0 for k in _build.KERNELS}
+    want.update({"flat_accumulate": ACCUM * n, "flat_unscale_norm": n,
+                 "flat_sgd": n})
+    _check(launches == want, f"syncbn train (sync_bn={sync_bn}): launches "
+                             f"{launches}, expected {want}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return res, wall / steps, step_ms, launches
+
+
+def syncbn_train_phase(dev, smi: str, entry: dict) -> None:
+    """ResNet-50 amp O2 with ``--sync-bn`` at world size 1 (batch 128 at
+    224x224, grad_accum 2) in turns with plain BatchNorm in the same call;
+    the public ``welford_mean_var`` held on every SyncBatchNorm input of
+    one forward against SyncBatchNorm's own f32 statistics; a card-vs-CPU
+    SyncBN ResNet-18 O0 step: the params within a tenth of lr 4% high,
+    the running statistics within a tenth of a biased running variance,
+    both wrong updates run on the CPU."""
+    import functools
+    import torch
+    from apex_tpu_torch._tree import tree_leaves, tree_map
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+    from apex_tpu_torch.models import resnet18, resnet50
+    from apex_tpu_torch.ops import welford as tw
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    from apex_tpu_torch.parallel import sync_batchnorm as sbn
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = {True: [], False: []}
+    for sync_bn in (True, False, True, False):
+        res, sec, step_ms, launches = _syncbn_run(dev, sync_bn)
+        ms[sync_bn].append(1e3 * sec)
+        print(f"train resnet50 O2 b{res.batch} {res.image} grad_accum "
+              f"{ACCUM} "
+              f"{'--sync-bn (world size 1)' if sync_bn else 'BatchNorm'}: "
+              f"{SYNCBN['steps']} timed steps after {SYNCBN['warmup']} "
+              f"warm-up, {1e3 * sec:.2f} ms/step (host clock), "
+              f"{res.batch / sec:.1f} imgs/s, device ms/step "
+              f"{[round(v, 2) for v in step_ms]} (CUDA events, sorted), "
+              f"losses {[round(v, 4) for v in res.losses]}, launches "
+              f"{launches} [{smi}]", flush=True)
+    batch = TRAIN["batch"]
+    print(f"train summary --sync-bn vs BatchNorm (in turns): ms/step "
+          f"{[round(v, 2) for v in ms[True]]} vs "
+          f"{[round(v, 2) for v in ms[False]]}, imgs/s "
+          f"{[round(1e3 * batch / v, 1) for v in ms[True]]} vs "
+          f"{[round(1e3 * batch / v, 1) for v in ms[False]]}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+
+    # the public op on each SyncBatchNorm input of one forward
+    real_stats, seen = sbn.sync_batch_norm_stats, []
+
+    def checked(xc, group=None):
+        mean, var, n = real_stats(xc, group)
+        gate = tw._use_pallas(xc.shape[1])
+        before = tw.WELFORD.launches
+        got = tw.welford_mean_var(xc)
+        what = f"SyncBatchNorm input {tuple(xc.shape)} {xc.dtype}"
+        _check(tw.WELFORD.launches == before + int(gate),
+               f"welford on the {what}: launches")
+        e_m = _held("welford_mean_var", got[0], mean, *WELFORD_TOL["mean"],
+                    "mean of the " + what)
+        e_v = _held("welford_mean_var", got[1], var, *WELFORD_TOL["var"],
+                    "var of the " + what)
+        _check(float(got[2]) == float(n), f"welford count on the {what}")
+        seen.append((tuple(xc.shape), gate, e_m, e_v))
+        return mean, var, n
+
+    model = resnet50(norm_cls=functools.partial(SyncBatchNorm,
+                                                channel_last=False))
+    params, stats = model.init(0, dev)
+    x = torch.randn(batch, TRAIN["image"], TRAIN["image"], 3,
+                    generator=torch.Generator(device=dev).manual_seed(22),
+                    device=dev).to(torch.bfloat16)
+    sbn.sync_batch_norm_stats = checked
+    try:
+        with torch.no_grad():
+            model.apply(params, stats, x, train=True)
+        torch.cuda.synchronize()
+    finally:
+        sbn.sync_batch_norm_stats = real_stats
+    on = sum(1 for s in seen if s[1])
+    print(f"welford_mean_var on the {len(seen)} SyncBatchNorm inputs of one "
+          f"resnet50 forward (b{batch} {TRAIN['image']}, bf16 data, f32 "
+          f"model): {on} on the gate (the kernel), {len(seen) - on} off it "
+          f"(C = 64: the plain version); max_abs_err mean "
+          f"{max(s[2] for s in seen):.3e}, var {max(s[3] for s in seen):.3e}"
+          f" against SyncBatchNorm's own statistics; shapes "
+          f"{sorted({s[0] for s in seen})}", flush=True)
+    del model, params, stats, x
+    torch.cuda.empty_cache()
+
+    # card vs CPU: one O0 step of a SyncBN ResNet-18
+    class BiasedRunningVar(SyncBatchNorm):
+        """The wrong update: the running variance takes the biased batch
+        variance (n / (n - 1) dropped)."""
+
+        def running_update(self, stats, mean, var, n):
+            return super().running_update(stats, mean, var,
+                                          torch.full_like(n, 1e30))
+
+    rp, rs = resnet18(norm_cls=SyncBatchNorm).init(CONSIST["seed"], "cpu")
+    init_p = [t.numpy() for t in tree_leaves(rp)]
+    init_s = [t.numpy() for t in tree_leaves(rs)]
+
+    def run(device, lr=0.01, norm=None):
+        var = tuple(tree_map(lambda t: t.to(device), v) for v in (rp, rs))
+        real_norm = main_amp.SyncBatchNorm
+        if norm is not None:
+            main_amp.SyncBatchNorm = norm
+        try:
+            res = main_amp.train(device=device, opt_level="O0", steps=1,
+                                 variables=var, sync_bn=True, lr=lr,
+                                 **CONSIST)
+        finally:
+            main_amp.SyncBatchNorm = real_norm
+        return ([p.float().cpu().numpy() for p in tree_leaves(res.opt.params)],
+                [s.float().cpu().numpy()
+                 for s in tree_leaves(res.batch_stats)], res.losses[0])
+
+    card_p, card_s, card_l = run(dev)
+    cpu_p, cpu_s, cpu_l = run("cpu")
+    lr_p = run("cpu", lr=0.0104)[0]
+    biased_s = run("cpu", norm=BiasedRunningVar)[1]
+    p_gap, s_gap = _gap(card_p, cpu_p, init_p), _gap(card_s, cpu_s, init_s)
+    p_lim = _gap(lr_p, cpu_p, init_p) / MUTANT_FACTOR
+    s_lim = _gap(biased_s, cpu_s, init_s) / MUTANT_FACTOR
+    rel0 = abs(card_l - cpu_l) / abs(cpu_l)
+    print(f"consistency train resnet18 --sync-bn O0 lr 0.01 b8 64x64 "
+          f"grad_accum 2, 1 step: loss card {card_l:.6f}, cpu {cpu_l:.6f} "
+          f"(rel diff {rel0:.3e}, tol {FIRST_LOSS_RTOL}); params' gap "
+          f"{p_gap:.3e} of their displacement (tol {p_lim:.3e} = lr 4% high "
+          f"/ {MUTANT_FACTOR:g}); running statistics' gap {s_gap:.3e} of "
+          f"their displacement (tol {s_lim:.3e} = a biased running variance"
+          f" / {MUTANT_FACTOR:g}); phase {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    _check(rel0 <= FIRST_LOSS_RTOL,
+           f"syncbn consistency: first loss differs by {rel0}")
+    _check(p_gap <= p_lim, f"syncbn consistency: params' gap {p_gap} over "
+                           f"{p_lim}")
+    _check(s_gap <= s_lim, f"syncbn consistency: running statistics' gap "
+                           f"{s_gap} over {s_lim}")
+    entry["launches"] = 0       # SyncBN's statistics are the plain ones
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2993,7 +3611,8 @@ def main() -> int:
     from apex_tpu_torch.examples import gpt_train_block
     from apex_tpu_torch.models import bert_large
     from apex_tpu_torch.ops import (attention, layer_norm,  # noqa: F401
-                                    multi_tensor, softmax)
+                                    multi_tensor, softmax, welford,
+                                    xentropy)
     # (importing the op modules registers their kernels)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3063,7 +3682,13 @@ def main() -> int:
     del opt, amp_state, step, batches
     torch.cuda.empty_cache()
     bert_flash_train_phase(dev, smi, bert_params)
+    with torch.no_grad():
+        xent_entries = xent_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    bert_xent_train_phase(dev, smi, bert_params, xent_entries)
     del bert_params
+    torch.cuda.empty_cache()
+    bert_proxy_phase(dev, smi)
     bert_consistency_phase(dev)
 
     with torch.no_grad():
@@ -3108,12 +3733,19 @@ def main() -> int:
     softmax_attention_phase(dev, smi, softmax_entries)
     torch.cuda.empty_cache()
 
+    with torch.no_grad():
+        welford_entry = welford_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    syncbn_train_phase(dev, smi, welford_entry)
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [{k: e[k] for k in keys}
                for e in [entry] + flat_entries + bert_entries + gpt_entries
-               + tail_entries + softmax_entries]
+               + tail_entries + softmax_entries + xent_entries
+               + [welford_entry]]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "
            f"{len(_build.KERNELS)} kernels")

@@ -13,6 +13,10 @@ entropy over labelled positions, ``amp.scaled_value_and_grad``,
 is the Pallas flash kernels in interpret mode on the reference's side,
 the port's autograd flash attention (its plain twins) on the port's.
 
+At vocab 128, on the fused cross entropy's gate, the packed batch's
+label -1 padding goes through the gate's kernels (interpret mode) and
+their plain versions.
+
 Tolerances, those ``test_torch_port_bert.py`` measured for this model:
 O0 losses within rtol 1e-5 and the params' displacement within 1e-4 of
 its norm (the two frameworks sum their matmuls in their own orders).
@@ -57,11 +61,11 @@ def test_pack_sequences_matches_jax():
         pack_sequences([np.arange(3), []], max_len=40)
 
 
-def _jax_run(jp, batch):
-    model = JBert(dtype=jnp.float32, **CFG)
+def _jax_run(jp, batch, cfg=CFG):
+    model = JBert(dtype=jnp.float32, **cfg)
     params, amp_state = jamp.initialize(jp, opt_level="O0")
     opt = JLAMB(params, master_weights=False, **LAMB)
-    vocab = CFG["vocab_size"]
+    vocab = cfg["vocab_size"]
 
     def loss_fn(p, tokens, labels, segment_ids=None, positions=None):
         logits = model.mlm_logits({"params": p}, tokens,
@@ -95,18 +99,17 @@ def _jax_run(jp, batch):
                     jax.tree_util.tree_leaves(opt.params)]
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_pretraining_steps_through_flash_match_jax(packed):
-    jm = JBert(**CFG)
+def _steps_match_jax(packed, cfg):
+    jm = JBert(**cfg)
     jp = jm.init(jax.random.key(0), jnp.zeros((B, S), jnp.int32))["params"]
     init = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)]
-    batch, real, _ = ex.synthetic_batch(CFG["vocab_size"], B, S, packed,
+    batch, real, _ = ex.synthetic_batch(cfg["vocab_size"], B, S, packed,
                                         "cpu")
     assert (real < B * S) == packed == ("segment_ids" in batch)
     if packed:
         assert bool((batch["labels"][batch["segment_ids"] == 0] == -1).all())
-    jl, jw = _jax_run(jp, batch)
-    model = BertModel(dtype=torch.float32, **CFG)
+    jl, jw = _jax_run(jp, batch, cfg)
+    model = BertModel(dtype=torch.float32, **cfg)
     opt, state, step = ex.setup(model, bert_from_jax(
         jax.tree_util.tree_map(np.asarray, jp), "cpu"), "cpu",
         opt_level="O0", **LAMB)
@@ -119,6 +122,22 @@ def test_pretraining_steps_through_flash_match_jax(packed):
     num = sum(float(((a - b) ** 2).sum()) for a, b in zip(tw, jw))
     den = sum(float(((b - o) ** 2).sum()) for b, o in zip(jw, init))
     assert np.sqrt(num / den) <= 1e-4, np.sqrt(num / den)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_pretraining_steps_through_flash_match_jax(packed):
+    _steps_match_jax(packed, CFG)
+
+
+def test_a_vocab_on_the_cross_entropy_gate_matches_jax():
+    """Vocab 128 is on the fused cross entropy's gate (C % 128 == 0): the
+    reference runs its Pallas kernels (interpret mode), the port the
+    kernels' plain versions on the CPU, with label -1 on the packed
+    batch's padding masked by ``padding_idx``."""
+    from apex_tpu.ops.xentropy import _use_pallas
+    cfg = dict(CFG, vocab_size=128)
+    assert _use_pallas(cfg["vocab_size"])
+    _steps_match_jax(True, cfg)
 
 
 def test_example_trains_both_batches_on_cpu_and_refuses_offload():

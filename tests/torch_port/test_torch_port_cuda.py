@@ -1091,3 +1091,131 @@ def test_softmax_wrappers_reject_what_they_cannot_take(cuda):
         sm.scaled_masked_softmax(
             torch.randn(2, 2, 8, 128, device=cuda),
             torch.zeros(1, 1, 8, 128, dtype=torch.bool, device=cuda), 0.5)
+
+
+# ---------------------------------------------------------------------------
+# the fused cross entropy (xent_fwd, xent_bwd) and Welford (welford_mean_var)
+# ---------------------------------------------------------------------------
+
+# (rows, C, logits dtype, half_to_float): BERT-L's MLM logits at
+# Megatron's padded vocabulary, GPT-2's vocabulary padded the same way,
+# the gate's edge, and fp16 at the narrowest row
+XENT_CASES = {
+    "bert_large_30592_f32": (4096, 30592, torch.float32, False),
+    "gpt2_50304_bf16_h2f": (8192, 50304, torch.bfloat16, True),
+    "edge_65536_f32": (64, 65536, torch.float32, False),
+    "c128_bf16": (300, 128, torch.bfloat16, False),
+    "c256_fp16": (33, 256, torch.float16, False),
+}
+
+
+def _xent_inputs(n, c, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(n, c, generator=g, device=device) * 2).to(dtype)
+    labels = torch.randint(0, c, (n,), generator=g, device=device)
+    labels[:3] = torch.tensor([-1, c, c + 5], device=device)
+    dy = torch.randn(n, generator=g, device=device)
+    return x, labels, dy
+
+
+def _held_to(got, want, atol, rtol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("case", sorted(XENT_CASES))
+def test_xent_kernels_match_plain_on_card(cuda, case, smoothing):
+    """Losses and lse within rtol 1e-5 (f32; half losses within one
+    rounding), dx within 1e-6 of max |dx| (and one rounding in half);
+    labels -1, C and C + 5 have no target term; the same bits twice."""
+    from apex_tpu_torch.ops import xentropy as tx
+    n, c, dtype, h2f = XENT_CASES[case]
+    x, labels, dy = _xent_inputs(n, c, dtype, cuda, seed=c % 97)
+    loss, lse = tx._xent_fwd_cuda(x, labels, smoothing, h2f)
+    want_loss, want_lse = tx.xent_fwd_ref(x, labels, smoothing, h2f)
+    half = loss.dtype != torch.float32
+    _held_to(loss, want_loss, 1e-5, 2.0 ** -7 if half else 1e-5)
+    _held_to(lse, want_lse, 1e-5, 1e-5)
+    dyl = dy.to(loss.dtype)
+    dx = tx._xent_bwd_cuda(x, labels, lse, dyl, smoothing, h2f)
+    want_dx = tx.xent_bwd_ref(x, labels, want_lse, dyl, smoothing, h2f)
+    scale = float(want_dx.float().abs().max())
+    _held_to(dx, want_dx, 1e-6 * scale, 2.0 ** -7 if half else 0.0)
+    xf = x.float()
+    no_target = torch.logsumexp(xf[:3], 1) - smoothing * xf[:3].mean(1)
+    _held_to(loss[:3], no_target.to(loss.dtype), 1e-5,
+             2.0 ** -7 if half else 1e-5)
+    again = tx._xent_fwd_cuda(x, labels, smoothing, h2f)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
+    assert torch.equal(tx._xent_bwd_cuda(x, labels, lse, dyl, smoothing, h2f),
+                       dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 2048, 200, 30528])
+def test_softmax_cross_entropy_launches_on_the_gate_only(cuda, c):
+    """On the gate one xent_fwd and one xent_bwd a forward + backward,
+    never the plain version; off it neither kernel (the reference's XLA
+    path)."""
+    from apex_tpu_torch.ops import xentropy as tx
+    x, labels, dy = _xent_inputs(16, c, torch.float32, cuda, seed=3)
+    x.requires_grad_(True)
+    before = (tx.XENT_FWD.launches, tx.XENT_BWD.launches)
+    loss = tx.softmax_cross_entropy(x, labels, 0.1)
+    loss.backward(dy)
+    torch.cuda.synchronize()
+    gate = tx._use_pallas(c)
+    assert (tx.XENT_FWD.launches - before[0],
+            tx.XENT_BWD.launches - before[1]) == ((1, 1) if gate else (0, 0))
+    assert bool(torch.isfinite(loss[:3]).all()) == gate
+
+
+WELFORD_CASES = {
+    # (rows, C, dtype, mean): ResNet-50's BatchNorm inputs under --sync-bn
+    # at batch 128 and 224x224, a ragged row count, a large mean
+    "r50_401408x256_bf16": (401408, 256, torch.bfloat16, 0.0),
+    "r50_100352x512_f32": (100352, 512, torch.float32, 0.0),
+    "r50_6272x2048_f32": (6272, 2048, torch.float32, 0.0),
+    "ragged_100001x384_bf16": (100001, 384, torch.bfloat16, 0.0),
+    "large_mean_50000x256_f32": (50000, 256, torch.float32, 300.0),
+    "seven_rows_fp16": (7, 128, torch.float16, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WELFORD_CASES))
+def test_welford_kernel_matches_plain_on_card(cuda, case):
+    """Mean within rtol 1e-5 / atol 1e-6, var rtol 1e-4 / atol 1e-5 (the
+    reference's tolerances), the count exact, one launch, the same bits
+    twice."""
+    from apex_tpu_torch.ops import welford as tw
+    n, c, dtype, mean = WELFORD_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(n % 101)
+    noise = torch.randn(n, c, generator=g, device=cuda)
+    x = (mean + (0.05 if mean else 1.0) * noise).to(dtype)
+    before = tw.WELFORD.launches
+    got = tw.welford_mean_var(x)
+    torch.cuda.synchronize()
+    assert tw.WELFORD.launches == before + 1
+    want = tw.welford_mean_var_ref(x)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+    assert got[2].shape == () and float(got[2]) == float(want[2]) == n
+    again = tw.welford_mean_var(x)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
+    from apex_tpu_torch.ops import welford as tw
+    x = torch.randn(1000, 64, device=cuda)
+    before = tw.WELFORD.launches
+    got = tw.welford_mean_var(x)
+    assert tw.WELFORD.launches == before
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, tw.welford_mean_var_ref(x)))
+    with pytest.raises(TypeError, match="float32"):
+        tw.welford_mean_var(x.double().reshape(-1, 128))

@@ -176,7 +176,7 @@ def test_main_parses_the_reference_flags_and_names_what_waits(capsys):
                          "--device", "cpu"])
     assert len(res.losses) == 2
     assert "throughput" in capsys.readouterr().out
-    for flags in (["--ddp"], ["--sync-bn"], ["--checkpoint", "x"],
+    for flags in (["--ddp"], ["--checkpoint", "x"],
                   ["--checkpoint-dir", "d"], ["--preempt-at-step", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main_amp.main(flags + ["--device", "cpu"])
@@ -186,6 +186,21 @@ def test_main_parses_the_reference_flags_and_names_what_waits(capsys):
                        "--steps", "1"])
 
 
+def test_main_runs_sync_bn_at_world_size_one(capsys):
+    """``--sync-bn`` without ``--ddp`` trains ResNet with SyncBatchNorm
+    norms on their local statistics (one process)."""
+    res = main_amp.main(["--sync-bn", "--arch", "resnet18", "--opt-level",
+                         "O2", "--batch-size", "4", "--image-size", "32",
+                         "--steps", "2", "--grad-accum", "2", "--device",
+                         "cpu"])
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    assert "sync-bn" in capsys.readouterr().out
+    assert sorted(res.batch_stats["SyncBatchNorm_0"]) == ["running_mean",
+                                                          "running_var"]
+    assert "SyncBatchNorm_1" in res.opt.params["BasicBlock_0"]
+    assert not any("BatchNorm_0" == k for k in res.batch_stats)
+
+
 TRAINING_MODULES = [
     "apex_tpu_torch._tree", "apex_tpu_torch.convert",
     "apex_tpu_torch.amp.flat_pipeline", "apex_tpu_torch.amp.frontend",
@@ -193,13 +208,15 @@ TRAINING_MODULES = [
     "apex_tpu_torch.data", "apex_tpu_torch.examples.imagenet_main_amp",
     "apex_tpu_torch.models.resnet",
     "apex_tpu_torch.multi_tensor_apply.packer",
-    "apex_tpu_torch.ops.multi_tensor", "apex_tpu_torch.optimizers._base",
-    "apex_tpu_torch.optimizers.fused_sgd"]
+    "apex_tpu_torch.ops.multi_tensor", "apex_tpu_torch.ops.welford",
+    "apex_tpu_torch.optimizers._base", "apex_tpu_torch.optimizers.fused_sgd",
+    "apex_tpu_torch.parallel", "apex_tpu_torch.parallel.sync_batchnorm"]
+PACKAGES = {"apex_tpu_torch.parallel"}        # checked at their __init__
 
 
 @pytest.mark.parametrize("path", [
-    m.replace(".", "/") + ".py" for m in TRAINING_MODULES] + [
-    "chip_smoke.py"])
+    m.replace(".", "/") + ("/__init__.py" if m in PACKAGES else ".py")
+    for m in TRAINING_MODULES] + ["chip_smoke.py"])
 def test_training_modules_and_chip_smoke_import_no_jax(path):
     """The training path's modules and chip_smoke.py name neither jax
     nor the JAX package in any import (the fresh-interpreter check of

@@ -6,6 +6,11 @@ XLA formula off it, as at BERT-Large's C = 30528) and through the port
 on the CPU, forward and backward, with and without label smoothing, f32
 and bf16 logits, and through ``contrib.xentropy`` with ``padding_idx``
 (-1, the MLM loss's padding label, and the reference default 0).
+Labels outside [0, C) follow each side of the gate: the kernel's
+``col == label`` one-hot on it, ``take_along_axis`` off it.  On the
+gate a tensor off the CPU must reach the kernels' launchers (a stub on
+the meta device here; the kernels themselves are held on the card by
+``test_torch_port_cuda.py``).
 
 Tolerances: f32 losses and gradients within rtol 1e-5 / atol 1e-6 (the
 same formula, summed in each framework's order); bf16 losses within 2e-2
@@ -105,8 +110,8 @@ def test_loss_with_padding_and_half_to_float(padding_idx):
 
 
 def test_labels_out_of_range_follow_jax_indexing():
-    """A negative label counts from the end, one past C gathers NaN; in
-    the backward both have no one-hot term."""
+    """Off the gate a negative label counts from the end, one past C
+    gathers NaN; in the backward both have no one-hot term."""
     jl, tl, _, _ = _case(3, 50, "float32", seed=9)
     labels = np.array([-1, 7, 50], np.int32)
     want = jx.softmax_cross_entropy(jl, jnp.asarray(labels))
@@ -123,10 +128,77 @@ def test_labels_out_of_range_follow_jax_indexing():
                                atol=1e-6)
 
 
-def test_the_gated_kernels_wait_for_a_later_slice():
-    """On the gate the card would need rows 20-21: the op raises there
-    (the meta device stands in for the card), and off it runs."""
-    x = torch.zeros(4, 256, device="meta")
-    with pytest.raises(NotImplementedError, match="rows 20-21"):
-        tx.softmax_cross_entropy(x, torch.zeros(4, dtype=torch.long,
-                                                device="meta"))
+@pytest.mark.parametrize("c", [256, 2048])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_labels_out_of_range_on_the_gate_have_no_target_term(c, smoothing,
+                                                             dtype):
+    """On the gate the reference kernel's one-hot is ``col == label``: a
+    label outside [0, C) has no target term (``loss = lse - s *
+    mean(x)``) and no one-hot term in the gradient, where the XLA path
+    off the gate would wrap -1 and give NaN at C."""
+    jl, tl, labels, dy = _case(6, c, dtype, seed=c + 9)
+    labels[:3] = [-1, c, c + 5]
+    jloss, vjp = jax.vjp(
+        lambda x: jx.softmax_cross_entropy(x, jnp.asarray(labels),
+                                           smoothing), jl)
+    tl = tl.requires_grad_(True)
+    tloss = tx.softmax_cross_entropy(tl, torch.from_numpy(labels),
+                                     smoothing)
+    assert np.all(np.isfinite(_np(tloss)))
+    _check(tloss, jloss, dtype)
+    xf = tl.detach().float()
+    want = torch.logsumexp(xf, 1) - smoothing * xf.mean(1)
+    _check(tloss[:3], want[:3].to(tloss.dtype), dtype)
+    (jgrad,) = vjp(jnp.asarray(dy).astype(jloss.dtype))
+    tloss.backward(torch.from_numpy(dy).to(tloss.dtype))
+    _check(tl.grad, jgrad, dtype, grad=True)
+
+
+def test_half_to_float_on_the_gate_matches_jax():
+    """bf16 logits at C = 256 with ``half_to_float``: f32 losses and an
+    f32 gradient, as the reference kernel writes them."""
+    jl, tl, labels, dy = _case(10, 256, "bfloat16", seed=31)
+    jloss, vjp = jax.vjp(lambda x: jx.softmax_cross_entropy(
+        x, jnp.asarray(labels), 0.1, True), jl)
+    tl = tl.requires_grad_(True)
+    tloss = tx.softmax_cross_entropy(tl, torch.from_numpy(labels), 0.1,
+                                     True)
+    assert jloss.dtype == jnp.float32 and tloss.dtype == torch.float32
+    np.testing.assert_allclose(_np(tloss), _np(jloss), rtol=1e-5, atol=1e-6)
+    (jgrad,) = vjp(jnp.asarray(dy))
+    tloss.backward(torch.from_numpy(dy))
+    assert tl.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(tl.grad), _np(jgrad), rtol=0,
+                               atol=1e-2 * float(np.abs(_np(jgrad)).max()))
+
+
+@pytest.mark.parametrize("c", [256, 200])         # on / off the gate
+def test_the_gate_routes_a_card_tensor_to_the_kernels(c, monkeypatch):
+    """A tensor off the CPU (the meta device stands in for the card)
+    reaches the forward and backward kernels' launchers on the gate and
+    neither off it, where the plain formula runs, as the reference's
+    XLA path does."""
+    calls = []
+
+    def fwd(logits, labels, smoothing, half_to_float):
+        calls.append("fwd")
+        n = logits.shape[0]
+        return (torch.empty(n, dtype=tx._loss_dtype(logits, half_to_float),
+                            device=logits.device),
+                torch.empty(n, device=logits.device))
+
+    def bwd(logits, labels, lse, dy, smoothing, half_to_float):
+        calls.append("bwd")
+        return torch.empty(logits.shape, device=logits.device,
+                           dtype=tx._loss_dtype(logits, half_to_float))
+
+    monkeypatch.setattr(tx, "_xent_fwd_cuda", fwd)
+    monkeypatch.setattr(tx, "_xent_bwd_cuda", bwd)
+    x = torch.zeros(4, c, device="meta", requires_grad=True)
+    loss = tx.softmax_cross_entropy(x, torch.zeros(4, dtype=torch.long,
+                                                   device="meta"), 0.1)
+    assert calls == (["fwd"] if c == 256 else [])
+    loss.sum().backward()
+    assert calls == (["fwd", "bwd"] if c == 256 else [])
+    assert x.grad.shape == (4, c)
