@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, loaded through
 ``ctypes`` — no PyTorch headers, so a build takes seconds.  Libraries
 land in ``apex_tpu_torch/_build/`` (git-ignored) under a name keyed on
-a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads the library already there.  A build runs at
+a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one
+loads the library already there.  A build runs at
 first use.
 
 Every failure raises: a missing ``nvcc``, a compile error, a library
@@ -33,7 +34,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, spills) of each library built in this process
+# ptxas report (registers, spills) of each library built or loaded in this
+# process (kept beside the library as ``<library>.log``)
 build_logs: Dict[str, str] = {}
 
 
@@ -51,9 +53,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of ``csrc/<name>.cu``, every
+    header ``csrc/*.cuh`` (any source may include one) and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
@@ -63,6 +69,9 @@ def _build(name: str) -> str:
     library's path."""
     path = _lib_path(name)
     if os.path.exists(path):
+        if os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                build_logs[name] = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -78,7 +87,11 @@ def _build(name: str) -> str:
         raise RuntimeError(f"nvcc failed on {name}.cu "
                            f"(exit {out.returncode}):\n{out.stdout}")
     build_logs[name] = out.stdout
-    # publish atomically: a concurrent process never loads a torn file
+    # publish atomically, the log first: a concurrent process never loads
+    # a torn file
+    with open(f"{tmp}.log", "w") as f:
+        f.write(out.stdout)
+    os.replace(f"{tmp}.log", f"{path}.log")
     os.replace(tmp, path)
     return path
 

@@ -1,6 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), on the CUDA cores: two
-// kernels, dq and dk/dv, that recompute the probabilities from the
-// forward's logsumexp.
+// Flash-attention backward for Hopper (sm_90a): two kernels, dq and
+// dk/dv, that recompute the probabilities from the forward's logsumexp.
 //
 // Replaces the TPU kernels of apex_tpu/ops/attention.py::_bwd_pallas
 // without dropout: the dq call (:670, body _dq_kernel :503) and the dk/dv
@@ -11,6 +10,18 @@
 // head h reads kv head h / (H/HK), and dk/dv sum over the H/HK query
 // heads of their group).
 //
+// The routes of dk/dv (a dispatch on shape in `dispatch_dkv`, not a
+// fallback: a failure raises):
+//
+// - tensor cores, flash_dkv_kernel_tc: bf16 at D 64 and 128 (every path
+//   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
+// - CUDA cores, flash_dkv_kernel: f32 at any D (the precision contract
+//   of docs/kernels.md: f32 operands stay true f32, no TF32) and bf16 at
+//   D 16 and 32.
+//
+// dq runs on the CUDA cores at every dtype and D (flash_dq_kernel; its
+// tensor-core body is the next item of ROADMAP, on hopper_mma.cuh).
+//
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
 // has lse = -1e30, so exp overflows to inf there; a multiply by a 0/1
@@ -18,12 +29,39 @@
 // rounds where the reference's dtype casts do: p before dV += p^T dO,
 // ds before dQ += ds K and dK += ds^T Q; every sum is f32 and each
 // result rounds to the dtype once.  Products of bf16 values are exact in
-// f32, so converting on load and running f32 FMAs computes the MXU's
-// bf16-products-f32-sums function.
+// f32, so the CUDA-core bodies convert on load and run f32 FMAs; the
+// tensor cores compute the same bf16-products-f32-sums function.  The
+// tensor-core body computes exp as exp2 with log2(e) folded into the
+// scale and into lse as it is staged (the result is the same function).
 //
-// What bounds it: arithmetic, as for the forward (about S/4 operations
-// per byte moved against the card's 20 for f32 outside the tensor
-// cores).  Design, simple first:
+// What bounds the tensor-core dk/dv: at GPT-2 small's (8, 12, 512, 64)
+// causal shape a call does 6.46 GFLOP over 38.1 MB, 6.5 us at 989
+// TFLOP/s against 11.4 us at 3.35 TB/s: bytes on paper, the latency of
+// each CTA's chain of four dependent products in practice.  The design:
+// one CTA (one warpgroup) owns 64 key rows of one (batch, kv head); its
+// K and V tiles come once by TMA into 128-byte-swizzled shared memory
+// and stay there.  It walks the group's query heads in order and, within
+// each, the q tiles of BQT = 64 rows from the first that sees its block
+// (causal), their q and dO tiles through a two-stage TMA ring with
+// mbarrier completion (the next tile's load in flight during this
+// one's products); lse, di and the q segment ids are staged beside them
+// by the CTA's threads (their rows of Sq floats need not meet TMA's
+// 16-byte stride rule).  Key rows are wgmma's M, so every product keeps
+// the CTA's 64 rows: S^T = K.Q^T and dP^T = V.dO^T (m64n64k16, A and B
+// K-major in shared memory), P^T and dS^T on the accumulator fragments,
+// rounded to bf16 in registers as the A operands of dV += P^T.dO and
+// dK += dS^T.Q (B MN-major through the transpose bit).  dK and dV stay
+// in registers (two 64 x D f32 accumulators: 249 registers at D 128,
+// no spills) and are written once.  Only the diagonal tiles, a ragged
+// last q tile and tiles under segment ids evaluate the per-element
+// mask.  Key blocks run heaviest first (the first key block sees most
+// query rows under the causal mask; blockIdx.y counts them, the heads
+// in blockIdx.x).  Key rows past Sk are zeros from TMA and never
+// stored.
+//
+// The CUDA-core bodies, simple first (about S/4 operations per byte
+// moved against the card's 20 for f32 outside the tensor cores: bound by
+// arithmetic):
 //
 // - dq: one CTA per (b*h, 64 query rows), the forward's geometry (a row
 //   split over D/32 threads holding q, dO and the dq accumulator as
@@ -39,13 +77,14 @@
 //
 // No atomics and no cross-CTA sums: every output element is owned by one
 // thread group that sums in a fixed order, so a run gives the same bits
-// every time (ROADMAP Queue 2 idiom (a)).  No wgmma, TMA or warp
-// specialisation yet.
+// every time (ROADMAP Queue 2 idiom (a)).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -362,6 +401,281 @@ void launch_dkv(const Args& a, void* dk, void* dv) {
       a.HK, a.Sq, a.Sk, a.causal, a.scale);
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv on the tensor cores: bf16, D 64 and 128 (wgmma + TMA;
+// hopper_mma.cuh).  Key rows are wgmma's M: S^T = K.Q^T, P^T, dV +=
+// P^T.dO, dP^T = V.dO^T, dS^T, dK += dS^T.Q.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BKV = 64;                      // key rows a CTA
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct DkvTc {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int BQT = 64;                // query rows a ring stage
+  static constexpr int THREADS = 128;
+  static constexpr int KV_BYTES = TC_BKV * D * 2;   // K or V, resident
+  static constexpr int QT_BYTES = BQT * D * 2;      // one q or dO tile
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;        // two stages each
+  static constexpr int DO_OFF = Q_OFF + 2 * QT_BYTES;
+  static constexpr int ROW_OFF = DO_OFF + 2 * QT_BYTES;   // lse2, di, q ids
+  static constexpr int BAR_OFF = ROW_OFF + 3 * 2 * BQT * 4;
+  static constexpr int SMEM = BAR_OFF + 3 * 8 + 1024;     // + alignment slack
+};
+
+// P^T and dS^T of one tile from S^T (in sT) and dP^T (in dpT), in place.
+template <bool MASK>
+__device__ __forceinline__ void dkv_probs(
+    float (&sT)[32], float (&dpT)[32], const float* lse2, const float* dis,
+    const int* qid, int r0, int key_lo, int lane, int Sq, int causal,
+    bool seg, int kid_lo, int kid_hi, float scale2, float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // q row in tile
+    const int h = (i >> 1) & 1;
+    bool ok = true;
+    if (MASK) {
+      const int row = r0 + c;
+      ok = row < Sq && (!causal || key_lo + 8 * h <= row) &&
+           (!seg || qid[c] == (h ? kid_hi : kid_lo));
+    }
+    const float p =
+        ok ? exp2f(__fsub_rn(__fmul_rn(sT[i], scale2), lse2[c])) : 0.f;
+    sT[i] = p;
+    dpT[i] = dscore(p, dpT[i], dis[c], scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvTc<D>::THREADS)
+flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ di,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv,
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                    int Sk, int causal, float scale2, float scale) {
+  using G = DkvTc<D>;
+  constexpr int BQT = G::BQT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = sm;
+  uint8_t* vs = sm + G::V_OFF;
+  uint8_t* qs = sm + G::Q_OFF;
+  uint8_t* dos = sm + G::DO_OFF;
+  float* lse2s = reinterpret_cast<float*>(sm + G::ROW_OFF);   // [2][BQT]
+  float* dis = lse2s + 2 * BQT;                                // [2][BQT]
+  int* qids = reinterpret_cast<int*>(dis + 2 * BQT);           // [2][BQT]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
+
+  const int bhk = blockIdx.x;
+  const int b = bhk / HK;
+  const int hk = bhk % HK;
+  const int group = H / HK;
+  // blockIdx.y counts key blocks from the first: under the causal mask the
+  // first sees most query rows, so the heaviest CTAs start first
+  const int c0 = blockIdx.y * TC_BKV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int key_lo = c0 + 16 * (tid >> 5) + (lane >> 2);   // and key_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kid_lo = (seg && key_lo < Sk) ? kv_ids[(size_t)b * Sk + key_lo] : 0;
+  const int kid_hi =
+      (seg && key_lo + 8 < Sk) ? kv_ids[(size_t)b * Sk + key_lo + 8] : 0;
+
+  // causal: rows before c0 see none of this block's keys
+  const int rstart = causal ? (min(c0, Sq) / BQT) * BQT : 0;
+  const int nqt = (Sq - rstart + BQT - 1) / BQT;
+  const int ntile = group * nqt;   // tile t: head t / nqt, q tile t % nqt
+
+  if (tid == 0) {
+    hopper::mbar_init(&bar[0], 1);
+    hopper::mbar_init(&bar[1], 1);
+    hopper::mbar_init(&bar[2], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[2], 2 * G::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::tma_load_3d(ks + p * TC_BKV * 128, &map_k, &bar[2], 64 * p, c0,
+                          bhk);
+      hopper::tma_load_3d(vs + p * TC_BKV * 128, &map_v, &bar[2], 64 * p, c0,
+                          bhk);
+    }
+  }
+  // the q-side tiles of tile t into stage stg: q and dO by TMA, the rows'
+  // lse (times log2 e), di and segment ids by the CTA's threads
+  auto load_tile = [&](int t, int stg) {
+    const int bh = b * H + hk * group + t / nqt;
+    const int r0 = rstart + (t % nqt) * BQT;
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&bar[stg], 2 * G::QT_BYTES);
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p) {
+        hopper::tma_load_3d(qs + stg * G::QT_BYTES + p * BQT * 128, &map_q,
+                            &bar[stg], 64 * p, r0, bh);
+        hopper::tma_load_3d(dos + stg * G::QT_BYTES + p * BQT * 128,
+                            &map_do, &bar[stg], 64 * p, r0, bh);
+      }
+    }
+    for (int j = tid; j < BQT; j += G::THREADS) {
+      const int r = r0 + j;
+      const bool in = r < Sq;
+      lse2s[stg * BQT + j] = in ? lse[(size_t)bh * Sq + r] * LOG2E : 0.f;
+      dis[stg * BQT + j] = in ? di[(size_t)bh * Sq + r] : 0.f;
+      qids[stg * BQT + j] = (seg && in) ? q_ids[(size_t)b * Sq + r] : 0;
+    }
+  };
+  if (ntile > 0) load_tile(0, 0);
+
+  float dka[G::NP][32], dva[G::NP][32];
+  float sT[32], dpT[32];                   // m64n64: BQT = 64 columns
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sT[i] = dpT[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) dka[p][i] = dva[p][i] = 0.f;
+  }
+  hopper::mbar_wait(&bar[2], 0);
+
+  for (int t = 0; t < ntile; ++t) {
+    const int st = t & 1;
+    // every thread is done with tile t-1: its stage takes tile t+1
+    __syncthreads();
+    if (t + 1 < ntile) load_tile(t + 1, st ^ 1);
+    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    const int r0 = rstart + (t % nqt) * BQT;
+    const uint8_t* qt = qs + st * G::QT_BYTES;
+    const uint8_t* dot = dos + st * G::QT_BYTES;
+
+    // S^T = K . Q^T and dP^T = V . dO^T (A = K / V, B = Q / dO, K-major)
+    hopper::fence_acc(sT);
+    hopper::fence_acc(dpT);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          sT, hopper::desc_sw128(ks + p * TC_BKV * 128 + off, 16, 1024),
+          hopper::desc_sw128(qt + p * BQT * 128 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          dpT, hopper::desc_sw128(vs + p * TC_BKV * 128 + off, 16, 1024),
+          hopper::desc_sw128(dot + p * BQT * 128 + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(sT);
+    hopper::fence_acc(dpT);
+
+    const bool need = seg || r0 + BQT > Sq ||
+                      (causal && r0 < c0 + TC_BKV - 1);
+    const float* l2 = lse2s + st * BQT;
+    const float* dd = dis + st * BQT;
+    const int* qd = qids + st * BQT;
+    if (need)
+      dkv_probs<true>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq, causal, seg,
+                      kid_lo, kid_hi, scale2, scale);
+    else
+      dkv_probs<false>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq, causal,
+                       seg, kid_lo, kid_hi, scale2, scale);
+
+    // P^T and dS^T rounded to bf16 in registers: the A operands of
+    // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major)
+    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
+#pragma unroll
+    for (int c = 0; c < BQT / 16; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[c][r] = hopper::pack_bf16(sT[8 * c + 2 * r], sT[8 * c + 2 * r + 1]);
+        da[c][r] =
+            hopper::pack_bf16(dpT[8 * c + 2 * r], dpT[8 * c + 2 * r + 1]);
+      }
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::fence_acc(dva[p]);
+      hopper::fence_acc(dka[p]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BQT / 16; ++c)
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p)
+        hopper::wgmma_rs_n64<1>(
+            dva[p], pa[c],
+            hopper::desc_sw128(dot + p * BQT * 128 + c * 2048, BQT * 128,
+                               1024));
+#pragma unroll
+    for (int c = 0; c < BQT / 16; ++c)
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p)
+        hopper::wgmma_rs_n64<1>(
+            dka[p], da[c],
+            hopper::desc_sw128(qt + p * BQT * 128 + c * 2048, BQT * 128,
+                               1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::fence_acc(dva[p]);
+      hopper::fence_acc(dka[p]);
+    }
+  }
+
+  // epilogue: each key row's dk and dv, rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_lo + 8 * h;
+    if (key >= Sk) continue;
+    const size_t off = ((size_t)bhk * Sk + key) * D;
+    uint32_t* krow = reinterpret_cast<uint32_t*>(dk + off);
+    uint32_t* vrow = reinterpret_cast<uint32_t*>(dv + off);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int w = 32 * p + 4 * j + (lane & 3);
+        krow[w] = hopper::pack_bf16(dka[p][4 * j + 2 * h],
+                                    dka[p][4 * j + 2 * h + 1]);
+        vrow[w] = hopper::pack_bf16(dva[p][4 * j + 2 * h],
+                                    dva[p][4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+template <int D>
+int launch_dkv_tc(const Args& a, void* dk, void* dv) {
+  using G = DkvTc<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQT);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQT);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, TC_BKV);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, TC_BKV);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_dkv_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM));
+  if (rc != 0) return rc;
+  const dim3 grid(a.B * a.HK, (a.Sk + TC_BKV - 1) / TC_BKV);
+  flash_dkv_kernel_tc<D><<<grid, G::THREADS, G::SMEM, a.st>>>(
+      mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq,
+      a.Sk, a.causal, a.scale * LOG2E, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_dq(const Args& a, int D, void* dq) {
   switch (D) {
@@ -374,8 +688,14 @@ int dispatch_dq(const Args& a, int D, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The route: bf16 at D 64 and 128 takes the tensor cores, everything
+// else the CUDA cores.
 template <typename T>
 int dispatch_dkv(const Args& a, int D, void* dk, void* dv) {
+  if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
+    if (D == 64) return launch_dkv_tc<64>(a, dk, dv);
+    if (D == 128) return launch_dkv_tc<128>(a, dk, dv);
+  }
   switch (D) {
     case 16: launch_dkv<T, 16>(a, dk, dv); break;
     case 32: launch_dkv<T, 32>(a, dk, dv); break;

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): two bodies, chosen by
+// dtype and head width in the C dispatcher (`dispatch`, below).
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_fwd_pallas
 // (_fwd_kernel and _fwd_kernel_1kv) without dropout.  Same semantics:
@@ -10,40 +11,75 @@
 // f32 logsumexp m + log(l) of every row, (B*H, Sq), -1e30 where l == 0
 // (the reference's need_lse=True); the primal path passes null.
 //
-// bf16 follows the reference's arithmetic: operands convert to f32 on
-// load (a product of two bf16 values is exact in f32, so f32 FMAs
-// compute what the MXU's bf16 products with f32 accumulation do), the
-// probabilities are rounded to bf16 before P.V (`p.astype(v.dtype)`),
-// the row sum l takes them unrounded, and o is rounded to bf16 once.
+// The routes (a dispatch on shape, not a fallback: a failure raises):
 //
-// What bounds it: arithmetic.  The precision contract (docs/kernels.md)
-// makes f32 operands true f32, so the tensor cores (TF32 at best) are out
-// for them and the work runs on the FMA units, 67 TFLOP/s on an H100
-// SXM; bf16 runs on the same units here (the simple first kernel).  A
-// causal prefill does about S/8 operations per byte of q/k/v/o it must
-// move (64 at S=512), against the card's 67e12/3.35e12 = 20 for f32
-// outside the tensor cores, so bytes are not the limit.  The design
-// keeps every operand of the inner loop on chip: one CTA owns BQ=64
-// query rows of one (batch, head) and walks the key/value rows in tiles
-// of BK=32 staged through shared memory as f32, with the flash-2 online
-// softmax (running max m, running sum l, unnormalised accumulator) in
-// registers.  Each query row is split over TPQ = D/32 threads (one
-// thread for D <= 32), each owning 32 of its D columns as float4 chunks
-// interleaved across the group, so a warp's shared-memory reads of one
-// key row hit TPQ neighbouring 16-byte words (a broadcast, no bank
-// conflict) and the partial dot products meet through log2(TPQ) warp
-// shuffles.  Under the causal mask the key loop stops at the CTA's
-// diagonal tile (the TPU kernel's clamped index map).  No wgmma, TMA or
-// warp specialisation yet.
+// - tensor cores, flash_fwd_kernel_tc: bf16 at D 64 and 128 (every path
+//   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
+// - CUDA cores, flash_fwd_kernel: f32 at any D (the serving path; the
+//   precision contract of docs/kernels.md makes f32 operands true f32,
+//   so no TF32), bf16 at D 16 and 32, and a call with no keys (Sk == 0).
 //
-// Masked scores use the -1e30 sentinel of the TPU kernel and their
-// probabilities are forced to 0 explicitly, so exp() never sees
-// (-inf) - (-inf) and a fully masked row ends with l == 0 and acc == 0.
+// Both follow the reference's arithmetic: bf16 products with f32 sums
+// (the tensor cores compute exactly that; the CUDA-core body converts
+// bf16 to f32 on load, where a product of two bf16 values is exact),
+// the probabilities rounded to bf16 before P.V (`p.astype(v.dtype)`),
+// the row sum l of the unrounded p, o rounded to bf16 once.  Masked
+// scores take the -1e30 sentinel and their probabilities are SELECTED
+// to 0, so exp never sees (-inf) - (-inf) and a row that sees no key
+// ends with l == 0 and acc == 0.  The tensor-core body computes exp as
+// exp2 with log2(e) folded into the scale (scores, row max and the
+// running sum live in base 2); lse is converted back to a natural log.
+//
+// What bounds the tensor-core body: at GPT-2 small's (8, 12, 512, 64)
+// causal shape a call does 3.23 GFLOP over 25.4 MB, 3.3 us at 989
+// TFLOP/s against 7.6 us at 3.35 TB/s: bytes bound it on paper, and in
+// practice the latency of each CTA's chain (load, Q.K^T, softmax, P.V)
+// does.  The design: one CTA, one warpgroup, owns 64 query rows of one
+// (batch, head) (two warpgroups of 64 rows sharing each K/V tile were
+// slower at GPT-2 small's shape on an H100).  Its Q tile comes once by
+// TMA into 128-byte-swizzled shared memory (two 64-column panels at
+// D 128); K/V tiles of BK = 64 keys flow through a two-stage
+// TMA ring with mbarrier completion, the next tile's load in flight
+// while the current one's products run.  S = Q.K^T is one wgmma
+// m64n64k16 per 16 columns of D (A = Q, B = K, both K-major in shared
+// memory, f32 accumulators); the online softmax runs on the accumulator
+// fragment (a row's four lanes meet through two shuffles); P, rounded
+// to bf16 in registers, is the register A operand of O += P.V (B = the
+// V tile, MN-major through wgmma's transpose bit).  Only the diagonal
+// tile, the ragged last tile and tiles under segment ids evaluate the
+// per-element mask; a tile wholly visible skips it.  Under the causal
+// mask the key loop stops at the CTA's diagonal tile, and the q blocks
+// run heaviest first (blockIdx.y counts them from the last, the heads
+// in blockIdx.x), so the longest CTAs start first.  Ragged edges: TMA
+// fills rows past Sq or Sk with zeros, keys past Sk are masked and rows
+// past Sq are not stored.  No warp specialisation or persistent CTAs
+// yet: one thread of the CTA starts the loads.
+//
+// What bounds the CUDA-core body: arithmetic.  A causal prefill does
+// about S/8 operations per byte of q/k/v/o it must move (64 at S=512),
+// against the card's 67e12/3.35e12 = 20 for f32 outside the tensor
+// cores.  One CTA owns BQ=64 query rows of one (batch, head) and walks
+// the key/value rows in tiles of BK=32 staged through shared memory as
+// f32, with the flash-2 online softmax (running max m, running sum l,
+// unnormalised accumulator) in registers.  Each query row is split over
+// TPQ = D/32 threads (one thread for D <= 32), each owning 32 of its D
+// columns as float4 chunks interleaved across the group, so a warp's
+// shared-memory reads of one key row hit TPQ neighbouring 16-byte words
+// (a broadcast, no bank conflict) and the partial dot products meet
+// through log2(TPQ) warp shuffles.  Under the causal mask the key loop
+// stops at the CTA's diagonal tile (the TPU kernel's clamped index map).
+//
+// Every output element is owned by one CTA that sums in a fixed order:
+// no atomics, the same bits every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <chrono>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -218,10 +254,283 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
       HK, Sq, Sk, causal, scale);
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core body: bf16, D 64 and 128 (wgmma + TMA; hopper_mma.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BK = 64;                       // keys per ring stage
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct FwdTc {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int BQ = 64;                 // query rows a CTA
+  static constexpr int THREADS = 128;           // one warpgroup
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = TC_BK * D * 2;   // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;            // two stages each
+  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;
+  static constexpr int KID_OFF = V_OFF + 2 * KV_BYTES;
+  static constexpr int BAR_OFF = KID_OFF + 2 * TC_BK * 4;
+  static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;   // + alignment slack
+};
+
+// One tile of scores in the accumulator fragment (s, base 2 after this):
+// scale, mask where MASK, fold into the running max m and sum l (this
+// thread's share of its two rows), return the rescale factors and leave
+// the probabilities in s.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float scale2, int k0, int r_lo, int lane, int Sk, int causal,
+    const int* kid, int qid_lo, int qid_hi) {
+  unsigned vis = 0xffffffffu;
+  if (MASK) {
+    vis = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int row = r_lo + 8 * ((i >> 1) & 1);
+      const int col = k0 + c;
+      const bool ok = col < Sk && (!causal || col <= row) &&
+                      (kid == nullptr ||
+                       kid[c] == (((i >> 1) & 1) ? qid_hi : qid_lo));
+      vis |= (ok ? 1u : 0u) << i;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = (!MASK || ((vis >> i) & 1u)) ? s[i] * scale2 : NEG;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = exp2f(m[h] - mx[h]);
+    l[h] *= alpha[h];
+    m[h] = mx[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = (!MASK || ((vis >> i) & 1u)) ? exp2f(s[i] - mx[h]) : 0.f;
+    l[h] += p;
+    s[i] = p;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdTc<D>::THREADS)
+flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                    int Sk, int causal, float scale2) {
+  using G = FwdTc<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm;
+  uint8_t* ks = sm + G::K_OFF;
+  uint8_t* vs = sm + G::V_OFF;
+  int* kid = reinterpret_cast<int*>(sm + G::KID_OFF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bhk = b * HK + (bh % H) / (H / HK);
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r_lo = q0 + 16 * (tid >> 5) + (lane >> 2);   // and r_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
+  const int ntile = (kend + TC_BK - 1) / TC_BK;
+
+  if (tid == 0) {
+    hopper::mbar_init(&bar[0], 1);
+    hopper::mbar_init(&bar[1], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], G::Q_BYTES + 2 * G::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::tma_load_3d(qs + p * G::BQ * 128, &map_q, &bar[0], 64 * p, q0,
+                          bh);
+      hopper::tma_load_3d(ks + p * TC_BK * 128, &map_k, &bar[0], 64 * p, 0,
+                          bhk);
+      hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, &bar[0], 64 * p, 0,
+                          bhk);
+    }
+  }
+  if (seg) {
+    for (int j = tid; j < TC_BK; j += G::THREADS)
+      kid[j] = j < Sk ? kv_ids[(size_t)b * Sk + j] : 0;
+  }
+  const int qid_lo = (seg && r_lo < Sq) ? q_ids[(size_t)b * Sq + r_lo] : 0;
+  const int qid_hi =
+      (seg && r_lo + 8 < Sq) ? q_ids[(size_t)b * Sq + r_lo + 8] : 0;
+
+  float acc[G::NP][32];
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) acc[p][i] = 0.f;
+  }
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntile; ++t) {
+    const int k0 = t * TC_BK;
+    const int st = t & 1;
+    // every thread is done with tile t-1: its stage takes tile t+1
+    __syncthreads();
+    if (t + 1 < ntile) {
+      const int nst = st ^ 1;
+      if (tid == 0) {
+        hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < G::NP; ++p) {
+          hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * TC_BK * 128,
+                              &map_k, &bar[nst], 64 * p, k0 + TC_BK, bhk);
+          hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * TC_BK * 128,
+                              &map_v, &bar[nst], 64 * p, k0 + TC_BK, bhk);
+        }
+      }
+      if (seg) {
+        for (int j = tid; j < TC_BK; j += G::THREADS) {
+          const int col = k0 + TC_BK + j;
+          kid[nst * TC_BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+        }
+      }
+    }
+    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+
+    // S = Q . K^T
+    const uint8_t* kt = ks + st * G::KV_BYTES;
+    const uint8_t* vt = vs + st * G::KV_BYTES;
+    hopper::fence_acc(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          s, hopper::desc_sw128(qs + p * G::BQ * 128 + off, 16, 1024),
+          hopper::desc_sw128(kt + p * TC_BK * 128 + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(s);
+
+    float alpha[2];
+    const bool need = seg || k0 + TC_BK > Sk ||
+                      (causal && k0 + TC_BK - 1 > q0);
+    if (need)
+      softmax_tile<true>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk, causal,
+                         seg ? kid + st * TC_BK : nullptr, qid_lo, qid_hi);
+    else
+      softmax_tile<false>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk, causal,
+                          nullptr, 0, 0);
+
+    // O = O * alpha + P . V, P rounded to bf16 in registers
+    uint32_t a[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[c][r] = hopper::pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::fence_acc(acc[p]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+      hopper::fence_acc(acc[p]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p)
+        hopper::wgmma_rs_n64<1>(
+            acc[p], a[c],
+            hopper::desc_sw128(vt + p * TC_BK * 128 + c * 2048, TC_BK * 128,
+                               1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
+  }
+
+  // epilogue: the row sums meet over the row's four lanes; o = acc / l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float linv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                         l[1] > 0.f ? 1.f / l[1] : 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= Sq) continue;
+    uint32_t* orow =
+        reinterpret_cast<uint32_t*>(o + ((size_t)bh * Sq + row) * D);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        orow[(64 * p + 8 * j + 2 * (lane & 3)) / 2] =
+            hopper::pack_bf16(acc[p][4 * j + 2 * h] * linv[h],
+                              acc[p][4 * j + 2 * h + 1] * linv[h]);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * Sq + row] =
+          l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : NEG;
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, const int* q_ids, const int* kv_ids, int B, int H,
+              int HK, int Sq, int Sk, int causal, float scale,
+              cudaStream_t stream) {
+  using G = FwdTc<D>;
+  CUtensorMap mq, mk, mv;
+  int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, k, D, Sk, B * HK, TC_BK);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, Sk, B * HK, TC_BK);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_fwd_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM));
+  if (rc != 0) return rc;
+  const dim3 grid(B * H, (Sq + G::BQ - 1) / G::BQ);
+  flash_fwd_kernel_tc<D><<<grid, G::THREADS, G::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, q_ids, kv_ids, H, HK,
+      Sq, Sk, causal, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route: bf16 at D 64 and 128 with keys to read takes the tensor
+// cores, everything else the CUDA cores.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
              int Sk, int D, int causal, float scale, cudaStream_t st) {
+  if (sizeof(T) == 2 && Sk > 0) {
+    if (D == 64)
+      return launch_tc<64>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st);
+    if (D == 128)
+      return launch_tc<128>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st);
+  }
   switch (D) {
     case 16: launch<T, 16>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
     case 32: launch<T, 32>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
@@ -256,4 +565,20 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Host microseconds one TMA tensor map costs to encode (the tensor-core
+// forward encodes three a call, the dk/dv kernel four): the mean over
+// `reps` encodings of a GPT-2 small k map, (96, 512, 64) bf16, at
+// `base`, a device buffer of at least that size.  Negative on failure.
+extern "C" double apex_flash_map_encode_us(const void* base, int reps) {
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    CUtensorMap map;
+    if (hopper::make_map_bf16(&map, base, 64, 512, 96, TC_BK) != 0)
+      return -1.0;
+  }
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / (reps > 0 ? reps : 1);
 }

@@ -278,6 +278,13 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
                          f"{align}-byte aligned")
 
 
+def _align(dtype, d: int) -> int:
+    """The bytes q, k, v and dO must start aligned to: TMA's 16 where the
+    kernels take the tensor-core route (bf16 at D 64 and 128), else one
+    4-element vector."""
+    return 16 if dtype == torch.bfloat16 and d in (64, 128) else _ALIGN[dtype]
+
+
 def _geometry(q, k, v, segment_ids):
     """Checks what every kernel takes; returns ``(dims, dtype code, q_ids
     pointer, kv_ids pointer)``."""
@@ -296,9 +303,10 @@ def _geometry(q, k, v, segment_ids):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes q in float32 or "
                         f"bfloat16, got {q.dtype}")
-    _check("q", q, q.dtype, q.device, (b, h, sq, d))
-    _check("k", k, q.dtype, q.device, (b, hk, sk, d))
-    _check("v", v, q.dtype, q.device, (b, hk, sk, d))
+    align = _align(q.dtype, d)
+    _check("q", q, q.dtype, q.device, (b, h, sq, d), align)
+    _check("k", k, q.dtype, q.device, (b, hk, sk, d), align)
+    _check("v", v, q.dtype, q.device, (b, hk, sk, d), align)
     q_ptr = kv_ptr = None
     if segment_ids is not None:
         q_ids, kv_ids = segment_ids
@@ -330,7 +338,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, segment_ids):
     dims, code, q_ptr, kv_ptr = _geometry(q, k, v, segment_ids)
     b, h, hk, sq, sk, d = dims
     _check("o", o, q.dtype, q.device, q.shape)
-    _check("do", do, q.dtype, q.device, q.shape)
+    _check("do", do, q.dtype, q.device, q.shape, _align(q.dtype, d))
     _check("lse", lse, torch.float32, q.device, (b * h, sq), align=4)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:

@@ -75,7 +75,9 @@ exits non-zero:
     default unmasked 8 x 512 batch and on a packed one (``--packed``),
     both through flash attention with gradients: 2 warm-up and 4 timed
     steps each, finite losses, exact launch counts (24 flash forwards,
-    dq and dk/dv a step besides the LayerNorm and LAMB counts);
+    dq and dk/dv a step besides the LayerNorm and LAMB counts); one
+    unmasked step under ``torch.profiler``: busy and idle time,
+    attention's share of busy time;
 15. consistency (BERT) — a 2-layer BERT at BERT-Large's widths, one O2
     step on the card and on the CPU from the same seed, on a padded and
     on an unmasked batch: the masters within a tenth of the nearest of
@@ -85,10 +87,17 @@ exits non-zero:
     logsumexp and the dq, dk/dv kernels against their twins on the card
     at the GPT block's (8, 12, 512, 64) bf16 causal, BERT-Large's (8,
     16, 512, 64) bf16 unmasked and packed with pad rows, grouped-query
-    heads (12 to 4) at Sq = 200, and f32 (within 1e-4; bf16 within 2e-2,
-    one bf16 rounding); rows that see no key (and keys no row sees) give
-    exact zeros; the same bits on a second run; each timed beside its
-    twin, its bound and SDPA's forward or backward;
+    heads (12 to 4) at Sq = 200, f32, and bf16 at D 128 (causal at S
+    130, packed) and D 32 (within 1e-4; bf16 within 2e-2, one bf16
+    rounding); rows that see no key (and keys no row sees) give exact
+    zeros; the same bits on a second run; each case prints the route
+    each kernel took, read from the device kernels' names under the
+    profiler (the tensor-core bodies for bf16 at D 64 and 128, the
+    CUDA-core bodies otherwise); the tensor-core bodies' ptxas registers
+    and spills (0 spill bytes required) and the host microseconds of one
+    TMA tensor map; at GPT's and BERT-L's unmasked shapes each kernel
+    timed beside its twin, its bound and SDPA's forward or backward in
+    the same call, with the ratios to SDPA;
 17. kernel vs plain (Adam) — flat_adam at GPT-2 small's one O2 bucket
     (124,046,592 elements) and a ragged length, AdamW and Adam with and
     without bias correction: the twin's bits exactly; with ``found_inf``
@@ -102,7 +111,8 @@ exits non-zero:
     backwards, one flat_unscale_norm and one flat_adam per bucket, a
     step);
 19. profile (GPT block) — one step under ``torch.profiler``: busy share,
-    the largest device items, the port's kernels' share;
+    attention's share of it, the largest device items, the port's
+    kernels' share;
 20. consistency (GPT block) — a 2-layer stack at GPT-2 small's widths,
     one O2 step (bf16 model) and two O0 steps (f32 model) on the card
     and on the CPU from one seed (FusedAdam eps 1e-4): the masters within
@@ -189,8 +199,11 @@ calls queued behind a device-side spin that outlasts the host's
 launching them, so the host's launch overhead is not in them.
 
 The line before the last is the ``kernels`` JSON record (every kernel);
-the last line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is
-imported.
+the last line is ``{"ok": true, "device": {...}}``.  The flash kernels'
+entries name the ``body`` their timed row took ("tensor cores" or "CUDA
+cores") and its ``shape``: flash_fwd's is GPT-2 small's bf16 training
+shape (its launches those of the GPT step), with the serve path's f32
+row under ``serve_f32``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -603,6 +616,26 @@ def _bound(nbytes: float, ops: float, peak: float = F32_PEAK):
 FLAT_SYMBOL = {"flat_accumulate": (("accumulate_kernel",), 1),
                "flat_unscale_norm": (("unscale_norm", "sum_combine"), 2),
                "flat_sgd": (("sgd_kernel",), 1)}
+
+
+def _profile_step(fn):
+    """(host wall ms, {device kernel name: (us, count)}) of one call of
+    ``fn`` under ``torch.profiler``, the card idle before and after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    return wall, by_name
 
 
 def _owns(name: str, symbols) -> bool:
@@ -1511,23 +1544,10 @@ def bert_profile_phase(dev, smi: str, step, amp_state, batches) -> None:
     """Device time by kernel over one BERT-L training step, from
     ``torch.profiler``: the busy share, the largest device items and the
     five kernels' share of busy time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     tokens, labels, mask, _ = batches[0]
     loss, amp_state = step(amp_state, tokens, labels, mask)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss, amp_state = step(amp_state, tokens, labels, mask)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            tot, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    wall, by_name = _profile_step(
+        lambda: step(amp_state, tokens, labels, mask))
     busy = sum(t for t, _ in by_name.values()) / 1e3
     ours = {k: sum(t for name, (t, _) in by_name.items()
                    if _owns(name, v[3][0])) / 1e3
@@ -1578,6 +1598,9 @@ ATTN_CASES = (
     ("gqa_12_to_4_s200", 2, 12, 4, 200, 64, True, "ragged", "bf16"),
     ("f32_gqa_s300", 2, 12, 4, 300, 64, True, "ragged", "f32"),
     ("f32_d128_packed", 2, 8, 8, 256, 128, False, "packed", "f32"),
+    ("d128_causal_s130", 2, 8, 8, 130, 128, True, None, "bf16"),
+    ("d128_packed", 2, 8, 8, 256, 128, False, "packed", "bf16"),
+    ("d32_causal", 2, 8, 8, 256, 32, True, None, "bf16"),
 )
 GPT_BUCKET = 124_046_592        # GPT-2 small's one amp-O2 bucket (elements)
 ADAM_RAGGED = 70_001
@@ -1626,19 +1649,79 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg):
                                           qp, kp, *common))
 
 
+FLASH_SYMS = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+              "flash_dkv": "flash_dkv_kernel"}
+
+
+def _flash_routes(prof, case_launches) -> dict:
+    """{case: {kernel: route}}: the route each flash kernel took in each
+    case, read from the device kernels' names in one ``torch.profiler``
+    session over every case ("tensor cores" for a ``..._kernel_tc``,
+    wgmma + TMA; "CUDA cores" for the FMA body).  One stream runs its
+    kernels in launch order, so each kernel's device events, by start
+    time, fall to the cases in turn by ``case_launches``, [(case,
+    {kernel: launches})].  (One session: on an H100, short sessions of
+    a small case's few calls came back without their kernels.)"""
+    import torch
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    routes = {case: {} for case, _ in case_launches}
+    for kname, sym in FLASH_SYMS.items():
+        names = [e.name for e in events if sym in e.name]
+        want = sum(n[kname] for _, n in case_launches)
+        _check(len(names) == want, f"the profiler saw {len(names)} "
+               f"{sym} on the device where {want} were launched")
+        i = 0
+        for case, n in case_launches:
+            seen = set(names[i:i + n[kname]])
+            i += n[kname]
+            tc = {x for x in seen if sym + "_tc" in x}
+            _check(bool(seen) and (not tc or tc == seen),
+                   f"{case}: {kname} took the routes {seen}")
+            routes[case][kname] = "tensor cores" if tc else "CUDA cores"
+    return routes
+
+
+def _ptxas_report(log: str, marker: str) -> list:
+    """(entry, registers line, spill line) of every kernel whose mangled
+    name holds ``marker``, from a library's ptxas report."""
+    out = []
+    entry = spill = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            spill = None
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry \
+                and marker in entry:
+            out.append((entry, line.split(":", 1)[-1].strip(), spill))
+    return out
+
+
 def attn_train_kernel_phase(dev, smi: str) -> dict:
     """The forward with lse and the dq, dk/dv kernels against their twins
     on the card (the twins' backward takes the kernel's o and lse, so each
     kernel is held on the same inputs), then timed at the GPT block's and
     BERT-L's shapes beside the twins, SDPA and the bound.  Returns the
     worst error of each kernel and the GPT-shape timing rows."""
+    import ctypes
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    kern = {"flash_fwd": attn.FLASH_FWD, "flash_dq": attn.FLASH_DQ,
+            "flash_dkv": attn.FLASH_DKV}
+    case_launches = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
     for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES:
+        before = {kn: kt.launches for kn, kt in kern.items()}
         dt = _dtype(dtn)
         q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
                                    device=dev).to(dt)
@@ -1672,6 +1755,8 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
         _check(bool(torch.equal(again_o, o) and torch.equal(again_lse, lse)
                     and all(torch.equal(a, g) for a, g in zip(again, grads))),
                f"flash attention {what}: the result differs run to run")
+        case_launches.append(
+            (name, {kn: kt.launches - before[kn] for kn, kt in kern.items()}))
         if dtn == "bf16" and b == 8:
             worst["flash_fwd"] = max(worst["flash_fwd"], errs[0])
             worst["flash_dq"] = max(worst["flash_dq"], errs[2])
@@ -1682,8 +1767,47 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               f"{atol}, rtol={rtol}); exact zeros where nothing is seen; "
               "the same bits on a second run", flush=True)
         del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
+    torch.cuda.synchronize()
+    prof.stop()
+    case_routes = _flash_routes(prof, case_launches)
+    del prof
+    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES:
+        routes = case_routes[name]
+        tc_case = dtn == "bf16" and d in (64, 128)
+        _check(routes["flash_fwd"] == routes["flash_dkv"] ==
+               ("tensor cores" if tc_case else "CUDA cores")
+               and routes["flash_dq"] == "CUDA cores",
+               f"{name}: routes {routes}, expected the tensor cores for "
+               "flash_fwd and flash_dkv exactly when bf16 at D 64 or 128")
+        print(f"route {name} {dtn} D {d}: "
+              + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
+              flush=True)
 
-    rows = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
+               "library was loaded without the log of its build")
+        tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
+        _check(len(tc_kernels) == 2, f"ptxas reported {len(tc_kernels)} "
+               f"tensor-core bodies in {lib}, expected two (D 64 and 128)")
+        for entry, regs, spill in tc_kernels:
+            print(f"ptxas tensor-core body {entry}: {regs}; {spill}",
+                  flush=True)
+            _check(spill is not None and "0 bytes spill stores" in spill
+                   and "0 bytes spill loads" in spill,
+                   f"ptxas reports spills for {entry}: {spill}")
+    encode = _build.library("flash_fwd").apex_flash_map_encode_us
+    encode.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    encode.restype = ctypes.c_double
+    buf = torch.empty(96 * 512 * 64, dtype=torch.bfloat16, device=dev)
+    map_us = encode(buf.data_ptr(), 10000)
+    del buf
+    _check(map_us > 0, "encoding a TMA tensor map failed")
+    print(f"host: one TMA tensor map encodes in {map_us:.3f} us (mean of "
+          f"10000); the tensor-core forward encodes 3 a call "
+          f"({3 * map_us:.3f} us), dk/dv 4 ({4 * map_us:.3f} us)",
+          flush=True)
+
+    rows, ratios = {}, {}
     for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES[:2]:
         dt = _dtype(dtn)
         q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
@@ -1731,7 +1855,13 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
             if name == "gpt2_block":
                 rows[kname] = dict(ms=ms, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=bound_by,
-                                   library_ms=lib_ms)
+                                   library_ms=lib_ms,
+                                   body=case_routes[name][kname])
+            ratios[name, kname] = ms / lib_ms
+        print(f"time ratio {name}: flash_fwd / SDPA forward "
+              f"{ratios[name, 'flash_fwd']:.2f}x, flash_dkv / SDPA backward "
+              f"{ratios[name, 'flash_dkv']:.2f}x, flash_dq / SDPA backward "
+              f"{ratios[name, 'flash_dq']:.2f}x [{smi}]", flush=True)
         del q, k, v, do, o, lse, qq, kk, vv, out
     return dict(worst=worst, rows=rows)
 
@@ -1899,7 +2029,7 @@ def gpt_train_phase(dev, smi: str, entries: list):
           f"flat_unscale_norm and one flat_adam per bucket, a step) [{smi}]",
           flush=True)
     for e in entries:
-        if e["name"] in ("flash_dq", "flash_dkv", "flat_adam"):
+        if e["name"] in ("flash_fwd", "flash_dq", "flash_dkv", "flat_adam"):
             e["launches"] = launches[e["name"]]
     return s, state, tokens
 
@@ -1919,27 +2049,18 @@ def gpt_profile_phase(dev, smi: str, s, state, tokens,
     ``torch.profiler``: the busy share, the largest device items and the
     port's kernels' (``own``, default ``GPT_OWN``) share of busy time."""
     own = GPT_OWN if own is None else own
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     loss, state = s.step(state, tokens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss, state = s.step(state, tokens)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            tot, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    wall, by_name = _profile_step(lambda: s.step(state, tokens))
     busy = sum(t for t, _ in by_name.values()) / 1e3
     ours = {k: sum(t for name, (t, _) in by_name.items()
                    if _owns(name, syms)) / 1e3
             for k, syms in own.items()}
     total = sum(ours.values())
+    attn_ms = sum(t for k, t in ours.items() if k.startswith("flash_"))
+    print(f"profile train step gpt-2 small O2 {optimizer}: attention "
+          f"(flash_fwd + flash_dq + flash_dkv) {attn_ms:.3f} ms, "
+          f"{100 * attn_ms / busy:.2f}% of busy {busy:.2f} ms [{smi}]",
+          flush=True)
     print(f"profile train step gpt-2 small O2 {optimizer} b{GPT['batch']} "
           f"s{GPT['seq']}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), "
@@ -2132,11 +2253,36 @@ def gpt_consistency_phase(dev) -> None:
 BERT_FLASH = dict(warmup=2, steps=4)
 
 
+def _flash_step_profile(what: str, fn, smi: str) -> None:
+    """One training step ``fn`` under the profiler: its wall, busy and
+    idle device time, attention's (the three flash kernels') share of
+    busy time, and the largest device items."""
+    wall, by_name = _profile_step(fn)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    flash = {k: sum(t for name, (t, _) in by_name.items()
+                    if _owns(name, GPT_OWN[k])) / 1e3
+             for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    attn_ms = sum(flash.values())
+    print(f"profile train step {what}: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%), rest (device idle) "
+          f"{wall - busy:.2f} ms, {sum(c for _, c in by_name.values())} "
+          f"device kernels; attention {attn_ms:.3f} ms, "
+          f"{100 * attn_ms / busy:.2f}% of busy: "
+          + ", ".join(f"{k} {t:.3f} ms" for k, t in flash.items())
+          + f" [{smi}]", flush=True)
+    for name, (t_us, c) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:10]:
+        print(f"profile   {t_us / 1e3:9.3f} ms {c:6d}x {name[:90]}",
+              flush=True)
+
+
 def bert_flash_train_phase(dev, smi: str, params) -> None:
     """BERT-L at amp O2 with FusedLAMB on the example's default unmasked
     8 x 512 batch and on a packed one (``--packed``), both through flash
     attention with gradients: warm-up steps, then timed steps with exact
-    launch counts (24 flash forwards, dq and dk/dv a step)."""
+    launch counts (24 flash forwards, dq and dk/dv a step); then one
+    unmasked step under the profiler, with attention's share of busy
+    time."""
     import torch
     from apex_tpu_torch import _build
     from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
@@ -2185,6 +2331,10 @@ def bert_flash_train_phase(dev, smi: str, params) -> None:
               f"step, {kept} sequences), losses "
               f"{[round(x, 4) for x in losses]}, launches {launches} "
               f"[{smi}]", flush=True)
+        if not packed:
+            _flash_step_profile(f"bert-large O2 FusedLAMB b{BERT['batch']} "
+                                f"s{BERT['seq']} unmasked (flash)",
+                                lambda: step(state, **inputs), smi)
         del opt, state, step, inputs
         torch.cuda.empty_cache()
 
@@ -3704,7 +3854,17 @@ def main() -> int:
              rtol=0.0 if name == "flat_adam" else ATTN_TOL["bf16"][1],
              **rows[name])
         for name, (source, replaces, _) in GPT_KERNELS.items()]
-    s, state, tokens = gpt_train_phase(dev, smi, gpt_entries)
+    # the forward's entry: the bf16 training shape's body (GPT-2 small,
+    # its launches from the GPT step), the serve path's f32 body beside it
+    entry["serve_f32"] = dict(
+        {k: entry[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms", "atol",
+                               "rtol")},
+        body="CUDA cores", shape="(4, 12, 1024, 64) f32 causal ragged")
+    entry.update(rows["flash_fwd"], max_abs_err=worst["flash_fwd"],
+                 atol=ATTN_TOL["bf16"][0], rtol=ATTN_TOL["bf16"][1],
+                 shape="(8, 12, 512, 64) bf16 causal", launches=0)
+    s, state, tokens = gpt_train_phase(dev, smi, [entry] + gpt_entries)
     gpt_profile_phase(dev, smi, s, state, tokens)
     del s, state, tokens
     torch.cuda.empty_cache()
@@ -3742,7 +3902,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
-    kernels = [{k: e[k] for k in keys}
+    kernels = [dict({k: e[k] for k in keys},
+                    **{k: e[k] for k in ("body", "shape", "serve_f32")
+                       if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries
                + [welford_entry]]

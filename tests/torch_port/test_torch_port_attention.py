@@ -167,6 +167,62 @@ def test_library_name_is_keyed_on_source_and_flags(monkeypatch, tmp_path):
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
+def test_library_name_is_keyed_on_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a ``csrc/*.cuh`` header (the flash kernels include
+    ``hopper_mma.cuh``) renames every library, so no stale one loads."""
+    for f in ("flash_fwd.cu", "flash_bwd.cu", "hopper_mma.cuh"):
+        (tmp_path / f).write_bytes(
+            open(os.path.join(_build.CSRC, f), "rb").read())
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = {n: _build._lib_path(n) for n in ("flash_fwd", "flash_bwd")}
+    assert {n: _build._lib_path(n) for n in first} == first
+    with open(tmp_path / "hopper_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    second = {n: _build._lib_path(n) for n in first}
+    assert all(second[n] != first[n] for n in first)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build._lib_path(n) not in (first[n], second[n])
+               for n in first)
+
+
+def test_flash_sources_include_the_hopper_header_and_name_both_routes():
+    """Both flash sources build the tensor-core bodies from the shared
+    header and keep the CUDA-core bodies; the kernels' names keep the
+    substrings the profile attribution matches."""
+    for name, sym in (("flash_fwd", "flash_fwd_kernel"),
+                      ("flash_bwd", "flash_dkv_kernel")):
+        src = open(os.path.join(_build.CSRC, f"{name}.cu")).read()
+        assert '#include "hopper_mma.cuh"' in src
+        assert f"{sym}_tc(" in src and f"{sym}(" in src
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                "mbarrier.try_wait", "wgmma.fence", "wgmma.commit_group",
+                "wgmma.wait_group"):
+        assert ptx in hdr
+
+
+def test_tensor_core_route_needs_16_byte_aligned_operands():
+    """bf16 at D 64 and 128 takes the tensor-core bodies, whose TMA loads
+    need q, k, v and dO 16-byte aligned: a tensor 4 elements (8 bytes)
+    into its storage is refused with a ValueError naming the alignment,
+    where bf16 at D 32 (the CUDA-core body, 8-byte words) takes it."""
+    assert tattn._align(torch.bfloat16, 64) == 16
+    assert tattn._align(torch.bfloat16, 128) == 16
+    assert tattn._align(torch.bfloat16, 32) == 8
+    assert tattn._align(torch.float32, 64) == 16
+    for d, refused in ((64, True), (128, True), (32, False)):
+        t = torch.zeros(4 + 2 * 8 * d, dtype=torch.bfloat16)[4:]
+        t = t.view(1, 2, 8, d)
+        assert t.data_ptr() % 16 == 8
+        check = lambda: tattn._check("q", t, t.dtype, t.device, t.shape,
+                                     tattn._align(t.dtype, d))
+        if refused:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                check()
+        else:
+            check()
+
+
 def test_kernel_launch_raises_on_a_cuda_error_and_counts_only_success():
     k = _build.Kernel("fake", "fake_fn", [])
     try:

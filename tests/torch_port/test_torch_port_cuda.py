@@ -354,6 +354,12 @@ FLASH_TRAIN_CASES = {
     "d16_f32_packed": (1, 2, 2, 77, 16, True, "packed", torch.float32),
     "d128_bf16_gqa": (1, 4, 2, 130, 128, False, "ragged", torch.bfloat16),
     "d32_f32": (3, 2, 1, 64, 32, False, None, torch.float32),
+    # the tensor-core bodies (bf16 at D 64 and 128): a ragged last tile,
+    # grouped-query heads, segment ids with the causal mask at D 128
+    "tc_bf16_causal_s200": (2, 12, 12, 200, 64, True, None, torch.bfloat16),
+    "tc_bf16_gqa_12_to_4": (2, 12, 4, 256, 64, False, None, torch.bfloat16),
+    "tc_d128_bf16_causal_packed": (2, 8, 8, 192, 128, True, "packed",
+                                   torch.bfloat16),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -401,6 +407,56 @@ def test_flash_attention_gradients_on_card_match_the_twins(cuda, name):
             assert torch.all(t.transpose(1, 2)[pad] == 0)
     again = run()
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+TC_CROSS_CASES = {
+    # name: (b, h, hk, sq, sk, d, causal): the tensor-core bodies with
+    # query and key lengths apart (ragged on both sides, keys no row sees)
+    "sq33_sk71": (1, 4, 2, 33, 71, 64, False),
+    "sq70_sk300_causal": (1, 2, 1, 70, 300, 64, True),
+    "sq200_sk130_causal_d128": (2, 4, 4, 200, 130, 128, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CROSS_CASES))
+def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
+    """The forward with lse and the dk/dv kernel (bf16, D 64/128: the
+    tensor-core route) at Sq != Sk against the twins; keys that no row
+    sees get exact zeros."""
+    b, h, hk, sq, sk, d, causal = TC_CROSS_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, do = (torch.randn(b, h, sq, d, generator=g,
+                         device=cuda).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=g,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)
+    got = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, None)
+    torch.cuda.synchronize()
+    wo, wlse = attn.flash_fwd_ref(q, k, v, causal)
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal)
+    torch.testing.assert_close(o, wo, **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-5)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[torch.bfloat16])
+    if causal and sk > sq:
+        assert torch.all(got[1][:, :, sq:] == 0)
+        assert torch.all(got[2][:, :, sq:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
+    """bf16 at D 64/128: q starting 8 bytes past a 16-byte boundary is
+    refused with a ValueError before any launch (TMA needs 16)."""
+    q = torch.randn(4 + 2 * 16 * d, device=cuda).to(torch.bfloat16)[4:]
+    q = q.view(1, 2, 16, d)
+    k, v = (torch.randn(1, 2, 16, d, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = attn.FLASH_FWD.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attn.flash_attention(q, k, v, causal=True)
+    assert attn.FLASH_FWD.launches == before
 
 
 @pytest.mark.cuda
