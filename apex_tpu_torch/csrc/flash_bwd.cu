@@ -10,17 +10,15 @@
 // head h reads kv head h / (H/HK), and dk/dv sum over the H/HK query
 // heads of their group).
 //
-// The routes of dk/dv (a dispatch on shape in `dispatch_dkv`, not a
-// fallback: a failure raises):
+// The routes of both kernels, one rule (a dispatch on shape in
+// `dispatch_dq` and `dispatch_dkv`, not a fallback: a failure raises):
 //
-// - tensor cores, flash_dkv_kernel_tc: bf16 at D 64 and 128 (every path
-//   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
-// - CUDA cores, flash_dkv_kernel: f32 at any D (the precision contract
-//   of docs/kernels.md: f32 operands stay true f32, no TF32) and bf16 at
-//   D 16 and 32.
-//
-// dq runs on the CUDA cores at every dtype and D (flash_dq_kernel; its
-// tensor-core body is the next item of ROADMAP, on hopper_mma.cuh).
+// - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
+//   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
+//   Llama-class heads).
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at any D (the
+//   precision contract of docs/kernels.md: f32 operands stay true f32,
+//   no TF32) and bf16 at D 16 and 32.
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -59,15 +57,33 @@
 // in blockIdx.x).  Key rows past Sk are zeros from TMA and never
 // stored.
 //
+// The tensor-core dq has the forward's geometry: at GPT-2 small's shape
+// a call does 4.84 GFLOP over 31.9 MB (4.9 us at 989 TFLOP/s against 9.5
+// us at 3.35 TB/s), bound in practice, like dk/dv, by each CTA's chain
+// of dependent products.  One CTA (one warpgroup) owns 64 query rows of
+// one (batch, head); its Q and dO tiles come once by TMA into
+// 128-byte-swizzled shared memory and stay there, and the K and V tiles
+// of 64 keys stream through a two-stage TMA ring with mbarrier
+// completion (key segment ids staged beside each stage by the CTA's
+// threads).  Each thread's two rows keep lse (times log2 e), di and
+// their query segment ids in registers.  S = Q.K^T and dP = dO.V^T are
+// m64n64k16 products with A and B K-major in shared memory; dS, rounded
+// to bf16 in registers, is the A operand of dQ += dS.K (B = the K tile,
+// MN-major through the transpose bit: the forward's O += P.V with K in
+// V's place).  dQ (D/64 panels of 32 f32 a thread) stays in registers
+// and rounds to bf16 once.  The mask, the heaviest-first order of the q
+// blocks under the causal mask and the key loop's stop at the diagonal
+// tile are the forward's.
+//
 // The CUDA-core bodies, simple first (about S/4 operations per byte
 // moved against the card's 20 for f32 outside the tensor cores: bound by
 // arithmetic):
 //
-// - dq: one CTA per (b*h, 64 query rows), the forward's geometry (a row
-//   split over D/32 threads holding q, dO and the dq accumulator as
-//   float4 chunks); it walks the key/value rows in tiles of 32 staged
-//   through shared memory as f32, stops at the diagonal tile under the
-//   causal mask, and writes dq once.
+// - dq: one CTA per (b*h, 64 query rows), the CUDA-core forward's
+//   geometry (a row split over D/32 threads holding q, dO and the dq
+//   accumulator as float4 chunks); it walks the key/value rows in tiles
+//   of 32 staged through shared memory as f32, stops at the diagonal
+//   tile under the causal mask, and writes dq once.
 // - dk/dv: one CTA per (b*hk, 64 key rows), a key row split over D/16
 //   threads holding k, v and the two accumulators (64 registers of
 //   operands at any D); it walks the query group's
@@ -676,8 +692,260 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// dq on the tensor cores: bf16, D 64 and 128 (wgmma + TMA;
+// hopper_mma.cuh).  Query rows are wgmma's M: S = Q.K^T, dP = dO.V^T,
+// dS, dQ += dS.K (the forward's geometry, K in V's place).
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqTc {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int BQ = 64;                 // query rows a CTA
+  static constexpr int BK = 64;                 // keys a ring stage
+  static constexpr int THREADS = 128;           // one warpgroup
+  static constexpr int Q_BYTES = BQ * D * 2;    // q or dO, resident
+  static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;        // two stages each
+  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;
+  static constexpr int KID_OFF = V_OFF + 2 * KV_BYTES;
+  static constexpr int BAR_OFF = KID_OFF + 2 * BK * 4;
+  static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;   // + alignment slack
+};
+
+// dS of one tile from S (in s) and dP (in dp), into dp: p = exp2(s *
+// scale2 - lse2) selected to 0 where MASK finds the pair hidden.
+template <bool MASK>
+__device__ __forceinline__ void dq_scores(
+    const float (&s)[32], float (&dp)[32], const float (&lse2)[2],
+    const float (&dir)[2], int k0, int r_lo, int lane, int Sk, int causal,
+    const int* kid, int qid_lo, int qid_hi, float scale2, float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // key in tile
+    const int h = (i >> 1) & 1;
+    bool ok = true;
+    if (MASK) {
+      const int col = k0 + c;
+      ok = col < Sk && (!causal || col <= r_lo + 8 * h) &&
+           (kid == nullptr || kid[c] == (h ? qid_hi : qid_lo));
+    }
+    const float p =
+        ok ? exp2f(__fsub_rn(__fmul_rn(s[i], scale2), lse2[h])) : 0.f;
+    dp[i] = dscore(p, dp[i], dir[h], scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqTc<D>::THREADS)
+flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ di,
+                   __nv_bfloat16* __restrict__ dq,
+                   const int* __restrict__ q_ids,
+                   const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                   int Sk, int causal, float scale2, float scale) {
+  using G = DqTc<D>;
+  constexpr int BK = G::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm;
+  uint8_t* dos = sm + G::DO_OFF;
+  uint8_t* ks = sm + G::K_OFF;
+  uint8_t* vs = sm + G::V_OFF;
+  int* kid = reinterpret_cast<int*>(sm + G::KID_OFF);          // [2][BK]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bhk = b * HK + (bh % H) / (H / HK);
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r_lo = q0 + 16 * (tid >> 5) + (lane >> 2);   // and r_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
+  const int ntile = (kend + BK - 1) / BK;
+
+  if (tid == 0) {
+    hopper::mbar_init(&bar[0], 1);
+    hopper::mbar_init(&bar[1], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], 2 * G::Q_BYTES + 2 * G::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::tma_load_3d(qs + p * G::BQ * 128, &map_q, &bar[0], 64 * p, q0,
+                          bh);
+      hopper::tma_load_3d(dos + p * G::BQ * 128, &map_do, &bar[0], 64 * p,
+                          q0, bh);
+      hopper::tma_load_3d(ks + p * BK * 128, &map_k, &bar[0], 64 * p, 0, bhk);
+      hopper::tma_load_3d(vs + p * BK * 128, &map_v, &bar[0], 64 * p, 0, bhk);
+    }
+  }
+  if (seg) {
+    for (int j = tid; j < BK; j += G::THREADS)
+      kid[j] = j < Sk ? kv_ids[(size_t)b * Sk + j] : 0;
+  }
+  // this thread's two rows never change: lse (times log2 e), di and the
+  // query segment ids stay in registers (rows past Sq: zeros, never
+  // stored)
+  float lse2[2], dir[2];
+  int qid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    const bool in = row < Sq;
+    lse2[h] = in ? lse[(size_t)bh * Sq + row] * LOG2E : 0.f;
+    dir[h] = in ? di[(size_t)bh * Sq + row] : 0.f;
+    qid[h] = (seg && in) ? q_ids[(size_t)b * Sq + row] : 0;
+  }
+
+  float acc[G::NP][32];
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) acc[p][i] = 0.f;
+  }
+
+  for (int t = 0; t < ntile; ++t) {
+    const int k0 = t * BK;
+    const int st = t & 1;
+    // every thread is done with tile t-1: its stage takes tile t+1
+    __syncthreads();
+    if (t + 1 < ntile) {
+      const int nst = st ^ 1;
+      if (tid == 0) {
+        hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < G::NP; ++p) {
+          hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * BK * 128, &map_k,
+                              &bar[nst], 64 * p, k0 + BK, bhk);
+          hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * BK * 128, &map_v,
+                              &bar[nst], 64 * p, k0 + BK, bhk);
+        }
+      }
+      if (seg) {
+        for (int j = tid; j < BK; j += G::THREADS) {
+          const int col = k0 + BK + j;
+          kid[nst * BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+        }
+      }
+    }
+    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    const uint8_t* kt = ks + st * G::KV_BYTES;
+    const uint8_t* vt = vs + st * G::KV_BYTES;
+
+    // S = Q . K^T and dP = dO . V^T (A = Q / dO, B = K / V, K-major)
+    hopper::fence_acc(s);
+    hopper::fence_acc(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          s, hopper::desc_sw128(qs + p * G::BQ * 128 + off, 16, 1024),
+          hopper::desc_sw128(kt + p * BK * 128 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          dp, hopper::desc_sw128(dos + p * G::BQ * 128 + off, 16, 1024),
+          hopper::desc_sw128(vt + p * BK * 128 + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(s);
+    hopper::fence_acc(dp);
+
+    const bool need = seg || k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    if (need)
+      dq_scores<true>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal,
+                      seg ? kid + st * BK : nullptr, qid[0], qid[1], scale2,
+                      scale);
+    else
+      dq_scores<false>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal, nullptr,
+                       0, 0, scale2, scale);
+
+    // dS rounded to bf16 in registers: the A operand of dQ += dS . K
+    // (B = the K tile, MN-major through the transpose bit)
+    uint32_t a[BK / 16][4];
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[c][r] = hopper::pack_bf16(dp[8 * c + 2 * r], dp[8 * c + 2 * r + 1]);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p)
+        hopper::wgmma_rs_n64<1>(
+            acc[p], a[c],
+            hopper::desc_sw128(kt + p * BK * 128 + c * 2048, BK * 128, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
+  }
+
+  // epilogue: each query row's dq, rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= Sq) continue;
+    uint32_t* qrow =
+        reinterpret_cast<uint32_t*>(dq + ((size_t)bh * Sq + row) * D);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        qrow[32 * p + 4 * j + (lane & 3)] =
+            hopper::pack_bf16(acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+  }
+}
+
+template <int D>
+int launch_dq_tc(const Args& a, void* dq) {
+  using G = DqTc<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQ);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQ);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, G::BK);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::BK);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_dq_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM));
+  if (rc != 0) return rc;
+  const dim3 grid(a.B * a.H, (a.Sq + G::BQ - 1) / G::BQ);
+  flash_dq_kernel_tc<D><<<grid, G::THREADS, G::SMEM, a.st>>>(
+      mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dq), a.q_ids,
+      a.kv_ids, a.H, a.HK, a.Sq, a.Sk, a.causal, a.scale * LOG2E, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route of both backward kernels: bf16 at D 64 and 128 takes the
+// tensor cores, everything else the CUDA cores.
 template <typename T>
 int dispatch_dq(const Args& a, int D, void* dq) {
+  if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
+    if (D == 64) return launch_dq_tc<64>(a, dq);
+    if (D == 128) return launch_dq_tc<128>(a, dq);
+  }
   switch (D) {
     case 16: launch_dq<T, 16>(a, dq); break;
     case 32: launch_dq<T, 32>(a, dq); break;
@@ -688,8 +956,6 @@ int dispatch_dq(const Args& a, int D, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route: bf16 at D 64 and 128 takes the tensor cores, everything
-// else the CUDA cores.
 template <typename T>
 int dispatch_dkv(const Args& a, int D, void* dk, void* dv) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {

@@ -8,7 +8,11 @@ mirroring the reference's ``_norm_affine`` custom VJP: the forward saves
 card goes to the hand-written kernels of ``csrc/layer_norm.cu`` (the
 port of ``_fwd_2d`` / ``_bwd_2d``); a tensor on the CPU goes to their
 plain twins (:func:`_fwd_2d_ref`, :func:`_bwd_2d_ref`, the kernel
-bodies' formulas in plain PyTorch).  Off the gate the reference computes
+bodies' formulas in plain PyTorch).  The backward has two hand-written
+bodies, chosen by :func:`bwd_route` on shape and layout: the fused one
+(two launches, one read of x and dy) for rows up to
+:data:`FUSED_MAX_H` that start 16-byte aligned, three launches
+otherwise.  Off the gate the reference computes
 the XLA formula and its autodiff, and so does the port: the plain
 formula under torch's autograd, on either device (the reference's own
 routing, not a fallback).  There is no other switch; a tensor on the
@@ -31,8 +35,12 @@ from apex_tpu_torch import _build
 LANE = 128
 _VMEM_BUDGET = 1024 * 1024  # the reference's per-operand block budget
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROWS_PER_CHUNK = 64         # rows of one dw/db partial in the backward
-_MAX_CHUNKS = 65535         # the grid's y limit
+ROWS_PER_CHUNK = 64         # rows of one dw/db partial (three launches)
+_MAX_CHUNKS = 65535         # the grid's y limit (three launches)
+FUSED_MAX_H = 8192          # the widest row the fused backward holds in
+                            # registers (csrc/layer_norm.cu)
+# device kernels one backward call launches, by route
+BWD_DEVICE_KERNELS = {"fused": 2, "three": 3}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -158,6 +166,31 @@ def _fwd_2d(x2d, w, b, eps, rms):
     return y
 
 
+def bwd_route(x2d: torch.Tensor, dy2d: torch.Tensor) -> str:
+    """The backward body a (rows, h) call takes on the card: ``"fused"``
+    (two launches that read x and dy once) when h is a multiple of 8 up
+    to :data:`FUSED_MAX_H` and x and dy start 16-byte aligned (its
+    16-byte vector loads), else ``"three"`` (dx, the dw/db partials and
+    their combine, scalar loads, any row start).  A dispatch on shape
+    and layout: both bodies are hand-written kernels."""
+    h = x2d.shape[-1]
+    if (h % 8 == 0 and h <= FUSED_MAX_H and x2d.data_ptr() % 16 == 0
+            and dy2d.data_ptr() % 16 == 0):
+        return "fused"
+    return "three"
+
+
+def _chunking(rows: int, route: str) -> Tuple[int, int]:
+    """``(rows a dw/db partial sums, partials)``: a fixed function of the
+    row count, so the bits are the same on every card.  The fused body
+    takes about 1/1024 of the rows a CTA (8 .. 64, a multiple of 8)."""
+    if route == "fused":
+        per_chunk = min(64, max(8, -(-rows // 1024) * 8))
+    else:
+        per_chunk = max(ROWS_PER_CHUNK, -(-rows // _MAX_CHUNKS))
+    return per_chunk, -(-rows // per_chunk)
+
+
 def _bwd_2d(x2d, w, dy2d, eps, rms):
     if x2d.device.type == "cpu":
         return _bwd_2d_ref(x2d, w, dy2d, eps, rms)
@@ -176,18 +209,21 @@ def _bwd_2d(x2d, w, dy2d, eps, rms):
     db = torch.empty(h, dtype=torch.float32, device=dev)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    per_chunk = max(ROWS_PER_CHUNK, -(-rows // _MAX_CHUNKS))
-    chunks = -(-rows // per_chunk)
-    mean = torch.empty(rows, dtype=torch.float32, device=dev)
-    rstd = torch.empty(rows, dtype=torch.float32, device=dev)
+    route = bwd_route(x2d, dy2d)
+    per_chunk, chunks = _chunking(rows, route)
+    # the three-launch body keeps each row's statistics for its second
+    # kernel; null scratch asks the C entry point for the fused body
+    stats = ((None, None) if route == "fused" else
+             tuple(torch.empty(rows, dtype=torch.float32, device=dev)
+                   for _ in range(2)))
     part = torch.empty(2, chunks, h, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         LN_BWD.launch(x2d.data_ptr(), _DTYPE_CODE[x2d.dtype], w.data_ptr(),
                       _DTYPE_CODE[w.dtype], dy2d.data_ptr(), dx.data_ptr(),
-                      mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
-                      part[1].data_ptr(), dw.data_ptr(), db.data_ptr(), rows,
-                      h, float(eps), int(bool(rms)), per_chunk, chunks,
-                      _stream(dev))
+                      *(None if t is None else t.data_ptr() for t in stats),
+                      part[0].data_ptr(), part[1].data_ptr(), dw.data_ptr(),
+                      db.data_ptr(), rows, h, float(eps), int(bool(rms)),
+                      per_chunk, chunks, _stream(dev))
     return dx, dw, db
 
 

@@ -1105,7 +1105,8 @@ BERT_KERNELS = {
     "layer_norm_bwd": (
         "apex_tpu_torch/csrc/layer_norm.cu",
         "apex_tpu/ops/layer_norm.py:135 (_bwd_2d, body _ln_bwd_kernel :77)",
-        (2e-2, 2e-2), (("ln_bwd_",), 3)),
+        # device kernels a call: by route, ln.BWD_DEVICE_KERNELS
+        (2e-2, 2e-2), (("ln_bwd_",), None)),
     "flat_l2norm": (
         FLAT_SOURCE, "apex_tpu/ops/multi_tensor.py:325 (flat_l2norm, body "
                      "_l2norm_kernel :314)", (0.0, 1e-5),
@@ -1138,22 +1139,73 @@ def _held(name, got, want, atol, rtol, what) -> float:
     return err
 
 
+# the LayerNorm checks: rows, h, dtype, rms, elements x and dy start past
+# a 16-byte boundary; the backward's route follows from h and alignment
+LN_CASES = (
+    (4096, 1024, "bf16", False, 0),      # BERT-L
+    (4096, 1024, "bf16", True, 0),
+    (4096, 768, "bf16", False, 0),       # GPT-2 small
+    (4096, 1024, "f32", False, 0),
+    (333, 128, "bf16", True, 0),         # rows ragged against the chunk
+    (333, 4096, "bf16", False, 0),
+    (333, 8192, "f32", True, 0),         # the fused limit, 8 vectors a thread
+    (65, 16384, "f32", False, 0),        # past it: three launches
+    (333, 1024, "bf16", False, 1),       # 2 bytes off: three launches
+)
+# the device kernels of each backward route, in launch order
+LN_BWD_KERNELS = {"fused": ("ln_bwd_fused_kernel", "ln_bwd_combine_kernel"),
+                  "three": ("ln_bwd_dx_kernel", "ln_bwd_partial_kernel",
+                            "ln_bwd_combine_kernel")}
+
+
+def _ln_bwd_routes(prof, case_routes) -> None:
+    """Checks that the backward of every case ran the device kernels of
+    the route the wrapper chose, in order, from one ``torch.profiler``
+    session over every case (two backward calls a case)."""
+    import torch
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "ln_bwd_" in e.name), key=lambda e: e.time_range.start)]
+    want = [(what, k) for what, route in case_routes
+            for k in LN_BWD_KERNELS[route] * 2]
+    _check(len(names) == len(want), f"the profiler saw {len(names)} ln_bwd_ "
+           f"kernels on the device where {len(want)} were launched")
+    for got, (what, sym) in zip(names, want):
+        _check(sym in got, f"layer_norm_bwd {what}: the device ran {got} "
+               f"where its route launches {sym}")
+
+
 def _ln_checks(dev) -> dict:
     """The LayerNorm kernels against their twins at BERT-L's (4096, 1024)
-    bf16 (LN and RMS), in f32, and at a ragged wide shape; returns the
-    worst error of each kernel at the main path's dtype."""
+    and GPT-2's (4096, 768) bf16 (LN and RMS), in f32, at ragged row
+    counts, and on both backward routes (the fused body up to its limit,
+    three launches past it and for an x and dy 2 bytes off alignment),
+    each route read from the device kernels' names; returns the worst
+    error of each kernel at the main path's dtype."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device=dev).manual_seed(3)
     worst = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
-    for rows, h, dt, rms in ((4096, 1024, torch.bfloat16, False),
-                             (4096, 1024, torch.bfloat16, True),
-                             (4096, 1024, torch.float32, False),
-                             (333, 8192, torch.float32, True)):
-        x = (torch.randn(rows, h, generator=g, device=dev) * 3 + 1).to(dt)
+    case_routes = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    for _ in range(64):       # the first kernels a late window may drop
+        torch.zeros(1, device=dev)
+    for rows, h, dtn, rms, off in LN_CASES:
+        dt = _dtype(dtn)
+
+        def tensor(scale, shift):
+            t = (torch.randn(rows * h + off, generator=g, device=dev) * scale
+                 + shift).to(dt)
+            return t[off:].view(rows, h)
+
+        x = tensor(3, 1)
         w = (torch.randn(h, generator=g, device=dev) * 0.1 + 1).to(dt)
         b = (torch.randn(h, generator=g, device=dev) * 0.1).to(dt)
-        dy = torch.randn(rows, h, generator=g, device=dev).to(dt)
+        dy = tensor(1, 0)
+        route = ln.bwd_route(x, dy)
         y = ln._fwd_2d(x, w, b, 1e-5, rms)
         dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
         torch.cuda.synchronize()
@@ -1161,7 +1213,8 @@ def _ln_checks(dev) -> dict:
         wdx, wdw, wdb = ln._bwd_2d_ref(x, w, dy, 1e-5, rms)
         half = dt == torch.bfloat16
         atol, rtol = LN_TOL["bf16" if half else "f32"]
-        what = f"({rows}, {h}) {dt} rms={rms}"
+        what = (f"({rows}, {h}) {dt} rms={rms}, x and dy "
+                f"{off * x.element_size()} bytes off 16, {route} route")
         e_fwd = _held("layer_norm_fwd", y, wy, atol, rtol, what)
         e_dx = _held("layer_norm_bwd", dx, wdx, *((atol, rtol) if half else
                                                   (1e-4, 1e-4)), "dx " + what)
@@ -1170,13 +1223,28 @@ def _ln_checks(dev) -> dict:
             _held("layer_norm_bwd", got, want, LN_TOL["grad_f32"] * scale,
                   LN_TOL["grad_f32"], f"{nm} {what}")
         again = ln._bwd_2d(x, w, dy, 1e-5, rms)
-        _check(bool(torch.equal(again[0], dx) and torch.equal(again[1], dw)),
+        _check(all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db))),
                f"layer_norm_bwd {what}: the result differs run to run")
-        if half and not rms:
+        case_routes.append((what, route))
+        if half and not rms and h == 1024 and off == 0:
             worst["layer_norm_fwd"], worst["layer_norm_bwd"] = e_fwd, e_dx
         print(f"kernel layer_norm {what}: fwd max_abs_err {e_fwd:.3e}, dx "
               f"{e_dx:.3e}, dw {_err(dw, wdw):.3e}, db {_err(db, wdb):.3e}; "
               "the same bits on a second run", flush=True)
+        del x, dy, y, dx, dw, db, wy, wdx, wdw, wdb, again
+    torch.cuda.synchronize()
+    prof.stop()
+    _ln_bwd_routes(prof, case_routes)
+    for what, route in case_routes:
+        print(f"route layer_norm_bwd {what}: {len(LN_BWD_KERNELS[route])} "
+              f"device kernels ({', '.join(LN_BWD_KERNELS[route])})",
+              flush=True)
+    _check([r for _, r in case_routes] ==
+           ["fused" if h <= ln.FUSED_MAX_H and off == 0 else "three"
+            for _, h, _, _, off in LN_CASES],
+           f"layer_norm_bwd routes {case_routes}: expected the fused body "
+           f"up to h {ln.FUSED_MAX_H} and three launches past it and off "
+           "alignment")
     return worst
 
 
@@ -1306,6 +1374,8 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
     entries = []
     for name, (kern, plain, lib, lib_note, nbytes, ops) in timings.items():
         source, replaces, (atol, rtol), symbol = BERT_KERNELS[name]
+        if symbol[1] is None:
+            symbol = (symbol[0], ln.BWD_DEVICE_KERNELS[ln.bwd_route(x, dy)])
         ms = _ms(kern, iters=20, warmup=3)
         own_ms, all_ms, per_call = _wrapper_device_split(kern, *symbol)
         plain_ms = _ms(plain, iters=5, warmup=1)
@@ -1323,7 +1393,41 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
             launches=0, max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             atol=atol, rtol=rtol))
+    _ln_bwd_time_at(dev, smi, rows, 768, "GPT-2 small")
     return entries
+
+
+def _ln_bwd_time_at(dev, smi: str, rows: int, h: int, what: str) -> None:
+    """The LayerNorm backward timed at (rows, h) bf16 beside its twin,
+    ``aten.native_layer_norm_backward`` and the bytes bound."""
+    import torch
+    from apex_tpu_torch.ops import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, dy = (torch.randn(rows, h, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    w = torch.ones(h, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(h, device=dev, dtype=torch.bfloat16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], w, b, 1e-5)
+    route = ln.bwd_route(x, dy)
+    kern = lambda: ln._bwd_2d(x, w, dy, 1e-5, False)
+    ms = _ms(kern, iters=20, warmup=3)
+    own_ms, all_ms, per_call = _wrapper_device_split(
+        kern, ("ln_bwd_",), ln.BWD_DEVICE_KERNELS[route])
+    plain_ms = _ms(lambda: ln._bwd_2d_ref(x, w, dy, 1e-5, False), iters=5,
+                   warmup=1)
+    lib_ms = _ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [h], mean, rstd, w, b, [True, True, True]), iters=20,
+        warmup=3)
+    el = rows * h
+    nbytes, ops = 2 * el * 3 + 2 * h + 8 * h, 14 * el
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"time layer_norm_bwd ({rows}, {h}) bf16 ({what}, {route} route): "
+          f"kernel {ms:.4f} ms (its own kernels {own_ms:.4f} ms; all device "
+          f"work captured {all_ms:.4f} ms in {per_call:g} device kernels a "
+          f"call, profiler), plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+          f"ms (aten.native_layer_norm_backward with saved mean/rstd), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops} FLOP), "
+          f"{100 * bound_ms / ms:.1f}% of the bound [{smi}]", flush=True)
 
 
 def bert_batches(rng, n, batch, seq, lengths, vocab, device):
@@ -1591,16 +1695,19 @@ GPT_KERNELS = {
 # it against the final one (2e-2); lse (f32) within 1e-4
 ATTN_TOL = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
 ATTN_CASES = (
-    # name, b, h, hk, s, d, causal, segment ids, dtype
-    ("gpt2_block", 8, 12, 12, 512, 64, True, None, "bf16"),
-    ("bert_large_unmasked", 8, 16, 16, 512, 64, False, None, "bf16"),
-    ("bert_large_packed", 8, 16, 16, 512, 64, False, "packed", "bf16"),
-    ("gqa_12_to_4_s200", 2, 12, 4, 200, 64, True, "ragged", "bf16"),
-    ("f32_gqa_s300", 2, 12, 4, 300, 64, True, "ragged", "f32"),
-    ("f32_d128_packed", 2, 8, 8, 256, 128, False, "packed", "f32"),
-    ("d128_causal_s130", 2, 8, 8, 130, 128, True, None, "bf16"),
-    ("d128_packed", 2, 8, 8, 256, 128, False, "packed", "bf16"),
-    ("d32_causal", 2, 8, 8, 256, 32, True, None, "bf16"),
+    # name, b, h, hk, sq, sk, d, causal, segment ids, dtype
+    ("gpt2_block", 8, 12, 12, 512, 512, 64, True, None, "bf16"),
+    ("bert_large_unmasked", 8, 16, 16, 512, 512, 64, False, None, "bf16"),
+    ("bert_large_packed", 8, 16, 16, 512, 512, 64, False, "packed", "bf16"),
+    ("gqa_12_to_4_s200", 2, 12, 4, 200, 200, 64, True, "ragged", "bf16"),
+    ("f32_gqa_s300", 2, 12, 4, 300, 300, 64, True, "ragged", "f32"),
+    ("f32_d128_packed", 2, 8, 8, 256, 256, 128, False, "packed", "f32"),
+    ("d128_causal_s130", 2, 8, 8, 130, 130, 128, True, None, "bf16"),
+    ("d128_packed", 2, 8, 8, 256, 256, 128, False, "packed", "bf16"),
+    ("d32_causal", 2, 8, 8, 256, 256, 32, True, None, "bf16"),
+    # query and key lengths apart (the wrapper takes Sk from k)
+    ("cross_sq130_sk70_causal", 2, 8, 8, 130, 70, 64, True, None, "bf16"),
+    ("cross_sq200_sk330_d128", 1, 8, 4, 200, 330, 128, False, None, "bf16"),
 )
 GPT_BUCKET = 124_046_592        # GPT-2 small's one amp-O2 bucket (elements)
 ADAM_RAGGED = 70_001
@@ -1720,12 +1827,14 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     case_launches = []
     prof = profile(activities=[ProfilerActivity.CUDA])
     prof.start()
-    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES:
+    for name, b, h, hk, sq, sk, d, causal, kind, dtn in ATTN_CASES:
         before = {kn: kt.launches for kn, kt in kern.items()}
         dt = _dtype(dtn)
-        q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
+        s = sq       # segment ids take one length: only sq == sk cases
+        q, k, v, do = (torch.randn(b, n, length, d, generator=gen,
                                    device=dev).to(dt)
-                       for n in (h, hk, hk, h))
+                       for n, length in ((h, sq), (hk, sk), (hk, sk),
+                                         (h, sq)))
         seg = {None: None, "packed": _packed_ids(b, s, dev),
                "ragged": _ragged_ids([s, s // 3 + 1] * (b // 2), s,
                                      dev)}[kind]
@@ -1771,24 +1880,28 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     prof.stop()
     case_routes = _flash_routes(prof, case_launches)
     del prof
-    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES:
+    for name, b, h, hk, sq, sk, d, causal, kind, dtn in ATTN_CASES:
         routes = case_routes[name]
         tc_case = dtn == "bf16" and d in (64, 128)
-        _check(routes["flash_fwd"] == routes["flash_dkv"] ==
-               ("tensor cores" if tc_case else "CUDA cores")
-               and routes["flash_dq"] == "CUDA cores",
+        _check(routes["flash_fwd"] == routes["flash_dq"] ==
+               routes["flash_dkv"] ==
+               ("tensor cores" if tc_case else "CUDA cores"),
                f"{name}: routes {routes}, expected the tensor cores for "
-               "flash_fwd and flash_dkv exactly when bf16 at D 64 or 128")
-        print(f"route {name} {dtn} D {d}: "
+               "flash_fwd, flash_dq and flash_dkv exactly when bf16 at D "
+               "64 or 128")
+        print(f"route {name} {dtn} D {d} Sq {sq} Sk {sk}: "
               + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
               flush=True)
 
-    for lib in ("flash_fwd", "flash_bwd"):
+    # tensor-core bodies a library holds: the forward at D 64 and 128; dq
+    # and dk/dv at each
+    for lib, n_tc in (("flash_fwd", 2), ("flash_bwd", 4)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
-        _check(len(tc_kernels) == 2, f"ptxas reported {len(tc_kernels)} "
-               f"tensor-core bodies in {lib}, expected two (D 64 and 128)")
+        _check(len(tc_kernels) == n_tc, f"ptxas reported {len(tc_kernels)} "
+               f"tensor-core bodies in {lib}, expected {n_tc} (D 64 and "
+               "128 of each)")
         for entry, regs, spill in tc_kernels:
             print(f"ptxas tensor-core body {entry}: {regs}; {spill}",
                   flush=True)
@@ -1804,11 +1917,12 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     _check(map_us > 0, "encoding a TMA tensor map failed")
     print(f"host: one TMA tensor map encodes in {map_us:.3f} us (mean of "
           f"10000); the tensor-core forward encodes 3 a call "
-          f"({3 * map_us:.3f} us), dk/dv 4 ({4 * map_us:.3f} us)",
+          f"({3 * map_us:.3f} us), dq and dk/dv 4 each ({4 * map_us:.3f} "
+          "us)",
           flush=True)
 
     rows, ratios = {}, {}
-    for name, b, h, hk, s, d, causal, kind, dtn in ATTN_CASES[:2]:
+    for name, b, h, hk, s, _, d, causal, kind, dtn in ATTN_CASES[:2]:
         dt = _dtype(dtn)
         q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
                                    device=dev).to(dt)

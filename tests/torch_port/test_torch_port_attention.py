@@ -189,11 +189,12 @@ def test_flash_sources_include_the_hopper_header_and_name_both_routes():
     """Both flash sources build the tensor-core bodies from the shared
     header and keep the CUDA-core bodies; the kernels' names keep the
     substrings the profile attribution matches."""
-    for name, sym in (("flash_fwd", "flash_fwd_kernel"),
-                      ("flash_bwd", "flash_dkv_kernel")):
+    for name, syms in (("flash_fwd", ("flash_fwd_kernel",)),
+                       ("flash_bwd", ("flash_dq_kernel", "flash_dkv_kernel"))):
         src = open(os.path.join(_build.CSRC, f"{name}.cu")).read()
         assert '#include "hopper_mma.cuh"' in src
-        assert f"{sym}_tc(" in src and f"{sym}(" in src
+        for sym in syms:
+            assert f"{sym}_tc(" in src and f"{sym}(" in src
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor",
                 "mbarrier.try_wait", "wgmma.fence", "wgmma.commit_group",

@@ -15,6 +15,10 @@ against ``flash_fwd_ref``/``flash_bwd_ref`` (bf16 within one bf16
 rounding, 2e-2; f32 1e-4) and must give the same bits twice; the flat
 kernels of the training paths against their twins (tolerances by the
 kernels' sections below); a GPT block step must not sync the host.
+dq and the LayerNorm backward are also held on each of their routes
+(the tensor-core dq for bf16 at D 64 and 128; the fused or three-launch
+LayerNorm backward by ``bwd_route``), each read from the device
+kernels' names under ``torch.profiler``.
 """
 
 import numpy as np
@@ -519,6 +523,144 @@ def test_fused_layer_norm_autograd_runs_the_kernels_on_card(cuda):
     assert x.grad.dtype == w.grad.dtype == b.grad.dtype == torch.bfloat16
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ln._fwd_2d(x.detach().half().reshape(-1, 256), w, b, 1e-5, False)
+
+
+def _device_kernel_names(fn, calls=3):
+    """The names of the device kernels ``calls`` calls of ``fn`` launch,
+    read by ``torch.profiler`` after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+DQ_CASES = {
+    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 64
+    # and 128 is the tensor-core route, the rest the CUDA cores
+    "gpt2_small_causal": (8, 12, 12, 512, 512, 64, True, None,
+                          torch.bfloat16),
+    "bert_large_unmasked": (8, 16, 16, 512, 512, 64, False, None,
+                            torch.bfloat16),
+    "bert_large_packed_causal": (2, 16, 16, 512, 512, 64, True, "packed",
+                                 torch.bfloat16),
+    "gqa_12_to_4_s200": (2, 12, 4, 200, 200, 64, True, "ragged",
+                         torch.bfloat16),
+    "d128_packed": (2, 8, 8, 256, 256, 128, False, "packed", torch.bfloat16),
+    "sq200_sk330_d128": (1, 4, 2, 200, 330, 128, False, None, torch.bfloat16),
+    "sq130_sk70_causal": (2, 4, 4, 130, 70, 64, True, None, torch.bfloat16),
+    "f32_d64_cuda_cores": (2, 4, 4, 200, 200, 64, True, "packed",
+                           torch.float32),
+    "bf16_d32_cuda_cores": (2, 4, 4, 200, 200, 32, True, None,
+                            torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DQ_CASES))
+def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
+    """dq against ``flash_bwd_ref`` on the kernel's own o and lse: bf16
+    within one bf16 rounding (2e-2), f32 within 1e-4; rows that see no
+    key give exact zeros; the same bits on a second call; the route read
+    from the kernel's name (``flash_dq_kernel_tc`` exactly for bf16 at D
+    64 and 128)."""
+    b, h, hk, sq, sk, d, causal, kind, dt = DQ_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    seg = None if kind is None else _seg(kind, b, sq, cuda)
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True)
+    dq = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)[0]
+    torch.cuda.synchronize()
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg)[0]
+    torch.testing.assert_close(dq, want, **FLASH_TOL[dt])
+    if seg is not None:
+        pad = seg[0] < 0                                  # (B, S)
+        assert bool(pad.any())
+        assert torch.all(dq.transpose(1, 2)[pad] == 0)
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)[0]
+    assert torch.equal(again, dq)
+    names = [n for n in _device_kernel_names(
+        lambda: attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg))
+        if "flash_dq_kernel" in n]
+    tc = dt == torch.bfloat16 and d in (64, 128)
+    assert names and all(("flash_dq_kernel_tc" in n) == tc for n in names)
+
+
+LN_BWD_CASES = {
+    # name: (rows, h, x dtype, w dtype, rms, x's start in elements past a
+    # 16-byte boundary, route)
+    "gpt_bf16": (4096, 768, torch.bfloat16, torch.bfloat16, False, 0,
+                 "fused"),
+    "bert_bf16": (4096, 1024, torch.bfloat16, torch.bfloat16, False, 0,
+                  "fused"),
+    "bert_bf16_rms": (4096, 1024, torch.bfloat16, torch.bfloat16, True, 0,
+                      "fused"),
+    "h128_f32_333_rows": (333, 128, torch.float32, torch.float32, False, 0,
+                          "fused"),
+    "h128_bf16_rms_333_rows": (333, 128, torch.bfloat16, torch.float32, True,
+                               0, "fused"),
+    "h4096_bf16_333_rows": (333, 4096, torch.bfloat16, torch.bfloat16, False,
+                            0, "fused"),
+    "h4096_f32_rms": (129, 4096, torch.float32, torch.bfloat16, True, 0,
+                      "fused"),
+    "h8192_f32": (65, 8192, torch.float32, torch.float32, False, 0,
+                  "fused"),
+    "h8192_bf16_rms": (65, 8192, torch.bfloat16, torch.bfloat16, True, 0,
+                       "fused"),
+    "h16384_f32_three": (9, 16384, torch.float32, torch.float32, False, 0,
+                         "three"),
+    "unaligned_bf16_three": (333, 1024, torch.bfloat16, torch.bfloat16,
+                             False, 1, "three"),
+}
+LN_BWD_NAMES = {"fused": {"ln_bwd_fused_kernel", "ln_bwd_combine_kernel"},
+                "three": {"ln_bwd_dx_kernel", "ln_bwd_partial_kernel",
+                          "ln_bwd_combine_kernel"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LN_BWD_CASES))
+def test_layer_norm_backward_routes_match_plain_on_card(cuda, case):
+    """Both backward bodies against ``_bwd_2d_ref``: dx within 2e-2 in
+    bf16 and 1e-4 in f32, dw and db within 1e-4 of their scale; the same
+    bits twice; the route the wrapper picks is the one the device runs
+    (its kernels' names, 2 fused or 3 otherwise)."""
+    rows, h, xdt, wdt, rms, off, route = LN_BWD_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(13)
+
+    def tensor(scale, shift):
+        t = (torch.randn(rows * h + off, generator=g, device=cuda) * scale
+             + shift).to(xdt)
+        return t[off:].view(rows, h)
+
+    x, dy = tensor(3, 1), tensor(1, 0)
+    w = (torch.randn(h, generator=g, device=cuda) * 0.1 + 1).to(wdt)
+    assert ln.bwd_route(x, dy) == route
+    b0 = ln.LN_BWD.launches
+    dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert ln.LN_BWD.launches - b0 == 1
+    wdx, wdw, wdb = ln._bwd_2d_ref(x, w, dy, 1e-5, rms)
+    half = xdt == torch.bfloat16
+    torch.testing.assert_close(dx, wdx, **(dict(atol=2e-2, rtol=2e-2) if half
+                                           else dict(atol=1e-4, rtol=1e-4)))
+    for got, want in ((dw, wdw), (db, wdb)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    again = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
+    names = [n for n in _device_kernel_names(
+        lambda: ln._bwd_2d(x, w, dy, 1e-5, rms)) if "ln_bwd_" in n]
+    seen = {k for k in LN_BWD_NAMES["three"] | LN_BWD_NAMES["fused"]
+            if any(k in n for n in names)}
+    assert seen == LN_BWD_NAMES[route]
+    assert len(seen) == ln.BWD_DEVICE_KERNELS[route]
 
 
 @pytest.mark.cuda

@@ -169,3 +169,59 @@ def test_modules_match_flax_params_and_outputs(cls, jcls):
 def test_what_waits_for_later_slices_says_so():
     with pytest.raises(NotImplementedError, match="slice 4 item 12"):
         normalization.FusedLayerNorm(128, sequence_parallel=True)
+
+
+def _rows(h, dtype, offset=0):
+    """(8, h) of ``dtype`` starting ``offset`` elements into a buffer."""
+    return torch.zeros(8 * h + offset, dtype=dtype)[offset:].view(8, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,route", [(128, "fused"), (768, "fused"),
+                                     (1024, "fused"), (4096, "fused"),
+                                     (tln.FUSED_MAX_H, "fused"),
+                                     (tln.FUSED_MAX_H + 128, "three"),
+                                     (32768, "three")])
+def test_backward_route_follows_the_fused_bodys_register_limit(h, route,
+                                                               dtype):
+    """The fused backward takes rows up to FUSED_MAX_H (at least 8192:
+    GPT-2's 768, BERT-L's 1024 and Llama-class 4096 fit); wider rows,
+    up to the gate's 32768, keep the three-launch body; the device
+    kernels a call launches follow the route."""
+    assert tln.FUSED_MAX_H >= 8192
+    x, dy = _rows(h, dtype), _rows(h, dtype)
+    assert tln.bwd_route(x, dy) == route
+    assert tln.BWD_DEVICE_KERNELS[route] == (2 if route == "fused" else 3)
+
+
+@pytest.mark.parametrize("which", ["x", "dy"])
+def test_backward_route_takes_three_launches_off_16_bytes(which):
+    """An x or dy whose data starts 2 bytes off a 16-byte boundary (a
+    bf16 view one element in) cannot take the fused body's vector loads:
+    the three-launch body, which accepts any row start."""
+    aligned, off = _rows(1024, torch.bfloat16), _rows(1024, torch.bfloat16, 1)
+    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
+    x, dy = (off, aligned) if which == "x" else (aligned, off)
+    assert tln.bwd_route(x, dy) == "three"
+    assert tln.bwd_route(aligned, aligned) == "fused"
+
+
+@pytest.mark.parametrize("rows,route,want", [
+    (4096, "fused", (32, 128)), (333, "fused", (8, 42)), (1, "fused", (8, 1)),
+    (65536, "fused", (64, 1024)), (4096, "three", (64, 64)),
+    (333, "three", (64, 6))])
+def test_backward_chunking_is_a_function_of_the_rows(rows, route, want):
+    """Each dw/db partial sums a fixed chunk of rows that depends on the
+    row count only (not on the card), so the bits repeat on every H100."""
+    assert tln._chunking(rows, route) == want
+
+
+def test_backward_kernel_names_keep_the_profiled_prefix():
+    """Both backward bodies and the combine are named ln_bwd_*, the prefix
+    the profile attribution matches."""
+    import os
+    from apex_tpu_torch import _build
+    src = open(os.path.join(_build.CSRC, "layer_norm.cu")).read()
+    for name in ("ln_bwd_fused_kernel(", "ln_bwd_dx_kernel(",
+                 "ln_bwd_partial_kernel(", "ln_bwd_combine_kernel("):
+        assert name in src
