@@ -1,2 +1,2 @@
-"""Contrib modules of the port (so far: xentropy, multihead_attn,
+"""Contrib modules of the port (xentropy, multihead_attn, fmha,
 clip_grad)."""

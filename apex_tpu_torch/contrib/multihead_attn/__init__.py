@@ -1,8 +1,9 @@
 """Fused multihead attention (port of ``apex_tpu.contrib.multihead_attn``):
-``SelfMultiheadAttn`` so far; ``EncdecMultiheadAttn`` is ROADMAP Queue 1
-slice 4 item 11b."""
+``SelfMultiheadAttn`` and ``EncdecMultiheadAttn``."""
 
+from apex_tpu_torch.contrib.multihead_attn.encdec_multihead_attn import \
+    EncdecMultiheadAttn  # noqa: F401
 from apex_tpu_torch.contrib.multihead_attn.self_multihead_attn import \
     SelfMultiheadAttn  # noqa: F401
 
-__all__ = ["SelfMultiheadAttn"]
+__all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]

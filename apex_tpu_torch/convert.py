@@ -94,6 +94,8 @@ def gpt_block_from_jax(params, device=None):
     ``block<i>/{attn, ln2, fc1, fc2}``, ``lnf``) with numpy leaves -> the
     tree of :class:`apex_tpu_torch.examples.gpt_train_block.GPTBlocks`,
     each leaf keeping its float dtype, on ``device`` (default: the
-    card).  A flax ``SelfMultiheadAttn``'s own ``params`` convert the
-    same way to the port's module tree."""
+    card).  A flax ``SelfMultiheadAttn``'s or ``EncdecMultiheadAttn``'s
+    own ``params`` convert the same way to the port's module tree (the
+    ``kernel`` -> ``weight`` and ``FusedLayerNorm_0`` -> ``norm`` renames;
+    ``q_proj``, ``kv_proj`` and ``out_proj`` keep their names)."""
     return _from_numpy(_renamed(params), resolve_device(device))

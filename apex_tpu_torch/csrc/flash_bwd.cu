@@ -1,9 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, dq and
 // dk/dv, that recompute the probabilities from the forward's logsumexp.
 //
-// Replaces the TPU kernels of apex_tpu/ops/attention.py::_bwd_pallas
-// without dropout: the dq call (:670, body _dq_kernel :503) and the dk/dv
-// call (:702, body _dkv_kernel :544).  Same semantics as the forward
+// Replaces the TPU kernels of apex_tpu/ops/attention.py::_bwd_pallas:
+// the dq call (:670, body _dq_kernel :503) and the dk/dv call (:702,
+// body _dkv_kernel :544).  Same semantics as the forward
 // (csrc/flash_fwd.cu): q/dO (B,H,Sq,D), k/v (B,HK,Sk,D) contiguous, f32
 // or bf16; lse and di = rowsum(dO * O) are f32 (B*H, Sq); the causal,
 // segment and length masks of the forward; grouped-query heads (query
@@ -31,6 +31,15 @@
 // tensor cores compute the same bf16-products-f32-sums function.  The
 // tensor-core body computes exp as exp2 with log2(e) folded into the
 // scale and into lse as it is staged (the result is the same function).
+//
+// The fused probability dropout (every body's DROP instantiation, taken
+// when a seed pointer is given; rate 0 launches the DROP = false bodies)
+// rebuilds the forward's mask from the counter hash (hopper_mma.cuh,
+// namespace dropout) at the flat (b*H + h, q row, key): dp becomes
+// keep * dp / (1 - rate) and ds = p * (dp - di) * scale keeps the
+// undropped p; dV takes keep * p / (1 - rate).  di stays rowsum(dO * O).
+// dk/dv walks a kv head's query heads, so it hashes at the flat q row
+// b*H + hk*(H/HK) + head of the group (the reference's i_flatq).
 //
 // What bounds the tensor-core dk/dv: at GPT-2 small's (8, 12, 512, 64)
 // causal shape a call does 6.46 GFLOP over 38.1 MB, 6.5 us at 989
@@ -90,6 +99,9 @@
 //   heads in order and, within each, the query rows from the first that
 //   can see its block (causal) in tiles of 32 (q, dO, lse, di, ids
 //   staged in shared memory), then writes dk and dv once.
+//
+// Every body puts B*H (dk/dv: B*HK) on the grid's x, up to 2^31 - 1, and
+// the row blocks on y (dq heaviest first under the causal mask).
 //
 // No atomics and no cross-CTA sums: every output element is owned by one
 // thread group that sums in a fixed order, so a run gives the same bits
@@ -196,29 +208,32 @@ __device__ __forceinline__ float dscore(float p, float dp, float di,
 // ---------------------------------------------------------------------------
 // dq: dq[row] = sum over visible cols of ds[row, col] * k[col]
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(GeoQ<D>::THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ di,
                 T* __restrict__ dq, const int* __restrict__ q_ids,
                 const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                int Sk, int causal, float scale) {
+                int Sk, int causal, float scale, dropout::Params drop) {
   using G = GeoQ<D>;
   constexpr int D4 = D / 4;
   __shared__ float4 ks[BK][D4];
   __shared__ float4 vs[BK][D4];
   __shared__ int kid[BK];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
-  const int q0 = blockIdx.x * BQ;
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int part = tid % G::TPR;
   const int row = q0 + tid / G::TPR;
   const bool row_ok = row < Sq;
   const bool seg = q_ids != nullptr;
+  const uint32_t rkey =
+      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
 
   const size_t kvb = (size_t)(b * HK + hk) * Sk * D4;
   const size_t qrow = (size_t)bh * Sq + (row_ok ? row : 0);
@@ -267,6 +282,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = row_ok && col < Sk && (!causal || col <= row) &&
                       (!seg || kid[j] == qid);
       const float p = prob(ok, sd, scale, lse_r);
+      if (DROP) pd = dropout::apply(drop, dropout::col_key(rkey, col), pd);
       const float ds = operand<T>(dscore(p, pd, di_r, scale));
 #pragma unroll
       for (int c = 0; c < G::C4; ++c)
@@ -294,7 +310,7 @@ struct DkvMinBlocks {
       (sizeof(T) == 4 || GeoKV<D>::THREADS > 256) ? 1 : 2;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(GeoKV<D>::THREADS, DkvMinBlocks<T, D>::value)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -302,7 +318,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ dk, T* __restrict__ dv,
                  const int* __restrict__ q_ids,
                  const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                 int Sk, int causal, float scale) {
+                 int Sk, int causal, float scale, dropout::Params drop) {
   using G = GeoKV<D>;
   constexpr int D4 = D / 4;
   __shared__ float4 qs[BQT][D4];
@@ -311,11 +327,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float dis[BQT];
   __shared__ int qid[BQT];
 
-  const int bhk = blockIdx.y;
+  const int bhk = blockIdx.x;
   const int b = bhk / HK;
   const int hk = bhk % HK;
   const int group = H / HK;
-  const int c0 = blockIdx.x * BKV;
+  // the first key block sees most query rows under the causal mask
+  const int c0 = blockIdx.y * BKV;
   const int tid = threadIdx.x;
   const int part = tid % G::TPR;
   const int col = c0 + tid / G::TPR;
@@ -337,7 +354,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: rows before c0 see none of this block's keys
   const int rstart = causal ? (min(c0, Sq) / BQT) * BQT : 0;
   for (int hh = 0; hh < group; ++hh) {
-    const size_t rowb = (size_t)(b * H + hk * group + hh) * Sq;
+    const int bh = b * H + hk * group + hh;   // the flat q row
+    const size_t rowb = (size_t)bh * Sq;
+    const uint32_t ckey =
+        DROP ? dropout::col_key(dropout::head_key(*drop.seed, bh), col) : 0u;
     for (int r0 = rstart; r0 < Sq; r0 += BQT) {
       __syncthreads();
       for (int i = tid; i < BQT * D4; i += G::THREADS) {
@@ -368,7 +388,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = col_ok && r < Sq && (!causal || col <= r) &&
                         (!seg || qid[i] == kid);
         const float p = prob(ok, sd, scale, lses[i]);
-        const float pv = operand<T>(p);
+        float pd_p = p;   // the p of dV: keep * p / (1 - rate) under DROP
+        if (DROP) {
+          const bool keep = dropout::kept(drop, dropout::row_key(ckey, r));
+          pd_p = dropout::scaled(drop, keep, p);
+          pd = dropout::scaled(drop, keep, pd);
+        }
+        const float pv = operand<T>(pd_p);
         const float ds = operand<T>(dscore(p, pd, dis[i], scale));
 #pragma unroll
         for (int c = 0; c < G::C4; ++c) {
@@ -394,27 +420,29 @@ struct Args {
   const int *q_ids, *kv_ids;
   int B, H, HK, Sq, Sk, causal;
   float scale;
+  dropout::Params drop;
   cudaStream_t st;
 };
 
-template <typename T, int D>
+// B*H (B*HK) on x (2^31 - 1), the row blocks on y
+template <typename T, int D, bool DROP>
 void launch_dq(const Args& a, void* dq) {
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  flash_dq_kernel<T, D><<<grid, GeoQ<D>::THREADS, 0, a.st>>>(
+  const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
+  flash_dq_kernel<T, D, DROP><<<grid, GeoQ<D>::THREADS, 0, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk,
-      a.causal, a.scale);
+      a.causal, a.scale, a.drop);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 void launch_dkv(const Args& a, void* dk, void* dv) {
-  const dim3 grid((a.Sk + BKV - 1) / BKV, a.B * a.HK);
-  flash_dkv_kernel<T, D><<<grid, GeoKV<D>::THREADS, 0, a.st>>>(
+  const dim3 grid(a.B * a.HK, (a.Sk + BKV - 1) / BKV);
+  flash_dkv_kernel<T, D, DROP><<<grid, GeoKV<D>::THREADS, 0, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
-      a.HK, a.Sq, a.Sk, a.causal, a.scale);
+      a.HK, a.Sq, a.Sk, a.causal, a.scale, a.drop);
 }
 
 // ---------------------------------------------------------------------------
@@ -442,11 +470,15 @@ struct DkvTc {
 };
 
 // P^T and dS^T of one tile from S^T (in sT) and dP^T (in dpT), in place.
-template <bool MASK>
+// Under DROP (every tile) the pair of q row r0 + c and key key_lo + 8h is
+// hashed from that key's part ckey[h]: sT takes keep * p / (1 - rate)
+// for dV, and dS^T the dropped dP^T with the undropped p.
+template <bool MASK, bool DROP>
 __device__ __forceinline__ void dkv_probs(
     float (&sT)[32], float (&dpT)[32], const float* lse2, const float* dis,
     const int* qid, int r0, int key_lo, int lane, int Sq, int causal,
-    bool seg, int kid_lo, int kid_hi, float scale2, float scale) {
+    bool seg, int kid_lo, int kid_hi, float scale2, float scale,
+    const uint32_t (&ckey)[2], const dropout::Params& drop) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // q row in tile
@@ -459,12 +491,19 @@ __device__ __forceinline__ void dkv_probs(
     }
     const float p =
         ok ? exp2f(__fsub_rn(__fmul_rn(sT[i], scale2), lse2[c])) : 0.f;
-    sT[i] = p;
-    dpT[i] = dscore(p, dpT[i], dis[c], scale);
+    float dp = dpT[i];
+    if (DROP) {
+      const bool keep = dropout::kept(drop, dropout::row_key(ckey[h], r0 + c));
+      sT[i] = dropout::scaled(drop, keep, p);
+      dp = dropout::scaled(drop, keep, dp);
+    } else {
+      sT[i] = p;
+    }
+    dpT[i] = dscore(p, dp, dis[c], scale);
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(DkvTc<D>::THREADS)
 flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -476,7 +515,8 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     __nv_bfloat16* __restrict__ dv,
                     const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                    int Sk, int causal, float scale2, float scale) {
+                    int Sk, int causal, float scale2, float scale,
+                    dropout::Params drop) {
   using G = DkvTc<D>;
   constexpr int BQT = G::BQT;
   extern __shared__ uint8_t smem_raw[];
@@ -562,6 +602,7 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     for (int p = 0; p < G::NP; ++p) dka[p][i] = dva[p][i] = 0.f;
   }
   hopper::mbar_wait(&bar[2], 0);
+  const uint32_t seed = DROP ? static_cast<uint32_t>(*drop.seed) : 0u;
 
   for (int t = 0; t < ntile; ++t) {
     const int st = t & 1;
@@ -570,6 +611,15 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     if (t + 1 < ntile) load_tile(t + 1, st ^ 1);
     hopper::mbar_wait(&bar[st], (t >> 1) & 1);
     const int r0 = rstart + (t % nqt) * BQT;
+    // the dropout hash's part of this thread's two keys at the tile's
+    // query head (the flat q row b*H + hk*group + head)
+    uint32_t ckey[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t head =
+          dropout::head_key(seed, b * H + hk * group + t / nqt);
+      ckey[0] = dropout::col_key(head, key_lo);
+      ckey[1] = dropout::col_key(head, key_lo + 8);
+    }
     const uint8_t* qt = qs + st * G::QT_BYTES;
     const uint8_t* dot = dos + st * G::QT_BYTES;
 
@@ -602,11 +652,12 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     const float* dd = dis + st * BQT;
     const int* qd = qids + st * BQT;
     if (need)
-      dkv_probs<true>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq, causal, seg,
-                      kid_lo, kid_hi, scale2, scale);
+      dkv_probs<true, DROP>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq, causal,
+                            seg, kid_lo, kid_hi, scale2, scale, ckey, drop);
     else
-      dkv_probs<false>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq, causal,
-                       seg, kid_lo, kid_hi, scale2, scale);
+      dkv_probs<false, DROP>(sT, dpT, l2, dd, qd, r0, key_lo, lane, Sq,
+                             causal, seg, kid_lo, kid_hi, scale2, scale, ckey,
+                             drop);
 
     // P^T and dS^T rounded to bf16 in registers: the A operands of
     // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major)
@@ -671,7 +722,7 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_dkv_tc(const Args& a, void* dk, void* dv) {
   using G = DkvTc<D>;
   CUtensorMap mq, mk, mv, mdo;
@@ -681,14 +732,14 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
   if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, TC_BKV);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      flash_dkv_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM));
+      flash_dkv_kernel_tc<D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
   if (rc != 0) return rc;
   const dim3 grid(a.B * a.HK, (a.Sk + TC_BKV - 1) / TC_BKV);
-  flash_dkv_kernel_tc<D><<<grid, G::THREADS, G::SMEM, a.st>>>(
+  flash_dkv_kernel_tc<D, DROP><<<grid, G::THREADS, G::SMEM, a.st>>>(
       mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq,
-      a.Sk, a.causal, a.scale * LOG2E, a.scale);
+      a.Sk, a.causal, a.scale * LOG2E, a.scale, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,12 +766,15 @@ struct DqTc {
 };
 
 // dS of one tile from S (in s) and dP (in dp), into dp: p = exp2(s *
-// scale2 - lse2) selected to 0 where MASK finds the pair hidden.
-template <bool MASK>
+// scale2 - lse2) selected to 0 where MASK finds the pair hidden; under
+// DROP (every tile) dp is first keep * dp / (1 - rate), each pair hashed
+// from its row's key rkey.
+template <bool MASK, bool DROP>
 __device__ __forceinline__ void dq_scores(
     const float (&s)[32], float (&dp)[32], const float (&lse2)[2],
     const float (&dir)[2], int k0, int r_lo, int lane, int Sk, int causal,
-    const int* kid, int qid_lo, int qid_hi, float scale2, float scale) {
+    const int* kid, int qid_lo, int qid_hi, float scale2, float scale,
+    const uint32_t (&rkey)[2], const dropout::Params& drop) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // key in tile
@@ -733,11 +787,14 @@ __device__ __forceinline__ void dq_scores(
     }
     const float p =
         ok ? exp2f(__fsub_rn(__fmul_rn(s[i], scale2), lse2[h])) : 0.f;
-    dp[i] = dscore(p, dp[i], dir[h], scale);
+    const float dpd =
+        DROP ? dropout::apply(drop, dropout::col_key(rkey[h], k0 + c), dp[i])
+             : dp[i];
+    dp[i] = dscore(p, dpd, dir[h], scale);
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(DqTc<D>::THREADS)
 flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -748,7 +805,8 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                    __nv_bfloat16* __restrict__ dq,
                    const int* __restrict__ q_ids,
                    const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                   int Sk, int causal, float scale2, float scale) {
+                   int Sk, int causal, float scale2, float scale,
+                   dropout::Params drop) {
   using G = DqTc<D>;
   constexpr int BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -800,6 +858,8 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   // stored)
   float lse2[2], dir[2];
   int qid[2];
+  uint32_t rkey[2] = {0u, 0u};
+  const uint32_t head = DROP ? dropout::head_key(*drop.seed, bh) : 0u;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + 8 * h;
@@ -807,6 +867,7 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     lse2[h] = in ? lse[(size_t)bh * Sq + row] * LOG2E : 0.f;
     dir[h] = in ? di[(size_t)bh * Sq + row] : 0.f;
     qid[h] = (seg && in) ? q_ids[(size_t)b * Sq + row] : 0;
+    if (DROP) rkey[h] = dropout::row_key(head, row);
   }
 
   float acc[G::NP][32];
@@ -871,12 +932,12 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 
     const bool need = seg || k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
     if (need)
-      dq_scores<true>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal,
-                      seg ? kid + st * BK : nullptr, qid[0], qid[1], scale2,
-                      scale);
+      dq_scores<true, DROP>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal,
+                            seg ? kid + st * BK : nullptr, qid[0], qid[1],
+                            scale2, scale, rkey, drop);
     else
-      dq_scores<false>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal, nullptr,
-                       0, 0, scale2, scale);
+      dq_scores<false, DROP>(s, dp, lse2, dir, k0, r_lo, lane, Sk, causal,
+                             nullptr, 0, 0, scale2, scale, rkey, drop);
 
     // dS rounded to bf16 in registers: the A operand of dQ += dS . K
     // (B = the K tile, MN-major through the transpose bit)
@@ -918,7 +979,7 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_dq_tc(const Args& a, void* dq) {
   using G = DqTc<D>;
   CUtensorMap mq, mk, mv, mdo;
@@ -928,58 +989,75 @@ int launch_dq_tc(const Args& a, void* dq) {
   if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::BK);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      flash_dq_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM));
+      flash_dq_kernel_tc<D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
   if (rc != 0) return rc;
   const dim3 grid(a.B * a.H, (a.Sq + G::BQ - 1) / G::BQ);
-  flash_dq_kernel_tc<D><<<grid, G::THREADS, G::SMEM, a.st>>>(
+  flash_dq_kernel_tc<D, DROP><<<grid, G::THREADS, G::SMEM, a.st>>>(
       mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dq), a.q_ids,
-      a.kv_ids, a.H, a.HK, a.Sq, a.Sk, a.causal, a.scale * LOG2E, a.scale);
+      a.kv_ids, a.H, a.HK, a.Sq, a.Sk, a.causal, a.scale * LOG2E, a.scale,
+      a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The route of both backward kernels: bf16 at D 64 and 128 takes the
-// tensor cores, everything else the CUDA cores.
-template <typename T>
-int dispatch_dq(const Args& a, int D, void* dq) {
+// tensor cores, everything else the CUDA cores; a seed takes each body's
+// DROP instantiation.
+template <typename T, bool DROP>
+int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
-    if (D == 64) return launch_dq_tc<64>(a, dq);
-    if (D == 128) return launch_dq_tc<128>(a, dq);
+    if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
+    if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
   }
   switch (D) {
-    case 16: launch_dq<T, 16>(a, dq); break;
-    case 32: launch_dq<T, 32>(a, dq); break;
-    case 64: launch_dq<T, 64>(a, dq); break;
-    case 128: launch_dq<T, 128>(a, dq); break;
+    case 16: launch_dq<T, 16, DROP>(a, dq); break;
+    case 32: launch_dq<T, 32, DROP>(a, dq); break;
+    case 64: launch_dq<T, 64, DROP>(a, dq); break;
+    case 128: launch_dq<T, 128, DROP>(a, dq); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DROP>
+int route_dkv(const Args& a, int D, void* dk, void* dv) {
+  if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
+    if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
+    if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
+  }
+  switch (D) {
+    case 16: launch_dkv<T, 16, DROP>(a, dk, dv); break;
+    case 32: launch_dkv<T, 32, DROP>(a, dk, dv); break;
+    case 64: launch_dkv<T, 64, DROP>(a, dk, dv); break;
+    case 128: launch_dkv<T, 128, DROP>(a, dk, dv); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
+int dispatch_dq(const Args& a, int D, void* dq) {
+  return a.drop.seed != nullptr ? route_dq<T, true>(a, D, dq)
+                                : route_dq<T, false>(a, D, dq);
+}
+
+template <typename T>
 int dispatch_dkv(const Args& a, int D, void* dk, void* dv) {
-  if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
-    if (D == 64) return launch_dkv_tc<64>(a, dk, dv);
-    if (D == 128) return launch_dkv_tc<128>(a, dk, dv);
-  }
-  switch (D) {
-    case 16: launch_dkv<T, 16>(a, dk, dv); break;
-    case 32: launch_dkv<T, 32>(a, dk, dv); break;
-    case 64: launch_dkv<T, 64>(a, dk, dv); break;
-    case 128: launch_dkv<T, 128>(a, dk, dv); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return a.drop.seed != nullptr ? route_dkv<T, true>(a, D, dk, dv)
+                                : route_dkv<T, false>(a, D, dk, dv);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* di, const void* q_ids,
                const void* kv_ids, int B, int H, int HK, int Sq, int Sk,
-               int causal, float scale, void* stream) {
+               int causal, float scale, const void* seed, unsigned keep_below,
+               float keep_scale, void* stream) {
   return Args{q, k, v, dout,
               static_cast<const float*>(lse), static_cast<const float*>(di),
               static_cast<const int*>(q_ids), static_cast<const int*>(kv_ids),
               B, H, HK, Sq, Sk, causal, scale,
+              dropout::Params{static_cast<const int*>(seed), keep_below,
+                              keep_scale},
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -987,16 +1065,21 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // Plain C entry points (bound with ctypes).  dtype: 0 float32, 1
 // bfloat16 (q, k, v, dout and the gradients alike); lse and di f32
-// (B*H, Sq); q_ids/kv_ids both null or both set.  Each launches on
+// (B*H, Sq); q_ids/kv_ids both null or both set; seed null (no dropout)
+// or the forward's one int32 on the device, with keep_below the unsigned
+// hash threshold and keep_scale 1 / (1 - rate).  Each launches on
 // `stream`, allocates nothing, and returns cudaGetLastError() after the
 // launch (0 when it was accepted).
 extern "C" int apex_flash_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* di,
                              void* dq, const void* q_ids, const void* kv_ids,
                              int dtype, int B, int H, int HK, int Sq, int Sk,
-                             int D, int causal, float scale, void* stream) {
+                             int D, int causal, float scale, const void* seed,
+                             unsigned keep_below, float keep_scale,
+                             void* stream) {
   const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
-                           Sq, Sk, causal, scale, stream);
+                           Sq, Sk, causal, scale, seed, keep_below,
+                           keep_scale, stream);
   switch (dtype) {
     case F32: return dispatch_dq<float>(a, D, dq);
     case BF16: return dispatch_dq<__nv_bfloat16>(a, D, dq);
@@ -1009,9 +1092,12 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
                               const void* di, void* dk, void* dv,
                               const void* q_ids, const void* kv_ids,
                               int dtype, int B, int H, int HK, int Sq, int Sk,
-                              int D, int causal, float scale, void* stream) {
+                              int D, int causal, float scale,
+                              const void* seed, unsigned keep_below,
+                              float keep_scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
-                           Sq, Sk, causal, scale, stream);
+                           Sq, Sk, causal, scale, seed, keep_below,
+                           keep_scale, stream);
   switch (dtype) {
     case F32: return dispatch_dkv<float>(a, D, dk, dv);
     case BF16: return dispatch_dkv<__nv_bfloat16>(a, D, dk, dv);

@@ -2,14 +2,20 @@
 // dtype and head width in the C dispatcher (`dispatch`, below).
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_fwd_pallas
-// (_fwd_kernel and _fwd_kernel_1kv) without dropout.  Same semantics:
-// q (B,H,Sq,D), k/v (B,HK,Sk,D) contiguous, f32 or bf16; query head h
-// reads kv head h / (H/HK); the causal mask is the absolute col <= row;
-// the optional segment mask keeps q_ids[b,row] == kv_ids[b,col]; a row
-// that sees no key writes exact zeros.  When `lse` is given (training:
-// the backward kernels recompute P from it) the kernel also writes the
-// f32 logsumexp m + log(l) of every row, (B*H, Sq), -1e30 where l == 0
-// (the reference's need_lse=True); the primal path passes null.
+// (_fwd_kernel and _fwd_kernel_1kv).  Same semantics: q (B,H,Sq,D), k/v
+// (B,HK,Sk,D) contiguous, f32 or bf16; query head h reads kv head
+// h / (H/HK); the causal mask is the absolute col <= row; the optional
+// segment mask keeps q_ids[b,row] == kv_ids[b,col]; a row that sees no
+// key writes exact zeros.  When `lse` is given (training: the backward
+// kernels recompute P from it) the kernel also writes the f32 logsumexp
+// m + log(l) of every row, (B*H, Sq), -1e30 where l == 0 (the
+// reference's need_lse=True); the primal path passes null.
+//
+// The fused probability dropout (every body's DROP instantiation, taken
+// when a seed pointer is given; rate 0 launches the DROP = false bodies):
+// the reference's counter hash (hopper_mma.cuh, namespace dropout) of
+// (seed, b*H + h, q row, key) decides each pair; l sums the undropped p,
+// and only P.V sees keep * p / (1 - rate), rounded to v's dtype as p is.
 //
 // The routes (a dispatch on shape, not a fallback: a failure raises):
 //
@@ -68,6 +74,9 @@
 // (a broadcast, no bank conflict) and the partial dot products meet
 // through log2(TPQ) warp shuffles.  Under the causal mask the key loop
 // stops at the CTA's diagonal tile (the TPU kernel's clamped index map).
+// As in the tensor-core body, B*H rides the grid's x (up to 2^31 - 1, so
+// the flat row the dropout hash takes is never split over launches) and
+// the q blocks its y, heaviest first.
 //
 // Every output element is owned by one CTA that sums in a fixed order:
 // no atomics, the same bits every run.
@@ -146,28 +155,31 @@ __device__ __forceinline__ float4 scale4(float4 x, float s) {
   return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(Geo<D>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ q_ids,
                  const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                 int Sk, int causal, float scale) {
+                 int Sk, int causal, float scale, dropout::Params drop) {
   using G = Geo<D>;
   constexpr int D4 = D / 4;
   __shared__ float4 ks[BK][D4];
   __shared__ float4 vs[BK][D4];
   __shared__ int kid[BK];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
-  const int q0 = blockIdx.x * BQ;
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int part = tid % G::TPQ;
   const int row = q0 + tid / G::TPQ;
   const bool row_ok = row < Sq;
   const bool seg = q_ids != nullptr;
+  const uint32_t rkey =
+      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
 
   const size_t kvb = (size_t)(b * HK + hk) * Sk * D4;
   const size_t qoff = ((size_t)bh * Sq + (row_ok ? row : 0)) * D4;
@@ -226,7 +238,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       const float p = ((vis >> j) & 1u) ? expf(s[j] - mt) : 0.f;
       l += p;
-      const float pv = operand<T>(p);
+      const float pv = operand<T>(
+          DROP ? dropout::apply(drop, dropout::col_key(rkey, k0 + j), p) : p);
 #pragma unroll
       for (int c = 0; c < G::C4; ++c)
         acc[c] = axpy4(pv, vs[j][c * G::TPQ + part], acc[c]);
@@ -243,15 +256,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse,
             const int* q_ids, const int* kv_ids, int B, int H, int HK,
-            int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, Geo<D>::THREADS, 0, stream>>>(
+            int Sq, int Sk, int causal, float scale,
+            const dropout::Params& drop, cudaStream_t stream) {
+  // B*H on x (2^31 - 1), the q blocks on y
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<T, D, DROP><<<grid, Geo<D>::THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
-      HK, Sq, Sk, causal, scale);
+      HK, Sq, Sk, causal, scale, drop);
 }
 
 // ---------------------------------------------------------------------------
@@ -279,12 +294,14 @@ struct FwdTc {
 // One tile of scores in the accumulator fragment (s, base 2 after this):
 // scale, mask where MASK, fold into the running max m and sum l (this
 // thread's share of its two rows), return the rescale factors and leave
-// the probabilities in s.
-template <bool MASK>
+// the probabilities in s; under DROP, after l has summed them, keep * p /
+// (1 - rate), each pair hashed from its row's key rkey (every tile).
+template <bool MASK, bool DROP>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
     float scale2, int k0, int r_lo, int lane, int Sk, int causal,
-    const int* kid, int qid_lo, int qid_hi) {
+    const int* kid, int qid_lo, int qid_hi, const uint32_t (&rkey)[2],
+    const dropout::Params& drop) {
   unsigned vis = 0xffffffffu;
   if (MASK) {
     vis = 0u;
@@ -318,11 +335,12 @@ __device__ __forceinline__ void softmax_tile(
     const int h = (i >> 1) & 1;
     const float p = (!MASK || ((vis >> i) & 1u)) ? exp2f(s[i] - mx[h]) : 0.f;
     l[h] += p;
-    s[i] = p;
+    const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    s[i] = DROP ? dropout::apply(drop, dropout::col_key(rkey[h], col), p) : p;
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(FwdTc<D>::THREADS)
 flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -330,7 +348,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids, int H, int HK, int Sq,
-                    int Sk, int causal, float scale2) {
+                    int Sk, int causal, float scale2, dropout::Params drop) {
   using G = FwdTc<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw +
@@ -352,6 +370,12 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   const bool seg = q_ids != nullptr;
   const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
   const int ntile = (kend + TC_BK - 1) / TC_BK;
+  uint32_t rkey[2] = {0u, 0u};
+  if (DROP) {
+    const uint32_t head = dropout::head_key(*drop.seed, bh);
+    rkey[0] = dropout::row_key(head, r_lo);
+    rkey[1] = dropout::row_key(head, r_lo + 8);
+  }
 
   if (tid == 0) {
     hopper::mbar_init(&bar[0], 1);
@@ -435,11 +459,12 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     const bool need = seg || k0 + TC_BK > Sk ||
                       (causal && k0 + TC_BK - 1 > q0);
     if (need)
-      softmax_tile<true>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk, causal,
-                         seg ? kid + st * TC_BK : nullptr, qid_lo, qid_hi);
+      softmax_tile<true, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
+                               causal, seg ? kid + st * TC_BK : nullptr,
+                               qid_lo, qid_hi, rkey, drop);
     else
-      softmax_tile<false>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk, causal,
-                          nullptr, 0, 0);
+      softmax_tile<false, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
+                                causal, nullptr, 0, 0, rkey, drop);
 
     // O = O * alpha + P . V, P rounded to bf16 in registers
     uint32_t a[4][4];
@@ -497,11 +522,11 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, const int* q_ids, const int* kv_ids, int B, int H,
               int HK, int Sq, int Sk, int causal, float scale,
-              cudaStream_t stream) {
+              const dropout::Params& drop, cudaStream_t stream) {
   using G = FwdTc<D>;
   CUtensorMap mq, mk, mv;
   int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ);
@@ -509,59 +534,77 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, Sk, B * HK, TC_BK);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM));
+      flash_fwd_kernel_tc<D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
   if (rc != 0) return rc;
   const dim3 grid(B * H, (Sq + G::BQ - 1) / G::BQ);
-  flash_fwd_kernel_tc<D><<<grid, G::THREADS, G::SMEM, stream>>>(
+  flash_fwd_kernel_tc<D, DROP><<<grid, G::THREADS, G::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, q_ids, kv_ids, H, HK,
-      Sq, Sk, causal, scale * LOG2E);
+      Sq, Sk, causal, scale * LOG2E, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The route: bf16 at D 64 and 128 with keys to read takes the tensor
-// cores, everything else the CUDA cores.
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+// cores, everything else the CUDA cores; a seed takes each body's DROP
+// instantiation.
+template <typename T, bool DROP>
+int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
-             int Sk, int D, int causal, float scale, cudaStream_t st) {
+             int Sk, int D, int causal, float scale,
+             const dropout::Params& dr, cudaStream_t st) {
   if (sizeof(T) == 2 && Sk > 0) {
     if (D == 64)
-      return launch_tc<64>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st);
+      return launch_tc<64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 128)
-      return launch_tc<128>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st);
+      return launch_tc<128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
   }
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
-    case 32: launch<T, 32>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
-    case 64: launch<T, 64>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
-    case 128: launch<T, 128>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, st); break;
+    case 16: launch<T, 16, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 32: launch<T, 32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 64: launch<T, 64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 128: launch<T, 128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             const int* qi, const int* ki, int B, int H, int HK, int Sq,
+             int Sk, int D, int causal, float scale,
+             const dropout::Params& dr, cudaStream_t st) {
+  if (dr.seed != nullptr)
+    return route<T, true>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
+  return route<T, false>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 float32, 1
 // bfloat16 (q, k, v and o alike).  lse may be null (no logsumexp
-// output); q_ids/kv_ids are both null or both set.  Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() after the
-// launch (0 when it was accepted).
+// output); q_ids/kv_ids are both null or both set.  seed: null (no
+// dropout) or one int32 on the device, with keep_below the unsigned
+// hash threshold and keep_scale 1 / (1 - rate).  Launches on `stream`,
+// allocates nothing, and returns cudaGetLastError() after the launch (0
+// when it was accepted).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* q_ids,
                               const void* kv_ids, int dtype, int B, int H,
                               int HK, int Sq, int Sk, int D, int causal,
-                              float scale, void* stream) {
+                              float scale, const void* seed,
+                              unsigned keep_below, float keep_scale,
+                              void* stream) {
   float* lf = static_cast<float*>(lse);
   const int* qi = static_cast<const int*>(q_ids);
   const int* ki = static_cast<const int*>(kv_ids);
+  const dropout::Params dr{static_cast<const int*>(seed), keep_below,
+                           keep_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return dispatch<float>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, st);
+      return dispatch<float>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
     case BF16:
-      return dispatch<__nv_bfloat16>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, st);
+      return dispatch<__nv_bfloat16>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

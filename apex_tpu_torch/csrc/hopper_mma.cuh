@@ -252,3 +252,69 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int cols, int rows,
 }
 
 }  // namespace hopper
+
+// ---------------------------------------------------------------------------
+// the fused probability dropout of the flash bodies
+// ---------------------------------------------------------------------------
+//
+// The reference's counter hash (apex_tpu/ops/attention.py:_fmix32,
+// _keep_mask): murmur3's fmix32 of the seed and the flat (batch * head)
+// row, then of that plus the global query row and key column, each times
+// an odd constant; a pair is kept when the hash, unsigned, is below
+// `thresh` = min(int((1 - rate) * 2^32), 2^32 - 1), worked out on the
+// host.  Unsigned arithmetic here is the reference's int32 wraparound
+// with logical shifts, bit for bit.  No mask is stored: the forward, dq
+// and dk/dv each rebuild it from the coordinates.  The seed is read
+// through a pointer to one int32 on the device, so a captured graph
+// replays with the seed the buffer holds then.
+namespace dropout {
+
+struct Params {
+  const int* seed;    // null: no dropout (the bodies' DROP = false)
+  uint32_t thresh;    // keep when the hash is below it
+  float inv;          // 1 / (1 - rate), rounded to f32 on the host
+};
+
+constexpr uint32_t HEAD_MUL = 0x9e3779b9u;   // int32 -1640531527
+constexpr uint32_t ROW_MUL = 0x9d62d51fu;    // int32 -1654467297
+constexpr uint32_t COL_MUL = 0x78a76a79u;    // int32 2024237689
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The per-(batch * head) part of every pair's hash; `seed` is the int32
+// the Params point at, read once by the kernel.
+__device__ __forceinline__ uint32_t head_key(uint32_t seed, int bh) {
+  return fmix32(seed + static_cast<uint32_t>(bh) * HEAD_MUL);
+}
+
+// A pair's key is head + row * ROW_MUL + col * COL_MUL: a body hoists
+// the part of the row (or of the key column) it keeps fixed and adds the
+// other per pair.
+__device__ __forceinline__ uint32_t row_key(uint32_t part, int row) {
+  return part + static_cast<uint32_t>(row) * ROW_MUL;
+}
+__device__ __forceinline__ uint32_t col_key(uint32_t part, int col) {
+  return part + static_cast<uint32_t>(col) * COL_MUL;
+}
+
+__device__ __forceinline__ bool kept(const Params& d, uint32_t key) {
+  return fmix32(key) < d.thresh;
+}
+
+// keep * x / (1 - rate)
+__device__ __forceinline__ float scaled(const Params& d, bool keep, float x) {
+  return keep ? __fmul_rn(x, d.inv) : 0.f;
+}
+
+__device__ __forceinline__ float apply(const Params& d, uint32_t key, float x) {
+  return scaled(d, kept(d, key), x);
+}
+
+}  // namespace dropout

@@ -1,7 +1,7 @@
 """Operators of the port whose TPU counterparts are Pallas kernels."""
 
 from apex_tpu_torch.ops.attention import (attention_ref,  # noqa: F401
-                                          flash_attention,
+                                          dropout_keep_ref, flash_attention,
                                           flash_attention_ref,
                                           packed_segment_ids)
 from apex_tpu_torch.ops.layer_norm import (fused_layer_norm,  # noqa: F401

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths, its fused
-softmax, cross entropy and Welford statistics, on one GPU.
+softmax, cross entropy, Welford statistics and attention dropout, on one
+GPU.
 
     python3 chip_smoke.py
 
@@ -192,7 +193,33 @@ exits non-zero:
     welford_mean_var on every SyncBatchNorm input of one forward against
     the module's own statistics; one O0 step of a SyncBN ResNet-18 on
     the card and the CPU: the params within a tenth of lr 4% high, the
-    running statistics within a tenth of a biased running variance.
+    running statistics within a tenth of a biased running variance;
+31. kernel vs plain (attention dropout; run after phase 20) — the
+    dropout bodies of the flash forward, dq and dk/dv at rate 0.1
+    against their twins at the same seed (``DROP_CASES``: GPT's and
+    BERT-L's unmasked and packed shapes, GQA 12 to 4 ragged, f32 GQA at
+    S 300 on the CUDA cores, D 32, Sq 130 / Sk 70 causal; ATTN_TOL),
+    exact zeros where nothing is seen, the same bits twice, each route
+    from the kernels' names; the keep mask read out of the forward (V
+    one-hot on a window of D keys, windows swept over Sk, q = k = 0) and
+    of dk/dv (dO one-hot), equal to ``dropout_keep_ref`` bit for bit,
+    and another seed's mask within 0.01 of a 0.9 keep fraction; the
+    inputs F5 repaired (D 8, 80 and 96, a transposed q, a q 8 bytes off,
+    B*H 65,600) with gradients against the twins; each dropout body
+    timed at GPT's and BERT-L's shapes beside the same body at rate 0 (in
+    turns), the twin, SDPA with ``dropout_p=0.1`` and the bound;
+32. path (attention dropout) — in bf16 training, forward and backward,
+    rate 0.1, launches counted from 0 before each: 12 x
+    ``SelfMultiheadAttn(768, 12, bias, norm-add)`` at GPT-2 small's T
+    512, B 8, causal (2 steps after a warm-up); ``EncdecMultiheadAttn(
+    1024, 16)`` (Transformer-big's decoder cross-attention) at Tq 256, Tk
+    384, B 16 on its three branches; ``fmha_packed`` over the 4,096-token
+    BERT packed buffer at H 16, D 64 (the tail exact zeros);
+    ``SelfMultiheadAttn(768, 8)`` (D 96);
+33. consistency (attention dropout) — a 2-layer f32 dropout stack at
+    768 wide on the card and the CPU from the same seeds: output and
+    gradients within 1e-3 of their scale, and the CPU at other seeds
+    outside it.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -203,7 +230,9 @@ the last line is ``{"ok": true, "device": {...}}``.  The flash kernels'
 entries name the ``body`` their timed row took ("tensor cores" or "CUDA
 cores") and its ``shape``: flash_fwd's is GPT-2 small's bf16 training
 shape (its launches those of the GPT step), with the serve path's f32
-row under ``serve_f32``.  Nothing of JAX is imported.
+row under ``serve_f32``; each of the three carries its dropout body's
+figures under ``dropout`` (launches those of phase 32's 12-layer
+stack).  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -237,6 +266,31 @@ def _spin(ms: float) -> None:
         b.synchronize()
         _SPIN["cycles_per_ms"] = cycles / a.elapsed_time(b)
     torch.cuda._sleep(int(ms * _SPIN["cycles_per_ms"]))
+
+
+def _prime_profiler() -> None:
+    """Runs 64 small kernels and a 20 ms spin just after a
+    ``torch.profiler`` session starts, before the kernels a check counts:
+    on an H100 the first kernels of a session are sometimes missing from
+    its records (one of 22 counted flash forwards in one run; every
+    kernel of a short session in others)."""
+    import torch
+    x = torch.zeros(1024, device="cuda")
+    for _ in range(64):
+        x.add_(1.0)
+    _spin(20.0)
+    torch.cuda.synchronize()
+
+
+def _primed_events(prof) -> list:
+    """The device events of a session begun with :func:`_prime_profiler`,
+    by start time, without the primer's (those up to its spin)."""
+    import torch
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    return events[spins[-1] + 1:] if spins else events
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -647,27 +701,31 @@ def _wrapper_device_split(fn, symbols, own_per_call: int, calls: int = 10):
     kernels (names holding one of ``symbols``, ``own_per_call`` of them a
     call), and of all the device work captured; and the device kernels
     captured per call.  After other profiles in the same process the
-    profiler has dropped the first few kernels of a window, so the own
-    time is the mean of the own kernels it did capture times their
-    number a call."""
+    profiler has dropped the first kernels of a window, so the session
+    is primed (:func:`_prime_profiler`), read again (up to 3 sessions)
+    while it holds none of the own kernels, and the own time is the mean
+    of the own kernels it did capture times their number a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    own = total = 0.0
-    count = n_own = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _prime_profiler()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        own = total = 0.0
+        count = n_own = 0
+        for e in _primed_events(prof):
             t = e.time_range.elapsed_us() / 1e3
             total += t
             count += 1
             if _owns(e.name, symbols):
                 own += t
                 n_own += 1
+        if n_own:
+            break
     _check(n_own > 0, f"the profiler saw no {symbols} on the device")
     return own / n_own * own_per_call, total / calls, count / calls
 
@@ -1191,8 +1249,7 @@ def _ln_checks(dev) -> dict:
     case_routes = []
     prof = profile(activities=[ProfilerActivity.CUDA])
     prof.start()
-    for _ in range(64):       # the first kernels a late window may drop
-        torch.zeros(1, device=dev)
+    _prime_profiler()
     for rows, h, dtn, rms, off in LN_CASES:
         dt = _dtype(dtn)
 
@@ -1738,7 +1795,8 @@ def _attn_costs(b, h, hk, s, d, elt, pairs):
             "flash_dkv": (2 * qb + 4 * kvb + 2 * rows, 8.0 * d * pairs)}
 
 
-def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg):
+def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
+                      seed=None):
     """The dq and dk/dv kernels, each launched on its own with the
     arguments the wrapper gives them (to time each)."""
     import torch
@@ -1747,6 +1805,7 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg):
     di = (do.float() * o.float()).sum(dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     common = (code, b, h, hk, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+              *attn._dropout_args(rate, seed, q.device),
               torch.cuda.current_stream().cuda_stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), di.data_ptr())
@@ -1760,15 +1819,18 @@ FLASH_SYMS = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
               "flash_dkv": "flash_dkv_kernel"}
 
 
-def _flash_routes(prof, case_launches) -> dict:
+def _flash_routes(prof, case_launches, drop: bool) -> dict:
     """{case: {kernel: route}}: the route each flash kernel took in each
     case, read from the device kernels' names in one ``torch.profiler``
     session over every case ("tensor cores" for a ``..._kernel_tc``,
     wgmma + TMA; "CUDA cores" for the FMA body).  One stream runs its
     kernels in launch order, so each kernel's device events, by start
     time, fall to the cases in turn by ``case_launches``, [(case,
-    {kernel: launches})].  (One session: on an H100, short sessions of
-    a small case's few calls came back without their kernels.)"""
+    {kernel: launches})].  Every name must carry the ``DROP`` template
+    argument ``drop`` (the bodies' last: ``..., true>`` with dropout).
+    (One session: on an H100, short sessions of a small case's few calls
+    came back without their kernels.)"""
+    import re
     import torch
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -1779,6 +1841,12 @@ def _flash_routes(prof, case_launches) -> dict:
         want = sum(n[kname] for _, n in case_launches)
         _check(len(names) == want, f"the profiler saw {len(names)} "
                f"{sym} on the device where {want} were launched")
+        flag = f", {str(drop).lower()}>"
+        wrong = {x for x in names
+                 if flag not in (re.search(sym + r"(_tc)?<[^>]*>", x)
+                                 or [""])[0]}
+        _check(not wrong, f"{kname}: the bodies {wrong} are not the DROP="
+               f"{str(drop).lower()} instantiation")
         i = 0
         for case, n in case_launches:
             seen = set(names[i:i + n[kname]])
@@ -1827,6 +1895,7 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     case_launches = []
     prof = profile(activities=[ProfilerActivity.CUDA])
     prof.start()
+    _prime_profiler()
     for name, b, h, hk, sq, sk, d, causal, kind, dtn in ATTN_CASES:
         before = {kn: kt.launches for kn, kt in kern.items()}
         dt = _dtype(dtn)
@@ -1878,7 +1947,7 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
         del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
     torch.cuda.synchronize()
     prof.stop()
-    case_routes = _flash_routes(prof, case_launches)
+    case_routes = _flash_routes(prof, case_launches, drop=False)
     del prof
     for name, b, h, hk, sq, sk, d, causal, kind, dtn in ATTN_CASES:
         routes = case_routes[name]
@@ -1894,14 +1963,14 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               flush=True)
 
     # tensor-core bodies a library holds: the forward at D 64 and 128; dq
-    # and dk/dv at each
-    for lib, n_tc in (("flash_fwd", 2), ("flash_bwd", 4)):
+    # and dk/dv at each; each at rate 0 and with dropout
+    for lib, n_tc in (("flash_fwd", 4), ("flash_bwd", 8)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
         _check(len(tc_kernels) == n_tc, f"ptxas reported {len(tc_kernels)} "
                f"tensor-core bodies in {lib}, expected {n_tc} (D 64 and "
-               "128 of each)")
+               "128 of each, with and without dropout)")
         for entry, regs, spill in tc_kernels:
             print(f"ptxas tensor-core body {entry}: {regs}; {spill}",
                   flush=True)
@@ -2451,6 +2520,647 @@ def bert_flash_train_phase(dev, smi: str, params) -> None:
                                 lambda: step(state, **inputs), smi)
         del opt, state, step, inputs
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the fused attention dropout of the six flash bodies, the
+# attention modules in training, contrib.fmha, and what F5 repaired
+# ---------------------------------------------------------------------------
+
+DROP_RATE = 0.1     # GPT-2's attn_pdrop, BERT's attention_probs_dropout_prob
+DROP_SEED = -123457
+# the attention cases held with dropout (ATTN_CASES by name)
+DROP_CASES = ("gpt2_block", "bert_large_unmasked", "bert_large_packed",
+              "gqa_12_to_4_s200", "f32_gqa_s300", "d32_causal",
+              "cross_sq130_sk70_causal")
+# the keep mask read out of the kernels: name, b, h, sq, sk, d, causal,
+# dtype (the tensor cores, the CUDA cores in f32 and in bf16 at D 32)
+DROP_KEEP_CASES = (
+    ("gpt2_block", 8, 12, 512, 512, 64, True, "bf16"),
+    ("f32_s300", 2, 12, 300, 300, 64, True, "f32"),
+    ("d32_sq130_sk70", 2, 8, 130, 70, 32, False, "bf16"),
+)
+# the path: 12 layers at GPT-2 small's widths; Transformer-big's decoder
+# cross-attention (Vaswani et al. 2017: d_model 1024, 16 heads) at Tq
+# 256, Tk 384; contrib.fmha at BERT-Large's heads over the BERT packed
+# lengths; SelfMultiheadAttn(768, 8), whose heads are 96 wide (F5)
+SMHA = dict(layers=12, hidden=768, heads=12, seq=512, batch=8, steps=2)
+ENCDEC = dict(hidden=1024, heads=16, tq=256, tk=384, batch=16)
+FMHA = dict(heads=16, head_dim=64)
+D96 = dict(hidden=768, heads=8, seq=512, batch=8)
+# the path's three flash calls held against the twins at exactly their
+# shapes, the operands laid out as the module lays them out: name, b, h,
+# sq, sk, d, causal, layout ("encdec": q of its own projection, k and v
+# chunks of one 2E projection; "fmha": the (1, H, total, D) views of one
+# (total, 3, H, D) buffer over the BERT packed sequences; "self": chunks
+# of one 3E projection), all split into heads as strided views
+DROP_PATH_CASES = (
+    ("encdec_tq256_tk384", ENCDEC["batch"], ENCDEC["heads"], ENCDEC["tq"],
+     ENCDEC["tk"], ENCDEC["hidden"] // ENCDEC["heads"], False, "encdec"),
+    ("fmha_packed_4096", 1, FMHA["heads"], BERT["batch"] * BERT["seq"],
+     BERT["batch"] * BERT["seq"], FMHA["head_dim"], False, "fmha"),
+    ("smha_768_8_d96", D96["batch"], D96["heads"], D96["seq"], D96["seq"],
+     D96["hidden"] // D96["heads"], True, "self"),
+)
+# card against CPU: a 2-layer f32 dropout stack; its limit, of each
+# tensor's scale: two layers of f32 attention (the kernels within 1e-4 of
+# their twins), LayerNorm and projections summed in each device's order
+DROP_CONSIST = dict(layers=2, hidden=768, heads=12, seq=128, batch=2,
+                    tol=1e-3)
+# F5: what the card refused before (name, shape of q, k/v, dtype, q made
+# transposed or 8 bytes off its alignment)
+F5_CASES = (
+    ("d8", (2, 3, 70, 8), (2, 3, 70, 8), "f32", None),
+    ("d80", (2, 4, 130, 80), (2, 4, 130, 80), "bf16", None),
+    ("d96", (2, 8, 256, 96), (2, 8, 256, 96), "bf16", None),
+    ("transposed_q", (2, 4, 100, 64), (2, 4, 100, 64), "f32", "transposed"),
+    ("q_8_bytes_off", (2, 4, 64, 64), (2, 4, 64, 64), "bf16", "offset"),
+    ("bh_65600", (65600, 1, 16, 16), (65600, 1, 16, 16), "f32", None),
+)
+
+
+def keep_mask_readout(b, h, sq, sk, d, dt, causal, rate, seed, dev, side):
+    """The (b, h, sq, sk) keep mask the kernels drew at ``rate`` and
+    ``seed``, read window by window with q = k = 0 (every visible p is
+    1/n): ``side="fwd"``, V one-hot on a window of D keys, the output is
+    nonzero there exactly where a pair is kept; ``side="dv"``, dO one-hot
+    on a window of D query rows, dV[key, c] is nonzero exactly where
+    (r0 + c, key) is kept.  Hidden pairs read 0.  (The card tests of
+    ``tests/torch_port/test_torch_port_cuda.py`` read the mask with this
+    one too.)"""
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    q = torch.zeros(b, h, sq, d, dtype=dt, device=dev)
+    k = v = torch.zeros(b, h, sk, d, dtype=dt, device=dev)
+    got = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=dev)
+    if side == "fwd":
+        for w0 in range(0, sk, d):
+            n = min(d, sk - w0)
+            vw = torch.zeros_like(v)
+            vw[:, :, w0:w0 + n, :n] = torch.eye(n, dtype=dt, device=dev)
+            o = attn._flash_fwd_cuda(q, k, vw, causal, None, None, False,
+                                     rate, seed)[0]
+            got[..., w0:w0 + n] = o[..., :n] != 0
+        return got
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)
+    for r0 in range(0, sq, d):
+        n = min(d, sq - r0)
+        do = torch.zeros_like(q)
+        do[:, :, r0:r0 + n, :n] = torch.eye(n, dtype=dt, device=dev)
+        dv = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, None,
+                                  rate, seed)[2]
+        got[:, :, r0:r0 + n, :] = (dv[..., :n] != 0).transpose(-1, -2)
+    return got
+
+
+def _fmha_buffer(dev):
+    """(cu_seqlens int32 on ``dev``, total): the BERT packed batch's
+    sequences (``bert_batches``' lengths) laid end to end in one buffer of
+    BERT's batch x seq tokens, the tail past the last one padding."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.data import pack_sequences
+    rng = np.random.default_rng(1)
+    seqlen = BERT["seq"]
+    lens = rng.integers(seqlen // 4, seqlen, size=2 * BERT["batch"])
+    pk = pack_sequences([rng.integers(1, 100, size=m) for m in lens],
+                        max_len=seqlen)
+    segs = pk["segment_ids"][:BERT["batch"]]
+    kept = [int((r == s).sum()) for r in segs for s in np.unique(r[r > 0])]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(kept)]),
+                      dtype=torch.int32, device=dev)
+    return cu, BERT["batch"] * seqlen
+
+
+def _path_operands(gen, b, h, sq, sk, d, layout, dev):
+    """bf16 q, k, v, dO and the segment ids of one of DROP_PATH_CASES,
+    laid out as its module lays them out (see there)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn._common import split_heads
+    from apex_tpu_torch.ops.attention import packed_segment_ids
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    seg = None
+    if layout == "fmha":
+        cu, _ = _fmha_buffer(dev)
+        qkv = randn(sq, 3, h, d)
+        q, k, v = (qkv[:, i].transpose(0, 1)[None] for i in range(3))
+        base = torch.zeros(1, sq, dtype=torch.int32, device=dev)
+        for i in range(cu.numel() - 1):
+            base[0, int(cu[i]):int(cu[i + 1])] = i + 1
+        seg = packed_segment_ids(base)
+    elif layout == "encdec":
+        q = split_heads(randn(sq, b, h * d), h)
+        k, v = (split_heads(t, h)
+                for t in torch.chunk(randn(sk, b, 2 * h * d), 2, dim=-1))
+    else:
+        q, k, v = (split_heads(t, h)
+                   for t in torch.chunk(randn(sq, b, 3 * h * d), 3, dim=-1))
+    return q, k, v, randn(b, h, sq, d), seg
+
+
+def _f5_inputs(gen, qshape, kshape, dt, kind, dev):
+    import torch
+    if kind == "transposed":
+        b, h, s, d = qshape
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).transpose(1, 2)
+    elif kind == "offset":
+        n = math.prod(qshape)
+        q = torch.randn(4 + n, generator=gen, device=dev).to(dt)[4:]
+        q = q.view(qshape)
+    else:
+        q = torch.randn(qshape, generator=gen, device=dev)
+    q = q.to(dt)
+    k, v = (torch.randn(kshape, generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    return q, k, v, torch.randn(qshape, generator=gen, device=dev).to(dt)
+
+
+def dropout_kernel_phase(dev, smi: str) -> dict:
+    """The dropout bodies of the forward with lse and the dq, dk/dv
+    kernels against their twins at the same seed (ATTN_TOL) at the
+    DROP_CASES shapes: exact zeros on rows that see no key, the same bits
+    twice, the route of each read from the device kernels' names (the
+    DROP=true bodies); the same through ``flash_attention`` at the
+    shapes and layouts of the path's three other calls (DROP_PATH_CASES);
+    the
+    keep mask read out of the forward and of dk/dv, bit for bit against
+    ``dropout_keep_ref``, and another seed's mask with its keep fraction;
+    the F5 inputs with gradients against the twins; then each dropout
+    body timed at GPT's and BERT-L's shapes beside the same body at rate
+    0 (in turns), the twin, SDPA with ``dropout_p`` and the bound.
+    Returns {kernel: its dropout figures at GPT's shape}."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    kern = {"flash_fwd": attn.FLASH_FWD, "flash_dq": attn.FLASH_DQ,
+            "flash_dkv": attn.FLASH_DKV}
+    worst = dict.fromkeys(kern, 0.0)
+    cases = {c[0]: c for c in ATTN_CASES}
+    case_launches = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    _prime_profiler()
+    for cname in DROP_CASES:
+        name, b, h, hk, sq, sk, d, causal, kind, dtn = cases[cname]
+        before = {kn: kt.launches for kn, kt in kern.items()}
+        dt = _dtype(dtn)
+        q, k, v, do = (torch.randn(b, n, length, d, generator=gen,
+                                   device=dev).to(dt)
+                       for n, length in ((h, sq), (hk, sk), (hk, sk),
+                                         (h, sq)))
+        seg = {None: None, "packed": _packed_ids(b, sq, dev),
+               "ragged": _ragged_ids([sq, sq // 3 + 1] * (b // 2), sq,
+                                     dev)}[kind]
+        fwd = lambda: attn._flash_fwd_cuda(q, k, v, causal, None, seg, True,
+                                           DROP_RATE, seed)
+        o, lse = fwd()
+        grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                     DROP_RATE, seed)
+        torch.cuda.synchronize()
+        wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg, DROP_RATE,
+                                      seed)
+        wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg,
+                                    DROP_RATE, seed)
+        atol, rtol = ATTN_TOL[dtn]
+        what = (f"{name} q={tuple(q.shape)} k={tuple(k.shape)} {dtn} "
+                f"dropout {DROP_RATE}")
+        errs = [_held("flash_fwd", o, wo, atol, rtol, "o " + what),
+                _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)]
+        errs += [_held(kn, g, w, atol, rtol, f"{gn} {what}")
+                 for kn, gn, g, w in zip(("flash_dq", "flash_dkv",
+                                          "flash_dkv"), ("dq", "dk", "dv"),
+                                         grads, wgrads)]
+        if seg is not None:
+            for t, ids in zip((o,) + grads, (seg[0], seg[0], seg[1],
+                                             seg[1])):
+                pad = (ids < 0)[:, None, :, None].expand_as(t)
+                _check(bool(torch.all(t[pad] == 0)),
+                       f"{what}: a row that sees no key (or a key no row "
+                       "sees) is not exactly 0")
+        again_o, again_lse = fwd()
+        again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                     DROP_RATE, seed)
+        _check(bool(torch.equal(again_o, o) and torch.equal(again_lse, lse)
+                    and all(torch.equal(a, g) for a, g in zip(again, grads))),
+               f"flash attention {what}: the result differs run to run")
+        case_launches.append(
+            (name, {kn: kt.launches - before[kn] for kn, kt in kern.items()}))
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs[0])
+        worst["flash_dq"] = max(worst["flash_dq"], errs[2])
+        worst["flash_dkv"] = max(worst["flash_dkv"], *errs[3:])
+        print(f"kernel flash dropout {what} causal={causal} seg={kind}: "
+              f"max_abs_err o {errs[0]:.3e}, lse {errs[1]:.3e}, dq "
+              f"{errs[2]:.3e}, dk {errs[3]:.3e}, dv {errs[4]:.3e} (atol="
+              f"{atol}, rtol={rtol}); exact zeros where nothing is seen; "
+              "the same bits on a second run", flush=True)
+        del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
+    for name, b, h, sq, sk, d, causal, layout in DROP_PATH_CASES:
+        q, k, v, do, seg = _path_operands(gen, b, h, sq, sk, d, layout, dev)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        before = {kn: kt.launches for kn, kt in kern.items()}
+        with torch.enable_grad():
+            o = attn.flash_attention(qq, kk, vv, causal=causal,
+                                     segment_ids=seg, dropout_rate=DROP_RATE,
+                                     dropout_seed=seed)
+            o.backward(do)
+        torch.cuda.synchronize()
+        case_launches.append(
+            (name, {kn: kt.launches - before[kn] for kn, kt in kern.items()}))
+        wo, lse = attn.flash_fwd_ref(q, k, v, causal, None, seg, DROP_RATE,
+                                     seed)
+        want = (wo,) + attn.flash_bwd_ref(q, k, v, o.detach(), lse, do,
+                                          causal, None, seg, DROP_RATE, seed)
+        del lse
+        atol, rtol = ATTN_TOL["bf16"]
+        what = (f"path shape {name} q={tuple(q.shape)} k={tuple(k.shape)} "
+                f"bf16 dropout {DROP_RATE}")
+        errs = [_held(kn, a, w, atol, rtol, f"{gn} {what}")
+                for kn, gn, a, w in zip(
+                    ("flash_fwd", "flash_dq", "flash_dkv", "flash_dkv"),
+                    ("o", "dq", "dk", "dv"),
+                    (o.detach(), qq.grad, kk.grad, vv.grad), want)]
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs[0])
+        worst["flash_dq"] = max(worst["flash_dq"], errs[1])
+        worst["flash_dkv"] = max(worst["flash_dkv"], *errs[2:])
+        print(f"kernel flash dropout {what} causal={causal} ({layout}'s "
+              f"strided operands{', packed segment ids' if seg else ''}): "
+              "o, dq, dk, dv max_abs_err "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (atol={atol}, rtol={rtol})", flush=True)
+        del q, k, v, do, qq, kk, vv, o, want
+    torch.cuda.synchronize()
+    prof.stop()
+    case_routes = _flash_routes(prof, case_launches, drop=True)
+    del prof
+    for name, b, h, sq, sk, d, causal, _ in DROP_PATH_CASES:
+        routes = case_routes[name]
+        _check(set(routes.values()) == {"tensor cores"},
+               f"{name} dropout: routes {routes}, expected tensor cores")
+        print(f"route dropout {name} bf16 D {d} (kernel width "
+              f"{attn._kernel_width(d)}): "
+              + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
+              flush=True)
+    for cname in DROP_CASES:
+        name, b, h, hk, sq, sk, d, causal, kind, dtn = cases[cname]
+        routes = case_routes[name]
+        want = ("tensor cores" if dtn == "bf16" and d in (64, 128)
+                else "CUDA cores")
+        _check(set(routes.values()) == {want},
+               f"{name} dropout: routes {routes}, expected {want}")
+        print(f"route dropout {name} {dtn} D {d}: "
+              + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
+              flush=True)
+
+    for name, b, h, sq, sk, d, causal, dtn in DROP_KEEP_CASES:
+        dt = _dtype(dtn)
+        vis = _visible(None, sq, sk, causal, dev)[:, None]
+        want = attn.dropout_keep_ref(seed, b, h, sq, sk, DROP_RATE) & vis
+        fwd, dv = (keep_mask_readout(b, h, sq, sk, d, dt, causal,
+                                     DROP_RATE, seed, dev, side)
+                   for side in ("fwd", "dv"))
+        _check(bool(torch.equal(fwd, want)), f"keep mask {name}: the "
+               f"forward dropped {int((fwd != want).sum())} pairs other "
+               "than dropout_keep_ref's")
+        _check(bool(torch.equal(dv, want)), f"keep mask {name}: dk/dv "
+               f"dropped {int((dv != want).sum())} pairs other than "
+               "dropout_keep_ref's")
+        other = keep_mask_readout(b, h, sq, sk, d, dt, causal, DROP_RATE,
+                                  seed + 1, dev, "fwd")
+        n_vis = float(vis.sum()) * b * h
+        kept = float(other.sum()) / n_vis
+        _check(not torch.equal(other, fwd) and abs(kept - (1 - DROP_RATE))
+               < 0.01, f"keep mask {name}: another seed kept {kept:.5f} of "
+               f"the visible pairs (want {1 - DROP_RATE} +- 0.01) or the "
+               "same mask")
+        print(f"keep mask {name} ({b}, {h}, {sq}, {sk}) D {d} {dtn} causal="
+              f"{causal}: the forward's and dk/dv's masks equal "
+              f"dropout_keep_ref bit for bit ({int(want.sum())} of "
+              f"{int(n_vis)} visible pairs kept, "
+              f"{float(want.sum()) / n_vis:.5f}); seed + 1: another mask, "
+              f"{kept:.5f} kept", flush=True)
+        del want, fwd, dv, other
+
+    for name, qshape, kshape, dtn, kind in F5_CASES:
+        dt = _dtype(dtn)
+        q, k, v, do = _f5_inputs(gen, qshape, kshape, dt, kind, dev)
+        rate = DROP_RATE if dtn == "bf16" else 0.0
+        sd = DROP_SEED if rate else None
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        before = {kn: kt.launches for kn, kt in kern.items()}
+        with torch.enable_grad():
+            o = attn.flash_attention(qq, kk, vv, causal=True,
+                                     dropout_rate=rate, dropout_seed=sd)
+            o.backward(do)
+        torch.cuda.synchronize()
+        _check(all(kt.launches - before[kn] == 1 for kn, kt in kern.items()),
+               f"F5 {name}: the kernels did not launch once each")
+        wo, lse = attn.flash_fwd_ref(q, k, v, True, None, None, rate, sd)
+        want = (wo,) + attn.flash_bwd_ref(q, k, v, o.detach(), lse, do, True,
+                                          None, None, rate, sd)
+        atol, rtol = ATTN_TOL[dtn]
+        errs = [_held("flash", a, w, atol, rtol, f"F5 {name} {gn}")
+                for gn, a, w in zip(("o", "dq", "dk", "dv"),
+                                    (o.detach(), qq.grad, kk.grad, vv.grad),
+                                    want)]
+        print(f"F5 {name} q={tuple(q.shape)} (contiguous "
+              f"{q.is_contiguous()}, start mod 16 {q.data_ptr() % 16}) "
+              f"{dtn} causal dropout {rate}: o, dq, dk, dv max_abs_err "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (atol={atol}, rtol={rtol})", flush=True)
+        del q, k, v, do, qq, kk, vv, o, want
+
+    rows = {}
+    for cname in ("gpt2_block", "bert_large_unmasked"):
+        name, b, h, hk, s, _, d, causal, _, dtn = cases[cname]
+        q, k, v, do = (torch.randn(b, n, s, d, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for n in (h, hk, hk, h))
+        o0, lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)
+        od, _ = attn._flash_fwd_cuda(q, k, v, causal, None, None, True,
+                                     DROP_RATE, seed)
+        dq0, dkv0 = _bwd_kernel_calls(q, k, v, o0, lse, do, causal, None)
+        dqd, dkvd = _bwd_kernel_calls(q, k, v, od, lse, do, causal, None,
+                                      DROP_RATE, seed)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                 is_causal=causal,
+                                                 dropout_p=DROP_RATE)
+        bwd_plain = lambda: attn.flash_bwd_ref(q, k, v, od, lse, do, causal,
+                                               None, None, DROP_RATE, seed)
+        bwd_lib = lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                              retain_graph=True)
+        times = {
+            "flash_fwd": (
+                lambda: attn._flash_fwd_cuda(q, k, v, causal, None, None,
+                                             True, DROP_RATE, seed),
+                lambda: attn._flash_fwd_cuda(q, k, v, causal, None, None,
+                                             True),
+                lambda: attn.flash_fwd_ref(q, k, v, causal, None, None,
+                                           DROP_RATE, seed),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, dropout_p=DROP_RATE),
+                "SDPA forward, dropout_p 0.1"),
+            "flash_dq": (dqd, dq0, bwd_plain, bwd_lib,
+                         "SDPA backward with dropout_p 0.1: dq, dk and dv "
+                         "in one call; plain: flash_bwd_ref, all three"),
+            "flash_dkv": (dkvd, dkv0, bwd_plain, bwd_lib,
+                          "SDPA backward with dropout_p 0.1: dq, dk and dv "
+                          "in one call; plain: flash_bwd_ref, all three"),
+        }
+        pairs = _pairs(None, b, h, s, causal, dev)
+        costs = _attn_costs(b, h, hk, s, d, 2, pairs)
+        for kname, (drop, zero, plain, lib, note) in times.items():
+            # in turns: rate 0, dropout, dropout, rate 0
+            z1, d1, d2, z2 = (_ms(f, iters=10, warmup=2)
+                              for f in (zero, drop, drop, zero))
+            ms, zero_ms = (d1 + d2) / 2, (z1 + z2) / 2
+            plain_ms = _ms(plain, iters=3, warmup=1)
+            lib_ms = _ms(lib, iters=10, warmup=2)
+            nbytes, ops = costs[kname]
+            bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+            print(f"time {kname} dropout {DROP_RATE} {name} q="
+                  f"{tuple(q.shape)} bf16 causal={causal}: kernel {ms:.4f} "
+                  f"ms ({d1:.4f}, {d2:.4f}), the same body at rate 0 "
+                  f"{zero_ms:.4f} ms ({z1:.4f}, {z2:.4f}; dropout "
+                  f"{ms / zero_ms:.2f}x), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms ({note}; kernel {ms / lib_ms:.2f}x), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+                  f"{ops:.4e} FLOP at the bf16 rate; the hash's ~10 integer "
+                  f"operations a pair, {10 * pairs:.3e} here, not counted), "
+                  f"{100 * bound_ms / ms:.2f}% of the bound [{smi}]",
+                  flush=True)
+            if name == "gpt2_block":
+                rows[kname] = dict(
+                    rate=DROP_RATE, ms=ms, rate0_ms=zero_ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=worst[kname],
+                    atol=ATTN_TOL["bf16"][0], rtol=ATTN_TOL["bf16"][1],
+                    shape="(8, 12, 512, 64) bf16 causal",
+                    body=case_routes[name][kname])
+        del q, k, v, do, o0, od, lse, qq, kk, vv, out
+    return rows
+
+
+def _path_counts(fn, what: str, want: dict):
+    """``fn()`` with every launch count set to 0 just before it; checks
+    the counts read just after against ``want`` (kernels not named: 0)."""
+    import torch
+    from apex_tpu_torch import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in _build.KERNELS if k.launches}
+    _check(got == want, f"{what}: launches {got}, expected {want}")
+    return out, got
+
+
+def dropout_path_phase(dev, smi: str) -> dict:
+    """The slice's modules in training at full width, bf16, dropout 0.1,
+    forward and backward, each with its launches counted from 0: 12
+    ``SelfMultiheadAttn(768, 12, bias, norm-add)`` layers at GPT-2
+    small's T 512, B 8, causal, seeds drawn from a card generator; an
+    ``EncdecMultiheadAttn(1024, 16)`` at Tq 256, Tk 384, B 16 on each of
+    its three branches (flash; the key-padding mask; need_weights);
+    ``fmha_packed`` over the 4,096-token BERT packed buffer at H 16, D
+    64; ``SelfMultiheadAttn(768, 8)`` (D 96, padded to 128).  Finite
+    losses and exact launch counts (the kernels are held against their
+    twins at these calls' shapes in ``dropout_kernel_phase``,
+    DROP_PATH_CASES); returns the flash launches of the 12-layer stack's
+    run."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.contrib.fmha import fmha_packed
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+
+    bf16 = torch.bfloat16
+    dgen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def leaves(params):
+        return [t for p in params for sub in p.values() for t in sub.values()]
+
+    def step(layers, x, w, **kw):
+        """Forward and backward of ``layers`` [(module, params)] on x."""
+        h, probs = x, None
+        for mod, p in layers:
+            h, probs = mod(p, h, generator=dgen, **kw)
+        loss = (h.float() * w).mean()
+        grads = torch.autograd.grad(loss, [x] + leaves(
+            [p for _, p in layers]))
+        return loss.detach(), grads, probs
+
+    def finite(loss, grads, what):
+        _check(math.isfinite(float(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads),
+            f"{what}: a non-finite loss or gradient")
+
+    E, L = SMHA["hidden"], SMHA["layers"]
+    mha = SelfMultiheadAttn(E, SMHA["heads"], dropout=DROP_RATE, bias=True,
+                            include_norm_add=True)
+    init = torch.Generator().manual_seed(0)
+    params = [{n: {k: t.requires_grad_() for k, t in sub.items()}
+               for n, sub in mha.init(init, dev).items()} for _ in range(L)]
+    layers = [(mha, p) for p in params]
+    x = torch.randn(SMHA["seq"], SMHA["batch"], E, generator=gen,
+                    device=dev).to(bf16).requires_grad_()
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    step(layers, x, w, attn_mask="causal")           # warm-up
+    n = SMHA["steps"]
+    per = {"flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+           "layer_norm_fwd": L, "layer_norm_bwd": L}
+    t0 = time.perf_counter()
+    (losses, counts) = _path_counts(
+        lambda: [step(layers, x, w, attn_mask="causal")[0]
+                 for _ in range(n)],
+        f"{L} x SelfMultiheadAttn dropout {DROP_RATE}",
+        {k: n * c for k, c in per.items()})
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    _check(all(math.isfinite(v) for v in losses) and losses[0] != losses[1],
+           f"SelfMultiheadAttn stack: losses {losses} (non-finite, or the "
+           "same bits under two dropout seeds)")
+    print(f"path {L} x SelfMultiheadAttn({E}, {SMHA['heads']}, dropout="
+          f"{DROP_RATE}, bias, norm-add) T {SMHA['seq']} B "
+          f"{SMHA['batch']} bf16 causal, training: {n} forward + backward "
+          f"steps in {1e3 * wall / n:.2f} ms/step (host clock), losses "
+          f"{[round(v, 6) for v in losses]}, launches {counts} [{smi}]",
+          flush=True)
+    del params, layers, x, w
+
+    enc = EncdecMultiheadAttn(ENCDEC["hidden"], ENCDEC["heads"],
+                              dropout=DROP_RATE)
+    ep = {n: {k: t.requires_grad_() for k, t in sub.items()}
+          for n, sub in enc.init(init, dev).items()}
+    b, tq, tk, e = ENCDEC["batch"], ENCDEC["tq"], ENCDEC["tk"], \
+        ENCDEC["hidden"]
+    qx = torch.randn(tq, b, e, generator=gen, device=dev).to(bf16) \
+        .requires_grad_()
+    mem = torch.randn(tk, b, e, generator=gen, device=dev).to(bf16)
+    w = torch.randn(tq, b, e, generator=gen, device=dev)
+    lengths = np.random.default_rng(1).integers(tk // 4, tk + 1, size=b)
+    kpm = (torch.arange(tk, device=dev)[None, :]
+           >= torch.as_tensor(lengths, device=dev)[:, None])
+    flash = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for branch, kw, want in (("flash", {}, flash),
+                             ("key-padding mask",
+                              dict(key_padding_mask=kpm), {}),
+                             ("need_weights", dict(need_weights=True), {})):
+        (loss, grads, probs), _ = _path_counts(
+            lambda: step([(lambda p, h, **k: enc(p, h, mem, **k), ep)], qx,
+                         w, **kw),
+            f"EncdecMultiheadAttn {branch}", want)
+        finite(loss, grads, f"EncdecMultiheadAttn {branch}")
+        if branch == "need_weights":
+            _check(tuple(probs.shape) == (b, ENCDEC["heads"], tq, tk),
+                   f"EncdecMultiheadAttn probs {tuple(probs.shape)}")
+        print(f"path EncdecMultiheadAttn({e}, {ENCDEC['heads']}, dropout="
+              f"{DROP_RATE}) Tq {tq} Tk {tk} B {b} bf16, {branch}: loss "
+              f"{float(loss):.6f}, launches {want or 'none (plain path)'}",
+              flush=True)
+    del ep, qx, mem, w, grads
+
+    cu, total = _fmha_buffer(dev)
+    hh, dd = FMHA["heads"], FMHA["head_dim"]
+    qkv = torch.randn(total, 3, hh, dd, generator=gen, device=dev).to(bf16) \
+        .requires_grad_()
+    wo = torch.randn(total, hh, dd, generator=gen, device=dev)
+
+    def fmha_step():
+        out = fmha_packed(qkv, cu, DROP_RATE, generator=dgen)
+        loss = (out.float() * wo).mean()
+        return out.detach(), loss.detach(), torch.autograd.grad(loss, qkv)[0]
+
+    (out, loss, g), _ = _path_counts(fmha_step, "fmha_packed", flash)
+    end = int(cu[-1])
+    _check(math.isfinite(float(loss)) and bool(torch.all(out[end:] == 0))
+           and bool(torch.all(g[end:] == 0)) and bool(
+               torch.isfinite(g).all()),
+           "fmha_packed: a non-finite loss, or the tail past cu_seqlens[-1] "
+           "not exact zeros")
+    print(f"path fmha_packed qkv ({total}, 3, {hh}, {dd}) bf16, "
+          f"{cu.numel() - 1} sequences, {end} real tokens, p_dropout "
+          f"{DROP_RATE}: loss {float(loss):.6f}, the {total - end}-token "
+          f"tail exact zeros (output and grad), launches {flash}",
+          flush=True)
+    del qkv, wo, out, g
+
+    m96 = SelfMultiheadAttn(D96["hidden"], D96["heads"], dropout=DROP_RATE)
+    p96 = {n: {k: t.requires_grad_() for k, t in sub.items()}
+           for n, sub in m96.init(init, dev).items()}
+    x = torch.randn(D96["seq"], D96["batch"], D96["hidden"], generator=gen,
+                    device=dev).to(bf16).requires_grad_()
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    (loss, grads, _), _ = _path_counts(
+        lambda: step([(m96, p96)], x, w, attn_mask="causal"),
+        "SelfMultiheadAttn(768, 8)", flash)
+    finite(loss, grads, "SelfMultiheadAttn(768, 8)")
+    print(f"path SelfMultiheadAttn({D96['hidden']}, {D96['heads']}) (head "
+          f"dim 96, padded to 128: F5) T {D96['seq']} B {D96['batch']} "
+          f"bf16 causal dropout {DROP_RATE}: loss {float(loss):.6f}, "
+          f"launches {flash}", flush=True)
+    return counts
+
+
+def dropout_consistency_phase(dev) -> None:
+    """A 2-layer f32 ``SelfMultiheadAttn(768, 12, dropout 0.1, bias,
+    norm-add)`` stack, causal, one forward and backward on the card and
+    on the CPU from the same params, input and per-layer seeds: output
+    and gradients within ``DROP_CONSIST["tol"]`` of each tensor's scale;
+    the CPU run at other seeds must fall outside it."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+
+    c = DROP_CONSIST
+    mha = SelfMultiheadAttn(c["hidden"], c["heads"], dropout=DROP_RATE,
+                            bias=True, include_norm_add=True)
+    init = torch.Generator().manual_seed(3)
+    cpu_params = [mha.init(init, "cpu") for _ in range(c["layers"])]
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(c["seq"], c["batch"], c["hidden"], generator=g)
+    w = torch.randn(x.shape, generator=g)
+
+    def run(device, seeds):
+        ps = [{n: {k: t.to(device).requires_grad_() for k, t in sub.items()}
+               for n, sub in p.items()} for p in cpu_params]
+        xx = x.to(device).requires_grad_()
+        h = xx
+        for p, sd in zip(ps, seeds):
+            h, _ = mha(p, h, attn_mask="causal", dropout_seed=sd)
+        loss = (h * w.to(device)).sum()
+        grads = torch.autograd.grad(
+            loss, [xx] + [t for p in ps for sub in p.values()
+                          for t in sub.values()])
+        return [t.detach().cpu() for t in [h] + list(grads)]
+
+    seeds = [101, 102]
+    card, cpu = run(dev, seeds), run("cpu", seeds)
+    wrong = run("cpu", [s + 7 for s in seeds])
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                    1e-30)
+                   for x, y in zip(a, b))
+
+    got, bad = gap(card, cpu), gap(wrong, cpu)
+    _check(got <= c["tol"] < bad,
+           f"dropout card vs cpu: gap {got:.3e} of scale (limit "
+           f"{c['tol']}), other seeds' gap {bad:.3e} (must exceed it)")
+    print(f"consistency dropout: {c['layers']} x SelfMultiheadAttn("
+          f"{c['hidden']}, {c['heads']}, dropout {DROP_RATE}) f32 T "
+          f"{c['seq']} B {c['batch']} causal, card vs CPU: output and "
+          f"{len(card) - 1} gradients within {got:.3e} of their scale "
+          f"(limit {c['tol']}); the CPU at other seeds {bad:.3e} away",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3984,6 +4694,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     gpt_consistency_phase(dev)
 
+    with torch.no_grad():
+        drop_rows = dropout_kernel_phase(dev, smi)
+    torch.cuda.empty_cache()
+    drop_counts = dropout_path_phase(dev, smi)
+    torch.cuda.empty_cache()
+    dropout_consistency_phase(dev)
+    for e in [entry] + gpt_entries:
+        if e["name"] in drop_rows:
+            e["dropout"] = dict(drop_rows[e["name"]],
+                                launches=drop_counts[e["name"]])
+
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
         GPT["vocab"], GPT["hidden"], GPT["heads"], GPT["layers"],
@@ -4017,8 +4738,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [dict({k: e[k] for k in keys},
-                    **{k: e[k] for k in ("body", "shape", "serve_f32")
-                       if k in e})
+                    **{k: e[k] for k in ("body", "shape", "serve_f32",
+                                         "dropout") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries
                + [welford_entry]]

@@ -258,3 +258,32 @@ def test_mixed_dtypes_promote_as_the_reference_does():
     tattn.flash_attention(tq, tk, torch.from_numpy(v), causal=True).sum(
         ).backward()
     assert tq.grad.dtype == torch.bfloat16 and tk.grad.dtype == torch.float32
+
+
+def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
+    """What the card's wrappers do before a launch (F5): a head dim
+    that is not a kernel width goes up to the next of (16, 32, 64, 128)
+    with zeros; a strided operand is copied; a contiguous one that
+    starts off its alignment is cloned to an aligned start; a head dim
+    above 128 raises naming F5b; float64 raises TypeError."""
+    assert [tattn._kernel_width(d) for d in (1, 8, 16, 17, 33, 80, 96,
+                                             128)] == [
+        16, 16, 16, 32, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="F5b"):
+        tattn._kernel_width(160)
+    q = torch.randn(2, 3, 5, 8)
+    (p,) = tattn._operands(q)
+    assert p.shape == (2, 3, 5, 16) and p.is_contiguous()
+    assert torch.equal(p[..., :8], q) and torch.all(p[..., 8:] == 0)
+    t = torch.randn(2, 5, 3, 64).transpose(1, 2)
+    (c,) = tattn._operands(t)
+    assert c.is_contiguous() and torch.equal(c, t)
+    off = torch.randn(4 + 2 * 8 * 64).to(torch.bfloat16)[4:].view(1, 2, 8,
+                                                                   64)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 8
+    (a,) = tattn._operands(off)
+    assert a.data_ptr() % 16 == 0 and torch.equal(a, off)
+    (same,) = tattn._operands(c)
+    assert same is c
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tattn._operands(q.double())

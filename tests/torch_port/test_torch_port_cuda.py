@@ -18,8 +18,16 @@ kernels' sections below); a GPT block step must not sync the host.
 dq and the LayerNorm backward are also held on each of their routes
 (the tensor-core dq for bf16 at D 64 and 128; the fused or three-launch
 LayerNorm backward by ``bwd_route``), each read from the device
-kernels' names under ``torch.profiler``.
+kernels' names under ``torch.profiler``.  The flash bodies' dropout
+instantiations are held against the twins at the same seed (FLASH_TOL),
+their keep mask read out of the kernels bit for bit, and the inputs the
+wrapper pads or copies (head dims 8, 80, 96; strided, misaligned; B*H
+65,600) with their gradients.
 """
+
+import importlib.util
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -85,15 +93,23 @@ def test_kernel_matches_plain_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
-    q = torch.zeros(1, 2, 8, 64, device=cuda)
-    q8 = q[..., :8].contiguous()
-    with pytest.raises(ValueError, match="head_dim"):
-        attn.flash_attention(q8, q8, q8)
+    """float64 and a head dim above 128 (F5b) raise; a head dim of 8
+    (padded to the kernels' 16) and a strided q (copied) compute what
+    the plain version does, each with one launch."""
+    q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         attn.flash_attention(q.double(), q.double(), q.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        attn.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
-                             q, q)
+    wide = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="F5b"):
+        attn.flash_attention(wide, wide, wide)
+    q8 = q[..., :8].contiguous()
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    for args in ((q8, q8, q8), (strided, q, q)):
+        before = attn.FLASH_FWD.launches
+        got = attn.flash_attention(*args, causal=True)
+        assert attn.FLASH_FWD.launches == before + 1
+        torch.testing.assert_close(
+            got, attn.flash_attention_ref(*args, causal=True), **TOL)
 
 
 CFG = serving.DecoderConfig(vocab_size=64, hidden=64, n_layers=2,
@@ -451,23 +467,53 @@ def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
-    """bf16 at D 64/128: q starting 8 bytes past a 16-byte boundary is
-    refused with a ValueError before any launch (TMA needs 16)."""
+    """bf16 at D 64/128: q starting 8 bytes past a 16-byte boundary (TMA
+    needs 16) is cloned to an aligned start by the wrapper (F5): one
+    launch, on the tensor cores, the plain version's result."""
     q = torch.randn(4 + 2 * 16 * d, device=cuda).to(torch.bfloat16)[4:]
     q = q.view(1, 2, 16, d)
+    assert q.data_ptr() % 16 == 8
     k, v = (torch.randn(1, 2, 16, d, device=cuda).to(torch.bfloat16)
             for _ in range(2))
     before = attn.FLASH_FWD.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        attn.flash_attention(q, k, v, causal=True)
-    assert attn.FLASH_FWD.launches == before
+    got = attn.flash_attention(q, k, v, causal=True)
+    assert attn.FLASH_FWD.launches == before + 1
+    torch.testing.assert_close(got, attn.flash_attention_ref(
+        q, k, v, causal=True), **FLASH_TOL[torch.bfloat16])
+    names = _device_kernel_names(
+        lambda: attn.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
+    assert names and all("flash_fwd_kernel_tc" in n for n in names)
 
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_dropout_on_card(cuda):
-    q = torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
+    """Dropout runs on the card: forward and gradients at rate 0.1 on
+    the tensor-core route against the twins at the same seed, one
+    launch of each kernel, and the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(1, 2, 80, 64, generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda)
+    counts = [kk.launches for kk in (attn.FLASH_FWD, attn.FLASH_DQ,
+                                     attn.FLASH_DKV)]
+
+    def run():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = attn.flash_attention(qq, kk, vv, causal=True, dropout_rate=0.1,
+                                 dropout_seed=seed)
+        o.backward(do)
+        return o.detach(), qq.grad, kk.grad, vv.grad
+
+    got = run()
+    torch.cuda.synchronize()
+    assert [kk.launches - c for kk, c in zip(
+        (attn.FLASH_FWD, attn.FLASH_DQ, attn.FLASH_DKV), counts)] == [1, 1, 1]
+    wo, lse = attn.flash_fwd_ref(q, k, v, True, None, None, 0.1, seed)
+    want = (wo,) + attn.flash_bwd_ref(q, k, v, got[0], lse, do, True, None,
+                                      None, 0.1, seed)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[torch.bfloat16])
+    assert all(torch.equal(a, b) for a, b in zip(run(), got))
 
 
 LN_CASES = {
@@ -525,18 +571,32 @@ def test_fused_layer_norm_autograd_runs_the_kernels_on_card(cuda):
         ln._fwd_2d(x.detach().half().reshape(-1, 256), w, b, 1e-5, False)
 
 
-def _device_kernel_names(fn, calls=3):
-    """The names of the device kernels ``calls`` calls of ``fn`` launch,
-    read by ``torch.profiler`` after one warm-up call."""
+def _device_kernel_names(fn, keep, want=None, calls=3, sessions=3):
+    """The names holding ``keep`` of the device kernels that ``calls``
+    calls of ``fn`` launch, read by ``torch.profiler`` after one warm-up
+    call.  A session sometimes comes back without its first kernels'
+    records, so a few small kernels run first, and the session is read
+    again, up to ``sessions`` times, until some name holds each of
+    ``want`` (default: ``keep``); the caller checks the last session's
+    names."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer = torch.zeros(1024, device="cuda")
+            for _ in range(64):
+                primer.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and keep in e.name]
+        if all(any(w in n for n in names) for w in (want or (keep,))):
+            break
+    return names
 
 
 DQ_CASES = {
@@ -586,9 +646,9 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
         assert torch.all(dq.transpose(1, 2)[pad] == 0)
     again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)[0]
     assert torch.equal(again, dq)
-    names = [n for n in _device_kernel_names(
-        lambda: attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg))
-        if "flash_dq_kernel" in n]
+    names = _device_kernel_names(
+        lambda: attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg),
+        "flash_dq_kernel")
     tc = dt == torch.bfloat16 and d in (64, 128)
     assert names and all(("flash_dq_kernel_tc" in n) == tc for n in names)
 
@@ -655,8 +715,8 @@ def test_layer_norm_backward_routes_match_plain_on_card(cuda, case):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
     again = ln._bwd_2d(x, w, dy, 1e-5, rms)
     assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
-    names = [n for n in _device_kernel_names(
-        lambda: ln._bwd_2d(x, w, dy, 1e-5, rms)) if "ln_bwd_" in n]
+    names = _device_kernel_names(lambda: ln._bwd_2d(x, w, dy, 1e-5, rms),
+                                 "ln_bwd_", want=LN_BWD_NAMES[route])
     seen = {k for k in LN_BWD_NAMES["three"] | LN_BWD_NAMES["fused"]
             if any(k in n for n in names)}
     assert seen == LN_BWD_NAMES[route]
@@ -1417,3 +1477,171 @@ def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
                for a, b in zip(got, tw.welford_mean_var_ref(x)))
     with pytest.raises(TypeError, match="float32"):
         tw.welford_mean_var(x.double().reshape(-1, 128))
+
+
+# ---------------------------------------------------------------------------
+# the fused attention dropout (every flash body's DROP instantiation) and
+# the wrapper's padding and copies (F5)
+# ---------------------------------------------------------------------------
+#
+# Each body against its twin at the same seed (FLASH_TOL); the keep mask
+# read out of the kernels bit for bit: with q = k = 0 every visible p is
+# 1/n, so with V one-hot on a window of D keys the output is nonzero on
+# that window exactly where the pair is kept, and with dO one-hot on a
+# window of D query rows dV is nonzero exactly where kept.
+
+DROP_CASES = {
+    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): bf16 at
+    # D 64/128 the tensor-core bodies, the rest the CUDA cores
+    "tc_gpt_causal": (2, 12, 12, 256, 256, 64, True, None, torch.bfloat16,
+                      0.1),
+    "tc_bert_packed": (2, 16, 16, 192, 192, 64, False, "packed",
+                       torch.bfloat16, 0.1),
+    "tc_gqa_12_to_4_ragged": (2, 12, 4, 200, 200, 64, True, "ragged",
+                              torch.bfloat16, 0.25),
+    "tc_d128_cross_causal": (2, 4, 4, 130, 70, 128, True, None,
+                             torch.bfloat16, 0.5),
+    "fma_f32_gqa_s300": (2, 12, 4, 300, 300, 64, True, "ragged",
+                         torch.float32, 0.1),
+    "fma_bf16_d32": (2, 8, 8, 256, 256, 32, True, None, torch.bfloat16,
+                     0.1),
+    "fma_f32_d16_cross": (1, 4, 2, 70, 130, 16, False, None, torch.float32,
+                          0.9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DROP_CASES))
+def test_dropout_bodies_match_the_twins_on_card(cuda, name):
+    b, h, hk, sq, sk, d, causal, kind, dt, rate = DROP_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    seg = None if kind is None else _seg(kind, b, sq, cuda)
+    seed = torch.tensor([-123457], dtype=torch.int32, device=cuda)
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate,
+                                  seed)
+    got = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
+                               seed)
+    torch.cuda.synchronize()
+    wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg, rate, seed)
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg, rate,
+                              seed)
+    torch.testing.assert_close(o, wo, **FLASH_TOL[dt])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-5)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[dt])
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                 rate, seed)
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+    assert torch.equal(attn._flash_fwd_cuda(q, k, v, causal, None, seg, True,
+                                            rate, seed)[0], o)
+    other = attn._flash_fwd_cuda(q, k, v, causal, None, seg, False, rate,
+                                 seed + 1)[0]
+    assert not torch.equal(other, o)
+    tc = dt == torch.bfloat16 and d in (64, 128)
+    bodies = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    names = _device_kernel_names(lambda: (
+        attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, seed),
+        attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
+                             seed)), "flash_", want=bodies)
+    # each body seen (a short profiler session may drop a kernel's
+    # record, so the count of names is not held), each on its route
+    assert {kn for kn in bodies if any(kn in n for n in names)} == set(bodies)
+    assert all(("_kernel_tc" in n) == tc for n in names)
+    # the bodies' last template argument is DROP
+    assert all(re.search(r"_kernel(_tc)?<[^>]*, true>", n) for n in names)
+
+
+def _keep_mask_readout():
+    """chip_smoke.py's readout of the kernels' keep mask (one copy of it),
+    loaded from the checkout's root."""
+    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.keep_mask_readout
+
+
+KEEP_CASES = {
+    # name: (b, h, sq, sk, d, causal, dtype, rate)
+    "tc_causal": (2, 3, 200, 200, 64, True, torch.bfloat16, 0.1),
+    "tc_d128_cross": (1, 2, 70, 150, 128, False, torch.bfloat16, 0.5),
+    "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
+    "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KEEP_CASES))
+def test_dropout_keep_mask_read_out_of_the_kernels(cuda, name):
+    b, h, sq, sk, d, causal, dt, rate = KEEP_CASES[name]
+    seed = torch.tensor([2 ** 31 - 2], dtype=torch.int32, device=cuda)
+    want = attn.dropout_keep_ref(seed, b, h, sq, sk, rate)
+    if causal:
+        want &= (torch.arange(sk, device=cuda)[None, :]
+                 <= torch.arange(sq, device=cuda)[:, None])
+    read = _keep_mask_readout()
+    fwd, dv = (read(b, h, sq, sk, d, dt, causal, rate, seed, cuda, side)
+               for side in ("fwd", "dv"))
+    assert torch.equal(fwd, want)
+    assert torch.equal(dv, want)
+    kept = float(attn.dropout_keep_ref(seed, b, h, sq, sk, rate)
+                 .float().mean())
+    assert abs(kept - (1.0 - rate)) < 0.01
+
+
+F5_CASES = {
+    # name: (make q, k, v on the card from a generator): each held with
+    # its gradients against the twins
+    "d8": lambda g, dev: [torch.randn(2, 3, 70, 8, generator=g, device=dev)
+                          for _ in range(3)],
+    "d80_bf16": lambda g, dev: [torch.randn(
+        2, 4, 130, 80, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)],
+    "d96_bf16": lambda g, dev: [torch.randn(
+        2, 8, 128, 96, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)],
+    "transposed_q": lambda g, dev: [torch.randn(
+        2, 100, 4, 64, generator=g, device=dev).transpose(1, 2)] + [
+        torch.randn(2, 4, 100, 64, generator=g, device=dev)
+        for _ in range(2)],
+    "q_8_bytes_off": lambda g, dev: [torch.randn(
+        4 + 2 * 4 * 64 * 64, generator=g, device=dev).to(torch.bfloat16)[
+        4:].view(2, 4, 64, 64)] + [
+        torch.randn(2, 4, 64, 64, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(2)],
+    "bh_65600_f32": lambda g, dev: [torch.randn(
+        65600, 1, 16, 16, generator=g, device=dev) for _ in range(3)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(F5_CASES))
+def test_f5_inputs_compute_with_gradients_on_card(cuda, name):
+    """What the card refused before F5's repair: head dims 8, 80 and 96
+    (padded), a transposed q, a q 8 bytes off its alignment (copied),
+    B*H = 65600 (B*H on the grid's x): forward and gradients against the
+    twins, with dropout on for the bf16 cases."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = F5_CASES[name](g, cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(q.dtype)
+    rate = 0.1 if q.dtype == torch.bfloat16 else 0.0
+    seed = 12345 if rate else None
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    counts = [kx.launches for kx in (attn.FLASH_FWD, attn.FLASH_DQ,
+                                     attn.FLASH_DKV)]
+    o = attn.flash_attention(qq, kk, vv, causal=True, dropout_rate=rate,
+                             dropout_seed=seed)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [kx.launches - c for kx, c in zip(
+        (attn.FLASH_FWD, attn.FLASH_DQ, attn.FLASH_DKV), counts)] == [1, 1, 1]
+    wo, lse = attn.flash_fwd_ref(q, k, v, True, None, None, rate, seed)
+    want = (wo,) + attn.flash_bwd_ref(q, k, v, o.detach(), lse, do, True,
+                                      None, None, rate, seed)
+    for a, w in zip((o.detach(), qq.grad, kk.grad, vv.grad), want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        torch.testing.assert_close(a, w, **FLASH_TOL[q.dtype])

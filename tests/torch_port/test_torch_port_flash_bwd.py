@@ -183,11 +183,19 @@ def test_grads_need_no_lse_without_grad():
 
 
 def test_dropout_raises_naming_its_roadmap_item():
-    q = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=3)
+    """Dropout is ported: a rate with a seed runs (and drops, under
+    autograd too), the reference's two refusals stay: a rate outside
+    [0, 1) and a rate above 0 with no seed."""
+    q = torch.randn(1, 2, 8, 16, generator=torch.Generator().manual_seed(0))
+    kept = tattn.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=3)
+    tracked = tattn.flash_attention(q.clone().requires_grad_(), q, q,
+                                    dropout_rate=0.1, dropout_seed=3)
+    torch.testing.assert_close(kept, tracked.detach(), rtol=1e-6, atol=1e-6)
+    assert not torch.allclose(kept, tattn.flash_attention(q, q, q))
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         tattn.flash_attention(q, q, q, dropout_rate=1.0)
+    with pytest.raises(ValueError, match="requires dropout_seed"):
+        tattn.flash_attention(q, q, q, dropout_rate=0.1)
 
 
 def test_backward_kernels_are_registered_with_launch_counts():
