@@ -28,6 +28,7 @@ from typing import Any, List, NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch import _numerics
 from apex_tpu_torch._tree import tree_leaves
 from apex_tpu_torch.amp.scaler import (LossScaleState, scale_loss,
                                        split_microbatch_args, stack_trees,
@@ -157,7 +158,7 @@ class FlatGradPipeline:
             norm_sqs.append(nsq)
             flags.append(flag)
         found_inf = functools.reduce(torch.maximum, flags)
-        norm = torch.sqrt(functools.reduce(torch.add, norm_sqs))
+        norm = _numerics.sqrt(functools.reduce(torch.add, norm_sqs))
         maxn = self.max_grad_norm
         one = torch.ones((), dtype=torch.float32, device=norm.device)
         if maxn > 0:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch import _numerics
 from apex_tpu_torch._tree import tree_flatten, tree_unflatten
 from apex_tpu_torch.ops.multi_tensor import flat_l2norm, flat_scale
 
@@ -37,7 +38,7 @@ def _is_packed(grads) -> bool:
 def _total_norm(flats, norm_type) -> torch.Tensor:
     """The global norm over a list of flat buffers, f32 sums."""
     if norm_type == 2.0:
-        return torch.sqrt(sum(flat_l2norm(f) ** 2 for f in flats))
+        return _numerics.sqrt(sum(flat_l2norm(f) ** 2 for f in flats))
     if norm_type == float("inf"):
         return torch.max(torch.stack(
             [torch.max(torch.abs(f.to(torch.float32))) for f in flats]))

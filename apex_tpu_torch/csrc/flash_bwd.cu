@@ -18,7 +18,7 @@
 //   Llama-class heads).
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at any D (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
-//   no TF32) and bf16 at D 16 and 32.
+//   no TF32) and bf16 at D 16, 32, 256 and 512.
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -88,12 +88,14 @@
 // moved against the card's 20 for f32 outside the tensor cores: bound by
 // arithmetic):
 //
-// - dq: one CTA per (b*h, 64 query rows), the CUDA-core forward's
-//   geometry (a row split over D/32 threads holding q, dO and the dq
-//   accumulator as float4 chunks); it walks the key/value rows in tiles
-//   of 32 staged through shared memory as f32, stops at the diagonal
-//   tile under the causal mask, and writes dq once.
-// - dk/dv: one CTA per (b*hk, 64 key rows), a key row split over D/16
+// - dq: one CTA per (b*h, BQ query rows), the CUDA-core forward's
+//   geometry (BQ 64 up to D 128, 8192/D past it; a row split over D/32
+//   threads holding q, dO and the dq accumulator as float4 chunks); it
+//   walks the key/value rows in tiles of 32 staged through shared memory
+//   as f32, stops at the diagonal tile under the causal mask, and
+//   writes dq once.
+// - dk/dv: one CTA per (b*hk, BKV key rows: 64 up to D 128, 8192/D
+//   past it), a key row split over D/16
 //   threads holding k, v and the two accumulators (64 registers of
 //   operands at any D); it walks the query group's
 //   heads in order and, within each, the query rows from the first that
@@ -116,19 +118,26 @@
 
 namespace {
 
-constexpr int BQ = 64;          // dq: query rows per CTA
 constexpr int BK = 32;          // dq: key rows per shared-memory tile
-constexpr int BKV = 64;         // dk/dv: key rows per CTA
 constexpr int BQT = 32;         // dk/dv: query rows per shared-memory tile
 
 enum Dtype { F32 = 0, BF16 = 1 };
 
+// Past D 128 both bodies keep their threads' share of a row (32 columns
+// in dq, 16 in dk/dv) and their thread count (256 and 512) by owning
+// fewer rows a CTA, as the reference shrinks its sequence blocks as the
+// padded width grows; their tiles live in static shared memory while
+// they fit its 48 KB (D <= 128: the compiler addresses them as constants)
+// and in dynamic shared memory past it (64 KB at D 256, 128 KB at D 512).
 template <int D>
 struct GeoQ {                                   // dq: 32 columns a thread
   static constexpr int DPT = D < 32 ? D : 32;
   static constexpr int TPR = D / DPT;           // threads per query row
   static constexpr int C4 = DPT / 4;
+  static constexpr int BQ = D <= 128 ? 64 : 8192 / D;   // query rows a CTA
   static constexpr int THREADS = BQ * TPR;
+  static constexpr int SMEM = 2 * BK * D * 4 + BK * 4;  // K, V tiles, ids
+  static constexpr bool DYN = SMEM > 48 * 1024;
 };
 
 template <int D>
@@ -136,7 +145,11 @@ struct GeoKV {                                  // dk/dv: 16 columns a thread
   static constexpr int DPT = 16;
   static constexpr int TPR = D / DPT;           // threads per key row
   static constexpr int C4 = DPT / 4;
+  static constexpr int BKV = D <= 128 ? 64 : 8192 / D;  // key rows a CTA
   static constexpr int THREADS = BKV * TPR;
+  // q and dO tiles, then lse, di and the q ids of the tile's rows
+  static constexpr int SMEM = 2 * BQT * D * 4 + 3 * BQT * 4;
+  static constexpr bool DYN = SMEM > 48 * 1024;
 };
 
 __device__ __forceinline__ float4 load4(const float* p, size_t i4) {
@@ -218,15 +231,22 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int Sk, int causal, float scale, dropout::Params drop) {
   using G = GeoQ<D>;
   constexpr int D4 = D / 4;
-  __shared__ float4 ks[BK][D4];
-  __shared__ float4 vs[BK][D4];
-  __shared__ int kid[BK];
+  constexpr bool DYN = G::DYN;
+  __shared__ float4 ks_st[DYN ? 1 : BK][DYN ? 1 : D4];
+  __shared__ float4 vs_st[DYN ? 1 : BK][DYN ? 1 : D4];
+  __shared__ int kid_st[DYN ? 1 : BK];
+  extern __shared__ float4 fma_smem[];
+  float4 (*ks)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem)
+                         : reinterpret_cast<float4 (*)[D4]>(ks_st);
+  float4 (*vs)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem + BK * D4)
+                         : reinterpret_cast<float4 (*)[D4]>(vs_st);
+  int* kid = DYN ? reinterpret_cast<int*>(fma_smem + 2 * BK * D4) : kid_st;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
   // heaviest first: under the causal mask the last q block sees most keys
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
   const int tid = threadIdx.x;
   const int part = tid % G::TPR;
   const int row = q0 + tid / G::TPR;
@@ -251,7 +271,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float di_r = row_ok ? di[qrow] : 0.f;
   const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
 
-  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
+  const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
     for (int i = tid; i < BK * D4; i += G::THREADS) {
@@ -321,18 +341,28 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Sk, int causal, float scale, dropout::Params drop) {
   using G = GeoKV<D>;
   constexpr int D4 = D / 4;
-  __shared__ float4 qs[BQT][D4];
-  __shared__ float4 dos[BQT][D4];
-  __shared__ float lses[BQT];
-  __shared__ float dis[BQT];
-  __shared__ int qid[BQT];
+  constexpr bool DYN = G::DYN;
+  __shared__ float4 qs_st[DYN ? 1 : BQT][DYN ? 1 : D4];
+  __shared__ float4 dos_st[DYN ? 1 : BQT][DYN ? 1 : D4];
+  __shared__ float lses_st[DYN ? 1 : BQT];
+  __shared__ float dis_st[DYN ? 1 : BQT];
+  __shared__ int qid_st[DYN ? 1 : BQT];
+  extern __shared__ float4 fma_smem[];
+  float* const dyn_rows = reinterpret_cast<float*>(fma_smem + 2 * BQT * D4);
+  float4 (*qs)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem)
+                         : reinterpret_cast<float4 (*)[D4]>(qs_st);
+  float4 (*dos)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem + BQT * D4)
+                          : reinterpret_cast<float4 (*)[D4]>(dos_st);
+  float* lses = DYN ? dyn_rows : lses_st;
+  float* dis = DYN ? dyn_rows + BQT : dis_st;
+  int* qid = DYN ? reinterpret_cast<int*>(dyn_rows + 2 * BQT) : qid_st;
 
   const int bhk = blockIdx.x;
   const int b = bhk / HK;
   const int hk = bhk % HK;
   const int group = H / HK;
   // the first key block sees most query rows under the causal mask
-  const int c0 = blockIdx.y * BKV;
+  const int c0 = blockIdx.y * G::BKV;
   const int tid = threadIdx.x;
   const int part = tid % G::TPR;
   const int col = c0 + tid / G::TPR;
@@ -427,8 +457,12 @@ struct Args {
 // B*H (B*HK) on x (2^31 - 1), the row blocks on y
 template <typename T, int D, bool DROP>
 void launch_dq(const Args& a, void* dq) {
-  const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
-  flash_dq_kernel<T, D, DROP><<<grid, GeoQ<D>::THREADS, 0, a.st>>>(
+  using G = GeoQ<D>;
+  constexpr int dyn = G::DYN ? G::SMEM : 0;
+  static const bool sized = hopper::allow_smem(flash_dq_kernel<T, D, DROP>, dyn);
+  (void)sized;
+  const dim3 grid(a.B * a.H, (a.Sq + G::BQ - 1) / G::BQ);
+  flash_dq_kernel<T, D, DROP><<<grid, G::THREADS, dyn, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk,
@@ -437,8 +471,12 @@ void launch_dq(const Args& a, void* dq) {
 
 template <typename T, int D, bool DROP>
 void launch_dkv(const Args& a, void* dk, void* dv) {
-  const dim3 grid(a.B * a.HK, (a.Sk + BKV - 1) / BKV);
-  flash_dkv_kernel<T, D, DROP><<<grid, GeoKV<D>::THREADS, 0, a.st>>>(
+  using G = GeoKV<D>;
+  constexpr int dyn = G::DYN ? G::SMEM : 0;
+  static const bool sized = hopper::allow_smem(flash_dkv_kernel<T, D, DROP>, dyn);
+  (void)sized;
+  const dim3 grid(a.B * a.HK, (a.Sk + G::BKV - 1) / G::BKV);
+  flash_dkv_kernel<T, D, DROP><<<grid, G::THREADS, dyn, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
@@ -1014,6 +1052,8 @@ int route_dq(const Args& a, int D, void* dq) {
     case 32: launch_dq<T, 32, DROP>(a, dq); break;
     case 64: launch_dq<T, 64, DROP>(a, dq); break;
     case 128: launch_dq<T, 128, DROP>(a, dq); break;
+    case 256: launch_dq<T, 256, DROP>(a, dq); break;
+    case 512: launch_dq<T, 512, DROP>(a, dq); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1030,6 +1070,8 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     case 32: launch_dkv<T, 32, DROP>(a, dk, dv); break;
     case 64: launch_dkv<T, 64, DROP>(a, dk, dv); break;
     case 128: launch_dkv<T, 128, DROP>(a, dk, dv); break;
+    case 256: launch_dkv<T, 256, DROP>(a, dk, dv); break;
+    case 512: launch_dkv<T, 512, DROP>(a, dk, dv); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

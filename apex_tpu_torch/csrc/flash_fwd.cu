@@ -23,7 +23,8 @@
 //   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
 // - CUDA cores, flash_fwd_kernel: f32 at any D (the serving path; the
 //   precision contract of docs/kernels.md makes f32 operands true f32,
-//   so no TF32), bf16 at D 16 and 32, and a call with no keys (Sk == 0).
+//   so no TF32), bf16 at D 16, 32, 256 and 512, and a call with no keys
+//   (Sk == 0).
 //
 // Both follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -64,11 +65,12 @@
 // What bounds the CUDA-core body: arithmetic.  A causal prefill does
 // about S/8 operations per byte of q/k/v/o it must move (64 at S=512),
 // against the card's 67e12/3.35e12 = 20 for f32 outside the tensor
-// cores.  One CTA owns BQ=64 query rows of one (batch, head) and walks
-// the key/value rows in tiles of BK=32 staged through shared memory as
-// f32, with the flash-2 online softmax (running max m, running sum l,
-// unnormalised accumulator) in registers.  Each query row is split over
-// TPQ = D/32 threads (one thread for D <= 32), each owning 32 of its D
+// cores.  One CTA owns BQ query rows of one (batch, head) (64 up to D
+// 128, 32 at D 256, 16 at D 512: 256 threads past D 128) and walks the
+// key/value rows in tiles of BK=32 staged through shared memory as f32
+// (dynamic past D 128: 64 KB at D 256), with the flash-2 online softmax
+// (running max m, running sum l, unnormalised accumulator) in registers.
+// Each query row is split over TPQ = D/32 threads (one thread for D <= 32), each owning 32 of its D
 // columns as float4 chunks interleaved across the group, so a warp's
 // shared-memory reads of one key row hit TPQ neighbouring 16-byte words
 // (a broadcast, no bank conflict) and the partial dot products meet
@@ -92,7 +94,6 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per CTA
 constexpr int BK = 32;          // key rows per shared-memory tile
 constexpr float NEG = -1e30f;   // the TPU kernel's mask sentinel
 
@@ -103,7 +104,16 @@ struct Geo {
   static constexpr int DPT = D < 32 ? D : 32;   // columns per thread
   static constexpr int TPQ = D / DPT;           // threads per query row
   static constexpr int C4 = DPT / 4;            // float4 chunks per thread
+  // query rows per CTA: 64 up to D 128; past it fewer, so that a CTA
+  // keeps 256 threads of 32 columns each (the reference shrinks its
+  // sequence blocks as the padded width grows the same way)
+  static constexpr int BQ = D <= 128 ? 64 : 8192 / D;
   static constexpr int THREADS = BQ * TPQ;
+  // the K and V tiles (f32) and the key ids: static shared memory while
+  // they fit its 48 KB (D <= 128: the compiler addresses them as
+  // constants), dynamic past it (64 KB at D 256, 128 KB at D 512)
+  static constexpr int SMEM = 2 * BK * D * 4 + BK * 4;
+  static constexpr bool DYN = SMEM > 48 * 1024;
 };
 
 // Four consecutive elements as f32 (index in units of four elements).
@@ -164,15 +174,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Sk, int causal, float scale, dropout::Params drop) {
   using G = Geo<D>;
   constexpr int D4 = D / 4;
-  __shared__ float4 ks[BK][D4];
-  __shared__ float4 vs[BK][D4];
-  __shared__ int kid[BK];
+  constexpr bool DYN = G::DYN;
+  __shared__ float4 ks_st[DYN ? 1 : BK][DYN ? 1 : D4];
+  __shared__ float4 vs_st[DYN ? 1 : BK][DYN ? 1 : D4];
+  __shared__ int kid_st[DYN ? 1 : BK];
+  extern __shared__ float4 fma_smem[];
+  float4 (*ks)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem)
+                         : reinterpret_cast<float4 (*)[D4]>(ks_st);
+  float4 (*vs)[D4] = DYN ? reinterpret_cast<float4 (*)[D4]>(fma_smem + BK * D4)
+                         : reinterpret_cast<float4 (*)[D4]>(vs_st);
+  int* kid = DYN ? reinterpret_cast<int*>(fma_smem + 2 * BK * D4) : kid_st;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
   // heaviest first: under the causal mask the last q block sees most keys
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
   const int tid = threadIdx.x;
   const int part = tid % G::TPQ;
   const int row = q0 + tid / G::TPQ;
@@ -195,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = NEG, l = 0.f;
 
   // causal: no row of this CTA sees a key at or past q0 + BQ
-  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
+  const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();   // every thread is done with the previous tile
     for (int i = tid; i < BK * D4; i += G::THREADS) {
@@ -261,9 +278,13 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
             const int* q_ids, const int* kv_ids, int B, int H, int HK,
             int Sq, int Sk, int causal, float scale,
             const dropout::Params& drop, cudaStream_t stream) {
+  using G = Geo<D>;
+  constexpr int dyn = G::DYN ? G::SMEM : 0;
+  static const bool sized = hopper::allow_smem(flash_fwd_kernel<T, D, DROP>, dyn);
+  (void)sized;
   // B*H on x (2^31 - 1), the q blocks on y
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D, DROP><<<grid, Geo<D>::THREADS, 0, stream>>>(
+  const dim3 grid(B * H, (Sq + G::BQ - 1) / G::BQ);
+  flash_fwd_kernel<T, D, DROP><<<grid, G::THREADS, dyn, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
       HK, Sq, Sk, causal, scale, drop);
@@ -563,6 +584,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
     case 32: launch<T, 32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
     case 64: launch<T, 64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
     case 128: launch<T, 128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 256: launch<T, 256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 512: launch<T, 512, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -251,6 +251,15 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int cols, int rows,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A kernel may take more than 48 KB of dynamic shared memory only once it
+// has asked for it; asked once per instantiation (the first launch).
+template <typename Kern>
+bool allow_smem(Kern kernel, int bytes) {
+  return bytes <= 48 * 1024 ||
+         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes) == cudaSuccess;
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------

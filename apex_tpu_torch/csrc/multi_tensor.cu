@@ -325,36 +325,120 @@ lamb_moment_kernel(const P* __restrict__ p, const G* __restrict__ g,
   }
 }
 
+// The segment holding element i, at or after `seg` (offs[seg] <= i).
+__device__ __forceinline__ int seek_segment(const int64_t* __restrict__ offs,
+                                            int seg, int64_t i) {
+  while (i >= offs[seg + 1]) ++seg;
+  return seg;
+}
+
+// The segment holding element i: the last start <= i, by bisection.
+__device__ __forceinline__ int find_segment(const int64_t* __restrict__ offs,
+                                            int num_segments, int64_t i) {
+  int lo = 0, hi = num_segments - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (offs[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
 // ---------------------------------------------------------------------------
-// flat_lamb stage 2: p -= factor[seg[i]] * update in place, where factor
+// flat_lamb stage 2: p -= factor[segment] * update in place, where factor
 // is the per-segment lr * trust ratio.  The reference gathers the factor
-// into a per-element buffer first ((lr * trust)[seg_ids]); reading it per
-// segment here gives the same value with one (num_segments,) table in
-// place of a 4-byte-per-element buffer.
+// into a per-element buffer first ((lr * trust)[seg_ids]); here no
+// per-element segment id is read either: each CTA takes a contiguous
+// range of `per_cta` 4-element vectors (its threads stride it by THREADS
+// vectors, so a warp's loads stay contiguous), each thread finds the
+// segment of its first element by bisection of the (num_segments + 1)
+// table of segment starts (read through the read-only cache) and walks
+// the boundaries forward as it goes, holding the segment's end and
+// factor in registers.  So the kernel moves 12 bytes an element at f32
+// p (p read and written, the f32 update read) and 8 at bf16 p.
+// The last CTA also takes the n % 4 tail.  With the overflow flag set it
+// writes nothing.
 // ---------------------------------------------------------------------------
+// The segment walk of one thread: the segment holding element e, at or
+// after the one it holds (segments only grow along the thread's walk),
+// with that segment's end and factor.
+struct SegWalk {
+  const int64_t* __restrict__ offs;
+  const float* __restrict__ factor;
+  int seg;
+  int64_t end;
+  float f;
+  __device__ __forceinline__ void start(int num_segments, int64_t e) {
+    seg = find_segment(offs, num_segments, e);
+    end = __ldg(offs + seg + 1);
+    f = __ldg(factor + seg);
+  }
+  __device__ __forceinline__ float at(int64_t e) {
+    if (e >= end) {
+      do {
+        ++seg;
+        end = __ldg(offs + seg + 1);
+      } while (e >= end);
+      f = __ldg(factor + seg);
+    }
+    return f;
+  }
+};
+
+// Vectors a thread has in flight at once in stage 2 (its loads are all
+// issued before the first store): with 12 bytes an element and nothing
+// to compute, the bytes in flight set the rate.
+constexpr int APPLY_UNROLL = 8;
+
 template <typename P>
 __global__ void __launch_bounds__(THREADS)
 lamb_apply_kernel(P* __restrict__ p, const float* __restrict__ update,
                   const float* __restrict__ factor,
-                  const int* __restrict__ seg_ids,
-                  const int* __restrict__ found_inf, int64_t n) {
+                  const int64_t* __restrict__ offs, int num_segments,
+                  const int* __restrict__ found_inf, int64_t n,
+                  int64_t per_cta) {
   if (found_inf != nullptr && *found_inf != 0) return;
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   const int64_t n4 = n / 4;
-  for (int64_t i = tid; i < n4; i += stride) {
-    const F4 pv = load4(p, i), uv = load4(update, i);
-    const int4 s = reinterpret_cast<const int4*>(seg_ids)[i];
-    F4 r;
-    r.x = __fsub_rn(pv.x, __fmul_rn(factor[s.x], uv.x));
-    r.y = __fsub_rn(pv.y, __fmul_rn(factor[s.y], uv.y));
-    r.z = __fsub_rn(pv.z, __fmul_rn(factor[s.z], uv.z));
-    r.w = __fsub_rn(pv.w, __fmul_rn(factor[s.w], uv.w));
-    store4(p, i, r);
+  const int64_t v0 = (int64_t)blockIdx.x * per_cta;
+  const int64_t v1 = v0 + per_cta < n4 ? v0 + per_cta : n4;
+  SegWalk w{offs, factor, 0, 0, 0.f};
+  int64_t i = v0 + threadIdx.x;
+  if (i < v1) w.start(num_segments, 4 * i);
+  for (; i < v1; i += APPLY_UNROLL * THREADS) {
+    F4 pv[APPLY_UNROLL], uv[APPLY_UNROLL];
+#pragma unroll
+    for (int j = 0; j < APPLY_UNROLL; ++j) {
+      const int64_t k = i + j * THREADS;
+      if (k < v1) {
+        pv[j] = load4(p, k);
+        uv[j] = load4(update, k);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < APPLY_UNROLL; ++j) {
+      const int64_t k = i + j * THREADS;
+      if (k >= v1) break;
+      const int64_t e = 4 * k;
+      F4 r;
+      if (e + 3 < w.end) {                   // the whole vector in one segment
+        const float f = w.f;
+        r.x = __fsub_rn(pv[j].x, __fmul_rn(f, uv[j].x));
+        r.y = __fsub_rn(pv[j].y, __fmul_rn(f, uv[j].y));
+        r.z = __fsub_rn(pv[j].z, __fmul_rn(f, uv[j].z));
+        r.w = __fsub_rn(pv[j].w, __fmul_rn(f, uv[j].w));
+      } else {
+        r.x = __fsub_rn(pv[j].x, __fmul_rn(w.at(e), uv[j].x));
+        r.y = __fsub_rn(pv[j].y, __fmul_rn(w.at(e + 1), uv[j].y));
+        r.z = __fsub_rn(pv[j].z, __fmul_rn(w.at(e + 2), uv[j].z));
+        r.w = __fsub_rn(pv[j].w, __fmul_rn(w.at(e + 3), uv[j].w));
+      }
+      store4(p, k, r);
+    }
   }
-  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
-    store1(p, i, __fsub_rn(load1(p, i), __fmul_rn(factor[seg_ids[i]],
-                                                  update[i])));
+  if (blockIdx.x == gridDim.x - 1) {         // the last n % 4 elements
+    for (int64_t e = n4 * 4 + threadIdx.x; e < n; e += THREADS) {
+      w.start(num_segments, e);
+      store1(p, e, __fsub_rn(load1(p, e), __fmul_rn(w.f, update[e])));
+    }
   }
 }
 
@@ -690,24 +774,6 @@ __device__ __forceinline__ float novograd_elem(float pv, float gv, float& m,
   return __fsub_rn(pv, __fmul_rn(lr, u));
 }
 
-// The segment holding element i, at or after `seg` (offs[seg] <= i).
-__device__ __forceinline__ int seek_segment(const int64_t* __restrict__ offs,
-                                            int seg, int64_t i) {
-  while (i >= offs[seg + 1]) ++seg;
-  return seg;
-}
-
-// The segment holding element i: the last start <= i, by bisection.
-__device__ __forceinline__ int find_segment(const int64_t* __restrict__ offs,
-                                            int num_segments, int64_t i) {
-  int lo = 0, hi = num_segments - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (offs[mid] <= i) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
 template <typename P, typename G, bool AVG, bool REG_INSIDE>
 __global__ void __launch_bounds__(THREADS)
 novograd_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
@@ -929,24 +995,40 @@ extern "C" int apex_flat_lamb_moments(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Stage 2 of LAMB.  found_inf may be null (no gate).
+// Stage 2 of LAMB: factor the per-segment f32 lr * trust, seg_offsets
+// the (num_segments + 1) i64 segment starts.  found_inf may be null (no
+// gate).  The CTAs share the n / 4 vectors in equal contiguous ranges:
+// one pass of a CTA's unrolled loads each, up to APPLY_MAX_BLOCKS (about
+// 16 CTAs an SM of an H100).  The bits do not depend on the grid: each
+// element is updated on its own.
+constexpr int64_t APPLY_MAX_BLOCKS = 2048;
+
 extern "C" int apex_flat_lamb_apply(void* p, int p_dtype, const void* update,
-                                    const void* factor, const void* seg_ids,
+                                    const void* factor,
+                                    const void* seg_offsets, int num_segments,
                                     const void* found_inf, long long n,
-                                    int blocks, void* stream) {
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_segments < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_pass = static_cast<int64_t>(APPLY_UNROLL) * THREADS;
+  const int64_t want = (n / 4 + per_pass - 1) / per_pass;
+  const int blocks = static_cast<int>(
+      want < 1 ? 1 : (want > APPLY_MAX_BLOCKS ? APPLY_MAX_BLOCKS : want));
   const float* u = static_cast<const float*>(update);
   const float* f = static_cast<const float*>(factor);
-  const int* seg = static_cast<const int*>(seg_ids);
+  const int64_t* offs = static_cast<const int64_t*>(seg_offsets);
   const int* fi = static_cast<const int*>(found_inf);
+  const int64_t per_cta = (n / 4 + blocks - 1) / blocks;
   switch (p_dtype) {
     case F32:
       lamb_apply_kernel<float><<<blocks, THREADS, 0, st>>>(
-          static_cast<float*>(p), u, f, seg, fi, n);
+          static_cast<float*>(p), u, f, offs, num_segments, fi, n, per_cta);
       break;
     case BF16:
       lamb_apply_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-          static_cast<__nv_bfloat16*>(p), u, f, seg, fi, n);
+          static_cast<__nv_bfloat16*>(p), u, f, offs, num_segments, fi, n,
+          per_cta);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -33,6 +33,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch import _numerics
 from apex_tpu_torch._device import resolve_device
 
 BN_MOMENTUM = 0.9
@@ -206,12 +207,13 @@ class ResNet:
     def _conv(self, x, w, strides=1, padding=0):
         # HWIO param -> OIHW view, in the compute dtype; channels_last on
         # the card, NCHW on the CPU (torch's multi-threaded oneDNN conv
-        # backward in channels_last segfaults at some small CPU shapes)
+        # backward in channels_last segfaults at some small CPU shapes);
+        # on the CPU summed in f64, so the host does not decide the bits
         fmt = (torch.channels_last if x.device.type == "cuda"
                else torch.contiguous_format)
         w = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=fmt)
-        return F.conv2d(x.to(self.dtype).contiguous(memory_format=fmt), w,
-                        stride=strides, padding=padding)
+        return _numerics.conv2d(x.to(self.dtype).contiguous(memory_format=fmt),
+                                w, stride=strides, padding=padding)
 
     def _norm(self, scope: _Scope, x, train):
         name = scope.name(self.norm_name)

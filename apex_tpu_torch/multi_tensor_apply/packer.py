@@ -230,7 +230,7 @@ class BucketPlan:
     def segment_offsets(self, bucket_index: int) -> torch.Tensor:
         """The i64 ``(num leaves + 1,)`` table of one bucket's leaf starts
         and its end, on the plan's device (built once, then cached): the
-        segment table the NovoGrad kernel walks."""
+        segment table the NovoGrad kernel and LAMB's stage 2 walk."""
         offs = self._seg_offsets.get(bucket_index)
         if offs is None:
             offs = segment_offsets(self.segment_sizes(bucket_index),

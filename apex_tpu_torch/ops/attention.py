@@ -16,9 +16,9 @@ needed) and ``csrc/flash_bwd.cu`` (the dq and dk/dv kernels of
 plain PyTorch, which repeat the reference kernels' arithmetic (bf16
 roundings of ``p`` and ``ds`` included).  There is no other switch, and
 nothing falls back.  As the reference pads D to its lanes, the wrappers
-pad a head dim that is not a kernel width (16, 32, 64, 128) with zeros
-up to the next one and copy a strided or misaligned operand; a head dim
-above 128 raises (ROADMAP Queue 3, F5b).
+pad a head dim that is not a kernel width (16, 32, 64, 128, 256, 512)
+with zeros up to the next one and copy a strided or misaligned operand;
+a head dim above 512 raises (ROADMAP Queue 3, F5c).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 from apex_tpu_torch import _build
 
 _NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)      # the kernels' widths; others are padded
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)   # the kernels' widths; others padded
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = {torch.float32: 16, torch.bfloat16: 8}   # one 4-element vector
 
@@ -436,9 +436,11 @@ def _kernel_width(d: int) -> int:
     for w in HEAD_DIMS:
         if d <= w:
             return w
-    raise ValueError(f"flash_attention kernel takes a head_dim up to "
-                     f"{HEAD_DIMS[-1]}, got {d} (a wider head is ROADMAP "
-                     "Queue 3, F5b)")
+    raise ValueError(
+        f"flash_attention kernel takes a head_dim up to {HEAD_DIMS[-1]}, "
+        f"got {d} (ROADMAP Queue 3, F5c): at the next width, 1024, the "
+        "CUDA-core dk/dv body would split one key row over 64 threads of "
+        "16 columns, two warps, and its shuffle sum runs in one")
 
 
 def _operands(*ts):

@@ -8,11 +8,13 @@ mirroring the reference's ``_norm_affine`` custom VJP: the forward saves
 card goes to the hand-written kernels of ``csrc/layer_norm.cu`` (the
 port of ``_fwd_2d`` / ``_bwd_2d``); a tensor on the CPU goes to their
 plain twins (:func:`_fwd_2d_ref`, :func:`_bwd_2d_ref`, the kernel
-bodies' formulas in plain PyTorch).  The backward has two hand-written
-bodies, chosen by :func:`bwd_route` on shape and layout: the fused one
-(two launches, one read of x and dy) for rows up to
-:data:`FUSED_MAX_H` that start 16-byte aligned, three launches
-otherwise.  Off the gate the reference computes
+bodies' formulas in plain PyTorch).  The forward has two hand-written
+bodies, chosen by :func:`fwd_route` on shape and layout: the register
+one (rows in registers from 16-byte loads, a persistent grid) for rows
+up to :data:`FUSED_MAX_H` that start 16-byte aligned, one block a row
+otherwise ("wide").  So has the backward, chosen by :func:`bwd_route`:
+the fused one (two launches, one read of x and dy) under the same rule,
+three launches otherwise.  Off the gate the reference computes
 the XLA formula and its autodiff, and so does the port: the plain
 formula under torch's autograd, on either device (the reference's own
 routing, not a fallback).  There is no other switch; a tensor on the
@@ -30,15 +32,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from apex_tpu_torch import _build
+from apex_tpu_torch import _build, _numerics
 
 LANE = 128
 _VMEM_BUDGET = 1024 * 1024  # the reference's per-operand block budget
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROWS_PER_CHUNK = 64         # rows of one dw/db partial (three launches)
 _MAX_CHUNKS = 65535         # the grid's y limit (three launches)
-FUSED_MAX_H = 8192          # the widest row the fused backward holds in
-                            # registers (csrc/layer_norm.cu)
+FUSED_MAX_H = 8192          # the widest row the register forward and the
+                            # fused backward hold in registers
+                            # (csrc/layer_norm.cu)
 # device kernels one backward call launches, by route
 BWD_DEVICE_KERNELS = {"fused": 2, "three": 3}
 
@@ -47,7 +50,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 
 LN_FWD = _build.Kernel(
     "layer_norm", "apex_layer_norm_fwd",
-    [_P, _I, _P, _P, _I, _P, _L, _I, _F, _I, _P], name="layer_norm_fwd")
+    [_P, _I, _P, _P, _I, _P, _L, _I, _F, _I, _I, _P], name="layer_norm_fwd")
 LN_BWD = _build.Kernel(
     "layer_norm", "apex_layer_norm_bwd",
     [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I,
@@ -68,7 +71,7 @@ def layer_norm_ref(x, weight=None, bias=None, eps=1e-5):
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = (xf - mu) * _numerics.rsqrt(var + eps)
     if weight is not None:
         y = y * weight.float()
     if bias is not None:
@@ -79,7 +82,7 @@ def layer_norm_ref(x, weight=None, bias=None, eps=1e-5):
 def rms_norm_ref(x, weight=None, eps=1e-5):
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + eps)
+    y = xf * _numerics.rsqrt(ms + eps)
     if weight is not None:
         y = y * weight.float()
     return y.to(x.dtype)
@@ -88,10 +91,10 @@ def rms_norm_ref(x, weight=None, eps=1e-5):
 def _stats(xf, eps, rms):
     """``(xhat, rstd)`` of f32 rows, the kernel bodies' order."""
     if rms:
-        rstd = torch.rsqrt((xf * xf).mean(1, keepdim=True) + eps)
+        rstd = _numerics.rsqrt((xf * xf).mean(1, keepdim=True) + eps)
         return xf * rstd, rstd
     xc = xf - xf.mean(1, keepdim=True)
-    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
+    rstd = _numerics.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
     return xc * rstd, rstd
 
 
@@ -159,11 +162,26 @@ def _fwd_2d(x2d, w, b, eps, rms):
     _check("bias", b, dev, (h,))
     y = torch.empty_like(x2d)
     if rows:
+        reg = fwd_route(x2d) == "register"
         with torch.cuda.device(dev):
             LN_FWD.launch(x2d.data_ptr(), _DTYPE_CODE[x2d.dtype], w.data_ptr(),
                           b.data_ptr(), _DTYPE_CODE[w.dtype], y.data_ptr(),
-                          rows, h, float(eps), int(bool(rms)), _stream(dev))
+                          rows, h, float(eps), int(bool(rms)), int(reg),
+                          _stream(dev))
     return y
+
+
+def fwd_route(x2d: torch.Tensor) -> str:
+    """The forward body a (rows, h) call takes on the card:
+    ``"register"`` (each row in registers from 16-byte loads, a
+    persistent grid) when h is a multiple of 8 up to
+    :data:`FUSED_MAX_H` and x starts 16-byte aligned, else ``"wide"``
+    (one block a row, scalar loads, any h and row start).  A dispatch on
+    shape and layout: both bodies are hand-written kernels."""
+    h = x2d.shape[-1]
+    if h % 8 == 0 and h <= FUSED_MAX_H and x2d.data_ptr() % 16 == 0:
+        return "register"
+    return "wide"
 
 
 def bwd_route(x2d: torch.Tensor, dy2d: torch.Tensor) -> str:

@@ -55,7 +55,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from apex_tpu_torch import _build
+from apex_tpu_torch import _build, _numerics
 
 THREADS = 256           # threads per block of the streaming kernels
 MAX_BLOCKS = 1024       # the grid's cap: same for every card, so the
@@ -89,7 +89,7 @@ LAMB_MOMENTS = _build.Kernel(
     name="flat_lamb_moments")
 LAMB_APPLY = _build.Kernel(
     "multi_tensor", "apex_flat_lamb_apply",
-    [_P, _I, _P, _P, _P, _P, _L, _I, _P], name="flat_lamb_apply")
+    [_P, _I, _P, _P, _P, _I, _P, _L, _P], name="flat_lamb_apply")
 ADAM = _build.Kernel(
     "multi_tensor", "apex_flat_adam",
     [_P, _I, _P, _I, _P, _P] + [_F] * 6 + [_P] * 5 + [_I, _L, _I, _P],
@@ -169,7 +169,7 @@ def flat_unscale_norm_ref(x: torch.Tensor, inv_scale: Scalar, out_dtype=None
 def flat_l2norm_ref(x: torch.Tensor) -> torch.Tensor:
     """The L2 norm of a flat buffer, summed in f32."""
     xf = _f32(x)
-    return torch.sqrt(torch.sum(xf * xf))
+    return _numerics.sqrt(torch.sum(xf * xf))
 
 
 def flat_sgd_ref(p, g, momentum_buf, *, lr, momentum=0.0, dampening=0.0,
@@ -218,8 +218,8 @@ def segment_norms(x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
     root of :func:`flat_segment_sumsq`, from the same fixed-order sums."""
     runs = torch.split(x, list(sizes))
     if x.device.type == "cpu":
-        return torch.stack([torch.sum(r * r) for r in map(_f32, runs)]
-                           ).sqrt()
+        return _numerics.sqrt(
+            torch.stack([torch.sum(r * r) for r in map(_f32, runs)]))
     return torch.stack(torch._foreach_norm(runs, 2, dtype=torch.float32))
 
 
@@ -229,8 +229,8 @@ def _lamb_trust_factor(p, update, sizes, lr, weight_decay, use_nvlamb):
     reference gathers it into a per-element buffer (``[seg_ids]``); the
     stage-2 kernel reads it per segment instead, and the plain twin
     gathers."""
-    p_norm = torch.sqrt(flat_segment_sumsq(p, sizes))
-    u_norm = torch.sqrt(flat_segment_sumsq(update, sizes))
+    p_norm = _numerics.sqrt(flat_segment_sumsq(p, sizes))
+    u_norm = _numerics.sqrt(flat_segment_sumsq(update, sizes))
     trust = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                         torch.ones_like(p_norm))
     if not use_nvlamb and float(weight_decay) == 0.0:
@@ -277,18 +277,23 @@ def _lamb_moments_ref(p, g, m, v, c1r, c2r, gmul, *, beta1, beta2, eps,
     gf = _f32(g) * gmul
     m = _f32_value(beta1) * m + _one_minus(beta1) * gf
     v = _f32_value(beta2) * v + _one_minus(beta2) * gf * gf
-    update = ((m * c1r) / (torch.sqrt(v * c2r) + _f32_value(eps))
+    update = ((m * c1r) / (_numerics.sqrt(v * c2r) + _f32_value(eps))
               + _f32_value(weight_decay) * _f32(p))
     return m, v, update
 
 
-def _lamb_apply_ref(p, update, factor, seg_ids):
+def _lamb_apply_ref(p, update, factor, sizes):
     """Stage 2 in plain PyTorch (``_apply_update_kernel``): ``p -
-    factor[seg_ids] * update`` in p's dtype, out of place."""
-    return (_f32(p) - factor[seg_ids.long()] * update).to(p.dtype)
+    factor[segment] * update`` in p's dtype, out of place, each segment's
+    factor repeated over its ``sizes`` run (the reference's gather by
+    ``seg_ids``).  ``sizes`` may also be an integer tensor on factor's
+    device, which spares the copy to the card a call."""
+    per_elt = factor.repeat_interleave(
+        torch.as_tensor(sizes, device=factor.device), output_size=p.numel())
+    return (_f32(p) - per_elt * update).to(p.dtype)
 
 
-def flat_lamb_ref(p, g, m, v, seg_ids, sizes, *, lr, beta1, beta2, eps,
+def flat_lamb_ref(p, g, m, v, sizes, *, lr, beta1, beta2, eps,
                   weight_decay=0.0, step=1, bias_correction=True,
                   grad_scale: Scalar = 1.0, clip_coeff: Scalar = 1.0,
                   use_nvlamb=False):
@@ -300,7 +305,7 @@ def flat_lamb_ref(p, g, m, v, seg_ids, sizes, *, lr, beta1, beta2, eps,
                                      weight_decay=weight_decay)
     factor = _lamb_trust_factor(_f32(p), update, sizes, lr, weight_decay,
                                 use_nvlamb)
-    return _lamb_apply_ref(p, update, factor, seg_ids), m, v
+    return _lamb_apply_ref(p, update, factor, sizes), m, v
 
 
 def flat_adam_ref(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
@@ -320,7 +325,7 @@ def flat_adam_ref(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
     m = _f32_value(beta1) * m + _one_minus(beta1) * gf
     v = _f32_value(beta2) * v + _one_minus(beta2) * gf * gf
     c1r, c2r = _bias_corrections(beta1, beta2, step, bias_correction, dev)
-    update = (m * c1r) / (torch.sqrt(v * c2r) + _f32_value(eps))
+    update = (m * c1r) / (_numerics.sqrt(v * c2r) + _f32_value(eps))
     if adam_w_mode:
         update = update + wd * pf
     return (pf - _as_f32_scalar(lr, dev) * update).to(p.dtype), m, v
@@ -358,7 +363,7 @@ def flat_adagrad_ref(p, g, h, *, lr, eps, weight_decay=0.0,
     gf = gf + _f32_value(weight_decay) * pf
     h = h + gf * gf
     return ((pf - _as_f32_scalar(lr, dev) * gf
-             / (torch.sqrt(h) + _f32_value(eps))).to(p.dtype), h)
+             / (_numerics.sqrt(h) + _f32_value(eps))).to(p.dtype), h)
 
 
 def _novograd_second_moment(g, v_seg, sizes, *, beta2, eps, first,
@@ -377,7 +382,7 @@ def _novograd_second_moment(g, v_seg, sizes, *, beta2, eps, first,
     omb2 = _one_minus(beta2)
     run = _f32_value(beta2) * v_seg + omb2 * gn_sq
     v = torch.where(first, omb2 * gn_sq if init_zero else gn_sq, run)
-    return v, torch.sqrt(v) + _f32_value(eps)
+    return v, _numerics.sqrt(v) + _f32_value(eps)
 
 
 def flat_novograd_ref(p, g, m, v_seg, sizes: Sequence[int], *, lr, beta1,
@@ -588,10 +593,10 @@ def flat_l2norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-              v: torch.Tensor, seg_ids: torch.Tensor, sizes: Sequence[int],
-              *, lr, beta1, beta2, eps, weight_decay=0.0, step=1,
-              bias_correction=True, grad_scale: Scalar = 1.0,
-              clip_coeff: Scalar = 1.0, use_nvlamb=False,
+              v: torch.Tensor, sizes: Sequence[int], *, lr, beta1, beta2,
+              eps, weight_decay=0.0, step=1, bias_correction=True,
+              grad_scale: Scalar = 1.0, clip_coeff: Scalar = 1.0,
+              use_nvlamb=False, seg_offsets: Optional[torch.Tensor] = None,
               found_inf: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One LAMB step over a flat bucket in place on ``p`` (f32 or bf16),
@@ -601,9 +606,13 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     the raw update ``m_hat / (sqrt(v_hat) + eps) + wd * p`` (g scaled by
     ``clip_coeff / grad_scale``); the per-tensor trust ratios come from
     segment norms over ``sizes`` (:func:`_lamb_trust_factor`); stage 2
-    applies ``p -= lr * trust[seg_ids] * update``.  ``seg_ids`` is the
-    bucket's sorted i32 element-to-leaf map and ``sizes`` its run lengths
-    (the reference's ``num_segments`` is ``len(sizes)``).  ``step``,
+    applies ``p -= lr * trust[segment] * update``.  ``sizes`` are the
+    bucket's segment (leaf) lengths in order: the reference's sorted
+    ``seg_ids`` are their runs and its ``num_segments`` is
+    ``len(sizes)``.  Stage 2 walks ``seg_offsets``, the segments' start
+    table (:func:`segment_offsets`, built once per bucket:
+    :meth:`BucketPlan.segment_offsets`; required for a card tensor,
+    unread on the CPU, as for :func:`flat_novograd`).  ``step``,
     ``grad_scale`` and ``clip_coeff`` may be device scalars;
     ``found_inf`` (optional device i32/bool scalar) leaves ``p``, ``m``
     and ``v`` untouched when set."""
@@ -612,8 +621,8 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
               bias_correction=bias_correction, grad_scale=grad_scale,
               clip_coeff=clip_coeff, use_nvlamb=use_nvlamb)
     if p.device.type == "cpu":
-        for old, new in zip((p, m, v), flat_lamb_ref(p, g, m, v, seg_ids,
-                                                     sizes, **kw)):
+        for old, new in zip((p, m, v), flat_lamb_ref(p, g, m, v, sizes,
+                                                     **kw)):
             old.copy_(_keep_unless(found_inf, new, old))
         return p, m, v
     fn, dev, n = "flat_lamb", p.device, p.numel()
@@ -621,10 +630,12 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     _check(fn, "g", g, dev, n, tuple(_DTYPE_CODE))
     _check(fn, "m", m, dev, n, (torch.float32,))
     _check(fn, "v", v, dev, n, (torch.float32,))
-    _check(fn, "seg_ids", seg_ids, dev, n, (torch.int32,))
     if sum(sizes) != n:
         raise ValueError(f"{fn}: segment sizes sum to {sum(sizes)}, the "
                          f"bucket has {n} elements")
+    if seg_offsets is None:
+        raise ValueError(f"{fn}: seg_offsets is required for a card tensor "
+                         f"(segment_offsets(sizes, device), built once)")
     _host_float(fn, "lr", lr)
     for name, x in (("step", step), ("grad_scale", grad_scale),
                     ("clip_coeff", clip_coeff)):
@@ -643,7 +654,7 @@ def flat_lamb(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     # the twin's norms are of f32 p: the same bits for a bf16 p
     factor = _lamb_trust_factor(p if p.dtype == torch.float32 else _f32(p),
                                 update, sizes, lr, weight_decay, use_nvlamb)
-    _lamb_apply(p, update, factor, seg_ids, gate=gate)
+    _lamb_apply(p, update, factor, seg_offsets, gate=gate)
     return p, m, v
 
 
@@ -666,19 +677,23 @@ def _lamb_moments(p, g, m, v, update, c1r, c2r, gmul, *, beta1, beta2, eps,
             _stream(dev))
 
 
-def _lamb_apply(p, update, factor, seg_ids, gate=None) -> None:
-    """Launch stage 2 (``lamb_apply_kernel``): ``p -= factor[seg_ids] *
-    update`` in place, ``factor`` the per-segment f32 table."""
+def _lamb_apply(p, update, factor, seg_offsets, gate=None) -> None:
+    """Launch stage 2 (``lamb_apply_kernel``): ``p -= factor[segment] *
+    update`` in place, ``factor`` the per-segment f32 table and
+    ``seg_offsets`` the i64 ``(len(factor) + 1,)`` table of segment
+    starts (no per-element segment id is read)."""
     dev, n = p.device, p.numel()
     if factor.dtype != torch.float32 or not factor.is_contiguous():
         raise TypeError("flat_lamb: the trust factor must be a contiguous "
                         "f32 table")
+    _check("flat_lamb", "seg_offsets", seg_offsets, dev, factor.numel() + 1,
+           (torch.int64,))
     with torch.cuda.device(dev):
         LAMB_APPLY.launch(p.data_ptr(), _DTYPE_CODE[p.dtype],
                           update.data_ptr(), factor.data_ptr(),
-                          seg_ids.data_ptr(),
+                          seg_offsets.data_ptr(), factor.numel(),
                           None if gate is None else gate.data_ptr(), n,
-                          grid_blocks(n), _stream(dev))
+                          _stream(dev))
 
 
 def flat_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -817,8 +832,8 @@ def flat_adagrad(p: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *, lr,
 
 def segment_offsets(sizes: Sequence[int], device) -> torch.Tensor:
     """The i64 ``(len(sizes) + 1,)`` table of segment starts (and the
-    end) that the NovoGrad kernel walks; built once per bucket
-    (:meth:`BucketPlan.segment_offsets`)."""
+    end) that the NovoGrad kernel and LAMB's stage 2 walk; built once per
+    bucket (:meth:`BucketPlan.segment_offsets`)."""
     return torch.tensor([0] + list(itertools.accumulate(sizes)),
                         dtype=torch.int64, device=device)
 

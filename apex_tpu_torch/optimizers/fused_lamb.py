@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch import _numerics
 from apex_tpu_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                   tree_unflatten)
 from apex_tpu_torch.ops import multi_tensor as mt
@@ -70,12 +71,13 @@ class FusedLAMB(FusedOptimizerBase):
         # the global norm over every leaf (reference _functional
         # .global_grad_norm), then the flat kernel's plain twin leaf by
         # leaf, each leaf one segment
-        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in gs))
+        gnorm = _numerics.sqrt(
+            sum(torch.sum(g.float() * g.float()) for g in gs))
         kw = self._kw(hypers, step, grad_scale,
                       _clip_coeff(gnorm, grad_scale, hypers["max_grad_norm"]))
         out = [mt.flat_lamb_ref(
             p.reshape(-1), g.reshape(-1), m.reshape(-1), v.reshape(-1),
-            torch.zeros(p.numel(), dtype=torch.int32), (p.numel(),), **kw)
+            (p.numel(),), **kw)
             for p, g, m, v in zip(ps, gs, ms, vs)]
         shaped = [[t.reshape(p.shape) for t in o] for o, p in zip(out, ps)]
         new_p, new_m, new_v = ([tree_unflatten(treedef, [o[i] for o in shaped])
@@ -87,14 +89,15 @@ class FusedLAMB(FusedOptimizerBase):
         """The clip factor from the global gradient norm, once across ALL
         buckets: one ``flat_l2norm`` per bucket, root-sum-square
         combined."""
-        gnorm = torch.sqrt(sum(mt.flat_l2norm(g) ** 2 for g in grad_bufs))
+        gnorm = _numerics.sqrt(
+            sum(mt.flat_l2norm(g) ** 2 for g in grad_bufs))
         return _clip_coeff(gnorm, grad_scale, hypers["max_grad_norm"])
 
     def _flat_bucket_step(self, bucket_index, p, g, state, step, grad_scale,
                           hypers, found_inf, extra):
         mt.flat_lamb(p, g, state["exp_avg"], state["exp_avg_sq"],
-                     self._plan.segment_ids(bucket_index),
                      self._plan.segment_sizes(bucket_index),
+                     seg_offsets=self._plan.segment_offsets(bucket_index),
                      found_inf=found_inf,
                      **self._kw(hypers, step, grad_scale, extra))
 

@@ -219,7 +219,21 @@ exits non-zero:
 33. consistency (attention dropout) — a 2-layer f32 dropout stack at
     768 wide on the card and the CPU from the same seeds: output and
     gradients within 1e-3 of their scale, and the CPU at other seeds
-    outside it.
+    outside it;
+34. wide heads (F5b) — the CUDA-core flash bodies at head dims 160
+    (padded), 256 and 512, f32 and bf16, dropout 0.1 and 0, against
+    their twins with the routes and DROP instantiations read from the
+    device kernels' names; the three timed at ``SelfMultiheadAttn(1024,
+    4)``'s (8, 4, 512, 256) bf16 causal shape beside the twin, SDPA and
+    the bound; that module (D 256) trained 2 SGD steps at dropout 0.1
+    and 0 with exact launch counts and profiled routes.
+
+Phase 11 also reads every LayerNorm forward's route (the register body
+up to h 8192 at 16-byte alignment, the wide one past it and off it)
+from the device kernels' names, times the forward at GPT-2's (4096,
+768) bf16, BERT-L's width in f32 and h 8192, and stage 2 of LAMB (which
+walks the segment-start table) on a bf16 p; phases 13 and 19 check that
+the profiled steps' LayerNorm forwards ran the register body.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -988,10 +1002,32 @@ def _loss_rel(got, want) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
+def _aten_f32_convs():
+    """A context in which the port's CPU convolutions are aten's own f32
+    sums (oneDNN, or thnn with oneDNN off) instead of its f64 sums
+    (``apex_tpu_torch._numerics.conv2d``): the two CPU summation orders
+    that the consistency phase's yardstick compares, as an f32 trainer
+    on a CPU sums."""
+    import contextlib
+    import torch.nn.functional as F
+    from apex_tpu_torch import _numerics
+
+    @contextlib.contextmanager
+    def ctx():
+        real = _numerics.conv2d
+        _numerics.conv2d = F.conv2d
+        try:
+            yield
+        finally:
+            _numerics.conv2d = real
+    return ctx()
+
+
 def train_consistency_phase(dev) -> None:
     """ResNet-18, batch 8 at 64x64, ``grad_accum=2``, from the same seed
-    on the card (kernels, cuDNN) and on the CPU (plain twins, oneDNN),
-    in the cases of ``CONSIST_CASES``.
+    on the card (kernels, cuDNN) and on the CPU (plain twins, aten's f32
+    convolutions: oneDNN, see ``_aten_f32_convs``), in the cases of
+    ``CONSIST_CASES``.
 
     The first loss comes from identical weights: rtol 1e-5.  After that
     the runs differ by the order in which each convolution sums, which
@@ -1023,9 +1059,10 @@ def train_consistency_phase(dev) -> None:
     def run(device, opt_level, steps, **hypers):
         var = tuple(tree_map(lambda t: t.to(device), v)
                     for v in (params, stats))
-        res = main_amp.train(device=device, opt_level=opt_level,
-                             steps=steps, variables=var, **CONSIST,
-                             **hypers)
+        with _aten_f32_convs():
+            res = main_amp.train(device=device, opt_level=opt_level,
+                                 steps=steps, variables=var, **CONSIST,
+                                 **hypers)
         work = (res.opt.masters if res.opt.masters is not None
                 else res.opt.params)
         return res.losses, [m.float().cpu().numpy()
@@ -1159,7 +1196,8 @@ BERT_KERNELS = {
     "layer_norm_fwd": (
         "apex_tpu_torch/csrc/layer_norm.cu",
         "apex_tpu/ops/layer_norm.py:118 (_fwd_2d, body _ln_fwd_kernel :63)",
-        (2e-2, 2e-2), (("ln_fwd_kernel",), 1)),
+        # the main path's shapes take the register body (ln.fwd_route)
+        (2e-2, 2e-2), (("ln_fwd_reg_kernel",), 1)),
     "layer_norm_bwd": (
         "apex_tpu_torch/csrc/layer_norm.cu",
         "apex_tpu/ops/layer_norm.py:135 (_bwd_2d, body _ln_bwd_kernel :77)",
@@ -1210,6 +1248,8 @@ LN_CASES = (
     (65, 16384, "f32", False, 0),        # past it: three launches
     (333, 1024, "bf16", False, 1),       # 2 bytes off: three launches
 )
+# the device kernel of each forward route (neither name holds the other)
+LN_FWD_KERNELS = {"register": "ln_fwd_reg_kernel", "wide": "ln_fwd_kernel"}
 # the device kernels of each backward route, in launch order
 LN_BWD_KERNELS = {"fused": ("ln_bwd_fused_kernel", "ln_bwd_combine_kernel"),
                   "three": ("ln_bwd_dx_kernel", "ln_bwd_partial_kernel",
@@ -1234,19 +1274,38 @@ def _ln_bwd_routes(prof, case_routes) -> None:
                f"where its route launches {sym}")
 
 
+def _ln_fwd_routes(prof, case_routes) -> None:
+    """Checks that the forward of every case ran the device kernel of the
+    route the wrapper chose, from the same session as
+    :func:`_ln_bwd_routes` (one forward call a case)."""
+    import torch
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "ln_fwd_" in e.name), key=lambda e: e.time_range.start)]
+    _check(len(names) == len(case_routes), f"the profiler saw {len(names)} "
+           f"ln_fwd_ kernels on the device where {len(case_routes)} were "
+           "launched")
+    for got, (what, route) in zip(names, case_routes):
+        _check(LN_FWD_KERNELS[route] in got, f"layer_norm_fwd {what}: the "
+               f"device ran {got} where its route launches "
+               f"{LN_FWD_KERNELS[route]}")
+
+
 def _ln_checks(dev) -> dict:
     """The LayerNorm kernels against their twins at BERT-L's (4096, 1024)
     and GPT-2's (4096, 768) bf16 (LN and RMS), in f32, at ragged row
-    counts, and on both backward routes (the fused body up to its limit,
-    three launches past it and for an x and dy 2 bytes off alignment),
-    each route read from the device kernels' names; returns the worst
-    error of each kernel at the main path's dtype."""
+    counts, and on both routes of each (the forward's register body and
+    the backward's fused body up to their limit, the wide body and three
+    launches past it and for an x and dy 2 bytes off alignment), each
+    route read from the device kernels' names; returns the worst error
+    of each kernel at the main path's dtype."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device=dev).manual_seed(3)
     worst = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
-    case_routes = []
+    case_routes, fwd_routes = [], []
     prof = profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     _prime_profiler()
@@ -1262,7 +1321,7 @@ def _ln_checks(dev) -> dict:
         w = (torch.randn(h, generator=g, device=dev) * 0.1 + 1).to(dt)
         b = (torch.randn(h, generator=g, device=dev) * 0.1).to(dt)
         dy = tensor(1, 0)
-        route = ln.bwd_route(x, dy)
+        route, fwd_route = ln.bwd_route(x, dy), ln.fwd_route(x)
         y = ln._fwd_2d(x, w, b, 1e-5, rms)
         dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
         torch.cuda.synchronize()
@@ -1271,7 +1330,8 @@ def _ln_checks(dev) -> dict:
         half = dt == torch.bfloat16
         atol, rtol = LN_TOL["bf16" if half else "f32"]
         what = (f"({rows}, {h}) {dt} rms={rms}, x and dy "
-                f"{off * x.element_size()} bytes off 16, {route} route")
+                f"{off * x.element_size()} bytes off 16, {fwd_route} / "
+                f"{route} routes")
         e_fwd = _held("layer_norm_fwd", y, wy, atol, rtol, what)
         e_dx = _held("layer_norm_bwd", dx, wdx, *((atol, rtol) if half else
                                                   (1e-4, 1e-4)), "dx " + what)
@@ -1283,6 +1343,7 @@ def _ln_checks(dev) -> dict:
         _check(all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db))),
                f"layer_norm_bwd {what}: the result differs run to run")
         case_routes.append((what, route))
+        fwd_routes.append((what, fwd_route))
         if half and not rms and h == 1024 and off == 0:
             worst["layer_norm_fwd"], worst["layer_norm_bwd"] = e_fwd, e_dx
         print(f"kernel layer_norm {what}: fwd max_abs_err {e_fwd:.3e}, dx "
@@ -1292,6 +1353,16 @@ def _ln_checks(dev) -> dict:
     torch.cuda.synchronize()
     prof.stop()
     _ln_bwd_routes(prof, case_routes)
+    _ln_fwd_routes(prof, fwd_routes)
+    for what, route in fwd_routes:
+        print(f"route layer_norm_fwd {what}: {LN_FWD_KERNELS[route]}",
+              flush=True)
+    _check([r for _, r in fwd_routes] ==
+           ["register" if h <= ln.FUSED_MAX_H and off == 0 else "wide"
+            for _, h, _, _, off in LN_CASES],
+           f"layer_norm_fwd routes {fwd_routes}: expected the register body "
+           f"up to h {ln.FUSED_MAX_H} and the wide one past it and off "
+           "alignment")
     for what, route in case_routes:
         print(f"route layer_norm_bwd {what}: {len(LN_BWD_KERNELS[route])} "
               f"device kernels ({', '.join(LN_BWD_KERNELS[route])})",
@@ -1351,10 +1422,12 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
               step=torch.tensor(3, dtype=torch.int32, device=dev),
               grad_scale=torch.tensor(1.0, device=dev),
               clip_coeff=torch.tensor(0.5, device=dev))
-    want = mt.flat_lamb_ref(p, grad, m, v, seg, sizes, **kw)
-    got = mt.flat_lamb(p.clone(), grad, m.clone(), v.clone(), seg, sizes,
+    offs = mt.segment_offsets(sizes, dev)
+    want = mt.flat_lamb_ref(p, grad, m, v, sizes, **kw)
+    got = mt.flat_lamb(p.clone(), grad, m.clone(), v.clone(), sizes,
                        found_inf=torch.zeros((), dtype=torch.int32,
-                                             device=dev), **kw)
+                                             device=dev), seg_offsets=offs,
+                       **kw)
     torch.cuda.synchronize()
     worst["flat_lamb_moments"] = max(
         _held("flat_lamb_moments", got[1], want[1], 0.0, 0.0, "m"),
@@ -1365,17 +1438,30 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
     p0, m0, v0 = p.clone(), m.clone(), v.clone()
     bad = grad.clone()
     bad[7] = float("nan")
-    mt.flat_lamb(p, bad, m, v, seg, sizes, found_inf=torch.ones(
-        (), dtype=torch.int32, device=dev), **kw)
+    mt.flat_lamb(p, bad, m, v, sizes, found_inf=torch.ones(
+        (), dtype=torch.int32, device=dev), seg_offsets=offs, **kw)
     torch.cuda.synchronize()
     _check(bool(torch.equal(p, p0) and torch.equal(m, m0)
                 and torch.equal(v, v0)),
            "flat_lamb with found_inf set changed p, m or v")
     del p0, m0, v0, bad
+    # stage 2 on a bf16 p (the reference's bf16-params path): its cast
+    p16 = p.to(torch.bfloat16)
+    upd16 = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(
+        6), device=dev) * 1e-3
+    fac16 = _lamb_factor_table(dev, len(sizes))
+    got16 = p16.clone()
+    mt._lamb_apply(got16, upd16, fac16, offs, gate=torch.zeros(
+        (), dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    _held("flat_lamb_apply", got16, mt._lamb_apply_ref(p16, upd16, fac16,
+                                                       sizes), 0.0, 0.0,
+          "bf16 p")
     print(f"kernel flat kernels n={n} ({len(sizes)} segments): flat_l2norm "
           f"within rtol 1e-5 of its twin, the same bits on a second run, "
           f"NaN and Inf propagate; flat_lamb stages 1 and 2 equal to their "
-          f"twin's bits (masters f32, grads bf16, step 3, clip 0.5); "
+          f"twin's bits (masters f32, grads bf16, step 3, clip 0.5; stage 2 "
+          f"also on a bf16 p), stage 2 walking the segment-start table; "
           f"found_inf=1 leaves p, m and v bit-unchanged", flush=True)
 
     # timing at the main path's shapes
@@ -1394,7 +1480,10 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
     mt._lamb_moments(p, grad, m, v, upd, c1r, c2r, gmul, gate=zero, **hyp)
     factor = mt._lamb_trust_factor(p, upd, sizes, 1e-3, 0.01, False)
     per_elem = factor[seg.long()]
+    sizes_dev = torch.tensor(sizes, device=dev)    # the twin's, copied once
     el = rows * h
+    # stage 2 must read the f32 update and read and write p: 12 B/elt
+    # (it reads no per-element segment id)
     timings = {
         # name: (kernel, plain, library, library note, bytes, operations)
         "layer_norm_fwd": (
@@ -1422,11 +1511,11 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
                   "raw LAMB update (torch._fused_adam_ applies it to p)",
             (4 + 2 + 4 + 4 + 4 + 4 + 4) * n, 15 * n),
         "flat_lamb_apply": (
-            lambda: mt._lamb_apply(p, upd, factor, seg, gate=zero),
-            lambda: mt._lamb_apply_ref(p, upd, factor, seg),
+            lambda: mt._lamb_apply(p, upd, factor, offs, gate=zero),
+            lambda: mt._lamb_apply_ref(p, upd, factor, sizes_dev),
             lambda: torch.addcmul(p, per_elem, upd, value=-1),
             "torch.addcmul(p, factor[seg_ids], update, value=-1)",
-            (4 + 4 + 4 + 4) * n, 2 * n),
+            (4 + 4 + 4) * n, 2 * n),
     }
     entries = []
     for name, (kern, plain, lib, lib_note, nbytes, ops) in timings.items():
@@ -1450,8 +1539,62 @@ def bert_kernel_phase(dev, smi: str, sizes) -> list:
             launches=0, max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             atol=atol, rtol=rtol))
+    ms16 = _ms(lambda: mt._lamb_apply(got16, upd16, fac16, offs, gate=zero),
+               iters=20, warmup=3)
+    b16, _ = _bound((2 + 2 + 4) * n, 2 * n)
+    print(f"time flat_lamb_apply bf16 p: kernel {ms16:.4f} ms, bound "
+          f"{b16:.4f} ms (bytes: 8 B/elt), {100 * b16 / ms16:.1f}% of the "
+          f"bound [{smi}]", flush=True)
+    del p16, upd16, got16
     _ln_bwd_time_at(dev, smi, rows, 768, "GPT-2 small")
+    for shape in LN_FWD_TIMED:
+        _ln_fwd_time_at(dev, smi, *shape)
     return entries
+
+
+def _lamb_factor_table(dev, nseg):
+    """A per-segment factor table of LAMB's scale (lr times a trust
+    ratio near 1)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    return 1e-3 * (0.5 + torch.rand(nseg, generator=g, device=dev))
+
+
+# the LayerNorm forward timed beyond BERT-L's (4096, 1024) bf16: rows, h,
+# dtype, what
+LN_FWD_TIMED = ((4096, 768, "bf16", "GPT-2 small"),
+                (4096, 1024, "f32", "BERT-L's width in f32"),
+                (4096, 8192, "bf16", "h 8192"),
+                (1024, 8192, "f32", "h 8192 in f32"))
+
+
+def _ln_fwd_time_at(dev, smi: str, rows: int, h: int, dtn: str,
+                    what: str) -> None:
+    """The LayerNorm forward timed at (rows, h) beside its twin,
+    ``F.layer_norm`` and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as ln
+    dt = _dtype(dtn)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(rows, h, generator=g, device=dev).to(dt)
+    w = (torch.randn(h, generator=g, device=dev) * 0.1 + 1).to(dt)
+    b = (torch.randn(h, generator=g, device=dev) * 0.1).to(dt)
+    route = ln.fwd_route(x)
+    kern = lambda: ln._fwd_2d(x, w, b, 1e-5, False)
+    ms = _ms(kern, iters=20, warmup=3)
+    plain_ms = _ms(lambda: ln._fwd_2d_ref(x, w, b, 1e-5, False), iters=5,
+                   warmup=1)
+    lib_ms = _ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5), iters=20,
+                 warmup=3)
+    el, sz = rows * h, x.element_size()
+    nbytes, ops = 2 * el * sz + 2 * h * sz, 8 * el
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"time layer_norm_fwd ({rows}, {h}) {dtn} ({what}, {route} "
+          f"route): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms (F.layer_norm), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes} B, {ops} FLOP), {100 * bound_ms / ms:.1f}% "
+          f"of the bound [{smi}]", flush=True)
 
 
 def _ln_bwd_time_at(dev, smi: str, rows: int, h: int, what: str) -> None:
@@ -1701,6 +1844,23 @@ def bert_consistency_phase(dev) -> None:
                               f"reject '{name}'")
 
 
+def _ln_fwd_in_profile(by_name, per_step: int, what: str, smi: str) -> None:
+    """Checks that a profiled step's LayerNorm forwards ran the register
+    body: ln_fwd_reg_kernel records (``per_step`` launches a step, by the
+    launch counts; a session may lose its first records) and none of the
+    wide ln_fwd_kernel."""
+    count = {r: sum(c for name, (_, c) in by_name.items() if k in name)
+             for r, k in LN_FWD_KERNELS.items()}
+    ms = sum(t for name, (t, _) in by_name.items()
+             if LN_FWD_KERNELS["register"] in name) / 1e3
+    print(f"profile train step {what}: layer_norm forward {count['register']}"
+          f" x {LN_FWD_KERNELS['register']} ({ms:.3f} ms), "
+          f"{count['wide']} x {LN_FWD_KERNELS['wide']} [{smi}]", flush=True)
+    _check(count["wide"] == 0 and 0 < count["register"] <= per_step,
+           f"{what}: a step's LayerNorm forwards ran {count}, expected "
+           f"{per_step} of the register body")
+
+
 def bert_profile_phase(dev, smi: str, step, amp_state, batches) -> None:
     """Device time by kernel over one BERT-L training step, from
     ``torch.profiler``: the busy share, the largest device items and the
@@ -1714,6 +1874,7 @@ def bert_profile_phase(dev, smi: str, step, amp_state, batches) -> None:
                    if _owns(name, v[3][0])) / 1e3
             for k, v in BERT_KERNELS.items()}
     total = sum(ours.values())
+    _ln_fwd_in_profile(by_name, LN_PER_STEP, "bert-large", smi)
     print(f"profile train step bert-large O2 b{BERT['batch']} "
           f"s{BERT['seq']}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), "
@@ -2221,7 +2382,7 @@ def gpt_train_phase(dev, smi: str, entries: list):
 GPT_OWN = {"flash_fwd": ("flash_fwd_kernel",),
            "flash_dq": ("flash_dq_kernel",),
            "flash_dkv": ("flash_dkv_kernel",),
-           "layer_norm": ("ln_fwd_kernel", "ln_bwd_"),
+           "layer_norm": ("ln_fwd_", "ln_bwd_"),
            "flat_unscale_norm": ("unscale_norm", "sum_combine"),
            "flat_adam": ("adam_kernel",)}
 
@@ -2239,6 +2400,8 @@ def gpt_profile_phase(dev, smi: str, s, state, tokens,
                    if _owns(name, syms)) / 1e3
             for k, syms in own.items()}
     total = sum(ours.values())
+    _ln_fwd_in_profile(by_name, LN_PER_GPT_STEP, f"gpt-2 small {optimizer}",
+                       smi)
     attn_ms = sum(t for k, t in ours.items() if k.startswith("flash_"))
     print(f"profile train step gpt-2 small O2 {optimizer}: attention "
           f"(flash_fwd + flash_dq + flash_dkv) {attn_ms:.3f} ms, "
@@ -3109,6 +3272,202 @@ def dropout_path_phase(dev, smi: str) -> dict:
           f"bf16 causal dropout {DROP_RATE}: loss {float(loss):.6f}, "
           f"launches {flash}", flush=True)
     return counts
+
+
+# F5b: head dims past 128.  SelfMultiheadAttn(1024, 4) (Transformer-big's
+# width in four heads, D 256; the same D as Gemma-class heads) trained
+# at T 512, B 8, bf16, causal, dropout 0.1 and 0; the kernels held
+# against the twins at its shape and at f32, at D 512 and at a padded D
+# 160 (name, b, h, s, d, dtype, dropout rate)
+WIDE = dict(hidden=1024, heads=4, seq=512, batch=8, steps=2)
+WIDE_CASES = (
+    ("smha_1024_4", WIDE["batch"], WIDE["heads"], WIDE["seq"], 256, "bf16",
+     DROP_RATE),
+    ("smha_1024_4_rate0", WIDE["batch"], WIDE["heads"], WIDE["seq"], 256,
+     "bf16", 0.0),
+    ("d256_f32_s300", 2, 4, 300, 256, "f32", DROP_RATE),
+    ("d256_f32_s300_rate0", 2, 4, 300, 256, "f32", 0.0),
+    ("d160_bf16_s200", 2, 4, 200, 160, "bf16", DROP_RATE),
+    ("d512_bf16_s300", 2, 2, 300, 512, "bf16", DROP_RATE),
+    ("d512_f32_s130_rate0", 1, 2, 130, 512, "f32", 0.0),
+)
+
+
+def wide_head_phase(dev, smi: str) -> dict:
+    """F5b: flash at head dims past 128 on the CUDA-core bodies (256 and
+    512 wide, dynamic shared memory).  Each WIDE_CASES case causal,
+    forward with lse, dq and dk/dv against the twins (ATTN_TOL), the
+    same bits twice, each body's route and DROP instantiation read from
+    the device kernels' names; then the three bodies timed at
+    ``SelfMultiheadAttn(1024, 4)``'s (8, 4, 512, 256) bf16 causal shape,
+    rate 0 and 0.1, beside the twin, SDPA and the bound; then that module
+    trained 2 steps at each rate (forward, backward, an SGD update of its
+    params), finite losses, exact launch counts and the routes of a
+    profiled step.  Returns {kernel: its D-256 figures}."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    from apex_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    kern = {"flash_fwd": attn.FLASH_FWD, "flash_dq": attn.FLASH_DQ,
+            "flash_dkv": attn.FLASH_DKV}
+    for drop in (True, False):
+        case_launches = []
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        _prime_profiler()
+        for name, b, h, s, d, dtn, rate in WIDE_CASES:
+            if (rate > 0) != drop:
+                continue
+            dt = _dtype(dtn)
+            q, k, v, do = (torch.randn(b, h, s, d, generator=gen,
+                                       device=dev).to(dt) for _ in range(4))
+            before = {kn: kt.launches for kn, kt in kern.items()}
+            o, lse = attn._flash_fwd_cuda(q, k, v, True, None, None, True,
+                                          rate, seed)
+            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, seed)
+            torch.cuda.synchronize()
+            wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate,
+                                          seed)
+            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                                        None, rate, seed)
+            atol, rtol = ATTN_TOL[dtn]
+            what = f"{name} {tuple(q.shape)} {dtn} causal dropout {rate}"
+            errs = [_held("flash_fwd", o, wo, atol, rtol, "o " + what),
+                    _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)]
+            errs += [_held(kn, g, w, atol, rtol, f"{gn} {what}")
+                     for kn, gn, g, w in zip(
+                         ("flash_dq", "flash_dkv", "flash_dkv"),
+                         ("dq", "dk", "dv"), grads, wgrads)]
+            again = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, seed)
+            torch.cuda.synchronize()
+            case_launches.append((name, {kn: kt.launches - before[kn]
+                                         for kn, kt in kern.items()}))
+            _check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                   f"flash {what}: the gradients differ run to run")
+            print(f"kernel flash wide head {what}: max_abs_err o "
+                  f"{errs[0]:.3e}, lse {errs[1]:.3e}, dq {errs[2]:.3e}, dk "
+                  f"{errs[3]:.3e}, dv {errs[4]:.3e} (atol={atol}, rtol="
+                  f"{rtol}); the same bits on a second run", flush=True)
+            del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
+        torch.cuda.synchronize()
+        prof.stop()
+        routes = _flash_routes(prof, case_launches, drop=drop)
+        _check(all(r == "CUDA cores" for rr in routes.values()
+                   for r in rr.values()),
+               f"wide heads: routes {routes}, expected the CUDA-core bodies")
+        print(f"route flash wide heads (DROP={str(drop).lower()}): " + "; "
+              .join(f"{c} {r}" for c, r in routes.items()), flush=True)
+        del prof
+
+    # the bodies at SelfMultiheadAttn(1024, 4)'s shape, rate 0 and 0.1
+    b, h, s, d = WIDE["batch"], WIDE["heads"], WIDE["seq"], 256
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    pairs = _pairs(None, b, h, s, True, dev)
+    costs = _attn_costs(b, h, h, s, d, 2, pairs)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    sd_o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    lib_bwd = _ms(lambda: torch.autograd.grad(sd_o, (qq, kk, vv), do,
+                                              retain_graph=True), 10)
+    rows = {}
+    for rate in (0.0, DROP_RATE):
+        sd = seed if rate else None
+        fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None, True,
+                                           rate, sd)
+        o, lse = fwd()
+        dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
+                                              None, rate, sd)
+        times = {"flash_fwd": _ms(fwd, 10), "flash_dq": _ms(dq_call, 10),
+                 "flash_dkv": _ms(dkv_call, 10)}
+        plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
+                     q, k, v, True, None, None, rate, sd), 3, 1)}
+        plain["flash_dq"] = plain["flash_dkv"] = _ms(
+            lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None, None,
+                                       rate, sd), 3, 1)
+        lib = {"flash_fwd": _ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, dropout_p=rate), 10)}
+        if rate:
+            sdr = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                 dropout_p=rate)
+            lib["flash_dq"] = lib["flash_dkv"] = _ms(
+                lambda: torch.autograd.grad(sdr, (qq, kk, vv), do,
+                                            retain_graph=True), 10)
+        else:
+            lib["flash_dq"] = lib["flash_dkv"] = lib_bwd
+        for kn in kern:
+            nbytes, ops = costs[kn]
+            # bf16 operands: the card's bf16 rate, whatever unit the
+            # body computes on
+            bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+            row = dict(ms=times[kn], plain_ms=plain[kn], bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib[kn],
+                       shape=f"({b}, {h}, {s}, {d}) bf16 causal",
+                       rate=rate, body="CUDA cores")
+            rows.setdefault(kn, {})["rate0" if rate == 0 else "dropout"] = row
+            print(f"time {kn} D 256 ({b}, {h}, {s}, {d}) bf16 causal dropout "
+                  f"{rate} (CUDA cores): kernel {times[kn]:.4f} ms "
+                  f"({ops / times[kn] / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain[kn]:.4f} ms, SDPA "
+                  f"{'forward' if kn == 'flash_fwd' else 'backward (dq, dk, dv)'}"
+                  f" {lib[kn]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                  f" [{smi}]", flush=True)
+        del o, lse
+    del q, k, v, do, qq, kk, vv, sd_o
+
+    # SelfMultiheadAttn(1024, 4) trained at each rate
+    E = WIDE["hidden"]
+    x = torch.randn(WIDE["seq"], WIDE["batch"], E, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(14)
+    init = torch.Generator().manual_seed(1)
+    flash = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for rate in (DROP_RATE, 0.0):
+        mod = SelfMultiheadAttn(E, WIDE["heads"], dropout=rate)
+        params = {n: {k: t.requires_grad_() for k, t in sub.items()}
+                  for n, sub in mod.init(init, dev).items()}
+        leaves = [t for sub in params.values() for t in sub.values()]
+
+        def train_step():
+            out, _ = mod(params, x, attn_mask="causal", generator=dgen)
+            loss = (out.float() * w).mean()
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for t, g in zip(leaves, grads):
+                    t.sub_(1e-2 * g.to(t.dtype))
+            return loss.detach(), grads
+
+        train_step()                                   # warm-up
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        _prime_profiler()
+        (results, counts) = _path_counts(
+            lambda: [train_step() for _ in range(WIDE["steps"])],
+            f"SelfMultiheadAttn({E}, {WIDE['heads']}) dropout {rate}",
+            {kn: WIDE["steps"] * c for kn, c in flash.items()})
+        prof.stop()
+        routes = _flash_routes(prof, [(f"rate {rate}", counts)],
+                               drop=rate > 0)
+        del prof
+        losses = [float(l) for l, _ in results]
+        _check(all(math.isfinite(v) for v in losses) and all(
+            bool(torch.isfinite(g).all()) for _, gs in results for g in gs),
+            f"SelfMultiheadAttn({E}, {WIDE['heads']}) dropout {rate}: a "
+            f"non-finite loss or gradient ({losses})")
+        print(f"path SelfMultiheadAttn({E}, {WIDE['heads']}) (head dim "
+              f"{E // WIDE['heads']}: F5b) T {WIDE['seq']} B "
+              f"{WIDE['batch']} bf16 causal dropout {rate}, training "
+              f"(SGD lr 1e-2): losses {[round(v, 6) for v in losses]}, "
+              f"launches {counts}, routes {routes[f'rate {rate}']} [{smi}]",
+              flush=True)
+        del params, leaves, results
+    return rows
 
 
 def dropout_consistency_phase(dev) -> None:
@@ -4700,10 +5059,14 @@ def main() -> int:
     drop_counts = dropout_path_phase(dev, smi)
     torch.cuda.empty_cache()
     dropout_consistency_phase(dev)
+    wide_rows = wide_head_phase(dev, smi)
+    torch.cuda.empty_cache()
     for e in [entry] + gpt_entries:
         if e["name"] in drop_rows:
             e["dropout"] = dict(drop_rows[e["name"]],
                                 launches=drop_counts[e["name"]])
+        if e["name"] in wide_rows:
+            e["d256"] = wide_rows[e["name"]]
 
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
@@ -4739,7 +5102,7 @@ def main() -> int:
             "library_ms", "atol", "rtol")
     kernels = [dict({k: e[k] for k in keys},
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
-                                         "dropout") if k in e})
+                                         "dropout", "d256") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries
                + [welford_entry]]

@@ -262,15 +262,19 @@ def test_mixed_dtypes_promote_as_the_reference_does():
 
 def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
     """What the card's wrappers do before a launch (F5): a head dim
-    that is not a kernel width goes up to the next of (16, 32, 64, 128)
-    with zeros; a strided operand is copied; a contiguous one that
-    starts off its alignment is cloned to an aligned start; a head dim
-    above 128 raises naming F5b; float64 raises TypeError."""
+    that is not a kernel width goes up to the next of (16, 32, 64, 128,
+    256, 512) with zeros (F5b: 129..512 as well); a strided operand is
+    copied; a contiguous one that starts off its alignment is cloned to
+    an aligned start; a head dim above 512 raises naming F5c; float64
+    raises TypeError."""
     assert [tattn._kernel_width(d) for d in (1, 8, 16, 17, 33, 80, 96,
-                                             128)] == [
-        16, 16, 16, 32, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="F5b"):
-        tattn._kernel_width(160)
+                                             128, 129, 160, 192, 256, 257,
+                                             512)] == [
+        16, 16, 16, 32, 64, 128, 128, 128, 256, 256, 256, 256, 512, 512]
+    with pytest.raises(ValueError, match="F5c"):
+        tattn._kernel_width(513)
+    (w,) = tattn._operands(torch.randn(1, 2, 3, 160))
+    assert w.shape == (1, 2, 3, 256) and torch.all(w[..., 160:] == 0)
     q = torch.randn(2, 3, 5, 8)
     (p,) = tattn._operands(q)
     assert p.shape == (2, 3, 5, 16) and p.is_contiguous()

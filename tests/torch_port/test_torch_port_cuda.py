@@ -93,14 +93,14 @@ def test_kernel_matches_plain_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
-    """float64 and a head dim above 128 (F5b) raise; a head dim of 8
+    """float64 and a head dim above 512 (F5c) raise; a head dim of 8
     (padded to the kernels' 16) and a strided q (copied) compute what
     the plain version does, each with one launch."""
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         attn.flash_attention(q.double(), q.double(), q.double())
-    wide = torch.zeros(1, 2, 8, 160, device=cuda)
-    with pytest.raises(ValueError, match="F5b"):
+    wide = torch.zeros(1, 2, 8, 520, device=cuda)
+    with pytest.raises(ValueError, match="F5c"):
         attn.flash_attention(wide, wide, wide)
     q8 = q[..., :8].contiguous()
     strided = q.transpose(2, 3).contiguous().transpose(2, 3)
@@ -380,6 +380,14 @@ FLASH_TRAIN_CASES = {
     "tc_bf16_gqa_12_to_4": (2, 12, 4, 256, 64, False, None, torch.bfloat16),
     "tc_d128_bf16_causal_packed": (2, 8, 8, 192, 128, True, "packed",
                                    torch.bfloat16),
+    # F5b: the CUDA-core bodies at D 256 and 512 (dynamic shared memory,
+    # fewer rows a CTA), f32 and bf16
+    "d256_f32_gqa_causal": (2, 4, 2, 130, 256, True, "ragged",
+                            torch.float32),
+    "d256_bf16_packed": (2, 4, 4, 128, 256, False, "packed",
+                         torch.bfloat16),
+    "d512_bf16_causal": (1, 2, 2, 100, 512, True, None, torch.bfloat16),
+    "d512_f32": (1, 2, 1, 64, 512, False, None, torch.float32),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -723,6 +731,68 @@ def test_layer_norm_backward_routes_match_plain_on_card(cuda, case):
     assert len(seen) == ln.BWD_DEVICE_KERNELS[route]
 
 
+LN_FWD_CASES = {
+    # name: (rows, h, x dtype, w dtype, rms, x's offset in elements,
+    # route): h 768, 1024, 4096 and 8192 in f32 and bf16, LN and RMS, on
+    # the register route; a misaligned x and h past 8192 on the wide one
+    "gpt_bf16": (4096, 768, torch.bfloat16, torch.bfloat16, False, 0,
+                 "register"),
+    "bert_bf16": (4096, 1024, torch.bfloat16, torch.bfloat16, False, 0,
+                  "register"),
+    "bert_bf16_rms": (4096, 1024, torch.bfloat16, torch.bfloat16, True, 0,
+                      "register"),
+    "h768_f32_rms_333_rows": (333, 768, torch.float32, torch.float32, True,
+                              0, "register"),
+    "h1024_f32_mixed_w": (300, 1024, torch.float32, torch.bfloat16, False,
+                          0, "register"),
+    "h4096_bf16_rms": (129, 4096, torch.bfloat16, torch.float32, True, 0,
+                       "register"),
+    "h4096_f32": (333, 4096, torch.float32, torch.float32, False, 0,
+                  "register"),
+    "h8192_f32_rms": (65, 8192, torch.float32, torch.float32, True, 0,
+                      "register"),
+    "h8192_bf16": (65, 8192, torch.bfloat16, torch.bfloat16, False, 0,
+                   "register"),
+    "one_row_h128": (1, 128, torch.bfloat16, torch.bfloat16, False, 0,
+                     "register"),
+    "unaligned_bf16_wide": (333, 1024, torch.bfloat16, torch.bfloat16,
+                            False, 1, "wide"),
+    "unaligned_f32_rms_wide": (77, 768, torch.float32, torch.float32, True,
+                               2, "wide"),
+    "h16384_f32_wide": (9, 16384, torch.float32, torch.float32, False, 0,
+                        "wide"),
+}
+LN_FWD_NAMES = {"register": "ln_fwd_reg_kernel", "wide": "ln_fwd_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LN_FWD_CASES))
+def test_layer_norm_forward_routes_match_plain_on_card(cuda, case):
+    """Both forward bodies against ``_fwd_2d_ref``: y within 2e-2 in bf16
+    and 1e-5 in f32 (the kernels' LN_CASES tolerances); the same bits
+    twice; one launch; the route the wrapper picks is the one the device
+    runs (its kernel's name)."""
+    rows, h, xdt, wdt, rms, off, route = LN_FWD_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = ((torch.randn(rows * h + off, generator=g, device=cuda) * 3 + 1)
+         .to(xdt)[off:].view(rows, h))
+    w = (torch.randn(h, generator=g, device=cuda) * 0.1 + 1).to(wdt)
+    b = (torch.randn(h, generator=g, device=cuda) * 0.1).to(wdt)
+    assert ln.fwd_route(x) == route
+    f0 = ln.LN_FWD.launches
+    y = ln._fwd_2d(x, w, b, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert ln.LN_FWD.launches - f0 == 1
+    half = xdt == torch.bfloat16
+    torch.testing.assert_close(y, ln._fwd_2d_ref(x, w, b, 1e-5, rms),
+                               **(dict(atol=2e-2, rtol=2e-2) if half
+                                  else dict(atol=1e-5, rtol=1e-5)))
+    assert torch.equal(ln._fwd_2d(x, w, b, 1e-5, rms), y)
+    names = _device_kernel_names(lambda: ln._fwd_2d(x, w, b, 1e-5, rms),
+                                 "ln_fwd_", want=(LN_FWD_NAMES[route],))
+    assert names and all(LN_FWD_NAMES[route] in n for n in names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -742,10 +812,7 @@ def _lamb_bucket(sizes, pdt, gdt, device):
     g = _vec(n, gdt, device, 15) * 1e-2
     m = _vec(n, torch.float32, device, 16) * 1e-3
     v = _vec(n, torch.float32, device, 17).abs() * 1e-4
-    seg = torch.repeat_interleave(
-        torch.arange(len(sizes), dtype=torch.int32),
-        torch.tensor(sizes)).to(device)
-    return p, g, m, v, seg
+    return p, g, m, v
 
 
 LAMB_CASES = {
@@ -761,19 +828,27 @@ LAMB_CASES = {
 }
 
 
+# stage 2 walks the segment starts: single-element segments, boundaries
+# inside one vector, a tail that is not a multiple of 4, segments that
+# span CTAs (a CTA takes about 1024 elements at these lengths)
+LAMB_SIZES = [[1], [3, 1024, 5], [70001, 4, 333],
+              [1, 1, 2, 5, 1, 4099, 1, 3], [2053] * 97 + [1, 6]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sizes", [[1], [3, 1024, 5], [70001, 4, 333]])
+@pytest.mark.parametrize("sizes", LAMB_SIZES)
 @pytest.mark.parametrize("case", sorted(LAMB_CASES))
 def test_flat_lamb_matches_plain_on_card(cuda, sizes, case):
     pdt, gdt, nv, bc, clip, gs, wd = LAMB_CASES[case]
-    p, g, m, v, seg = _lamb_bucket(sizes, pdt, gdt, cuda)
+    p, g, m, v = _lamb_bucket(sizes, pdt, gdt, cuda)
     kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=wd,
               step=torch.tensor(3, dtype=torch.int32, device=cuda),
               bias_correction=bc, grad_scale=torch.tensor(gs, device=cuda),
               clip_coeff=torch.tensor(clip, device=cuda), use_nvlamb=nv)
-    want = mt.flat_lamb_ref(p, g, m, v, seg, sizes, **kw)
+    want = mt.flat_lamb_ref(p, g, m, v, sizes, **kw)
     before = (mt.LAMB_MOMENTS.launches, mt.LAMB_APPLY.launches)
-    got = mt.flat_lamb(p.clone(), g, m.clone(), v.clone(), seg, sizes, **kw)
+    got = mt.flat_lamb(p.clone(), g, m.clone(), v.clone(), sizes,
+                       seg_offsets=mt.segment_offsets(sizes, cuda), **kw)
     torch.cuda.synchronize()
     assert (mt.LAMB_MOMENTS.launches, mt.LAMB_APPLY.launches) == (
         before[0] + 1, before[1] + 1)
@@ -782,15 +857,16 @@ def test_flat_lamb_matches_plain_on_card(cuda, sizes, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flag", [0, 1])
-def test_flat_lamb_found_inf_gate_on_card(cuda, flag):
-    p, g, m, v, seg = _lamb_bucket([4099, 7], torch.float32, torch.bfloat16,
-                                   cuda)
+def test_flat_lamb_found_inf_gate_on_card(cuda, flag, pdt):
+    p, g, m, v = _lamb_bucket([4099, 7], pdt, torch.bfloat16, cuda)
     g[5] = float("nan")
     p0, m0, v0 = p.clone(), m.clone(), v.clone()
-    mt.flat_lamb(p, g, m, v, seg, [4099, 7], lr=1e-3, beta1=0.9,
+    mt.flat_lamb(p, g, m, v, [4099, 7], lr=1e-3, beta1=0.9,
                  beta2=0.999, eps=1e-6, weight_decay=0.01,
-                 found_inf=torch.tensor(flag, dtype=torch.int32, device=cuda))
+                 found_inf=torch.tensor(flag, dtype=torch.int32, device=cuda),
+                 seg_offsets=mt.segment_offsets([4099, 7], cuda))
     torch.cuda.synchronize()
     for a, b in ((p, p0), (m, m0), (v, v0)):
         assert torch.equal(a, b) == bool(flag)
@@ -1507,6 +1583,15 @@ DROP_CASES = {
                      0.1),
     "fma_f32_d16_cross": (1, 4, 2, 70, 130, 16, False, None, torch.float32,
                           0.9),
+    # F5b: the DROP bodies at D 256 and 512
+    "fma_f32_d256_gqa_ragged": (2, 4, 2, 130, 130, 256, True, "ragged",
+                                torch.float32, 0.1),
+    "fma_bf16_d256_packed": (2, 4, 4, 128, 128, 256, False, "packed",
+                             torch.bfloat16, 0.1),
+    "fma_bf16_d512_cross_causal": (1, 2, 2, 70, 100, 512, True, None,
+                                   torch.bfloat16, 0.1),
+    "fma_f32_d512": (1, 2, 1, 64, 64, 512, False, None, torch.float32,
+                     0.25),
 }
 
 
@@ -1615,16 +1700,26 @@ F5_CASES = {
         for _ in range(2)],
     "bh_65600_f32": lambda g, dev: [torch.randn(
         65600, 1, 16, 16, generator=g, device=dev) for _ in range(3)],
+    # F5b: head dims past 128, padded to 256 and 512
+    "d160_bf16": lambda g, dev: [torch.randn(
+        2, 4, 100, 160, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)],
+    "d192_f32": lambda g, dev: [torch.randn(1, 4, 90, 192, generator=g,
+                                            device=dev) for _ in range(3)],
+    "d300_bf16": lambda g, dev: [torch.randn(
+        1, 2, 70, 300, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)],
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(F5_CASES))
 def test_f5_inputs_compute_with_gradients_on_card(cuda, name):
-    """What the card refused before F5's repair: head dims 8, 80 and 96
-    (padded), a transposed q, a q 8 bytes off its alignment (copied),
-    B*H = 65600 (B*H on the grid's x): forward and gradients against the
-    twins, with dropout on for the bf16 cases."""
+    """What the card refused before F5's and F5b's repairs: head dims
+    8, 80, 96, 160, 192 and 300 (padded), a transposed q, a q 8 bytes off
+    its alignment (copied), B*H = 65600 (B*H on the grid's x): forward
+    and gradients against the twins, with dropout on for the bf16
+    cases."""
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = F5_CASES[name](g, cuda)
     do = torch.randn(q.shape, generator=g, device=cuda).to(q.dtype)

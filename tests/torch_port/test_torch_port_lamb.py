@@ -125,15 +125,14 @@ def test_flat_lamb_matches_jax(case):
                          jplan.segment_ids(0), len(sizes), **kw)
     tg = torch.from_numpy(g).to(getattr(torch, gdt))
     tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
-    got = tmt.flat_lamb(tp, tg, tm, tv, seg, plan.segment_sizes(0),
+    got = tmt.flat_lamb(tp, tg, tm, tv, plan.segment_sizes(0),
                         **{**kw, "step": torch.tensor(step, dtype=torch.int32),
                            "clip_coeff": torch.tensor(clip)})
     assert got[0] is tp and got[1] is tm and got[2] is tv
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     ref = tmt.flat_lamb_ref(torch.from_numpy(p), tg, torch.from_numpy(m),
-                            torch.from_numpy(v), seg, plan.segment_sizes(0),
-                            **kw)
+                            torch.from_numpy(v), plan.segment_sizes(0), **kw)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -144,13 +143,93 @@ def test_flat_lamb_found_inf_leaves_every_buffer():
     plan = BucketPlan.from_tree([torch.zeros(s) for s in sizes])
     tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
     kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
-    tmt.flat_lamb(tp, torch.from_numpy(g), tm, tv, plan.segment_ids(0),
-                  sizes, found_inf=torch.tensor(1, dtype=torch.int32), **kw)
+    tmt.flat_lamb(tp, torch.from_numpy(g), tm, tv, sizes,
+                  found_inf=torch.tensor(1, dtype=torch.int32), **kw)
     for a, b in zip((tp, tm, tv), (p, m, v)):
         np.testing.assert_array_equal(a.numpy(), b)
-    tmt.flat_lamb(tp, torch.from_numpy(g), tm, tv, plan.segment_ids(0),
-                  sizes, found_inf=torch.tensor(0, dtype=torch.int32), **kw)
+    tmt.flat_lamb(tp, torch.from_numpy(g), tm, tv, sizes,
+                  found_inf=torch.tensor(0, dtype=torch.int32), **kw)
     assert not np.array_equal(tp.numpy(), p)
+
+
+# stage 2 on the card reads no per-element segment id: each CTA takes a
+# contiguous range of 4-element vectors, each thread finds its first
+# element's segment by bisection of the segment-start table and walks the
+# boundaries forward (csrc/multi_tensor.cu, lamb_apply_kernel)
+STAGE2_SIZES = {
+    "ragged": [1000, 7, 3, 2048, 1041],
+    "size_one_runs": [1, 1, 2, 5, 1, 4099, 1, 3],
+    "tail_not_a_vector": [4097, 2],
+    "many_short": [3] * 401 + [6],
+    "one_element": [1],
+}
+
+
+def _stage2_walk(sizes, blocks, threads=256):
+    """The segment each element's factor comes from in the kernel's walk,
+    replayed on the host with the kernel's indexing (a thread's unrolled
+    vectors i, i + threads, ... come in this order too)."""
+    offs = tmt.segment_offsets(sizes, "cpu").numpy()
+    nseg, n = len(sizes), int(offs[-1])
+    n4 = n // 4
+    per_cta = -(-n4 // blocks)
+
+    def find(e):                     # the kernel's find_segment
+        lo, hi = 0, nseg - 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if offs[mid] <= e:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+
+    seg_of = np.full(n, -1)
+    for b in range(blocks):
+        v0, v1 = b * per_cta, min(b * per_cta + per_cta, n4)
+        for t in range(threads):
+            i = v0 + t
+            if i >= v1:
+                continue
+            seg = find(4 * i)
+            while i < v1:
+                for e in range(4 * i, 4 * i + 4):
+                    while e >= offs[seg + 1]:
+                        seg += 1
+                    seg_of[e] = seg
+                i += threads
+    for e in range(4 * n4, n):       # the last CTA's tail
+        seg_of[e] = find(e)
+    return seg_of
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(STAGE2_SIZES))
+def test_stage2_start_table_walk_gives_the_segment_ids(case, blocks):
+    """The start table, bisected and walked as the kernel walks it (at
+    1, 2 and 3 CTAs, where a thread strides over several vectors and
+    segments), names the segment ``seg_ids`` names for every element:
+    single-element segments, a boundary inside a vector, a tail past the
+    last whole vector."""
+    sizes = STAGE2_SIZES[case]
+    n = sum(sizes)
+    seg_ids = torch.repeat_interleave(torch.arange(len(sizes)),
+                                      torch.tensor(sizes)).numpy()
+    offs = tmt.segment_offsets(sizes, "cpu").numpy()
+    assert offs[0] == 0 and offs[-1] == n and len(offs) == len(sizes) + 1
+    np.testing.assert_array_equal(
+        np.searchsorted(offs, np.arange(n), side="right") - 1, seg_ids)
+    got = _stage2_walk(sizes, blocks)
+    np.testing.assert_array_equal(got, seg_ids)
+
+
+def test_fused_lamb_walks_the_plans_cached_start_table():
+    """The bucket's start table is built once (the plan caches it): the
+    same tensor on every call, so a step adds no host work for it."""
+    plan = BucketPlan.from_tree({"a": torch.zeros(5), "b": torch.zeros(3, 7)})
+    first = plan.segment_offsets(0)
+    assert first is plan.segment_offsets(0)
+    assert first.tolist() == [0, 5, 26]
 
 
 def test_segment_sumsq_matches_jax():

@@ -216,6 +216,41 @@ def test_backward_chunking_is_a_function_of_the_rows(rows, route, want):
     assert tln._chunking(rows, route) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,route", [(128, "register"), (768, "register"),
+                                     (1024, "register"), (4096, "register"),
+                                     (tln.FUSED_MAX_H, "register"),
+                                     (tln.FUSED_MAX_H + 128, "wide"),
+                                     (32768, "wide")])
+def test_forward_route_follows_the_register_bodys_limit(h, route, dtype):
+    """The register forward takes rows up to FUSED_MAX_H (GPT-2's 768,
+    BERT-L's 1024 and Llama-class 4096 fit, as in the fused backward);
+    wider rows, up to the gate's 32768, keep the block-a-row body."""
+    assert tln.fwd_route(_rows(h, dtype)) == route
+
+
+@pytest.mark.parametrize("offset,route", [(0, "register"), (1, "wide"),
+                                          (4, "wide"), (8, "register")])
+def test_forward_route_takes_the_wide_body_off_16_bytes(offset, route):
+    """An x whose data starts off a 16-byte boundary (a bf16 view 1 or 4
+    elements in) cannot take the register body's 16-byte loads: the wide
+    body, which accepts any row start; 8 elements in is 16 bytes."""
+    x = _rows(1024, torch.bfloat16, offset)
+    assert (x.data_ptr() % 16 == 0) == (route == "register")
+    assert tln.fwd_route(x) == route
+
+
+def test_forward_kernel_names_keep_the_profiled_prefix():
+    """Both forward bodies are named ln_fwd_*, the prefix the profile
+    attribution matches, and neither name holds the other's."""
+    import os
+    from apex_tpu_torch import _build
+    src = open(os.path.join(_build.CSRC, "layer_norm.cu")).read()
+    for name in ("ln_fwd_reg_kernel(", "ln_fwd_kernel("):
+        assert name in src
+    assert "ln_fwd_kernel" not in "ln_fwd_reg_kernel"
+
+
 def test_backward_kernel_names_keep_the_profiled_prefix():
     """Both backward bodies and the combine are named ln_bwd_*, the prefix
     the profile attribution matches."""

@@ -17,11 +17,15 @@ Then the three traps of the port:
 
 Tolerances: f32 throughout, but convolutions sum in another order in
 each framework and BatchNorm over 4 images divides by small variances,
-so for ResNet-18 logits within rtol 1e-4, atol 1e-4; gradients within
-atol 2e-4 relative to their leaf's largest entry (1e-2 where both sides
-are bf16: one bf16 rounding); running statistics within rtol 1e-4,
-atol 1e-5.  ResNet-50's 16 bottlenecks carry BatchNorm over populations
-of 4 (stage 4 is 1x1): flax takes the variance as E[x^2] - E[x]^2, the
+so for ResNet-18 logits within rtol 1e-4, atol 1e-4; f32 gradients
+within atol 2e-4 relative to their leaf's largest entry of an f64
+evaluation of the same function, and at least as close to it as
+flax's (flax's own f32 gradients sit up to 3.6e-4 off it, so the two
+sides are not held to each other at 2e-4; the port's CPU convolutions
+sum in f64, see ``apex_tpu_torch._numerics.conv2d``); bf16 gradients
+within 1e-2 of flax's (one bf16 rounding); running statistics within
+rtol 1e-4, atol 1e-5.  ResNet-50's 16 bottlenecks carry BatchNorm over
+populations of 4 (stage 4 is 1x1): flax takes the variance as E[x^2] - E[x]^2, the
 port as the mean squared deviation, and that rounding, amplified by the
 depth, moves the logits by up to ~5e-3 and single gradient entries by
 several percent of their leaf's largest.  So for ResNet-50 the check is
@@ -161,7 +165,11 @@ def test_forward_grads_and_bn_stats_match_flax(arch):
     if arch == "resnet18":
         np.testing.assert_allclose(tlogits, jlogits, **LOGIT_TOL)
         np.testing.assert_allclose(float(tl), float(jl), **LOGIT_TOL)
-        _grad_close(tg, jg)
+        exact_g = _f64(arch, tp, ts, x, y)[1]
+        tgl = [g.numpy() for g in tree_leaves(tg)]
+        jgl = [np.asarray(g) for g in jax.tree_util.tree_leaves(jg)]
+        assert _worst_rel(tgl, exact_g) <= 2e-4
+        assert _worst_rel(tgl, exact_g) <= _worst_rel(jgl, exact_g)
         for a, b in zip(tstats, jstats):
             np.testing.assert_allclose(a, b, **STAT_TOL)
     else:
