@@ -14,7 +14,8 @@ scale/bias/mean/var as (C,) vectors): the tree then flattens in the
 reference's order with the reference's shapes, so the bucket plan built
 over it has the reference's ``layout()`` and the same bucket bytes.  The
 forward takes torch's OIHW and (out, in) views of those kernels at use.
-:func:`bert_from_jax` does the same for the flax BERT's ``params``.
+:func:`bert_from_jax` does the same for the flax BERT's ``params``, and
+:func:`gpt_from_jax` for the flax ``GPTModel``'s.
 :func:`gpt_block_from_jax` takes the flax GPT block stack of
 ``examples/gpt/train_block.py`` (or a flax ``SelfMultiheadAttn``'s
 params): the port keeps their names and layouts but two,
@@ -77,6 +78,16 @@ def bert_from_jax(params, device=None):
     ``embed/weight`` (V, h), linear weights (in, out), LayerNorm
     ``weight``/``bias``), each leaf keeping its float dtype, on
     ``device`` (default: the card)."""
+    return _from_numpy(params, resolve_device(device))
+
+
+def gpt_from_jax(params, device=None):
+    """The flax ``GPTModel``'s ``params`` with numpy leaves -> the
+    port's tree (:mod:`apex_tpu_torch.models.gpt` keeps flax's names and
+    layouts: ``embed/weight`` (V, h), ``pos_embedding`` without RoPE,
+    ``layer_<i>/...`` with linear weights (in, out), ``final_layernorm``),
+    each leaf keeping its float dtype, on ``device`` (default: the
+    card)."""
     return _from_numpy(params, resolve_device(device))
 
 

@@ -16,9 +16,12 @@
 // - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads).
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at any D (the
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
 //   no TF32) and bf16 at D 16, 32, 256 and 512.
+// - CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32 and
+//   bf16 at D 1024..8192, a power of two (below, before the entry
+//   points).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1038,15 +1041,244 @@ int launch_dq_tc(const Args& a, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// wide bodies: f32 and bf16 at D 1024..8192, a power of two (wide::takes)
+// ---------------------------------------------------------------------------
+//
+// The CUDA-core bodies' arithmetic with D a runtime width and rows that
+// span whole warps (the forward's flash_fwd_kernel_wide): dq gives a
+// query row D/32 threads of 32 columns (256 threads a CTA, 256/(D/32)
+// rows), dk/dv a key row D/16 threads of 16 columns (512 threads, 512/
+// (D/16) key rows; 64 registers of k, v, dk and dv a thread at any D).
+// No tiles: the rows a step reads (K and V in dq; q, dO, lse, di and the
+// ids in dk/dv) come from device memory where they are used, the CTA's
+// rows reading the same words through L1, and the dot products of a
+// group of wide::GROUP keys (query rows in dk/dv) meet across warps in
+// shared memory (wide::row_sums), one barrier a group.
+
+constexpr int WIDE_Q_THREADS = 256;    // dq: 32 columns a thread
+constexpr int WIDE_KV_THREADS = 512;   // dk/dv: 16 columns a thread
+
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_Q_THREADS)
+flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, T* __restrict__ dq,
+                     const int* __restrict__ q_ids,
+                     const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                     int Sk, int D, int causal, float scale,
+                     dropout::Params drop) {
+  constexpr int G = wide::GROUP;
+  constexpr int C4 = 8;
+  __shared__ float red[2][WIDE_Q_THREADS / 32 * 2 * G];
+  const int tpr = D / 32;
+  const int rows = WIDE_Q_THREADS / tpr;
+  const int nw = tpr / 32;
+  const int D4 = D / 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / HK);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;   // heaviest first
+  const int tid = threadIdx.x;
+  const int part = tid % tpr;
+  const int row = q0 + tid / tpr;
+  const int w0 = (tid / tpr) * nw;
+  const bool row_ok = row < Sq;
+  const bool seg = q_ids != nullptr;
+  const uint32_t rkey =
+      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
+
+  const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
+  const size_t qrow = (size_t)bh * Sq + (row_ok ? row : 0);
+  const size_t qoff = qrow * D4 + part;
+
+  float4 qr[C4], dr[C4], acc[C4];
+#pragma unroll
+  for (int c = 0; c < C4; ++c) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[c] = row_ok ? load4(q, qoff + c * tpr) : z;
+    dr[c] = row_ok ? load4(dout, qoff + c * tpr) : z;
+    acc[c] = z;
+  }
+  const float lse_r = row_ok ? lse[qrow] : 0.f;
+  const float di_r = row_ok ? di[qrow] : 0.f;
+  const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
+
+  const int kend = causal ? min(Sk, q0 + rows) : Sk;
+  for (int k0 = 0, buf = 0; k0 < kend; k0 += G, buf ^= 1) {
+    float x[2 * G];   // q.k of the group's keys, then dO.v
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      x[j] = x[G + j] = 0.f;
+      if (k0 + j < Sk) {
+        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+#pragma unroll
+        for (int c = 0; c < C4; ++c) {
+          x[j] = dot4(qr[c], load4(k, kr + c * tpr), x[j]);
+          x[G + j] = dot4(dr[c], load4(v, kr + c * tpr), x[G + j]);
+        }
+      }
+    }
+    wide::row_sums(x, red[buf], w0, nw);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int col = k0 + j;
+      if (col >= Sk) continue;
+      const bool ok = row_ok && (!causal || col <= row) &&
+                      (!seg || kv_ids[(size_t)b * Sk + col] == qid);
+      const float p = prob(ok, x[j], scale, lse_r);
+      float pd = x[G + j];
+      if (DROP) pd = dropout::apply(drop, dropout::col_key(rkey, col), pd);
+      const float ds = operand<T>(dscore(p, pd, di_r, scale));
+      const size_t kr = kvb + (size_t)col * D4;
+#pragma unroll
+      for (int c = 0; c < C4; ++c) acc[c] = axpy4(ds, load4(k, kr + c * tpr), acc[c]);
+    }
+  }
+
+  if (row_ok) {
+#pragma unroll
+    for (int c = 0; c < C4; ++c) store4(dq, qoff + c * tpr, acc[c]);
+  }
+}
+
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_KV_THREADS, 1)
+flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, T* __restrict__ dk,
+                      T* __restrict__ dv, const int* __restrict__ q_ids,
+                      const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                      int Sk, int D, int causal, float scale,
+                      dropout::Params drop) {
+  constexpr int G = wide::GROUP;
+  constexpr int C4 = 4;
+  __shared__ float red[2][WIDE_KV_THREADS / 32 * 2 * G];
+  const int tpr = D / 16;
+  const int rows = WIDE_KV_THREADS / tpr;   // key rows a CTA
+  const int nw = tpr / 32;
+  const int D4 = D / 4;
+  const int bhk = blockIdx.x;
+  const int b = bhk / HK;
+  const int hk = bhk % HK;
+  const int group = H / HK;
+  const int c0 = blockIdx.y * rows;   // the first key block sees most rows
+  const int tid = threadIdx.x;
+  const int part = tid % tpr;
+  const int col = c0 + tid / tpr;
+  const int w0 = (tid / tpr) * nw;
+  const bool col_ok = col < Sk;
+  const bool seg = q_ids != nullptr;
+
+  const size_t kvoff = ((size_t)bhk * Sk + (col_ok ? col : 0)) * D4 + part;
+  float4 kr[C4], vr[C4], dka[C4], dva[C4];
+#pragma unroll
+  for (int c = 0; c < C4; ++c) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    kr[c] = col_ok ? load4(k, kvoff + c * tpr) : z;
+    vr[c] = col_ok ? load4(v, kvoff + c * tpr) : z;
+    dka[c] = z;
+    dva[c] = z;
+  }
+  const int kid = (seg && col_ok) ? kv_ids[(size_t)b * Sk + col] : 0;
+
+  // causal: rows before c0 see none of this block's keys
+  const int rstart = causal ? min(c0, Sq) : 0;
+  int buf = 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int bh = b * H + hk * group + hh;   // the flat q row
+    const size_t rowb = (size_t)bh * Sq;
+    const uint32_t ckey =
+        DROP ? dropout::col_key(dropout::head_key(*drop.seed, bh), col) : 0u;
+    for (int r0 = rstart; r0 < Sq; r0 += G, buf ^= 1) {
+      float x[2 * G];   // k.q of the group's rows, then v.dO
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        x[i] = x[G + i] = 0.f;
+        if (r0 + i < Sq) {
+          const size_t qr = (rowb + r0 + i) * D4 + part;
+#pragma unroll
+          for (int c = 0; c < C4; ++c) {
+            x[i] = dot4(kr[c], load4(q, qr + c * tpr), x[i]);
+            x[G + i] = dot4(vr[c], load4(dout, qr + c * tpr), x[G + i]);
+          }
+        }
+      }
+      wide::row_sums(x, red[buf], w0, nw);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int r = r0 + i;
+        if (r >= Sq) continue;
+        const bool ok = col_ok && (!causal || col <= r) &&
+                        (!seg || q_ids[(size_t)b * Sq + r] == kid);
+        const float p = prob(ok, x[i], scale, lse[rowb + r]);
+        float pd = x[G + i];
+        float pd_p = p;   // the p of dV: keep * p / (1 - rate) under DROP
+        if (DROP) {
+          const bool keep = dropout::kept(drop, dropout::row_key(ckey, r));
+          pd_p = dropout::scaled(drop, keep, p);
+          pd = dropout::scaled(drop, keep, pd);
+        }
+        const float pv = operand<T>(pd_p);
+        const float ds = operand<T>(dscore(p, pd, di[rowb + r], scale));
+        const size_t qr = (rowb + r) * D4 + part;
+#pragma unroll
+        for (int c = 0; c < C4; ++c) {
+          dva[c] = axpy4(pv, load4(dout, qr + c * tpr), dva[c]);
+          dka[c] = axpy4(ds, load4(q, qr + c * tpr), dka[c]);
+        }
+      }
+    }
+  }
+
+  if (col_ok) {
+#pragma unroll
+    for (int c = 0; c < C4; ++c) {
+      store4(dk, kvoff + c * tpr, dka[c]);
+      store4(dv, kvoff + c * tpr, dva[c]);
+    }
+  }
+}
+
+template <typename T, bool DROP>
+int launch_dq_wide(const Args& a, int D, void* dq) {
+  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = WIDE_Q_THREADS / (D / 32);
+  const dim3 grid(a.B * a.H, (a.Sq + rows - 1) / rows);
+  flash_dq_kernel_wide<T, DROP><<<grid, WIDE_Q_THREADS, 0, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D,
+      a.causal, a.scale, a.drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DROP>
+int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
+  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = WIDE_KV_THREADS / (D / 16);
+  const dim3 grid(a.B * a.HK, (a.Sk + rows - 1) / rows);
+  flash_dkv_kernel_wide<T, DROP><<<grid, WIDE_KV_THREADS, 0, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
+      a.HK, a.Sq, a.Sk, D, a.causal, a.scale, a.drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The route of both backward kernels: bf16 at D 64 and 128 takes the
-// tensor cores, everything else the CUDA cores; a seed takes each body's
-// DROP instantiation.
+// tensor cores, D 1024..8192 the wide bodies, everything else the
+// CUDA-core bodies of their width; a seed takes each body's DROP
+// instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
     if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
     if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
   }
+  if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   switch (D) {
     case 16: launch_dq<T, 16, DROP>(a, dq); break;
     case 32: launch_dq<T, 32, DROP>(a, dq); break;
@@ -1065,6 +1297,7 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
     if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
   }
+  if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   switch (D) {
     case 16: launch_dkv<T, 16, DROP>(a, dk, dv); break;
     case 32: launch_dkv<T, 32, DROP>(a, dk, dv); break;

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a): two bodies, chosen by
+// Flash-attention forward for Hopper (sm_90a): three bodies, chosen by
 // dtype and head width in the C dispatcher (`dispatch`, below).
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_fwd_pallas
@@ -21,10 +21,13 @@
 //
 // - tensor cores, flash_fwd_kernel_tc: bf16 at D 64 and 128 (every path
 //   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
-// - CUDA cores, flash_fwd_kernel: f32 at any D (the serving path; the
+// - CUDA cores, flash_fwd_kernel: f32 up to D 512 (the serving path; the
 //   precision contract of docs/kernels.md makes f32 operands true f32,
 //   so no TF32), bf16 at D 16, 32, 256 and 512, and a call with no keys
 //   (Sk == 0).
+// - CUDA cores, flash_fwd_kernel_wide: f32 and bf16 at D 1024..8192, a
+//   power of two (the wrapper pads wider heads to one), with D a runtime
+//   width and a row's sums across warps (hopper_mma.cuh, namespace wide).
 //
 // Both follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -288,6 +291,133 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
       HK, Sq, Sk, causal, scale, drop);
+}
+
+// ---------------------------------------------------------------------------
+// wide body: f32 and bf16 at D 1024..8192, a power of two (wide::takes)
+// ---------------------------------------------------------------------------
+//
+// The CUDA-core body's arithmetic with D a runtime width.  A query row
+// spans TPR = D/32 threads (one to eight whole warps), each owning 32
+// columns as eight float4 chunks interleaved across the row (chunk
+// c*TPR + part), so the row's reads of one key coalesce.  A CTA is 256
+// threads: 256/TPR rows (8 at D 1024, 1 at D 8192).  No K/V tiles: K and
+// V rows are read from device memory where they are used (the CTA's rows
+// read the same words, which L1 serves after the first), so shared memory
+// holds only the row sums (wide::row_sums) and no width runs out of it.
+// Keys go in groups of wide::GROUP, one barrier a group.
+
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_C4 = 8;        // float4 chunks a thread: 32 columns
+
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_THREADS)
+flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, const int* __restrict__ q_ids,
+                      const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                      int Sk, int D, int causal, float scale,
+                      dropout::Params drop) {
+  constexpr int G = wide::GROUP;
+  __shared__ float red[2][WIDE_THREADS / 32 * G];
+  const int tpr = D / 32;                  // threads per query row
+  const int rows = WIDE_THREADS / tpr;     // query rows a CTA
+  const int nw = tpr / 32;                 // warps a row
+  const int D4 = D / 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / HK);
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;
+  const int tid = threadIdx.x;
+  const int part = tid % tpr;
+  const int row = q0 + tid / tpr;
+  const int w0 = (tid / tpr) * nw;         // the row's first warp
+  const bool row_ok = row < Sq;
+  const bool seg = q_ids != nullptr;
+  const uint32_t rkey =
+      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
+
+  const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
+  const size_t qoff = ((size_t)bh * Sq + (row_ok ? row : 0)) * D4 + part;
+
+  float4 qr[WIDE_C4], acc[WIDE_C4];
+#pragma unroll
+  for (int c = 0; c < WIDE_C4; ++c) {
+    qr[c] = row_ok ? load4(q, qoff + c * tpr) : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
+  float m = NEG, l = 0.f;
+
+  // causal: no row of this CTA sees a key at or past q0 + rows
+  const int kend = causal ? min(Sk, q0 + rows) : Sk;
+  for (int k0 = 0, buf = 0; k0 < kend; k0 += G, buf ^= 1) {
+    float s[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      s[j] = 0.f;
+      if (k0 + j < Sk) {
+        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+#pragma unroll
+        for (int c = 0; c < WIDE_C4; ++c) s[j] = dot4(qr[c], load4(k, kr + c * tpr), s[j]);
+      }
+    }
+    wide::row_sums(s, red[buf], w0, nw);
+
+    unsigned vis = 0u;
+    float mt = m;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int col = k0 + j;
+      const bool ok = col < Sk && (!causal || col <= row) &&
+                      (!seg || kv_ids[(size_t)b * Sk + col] == qid);
+      s[j] = ok ? __fmul_rn(s[j], scale) : NEG;
+      vis |= (ok ? 1u : 0u) << j;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float alpha = expf(m - mt);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < WIDE_C4; ++c) acc[c] = scale4(acc[c], alpha);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int col = k0 + j;
+      const float p = ((vis >> j) & 1u) ? expf(s[j] - mt) : 0.f;
+      l += p;
+      const float pv = operand<T>(
+          DROP ? dropout::apply(drop, dropout::col_key(rkey, col), p) : p);
+      if (col < Sk) {
+        const size_t vr = kvb + (size_t)col * D4;
+#pragma unroll
+        for (int c = 0; c < WIDE_C4; ++c) acc[c] = axpy4(pv, load4(v, vr + c * tpr), acc[c]);
+      }
+    }
+    m = mt;
+  }
+
+  if (row_ok) {
+    const float linv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int c = 0; c < WIDE_C4; ++c) store4(o, qoff + c * tpr, scale4(acc[c], linv));
+    if (lse != nullptr && part == 0)
+      lse[(size_t)bh * Sq + row] = l > 0.f ? m + logf(l) : NEG;
+  }
+}
+
+template <typename T, bool DROP>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, const int* q_ids, const int* kv_ids, int B, int H,
+                int HK, int Sq, int Sk, int D, int causal, float scale,
+                const dropout::Params& drop, cudaStream_t stream) {
+  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = WIDE_THREADS / (D / 32);
+  const dim3 grid(B * H, (Sq + rows - 1) / rows);
+  flash_fwd_kernel_wide<T, DROP><<<grid, WIDE_THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
+      HK, Sq, Sk, D, causal, scale, drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -566,8 +696,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 // The route: bf16 at D 64 and 128 with keys to read takes the tensor
-// cores, everything else the CUDA cores; a seed takes each body's DROP
-// instantiation.
+// cores, D 1024..8192 the wide body, everything else the CUDA-core
+// bodies of their width; a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -579,6 +709,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
     if (D == 128)
       return launch_tc<128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
   }
+  if (D >= wide::MIN_D)
+    return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   switch (D) {
     case 16: launch<T, 16, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
     case 32: launch<T, 32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;

@@ -327,3 +327,56 @@ __device__ __forceinline__ float apply(const Params& d, uint32_t key, float x) {
 }
 
 }  // namespace dropout
+
+// ---------------------------------------------------------------------------
+// the wide flash bodies' row sums (head dims 1024..8192)
+// ---------------------------------------------------------------------------
+//
+// Past D 512 a row of the CUDA-core flash bodies spans whole warps (D/32
+// threads in the forward and dq, D/16 in dk/dv), so its dot products meet
+// across warps through shared memory: a shuffle tree in each warp, lane
+// 0's sum stored, one barrier, then every thread of the row adds its
+// row's warps' sums in warp order.  A fixed order and no atomics: the
+// same bits every run.
+namespace wide {
+
+constexpr int MIN_D = 1024;   // the narrowest wide width
+// The widest: the dk/dv body holds one key row's k, v, dk and dv (4·D
+// f32) in one CTA's registers; at D 16384 those alone are the 65,536
+// 32-bit registers of an SM.
+constexpr int MAX_D = 8192;
+constexpr int GROUP = 8;      // keys (query rows in dk/dv) summed a barrier
+
+// Sums each x[j] over the `nw` warps from `w0` that share this thread's
+// row.  `red` holds N floats a warp of the CTA; the caller alternates two
+// such buffers, so one barrier a call is enough (a thread that writes a
+// buffer again has passed the barrier that every reader of its last use
+// reached after reading).  Every thread of the CTA calls it.
+template <int N>
+__device__ __forceinline__ void row_sums(float (&x)[N], float* red, int w0,
+                                         int nw) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x[j] += __shfl_xor_sync(0xffffffffu, x[j], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) red[warp * N + j] = x[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float t = red[w0 * N + j];
+    for (int w = 1; w < nw; ++w) t += red[(w0 + w) * N + j];
+    x[j] = t;
+  }
+}
+
+__host__ __device__ constexpr bool takes(int D) {
+  return D >= MIN_D && D <= MAX_D && (D & (D - 1)) == 0;
+}
+
+}  // namespace wide

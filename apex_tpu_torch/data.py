@@ -1,6 +1,7 @@
 """Host -> device input pipeline (port of ``apex_tpu.data.DevicePrefetcher``,
-itself the reference's ``data_prefetcher`` of its ImageNet example), and
-:func:`pack_sequences` (port of ``apex_tpu.data.pack_sequences``).
+itself the reference's ``data_prefetcher`` of its ImageNet example),
+:func:`pack_sequences` and :func:`pack_dataset` (ports of
+``apex_tpu.data.pack_sequences`` and ``pack_dataset``).
 
 Each host batch (a tree of numpy arrays or CPU tensors) is copied into
 pinned host memory and sent to the card with ``non_blocking`` copies on
@@ -138,3 +139,59 @@ def pack_sequences(sequences, max_len: int, pad_id: int = 0):
             "positions": positions,
             "q_segment_ids": np.where(segment_ids > 0, segment_ids, -1),
             "kv_segment_ids": np.where(segment_ids > 0, segment_ids, -2)}
+
+
+def pack_dataset(sequences, max_len: int, rows_per_batch: int,
+                 pad_id: int = 0, buffer_batches: int = 8):
+    """Stream packed batches from an iterable of token sequences.
+
+    Buffers sequences until they hold ``rows_per_batch * buffer_batches
+    * max_len`` tokens, packs the buffer with :func:`pack_sequences`
+    (first-fit-decreasing packs best with many candidates), and yields
+    dicts shaped as its output with EXACTLY ``rows_per_batch`` rows, so
+    every step sees one shape.  Rows left over when a buffer does not
+    fill a whole batch go back, unpacked, into the next buffer; only the
+    stream's final partial batch is padded with all-padding rows
+    (segment 0, which a packed loss leaves out).  Sequences longer than
+    ``max_len``, or empty, raise as in :func:`pack_sequences`."""
+    pad_fill = {"tokens": pad_id, "segment_ids": 0, "positions": 0,
+                "q_segment_ids": -1, "kv_segment_ids": -2}
+
+    def chunks(buf, final):
+        """Yield the full batches; return the leftover sequences (or pad
+        out the last batch when ``final``)."""
+        packed = pack_sequences(buf, max_len, pad_id=pad_id)
+        rows = packed["tokens"].shape[0]
+        full = rows - rows % rows_per_batch
+        for start in range(0, full, rows_per_batch):
+            yield {k: v[start:start + rows_per_batch]
+                   for k, v in packed.items()}
+        leftover = []
+        if rows != full:
+            tail = {k: v[full:] for k, v in packed.items()}
+            if final:
+                short = rows_per_batch - tail["tokens"].shape[0]
+                yield {k: np.concatenate(
+                    [v, np.full((short, max_len), pad_fill[k],
+                                dtype=v.dtype)], axis=0)
+                    for k, v in tail.items()}
+            else:
+                segs, toks = tail["segment_ids"], tail["tokens"]
+                for r in range(toks.shape[0]):
+                    for seg in range(1, int(segs[r].max()) + 1):
+                        leftover.append(toks[r][segs[r] == seg])
+        return leftover
+
+    # flush by token count: that many tokens make at least
+    # rows_per_batch * buffer_batches rows, so each flush emits a full
+    # batch and the carry stays below one batch's worth
+    buf, toks = [], 0
+    threshold = rows_per_batch * buffer_batches * max_len
+    for s in sequences:
+        buf.append(s)
+        toks += len(s)
+        if toks >= threshold:
+            buf = yield from chunks(buf, final=False)
+            toks = sum(len(x) for x in buf)
+    if buf:
+        yield from chunks(buf, final=True)

@@ -149,14 +149,19 @@ class Setup:
     model: GPTBlocks
     opt: FusedAdam
     amp_state: Any
-    step: Callable          # step(amp_state, tokens) -> (loss, amp_state)
+    step: Callable          # step(amp_state, *batch) -> (loss, amp_state)
 
 
-def setup(model: GPTBlocks, params: Dict, device=None, opt_level: str = "O2",
-          lr: float = 3e-4, **adam) -> Setup:
+def setup(model, params: Dict, device=None, opt_level: str = "O2",
+          lr: float = 3e-4, loss_fn: Optional[Callable] = None,
+          **adam) -> Setup:
     """amp over ``params`` (f32, moved to ``device``), a bucketed
     ``FusedAdam`` over the result and the flat gradient pipeline; the
-    step of ``examples/gpt/train_block.py:121-143``."""
+    step of ``examples/gpt/train_block.py:121-143``.  ``loss_fn(params,
+    *batch)`` is the objective (default: :func:`next_token_loss` of
+    ``model(params, tokens)``, batch ``(tokens,)``); the step is
+    ``step(amp_state, *batch)``, so ``models.GPTModel.loss`` trains with
+    the same step."""
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     params, amp_state = amp.initialize(params, opt_level=opt_level,
@@ -167,14 +172,15 @@ def setup(model: GPTBlocks, params: Dict, device=None, opt_level: str = "O2",
     del params
     pipe = amp_state.flat_pipeline(optimizer=opt)
 
-    def loss_fn(p, tokens):
-        return next_token_loss(model(p, tokens), tokens)
+    if loss_fn is None:
+        def loss_fn(p, tokens):
+            return next_token_loss(model(p, tokens), tokens)
 
     wrapped = amp_state.wrap_forward(loss_fn, cast_argnums=())
 
-    def step(state, tokens):
+    def step(state, *batch):
         loss, flat = pipe.scaled_value_and_grad(wrapped, state.scaler,
-                                                opt.params, tokens)
+                                                opt.params, *batch)
         # branch-free overflow skip: the flag stays on the device
         opt.step(flat)
         return loss, amp.update_scaler(state, flat.found_inf)

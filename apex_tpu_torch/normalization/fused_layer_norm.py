@@ -10,7 +10,8 @@ variants keep the reference's meaning (f32 params under a bf16 input):
 the kernels compute in f32 whatever the dtypes.
 
 ``sequence_parallel=True`` (the tensor-parallel grad sync of the affine
-params) waits for the tensor-parallel slice (ROADMAP slice 4 item 12).
+params) waits for the multi-process slice (ROADMAP Queue 1 item 9,
+slice 9).
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ from apex_tpu_torch.ops.layer_norm import (fused_layer_norm,  # noqa: F401
 Shape = Union[int, Iterable[int]]
 
 SP_TODO = ("sequence-parallel norms (the affine params' grad sync over the "
-           "tensor-parallel group) are not ported yet: ROADMAP slice 4 "
-           "item 12")
+           "tensor-parallel group) are not ported yet: ROADMAP Queue 1 "
+           "item 9 (slice 9)")
 
 
 def _normalize_shape(s: Shape) -> Tuple[int, ...]:

@@ -16,9 +16,10 @@ needed) and ``csrc/flash_bwd.cu`` (the dq and dk/dv kernels of
 plain PyTorch, which repeat the reference kernels' arithmetic (bf16
 roundings of ``p`` and ``ds`` included).  There is no other switch, and
 nothing falls back.  As the reference pads D to its lanes, the wrappers
-pad a head dim that is not a kernel width (16, 32, 64, 128, 256, 512)
-with zeros up to the next one and copy a strided or misaligned operand;
-a head dim above 512 raises (ROADMAP Queue 3, F5c).
+pad a head dim that is not a kernel width (16, 32, ..., 8192, the powers
+of two) with zeros up to the next one and copy a strided or misaligned
+operand; a head dim above 8192 raises, naming the wide kernels' register
+limit (:func:`_kernel_width`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch
 from apex_tpu_torch import _build
 
 _NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256, 512)   # the kernels' widths; others padded
+# the kernels' widths, others padded: 1024..8192 run the wide bodies
+HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = {torch.float32: 16, torch.bfloat16: 8}   # one 4-element vector
 
@@ -437,10 +439,13 @@ def _kernel_width(d: int) -> int:
         if d <= w:
             return w
     raise ValueError(
-        f"flash_attention kernel takes a head_dim up to {HEAD_DIMS[-1]}, "
-        f"got {d} (ROADMAP Queue 3, F5c): at the next width, 1024, the "
-        "CUDA-core dk/dv body would split one key row over 64 threads of "
-        "16 columns, two warps, and its shuffle sum runs in one")
+        f"flash_attention on the card takes a head_dim up to "
+        f"{HEAD_DIMS[-1]}, got {d}: that is the limit of this port's wide "
+        "dk/dv kernel, which keeps one key row's k, v, dk and dv (4*D f32) "
+        "in one CTA's registers; at the next width, 16384, those alone "
+        "would fill the 65,536 32-bit registers of an H100 SM (dk and dv "
+        "accumulated in shared memory, or D split across CTAs, would go "
+        "further: ROADMAP Queue 2b)")
 
 
 def _operands(*ts):
@@ -480,7 +485,7 @@ def _geometry(q, k, v, segment_ids):
         raise ValueError("flash_attention takes (B, H, S, D) tensors")
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
+    if _kernel_width(d) != d:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPE_CODE:

@@ -15,7 +15,8 @@ preferred_element_type=f32).astype(dtype)``: a bf16 ``torch.matmul``
 accumulates in f32 and rounds its result to bf16, the same function.
 
 A tensor-parallel size above 1, sequence parallelism, ``skip_bias_add``
-and fp8 wait for the tensor-parallel slice (ROADMAP slice 4 item 12).
+and fp8 wait for the multi-process slice (ROADMAP Queue 1 item 9, slice
+9).
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import torch
 from apex_tpu_torch._device import resolve_device
 
 TP_TODO = ("tensor parallelism above size 1, sequence parallelism, "
-           "skip_bias_add and fp8 are not ported yet: ROADMAP slice 4 item "
-           "12")
+           "skip_bias_add and fp8 are not ported yet: ROADMAP Queue 1 item "
+           "9 (slice 9)")
 
 
 def _require_tp1(tensor_model_parallel_size, sequence_parallel_enabled,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths, its fused
-softmax, cross entropy, Welford statistics and attention dropout, on one
-GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths (ResNet,
+BERT, the GPT block and ``models.GPTModel``), its fused softmax, cross
+entropy, Welford statistics and attention dropout, on one GPU.
 
     python3 chip_smoke.py
 
@@ -89,8 +89,9 @@ exits non-zero:
     at the GPT block's (8, 12, 512, 64) bf16 causal, BERT-Large's (8,
     16, 512, 64) bf16 unmasked and packed with pad rows, grouped-query
     heads (12 to 4) at Sq = 200, f32, and bf16 at D 128 (causal at S
-    130, packed) and D 32 (within 1e-4; bf16 within 2e-2, one bf16
-    rounding); rows that see no key (and keys no row sees) give exact
+    130, packed) and D 32, and GPTModel's (8, 12, 1024, 64) bf16 causal
+    with and without the segment ids of phase 35's packed rows (within
+    1e-4; bf16 within 2e-2, one bf16 rounding); rows that see no key (and keys no row sees) give exact
     zeros; the same bits on a second run; each case prints the route
     each kernel took, read from the device kernels' names under the
     profiler (the tensor-core bodies for bf16 at D 64 and 128, the
@@ -220,13 +221,34 @@ exits non-zero:
     768 wide on the card and the CPU from the same seeds: output and
     gradients within 1e-3 of their scale, and the CPU at other seeds
     outside it;
-34. wide heads (F5b) — the CUDA-core flash bodies at head dims 160
-    (padded), 256 and 512, f32 and bf16, dropout 0.1 and 0, against
+34. wide heads (F5b, F5c) — the CUDA-core flash bodies at head dims
+    160 (padded), 256 and 512 and the wide bodies at 640 (padded) and
+    1024 ((4, 2, 512, D); bf16 D 1024 at (8, 2, 512, 1024), the shape
+    it is timed at), f32 and bf16, dropout 0.1 and 0, against
     their twins with the routes and DROP instantiations read from the
     device kernels' names; the three timed at ``SelfMultiheadAttn(1024,
-    4)``'s (8, 4, 512, 256) bf16 causal shape beside the twin, SDPA and
-    the bound; that module (D 256) trained 2 SGD steps at dropout 0.1
-    and 0 with exact launch counts and profiled routes.
+    4)``'s (8, 4, 512, 256) and ``SelfMultiheadAttn(2048, 2)``'s (8, 2,
+    512, 1024) bf16 causal shapes beside the twin, SDPA and the bound;
+    each module trained 2 SGD steps at dropout 0.1 and 0 with exact
+    launch counts and profiled routes;
+35. train (GPTModel; run after phase 20) — ``models.GPTModel`` at GPT-2
+    small's published widths (12 x 768, 12 heads, vocab 50257, 1024
+    positions), amp O2, FusedAdam lr 3e-4 through the flat pipeline,
+    b8 x s1024: learned positions (2 warm-up and 8 timed steps) and RoPE
+    on packed rows (``data.pack_dataset`` over sequences of 32..1024
+    tokens; 2 + 4); first flat_unscale_norm and flat_adam against their
+    twins at each model's own bucket size; then ms per step (host clock and CUDA events), tokens/s
+    (real tokens when packed), peak memory, losses finite and falling,
+    exact launch counts (12 flash forwards, dq and dk/dv, 25 LayerNorm
+    forwards and backwards, one flat_unscale_norm and one flat_adam a
+    step, nothing else), and one profiled step each (busy share, GEMMs'
+    and the port's kernels' shares, the largest device items);
+36. consistency (GPTModel) — the model cut to 2 layers at those widths,
+    f32 (O0), 3 FusedAdam steps on the card and the CPU from one seed,
+    learned positions and packed RoPE rows: the first loss within rtol
+    1e-5, the params within a tenth of the nearest wrong update run on
+    the CPU (attention not causal or packed segments not masked; lr 4%
+    high).
 
 Phase 11 also reads every LayerNorm forward's route (the register body
 up to h 8192 at 16-byte alignment, the wide one past it and off it)
@@ -234,6 +256,10 @@ from the device kernels' names, times the forward at GPT-2's (4096,
 768) bf16, BERT-L's width in f32 and h 8192, and stage 2 of LAMB (which
 walks the segment-start table) on a bf16 p; phases 13 and 19 check that
 the profiled steps' LayerNorm forwards ran the register body.
+
+Phase 11's LayerNorm cases include GPTModel's (8192, 768) bf16.  Each
+phase prints its host seconds (``phase seconds``; phase 34 its F5c part
+as well), and a summary line lists them all.
 
 Kernel times are device milliseconds per call, from CUDA events around
 calls queued behind a device-side spin that outlasts the host's
@@ -246,7 +272,9 @@ cores") and its ``shape``: flash_fwd's is GPT-2 small's bf16 training
 shape (its launches those of the GPT step), with the serve path's f32
 row under ``serve_f32``; each of the three carries its dropout body's
 figures under ``dropout`` (launches those of phase 32's 12-layer
-stack).  Nothing of JAX is imported.
+stack); the wide heads' under ``d256`` and ``d1024``.  The kernels of
+the GPTModel step carry their launches in phase 35's timed steps under
+``gpt_model_launches``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -359,6 +387,28 @@ def _packed_ids(b, s, device):
     base[:, : s // 3] = 1
     base[:, s // 3: s - s // 5] = 2
     return packed_segment_ids(base)
+
+
+def _case_ids(kind, b, s, device):
+    """The (q_ids, kv_ids) of an ``ATTN_CASES`` segment kind: none,
+    "packed" (three segments and a padded tail a row), "ragged" (rows
+    of length s and s // 3 + 1 in turns), "gpt_model" (the packed RoPE
+    rows that phase 35 trains on)."""
+    import torch
+    from apex_tpu_torch.ops.attention import packed_segment_ids
+    if kind is None:
+        return None
+    if kind == "packed":
+        return _packed_ids(b, s, device)
+    if kind == "ragged":
+        return _ragged_ids([s, s // 3 + 1] * (b // 2), s, device)
+    cfg = GPT_MODEL
+    _check((b, s) == (cfg["batch"], cfg["seq"]),
+           f"gpt_model segment ids are ({cfg['batch']}, {cfg['seq']}), "
+           f"asked for ({b}, {s})")
+    ids = gpt_model_batch("packed_rope", b, s, cfg["vocab"], seed=1,
+                          lengths=cfg["lengths"])[2]
+    return packed_segment_ids(torch.from_numpy(ids).long().to(device))
 
 
 def _visible(seg, sq, sk, causal, device):
@@ -771,25 +821,9 @@ def flat_kernel_phase(dev, smi: str) -> list:
                     worst["flat_accumulate"], _close(
                         "flat_accumulate", acc, want,
                         f"n={n} g={gdt} poison={poison} flag={int(flag)}"))
-        for poison in (None, "inf"):
-            x = vec(n)
-            if poison:
-                x[n - 1] = float(poison)
-            inv = torch.full((), 1.0 / 2 ** 16, device=dev)
-            want = mt.flat_unscale_norm_ref(x, inv)
-            out, nsq, flag = mt.flat_unscale_norm(x, inv)
-            torch.cuda.synchronize()
-            _check(int(flag) == int(want[2]) == (poison is not None),
-                   f"flat_unscale_norm flag {int(flag)} for {poison}")
-            worst["flat_unscale_norm"] = max(
-                worst["flat_unscale_norm"],
-                _close("flat_unscale_norm", out, want[0],
-                       f"out n={n} poison={poison} flag={int(flag)}"))
-            if poison is None:
-                _close("flat_unscale_norm", nsq, want[1], f"norm_sq n={n}")
-                again = mt.flat_unscale_norm(x, inv)[1]
-                _check(bool(torch.equal(again, nsq)),
-                       "flat_unscale_norm: the sum differs run to run")
+        worst["flat_unscale_norm"] = max(
+            worst["flat_unscale_norm"],
+            _unscale_norm_held(dev, gen, n, torch.float32))
         for gdt in (torch.float32, torch.bfloat16):
             for nesterov in (False, True):
                 for first in (0, 1):
@@ -1241,6 +1275,7 @@ LN_CASES = (
     (4096, 1024, "bf16", False, 0),      # BERT-L
     (4096, 1024, "bf16", True, 0),
     (4096, 768, "bf16", False, 0),       # GPT-2 small
+    (8192, 768, "bf16", False, 0),       # GPTModel at b8 x s1024
     (4096, 1024, "f32", False, 0),
     (333, 128, "bf16", True, 0),         # rows ragged against the chunk
     (333, 4096, "bf16", False, 0),
@@ -1926,6 +1961,11 @@ ATTN_CASES = (
     # query and key lengths apart (the wrapper takes Sk from k)
     ("cross_sq130_sk70_causal", 2, 8, 8, 130, 70, 64, True, None, "bf16"),
     ("cross_sq200_sk330_d128", 1, 8, 4, 200, 330, 128, False, None, "bf16"),
+    # GPTModel's attention at b8 x s1024 (phase 35), causal; its packed
+    # RoPE rows' segment ids (gpt_model_batch, the phase's seed)
+    ("gpt_model_causal", 8, 12, 12, 1024, 1024, 64, True, None, "bf16"),
+    ("gpt_model_packed", 8, 12, 12, 1024, 1024, 64, True, "gpt_model",
+     "bf16"),
 )
 GPT_BUCKET = 124_046_592        # GPT-2 small's one amp-O2 bucket (elements)
 ADAM_RAGGED = 70_001
@@ -1990,7 +2030,8 @@ def _flash_routes(prof, case_launches, drop: bool) -> dict:
     {kernel: launches})].  Every name must carry the ``DROP`` template
     argument ``drop`` (the bodies' last: ``..., true>`` with dropout).
     (One session: on an H100, short sessions of a small case's few calls
-    came back without their kernels.)"""
+    came back without their kernels.)  "wide CUDA cores" is a
+    ``..._kernel_wide`` (D 1024..8192, F5c)."""
     import re
     import torch
     events = sorted((e for e in prof.events()
@@ -2004,7 +2045,7 @@ def _flash_routes(prof, case_launches, drop: bool) -> dict:
                f"{sym} on the device where {want} were launched")
         flag = f", {str(drop).lower()}>"
         wrong = {x for x in names
-                 if flag not in (re.search(sym + r"(_tc)?<[^>]*>", x)
+                 if flag not in (re.search(sym + r"(_tc|_wide)?<[^>]*>", x)
                                  or [""])[0]}
         _check(not wrong, f"{kname}: the bodies {wrong} are not the DROP="
                f"{str(drop).lower()} instantiation")
@@ -2012,10 +2053,12 @@ def _flash_routes(prof, case_launches, drop: bool) -> dict:
         for case, n in case_launches:
             seen = set(names[i:i + n[kname]])
             i += n[kname]
-            tc = {x for x in seen if sym + "_tc" in x}
-            _check(bool(seen) and (not tc or tc == seen),
+            kinds = {"tensor cores" if sym + "_tc" in x else
+                     "wide CUDA cores" if sym + "_wide" in x else
+                     "CUDA cores" for x in seen}
+            _check(len(kinds) == 1,
                    f"{case}: {kname} took the routes {seen}")
-            routes[case][kname] = "tensor cores" if tc else "CUDA cores"
+            routes[case][kname] = kinds.pop()
     return routes
 
 
@@ -2065,9 +2108,7 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
                                    device=dev).to(dt)
                        for n, length in ((h, sq), (hk, sk), (hk, sk),
                                          (h, sq)))
-        seg = {None: None, "packed": _packed_ids(b, s, dev),
-               "ragged": _ragged_ids([s, s // 3 + 1] * (b // 2), s,
-                                     dev)}[kind]
+        seg = _case_ids(kind, b, s, dev)
         o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True)
         grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg)
         torch.cuda.synchronize()
@@ -2210,6 +2251,96 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     return dict(worst=worst, rows=rows)
 
 
+def _adam_held(dev, gen, n: int, gdt=None):
+    """flat_adam against its twin at ``n`` elements, f32 masters and
+    ``gdt`` (default bf16) grads: AdamW and Adam, with and without bias
+    correction, the twin's bits exactly (the grad scale a power of two);
+    with ``found_inf`` set p, m and v keep theirs.  Returns the worst
+    error and the (p, g, m, v) it drew."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+    gdt = gdt or torch.bfloat16
+
+    def vec(n, scale=1.0, dtype=torch.float32):
+        return (torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
+
+    worst = 0.0
+    p, g = vec(n, 0.02), vec(n, 1e-3, gdt)
+    m, v = vec(n, 1e-4), vec(n, 1e-3).square()
+    for aw in (True, False):
+        for bc in (True, False):
+            kw = dict(lr=torch.tensor(3e-4, device=dev), beta1=0.9,
+                      beta2=0.999, eps=1e-8, weight_decay=0.01,
+                      step=torch.tensor(3, dtype=torch.int32,
+                                        device=dev),
+                      adam_w_mode=aw, bias_correction=bc,
+                      grad_scale=torch.tensor(1.0 if bc else 65536.0,
+                                              device=dev))
+            want = mt.flat_adam_ref(p, g, m, v, **kw)
+            got = mt.flat_adam(p.clone(), g, m.clone(), v.clone(),
+                               found_inf=torch.zeros(
+                                   (), dtype=torch.int32, device=dev),
+                               **kw)
+            torch.cuda.synchronize()
+            for nm, a, w in zip("pmv", got, want):
+                worst = max(worst, _held(
+                    "flat_adam", a, w, 0.0, 0.0,
+                    f"{nm} n={n} adam_w_mode={aw} bias_correction={bc}"))
+            del want, got
+    p0, m0, v0 = p.clone(), m.clone(), v.clone()
+    bad = g.clone()
+    bad[n // 2] = float("inf")
+    mt.flat_adam(p, bad, m, v, lr=3e-4, beta1=0.9, beta2=0.999,
+                 eps=1e-8, weight_decay=0.01,
+                 found_inf=torch.ones((), dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    _check(bool(torch.equal(p, p0) and torch.equal(m, m0)
+                and torch.equal(v, v0)),
+           "flat_adam with found_inf set changed p, m or v")
+    del p0, m0, v0, bad
+    print(f"kernel flat_adam n={n}: AdamW and Adam x bias correction on "
+          f"and off (masters f32, grads {gdt}, step 3, grad scale 1 or "
+          f"65536) equal to the twin's bits; found_inf=1 leaves p, m "
+          f"and v bit-unchanged", flush=True)
+    return worst, (p, g, m, v)
+
+
+def _unscale_norm_held(dev, gen, n: int, dtype) -> float:
+    """flat_unscale_norm against its twin at ``n`` elements of ``dtype``
+    (FLAT_TOL), clean and with an Inf in the last element: the output,
+    the sum of squares (the same bits on a second run) and the flag.
+    Returns the worst error of the output."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+    worst = 0.0
+    inv = torch.full((), 1.0 / 2 ** 16, device=dev)
+    for poison in (None, "inf"):
+        x = torch.randn(n, generator=gen, device=dev).to(dtype)
+        if poison:
+            x[n - 1] = float(poison)
+        want = mt.flat_unscale_norm_ref(x, inv)
+        out, nsq, flag = mt.flat_unscale_norm(x, inv)
+        torch.cuda.synchronize()
+        _check(int(flag) == int(want[2]) == (poison is not None),
+               f"flat_unscale_norm n={n} {dtype}: flag {int(flag)} for "
+               f"{poison}")
+        worst = max(worst, _close("flat_unscale_norm", out, want[0],
+                                  f"out n={n} {dtype} poison={poison}"))
+        if poison is None:
+            _close("flat_unscale_norm", nsq, want[1],
+                   f"norm_sq n={n} {dtype}")
+            again = mt.flat_unscale_norm(x, inv)[1]
+            _check(bool(torch.equal(again, nsq)),
+                   f"flat_unscale_norm n={n} {dtype}: the sum differs run "
+                   "to run")
+        del x, want, out, nsq, flag
+    print(f"kernel flat_unscale_norm n={n} {dtype}: out within FLAT_TOL "
+          f"{FLAT_TOL['flat_unscale_norm']} of the twin, clean and with an "
+          f"Inf (flagged); the same sum of squares on a second run",
+          flush=True)
+    return worst
+
+
 def adam_kernel_phase(dev, smi: str) -> dict:
     """flat_adam against its twin on the card at GPT-2 small's O2 bucket
     and a ragged length: AdamW and Adam, with and without bias
@@ -2221,49 +2352,10 @@ def adam_kernel_phase(dev, smi: str) -> dict:
     from apex_tpu_torch.ops import multi_tensor as mt
 
     gen = torch.Generator(device=dev).manual_seed(7)
-
-    def vec(n, scale=1.0, dtype=torch.float32):
-        return (torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
-
     worst = 0.0
     for n in (ADAM_RAGGED, GPT_BUCKET):     # the bucket's buffers stay
-        p, g = vec(n, 0.02), vec(n, 1e-3, torch.bfloat16)
-        m, v = vec(n, 1e-4), vec(n, 1e-3).square()
-        for aw in (True, False):
-            for bc in (True, False):
-                kw = dict(lr=torch.tensor(3e-4, device=dev), beta1=0.9,
-                          beta2=0.999, eps=1e-8, weight_decay=0.01,
-                          step=torch.tensor(3, dtype=torch.int32,
-                                            device=dev),
-                          adam_w_mode=aw, bias_correction=bc,
-                          grad_scale=torch.tensor(1.0 if bc else 65536.0,
-                                                  device=dev))
-                want = mt.flat_adam_ref(p, g, m, v, **kw)
-                got = mt.flat_adam(p.clone(), g, m.clone(), v.clone(),
-                                   found_inf=torch.zeros(
-                                       (), dtype=torch.int32, device=dev),
-                                   **kw)
-                torch.cuda.synchronize()
-                for nm, a, w in zip("pmv", got, want):
-                    worst = max(worst, _held(
-                        "flat_adam", a, w, 0.0, 0.0,
-                        f"{nm} n={n} adam_w_mode={aw} bias_correction={bc}"))
-                del want, got
-        p0, m0, v0 = p.clone(), m.clone(), v.clone()
-        bad = g.clone()
-        bad[n // 2] = float("inf")
-        mt.flat_adam(p, bad, m, v, lr=3e-4, beta1=0.9, beta2=0.999,
-                     eps=1e-8, weight_decay=0.01,
-                     found_inf=torch.ones((), dtype=torch.int32, device=dev))
-        torch.cuda.synchronize()
-        _check(bool(torch.equal(p, p0) and torch.equal(m, m0)
-                    and torch.equal(v, v0)),
-               "flat_adam with found_inf set changed p, m or v")
-        del p0, m0, v0, bad
-        print(f"kernel flat_adam n={n}: AdamW and Adam x bias correction on "
-              f"and off (masters f32, grads bf16, step 3, grad scale 1 or "
-              f"65536) equal to the twin's bits; found_inf=1 leaves p, m "
-              f"and v bit-unchanged", flush=True)
+        err, (p, g, m, v) = _adam_held(dev, gen, n)
+        worst = max(worst, err)
 
     _check(p.numel() == GPT_BUCKET, "flat_adam is timed at the bucket")
     n = GPT_BUCKET
@@ -2295,14 +2387,18 @@ def adam_kernel_phase(dev, smi: str) -> dict:
                                       library_ms=lib_ms))
 
 
-def _gpt_launches_expected(steps: int, buckets: int) -> dict:
+def _gpt_launches_expected(steps: int, buckets: int, layers: int = 0
+                           ) -> dict:
+    """Every kernel's launches in ``steps`` GPT steps of ``layers``
+    (default GPT's) layers: 3 flash kernels a layer, 2 LayerNorms a layer
+    and the final one, one unscale and one Adam a bucket."""
     from apex_tpu_torch import _build
     want = {k.name: 0 for k in _build.KERNELS}
-    L = GPT["layers"]
+    L = layers or GPT["layers"]
     want.update({"flash_fwd": L * steps, "flash_dq": L * steps,
                  "flash_dkv": L * steps,
-                 "layer_norm_fwd": LN_PER_GPT_STEP * steps,
-                 "layer_norm_bwd": LN_PER_GPT_STEP * steps,
+                 "layer_norm_fwd": (2 * L + 1) * steps,
+                 "layer_norm_bwd": (2 * L + 1) * steps,
                  "flat_unscale_norm": buckets * steps,
                  "flat_adam": buckets * steps})
     return want
@@ -2596,6 +2692,292 @@ def gpt_consistency_phase(dev) -> None:
                                        f"reject '{name}'")
 
 
+# GPT-2 small's published widths as ``models.GPTModel`` (12 x 768, 12
+# heads, vocab 50257, 1024 positions), 8 rows of 1024 tokens, amp O2,
+# FusedAdam lr 3e-4: learned positions on a fixed random batch, and RoPE
+# on packed rows (``pack_dataset`` over sequences of 32..1024 tokens)
+GPT_MODEL = dict(layers=12, hidden=768, heads=12, vocab=50257,
+                 max_seq_len=1024, seq=1024, batch=8, lr=3e-4, warmup=2,
+                 steps={"learned": 8, "packed_rope": 4}, lengths=(32, 1024))
+# words in the names of cuBLAS's GEMM kernels on the card
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+# the kernels a GPTModel step launches (the vocab-parallel loss is plain)
+GPT_MODEL_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "layer_norm_fwd",
+                     "layer_norm_bwd", "flat_unscale_norm", "flat_adam")
+
+
+def gpt_model_batch(kind: str, batch: int, seq: int, vocab: int, seed: int,
+                    lengths=None):
+    """numpy (tokens, labels, segment_ids, positions) for ``kind``
+    "learned" (a fixed random batch; no segments) or "packed_rope"
+    (sequences of ``lengths`` tokens from ``default_rng(seed)`` through
+    ``data.pack_dataset``, its first batch); labels are the tokens
+    shifted by one."""
+    import numpy as np
+    from apex_tpu_torch.data import pack_dataset
+    rng = np.random.default_rng(seed)
+    if kind == "learned":
+        tokens = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+        return tokens, np.roll(tokens, -1, axis=1), None, None
+    lo, hi = lengths or (32, seq)
+
+    def stream():
+        while True:
+            yield rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
+
+    p = next(pack_dataset(stream(), max_len=seq, rows_per_batch=batch,
+                          buffer_batches=1))
+    return (p["tokens"], np.roll(p["tokens"], -1, axis=1), p["segment_ids"],
+            p["positions"])
+
+
+def gpt_model_setup(model, params, device, opt_level: str, lr: float,
+                    packed: bool, **adam):
+    """``GPTModel.loss`` under amp with a bucketed FusedAdam through the
+    flat pipeline: the GPT block example's ``setup`` with the model's
+    loss as the objective; the step takes (tokens, labels[, segment_ids,
+    positions])."""
+    from apex_tpu_torch.examples import gpt_train_block as ex
+    if packed:
+        def loss_fn(p, tokens, labels, seg, pos):
+            return model.loss(p, tokens, labels, seg, pos)
+    else:
+        def loss_fn(p, tokens, labels):
+            return model.loss(p, tokens, labels)
+    return ex.setup(model, params, device, opt_level=opt_level, lr=lr,
+                    loss_fn=loss_fn, **adam)
+
+
+def _on(device, arrays):
+    """The non-None numpy arrays as int64 tensors on ``device``."""
+    import torch
+    return tuple(torch.from_numpy(a).long().to(device) for a in arrays
+                 if a is not None)
+
+
+def gpt_model_phase(dev, smi: str, entries: list) -> None:
+    """``models.GPTModel`` at GPT-2 small's widths (``GPT_MODEL``), amp O2
+    and FusedAdam through the flat pipeline, learned positions (2 warm-up
+    and 8 timed steps) and RoPE on packed rows (2 + 4).  First
+    flat_unscale_norm and flat_adam are held against their twins at
+    each model's own bucket size and dtypes.  Then ms a step on the
+    host clock and by CUDA events, tokens/s (real tokens when packed),
+    peak memory, finite and falling losses, and the launches of the
+    timed steps, zeroed just before them: exactly 12 flash forwards, dq
+    and dk/dv, 25 LayerNorm forwards and backwards and one
+    flat_unscale_norm and flat_adam a step, nothing else.  Then one
+    profiled step: busy share, the port's kernels' share, the largest
+    device items.  Each kernel entry of ``GPT_MODEL_KERNELS`` gets the
+    launches under ``gpt_model_launches``."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTModel
+
+    cfg = GPT_MODEL
+    for kind in ("learned", "packed_rope"):
+        rope = kind == "packed_rope"
+        t0 = time.perf_counter()
+        model = GPTModel(cfg["vocab"], cfg["hidden"], cfg["heads"],
+                         cfg["layers"], max_seq_len=cfg["max_seq_len"],
+                         use_rope=rope, dtype=torch.bfloat16)
+        params = model.init(0, "cpu")
+        s = gpt_model_setup(model, params, dev, "O2", cfg["lr"], rope)
+        del params
+        sizes = [b.size for b in s.opt._plan.buckets]
+        _check(len(sizes) == 1, f"gpt model {kind}: O2 buckets {sizes}")
+        # the flat tail's two kernels at this bucket's size and dtypes
+        # (grads in the model's dtype, f32 masters), before the counts
+        # are zeroed
+        bucket = s.opt._plan.buckets[0]
+        _check(bucket.dtype == torch.float32, f"gpt model {kind}: masters "
+               f"{bucket.dtype}")
+        with torch.no_grad():
+            tail_gen = torch.Generator(device=dev).manual_seed(15)
+            _unscale_norm_held(dev, tail_gen, sizes[0], bucket.model_dtype)
+            _adam_held(dev, tail_gen, sizes[0], bucket.model_dtype)
+        torch.cuda.empty_cache()
+        # the peak from here: the model's state and the steps
+        torch.cuda.reset_peak_memory_stats(dev)
+        np_batch = gpt_model_batch(kind, cfg["batch"], cfg["seq"],
+                                   cfg["vocab"], seed=1,
+                                   lengths=cfg["lengths"])
+        batch = _on(dev, np_batch)
+        real = (int((np_batch[2] > 0).sum()) if rope
+                else cfg["batch"] * cfg["seq"])
+        what = (f"gpt-2 small GPTModel {'RoPE, packed' if rope else 'learned'}"
+                f" O2 FusedAdam b{cfg['batch']} s{cfg['seq']}")
+        print(f"{what}: {sizes[0]} parameters in one O2 bucket, init and "
+              f"setup {time.perf_counter() - t0:.1f} s"
+              + (f"; {real} real tokens of {cfg['batch'] * cfg['seq']} in "
+                 f"{int(np_batch[2].max(axis=1).sum())} sequences"
+                 if rope else ""), flush=True)
+        state = s.amp_state
+        for _ in range(cfg["warmup"]):
+            loss, state = s.step(state, *batch)
+        torch.cuda.synchronize()
+        steps = cfg["steps"][kind]
+        _build.reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        losses = []
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(steps):
+            loss, state = s.step(state, *batch)
+            losses.append(loss)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        losses = [float(x) for x in losses]
+        _check(all(math.isfinite(x) for x in losses)
+               and losses[-1] < losses[0],
+               f"{what}: losses {losses} not finite and falling")
+        want = _gpt_launches_expected(steps, len(sizes), cfg["layers"])
+        _check(launches == want, f"{what}: launches {launches}, expected "
+                                 f"{want}")
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        per_step = {k: launches[k] // steps for k in GPT_MODEL_KERNELS}
+        print(f"train {what}: {steps} timed steps after {cfg['warmup']} "
+              f"warm-up, {1e3 * wall / steps:.2f} ms/step (host clock), "
+              f"device ms/step median {float(np.median(step_ms)):.2f} (min "
+              f"{min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA events "
+              f"between steps), {real * steps / wall:.1f} "
+              f"{'real ' if rope else ''}tokens/s, losses "
+              f"{[round(x, 4) for x in losses]}, loss scale "
+              f"{float(state.scaler.loss_scale):.0f}, peak device memory "
+              f"{peak:.2f} GiB, launches a step {per_step} (every other "
+              f"kernel 0) [{smi}]", flush=True)
+        for e in entries:
+            if e["name"] in GPT_MODEL_KERNELS:
+                e.setdefault("gpt_model_launches", {})[kind] = \
+                    launches[e["name"]]
+
+        loss, state = s.step(state, *batch)
+        wall, by_name = _profile_step(lambda: s.step(state, *batch))
+        busy = sum(t for t, _ in by_name.values()) / 1e3
+        ours = {k: sum(t for name, (t, _) in by_name.items()
+                       if _owns(name, syms)) / 1e3
+                for k, syms in GPT_OWN.items()}
+        gemm = sum(t for name, (t, _) in by_name.items()
+                   if any(w in name.lower() for w in GEMM_NAMES)) / 1e3
+        _ln_fwd_in_profile(by_name, 2 * cfg["layers"] + 1, what, smi)
+        print(f"profile train step {what}: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+              f"{sum(c for _, c in by_name.values())} device kernels; GEMMs "
+              f"{gemm:.3f} ms ({100 * gemm / busy:.1f}% of busy); the port's "
+              f"kernels {sum(ours.values()):.3f} ms "
+              f"({100 * sum(ours.values()) / busy:.2f}% of busy): "
+              + ", ".join(f"{k} {t:.3f} ms" for k, t in ours.items())
+              + f"; rest (device idle) {wall - busy:.2f} ms [{smi}]",
+              flush=True)
+        for name, (t_us, c) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][0])[:14]:
+            print(f"profile   {t_us / 1e3:9.3f} ms {c:6d}x {name[:90]}",
+                  flush=True)
+        del s, state, batch, loss
+        torch.cuda.empty_cache()
+
+
+# packed rows of sequences of 16..64 tokens: several segments a row, so
+# that "segments not masked" changes the loss
+GPT_MODEL_CONSIST = dict(layers=2, batch=2, seq=128, steps=3,
+                         lengths=(16, 64))
+# the wrong updates each case's limit must reject, run on the CPU
+# (a structural one a case, and the nearest: lr 4% high; Adam's bias
+# correction is the GPT block check's)
+GPT_MODEL_MUTANTS = {"learned": ("attention not causal", "lr 4% high"),
+                     "packed_rope": ("segments not masked", "lr 4% high")}
+
+
+def gpt_model_consistency_phase(dev) -> None:
+    """``models.GPTModel`` cut to 2 layers at GPT-2 small's widths
+    (hidden 768, 12 heads, vocab 50257), f32 (O0), FusedAdam lr 3e-4 eps
+    1e-4 (``GPT_CONSIST_ADAM``), 3 steps from the same weights on the
+    card (kernels) and on the CPU (plain twins): learned positions on a
+    random 2 x 128 batch, and RoPE on 2 packed rows of 128.  The first
+    loss within rtol 1e-5; the final params' gap (``_gap``) under a tenth
+    of the nearest wrong update of ``GPT_MODEL_MUTANTS`` (attention not
+    causal, packed segments not masked, lr 4% high), run on the CPU, and
+    each of them rejected."""
+    import torch
+    from apex_tpu_torch._tree import leaf_paths, tree_flatten, tree_leaves
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.models import gpt as gpt_mod
+
+    cfg, big = GPT_MODEL_CONSIST, GPT_MODEL
+    for kind, mutants in GPT_MODEL_MUTANTS.items():
+        rope = kind == "packed_rope"
+        model = GPTModel(big["vocab"], big["hidden"], big["heads"],
+                         cfg["layers"], max_seq_len=big["max_seq_len"],
+                         use_rope=rope, dtype=torch.float32)
+        params = model.init(0, "cpu")
+        init = [t.numpy() for t in tree_leaves(params)]
+        names = leaf_paths(tree_flatten(params)[1])
+        np_batch = gpt_model_batch(kind, cfg["batch"], cfg["seq"],
+                                   big["vocab"], seed=3,
+                                   lengths=cfg["lengths"])
+
+        def run(device, mutant=None):
+            adam = dict(GPT_CONSIST_ADAM)
+            if mutant == "bias correction dropped":
+                adam["bias_correction"] = False
+            lr = big["lr"] * (1.04 if mutant == "lr 4% high" else 1.0)
+            real_fa, real_ids = gpt_mod.flash_attention, \
+                gpt_mod.packed_segment_ids
+            if mutant == "attention not causal":
+                gpt_mod.flash_attention = (
+                    lambda q, k, v, causal=False, **kw:
+                    real_fa(q, k, v, causal=False, **kw))
+            if mutant == "segments not masked":
+                gpt_mod.packed_segment_ids = lambda ids: None
+            try:
+                s = gpt_model_setup(model, params, device, "O0", lr, rope,
+                                    **adam)
+                batch = _on(device, np_batch)
+                state, losses = s.amp_state, []
+                for _ in range(cfg["steps"]):
+                    loss, state = s.step(state, *batch)
+                    losses.append(loss)
+            finally:
+                gpt_mod.flash_attention = real_fa
+                gpt_mod.packed_segment_ids = real_ids
+            losses = [float(x) for x in losses]
+            return losses, [t.float().cpu().numpy()
+                            for t in tree_leaves(s.opt.params)]
+
+        card_l, card_m = run(dev)
+        cpu_l, cpu_m = run("cpu")
+        gaps = {m: _gap(run("cpu", m)[1], cpu_m, init) for m in mutants}
+        _check(all(math.isfinite(x) for x in card_l + cpu_l),
+               f"gpt model consistency {kind}: non-finite loss {card_l} "
+               f"{cpu_l}")
+        rel0 = abs(card_l[0] - cpu_l[0]) / abs(cpu_l[0])
+        gap = _gap(card_m, cpu_m, init)
+        limit = min(gaps.values()) / MUTANT_FACTOR
+        print(f"consistency train GPTModel {kind} 2x768 vocab 50257 O0 "
+              f"(f32) FusedAdam eps {GPT_CONSIST_ADAM['eps']:g} b"
+              f"{cfg['batch']} s{cfg['seq']}, {cfg['steps']} steps: card "
+              f"losses {[round(x, 6) for x in card_l]}, cpu "
+              f"{[round(x, 6) for x in cpu_l]} (first rel diff {rel0:.3e}, "
+              f"tol 1e-05); params' gap {gap:.3e} of their displacement, "
+              f"tol {limit:.3e} = the nearest wrong update / "
+              f"{MUTANT_FACTOR:g}; wrong updates on the cpu (gap): "
+              + ", ".join(f"{k} {g:.3e}" for k, g in gaps.items()),
+              flush=True)
+        print("consistency   params' gap by leaf (share of the gap^2): "
+              + _gap_leaves(card_m, cpu_m, init, names), flush=True)
+        _check(rel0 <= 1e-5, f"gpt model consistency {kind}: first loss "
+                             f"differs by {rel0}")
+        _check(gap <= limit, f"gpt model consistency {kind}: params' gap "
+                             f"{gap} over {limit}")
+        for name, g in gaps.items():
+            _check(g > limit, f"gpt model consistency {kind}: the limit "
+                              f"does not reject '{name}'")
+
+
 BERT_FLASH = dict(warmup=2, steps=4)
 
 
@@ -2878,9 +3260,7 @@ def dropout_kernel_phase(dev, smi: str) -> dict:
                                    device=dev).to(dt)
                        for n, length in ((h, sq), (hk, sk), (hk, sk),
                                          (h, sq)))
-        seg = {None: None, "packed": _packed_ids(b, sq, dev),
-               "ragged": _ragged_ids([sq, sq // 3 + 1] * (b // 2), sq,
-                                     dev)}[kind]
+        seg = _case_ids(kind, b, sq, dev)
         fwd = lambda: attn._flash_fwd_cuda(q, k, v, causal, None, seg, True,
                                            DROP_RATE, seed)
         o, lse = fwd()
@@ -3280,6 +3660,8 @@ def dropout_path_phase(dev, smi: str) -> dict:
 # against the twins at its shape and at f32, at D 512 and at a padded D
 # 160 (name, b, h, s, d, dtype, dropout rate)
 WIDE = dict(hidden=1024, heads=4, seq=512, batch=8, steps=2)
+# F5c: SelfMultiheadAttn(2048, 2), head dim 1024, the wide bodies
+WIDE_1024 = dict(WIDE, hidden=2048, heads=2)
 WIDE_CASES = (
     ("smha_1024_4", WIDE["batch"], WIDE["heads"], WIDE["seq"], 256, "bf16",
      DROP_RATE),
@@ -3290,30 +3672,51 @@ WIDE_CASES = (
     ("d160_bf16_s200", 2, 4, 200, 160, "bf16", DROP_RATE),
     ("d512_bf16_s300", 2, 2, 300, 512, "bf16", DROP_RATE),
     ("d512_f32_s130_rate0", 1, 2, 130, 512, "f32", 0.0),
+    # F5c: the wide bodies at D 1024 and at D 640 (padded to 1024)
+    ("d640_f32", 4, 2, 512, 640, "f32", DROP_RATE),
+    ("d640_f32_rate0", 4, 2, 512, 640, "f32", 0.0),
+    ("d640_bf16", 4, 2, 512, 640, "bf16", DROP_RATE),
+    ("d640_bf16_rate0", 4, 2, 512, 640, "bf16", 0.0),
+    ("d1024_f32", 4, 2, 512, 1024, "f32", DROP_RATE),
+    ("d1024_f32_rate0", 4, 2, 512, 1024, "f32", 0.0),
+    # (at the batch they are timed at)
+    ("d1024_bf16", WIDE_1024["batch"], 2, 512, 1024, "bf16", DROP_RATE),
+    ("d1024_bf16_rate0", WIDE_1024["batch"], 2, 512, 1024, "bf16", 0.0),
 )
 
 
+def _flash_route_of(d: int, dt: str) -> str:
+    """The route the flash bodies take at head dim ``d`` (before
+    padding) and dtype name ``dt``."""
+    if d > 512:
+        return "wide CUDA cores"
+    return ("tensor cores" if dt == "bf16" and d in (64, 128)
+            else "CUDA cores")
+
+
 def wide_head_phase(dev, smi: str) -> dict:
-    """F5b: flash at head dims past 128 on the CUDA-core bodies (256 and
-    512 wide, dynamic shared memory).  Each WIDE_CASES case causal,
-    forward with lse, dq and dk/dv against the twins (ATTN_TOL), the
-    same bits twice, each body's route and DROP instantiation read from
-    the device kernels' names; then the three bodies timed at
-    ``SelfMultiheadAttn(1024, 4)``'s (8, 4, 512, 256) bf16 causal shape,
-    rate 0 and 0.1, beside the twin, SDPA and the bound; then that module
-    trained 2 steps at each rate (forward, backward, an SGD update of its
-    params), finite losses, exact launch counts and the routes of a
-    profiled step.  Returns {kernel: its D-256 figures}."""
+    """F5b and F5c: flash at head dims past 128, on the CUDA-core bodies
+    (256 and 512 wide, dynamic shared memory) and the wide bodies (1024,
+    a row's sums across warps; D 640 padded to 1024).  Each WIDE_CASES
+    case causal, forward with lse, dq and dk/dv against the twins
+    (ATTN_TOL), the same bits twice, each body's route and DROP
+    instantiation read from the device kernels' names; then, for
+    ``SelfMultiheadAttn(1024, 4)`` (D 256) and ``SelfMultiheadAttn(2048,
+    2)`` (D 1024), the three bodies timed at the module's (8, heads, 512,
+    D) bf16 causal shape, rate 0 and 0.1, beside the twin, SDPA and the
+    bound, and the module trained 2 steps at each rate (forward,
+    backward, an SGD update of its params), finite losses, exact launch
+    counts and the routes of a profiled step.  Returns {kernel: {"d256":
+    its D-256 figures, "d1024": its D-1024 figures}}."""
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
-    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
     from apex_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device=dev).manual_seed(13)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
     kern = {"flash_fwd": attn.FLASH_FWD, "flash_dq": attn.FLASH_DQ,
             "flash_dkv": attn.FLASH_DKV}
+    wide_s = dict.fromkeys(("cases", "times", "module steps"), 0.0)
     for drop in (True, False):
         case_launches = []
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -3322,6 +3725,7 @@ def wide_head_phase(dev, smi: str) -> dict:
         for name, b, h, s, d, dtn, rate in WIDE_CASES:
             if (rate > 0) != drop:
                 continue
+            t_case = time.perf_counter()
             dt = _dtype(dtn)
             q, k, v, do = (torch.randn(b, h, s, d, generator=gen,
                                        device=dev).to(dt) for _ in range(4))
@@ -3355,18 +3759,50 @@ def wide_head_phase(dev, smi: str) -> dict:
                   f"{errs[3]:.3e}, dv {errs[4]:.3e} (atol={atol}, rtol="
                   f"{rtol}); the same bits on a second run", flush=True)
             del q, k, v, do, o, lse, grads, wo, wlse, wgrads, again
+            if d > 512:
+                wide_s["cases"] += time.perf_counter() - t_case
         torch.cuda.synchronize()
         prof.stop()
         routes = _flash_routes(prof, case_launches, drop=drop)
-        _check(all(r == "CUDA cores" for rr in routes.values()
-                   for r in rr.values()),
-               f"wide heads: routes {routes}, expected the CUDA-core bodies")
+        for name, _, _, _, d, dtn, rate in WIDE_CASES:
+            if (rate > 0) == drop:
+                want = _flash_route_of(d, dtn)
+                _check(set(routes[name].values()) == {want},
+                       f"wide heads {name}: routes {routes[name]}, expected "
+                       f"{want}")
         print(f"route flash wide heads (DROP={str(drop).lower()}): " + "; "
               .join(f"{c} {r}" for c, r in routes.items()), flush=True)
         del prof
 
-    # the bodies at SelfMultiheadAttn(1024, 4)'s shape, rate 0 and 0.1
-    b, h, s, d = WIDE["batch"], WIDE["heads"], WIDE["seq"], 256
+    rows = {}
+    for key, mod_cfg in (("d256", WIDE), ("d1024", WIDE_1024)):
+        t0 = time.perf_counter()
+        for kn, row in _wide_times(dev, smi, gen, seed, mod_cfg).items():
+            rows.setdefault(kn, {})[key] = row
+        t1 = time.perf_counter()
+        _wide_module_steps(dev, smi, gen, mod_cfg)
+        torch.cuda.empty_cache()
+        if key == "d1024":
+            wide_s["times"] = t1 - t0
+            wide_s["module steps"] = time.perf_counter() - t1
+    print("phase seconds 34, its F5c part (D 640 and 1024): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
+          + f", together {sum(wide_s.values()):.1f} s", flush=True)
+    return rows
+
+
+def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
+    """The three flash bodies at ``SelfMultiheadAttn(cfg hidden, heads)``'s
+    (batch, heads, seq, head dim) bf16 causal shape, rate 0 and 0.1,
+    beside the twin, SDPA and the bound: {kernel: {"rate0": row,
+    "dropout": row}}."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+
+    b, h, s = cfg["batch"], cfg["heads"], cfg["seq"]
+    d = cfg["hidden"] // h
+    body = _flash_route_of(d, "bf16")
     q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
     pairs = _pairs(None, b, h, s, True, dev)
@@ -3400,7 +3836,7 @@ def wide_head_phase(dev, smi: str) -> dict:
                                             retain_graph=True), 10)
         else:
             lib["flash_dq"] = lib["flash_dkv"] = lib_bwd
-        for kn in kern:
+        for kn in times:
             nbytes, ops = costs[kn]
             # bf16 operands: the card's bf16 rate, whatever unit the
             # body computes on
@@ -3408,28 +3844,37 @@ def wide_head_phase(dev, smi: str) -> dict:
             row = dict(ms=times[kn], plain_ms=plain[kn], bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=lib[kn],
                        shape=f"({b}, {h}, {s}, {d}) bf16 causal",
-                       rate=rate, body="CUDA cores")
+                       rate=rate, body=body)
             rows.setdefault(kn, {})["rate0" if rate == 0 else "dropout"] = row
-            print(f"time {kn} D 256 ({b}, {h}, {s}, {d}) bf16 causal dropout "
-                  f"{rate} (CUDA cores): kernel {times[kn]:.4f} ms "
+            print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) bf16 causal dropout "
+                  f"{rate} ({body}): kernel {times[kn]:.4f} ms "
                   f"({ops / times[kn] / 1e9:.1f} TFLOP/s), plain "
                   f"{plain[kn]:.4f} ms, SDPA "
                   f"{'forward' if kn == 'flash_fwd' else 'backward (dq, dk, dv)'}"
                   f" {lib[kn]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                   f" [{smi}]", flush=True)
         del o, lse
-    del q, k, v, do, qq, kk, vv, sd_o
+    return rows
 
-    # SelfMultiheadAttn(1024, 4) trained at each rate
-    E = WIDE["hidden"]
-    x = torch.randn(WIDE["seq"], WIDE["batch"], E, generator=gen,
+
+def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:
+    """``SelfMultiheadAttn(cfg hidden, heads)`` trained ``cfg steps`` SGD
+    steps at rate 0.1 and 0 (bf16, causal): finite losses and gradients,
+    one launch of each flash kernel a step, the routes of a profiled
+    run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+
+    E, H = cfg["hidden"], cfg["heads"]
+    x = torch.randn(cfg["seq"], cfg["batch"], E, generator=gen,
                     device=dev).to(torch.bfloat16)
     w = torch.randn(x.shape, generator=gen, device=dev)
     dgen = torch.Generator(device=dev).manual_seed(14)
     init = torch.Generator().manual_seed(1)
     flash = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
     for rate in (DROP_RATE, 0.0):
-        mod = SelfMultiheadAttn(E, WIDE["heads"], dropout=rate)
+        mod = SelfMultiheadAttn(E, H, dropout=rate)
         params = {n: {k: t.requires_grad_() for k, t in sub.items()}
                   for n, sub in mod.init(init, dev).items()}
         leaves = [t for sub in params.values() for t in sub.values()]
@@ -3448,26 +3893,29 @@ def wide_head_phase(dev, smi: str) -> dict:
         prof.start()
         _prime_profiler()
         (results, counts) = _path_counts(
-            lambda: [train_step() for _ in range(WIDE["steps"])],
-            f"SelfMultiheadAttn({E}, {WIDE['heads']}) dropout {rate}",
-            {kn: WIDE["steps"] * c for kn, c in flash.items()})
+            lambda: [train_step() for _ in range(cfg["steps"])],
+            f"SelfMultiheadAttn({E}, {H}) dropout {rate}",
+            {kn: cfg["steps"] * c for kn, c in flash.items()})
         prof.stop()
         routes = _flash_routes(prof, [(f"rate {rate}", counts)],
                                drop=rate > 0)
         del prof
+        want = _flash_route_of(E // H, "bf16")
+        _check(set(routes[f"rate {rate}"].values()) == {want},
+               f"SelfMultiheadAttn({E}, {H}): routes {routes}, expected "
+               f"{want}")
         losses = [float(l) for l, _ in results]
         _check(all(math.isfinite(v) for v in losses) and all(
             bool(torch.isfinite(g).all()) for _, gs in results for g in gs),
-            f"SelfMultiheadAttn({E}, {WIDE['heads']}) dropout {rate}: a "
-            f"non-finite loss or gradient ({losses})")
-        print(f"path SelfMultiheadAttn({E}, {WIDE['heads']}) (head dim "
-              f"{E // WIDE['heads']}: F5b) T {WIDE['seq']} B "
-              f"{WIDE['batch']} bf16 causal dropout {rate}, training "
+            f"SelfMultiheadAttn({E}, {H}) dropout {rate}: a non-finite "
+            f"loss or gradient ({losses})")
+        print(f"path SelfMultiheadAttn({E}, {H}) (head dim {E // H}: "
+              f"{'F5c' if E // H > 512 else 'F5b'}) T {cfg['seq']} B "
+              f"{cfg['batch']} bf16 causal dropout {rate}, training "
               f"(SGD lr 1e-2): losses {[round(v, 6) for v in losses]}, "
               f"launches {counts}, routes {routes[f'rate {rate}']} [{smi}]",
               flush=True)
         del params, leaves, results
-    return rows
 
 
 def dropout_consistency_phase(dev) -> None:
@@ -4934,6 +5382,33 @@ def syncbn_train_phase(dev, smi: str, entry: dict) -> None:
     entry["launches"] = 0       # SyncBN's statistics are the plain ones
 
 
+class _PhaseClock:
+    """Host-clock seconds of each phase: ``with clock(name): ...`` prints
+    the phase's seconds when it ends; ``summary`` prints every phase's
+    in run order and their total."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name: str):
+        import contextlib
+
+        @contextlib.contextmanager
+        def phase():
+            t0 = time.perf_counter()
+            yield
+            self.seconds[name] = time.perf_counter() - t0
+            print(f"phase seconds {name}: {self.seconds[name]:.1f} s",
+                  flush=True)
+        return phase()
+
+    def summary(self, smi: str) -> None:
+        print("phase seconds, in run order: " + "; ".join(
+            f"{k} {v:.1f}" for k, v in self.seconds.items())
+            + f"; total {sum(self.seconds.values()):.1f} s [{smi}]",
+            flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4985,18 +5460,24 @@ def main() -> int:
               f"{len(spilled)} with spills"
               + "".join(f"; {s}" for s in spilled), flush=True)
 
-    with torch.no_grad():
+    timed = _PhaseClock()
+    with timed("3-6 serve: kernel, serve, consistency, profile"), \
+            torch.no_grad():
         entry = kernel_phase(dev, smi)
         eng, reqs, res = serve_phase(dev, smi, entry)
         consistency_phase(eng, reqs, res)
         profile_phase(eng, smi)
         del eng
+    with timed("7 kernel vs plain (flat)"), torch.no_grad():
         flat_entries = flat_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
-    train_phase(dev, smi, flat_entries)
-    train_consistency_phase(dev)
-    for grad_accum in (ACCUM, 1):
-        train_profile_phase(dev, smi, grad_accum)
+    with timed("8 train (ResNet-50)"):
+        train_phase(dev, smi, flat_entries)
+    with timed("9 consistency (train)"):
+        train_consistency_phase(dev)
+    with timed("10 profile (train)"):
+        for grad_accum in (ACCUM, 1):
+            train_profile_phase(dev, smi, grad_accum)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5006,25 +5487,31 @@ def main() -> int:
     print(f"bert-large init on the cpu: {sum(sizes)} parameters in "
           f"{len(sizes)} tensors, {time.perf_counter() - t0:.1f} s",
           flush=True)
-    with torch.no_grad():
+    with timed("11 kernel vs plain (BERT)"), torch.no_grad():
         bert_entries = bert_kernel_phase(dev, smi, sizes)
     torch.cuda.empty_cache()
-    opt, amp_state, step, batches = bert_train_phase(dev, smi, bert_entries,
-                                                     bert_params)
-    bert_profile_phase(dev, smi, step, amp_state, batches)
-    del opt, amp_state, step, batches
+    with timed("12-13 train and profile (BERT-L)"):
+        opt, amp_state, step, batches = bert_train_phase(
+            dev, smi, bert_entries, bert_params)
+        bert_profile_phase(dev, smi, step, amp_state, batches)
+        del opt, amp_state, step, batches
     torch.cuda.empty_cache()
-    bert_flash_train_phase(dev, smi, bert_params)
-    with torch.no_grad():
+    with timed("14 train (BERT-L, flash)"):
+        bert_flash_train_phase(dev, smi, bert_params)
+    with timed("26 kernel vs plain (cross entropy)"), torch.no_grad():
         xent_entries = xent_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
-    bert_xent_train_phase(dev, smi, bert_params, xent_entries)
+    with timed("27 train (BERT, vocab 30592)"):
+        bert_xent_train_phase(dev, smi, bert_params, xent_entries)
     del bert_params
     torch.cuda.empty_cache()
-    bert_proxy_phase(dev, smi)
-    bert_consistency_phase(dev)
+    with timed("28 BERT proxy"):
+        bert_proxy_phase(dev, smi)
+    with timed("15 consistency (BERT)"):
+        bert_consistency_phase(dev)
 
-    with torch.no_grad():
+    with timed("16-17 kernel vs plain (flash train, flat_adam)"), \
+            torch.no_grad():
         attn_res = attn_train_kernel_phase(dev, smi)
         adam_res = adam_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
@@ -5047,26 +5534,36 @@ def main() -> int:
     entry.update(rows["flash_fwd"], max_abs_err=worst["flash_fwd"],
                  atol=ATTN_TOL["bf16"][0], rtol=ATTN_TOL["bf16"][1],
                  shape="(8, 12, 512, 64) bf16 causal", launches=0)
-    s, state, tokens = gpt_train_phase(dev, smi, [entry] + gpt_entries)
-    gpt_profile_phase(dev, smi, s, state, tokens)
-    del s, state, tokens
+    with timed("18-19 train and profile (GPT block)"):
+        s, state, tokens = gpt_train_phase(dev, smi, [entry] + gpt_entries)
+        gpt_profile_phase(dev, smi, s, state, tokens)
+        del s, state, tokens
     torch.cuda.empty_cache()
-    gpt_consistency_phase(dev)
+    with timed("20 consistency (GPT block)"):
+        gpt_consistency_phase(dev)
+    with timed("35 train (GPTModel)"):
+        gpt_model_phase(dev, smi, [entry] + flat_entries + bert_entries
+                        + gpt_entries)
+    with timed("36 consistency (GPTModel)"):
+        gpt_model_consistency_phase(dev)
 
-    with torch.no_grad():
+    with timed("31 kernel vs plain (attention dropout)"), torch.no_grad():
         drop_rows = dropout_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
-    drop_counts = dropout_path_phase(dev, smi)
+    with timed("32 path (attention dropout)"):
+        drop_counts = dropout_path_phase(dev, smi)
     torch.cuda.empty_cache()
-    dropout_consistency_phase(dev)
-    wide_rows = wide_head_phase(dev, smi)
+    with timed("33 consistency (attention dropout)"):
+        dropout_consistency_phase(dev)
+    with timed("34 wide heads (F5b, F5c)"):
+        wide_rows = wide_head_phase(dev, smi)
     torch.cuda.empty_cache()
     for e in [entry] + gpt_entries:
         if e["name"] in drop_rows:
             e["dropout"] = dict(drop_rows[e["name"]],
                                 launches=drop_counts[e["name"]])
         if e["name"] in wide_rows:
-            e["d256"] = wide_rows[e["name"]]
+            e.update(wide_rows[e["name"]])
 
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
@@ -5076,33 +5573,39 @@ def main() -> int:
     print(f"gpt-2 small init on the cpu: {sum(gpt_sizes)} parameters in "
           f"{len(gpt_sizes)} tensors, {time.perf_counter() - t0:.1f} s",
           flush=True)
-    with torch.no_grad():
+    with timed("21 kernel vs plain (optimizer tail)"), torch.no_grad():
         tail_entries = opt_tail_kernel_phase(dev, smi, gpt_sizes)
     torch.cuda.empty_cache()
-    novograd_train_phase(dev, smi, gpt_params, tail_entries)
+    with timed("22 train (GPT block, NovoGrad)"):
+        novograd_train_phase(dev, smi, gpt_params, tail_entries)
     torch.cuda.empty_cache()
-    legacy_train_phase(dev, smi, gpt_params, tail_entries)
+    with timed("23 train (legacy fp16_utils)"):
+        legacy_train_phase(dev, smi, gpt_params, tail_entries)
     del gpt_params
     torch.cuda.empty_cache()
 
-    with torch.no_grad():
+    with timed("24 kernel vs plain (softmax)"), torch.no_grad():
         softmax_entries = softmax_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
-    softmax_attention_phase(dev, smi, softmax_entries)
+    with timed("25 path (softmax attention)"):
+        softmax_attention_phase(dev, smi, softmax_entries)
     torch.cuda.empty_cache()
 
-    with torch.no_grad():
+    with timed("29 kernel vs plain (Welford)"), torch.no_grad():
         welford_entry = welford_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
-    syncbn_train_phase(dev, smi, welford_entry)
+    with timed("30 train (ResNet-50, --sync-bn)"):
+        syncbn_train_phase(dev, smi, welford_entry)
     torch.cuda.empty_cache()
+    timed.summary(smi)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "atol", "rtol")
     kernels = [dict({k: e[k] for k in keys},
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
-                                         "dropout", "d256") if k in e})
+                                         "dropout", "d256", "d1024",
+                                         "gpt_model_launches") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries
                + [welford_entry]]

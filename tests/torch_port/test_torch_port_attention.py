@@ -262,17 +262,20 @@ def test_mixed_dtypes_promote_as_the_reference_does():
 
 def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
     """What the card's wrappers do before a launch (F5): a head dim
-    that is not a kernel width goes up to the next of (16, 32, 64, 128,
-    256, 512) with zeros (F5b: 129..512 as well); a strided operand is
-    copied; a contiguous one that starts off its alignment is cloned to
-    an aligned start; a head dim above 512 raises naming F5c; float64
-    raises TypeError."""
+    that is not a kernel width goes up to the next power of two from 16
+    with zeros (F5b: 129..512 as well; F5c: 513..8192, the wide bodies);
+    a strided operand is copied; a contiguous one that starts off its
+    alignment is cloned to an aligned start; a head dim above 8192 raises
+    naming the wide kernels' register limit; float64 raises TypeError."""
     assert [tattn._kernel_width(d) for d in (1, 8, 16, 17, 33, 80, 96,
                                              128, 129, 160, 192, 256, 257,
-                                             512)] == [
-        16, 16, 16, 32, 64, 128, 128, 128, 256, 256, 256, 256, 512, 512]
-    with pytest.raises(ValueError, match="F5c"):
-        tattn._kernel_width(513)
+                                             512, 513, 640, 1024, 1025,
+                                             5000, 8192)] == [
+        16, 16, 16, 32, 64, 128, 128, 128, 256, 256, 256, 256, 512, 512,
+        1024, 1024, 1024, 2048, 8192, 8192]
+    with pytest.raises(ValueError, match="up to 8192, got 8193.*65,536 "
+                                         "32-bit registers"):
+        tattn._kernel_width(8193)
     (w,) = tattn._operands(torch.randn(1, 2, 3, 160))
     assert w.shape == (1, 2, 3, 256) and torch.all(w[..., 160:] == 0)
     q = torch.randn(2, 3, 5, 8)

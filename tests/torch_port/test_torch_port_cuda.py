@@ -93,14 +93,14 @@ def test_kernel_matches_plain_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
-    """float64 and a head dim above 512 (F5c) raise; a head dim of 8
-    (padded to the kernels' 16) and a strided q (copied) compute what
-    the plain version does, each with one launch."""
+    """float64 and a head dim above 8192 (the wide kernels' register limit, F5c) raise;
+    a head dim of 8 (padded to the kernels' 16) and a strided q (copied)
+    compute what the plain version does, each with one launch."""
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         attn.flash_attention(q.double(), q.double(), q.double())
-    wide = torch.zeros(1, 2, 8, 520, device=cuda)
-    with pytest.raises(ValueError, match="F5c"):
+    wide = torch.zeros(1, 2, 8, 8200, device=cuda)
+    with pytest.raises(ValueError, match="up to 8192.*registers"):
         attn.flash_attention(wide, wide, wide)
     q8 = q[..., :8].contiguous()
     strided = q.transpose(2, 3).contiguous().transpose(2, 3)
@@ -388,6 +388,13 @@ FLASH_TRAIN_CASES = {
                          torch.bfloat16),
     "d512_bf16_causal": (1, 2, 2, 100, 512, True, None, torch.bfloat16),
     "d512_f32": (1, 2, 1, 64, 512, False, None, torch.float32),
+    # F5c: the wide bodies (D 1024..8192, rows across warps)
+    "d1024_f32_gqa_causal": (2, 4, 2, 70, 1024, True, "ragged",
+                             torch.float32),
+    "d1024_bf16_packed": (1, 2, 2, 64, 1024, False, "packed",
+                          torch.bfloat16),
+    "d2048_bf16_causal": (1, 2, 1, 40, 2048, True, None, torch.bfloat16),
+    "d8192_f32": (1, 1, 1, 20, 8192, False, None, torch.float32),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -1592,6 +1599,13 @@ DROP_CASES = {
                                    torch.bfloat16, 0.1),
     "fma_f32_d512": (1, 2, 1, 64, 64, 512, False, None, torch.float32,
                      0.25),
+    # F5c: the wide bodies' DROP instantiations
+    "wide_f32_d1024_gqa_ragged": (2, 4, 2, 70, 70, 1024, True, "ragged",
+                                  torch.float32, 0.1),
+    "wide_bf16_d1024_cross_causal": (1, 2, 2, 70, 100, 1024, True, None,
+                                     torch.bfloat16, 0.1),
+    "wide_bf16_d4096_packed": (1, 2, 2, 48, 48, 4096, False, "packed",
+                               torch.bfloat16, 0.25),
 }
 
 
@@ -1637,7 +1651,9 @@ def test_dropout_bodies_match_the_twins_on_card(cuda, name):
     assert {kn for kn in bodies if any(kn in n for n in names)} == set(bodies)
     assert all(("_kernel_tc" in n) == tc for n in names)
     # the bodies' last template argument is DROP
-    assert all(re.search(r"_kernel(_tc)?<[^>]*, true>", n) for n in names)
+    assert all(re.search(r"_kernel(_tc|_wide)?<[^>]*, true>", n)
+               for n in names)
+    assert all(("_kernel_wide" in n) == (d >= 1024) for n in names)
 
 
 def _keep_mask_readout():
@@ -1709,14 +1725,23 @@ F5_CASES = {
     "d300_bf16": lambda g, dev: [torch.randn(
         1, 2, 70, 300, generator=g, device=dev).to(torch.bfloat16)
         for _ in range(3)],
+    # F5c: head dims past 512, padded to 1024 and 2048
+    "d640_bf16": lambda g, dev: [torch.randn(
+        2, 2, 70, 640, generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)],
+    "d1024_f32": lambda g, dev: [torch.randn(1, 2, 90, 1024, generator=g,
+                                             device=dev) for _ in range(3)],
+    "d1500_f32": lambda g, dev: [torch.randn(1, 1, 33, 1500, generator=g,
+                                             device=dev) for _ in range(3)],
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(F5_CASES))
 def test_f5_inputs_compute_with_gradients_on_card(cuda, name):
-    """What the card refused before F5's and F5b's repairs: head dims
-    8, 80, 96, 160, 192 and 300 (padded), a transposed q, a q 8 bytes off
+    """What the card refused before F5's, F5b's and F5c's repairs: head
+    dims 8, 80, 96, 160, 192, 300, 640 and 1500 (padded) and 1024, a
+    transposed q, a q 8 bytes off
     its alignment (copied), B*H = 65600 (B*H on the grid's x): forward
     and gradients against the twins, with dropout on for the bf16
     cases."""

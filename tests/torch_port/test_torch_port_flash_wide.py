@@ -1,4 +1,5 @@
-"""Flash attention at head dims past 128 (F5b) against the JAX package.
+"""Flash attention at head dims past 128 (F5b, F5c) against the JAX
+package.
 
 On the card the port pads a head dim of 129..256 to its 256-wide bodies
 and 257..512 to its 512-wide ones (``ops.attention._kernel_width``),
@@ -11,6 +12,12 @@ interpret mode) on the same numpy inputs made from a seed, at D 160,
 with dropout 0.25 and without: the output, and the gradients of a
 weighted sum against ``jax.grad``.  And the padding itself: the twins
 at D zero-padded to the kernel width give the unpadded result.
+
+F5c: past 512 the card pads a head dim to the next power of two up to
+8192 and runs its wide bodies (rows across warps); here D 640 and 1024,
+f32 and bf16, dropout 0 and 0.1, against the JAX ``flash_attention``,
+the padding to 1024, and the error past the wide kernels' register
+limit.
 
 Tolerances: f32 within 1e-5 of each output's scale (the two sum the
 same products in another order; ``test_torch_port_dropout.py``'s),
@@ -106,3 +113,67 @@ def test_zero_padding_to_the_kernel_width_is_exact(d):
     for g, pg in zip(grads, pgrads):
         _close(pg[..., :d], g, TOL["f32"])
         assert torch.all(pg[..., d:] == 0)
+
+
+PAST_512 = (640, 1024)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", PAST_512)
+def test_heads_past_512_match_jax_forward_and_grad(d, dt, rate):
+    """F5c's widths: the port's ``flash_attention`` on the CPU (the plain
+    twins the wide kernels are held to on the card) against the JAX
+    ``flash_attention`` (Pallas in interpret mode), causal, output and
+    the three gradients."""
+    q, k, v, w = _inputs(d, True, rate, dt, s=64)
+    jdt, tdt = DT[dt]
+    kw = dict(causal=True, dropout_rate=rate,
+              dropout_seed=29 if rate else None)
+
+    def jloss(q, k, v):
+        o = jattn.flash_attention(q, k, v, **kw)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(w))
+
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    jo = jattn.flash_attention(jq, jk, jv, **kw)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    to = tattn.flash_attention(tq, tk, tv, **kw)
+    (to.float() * torch.from_numpy(w)).sum().backward()
+    assert to.dtype == tdt and tuple(to.shape) == q.shape
+    _close(to, jo, TOL[dt])
+    for g, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(g, want, TOL[dt])
+
+
+def test_padding_past_512_and_the_cards_limit():
+    """D 640 zero-padded to the 1024-wide body (forward, lse and the
+    three gradients of the twins as the wrappers run them, dropout 0.1)
+    gives the unpadded result; past 8192 the wrapper raises naming the
+    wide kernels' register limit, before any launch."""
+    d = 640
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(d, True, 0.1, "f32",
+                                                         s=24))
+    wd = tattn._kernel_width(d)
+    assert wd == 1024
+    (padded,) = tattn._operands(q)
+    assert padded.shape[-1] == 1024 and torch.all(padded[..., d:] == 0)
+    pad = [torch.nn.functional.pad(t, (0, wd - d)) for t in (q, k, v, do)]
+    sc = 1.0 / np.sqrt(d)
+    o, lse = tattn.flash_fwd_ref(q, k, v, True, sc, None, 0.1, 5)
+    po, plse = tattn.flash_fwd_ref(*pad[:3], True, sc, None, 0.1, 5)
+    _close(po[..., :d], o, TOL["f32"])
+    assert torch.all(po[..., d:] == 0)
+    torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-6)
+    grads = tattn.flash_bwd_ref(q, k, v, o, lse, do, True, sc, None, 0.1, 5)
+    pgrads = tattn.flash_bwd_ref(*pad[:3], po, plse, pad[3], True, sc, None,
+                                 0.1, 5)
+    for g, pg in zip(grads, pgrads):
+        _close(pg[..., :d], g, TOL["f32"])
+        assert torch.all(pg[..., d:] == 0)
+    assert tattn._kernel_width(8192) == 8192
+    limit = "up to 8192, got 8200.*65,536 32-bit registers of an H100 SM"
+    with pytest.raises(ValueError, match=limit):
+        tattn._operands(torch.zeros(1, 1, 2, 8200))
