@@ -15,10 +15,11 @@
 //
 // - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
-//   Llama-class heads).
+//   Llama-class heads); flash_dkv_kernel_tc also at D 256 (the
+//   Gemma-class heads of 129..256, padded to 256).
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
-//   no TF32) and bf16 at D 16, 32, 256 and 512.
+//   no TF32), bf16 at D 16, 32 and 512, and bf16 dq at D 256.
 // - CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32 and
 //   bf16 at D 1024..8192, a power of two (below, before the entry
 //   points).
@@ -68,6 +69,19 @@
 // query rows under the causal mask; blockIdx.y counts them, the heads
 // in blockIdx.x).  Key rows past Sk are zeros from TMA and never
 // stored.
+//
+// At D 256 one warpgroup's dK and dV (two 64 x 256 f32 accumulators)
+// would take 256 registers a thread, past the 255 a thread may hold.
+// So the CTA there is two warpgroups over the same 64 key rows, and
+// warpgroup w owns the columns [128w, 128w + 128) of both dK and dV:
+// the D-128 body's 128 accumulator registers a thread.  Both
+// warpgroups compute the whole of S^T and dP^T (over the full D) from
+// the shared K, V, q and dO tiles, so nothing passes between them; that
+// repeats those two products, 1.5 times the least tensor-core work of
+// a tile.  Each pair's dropout hash is computed once in each warpgroup.
+// K and V resident and two q/dO stages take 192 KB of shared memory (one
+// CTA an SM).  A causal (8, 4, 512, 256) call does 8.6 GFLOP over 50.4
+// MB: 8.7 us at 989 TFLOP/s against 15.0 us at 3.35 TB/s.
 //
 // The tensor-core dq has the forward's geometry: at GPT-2 small's shape
 // a call does 4.84 GFLOP over 31.9 MB (4.9 us at 989 TFLOP/s against 9.5
@@ -487,7 +501,7 @@ void launch_dkv(const Args& a, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv on the tensor cores: bf16, D 64 and 128 (wgmma + TMA;
+// dk/dv on the tensor cores: bf16, D 64, 128 and 256 (wgmma + TMA;
 // hopper_mma.cuh).  Key rows are wgmma's M: S^T = K.Q^T, P^T, dV +=
 // P^T.dO, dP^T = V.dO^T, dS^T, dK += dS^T.Q.
 // ---------------------------------------------------------------------------
@@ -499,7 +513,11 @@ template <int D>
 struct DkvTc {
   static constexpr int NP = D / 64;             // 64-column panels
   static constexpr int BQT = 64;                // query rows a ring stage
-  static constexpr int THREADS = 128;
+  // warpgroups a CTA, each owning NPW panels of dK and dV (two at D 256,
+  // where one warpgroup could not hold both accumulators)
+  static constexpr int WGS = D > 128 ? 2 : 1;
+  static constexpr int NPW = NP / WGS;
+  static constexpr int THREADS = 128 * WGS;
   static constexpr int KV_BYTES = TC_BKV * D * 2;   // K or V, resident
   static constexpr int QT_BYTES = BQT * D * 2;      // one q or dO tile
   static constexpr int V_OFF = KV_BYTES;
@@ -581,7 +599,9 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   const int c0 = blockIdx.y * TC_BKV;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int key_lo = c0 + 16 * (tid >> 5) + (lane >> 2);   // and key_lo + 8
+  const int p0 = (tid >> 7) * G::NPW;   // this warpgroup's first dK/dV panel
+  // (every warpgroup's fragment covers the CTA's 64 key rows)
+  const int key_lo = c0 + 16 * ((tid >> 5) & 3) + (lane >> 2);   // and +8
   const bool seg = q_ids != nullptr;
   const int kid_lo = (seg && key_lo < Sk) ? kv_ids[(size_t)b * Sk + key_lo] : 0;
   const int kid_hi =
@@ -634,13 +654,13 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   };
   if (ntile > 0) load_tile(0, 0);
 
-  float dka[G::NP][32], dva[G::NP][32];
+  float dka[G::NPW][32], dva[G::NPW][32];   // panels p0 .. p0 + NPW - 1
   float sT[32], dpT[32];                   // m64n64: BQT = 64 columns
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sT[i] = dpT[i] = 0.f;
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p) dka[p][i] = dva[p][i] = 0.f;
+    for (int p = 0; p < G::NPW; ++p) dka[p][i] = dva[p][i] = 0.f;
   }
   hopper::mbar_wait(&bar[2], 0);
   const uint32_t seed = DROP ? static_cast<uint32_t>(*drop.seed) : 0u;
@@ -701,7 +721,8 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                              drop);
 
     // P^T and dS^T rounded to bf16 in registers: the A operands of
-    // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major)
+    // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major; this
+    // warpgroup's panels of them)
     uint32_t pa[BQT / 16][4], da[BQT / 16][4];
 #pragma unroll
     for (int c = 0; c < BQT / 16; ++c)
@@ -712,7 +733,7 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
             hopper::pack_bf16(dpT[8 * c + 2 * r], dpT[8 * c + 2 * r + 1]);
       }
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p) {
+    for (int p = 0; p < G::NPW; ++p) {
       hopper::fence_acc(dva[p]);
       hopper::fence_acc(dka[p]);
     }
@@ -720,23 +741,23 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int c = 0; c < BQT / 16; ++c)
 #pragma unroll
-      for (int p = 0; p < G::NP; ++p)
+      for (int p = 0; p < G::NPW; ++p)
         hopper::wgmma_rs_n64<1>(
             dva[p], pa[c],
-            hopper::desc_sw128(dot + p * BQT * 128 + c * 2048, BQT * 128,
-                               1024));
+            hopper::desc_sw128(dot + (p0 + p) * BQT * 128 + c * 2048,
+                               BQT * 128, 1024));
 #pragma unroll
     for (int c = 0; c < BQT / 16; ++c)
 #pragma unroll
-      for (int p = 0; p < G::NP; ++p)
+      for (int p = 0; p < G::NPW; ++p)
         hopper::wgmma_rs_n64<1>(
             dka[p], da[c],
-            hopper::desc_sw128(qt + p * BQT * 128 + c * 2048, BQT * 128,
-                               1024));
+            hopper::desc_sw128(qt + (p0 + p) * BQT * 128 + c * 2048,
+                               BQT * 128, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p) {
+    for (int p = 0; p < G::NPW; ++p) {
       hopper::fence_acc(dva[p]);
       hopper::fence_acc(dka[p]);
     }
@@ -751,10 +772,10 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     uint32_t* krow = reinterpret_cast<uint32_t*>(dk + off);
     uint32_t* vrow = reinterpret_cast<uint32_t*>(dv + off);
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p)
+    for (int p = 0; p < G::NPW; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int w = 32 * p + 4 * j + (lane & 3);
+        const int w = 32 * (p0 + p) + 4 * j + (lane & 3);
         krow[w] = hopper::pack_bf16(dka[p][4 * j + 2 * h],
                                     dka[p][4 * j + 2 * h + 1]);
         vrow[w] = hopper::pack_bf16(dva[p][4 * j + 2 * h],
@@ -1269,7 +1290,8 @@ int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
 }
 
 // The route of both backward kernels: bf16 at D 64 and 128 takes the
-// tensor cores, D 1024..8192 the wide bodies, everything else the
+// tensor cores, and so does bf16 dk/dv at D 256 (dq there stays on the
+// CUDA cores); D 1024..8192 the wide bodies, everything else the
 // CUDA-core bodies of their width; a seed takes each body's DROP
 // instantiation.
 template <typename T, bool DROP>
@@ -1296,6 +1318,7 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
     if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
     if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
+    if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);
   }
   if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   switch (D) {

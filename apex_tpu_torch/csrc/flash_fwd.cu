@@ -19,11 +19,12 @@
 //
 // The routes (a dispatch on shape, not a fallback: a failure raises):
 //
-// - tensor cores, flash_fwd_kernel_tc: bf16 at D 64 and 128 (every path
-//   that trains through flash: GPT-2, BERT-Large, Llama-class heads).
+// - tensor cores, flash_fwd_kernel_tc: bf16 at D 64, 128 and 256 (every
+//   path that trains through flash: GPT-2, BERT-Large, Llama-class heads,
+//   and the Gemma-class heads of 129..256, padded to 256).
 // - CUDA cores, flash_fwd_kernel: f32 up to D 512 (the serving path; the
 //   precision contract of docs/kernels.md makes f32 operands true f32,
-//   so no TF32), bf16 at D 16, 32, 256 and 512, and a call with no keys
+//   so no TF32), bf16 at D 16, 32 and 512, and a call with no keys
 //   (Sk == 0).
 // - CUDA cores, flash_fwd_kernel_wide: f32 and bf16 at D 1024..8192, a
 //   power of two (the wrapper pads wider heads to one), with D a runtime
@@ -47,10 +48,10 @@
 // does.  The design: one CTA, one warpgroup, owns 64 query rows of one
 // (batch, head) (two warpgroups of 64 rows sharing each K/V tile were
 // slower at GPT-2 small's shape on an H100).  Its Q tile comes once by
-// TMA into 128-byte-swizzled shared memory (two 64-column panels at
-// D 128); K/V tiles of BK = 64 keys flow through a two-stage
-// TMA ring with mbarrier completion, the next tile's load in flight
-// while the current one's products run.  S = Q.K^T is one wgmma
+// TMA into 128-byte-swizzled shared memory (D/64 panels of 64 columns);
+// K/V tiles of BK = 64 keys flow through a two-stage (one-stage at D
+// 256, below) TMA ring with mbarrier completion, the next tile's load in
+// flight while the current one's products run.  S = Q.K^T is one wgmma
 // m64n64k16 per 16 columns of D (A = Q, B = K, both K-major in shared
 // memory, f32 accumulators); the online softmax runs on the accumulator
 // fragment (a row's four lanes meet through two shuffles); P, rounded
@@ -64,6 +65,20 @@
 // fills rows past Sq or Sk with zeros, keys past Sk are masked and rows
 // past Sq are not stored.  No warp specialisation or persistent CTAs
 // yet: one thread of the CTA starts the loads.
+//
+// At D 256 the same body holds a 64 x 256 f32 O accumulator (128
+// registers a thread) beside S (32) and P's bf16 fragment (16), within
+// one warpgroup's 255 (213 registers, 230 with dropout, no spills).  A
+// causal (8, 4, 512, 256) call does 4.3 GFLOP over 33.6 MB: 4.3 us at
+// 989 TFLOP/s against 10.0 us at 3.35 TB/s, bytes on paper; in practice
+// each CTA's chain of dependent products, as at D 64.  So the ring
+// there has one stage (FwdTc::STAGES): the Q tile and one K and one V
+// tile take 96 KB, two CTAs share an SM and each runs while the other
+// waits, K's next tile loading once S is computed and V's once P.V is.
+// Against two stages (160 KB, one CTA an SM), on an H100 at 700 W
+// (apex_tpu_torch/tools/flash_fwd_stages.py, the same bits): 0.0246 ms
+// where two took 0.0282 at that shape, 27-29% less at (16, 8, 512),
+// (4, 8, 1024) and (1, 8, 4096) x 256, but 11% more at (2, 4, 2048).
 //
 // What bounds the CUDA-core body: arithmetic.  A causal prefill does
 // about S/8 operations per byte of q/k/v/o it must move (64 at S=512),
@@ -421,7 +436,7 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core body: bf16, D 64 and 128 (wgmma + TMA; hopper_mma.cuh)
+// tensor-core body: bf16, D 64, 128 and 256 (wgmma + TMA; hopper_mma.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BK = 64;                       // keys per ring stage
@@ -435,9 +450,12 @@ struct FwdTc {
   static constexpr int THREADS = 128;           // one warpgroup
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = TC_BK * D * 2;   // one K or V tile
-  static constexpr int K_OFF = Q_BYTES;            // two stages each
-  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;
-  static constexpr int KID_OFF = V_OFF + 2 * KV_BYTES;
+  // K/V ring stages: two up to D 128; one at D 256, so that two CTAs
+  // (96 KB of tiles each) share an SM and overlap each other's chains
+  static constexpr int STAGES = D > 128 ? 1 : 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int KID_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = KID_OFF + 2 * TC_BK * 4;
   static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;   // + alignment slack
 };
@@ -534,15 +552,19 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     hopper::fence_barrier_init();
   }
   __syncthreads();
+  // two stages: Q and tile 0's K and V on bar[0]; one stage: bar[0]
+  // counts the K tiles (Q with the first), bar[1] the V tiles
+  uint64_t* vbar = &bar[G::STAGES == 1 ? 1 : 0];
   if (tid == 0) {
-    hopper::mbar_expect_tx(&bar[0], G::Q_BYTES + 2 * G::KV_BYTES);
+    hopper::mbar_expect_tx(&bar[0], G::Q_BYTES + G::STAGES * G::KV_BYTES);
+    if (G::STAGES == 1) hopper::mbar_expect_tx(vbar, G::KV_BYTES);
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) {
       hopper::tma_load_3d(qs + p * G::BQ * 128, &map_q, &bar[0], 64 * p, q0,
                           bh);
       hopper::tma_load_3d(ks + p * TC_BK * 128, &map_k, &bar[0], 64 * p, 0,
                           bhk);
-      hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, &bar[0], 64 * p, 0,
+      hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, vbar, 64 * p, 0,
                           bhk);
     }
   }
@@ -567,32 +589,41 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   for (int t = 0; t < ntile; ++t) {
     const int k0 = t * TC_BK;
     const int st = t & 1;
-    // every thread is done with tile t-1: its stage takes tile t+1
+    // every thread is done with tile t-1: with two stages its stage
+    // takes tile t+1; with one, the V stage takes tile t
     __syncthreads();
-    if (t + 1 < ntile) {
+    if (G::STAGES == 2 && t + 1 < ntile && tid == 0) {
       const int nst = st ^ 1;
-      if (tid == 0) {
-        hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
+      hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
 #pragma unroll
-        for (int p = 0; p < G::NP; ++p) {
-          hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * TC_BK * 128,
-                              &map_k, &bar[nst], 64 * p, k0 + TC_BK, bhk);
-          hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * TC_BK * 128,
-                              &map_v, &bar[nst], 64 * p, k0 + TC_BK, bhk);
-        }
-      }
-      if (seg) {
-        for (int j = tid; j < TC_BK; j += G::THREADS) {
-          const int col = k0 + TC_BK + j;
-          kid[nst * TC_BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
-        }
+      for (int p = 0; p < G::NP; ++p) {
+        hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * TC_BK * 128,
+                            &map_k, &bar[nst], 64 * p, k0 + TC_BK, bhk);
+        hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * TC_BK * 128,
+                            &map_v, &bar[nst], 64 * p, k0 + TC_BK, bhk);
       }
     }
-    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    if (G::STAGES == 1 && t > 0 && tid == 0) {
+      hopper::mbar_expect_tx(vbar, G::KV_BYTES);
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p)
+        hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, vbar, 64 * p, k0,
+                            bhk);
+    }
+    if (seg && t + 1 < ntile) {
+      for (int j = tid; j < TC_BK; j += G::THREADS) {
+        const int col = k0 + TC_BK + j;
+        kid[(st ^ 1) * TC_BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+      }
+    }
+    if (G::STAGES == 2)
+      hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    else
+      hopper::mbar_wait(&bar[0], t & 1);
 
     // S = Q . K^T
-    const uint8_t* kt = ks + st * G::KV_BYTES;
-    const uint8_t* vt = vs + st * G::KV_BYTES;
+    const uint8_t* kt = ks + (G::STAGES == 2 ? st : 0) * G::KV_BYTES;
+    const uint8_t* vt = vs + (G::STAGES == 2 ? st : 0) * G::KV_BYTES;
     hopper::fence_acc(s);
     hopper::wgmma_fence();
 #pragma unroll
@@ -605,6 +636,17 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_acc(s);
+    if (G::STAGES == 1) {
+      // every warp's products have read K: the stage takes tile t+1
+      __syncthreads();
+      if (t + 1 < ntile && tid == 0) {
+        hopper::mbar_expect_tx(&bar[0], G::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < G::NP; ++p)
+          hopper::tma_load_3d(ks + p * TC_BK * 128, &map_k, &bar[0], 64 * p,
+                              k0 + TC_BK, bhk);
+      }
+    }
 
     float alpha[2];
     const bool need = seg || k0 + TC_BK > Sk ||
@@ -631,6 +673,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
       hopper::fence_acc(acc[p]);
     }
+    if (G::STAGES == 1) hopper::mbar_wait(vbar, t & 1);
     hopper::wgmma_fence();
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -695,8 +738,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route: bf16 at D 64 and 128 with keys to read takes the tensor
-// cores, D 1024..8192 the wide body, everything else the CUDA-core
+// The route: bf16 at D 64, 128 and 256 with keys to read takes the
+// tensor cores, D 1024..8192 the wide body, everything else the CUDA-core
 // bodies of their width; a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -708,6 +751,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_tc<64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 128)
       return launch_tc<128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
+    if (D == 256)
+      return launch_tc<256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
   }
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);

@@ -425,11 +425,37 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
                          f"{align}-byte aligned")
 
 
+# the kernel widths at which each kernel's bf16 body runs on the tensor
+# cores (wgmma + TMA); the dq body at D 256 is still the CUDA cores' one
+_TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128),
+              "flash_dkv": (64, 128, 256)}
+
+
+def flash_route(kernel: str, dtype, d: int) -> str:
+    """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
+    takes on the card for operands of ``dtype`` at head dim ``d`` (padded
+    to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
+    + TMA), "CUDA cores" (the FMA body) or "wide CUDA cores"
+    (``..._kernel_wide``, D 1024..8192).  The C dispatchers of
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
+    apart from a forward with no keys (it takes the CUDA cores)."""
+    if kernel not in _TC_WIDTHS:
+        raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
+                         f"{sorted(_TC_WIDTHS)})")
+    w = _kernel_width(d)
+    if w >= 1024:                 # csrc/hopper_mma.cuh: wide::MIN_D
+        return "wide CUDA cores"
+    if dtype == torch.bfloat16 and w in _TC_WIDTHS[kernel]:
+        return "tensor cores"
+    return "CUDA cores"
+
+
 def _align(dtype, d: int) -> int:
-    """The bytes q, k, v and dO must start aligned to: TMA's 16 where the
-    kernels take the tensor-core route (bf16 at D 64 and 128), else one
-    4-element vector."""
-    return 16 if dtype == torch.bfloat16 and d in (64, 128) else _ALIGN[dtype]
+    """The bytes q, k, v and dO must start aligned to: TMA's 16 where a
+    kernel of the call takes the tensor-core route (:func:`flash_route`),
+    else one 4-element vector."""
+    tc = any(flash_route(k, dtype, d) == "tensor cores" for k in _TC_WIDTHS)
+    return 16 if tc else _ALIGN[dtype]
 
 
 def _kernel_width(d: int) -> int:

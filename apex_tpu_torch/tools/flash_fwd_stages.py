@@ -1,0 +1,129 @@
+"""The bf16 D-256 tensor-core flash forward with one K/V ring stage (the
+shipped design, ``FwdTc::STAGES`` in ``csrc/flash_fwd.cu``) against the
+same body with two stages, timed in turns in one process on the card::
+
+    python -m apex_tpu_torch.tools.flash_fwd_stages
+
+The two-stage copy is ``csrc/flash_fwd.cu`` with the line that sets the
+stage count changed; both build with the port's nvcc flags into
+``apex_tpu_torch/_build/`` and are called through their C entry points
+with the arguments the wrapper gives them.  At each causal shape and
+dropout rate it checks that the two give the same bits and are within
+the bf16 tolerance of ``flash_fwd_ref``, then prints each variant's
+device milliseconds a call (CUDA events around calls queued behind a
+device spin, so the host's launching is hidden), in the order one, two,
+two, one, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+STAGE_LINE = "static constexpr int STAGES = D > 128 ? 1 : 2;"
+SHAPES = ((8, 4, 512, 256), (16, 8, 512, 256), (4, 8, 1024, 256),
+          (2, 4, 2048, 256), (1, 8, 4096, 256))          # (B, H, S, D)
+
+
+def _build_variants() -> dict:
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as attn
+    src = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    if STAGE_LINE not in src:
+        raise RuntimeError(f"csrc/flash_fwd.cu lacks {STAGE_LINE!r}")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    srcs = {"one stage": src,
+            "two stages": src.replace(STAGE_LINE, STAGE_LINE.replace(
+                "D > 128 ? 1 : 2", "2"))}
+    procs = {}
+    for name, text in srcs.items():
+        stem = os.path.join(_build.BUILD_DIR,
+                            "flash_fwd_" + name.replace(" ", "_"))
+        with open(f"{stem}.cu", "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+             "-o", f"{stem}.so", f"{stem}.cu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} variant:\n{out}")
+        stem = os.path.join(_build.BUILD_DIR,
+                            "flash_fwd_" + name.replace(" ", "_"))
+        fn = ctypes.CDLL(f"{stem}.so").apex_flash_fwd
+        fn.argtypes, fn.restype = attn.FLASH_FWD.argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _device_ms(call, iters: int = 50) -> float:
+    import torch
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)         # ~0.1 s: outlasts the launches
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_fwd_stages needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    fns = _build_variants()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    for b, h, s, d in SHAPES:
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        for rate in (0.0, 0.1):
+            sd = seed if rate else None
+            drop = attn._dropout_args(rate, sd, dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            outs, calls = {}, {}
+            for name, fn in fns.items():
+                o = torch.empty_like(q)
+                lse = torch.empty(b * h, s, device=dev)
+                calls[name] = (lambda fn=fn, o=o, lse=lse: fn(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), None, None, 1, b, h, h, s, s, d, 1,
+                    d ** -0.5, *drop, stream))
+                if calls[name]() != 0:
+                    raise RuntimeError(f"the {name} variant did not launch")
+                outs[name] = (o, lse)
+            torch.cuda.synchronize()
+            (o1, l1), (o2, l2) = outs.values()
+            if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+                raise SystemExit(f"({b}, {h}, {s}, {d}) rate {rate}: the "
+                                 "variants' bits differ")
+            wo, wl = attn.flash_fwd_ref(q, k, v, True, None, None, rate, sd)
+            torch.testing.assert_close(o1, wo, atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(l1, wl, atol=1e-4, rtol=1e-5)
+            ms = {name: [] for name in fns}
+            for name in ("one stage", "two stages", "two stages",
+                         "one stage"):
+                ms[name].append(_device_ms(calls[name]))
+            print(f"flash forward ({b}, {h}, {s}, {d}) bf16 causal dropout "
+                  f"{rate}: " + "; ".join(
+                      f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                      for n, ts in ms.items())
+                  + f" (the same bits) [{smi}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -94,8 +94,9 @@ exits non-zero:
     1e-4; bf16 within 2e-2, one bf16 rounding); rows that see no key (and keys no row sees) give exact
     zeros; the same bits on a second run; each case prints the route
     each kernel took, read from the device kernels' names under the
-    profiler (the tensor-core bodies for bf16 at D 64 and 128, the
-    CUDA-core bodies otherwise); the tensor-core bodies' ptxas registers
+    profiler (each kernel's ``ops.attention.flash_route``: the tensor-core
+    bodies for bf16 at D 64 and 128, the CUDA-core bodies otherwise at
+    these widths); the tensor-core bodies' ptxas registers
     and spills (0 spill bytes required) and the host microseconds of one
     TMA tensor map; at GPT's and BERT-L's unmasked shapes each kernel
     timed beside its twin, its bound and SDPA's forward or backward in
@@ -221,12 +222,15 @@ exits non-zero:
     768 wide on the card and the CPU from the same seeds: output and
     gradients within 1e-3 of their scale, and the CPU at other seeds
     outside it;
-34. wide heads (F5b, F5c) — the CUDA-core flash bodies at head dims
-    160 (padded), 256 and 512 and the wide bodies at 640 (padded) and
-    1024 ((4, 2, 512, D); bf16 D 1024 at (8, 2, 512, 1024), the shape
-    it is timed at), f32 and bf16, dropout 0.1 and 0, against
-    their twins with the routes and DROP instantiations read from the
-    device kernels' names; the three timed at ``SelfMultiheadAttn(1024,
+34. wide heads (F5b, F5c) — the flash bodies at head dims 160 and 200
+    (padded), 256 and 512 (bf16 forward and dk/dv at 256 on the tensor
+    cores, the rest on the CUDA cores) and the wide bodies at 640
+    (padded) and 1024 ((4, 2, 512, D); bf16 D 1024 at (8, 2, 512, 1024),
+    the shape it is timed at), f32 and bf16, dropout 0.1 and 0, against
+    their twins with each kernel's route (``ops.attention.flash_route``)
+    and DROP instantiation read from the device kernels' names; the
+    ptxas registers and spills of the D-256 tensor-core bodies; the
+    three timed at ``SelfMultiheadAttn(1024,
     4)``'s (8, 4, 512, 256) and ``SelfMultiheadAttn(2048, 2)``'s (8, 2,
     512, 1024) bf16 causal shapes beside the twin, SDPA and the bound;
     each module trained 2 SGD steps at dropout 0.1 and 0 with exact
@@ -2153,26 +2157,22 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
     del prof
     for name, b, h, hk, sq, sk, d, causal, kind, dtn in ATTN_CASES:
         routes = case_routes[name]
-        tc_case = dtn == "bf16" and d in (64, 128)
-        _check(routes["flash_fwd"] == routes["flash_dq"] ==
-               routes["flash_dkv"] ==
-               ("tensor cores" if tc_case else "CUDA cores"),
-               f"{name}: routes {routes}, expected the tensor cores for "
-               "flash_fwd, flash_dq and flash_dkv exactly when bf16 at D "
-               "64 or 128")
+        want = _flash_route_of(d, dtn)
+        _check(routes == want, f"{name}: routes {routes}, expected {want} "
+               "(ops.attention.flash_route)")
         print(f"route {name} {dtn} D {d} Sq {sq} Sk {sk}: "
               + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
               flush=True)
 
-    # tensor-core bodies a library holds: the forward at D 64 and 128; dq
-    # and dk/dv at each; each at rate 0 and with dropout
-    for lib, n_tc in (("flash_fwd", 4), ("flash_bwd", 8)):
+    # tensor-core bodies a library holds: the forward and dk/dv at D 64,
+    # 128 and 256, dq at 64 and 128; each at rate 0 and with dropout
+    for lib, n_tc in (("flash_fwd", 6), ("flash_bwd", 10)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
         _check(len(tc_kernels) == n_tc, f"ptxas reported {len(tc_kernels)} "
-               f"tensor-core bodies in {lib}, expected {n_tc} (D 64 and "
-               "128 of each, with and without dropout)")
+               f"tensor-core bodies in {lib}, expected {n_tc} (with and "
+               "without dropout each)")
         for entry, regs, spill in tc_kernels:
             print(f"ptxas tensor-core body {entry}: {regs}; {spill}",
                   flush=True)
@@ -3353,9 +3353,8 @@ def dropout_kernel_phase(dev, smi: str) -> dict:
     for cname in DROP_CASES:
         name, b, h, hk, sq, sk, d, causal, kind, dtn = cases[cname]
         routes = case_routes[name]
-        want = ("tensor cores" if dtn == "bf16" and d in (64, 128)
-                else "CUDA cores")
-        _check(set(routes.values()) == {want},
+        want = _flash_route_of(d, dtn)
+        _check(routes == want,
                f"{name} dropout: routes {routes}, expected {want}")
         print(f"route dropout {name} {dtn} D {d}: "
               + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
@@ -3657,8 +3656,8 @@ def dropout_path_phase(dev, smi: str) -> dict:
 # F5b: head dims past 128.  SelfMultiheadAttn(1024, 4) (Transformer-big's
 # width in four heads, D 256; the same D as Gemma-class heads) trained
 # at T 512, B 8, bf16, causal, dropout 0.1 and 0; the kernels held
-# against the twins at its shape and at f32, at D 512 and at a padded D
-# 160 (name, b, h, s, d, dtype, dropout rate)
+# against the twins at its shape and at f32, at D 512 and at padded D
+# 160 and 200 (name, b, h, s, d, dtype, dropout rate)
 WIDE = dict(hidden=1024, heads=4, seq=512, batch=8, steps=2)
 # F5c: SelfMultiheadAttn(2048, 2), head dim 1024, the wide bodies
 WIDE_1024 = dict(WIDE, hidden=2048, heads=2)
@@ -3670,6 +3669,7 @@ WIDE_CASES = (
     ("d256_f32_s300", 2, 4, 300, 256, "f32", DROP_RATE),
     ("d256_f32_s300_rate0", 2, 4, 300, 256, "f32", 0.0),
     ("d160_bf16_s200", 2, 4, 200, 160, "bf16", DROP_RATE),
+    ("d200_bf16_s190_rate0", 2, 2, 190, 200, "bf16", 0.0),
     ("d512_bf16_s300", 2, 2, 300, 512, "bf16", DROP_RATE),
     ("d512_f32_s130_rate0", 1, 2, 130, 512, "f32", 0.0),
     # F5c: the wide bodies at D 1024 and at D 640 (padded to 1024)
@@ -3685,19 +3685,20 @@ WIDE_CASES = (
 )
 
 
-def _flash_route_of(d: int, dt: str) -> str:
-    """The route the flash bodies take at head dim ``d`` (before
-    padding) and dtype name ``dt``."""
-    if d > 512:
-        return "wide CUDA cores"
-    return ("tensor cores" if dt == "bf16" and d in (64, 128)
-            else "CUDA cores")
+def _flash_route_of(d: int, dt: str) -> dict:
+    """{kernel: route} of the three flash kernels at head dim ``d``
+    (before padding) and dtype name ``dt``: ``ops.attention.flash_route``,
+    the one rule the wrappers and the on-card tests read too."""
+    from apex_tpu_torch.ops import attention as attn
+    return {kn: attn.flash_route(kn, _dtype(dt), d) for kn in FLASH_SYMS}
 
 
 def wide_head_phase(dev, smi: str) -> dict:
-    """F5b and F5c: flash at head dims past 128, on the CUDA-core bodies
-    (256 and 512 wide, dynamic shared memory) and the wide bodies (1024,
-    a row's sums across warps; D 640 padded to 1024).  Each WIDE_CASES
+    """F5b and F5c: flash at head dims past 128: bf16 at 256 (and 160,
+    200 padded to it) on the tensor-core forward and dk/dv and the
+    CUDA-core dq; f32 at 256 and both at 512 on the CUDA-core bodies
+    (dynamic shared memory); the wide bodies at 1024 (a row's sums
+    across warps; D 640 padded to 1024).  Each WIDE_CASES
     case causal, forward with lse, dq and dk/dv against the twins
     (ATTN_TOL), the same bits twice, each body's route and DROP
     instantiation read from the device kernels' names; then, for
@@ -3706,11 +3707,22 @@ def wide_head_phase(dev, smi: str) -> dict:
     D) bf16 causal shape, rate 0 and 0.1, beside the twin, SDPA and the
     bound, and the module trained 2 steps at each rate (forward,
     backward, an SGD update of its params), finite losses, exact launch
-    counts and the routes of a profiled step.  Returns {kernel: {"d256":
+    counts and the routes of a profiled step; the ptxas registers and
+    spills of the D-256 tensor-core bodies.  Returns {kernel: {"d256":
     its D-256 figures, "d1024": its D-1024 figures}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
+
+    for lib in ("flash_fwd", "flash_bwd"):     # reports loaded by phase 16
+        d256 = [r for r in _ptxas_report(_build.build_logs.get(lib, ""),
+                                         "_tc") if "ILi256E" in r[0]]
+        _check(len(d256) == 2, f"ptxas reported {len(d256)} D-256 "
+               f"tensor-core bodies in {lib}, expected 2 (rate 0, DROP)")
+        for entry, regs, spill in d256:
+            print(f"ptxas D-256 tensor-core body {entry}: {regs}; {spill} "
+                  f"[{smi}]", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(13)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -3767,7 +3779,7 @@ def wide_head_phase(dev, smi: str) -> dict:
         for name, _, _, _, d, dtn, rate in WIDE_CASES:
             if (rate > 0) == drop:
                 want = _flash_route_of(d, dtn)
-                _check(set(routes[name].values()) == {want},
+                _check(routes[name] == want,
                        f"wide heads {name}: routes {routes[name]}, expected "
                        f"{want}")
         print(f"route flash wide heads (DROP={str(drop).lower()}): " + "; "
@@ -3844,10 +3856,10 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
             row = dict(ms=times[kn], plain_ms=plain[kn], bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=lib[kn],
                        shape=f"({b}, {h}, {s}, {d}) bf16 causal",
-                       rate=rate, body=body)
+                       rate=rate, body=body[kn])
             rows.setdefault(kn, {})["rate0" if rate == 0 else "dropout"] = row
             print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) bf16 causal dropout "
-                  f"{rate} ({body}): kernel {times[kn]:.4f} ms "
+                  f"{rate} ({body[kn]}): kernel {times[kn]:.4f} ms "
                   f"({ops / times[kn] / 1e9:.1f} TFLOP/s), plain "
                   f"{plain[kn]:.4f} ms, SDPA "
                   f"{'forward' if kn == 'flash_fwd' else 'backward (dq, dk, dv)'}"
@@ -3901,7 +3913,7 @@ def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:
                                drop=rate > 0)
         del prof
         want = _flash_route_of(E // H, "bf16")
-        _check(set(routes[f"rate {rate}"].values()) == {want},
+        _check(routes[f"rate {rate}"] == want,
                f"SelfMultiheadAttn({E}, {H}): routes {routes}, expected "
                f"{want}")
         losses = [float(l) for l, _ in results]

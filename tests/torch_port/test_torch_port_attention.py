@@ -202,16 +202,71 @@ def test_flash_sources_include_the_hopper_header_and_name_both_routes():
         assert ptx in hdr
 
 
+def test_flash_sources_route_bf16_d256_forward_and_dkv_to_the_tensor_cores():
+    """The C dispatchers send bf16 at D 256 to the tensor-core forward
+    (one K/V stage there) and dk/dv (two warpgroups a CTA, each owning
+    half of dK's and dV's columns), keep dq there on the CUDA cores, and
+    keep the CUDA-core D-256 instantiations for f32."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    assert "if (D == 256)\n      return launch_tc<256, DROP>(" in fwd
+    assert "case 256: launch<T, 256, DROP>(" in fwd
+    assert "if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);" in bwd
+    assert "launch_dq_tc<256" not in bwd
+    for body in ("launch_dq<T, 256, DROP>", "launch_dkv<T, 256, DROP>"):
+        assert f"case 256: {body}(" in bwd
+    assert "static constexpr int WGS = D > 128 ? 2 : 1;" in bwd
+    # the forward's K/V ring: one stage at D 256 (two CTAs an SM)
+    assert "static constexpr int STAGES = D > 128 ? 1 : 2;" in fwd
+
+
+# the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):
+# the tensor cores at these widths, the wide bodies from D 1024
+_TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128),
+             "flash_dkv": (64, 128, 256)}
+
+
+@pytest.mark.parametrize("kernel", sorted(_TC_ROUTE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+def test_flash_route_names_each_kernels_body(kernel, dtype, d):
+    """``flash_route`` names the body each kernel takes: bf16 forward and
+    dk/dv on the tensor cores at D 64, 128 and 256, dq at 64 and 128;
+    every f32 width and every other bf16 width up to 512 on the CUDA
+    cores; 1024..8192 on the wide bodies.  A head dim pads to its kernel
+    width first (D - 1 routes as D, for D past 16)."""
+    want = ("wide CUDA cores" if d >= 1024 else
+            "tensor cores" if dtype == torch.bfloat16
+            and d in _TC_ROUTE[kernel] else "CUDA cores")
+    assert tattn.flash_route(kernel, dtype, d) == want
+    if d > 16:
+        assert tattn.flash_route(kernel, dtype, d - 1) == want
+    tc = any(tattn.flash_route(k, dtype, d) == "tensor cores"
+             for k in _TC_ROUTE)
+    assert tattn._align(dtype, d) == (16 if tc else tattn._ALIGN[dtype])
+
+
+def test_flash_route_rejects_an_unknown_kernel_and_width():
+    with pytest.raises(ValueError, match="flash_softmax"):
+        tattn.flash_route("flash_softmax", torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="head_dim up to 8192"):
+        tattn.flash_route("flash_fwd", torch.bfloat16, 8193)
+
+
 def test_tensor_core_route_needs_16_byte_aligned_operands():
-    """bf16 at D 64 and 128 takes the tensor-core bodies, whose TMA loads
-    need q, k, v and dO 16-byte aligned: a tensor 4 elements (8 bytes)
-    into its storage is refused with a ValueError naming the alignment,
-    where bf16 at D 32 (the CUDA-core body, 8-byte words) takes it."""
+    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, whose TMA
+    loads need q, k, v and dO 16-byte aligned: a tensor 4 elements (8
+    bytes) into its storage is refused with a ValueError naming the
+    alignment, where bf16 at D 32 and 512 (the CUDA-core bodies, 8-byte
+    words) takes it."""
     assert tattn._align(torch.bfloat16, 64) == 16
     assert tattn._align(torch.bfloat16, 128) == 16
+    assert tattn._align(torch.bfloat16, 256) == 16
     assert tattn._align(torch.bfloat16, 32) == 8
+    assert tattn._align(torch.bfloat16, 512) == 8
     assert tattn._align(torch.float32, 64) == 16
-    for d, refused in ((64, True), (128, True), (32, False)):
+    for d, refused in ((64, True), (128, True), (256, True), (32, False),
+                       (512, False)):
         t = torch.zeros(4 + 2 * 8 * d, dtype=torch.bfloat16)[4:]
         t = t.view(1, 2, 8, d)
         assert t.data_ptr() % 16 == 8

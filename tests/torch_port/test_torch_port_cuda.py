@@ -16,9 +16,11 @@ rounding, 2e-2; f32 1e-4) and must give the same bits twice; the flat
 kernels of the training paths against their twins (tolerances by the
 kernels' sections below); a GPT block step must not sync the host.
 dq and the LayerNorm backward are also held on each of their routes
-(the tensor-core dq for bf16 at D 64 and 128; the fused or three-launch
-LayerNorm backward by ``bwd_route``), each read from the device
-kernels' names under ``torch.profiler``.  The flash bodies' dropout
+(each flash kernel's by ``ops.attention.flash_route``: the tensor-core
+forward and dk/dv for bf16 at D 64, 128 and 256, the tensor-core dq at
+64 and 128; the fused or three-launch LayerNorm backward by
+``bwd_route``), each read from the device kernels' names under
+``torch.profiler``.  The flash bodies' dropout
 instantiations are held against the twins at the same seed (FLASH_TOL),
 their keep mask read out of the kernels bit for bit, and the inputs the
 wrapper pads or copies (head dims 8, 80, 96; strided, misaligned; B*H
@@ -380,8 +382,18 @@ FLASH_TRAIN_CASES = {
     "tc_bf16_gqa_12_to_4": (2, 12, 4, 256, 64, False, None, torch.bfloat16),
     "tc_d128_bf16_causal_packed": (2, 8, 8, 192, 128, True, "packed",
                                    torch.bfloat16),
-    # F5b: the CUDA-core bodies at D 256 and 512 (dynamic shared memory,
-    # fewer rows a CTA), f32 and bf16
+    # the D-256 tensor-core forward and dk/dv (two warpgroups), dq on the
+    # CUDA cores: a ragged last tile, grouped-query heads under segment
+    # ids, head dims 160 and 200 padded to 256
+    "tc_d256_bf16_causal_s200": (2, 4, 4, 200, 256, True, None,
+                                 torch.bfloat16),
+    "tc_d256_bf16_gqa_4_to_2_packed": (2, 4, 2, 192, 256, True, "packed",
+                                       torch.bfloat16),
+    "tc_d160_bf16_causal": (2, 4, 4, 130, 160, True, None, torch.bfloat16),
+    "tc_d200_bf16_gqa_ragged": (2, 4, 2, 100, 200, False, "ragged",
+                                torch.bfloat16),
+    # F5b: D 256 and 512 in dynamic shared memory on the CUDA cores (bf16
+    # forward and dk/dv at 256 on the tensor cores), f32 and bf16
     "d256_f32_gqa_causal": (2, 4, 2, 130, 256, True, "ragged",
                             torch.float32),
     "d256_bf16_packed": (2, 4, 4, 128, 256, False, "packed",
@@ -409,7 +421,9 @@ FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 def test_flash_attention_gradients_on_card_match_the_twins(cuda, name):
     """Under autograd on the card: the forward with lse, then the dq and
     dk/dv kernels, each once, against the twins on the same inputs; rows
-    that see no key give exact zeros; a second run gives the same bits."""
+    that see no key give exact zeros; a second run gives the same bits;
+    each kernel on its ``flash_route``, read from the device kernels'
+    names."""
     b, h, hk, s, d, causal, kind, dt = FLASH_TRAIN_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(21)
     q, k, v, do = (torch.randn(b, n, s, d, generator=g, device=cuda).to(dt)
@@ -442,6 +456,27 @@ def test_flash_attention_gradients_on_card_match_the_twins(cuda, name):
             assert torch.all(t.transpose(1, 2)[pad] == 0)
     again = run()
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+    names = _device_kernel_names(run, "flash_", want=tuple(
+        FLASH_BODIES.values()))
+    _assert_flash_routes(names, dt, d)
+
+
+# each flash kernel's device body, and the route a body's name shows
+FLASH_BODIES = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+                "flash_dkv": "flash_dkv_kernel"}
+
+
+def _body_route(name: str, sym: str) -> str:
+    return ("tensor cores" if f"{sym}_tc<" in name else
+            "wide CUDA cores" if f"{sym}_wide<" in name else "CUDA cores")
+
+
+def _assert_flash_routes(names, dt, d):
+    """Each of the three kernels seen in ``names`` (profiled device
+    kernels), and each on the body ``attn.flash_route`` names for it."""
+    for kernel, sym in FLASH_BODIES.items():
+        seen = {_body_route(n, sym) for n in names if sym in n}
+        assert seen == {attn.flash_route(kernel, dt, d)}, (kernel, names)
 
 
 TC_CROSS_CASES = {
@@ -450,13 +485,15 @@ TC_CROSS_CASES = {
     "sq33_sk71": (1, 4, 2, 33, 71, 64, False),
     "sq70_sk300_causal": (1, 2, 1, 70, 300, 64, True),
     "sq200_sk130_causal_d128": (2, 4, 4, 200, 130, 128, True),
+    "sq130_sk70_causal_d256": (2, 4, 4, 130, 70, 256, True),
+    "sq70_sk200_causal_d256_gqa": (1, 4, 2, 70, 200, 256, True),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(TC_CROSS_CASES))
 def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
-    """The forward with lse and the dk/dv kernel (bf16, D 64/128: the
+    """The forward with lse and the dk/dv kernel (bf16, D 64/128/256: the
     tensor-core route) at Sq != Sk against the twins; keys that no row
     sees get exact zeros."""
     b, h, hk, sq, sk, d, causal = TC_CROSS_CASES[name]
@@ -480,9 +517,9 @@ def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
-    """bf16 at D 64/128: q starting 8 bytes past a 16-byte boundary (TMA
+    """bf16 at D 64/128/256: q starting 8 bytes past a 16-byte boundary (TMA
     needs 16) is cloned to an aligned start by the wrapper (F5): one
     launch, on the tensor cores, the plain version's result."""
     q = torch.randn(4 + 2 * 16 * d, device=cuda).to(torch.bfloat16)[4:]
@@ -616,7 +653,8 @@ def _device_kernel_names(fn, keep, want=None, calls=3, sessions=3):
 
 DQ_CASES = {
     # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 64
-    # and 128 is the tensor-core route, the rest the CUDA cores
+    # and 128 is the tensor-core route, the rest (bf16 D 256 too) the
+    # CUDA cores
     "gpt2_small_causal": (8, 12, 12, 512, 512, 64, True, None,
                           torch.bfloat16),
     "bert_large_unmasked": (8, 16, 16, 512, 512, 64, False, None,
@@ -632,6 +670,8 @@ DQ_CASES = {
                            torch.float32),
     "bf16_d32_cuda_cores": (2, 4, 4, 200, 200, 32, True, None,
                             torch.bfloat16),
+    "bf16_d256_cuda_cores": (2, 4, 2, 200, 200, 256, True, "packed",
+                             torch.bfloat16),
 }
 
 
@@ -641,8 +681,8 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     """dq against ``flash_bwd_ref`` on the kernel's own o and lse: bf16
     within one bf16 rounding (2e-2), f32 within 1e-4; rows that see no
     key give exact zeros; the same bits on a second call; the route read
-    from the kernel's name (``flash_dq_kernel_tc`` exactly for bf16 at D
-    64 and 128)."""
+    from the kernel's name (``attn.flash_route``: ``flash_dq_kernel_tc``
+    exactly for bf16 at D 64 and 128)."""
     b, h, hk, sq, sk, d, causal, kind, dt = DQ_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(31)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
@@ -664,8 +704,9 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     names = _device_kernel_names(
         lambda: attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg),
         "flash_dq_kernel")
-    tc = dt == torch.bfloat16 and d in (64, 128)
-    assert names and all(("flash_dq_kernel_tc" in n) == tc for n in names)
+    want = attn.flash_route("flash_dq", dt, d)
+    assert names and all(_body_route(n, "flash_dq_kernel") == want
+                         for n in names)
 
 
 LN_BWD_CASES = {
@@ -1574,8 +1615,10 @@ def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
 # window of D query rows dV is nonzero exactly where kept.
 
 DROP_CASES = {
-    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): bf16 at
-    # D 64/128 the tensor-core bodies, the rest the CUDA cores
+    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): each
+    # kernel on its attn.flash_route (bf16 at D 64/128 the tensor-core
+    # bodies, at 256 the tensor-core forward and dk/dv; the rest the CUDA
+    # cores)
     "tc_gpt_causal": (2, 12, 12, 256, 256, 64, True, None, torch.bfloat16,
                       0.1),
     "tc_bert_packed": (2, 16, 16, 192, 192, 64, False, "packed",
@@ -1595,6 +1638,19 @@ DROP_CASES = {
                                 torch.float32, 0.1),
     "fma_bf16_d256_packed": (2, 4, 4, 128, 128, 256, False, "packed",
                              torch.bfloat16, 0.1),
+    # the D-256 tensor-core forward and dk/dv's DROP instantiations
+    "tc_d256_causal_s200": (2, 4, 4, 200, 200, 256, True, None,
+                            torch.bfloat16, 0.1),
+    "tc_d256_gqa_4_to_2_packed": (2, 4, 2, 192, 192, 256, True, "packed",
+                                  torch.bfloat16, 0.1),
+    "tc_d256_cross_causal_r25": (2, 4, 4, 130, 70, 256, True, None,
+                                 torch.bfloat16, 0.25),
+    "tc_d256_cross_causal_r50": (2, 4, 4, 130, 70, 256, True, None,
+                                 torch.bfloat16, 0.5),
+    "tc_d160_ragged": (2, 4, 4, 130, 130, 160, True, "ragged",
+                       torch.bfloat16, 0.1),
+    "tc_d200_gqa_packed": (1, 4, 2, 100, 100, 200, False, "packed",
+                           torch.bfloat16, 0.5),
     "fma_bf16_d512_cross_causal": (1, 2, 2, 70, 100, 512, True, None,
                                    torch.bfloat16, 0.1),
     "fma_f32_d512": (1, 2, 1, 64, 64, 512, False, None, torch.float32,
@@ -1640,16 +1696,14 @@ def test_dropout_bodies_match_the_twins_on_card(cuda, name):
     other = attn._flash_fwd_cuda(q, k, v, causal, None, seg, False, rate,
                                  seed + 1)[0]
     assert not torch.equal(other, o)
-    tc = dt == torch.bfloat16 and d in (64, 128)
-    bodies = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    bodies = tuple(FLASH_BODIES.values())
     names = _device_kernel_names(lambda: (
         attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, seed),
         attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
                              seed)), "flash_", want=bodies)
     # each body seen (a short profiler session may drop a kernel's
     # record, so the count of names is not held), each on its route
-    assert {kn for kn in bodies if any(kn in n for n in names)} == set(bodies)
-    assert all(("_kernel_tc" in n) == tc for n in names)
+    _assert_flash_routes(names, dt, d)
     # the bodies' last template argument is DROP
     assert all(re.search(r"_kernel(_tc|_wide)?<[^>]*, true>", n)
                for n in names)
@@ -1670,6 +1724,8 @@ KEEP_CASES = {
     # name: (b, h, sq, sk, d, causal, dtype, rate)
     "tc_causal": (2, 3, 200, 200, 64, True, torch.bfloat16, 0.1),
     "tc_d128_cross": (1, 2, 70, 150, 128, False, torch.bfloat16, 0.5),
+    "tc_d256_causal": (1, 2, 130, 130, 256, True, torch.bfloat16, 0.1),
+    "tc_d256_cross": (1, 2, 70, 300, 256, False, torch.bfloat16, 0.25),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
 }
