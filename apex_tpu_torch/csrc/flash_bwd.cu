@@ -15,11 +15,11 @@
 //
 // - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
-//   Llama-class heads); flash_dkv_kernel_tc also at D 256 (the
-//   Gemma-class heads of 129..256, padded to 256).
+//   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
+//   padded to 256).
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
-//   no TF32), bf16 at D 16, 32 and 512, and bf16 dq at D 256.
+//   no TF32) and bf16 at D 16, 32 and 512.
 // - CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32 and
 //   bf16 at D 1024..8192, a power of two (below, before the entry
 //   points).
@@ -100,6 +100,19 @@
 // and rounds to bf16 once.  The mask, the heaviest-first order of the q
 // blocks under the causal mask and the key loop's stop at the diagonal
 // tile are the forward's.
+//
+// At D 256 the same body holds dQ's 64 x 256 f32 (128 registers a
+// thread, the D-256 forward's O) beside S and dP (32 each): one
+// warpgroup, since the dS fragment replaces S and dP before dQ's
+// products.  Q and dO resident (64 KB) and two K/V stages (128 KB) take
+// 192 KB of shared memory, one CTA an SM.  A causal (8, 4, 512, 256)
+// call does 6.45 GFLOP over 42.1 MB: 6.5 us at 989 TFLOP/s against 12.6
+// us at 3.35 TB/s, bytes on paper, each CTA's chain of three dependent
+// products in practice: 0.0334 ms there on an H100 at 700 W (193
+// TFLOP/s), where the CUDA-core body took 0.4511.  Two warpgroups a CTA,
+// each owning half of dQ's panels and both computing S and dP (10 D
+// tensor-core FLOP a pair where one takes 6 D), were measured 4-23%
+// slower at four causal D-256 shapes and not kept (PERF.md, row 2).
 //
 // The CUDA-core bodies, simple first (about S/4 operations per byte
 // moved against the card's 20 for f32 outside the tensor cores: bound by
@@ -806,9 +819,11 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// dq on the tensor cores: bf16, D 64 and 128 (wgmma + TMA;
+// dq on the tensor cores: bf16, D 64, 128 and 256 (wgmma + TMA;
 // hopper_mma.cuh).  Query rows are wgmma's M: S = Q.K^T, dP = dO.V^T,
-// dS, dQ += dS.K (the forward's geometry, K in V's place).
+// dS, dQ += dS.K (the forward's geometry, K in V's place).  At D 256
+// dQ's 64 x 256 f32 is the D-256 forward's O accumulator: 128 registers
+// a thread beside S and dP (32 each), in one warpgroup.
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1289,16 +1304,16 @@ int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route of both backward kernels: bf16 at D 64 and 128 takes the
-// tensor cores, and so does bf16 dk/dv at D 256 (dq there stays on the
-// CUDA cores); D 1024..8192 the wide bodies, everything else the
-// CUDA-core bodies of their width; a seed takes each body's DROP
-// instantiation.
+// The route of both backward kernels: bf16 at D 64, 128 and 256 takes
+// the tensor cores; D 1024..8192 the wide bodies, everything else (f32
+// at every width up to 512, bf16 at 16, 32 and 512) the CUDA-core
+// bodies of their width; a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
     if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
     if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
+    if (D == 256) return launch_dq_tc<256, DROP>(a, dq);
   }
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   switch (D) {

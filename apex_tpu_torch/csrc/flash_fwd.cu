@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a): three bodies, chosen by
+// Flash-attention forward for Hopper (sm_90a): four bodies, chosen by
 // dtype and head width in the C dispatcher (`dispatch`, below).
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_fwd_pallas
@@ -26,11 +26,15 @@
 //   precision contract of docs/kernels.md makes f32 operands true f32,
 //   so no TF32), bf16 at D 16, 32 and 512, and a call with no keys
 //   (Sk == 0).
-// - CUDA cores, flash_fwd_kernel_wide: f32 and bf16 at D 1024..8192, a
-//   power of two (the wrapper pads wider heads to one), with D a runtime
-//   width and a row's sums across warps (hopper_mma.cuh, namespace wide).
+// - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 1024..8192, a
+//   power of two (the wrapper pads wider heads to one), D a runtime
+//   width; a CTA owns 256 of O's columns and computes S over the whole D
+//   (below, before the route).
+// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 1024..8192 (and
+//   bf16 there with no keys), with D a runtime width and a row's sums
+//   across warps (hopper_mma.cuh, namespace wide).
 //
-// Both follow the reference's arithmetic: bf16 products with f32 sums
+// All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
 // bf16 to f32 on load, where a product of two bf16 values is exact),
 // the probabilities rounded to bf16 before P.V (`p.astype(v.dtype)`),
@@ -309,7 +313,8 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// wide body: f32 and bf16 at D 1024..8192, a power of two (wide::takes)
+// wide body: f32 at D 1024..8192, a power of two (wide::takes), and bf16
+// there with no keys (bf16 with keys takes flash_fwd_kernel_tc_wide)
 // ---------------------------------------------------------------------------
 //
 // The CUDA-core body's arithmetic with D a runtime width.  A query row
@@ -738,9 +743,271 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route: bf16 at D 64, 128 and 256 with keys to read takes the
-// tensor cores, D 1024..8192 the wide body, everything else the CUDA-core
-// bodies of their width; a seed takes each body's DROP instantiation.
+// ---------------------------------------------------------------------------
+// wide tensor-core body: bf16 at D 1024..8192, a power of two (wgmma +
+// TMA; hopper_mma.cuh)
+// ---------------------------------------------------------------------------
+//
+// A 64-row O accumulator at D 1024 is 64 x 1024 f32, 256 KB: an SM's
+// whole register file and more than its shared memory.  So a CTA (one
+// warpgroup) owns a slice of SLICE = 256 of O's columns for 64 query
+// rows (blockIdx.z counts the D/256 slices): the D-256 forward's 128
+// accumulator registers a thread.  Each slice needs P, so each computes
+// the whole of S = Q.K^T: the 64-column panels of Q and of the key tile
+// flow through a ring of STAGES stages by TMA (a Q panel and a K panel a
+// stage, one mbarrier each; Q is read again from L2 for every key tile),
+// one wgmma m64n64k16 per 16 columns of D.  One counter runs over every
+// (key tile, panel) load of the ring, so stage g % STAGES waits on the
+// phase (g / STAGES) & 1; a stage is loaded again once every thread has
+// waited for the products that read it (wgmma_wait<1>, one barrier).
+// The slice's V tile (64 keys x 256 columns, 32 KB) loads beside S's
+// panels and meets P in O += P.V, P rounded to bf16 in registers.  The
+// softmax is the D-64/128/256 body's (softmax_tile): every slice
+// computes the same S from the same products in the same order, so each
+// gets the same m, l and P, bit for bit, the dropout mask included;
+// slice 0 writes the lse.  96 KB of tiles: two CTAs share an SM.
+//
+// What bounds it: at (8, 2, 512, 1024) bf16 causal a call does 8.6
+// GFLOP of attention over 67.1 MB (8.7 us at 989 TFLOP/s against 20.0 us
+// at 3.35 TB/s: bytes on paper), but the slices repeat S: (D/256)·2D +
+// 2D tensor-core FLOP a pair where the function needs 4D, 2.5x at D 1024
+// and 16.5x at D 8192, and each CTA reads its Q block and every key tile
+// it sees from L2 once a key tile.  On an H100 at 700 W that shape takes
+// 0.1169 ms (184 TFLOP/s executed, 74 useful; SDPA's forward 0.1334),
+// where the wide CUDA-core body took 1.1546.  Sharing P across the
+// slices (a CTA of several warpgroups, or a cluster over distributed
+// shared memory) would remove the repetition.
+
+struct FwdTcWide {
+  static constexpr int BQ = 64;                 // query rows a CTA
+  static constexpr int THREADS = 128;           // one warpgroup
+  static constexpr int SLICE = 256;             // O (and V) columns a CTA
+  static constexpr int SNP = SLICE / 64;        // their 64-column panels
+  static constexpr int STAGES = 4;              // Q/K panel ring
+  static constexpr int PANEL = 64 * 128;        // 64 rows of 64 bf16: 8 KB
+  static constexpr int STAGE_BYTES = 2 * PANEL; // a Q and a K panel
+  static constexpr int V_OFF = STAGES * STAGE_BYTES;
+  static constexpr int V_BYTES = SNP * PANEL;   // the slice's V tile
+  static constexpr int KID_OFF = V_OFF + V_BYTES;
+  static constexpr int BAR_OFF = KID_OFF + TC_BK * 4;
+  static constexpr int SMEM = BAR_OFF + (STAGES + 1) * 8 + 1024;   // + slack
+};
+
+template <bool DROP>
+__global__ void __launch_bounds__(FwdTcWide::THREADS)
+flash_fwd_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse,
+                         const int* __restrict__ q_ids,
+                         const int* __restrict__ kv_ids, int H, int HK,
+                         int Sq, int Sk, int D, int causal, float scale2,
+                         dropout::Params drop) {
+  using G = FwdTcWide;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* vs = sm + G::V_OFF;
+  int* kid = reinterpret_cast<int*>(sm + G::KID_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);  // ring
+  uint64_t* vbar = full + G::STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bhk = b * HK + (bh % H) / (H / HK);
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
+  const int c0 = blockIdx.z * G::SLICE;   // this CTA's columns of O and V
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r_lo = q0 + 16 * (tid >> 5) + (lane >> 2);   // and r_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
+  const int ntile = (kend + TC_BK - 1) / TC_BK;
+  const int npan = D / 64;               // S's panels a key tile
+  const int nload = ntile * npan;        // the ring's loads
+  uint32_t rkey[2] = {0u, 0u};
+  if (DROP) {
+    const uint32_t head = dropout::head_key(*drop.seed, bh);
+    rkey[0] = dropout::row_key(head, r_lo);
+    rkey[1] = dropout::row_key(head, r_lo + 8);
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i <= G::STAGES; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // the ring's load j: panel j % npan of Q and of key tile j / npan
+  auto load = [&](int j) {
+    const int st = j % G::STAGES, p = j % npan;
+    uint8_t* dst = sm + st * G::STAGE_BYTES;
+    hopper::mbar_expect_tx(&full[st], G::STAGE_BYTES);
+    hopper::tma_load_3d(dst, &map_q, &full[st], 64 * p, q0, bh);
+    hopper::tma_load_3d(dst + G::PANEL, &map_k, &full[st], 64 * p,
+                        (j / npan) * TC_BK, bhk);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < G::STAGES && j < nload; ++j) load(j);
+  }
+  const int qid_lo = (seg && r_lo < Sq) ? q_ids[(size_t)b * Sq + r_lo] : 0;
+  const int qid_hi =
+      (seg && r_lo + 8 < Sq) ? q_ids[(size_t)b * Sq + r_lo + 8] : 0;
+
+  float acc[G::SNP][32];
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::SNP; ++p) acc[p][i] = 0.f;
+  }
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  int g = 0;                             // the ring's next load to consume
+  for (int t = 0; t < ntile; ++t) {
+    const int k0 = t * TC_BK;
+    // every thread is done with tile t-1's V and key ids: they take tile t
+    __syncthreads();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(vbar, G::V_BYTES);
+#pragma unroll
+      for (int p = 0; p < G::SNP; ++p)
+        hopper::tma_load_3d(vs + p * G::PANEL, &map_v, vbar, c0 + 64 * p, k0,
+                            bhk);
+    }
+    if (seg) {
+      for (int j = tid; j < TC_BK; j += G::THREADS)
+        kid[j] = k0 + j < Sk ? kv_ids[(size_t)b * Sk + k0 + j] : 0;
+    }
+
+    // S = Q . K^T over the whole D, a 64-column panel a ring stage
+    hopper::fence_acc(s);
+    for (int p = 0; p < npan; ++p, ++g) {
+      const int st = g % G::STAGES;
+      hopper::mbar_wait(&full[st], (g / G::STAGES) & 1);
+      const uint8_t* qp = sm + st * G::STAGE_BYTES;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss_n64<0>(
+            s, hopper::desc_sw128(qp + kk * 32, 16, 1024),
+            hopper::desc_sw128(qp + G::PANEL + kk * 32, 16, 1024),
+            p > 0 || kk > 0);
+      hopper::wgmma_commit();
+      if (p > 0) {
+        // the previous panel's products are done in every warp: its
+        // stage takes the ring's load g - 1 + STAGES
+        hopper::wgmma_wait<1>();
+        __syncthreads();
+        if (tid == 0 && g - 1 + G::STAGES < nload) load(g - 1 + G::STAGES);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(s);
+    __syncthreads();
+    if (tid == 0 && g - 1 + G::STAGES < nload) load(g - 1 + G::STAGES);
+
+    float alpha[2];
+    const bool need = seg || k0 + TC_BK > Sk ||
+                      (causal && k0 + TC_BK - 1 > q0);
+    if (need)
+      softmax_tile<true, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
+                               causal, seg ? kid : nullptr, qid_lo, qid_hi,
+                               rkey, drop);
+    else
+      softmax_tile<false, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
+                                causal, nullptr, 0, 0, rkey, drop);
+
+    // O_slice = O_slice * alpha + P . V_slice, P rounded to bf16 in
+    // registers
+    uint32_t a[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[c][r] = hopper::pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
+#pragma unroll
+    for (int p = 0; p < G::SNP; ++p) {
+      hopper::fence_acc(acc[p]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+      hopper::fence_acc(acc[p]);
+    }
+    hopper::mbar_wait(vbar, t & 1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int p = 0; p < G::SNP; ++p)
+        hopper::wgmma_rs_n64<1>(
+            acc[p], a[c],
+            hopper::desc_sw128(vs + p * G::PANEL + c * 2048, G::PANEL, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < G::SNP; ++p) hopper::fence_acc(acc[p]);
+  }
+
+  // epilogue: the row sums meet over the row's four lanes; the slice of
+  // o = acc / l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float linv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                         l[1] > 0.f ? 1.f / l[1] : 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= Sq) continue;
+    uint32_t* orow =
+        reinterpret_cast<uint32_t*>(o + ((size_t)bh * Sq + row) * D + c0);
+#pragma unroll
+    for (int p = 0; p < G::SNP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        orow[(64 * p + 8 * j + 2 * (lane & 3)) / 2] =
+            hopper::pack_bf16(acc[p][4 * j + 2 * h] * linv[h],
+                              acc[p][4 * j + 2 * h + 1] * linv[h]);
+    if (lse != nullptr && blockIdx.z == 0 && (lane & 3) == 0)
+      lse[(size_t)bh * Sq + row] =
+          l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : NEG;
+  }
+}
+
+template <bool DROP>
+int launch_tc_wide(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const int* q_ids, const int* kv_ids, int B,
+                   int H, int HK, int Sq, int Sk, int D, int causal,
+                   float scale, const dropout::Params& drop,
+                   cudaStream_t stream) {
+  using G = FwdTcWide;
+  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, k, D, Sk, B * HK, TC_BK);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, Sk, B * HK, TC_BK);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_fwd_kernel_tc_wide<DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
+  if (rc != 0) return rc;
+  // B*H on x (2^31 - 1), the q blocks on y, the column slices on z
+  const dim3 grid(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::SLICE);
+  flash_fwd_kernel_tc_wide<DROP><<<grid, G::THREADS, G::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, q_ids, kv_ids, H, HK,
+      Sq, Sk, D, causal, scale * LOG2E, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route: bf16 with keys to read takes the tensor cores, at D 64, 128
+// and 256 and (the wide tensor-core body) at D 1024..8192; the rest of D
+// 1024..8192 (f32, and bf16 with no keys) the wide CUDA-core body,
+// everything else the CUDA-core bodies of their width; a seed takes each
+// body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -753,6 +1020,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_tc<128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 256)
       return launch_tc<256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
+    if (D >= wide::MIN_D)
+      return launch_tc_wide<DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   }
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);

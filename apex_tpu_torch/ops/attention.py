@@ -426,35 +426,43 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 
 
 # the kernel widths at which each kernel's bf16 body runs on the tensor
-# cores (wgmma + TMA); the dq body at D 256 is still the CUDA cores' one
-_TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128),
+# cores (wgmma + TMA); past 512 only the forward's does ("wide tensor
+# cores"), dq and dk/dv there stay on the wide CUDA-core bodies
+_TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
               "flash_dkv": (64, 128, 256)}
+_TC_WIDE = ("flash_fwd",)
+_TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
 def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA), "CUDA cores" (the FMA body) or "wide CUDA cores"
-    (``..._kernel_wide``, D 1024..8192).  The C dispatchers of
-    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
-    apart from a forward with no keys (it takes the CUDA cores)."""
+    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body),
+    "wide tensor cores" (``flash_fwd_kernel_tc_wide``: the bf16 forward
+    at D 1024..8192, a CTA on 256 of O's columns) or "wide CUDA cores"
+    (``..._kernel_wide``: f32 at D 1024..8192, and the bf16 dq and dk/dv
+    there).  The C dispatchers of ``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu`` route the same way, apart from a forward with
+    no keys (it takes the CUDA cores, or the wide CUDA cores past 512)."""
     if kernel not in _TC_WIDTHS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
                          f"{sorted(_TC_WIDTHS)})")
     w = _kernel_width(d)
+    bf16 = dtype == torch.bfloat16
     if w >= 1024:                 # csrc/hopper_mma.cuh: wide::MIN_D
-        return "wide CUDA cores"
-    if dtype == torch.bfloat16 and w in _TC_WIDTHS[kernel]:
+        return ("wide tensor cores" if bf16 and kernel in _TC_WIDE
+                else "wide CUDA cores")
+    if bf16 and w in _TC_WIDTHS[kernel]:
         return "tensor cores"
     return "CUDA cores"
 
 
 def _align(dtype, d: int) -> int:
     """The bytes q, k, v and dO must start aligned to: TMA's 16 where a
-    kernel of the call takes the tensor-core route (:func:`flash_route`),
-    else one 4-element vector."""
-    tc = any(flash_route(k, dtype, d) == "tensor cores" for k in _TC_WIDTHS)
+    kernel of the call takes either tensor-core route
+    (:func:`flash_route`), else one 4-element vector."""
+    tc = any(flash_route(k, dtype, d) in _TC_ROUTES for k in _TC_WIDTHS)
     return 16 if tc else _ALIGN[dtype]
 
 

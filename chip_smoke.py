@@ -96,7 +96,7 @@ exits non-zero:
     each kernel took, read from the device kernels' names under the
     profiler (each kernel's ``ops.attention.flash_route``: the tensor-core
     bodies for bf16 at D 64 and 128, the CUDA-core bodies otherwise at
-    these widths); the tensor-core bodies' ptxas registers
+    these widths); every tensor-core body's ptxas registers
     and spills (0 spill bytes required) and the host microseconds of one
     TMA tensor map; at GPT's and BERT-L's unmasked shapes each kernel
     timed beside its twin, its bound and SDPA's forward or backward in
@@ -223,18 +223,19 @@ exits non-zero:
     gradients within 1e-3 of their scale, and the CPU at other seeds
     outside it;
 34. wide heads (F5b, F5c) — the flash bodies at head dims 160 and 200
-    (padded), 256 and 512 (bf16 forward and dk/dv at 256 on the tensor
-    cores, the rest on the CUDA cores) and the wide bodies at 640
-    (padded) and 1024 ((4, 2, 512, D); bf16 D 1024 at (8, 2, 512, 1024),
-    the shape it is timed at), f32 and bf16, dropout 0.1 and 0, against
-    their twins with each kernel's route (``ops.attention.flash_route``)
-    and DROP instantiation read from the device kernels' names; the
-    ptxas registers and spills of the D-256 tensor-core bodies; the
-    three timed at ``SelfMultiheadAttn(1024,
-    4)``'s (8, 4, 512, 256) and ``SelfMultiheadAttn(2048, 2)``'s (8, 2,
-    512, 1024) bf16 causal shapes beside the twin, SDPA and the bound;
-    each module trained 2 SGD steps at dropout 0.1 and 0 with exact
-    launch counts and profiled routes;
+    (padded), 256 and 512 (bf16 at 256 on the tensor cores, the rest on
+    the CUDA cores) and the wide bodies at 640 (padded) and 1024 ((4, 2,
+    512, D); bf16 D 1024 at (8, 2, 512, 1024), the shape it is timed
+    at; the bf16 forward there on the wide tensor-core body), f32 and
+    bf16, dropout 0.1 and 0, against their twins with each kernel's
+    route (``ops.attention.flash_route``) and DROP instantiation read
+    from the device kernels' names; the ptxas registers and spills of
+    the D-256 and wide tensor-core bodies; the three timed at
+    ``SelfMultiheadAttn(1024, 4)``'s (8, 4, 512, 256) and
+    ``SelfMultiheadAttn(2048, 2)``'s (8, 2, 512, 1024) bf16 causal
+    shapes beside the twin, SDPA and the bound (and the f32 wide bodies
+    at the latter); each module trained 2 SGD steps at dropout 0.1 and
+    0 with exact launch counts and profiled routes;
 35. train (GPTModel; run after phase 20) — ``models.GPTModel`` at GPT-2
     small's published widths (12 x 768, 12 heads, vocab 50257, 1024
     positions), amp O2, FusedAdam lr 3e-4 through the flat pipeline,
@@ -271,12 +272,13 @@ launching them, so the host's launch overhead is not in them.
 
 The line before the last is the ``kernels`` JSON record (every kernel);
 the last line is ``{"ok": true, "device": {...}}``.  The flash kernels'
-entries name the ``body`` their timed row took ("tensor cores" or "CUDA
-cores") and its ``shape``: flash_fwd's is GPT-2 small's bf16 training
-shape (its launches those of the GPT step), with the serve path's f32
-row under ``serve_f32``; each of the three carries its dropout body's
-figures under ``dropout`` (launches those of phase 32's 12-layer
-stack); the wide heads' under ``d256`` and ``d1024``.  The kernels of
+entries name the ``body`` their timed row took ("tensor cores", "CUDA
+cores", "wide tensor cores" or "wide CUDA cores") and its ``shape``:
+flash_fwd's is GPT-2 small's bf16 training shape (its launches those of
+the GPT step), with the serve path's f32 row under ``serve_f32``; each
+of the three carries its dropout body's figures under ``dropout``
+(launches those of phase 32's 12-layer stack); the wide heads' under
+``d256`` and ``d1024``.  The kernels of
 the GPTModel step carry their launches in phase 35's timed steps under
 ``gpt_model_launches``.  Nothing of JAX is imported.
 """
@@ -2032,10 +2034,12 @@ def _flash_routes(prof, case_launches, drop: bool) -> dict:
     kernels in launch order, so each kernel's device events, by start
     time, fall to the cases in turn by ``case_launches``, [(case,
     {kernel: launches})].  Every name must carry the ``DROP`` template
-    argument ``drop`` (the bodies' last: ``..., true>`` with dropout).
+    argument ``drop`` (the bodies' last: ``..., true>`` with dropout, or
+    ``<true>`` in the wide forward, whose only one it is).
     (One session: on an H100, short sessions of a small case's few calls
     came back without their kernels.)  "wide CUDA cores" is a
-    ``..._kernel_wide`` (D 1024..8192, F5c)."""
+    ``..._kernel_wide`` (D 1024..8192, F5c), "wide tensor cores" a
+    ``..._kernel_tc_wide`` (the bf16 forward there)."""
     import re
     import torch
     events = sorted((e for e in prof.events()
@@ -2047,17 +2051,19 @@ def _flash_routes(prof, case_launches, drop: bool) -> dict:
         want = sum(n[kname] for _, n in case_launches)
         _check(len(names) == want, f"the profiler saw {len(names)} "
                f"{sym} on the device where {want} were launched")
-        flag = f", {str(drop).lower()}>"
-        wrong = {x for x in names
-                 if flag not in (re.search(sym + r"(_tc|_wide)?<[^>]*>", x)
-                                 or [""])[0]}
+        # the template arguments' last, DROP (the wide forward's only one)
+        drops = {x: re.search(sym + r"(_tc_wide|_tc|_wide)?<([^>]*, )?"
+                              r"(true|false)>", x) for x in names}
+        wrong = {x for x, m in drops.items()
+                 if not m or m.group(3) != str(drop).lower()}
         _check(not wrong, f"{kname}: the bodies {wrong} are not the DROP="
                f"{str(drop).lower()} instantiation")
         i = 0
         for case, n in case_launches:
             seen = set(names[i:i + n[kname]])
             i += n[kname]
-            kinds = {"tensor cores" if sym + "_tc" in x else
+            kinds = {"wide tensor cores" if sym + "_tc_wide" in x else
+                     "tensor cores" if sym + "_tc" in x else
                      "wide CUDA cores" if sym + "_wide" in x else
                      "CUDA cores" for x in seen}
             _check(len(kinds) == 1,
@@ -2164,9 +2170,9 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               + ", ".join(f"{kn} {r}" for kn, r in routes.items()),
               flush=True)
 
-    # tensor-core bodies a library holds: the forward and dk/dv at D 64,
-    # 128 and 256, dq at 64 and 128; each at rate 0 and with dropout
-    for lib, n_tc in (("flash_fwd", 6), ("flash_bwd", 10)):
+    # tensor-core bodies a library holds: the forward, dq and dk/dv at D
+    # 64, 128 and 256, the wide forward; each at rate 0 and with dropout
+    for lib, n_tc in (("flash_fwd", 8), ("flash_bwd", 12)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
@@ -3079,11 +3085,15 @@ DROP_CASES = ("gpt2_block", "bert_large_unmasked", "bert_large_packed",
               "gqa_12_to_4_s200", "f32_gqa_s300", "d32_causal",
               "cross_sq130_sk70_causal")
 # the keep mask read out of the kernels: name, b, h, sq, sk, d, causal,
-# dtype (the tensor cores, the CUDA cores in f32 and in bf16 at D 32)
+# dtype (the tensor cores, the CUDA cores in f32 and in bf16 at D 32, the
+# wide tensor-core forward beside the wide dk/dv)
 DROP_KEEP_CASES = (
     ("gpt2_block", 8, 12, 512, 512, 64, True, "bf16"),
     ("f32_s300", 2, 12, 300, 300, 64, True, "f32"),
     ("d32_sq130_sk70", 2, 8, 130, 70, 32, False, "bf16"),
+    # the wide tensor-core forward: two windows of keys, all four column
+    # slices, against the wide dk/dv's mask
+    ("d1024_bf16", 1, 2, 200, 1100, 1024, True, "bf16"),
 )
 # the path: 12 layers at GPT-2 small's widths; Transformer-big's decoder
 # cross-attention (Vaswani et al. 2017: d_model 1024, 16 heads) at Tq
@@ -3695,33 +3705,39 @@ def _flash_route_of(d: int, dt: str) -> dict:
 
 def wide_head_phase(dev, smi: str) -> dict:
     """F5b and F5c: flash at head dims past 128: bf16 at 256 (and 160,
-    200 padded to it) on the tensor-core forward and dk/dv and the
-    CUDA-core dq; f32 at 256 and both at 512 on the CUDA-core bodies
-    (dynamic shared memory); the wide bodies at 1024 (a row's sums
-    across warps; D 640 padded to 1024).  Each WIDE_CASES
-    case causal, forward with lse, dq and dk/dv against the twins
-    (ATTN_TOL), the same bits twice, each body's route and DROP
-    instantiation read from the device kernels' names; then, for
+    200 padded to it) on the tensor-core forward, dq and dk/dv; f32 at
+    256 and both at 512 on the CUDA-core bodies (dynamic shared memory);
+    at 1024 (D 640 padded to it) the bf16 forward on the wide tensor-core
+    body, the rest on the wide CUDA-core bodies (a row's sums across
+    warps).  Each WIDE_CASES case causal, forward with lse, dq and dk/dv
+    against the twins (ATTN_TOL), the same bits twice, each body's route
+    and DROP instantiation read from the device kernels' names; then, for
     ``SelfMultiheadAttn(1024, 4)`` (D 256) and ``SelfMultiheadAttn(2048,
     2)`` (D 1024), the three bodies timed at the module's (8, heads, 512,
     D) bf16 causal shape, rate 0 and 0.1, beside the twin, SDPA and the
     bound, and the module trained 2 steps at each rate (forward,
     backward, an SGD update of its params), finite losses, exact launch
-    counts and the routes of a profiled step; the ptxas registers and
-    spills of the D-256 tensor-core bodies.  Returns {kernel: {"d256":
-    its D-256 figures, "d1024": its D-1024 figures}}."""
+    counts and the routes of a profiled step; the bf16 forward at D 2048,
+    4096 and 8192 held and timed (``_wide_forward_widths``); the ptxas
+    registers and spills of the D-256 and wide tensor-core bodies.
+    Returns {kernel:
+    {"d256": its D-256 figures, "d1024": its D-1024 figures}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
 
-    for lib in ("flash_fwd", "flash_bwd"):     # reports loaded by phase 16
-        d256 = [r for r in _ptxas_report(_build.build_logs.get(lib, ""),
-                                         "_tc") if "ILi256E" in r[0]]
-        _check(len(d256) == 2, f"ptxas reported {len(d256)} D-256 "
-               f"tensor-core bodies in {lib}, expected 2 (rate 0, DROP)")
-        for entry, regs, spill in d256:
-            print(f"ptxas D-256 tensor-core body {entry}: {regs}; {spill} "
+    # reports loaded by phase 16: the D-256 forward, dq and dk/dv and the
+    # wide forward, each at rate 0 and with DROP
+    for lib, kind, marker, n in (("flash_fwd", "D-256", "ILi256E", 2),
+                                 ("flash_bwd", "D-256", "ILi256E", 4),
+                                 ("flash_fwd", "wide", "_tc_wide", 2)):
+        found = [r for r in _ptxas_report(_build.build_logs.get(lib, ""),
+                                          "_tc") if marker in r[0]]
+        _check(len(found) == n, f"ptxas reported {len(found)} {kind} "
+               f"tensor-core bodies in {lib}, expected {n} (rate 0, DROP)")
+        for entry, regs, spill in found:
+            print(f"ptxas {kind} tensor-core body {entry}: {regs}; {spill} "
                   f"[{smi}]", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -3797,7 +3813,10 @@ def wide_head_phase(dev, smi: str) -> dict:
         if key == "d1024":
             wide_s["times"] = t1 - t0
             wide_s["module steps"] = time.perf_counter() - t1
-    print("phase seconds 34, its F5c part (D 640 and 1024): "
+    t0 = time.perf_counter()
+    _wide_forward_widths(dev, smi, gen, seed)
+    wide_s["forward widths"] = time.perf_counter() - t0
+    print("phase seconds 34, its F5c part (D 640 to 8192): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
     return rows
@@ -3807,7 +3826,8 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     """The three flash bodies at ``SelfMultiheadAttn(cfg hidden, heads)``'s
     (batch, heads, seq, head dim) bf16 causal shape, rate 0 and 0.1,
     beside the twin, SDPA and the bound: {kernel: {"rate0": row,
-    "dropout": row}}."""
+    "dropout": row}}.  Past D 512 it also prints the f32 wide bodies'
+    times at that shape (rate 0)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as attn
@@ -3866,7 +3886,74 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                   f" {lib[kn]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                   f" [{smi}]", flush=True)
         del o, lse
+    if d >= 1024:
+        # f32 at the same shape keeps the wide CUDA-core bodies (rate 0)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        fwd32 = lambda: attn._flash_fwd_cuda(q32, k32, v32, True, None, None,
+                                             True)
+        o32, lse32 = fwd32()
+        calls = dict(zip(FLASH_SYMS, (fwd32,) + _bwd_kernel_calls(
+            q32, k32, v32, o32, lse32, do32, True, None)))
+        costs32 = _attn_costs(b, h, h, s, d, 4, pairs)
+        body32 = _flash_route_of(d, "f32")
+        for kn, call in calls.items():
+            t32 = _ms(call, 3)
+            bound_ms, bound_by = _bound(*costs32[kn])
+            print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) f32 causal dropout "
+                  f"0.0 ({body32[kn]}): kernel {t32:.4f} ms "
+                  f"({costs32[kn][1] / t32 / 1e9:.1f} TFLOP/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; operations at the f32 "
+                  f"FMA rate) [{smi}]", flush=True)
+        del q32, k32, v32, do32, o32, lse32, calls
     return rows
+
+
+# the bf16 wide forward at the wider widths, each at D 1024's bytes
+# (B·H·S·D = 8·2·512·1024): (batch, heads, seq, head dim)
+WIDE_FWD_SHAPES = ((4, 2, 512, 2048), (2, 2, 512, 4096), (1, 2, 512, 8192))
+
+
+def _wide_forward_widths(dev, smi: str, gen, seed) -> None:
+    """The bf16 forward at ``WIDE_FWD_SHAPES``, causal, rate 0 and 0.1:
+    held against the twin and to the same bits on a second call, then
+    timed beside SDPA's forward and the bound.  Every 256-column slice
+    of O computes the whole of S, so the FLOP the body executes grow
+    with D while the useful 4·D a pair, which the line's TFLOP/s count,
+    stay."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+
+    atol, rtol = ATTN_TOL["bf16"]
+    for b, h, s, d in WIDE_FWD_SHAPES:
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        nbytes, ops = _attn_costs(b, h, h, s, d, 2, _pairs(
+            None, b, h, s, True, dev))["flash_fwd"]
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+        body = _flash_route_of(d, "bf16")["flash_fwd"]
+        for rate in (0.0, DROP_RATE):
+            sd = seed if rate else None
+            fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None,
+                                               True, rate, sd)
+            o, lse = fwd()
+            again = fwd()
+            wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate,
+                                          sd)
+            what = f"({b}, {h}, {s}, {d}) bf16 causal dropout {rate}"
+            _held("flash_fwd", o, wo, atol, rtol, "o " + what)
+            _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
+            _check(torch.equal(again[0], o) and torch.equal(again[1], lse),
+                   f"flash forward {what}: the bits differ run to run")
+            del o, lse, again, wo, wlse
+            ms = _ms(fwd, 10)
+            lib = _ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=rate), 10)
+            print(f"time flash_fwd D {d} {what} ({body}): kernel {ms:.4f} "
+                  f"ms ({ops / ms / 1e9:.1f} TFLOP/s useful), SDPA forward "
+                  f"{lib:.4f} ms (kernel {ms / lib:.2f}x), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
+        del q, k, v
 
 
 def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:

@@ -202,48 +202,80 @@ def test_flash_sources_include_the_hopper_header_and_name_both_routes():
         assert ptx in hdr
 
 
-def test_flash_sources_route_bf16_d256_forward_and_dkv_to_the_tensor_cores():
+def test_flash_sources_route_bf16_d256_and_wide_forward_to_tensor_cores():
     """The C dispatchers send bf16 at D 256 to the tensor-core forward
-    (one K/V stage there) and dk/dv (two warpgroups a CTA, each owning
-    half of dK's and dV's columns), keep dq there on the CUDA cores, and
-    keep the CUDA-core D-256 instantiations for f32."""
+    (one K/V stage there), dq (one warpgroup) and dk/dv (two warpgroups a
+    CTA, each owning half of dK's and dV's columns), and the bf16
+    forward at D 1024..8192 to ``flash_fwd_kernel_tc_wide`` ahead of the
+    wide CUDA-core body; the CUDA-core D-256 instantiations stay for
+    f32."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     assert "if (D == 256)\n      return launch_tc<256, DROP>(" in fwd
     assert "case 256: launch<T, 256, DROP>(" in fwd
     assert "if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);" in bwd
-    assert "launch_dq_tc<256" not in bwd
+    assert "if (D == 256) return launch_dq_tc<256, DROP>(a, dq);" in bwd
     for body in ("launch_dq<T, 256, DROP>", "launch_dkv<T, 256, DROP>"):
         assert f"case 256: {body}(" in bwd
     assert "static constexpr int WGS = D > 128 ? 2 : 1;" in bwd
     # the forward's K/V ring: one stage at D 256 (two CTAs an SM)
     assert "static constexpr int STAGES = D > 128 ? 1 : 2;" in fwd
+    # the wide bf16 forward: on the tensor cores, routed (inside the bf16
+    # branch) before the wide CUDA-core body
+    assert "flash_fwd_kernel_tc_wide(" in fwd
+    route = fwd[fwd.index("int route("):]
+    wide_tc = route.index("return launch_tc_wide<DROP>(")
+    assert route.index("if (sizeof(T) == 2 && Sk > 0) {") < wide_tc
+    assert wide_tc < route.index("return launch_wide<T, DROP>(")
 
 
 # the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):
-# the tensor cores at these widths, the wide bodies from D 1024
-_TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128),
+# the tensor cores at these widths, the wide bodies from D 1024 (the bf16
+# forward there on the wide tensor-core body)
+_TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
+_TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
 @pytest.mark.parametrize("kernel", sorted(_TC_ROUTE))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", tattn.HEAD_DIMS)
 def test_flash_route_names_each_kernels_body(kernel, dtype, d):
-    """``flash_route`` names the body each kernel takes: bf16 forward and
-    dk/dv on the tensor cores at D 64, 128 and 256, dq at 64 and 128;
-    every f32 width and every other bf16 width up to 512 on the CUDA
-    cores; 1024..8192 on the wide bodies.  A head dim pads to its kernel
-    width first (D - 1 routes as D, for D past 16)."""
-    want = ("wide CUDA cores" if d >= 1024 else
-            "tensor cores" if dtype == torch.bfloat16
-            and d in _TC_ROUTE[kernel] else "CUDA cores")
+    """``flash_route`` names the body each kernel takes: bf16 forward, dq
+    and dk/dv on the tensor cores at D 64, 128 and 256; every f32 width
+    and every other bf16 width up to 512 on the CUDA cores; 1024..8192
+    on the wide bodies, the bf16 forward there on the wide tensor-core
+    one.  A head dim pads to its kernel width first (D - 1 routes as D,
+    for D past 16); q, k, v and dO align to TMA's 16 bytes wherever a
+    kernel of the call takes either tensor-core route."""
+    bf16 = dtype == torch.bfloat16
+    want = ("wide tensor cores" if d >= 1024 and bf16
+            and kernel == "flash_fwd" else
+            "wide CUDA cores" if d >= 1024 else
+            "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
+            "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want
     if d > 16:
         assert tattn.flash_route(kernel, dtype, d - 1) == want
-    tc = any(tattn.flash_route(k, dtype, d) == "tensor cores"
+    tc = any(tattn.flash_route(k, dtype, d) in _TC_ROUTES
              for k in _TC_ROUTE)
     assert tattn._align(dtype, d) == (16 if tc else tattn._ALIGN[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d640_routes_only_the_bf16_forward_to_the_tensor_cores(dtype):
+    """A D-640 head pads to 1024: bf16 runs its forward on the wide
+    tensor-core body and its dq and dk/dv on the wide CUDA-core bodies;
+    f32 runs all three on the wide CUDA-core bodies.  Either way the
+    operands align to 16 bytes (the tensor-core forward's TMA, f32's
+    4-float vector)."""
+    assert tattn._kernel_width(640) == 1024
+    routes = {k: tattn.flash_route(k, dtype, 640) for k in _TC_ROUTE}
+    wide_fwd = ("wide tensor cores" if dtype == torch.bfloat16
+                else "wide CUDA cores")
+    assert routes == {"flash_fwd": wide_fwd, "flash_dq": "wide CUDA cores",
+                      "flash_dkv": "wide CUDA cores"}
+    assert tattn._align(dtype, 640) == 16
 
 
 def test_flash_route_rejects_an_unknown_kernel_and_width():
@@ -254,19 +286,20 @@ def test_flash_route_rejects_an_unknown_kernel_and_width():
 
 
 def test_tensor_core_route_needs_16_byte_aligned_operands():
-    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, whose TMA
-    loads need q, k, v and dO 16-byte aligned: a tensor 4 elements (8
-    bytes) into its storage is refused with a ValueError naming the
-    alignment, where bf16 at D 32 and 512 (the CUDA-core bodies, 8-byte
-    words) takes it."""
+    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, and the
+    bf16 forward at D 1024 the wide one, whose TMA loads need q, k, v and
+    dO 16-byte aligned: a tensor 4 elements (8 bytes) into its storage is
+    refused with a ValueError naming the alignment, where bf16 at D 32
+    and 512 (the CUDA-core bodies, 8-byte words) takes it."""
     assert tattn._align(torch.bfloat16, 64) == 16
     assert tattn._align(torch.bfloat16, 128) == 16
     assert tattn._align(torch.bfloat16, 256) == 16
+    assert tattn._align(torch.bfloat16, 1024) == 16
     assert tattn._align(torch.bfloat16, 32) == 8
     assert tattn._align(torch.bfloat16, 512) == 8
     assert tattn._align(torch.float32, 64) == 16
-    for d, refused in ((64, True), (128, True), (256, True), (32, False),
-                       (512, False)):
+    for d, refused in ((64, True), (128, True), (256, True), (1024, True),
+                       (32, False), (512, False)):
         t = torch.zeros(4 + 2 * 8 * d, dtype=torch.bfloat16)[4:]
         t = t.view(1, 2, 8, d)
         assert t.data_ptr() % 16 == 8

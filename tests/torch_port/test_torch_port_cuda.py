@@ -382,9 +382,9 @@ FLASH_TRAIN_CASES = {
     "tc_bf16_gqa_12_to_4": (2, 12, 4, 256, 64, False, None, torch.bfloat16),
     "tc_d128_bf16_causal_packed": (2, 8, 8, 192, 128, True, "packed",
                                    torch.bfloat16),
-    # the D-256 tensor-core forward and dk/dv (two warpgroups), dq on the
-    # CUDA cores: a ragged last tile, grouped-query heads under segment
-    # ids, head dims 160 and 200 padded to 256
+    # the D-256 tensor-core forward, dq and dk/dv (two warpgroups): a
+    # ragged last tile, grouped-query heads under segment ids, head dims
+    # 160 and 200 padded to 256
     "tc_d256_bf16_causal_s200": (2, 4, 4, 200, 256, True, None,
                                  torch.bfloat16),
     "tc_d256_bf16_gqa_4_to_2_packed": (2, 4, 2, 192, 256, True, "packed",
@@ -400,13 +400,20 @@ FLASH_TRAIN_CASES = {
                          torch.bfloat16),
     "d512_bf16_causal": (1, 2, 2, 100, 512, True, None, torch.bfloat16),
     "d512_f32": (1, 2, 1, 64, 512, False, None, torch.float32),
-    # F5c: the wide bodies (D 1024..8192, rows across warps)
+    # F5c: the wide bodies (D 1024..8192, rows across warps; the bf16
+    # forward on the wide tensor-core body, 256 of O's columns a CTA)
     "d1024_f32_gqa_causal": (2, 4, 2, 70, 1024, True, "ragged",
                              torch.float32),
     "d1024_bf16_packed": (1, 2, 2, 64, 1024, False, "packed",
                           torch.bfloat16),
     "d2048_bf16_causal": (1, 2, 1, 40, 2048, True, None, torch.bfloat16),
     "d8192_f32": (1, 1, 1, 20, 8192, False, None, torch.float32),
+    # the wide tensor-core forward at its widest (32 column slices, a
+    # ragged q block) and with grouped-query heads over three key tiles
+    "d8192_bf16_causal_s70": (1, 2, 1, 70, 8192, True, None,
+                              torch.bfloat16),
+    "d1024_bf16_gqa_causal_ragged": (2, 4, 2, 200, 1024, True, "ragged",
+                                     torch.bfloat16),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -467,7 +474,8 @@ FLASH_BODIES = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
 
 
 def _body_route(name: str, sym: str) -> str:
-    return ("tensor cores" if f"{sym}_tc<" in name else
+    return ("wide tensor cores" if f"{sym}_tc_wide<" in name else
+            "tensor cores" if f"{sym}_tc<" in name else
             "wide CUDA cores" if f"{sym}_wide<" in name else "CUDA cores")
 
 
@@ -517,11 +525,12 @@ def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 1024])
 def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
-    """bf16 at D 64/128/256: q starting 8 bytes past a 16-byte boundary (TMA
-    needs 16) is cloned to an aligned start by the wrapper (F5): one
-    launch, on the tensor cores, the plain version's result."""
+    """bf16 at D 64/128/256 (and 1024, the wide tensor-core forward): q
+    starting 8 bytes past a 16-byte boundary (TMA needs 16) is cloned to
+    an aligned start by the wrapper (F5): one launch, on the tensor
+    cores, the plain version's result."""
     q = torch.randn(4 + 2 * 16 * d, device=cuda).to(torch.bfloat16)[4:]
     q = q.view(1, 2, 16, d)
     assert q.data_ptr() % 16 == 8
@@ -652,9 +661,8 @@ def _device_kernel_names(fn, keep, want=None, calls=3, sessions=3):
 
 
 DQ_CASES = {
-    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 64
-    # and 128 is the tensor-core route, the rest (bf16 D 256 too) the
-    # CUDA cores
+    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 64,
+    # 128 and 256 is the tensor-core route, the rest the CUDA cores
     "gpt2_small_causal": (8, 12, 12, 512, 512, 64, True, None,
                           torch.bfloat16),
     "bert_large_unmasked": (8, 16, 16, 512, 512, 64, False, None,
@@ -670,8 +678,10 @@ DQ_CASES = {
                            torch.float32),
     "bf16_d32_cuda_cores": (2, 4, 4, 200, 200, 32, True, None,
                             torch.bfloat16),
-    "bf16_d256_cuda_cores": (2, 4, 2, 200, 200, 256, True, "packed",
-                             torch.bfloat16),
+    "bf16_d256_tensor_cores_packed": (2, 4, 2, 200, 200, 256, True,
+                                      "packed", torch.bfloat16),
+    "bf16_d256_gqa_sq200_sk330_causal": (2, 4, 2, 200, 330, 256, True, None,
+                                         torch.bfloat16),
 }
 
 
@@ -682,7 +692,7 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     within one bf16 rounding (2e-2), f32 within 1e-4; rows that see no
     key give exact zeros; the same bits on a second call; the route read
     from the kernel's name (``attn.flash_route``: ``flash_dq_kernel_tc``
-    exactly for bf16 at D 64 and 128)."""
+    exactly for bf16 at D 64, 128 and 256)."""
     b, h, hk, sq, sk, d, causal, kind, dt = DQ_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(31)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
@@ -1616,9 +1626,9 @@ def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
 
 DROP_CASES = {
     # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): each
-    # kernel on its attn.flash_route (bf16 at D 64/128 the tensor-core
-    # bodies, at 256 the tensor-core forward and dk/dv; the rest the CUDA
-    # cores)
+    # kernel on its attn.flash_route (bf16 at D 64/128/256 the
+    # tensor-core bodies, the bf16 forward at D 1024..8192 the wide
+    # tensor-core body; the rest the CUDA cores)
     "tc_gpt_causal": (2, 12, 12, 256, 256, 64, True, None, torch.bfloat16,
                       0.1),
     "tc_bert_packed": (2, 16, 16, 192, 192, 64, False, "packed",
@@ -1662,6 +1672,13 @@ DROP_CASES = {
                                      torch.bfloat16, 0.1),
     "wide_bf16_d4096_packed": (1, 2, 2, 48, 48, 4096, False, "packed",
                                torch.bfloat16, 0.25),
+    # the D-256 tensor-core dq with grouped-query heads at Sq != Sk, and
+    # the wide tensor-core forward's DROP instantiation over three key
+    # tiles and four column slices
+    "tc_d256_gqa_sq200_sk330": (1, 4, 2, 200, 330, 256, False, None,
+                                torch.bfloat16, 0.1),
+    "wide_tc_bf16_d1024_gqa_causal_ragged": (2, 4, 2, 200, 200, 1024, True,
+                                             "ragged", torch.bfloat16, 0.1),
 }
 
 
@@ -1705,9 +1722,9 @@ def test_dropout_bodies_match_the_twins_on_card(cuda, name):
     # record, so the count of names is not held), each on its route
     _assert_flash_routes(names, dt, d)
     # the bodies' last template argument is DROP
-    assert all(re.search(r"_kernel(_tc|_wide)?<[^>]*, true>", n)
+    assert all(re.search(r"_kernel(_tc_wide|_tc|_wide)?<([^>]*, )?true>", n)
                for n in names)
-    assert all(("_kernel_wide" in n) == (d >= 1024) for n in names)
+    assert all(("_wide<" in n) == (d >= 1024) for n in names)
 
 
 def _keep_mask_readout():
@@ -1726,6 +1743,8 @@ KEEP_CASES = {
     "tc_d128_cross": (1, 2, 70, 150, 128, False, torch.bfloat16, 0.5),
     "tc_d256_causal": (1, 2, 130, 130, 256, True, torch.bfloat16, 0.1),
     "tc_d256_cross": (1, 2, 70, 300, 256, False, torch.bfloat16, 0.25),
+    "wide_tc_d1024_causal_cross": (1, 2, 130, 1100, 1024, True,
+                                   torch.bfloat16, 0.1),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
 }
