@@ -20,9 +20,13 @@
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
 //   no TF32) and bf16 at D 16, 32 and 512.
-// - CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32 and
-//   bf16 at D 1024..8192, a power of two (below, before the entry
-//   points).
+// - wide tensor cores, flash_dq_kernel_tc_wide and
+//   flash_dkv_kernel_tc_wide: bf16 at D >= 1024 (the powers of two to
+//   8192, then the multiples of 8192: the wrapper pads every wider head
+//   to one, wide::takes), D a runtime width, a CTA on a slice of the
+//   output's columns (below).
+// - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
+//   at those widths (below, before the entry points).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1078,24 +1082,570 @@ int launch_dq_tc(const Args& a, void* dq) {
 }
 
 // ---------------------------------------------------------------------------
-// wide bodies: f32 and bf16 at D 1024..8192, a power of two (wide::takes)
+// wide tensor-core dq and dk/dv: bf16 at D >= 1024 (wide::takes; wgmma +
+// TMA; hopper_mma.cuh)
+// ---------------------------------------------------------------------------
+//
+// Past D 256 neither output fits a CTA: a 64-row dQ at D 1024 is 64 x
+// 1024 f32, 256 KB.  So a CTA of two warpgroups owns 64 rows (query rows
+// in dq, key rows in dk/dv) and a slice of the output's columns on the
+// grid's z, as the wide forward does, and recomputes the scores it needs
+// over the whole D.  The two warpgroups split the two products a tile
+// needs: warpgroup 0 takes X0 = A0.B0^T (S in dq, S^T in dk/dv),
+// warpgroup 1 X1 = A1.B1^T (dP, dP^T), each over the whole D through one
+// ring of STAGES stages of four 64-column panels (A0, B0, A1, B1) by TMA,
+// one counter over every (tile, panel) load, so stage g % STAGES waits on
+// the phase (g / STAGES) & 1, and a stage is loaded again once every
+// thread has waited for the products that read it (wgmma_wait<1>, one
+// barrier): the forward's ring.  The scores meet through shared memory
+// (one fragment of 64 x 64 f32 a warpgroup, one barrier), and each
+// warpgroup then owns 256 columns of one output, the D-256 bodies' 128
+// accumulator registers a thread:
+//
+// - dq: warpgroup 0 turns S into p (the mask, the lse), warpgroup 1
+//   drops dP (keep * dP / (1 - rate)); each reads the other's and both
+//   compute the same dS, and warpgroup w owns dQ's columns [512z + 256w,
+//   +256): dQ += dS.K over a 64 x 512 slice of the key tile.
+// - dk/dv: warpgroup 0 turns S^T into P^T and owns dV's 256 columns (dV
+//   += keep * P^T / (1 - rate) . dO over the q tile's dO slice);
+//   warpgroup 1 reads the undropped p and owns dK's (dK += dS^T . Q over
+//   its Q slice, dS^T from the dropped dP^T).
+//
+// Every slice CTA computes S and dP from the same products in the same
+// order, so p, dS and the keep mask agree bit for bit across slices, and
+// the arithmetic is the D-256 bodies' (DqTc, DkvTc): exp2 with log2(e)
+// folded into the scale and lse, p and dS rounded to bf16 in registers as
+// the A operands of the slice products (B MN-major through the transpose
+// bit), a tile wholly visible skipping the per-element mask, a key
+// block's (a q block's) heaviest-first order.  Shared memory: a 96 KB
+// ring, the 64 KB slice tiles, 32 KB of score fragments: one CTA an SM.
+//
+// What it costs: the slices repeat S and dP.  A visible pair takes (D /
+// 512)·4D + 2D tensor-core FLOP in dq where the function needs 6D (1.7x
+// at D 1024, 11x at D 8192), and (D/256)·4D + 4D in dk/dv where it needs
+// 8D (2.5x at D 1024, 16.5x at D 8192).  At (8, 2, 512, 1024) bf16 causal
+// on an H100 at 700 W dq takes 0.1561 ms and dk/dv 0.3131 (138 and 137
+// TFLOP/s executed, 83 and 55 useful), where the wide CUDA-core bodies
+// took 2.1038 and 2.4785 in turns: 0.21x SDPA's backward for the pair.
+// At D 8192's (1, 2, 512, 8192), the same bytes, 0.8959 and 1.5735 ms
+// against 2.9115 and 3.0520.
+
+struct BwdTcWide {
+  static constexpr int ROWS = 64;               // a CTA's output rows
+  static constexpr int TILE = 64;               // the other side's rows a step
+  static constexpr int THREADS = 256;           // two warpgroups
+  static constexpr int WG_COLS = 256;           // output columns a warpgroup
+  static constexpr int WG_PANELS = WG_COLS / 64;
+  static constexpr int STAGES = 3;              // the A0/B0/A1/B1 panel ring
+  static constexpr int PANEL = 64 * 128;        // 64 rows of 64 bf16: 8 KB
+  static constexpr int STAGE_BYTES = 4 * PANEL;
+  static constexpr int SL_OFF = STAGES * STAGE_BYTES;
+  static constexpr int SL_BYTES = 2 * WG_PANELS * PANEL;   // slice tiles
+  static constexpr int X_OFF = SL_OFF + SL_BYTES;          // score fragments
+  static constexpr int X_BYTES = 2 * 32 * 128 * 4;
+  static constexpr int ROW_OFF = X_OFF + X_BYTES;          // a tile's rows
+  static constexpr int BAR_OFF = ROW_OFF + 3 * TILE * 4;
+  static constexpr int SMEM = BAR_OFF + (STAGES + 1) * 8 + 1024;   // + slack
+};
+
+// X_w = A_w . B_w^T over the whole D for one tile (warpgroup w = wg): the
+// ring's next npan loads from counter g, a 64-column panel a stage; each
+// stage, once every thread has waited for the products that read it,
+// takes the ring's load g - 1 + STAGES (`load`, by thread 0).
+template <typename Load>
+__device__ __forceinline__ void wide_scores(float (&x)[32], const uint8_t* ring,
+                                            uint64_t* full, int& g, int npan,
+                                            int nload, int wg, Load& load) {
+  using G = BwdTcWide;
+  hopper::fence_acc(x);
+  for (int p = 0; p < npan; ++p, ++g) {
+    const int st = g % G::STAGES;
+    hopper::mbar_wait(&full[st], (g / G::STAGES) & 1);
+    const uint8_t* a = ring + st * G::STAGE_BYTES + 2 * wg * G::PANEL;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_n64<0>(
+          x, hopper::desc_sw128(a + kk * 32, 16, 1024),
+          hopper::desc_sw128(a + G::PANEL + kk * 32, 16, 1024),
+          p > 0 || kk > 0);
+    hopper::wgmma_commit();
+    if (p > 0) {
+      // the previous panel's products are done in every warp: its stage
+      // takes the ring's load g - 1 + STAGES
+      hopper::wgmma_wait<1>();
+      __syncthreads();
+      if (threadIdx.x == 0 && g - 1 + G::STAGES < nload) load(g - 1 + G::STAGES);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(x);
+  __syncthreads();
+  if (threadIdx.x == 0 && g - 1 + G::STAGES < nload) load(g - 1 + G::STAGES);
+}
+
+// acc += Y . C: Y (x rounded to bf16 in registers) the A operand, C this
+// warpgroup's WG_PANELS slice panels at `sl` (MN-major: the reduction
+// runs down their TILE rows).
+__device__ __forceinline__ void wide_slice_products(
+    float (&acc)[BwdTcWide::WG_PANELS][32], const float (&x)[32],
+    const uint8_t* sl) {
+  using G = BwdTcWide;
+  uint32_t a[G::TILE / 16][4];
+#pragma unroll
+  for (int c = 0; c < G::TILE / 16; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[c][r] = hopper::pack_bf16(x[8 * c + 2 * r], x[8 * c + 2 * r + 1]);
+#pragma unroll
+  for (int p = 0; p < G::WG_PANELS; ++p) hopper::fence_acc(acc[p]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < G::TILE / 16; ++c)
+#pragma unroll
+    for (int p = 0; p < G::WG_PANELS; ++p)
+      hopper::wgmma_rs_n64<1>(
+          acc[p], a[c],
+          hopper::desc_sw128(sl + p * G::PANEL + c * 2048, G::PANEL, 1024));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < G::WG_PANELS; ++p) hopper::fence_acc(acc[p]);
+}
+
+// One row of 256 output columns from the accumulator fragment: the
+// fragment's row half h, rounded to bf16.
+__device__ __forceinline__ void wide_store_row(
+    __nv_bfloat16* out, const float (&acc)[BwdTcWide::WG_PANELS][32], int h,
+    int lane) {
+  uint32_t* row = reinterpret_cast<uint32_t*>(out);
+#pragma unroll
+  for (int p = 0; p < BwdTcWide::WG_PANELS; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      row[32 * p + 4 * j + (lane & 3)] =
+          hopper::pack_bf16(acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+}
+
+// dq's p of one tile from S, in place (key c of the tile, the thread's
+// row r_lo + 8h): exp2(s * scale2 - lse2) where visible, else 0.
+template <bool MASK>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float (&lse2)[2],
+                                         int k0, int r_lo, int lane, int Sk,
+                                         int causal, const int* kid,
+                                         const int (&qid)[2], float scale2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const int h = (i >> 1) & 1;
+    bool ok = true;
+    if (MASK) {
+      const int col = k0 + c;
+      ok = col < Sk && (!causal || col <= r_lo + 8 * h) &&
+           (kid == nullptr || kid[c] == qid[h]);
+    }
+    s[i] = ok ? exp2f(__fsub_rn(__fmul_rn(s[i], scale2), lse2[h])) : 0.f;
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(BwdTcWide::THREADS, 1)
+flash_dq_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di,
+                        __nv_bfloat16* __restrict__ dq,
+                        const int* __restrict__ q_ids,
+                        const int* __restrict__ kv_ids, int H, int HK, int Sq,
+                        int Sk, int D, int causal, float scale2, float scale,
+                        dropout::Params drop) {
+  using G = BwdTcWide;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sl = sm + G::SL_OFF;
+  float* xs = reinterpret_cast<float*>(sm + G::X_OFF);   // [2][32][128]
+  int* kid = reinterpret_cast<int*>(sm + G::ROW_OFF);    // [TILE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);  // ring
+  uint64_t* sbar = full + G::STAGES;                     // slice tiles
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bhk = b * HK + (bh % H) / (H / HK);
+  // heaviest first: under the causal mask the last q block sees most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::ROWS;
+  const int c0 = blockIdx.z * 2 * G::WG_COLS;   // this CTA's columns of dQ
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int r_lo = q0 + 16 * (t >> 5) + (lane >> 2);     // and r_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kend = causal ? min(Sk, q0 + G::ROWS) : Sk;
+  const int ntile = (kend + G::TILE - 1) / G::TILE;
+  const int npan = D / 64;               // a tile's panels of each operand
+  const int nload = ntile * npan;        // the ring's loads
+
+  // this thread's two rows: lse (times log2 e), di, the query segment ids
+  // and the dropout hash's row part (rows past Sq: zeros, never stored)
+  float lse2[2], dir[2];
+  int qid[2];
+  uint32_t rkey[2] = {0u, 0u};
+  const uint32_t head = DROP ? dropout::head_key(*drop.seed, bh) : 0u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    const bool in = row < Sq;
+    lse2[h] = in ? lse[(size_t)bh * Sq + row] * LOG2E : 0.f;
+    dir[h] = in ? di[(size_t)bh * Sq + row] : 0.f;
+    qid[h] = (seg && in) ? q_ids[(size_t)b * Sq + row] : 0;
+    if (DROP) rkey[h] = dropout::row_key(head, row);
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i <= G::STAGES; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // the ring's load j: panel j % npan of Q, K, dO and V at key tile j / npan
+  auto load = [&](int j) {
+    const int st = j % G::STAGES, p = j % npan, k0 = (j / npan) * G::TILE;
+    uint8_t* dst = sm + st * G::STAGE_BYTES;
+    hopper::mbar_expect_tx(&full[st], G::STAGE_BYTES);
+    hopper::tma_load_3d(dst, &map_q, &full[st], 64 * p, q0, bh);
+    hopper::tma_load_3d(dst + G::PANEL, &map_k, &full[st], 64 * p, k0, bhk);
+    hopper::tma_load_3d(dst + 2 * G::PANEL, &map_do, &full[st], 64 * p, q0,
+                        bh);
+    hopper::tma_load_3d(dst + 3 * G::PANEL, &map_v, &full[st], 64 * p, k0,
+                        bhk);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < G::STAGES && j < nload; ++j) load(j);
+  }
+
+  float acc[G::WG_PANELS][32];
+  float x[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    x[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::WG_PANELS; ++p) acc[p][i] = 0.f;
+  }
+
+  int g = 0;                             // the ring's next load to consume
+  for (int kt = 0; kt < ntile; ++kt) {
+    const int k0 = kt * G::TILE;
+    // every thread is done with tile kt-1's slice, key ids and fragments
+    __syncthreads();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(sbar, G::SL_BYTES);
+#pragma unroll
+      for (int p = 0; p < 2 * G::WG_PANELS; ++p)
+        hopper::tma_load_3d(sl + p * G::PANEL, &map_k, sbar, c0 + 64 * p, k0,
+                            bhk);
+    }
+    if (seg) {
+      for (int j = tid; j < G::TILE; j += G::THREADS)
+        kid[j] = k0 + j < Sk ? kv_ids[(size_t)b * Sk + k0 + j] : 0;
+    }
+
+    // warpgroup 0: S = Q . K^T; warpgroup 1: dP = dO . V^T
+    wide_scores(x, sm, full, g, npan, nload, wg, load);
+
+    if (wg == 0) {
+      const bool need = seg || k0 + G::TILE > Sk ||
+                        (causal && k0 + G::TILE - 1 > q0);
+      if (need)
+        dq_probs<true>(x, lse2, k0, r_lo, lane, Sk, causal,
+                       seg ? kid : nullptr, qid, scale2);
+      else
+        dq_probs<false>(x, lse2, k0, r_lo, lane, Sk, causal, nullptr, qid,
+                        scale2);
+    } else if (DROP) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        x[i] = dropout::apply(drop, dropout::col_key(rkey[(i >> 1) & 1], k0 + c),
+                              x[i]);
+      }
+    }
+    // p (warpgroup 0) and the dropped dP (warpgroup 1) meet: both compute
+    // the same dS
+    float* mine = xs + wg * 32 * 128;
+    const float* other = xs + (wg ^ 1) * 32 * 128;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mine[i * 128 + t] = x[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float o = other[i * 128 + t];
+      x[i] = dscore(wg == 0 ? x[i] : o, wg == 0 ? o : x[i],
+                    dir[(i >> 1) & 1], scale);
+    }
+
+    // dQ[:, c0 + 256 wg ..] += dS . K[k0.., c0 + 256 wg ..]
+    hopper::mbar_wait(sbar, kt & 1);
+    wide_slice_products(acc, x, sl + wg * G::WG_PANELS * G::PANEL);
+  }
+
+  // epilogue: each query row's slice of dq, rounded to bf16 once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row < Sq)
+      wide_store_row(dq + ((size_t)bh * Sq + row) * D + c0 + wg * G::WG_COLS,
+                     acc, h, lane);
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(BwdTcWide::THREADS, 1)
+flash_dkv_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv,
+                         const int* __restrict__ q_ids,
+                         const int* __restrict__ kv_ids, int H, int HK,
+                         int Sq, int Sk, int D, int causal, float scale2,
+                         float scale, dropout::Params drop) {
+  using G = BwdTcWide;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sl = sm + G::SL_OFF;
+  float* xs = reinterpret_cast<float*>(sm + G::X_OFF);   // [32][128]: p
+  float* lse2s = reinterpret_cast<float*>(sm + G::ROW_OFF);   // [TILE]
+  float* dis = lse2s + G::TILE;                                // [TILE]
+  int* qids = reinterpret_cast<int*>(dis + G::TILE);           // [TILE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
+  uint64_t* sbar = full + G::STAGES;
+
+  const int bhk = blockIdx.x;
+  const int b = bhk / HK;
+  const int hk = bhk % HK;
+  const int group = H / HK;
+  // blockIdx.y counts key blocks from the first: under the causal mask the
+  // first sees most query rows, so the heaviest CTAs start first
+  const int c0 = blockIdx.y * G::ROWS;
+  const int cs = blockIdx.z * G::WG_COLS;   // this CTA's columns of dK, dV
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int key_lo = c0 + 16 * (t >> 5) + (lane >> 2);   // and key_lo + 8
+  const bool seg = q_ids != nullptr;
+  const int kid[2] = {(seg && key_lo < Sk) ? kv_ids[(size_t)b * Sk + key_lo] : 0,
+                      (seg && key_lo + 8 < Sk)
+                          ? kv_ids[(size_t)b * Sk + key_lo + 8] : 0};
+
+  // causal: rows before c0 see none of this block's keys
+  const int rstart = causal ? (min(c0, Sq) / G::TILE) * G::TILE : 0;
+  const int nqt = (Sq - rstart + G::TILE - 1) / G::TILE;
+  const int ntile = group * nqt;   // tile i: head i / nqt, q tile i % nqt
+  const int npan = D / 64;
+  const int nload = ntile * npan;
+
+  if (tid == 0) {
+    for (int i = 0; i <= G::STAGES; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // the ring's load j: panel j % npan of K, Q, V and dO at tile j / npan
+  auto load = [&](int j) {
+    const int st = j % G::STAGES, p = j % npan, i = j / npan;
+    const int bh = b * H + hk * group + i / nqt;
+    const int r0 = rstart + (i % nqt) * G::TILE;
+    uint8_t* dst = sm + st * G::STAGE_BYTES;
+    hopper::mbar_expect_tx(&full[st], G::STAGE_BYTES);
+    hopper::tma_load_3d(dst, &map_k, &full[st], 64 * p, c0, bhk);
+    hopper::tma_load_3d(dst + G::PANEL, &map_q, &full[st], 64 * p, r0, bh);
+    hopper::tma_load_3d(dst + 2 * G::PANEL, &map_v, &full[st], 64 * p, c0,
+                        bhk);
+    hopper::tma_load_3d(dst + 3 * G::PANEL, &map_do, &full[st], 64 * p, r0,
+                        bh);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < G::STAGES && j < nload; ++j) load(j);
+  }
+
+  float acc[G::WG_PANELS][32];   // dV (warpgroup 0) or dK (warpgroup 1)
+  float x[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    x[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < G::WG_PANELS; ++p) acc[p][i] = 0.f;
+  }
+  const uint32_t seed = DROP ? static_cast<uint32_t>(*drop.seed) : 0u;
+
+  int g = 0;                             // the ring's next load to consume
+  for (int it = 0; it < ntile; ++it) {
+    const int bh = b * H + hk * group + it / nqt;   // the flat q row
+    const int r0 = rstart + (it % nqt) * G::TILE;
+    // every thread is done with tile it-1's slices, rows and fragments
+    __syncthreads();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(sbar, G::SL_BYTES);
+#pragma unroll
+      for (int p = 0; p < G::WG_PANELS; ++p) {
+        hopper::tma_load_3d(sl + p * G::PANEL, &map_do, sbar, cs + 64 * p, r0,
+                            bh);
+        hopper::tma_load_3d(sl + (G::WG_PANELS + p) * G::PANEL, &map_q, sbar,
+                            cs + 64 * p, r0, bh);
+      }
+    }
+    for (int j = tid; j < G::TILE; j += G::THREADS) {
+      const int r = r0 + j;
+      const bool in = r < Sq;
+      lse2s[j] = in ? lse[(size_t)bh * Sq + r] * LOG2E : 0.f;
+      dis[j] = in ? di[(size_t)bh * Sq + r] : 0.f;
+      qids[j] = (seg && in) ? q_ids[(size_t)b * Sq + r] : 0;
+    }
+    // the dropout hash's part of this thread's two keys at the tile's
+    // query head
+    uint32_t ckey[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t head = dropout::head_key(seed, bh);
+      ckey[0] = dropout::col_key(head, key_lo);
+      ckey[1] = dropout::col_key(head, key_lo + 8);
+    }
+
+    // warpgroup 0: S^T = K . Q^T; warpgroup 1: dP^T = V . dO^T
+    wide_scores(x, sm, full, g, npan, nload, wg, load);
+
+    if (wg == 0) {
+      // P^T, the undropped p to warpgroup 1, keep * p / (1 - rate) for dV
+      const bool need = seg || r0 + G::TILE > Sq ||
+                        (causal && r0 < c0 + G::ROWS - 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // q row
+        const int h = (i >> 1) & 1;
+        const int row = r0 + c;
+        const bool ok = !need || (row < Sq && (!causal || key_lo + 8 * h <= row) &&
+                                  (!seg || qids[c] == kid[h]));
+        const float p =
+            ok ? exp2f(__fsub_rn(__fmul_rn(x[i], scale2), lse2s[c])) : 0.f;
+        xs[i * 128 + t] = p;
+        x[i] = DROP ? dropout::apply(drop, dropout::row_key(ckey[h], row), p)
+                    : p;
+      }
+    }
+    __syncthreads();
+    if (wg == 1) {
+      // dS^T = p * (keep * dP^T / (1 - rate) - di) * scale
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const float dp =
+            DROP ? dropout::apply(drop,
+                                  dropout::row_key(ckey[(i >> 1) & 1], r0 + c),
+                                  x[i])
+                 : x[i];
+        x[i] = dscore(xs[i * 128 + t], dp, dis[c], scale);
+      }
+    }
+
+    // dV += P^T . dO[r0.., cs..] (warpgroup 0), dK += dS^T . Q (1)
+    hopper::mbar_wait(sbar, it & 1);
+    wide_slice_products(acc, x, sl + wg * G::WG_PANELS * G::PANEL);
+  }
+
+  // epilogue: each key row's slice of dv (warpgroup 0) or dk (1), rounded
+  // to bf16 once
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_lo + 8 * h;
+    if (key < Sk)
+      wide_store_row(out + ((size_t)bhk * Sk + key) * D + cs, acc, h, lane);
+  }
+}
+
+template <bool DROP>
+int launch_dq_tc_wide(const Args& a, int D, void* dq) {
+  using G = BwdTcWide;
+  if (!wide::takes(D) || D % (2 * G::WG_COLS) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::ROWS);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::ROWS);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, G::TILE);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::TILE);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_dq_kernel_tc_wide<DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
+  if (rc != 0) return rc;
+  // B*H on x (2^31 - 1), the q blocks on y, the 512-column slices on z
+  const dim3 grid(a.B * a.H, (a.Sq + G::ROWS - 1) / G::ROWS,
+                  D / (2 * G::WG_COLS));
+  flash_dq_kernel_tc_wide<DROP><<<grid, G::THREADS, G::SMEM, a.st>>>(
+      mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dq), a.q_ids,
+      a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D, a.causal, a.scale * LOG2E, a.scale,
+      a.drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DROP>
+int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
+  using G = BwdTcWide;
+  if (!wide::takes(D) || D % G::WG_COLS != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::TILE);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::TILE);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, G::ROWS);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::ROWS);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_dkv_kernel_tc_wide<DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM));
+  if (rc != 0) return rc;
+  // B*HK on x, the key blocks on y, the 256-column slices on z
+  const dim3 grid(a.B * a.HK, (a.Sk + G::ROWS - 1) / G::ROWS, D / G::WG_COLS);
+  flash_dkv_kernel_tc_wide<DROP><<<grid, G::THREADS, G::SMEM, a.st>>>(
+      mq, mk, mv, mdo, a.lse, a.di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq,
+      a.Sk, D, a.causal, a.scale * LOG2E, a.scale, a.drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// wide CUDA-core bodies: f32 at D >= 1024 (wide::takes), and bf16 there
+// with no queries or no keys (bf16 otherwise takes the wide tensor-core
+// bodies, above)
 // ---------------------------------------------------------------------------
 //
 // The CUDA-core bodies' arithmetic with D a runtime width and rows that
-// span whole warps (the forward's flash_fwd_kernel_wide): dq gives a
-// query row D/32 threads of 32 columns (256 threads a CTA, 256/(D/32)
-// rows), dk/dv a key row D/16 threads of 16 columns (512 threads, 512/
-// (D/16) key rows; 64 registers of k, v, dk and dv a thread at any D).
-// No tiles: the rows a step reads (K and V in dq; q, dO, lse, di and the
-// ids in dk/dv) come from device memory where they are used, the CTA's
-// rows reading the same words through L1, and the dot products of a
-// group of wide::GROUP keys (query rows in dk/dv) meet across warps in
-// shared memory (wide::row_sums), one barrier a group.
+// span whole warps (the forward's flash_fwd_kernel_wide).  A CTA owns W =
+// wide::slice(D) columns of its rows' outputs (the whole row up to D
+// 8192; past it D / 8192 CTAs on the grid's z each own 8192): dq gives a
+// query row W/32 threads of 32 columns (256 threads a CTA, 256/(W/32)
+// rows), dk/dv a key row W/16 threads of 16 columns (512 threads, 512/
+// (W/16) key rows; 64 registers of k, v, dk and dv a thread at any D).
+// Past 8192 a dot product is the sum, in slice order, of each slice's
+// partial, every partial computed as its own slice's CTA computes it
+// (each thread on its columns of the slice: its own slice's operands in
+// registers, the others' read where used), so every slice CTA gets the
+// same p and ds, bit for bit (the SPLIT instantiations; up to 8192 the
+// others, whose code is one slice's).  No tiles: the rows a step reads (K and V
+// in dq; q, dO, lse, di and the ids in dk/dv) come from device memory
+// where they are used, the CTA's rows reading the same words through L1,
+// and the dot products of a group of wide::GROUP keys (query rows in
+// dk/dv) meet across warps in shared memory (wide::row_sums), one
+// barrier a group.
 
 constexpr int WIDE_Q_THREADS = 256;    // dq: 32 columns a thread
 constexpr int WIDE_KV_THREADS = 512;   // dk/dv: 16 columns a thread
 
-template <typename T, bool DROP>
+template <typename T, bool SPLIT, bool DROP>
 __global__ void __launch_bounds__(WIDE_Q_THREADS)
 flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -1108,10 +1658,13 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int G = wide::GROUP;
   constexpr int C4 = 8;
   __shared__ float red[2][WIDE_Q_THREADS / 32 * 2 * G];
-  const int tpr = D / 32;
+  const int W = wide::slice(D);            // this CTA's columns of a row
+  const int nsl = SPLIT ? D / W : 1;
+  const int sl = SPLIT ? blockIdx.z : 0;
+  const int tpr = W / 32;
   const int rows = WIDE_Q_THREADS / tpr;
   const int nw = tpr / 32;
-  const int D4 = D / 4;
+  const int D4 = D / 4, W4 = W / 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
@@ -1128,13 +1681,14 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
   const size_t qrow = (size_t)bh * Sq + (row_ok ? row : 0);
   const size_t qoff = qrow * D4 + part;
+  const size_t own = (size_t)sl * W4;      // the slice's first float4
 
   float4 qr[C4], dr[C4], acc[C4];
 #pragma unroll
   for (int c = 0; c < C4; ++c) {
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[c] = row_ok ? load4(q, qoff + c * tpr) : z;
-    dr[c] = row_ok ? load4(dout, qoff + c * tpr) : z;
+    qr[c] = row_ok ? load4(q, qoff + own + c * tpr) : z;
+    dr[c] = row_ok ? load4(dout, qoff + own + c * tpr) : z;
     acc[c] = z;
   }
   const float lse_r = row_ok ? lse[qrow] : 0.f;
@@ -1148,12 +1702,39 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < G; ++j) {
       x[j] = x[G + j] = 0.f;
       if (k0 + j < Sk) {
-        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+        const size_t kr = kvb + (size_t)(k0 + j) * D4 + own;
 #pragma unroll
         for (int c = 0; c < C4; ++c) {
           x[j] = dot4(qr[c], load4(k, kr + c * tpr), x[j]);
           x[G + j] = dot4(dr[c], load4(v, kr + c * tpr), x[G + j]);
         }
+      }
+    }
+    if (SPLIT) {
+      // the other slices' partial dot products, summed in slice order
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (k0 + j >= Sk) continue;
+        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+        float ts = 0.f, tp = 0.f;
+        for (int xs = 0; xs < nsl; ++xs) {
+          float ps = x[j], pp = x[G + j];
+          if (xs != sl) {
+            const size_t xo = (size_t)xs * W4;
+            ps = pp = 0.f;
+#pragma unroll
+            for (int c = 0; c < C4; ++c) {
+              ps = dot4(load4(q, qoff + xo + c * tpr),
+                        load4(k, kr + xo + c * tpr), ps);
+              pp = dot4(load4(dout, qoff + xo + c * tpr),
+                        load4(v, kr + xo + c * tpr), pp);
+            }
+          }
+          ts = xs == 0 ? ps : ts + ps;
+          tp = xs == 0 ? pp : tp + pp;
+        }
+        x[j] = ts;
+        x[G + j] = tp;
       }
     }
     wide::row_sums(x, red[buf], w0, nw);
@@ -1167,7 +1748,7 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       float pd = x[G + j];
       if (DROP) pd = dropout::apply(drop, dropout::col_key(rkey, col), pd);
       const float ds = operand<T>(dscore(p, pd, di_r, scale));
-      const size_t kr = kvb + (size_t)col * D4;
+      const size_t kr = kvb + (size_t)col * D4 + own;
 #pragma unroll
       for (int c = 0; c < C4; ++c) acc[c] = axpy4(ds, load4(k, kr + c * tpr), acc[c]);
     }
@@ -1175,11 +1756,11 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
 #pragma unroll
-    for (int c = 0; c < C4; ++c) store4(dq, qoff + c * tpr, acc[c]);
+    for (int c = 0; c < C4; ++c) store4(dq, qoff + own + c * tpr, acc[c]);
   }
 }
 
-template <typename T, bool DROP>
+template <typename T, bool SPLIT, bool DROP>
 __global__ void __launch_bounds__(WIDE_KV_THREADS, 1)
 flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -1192,10 +1773,13 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int G = wide::GROUP;
   constexpr int C4 = 4;
   __shared__ float red[2][WIDE_KV_THREADS / 32 * 2 * G];
-  const int tpr = D / 16;
+  const int W = wide::slice(D);            // this CTA's columns of a row
+  const int nsl = SPLIT ? D / W : 1;
+  const int sl = SPLIT ? blockIdx.z : 0;
+  const int tpr = W / 16;
   const int rows = WIDE_KV_THREADS / tpr;   // key rows a CTA
   const int nw = tpr / 32;
-  const int D4 = D / 4;
+  const int D4 = D / 4, W4 = W / 4;
   const int bhk = blockIdx.x;
   const int b = bhk / HK;
   const int hk = bhk % HK;
@@ -1209,12 +1793,13 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   const bool seg = q_ids != nullptr;
 
   const size_t kvoff = ((size_t)bhk * Sk + (col_ok ? col : 0)) * D4 + part;
+  const size_t own = (size_t)sl * W4;      // the slice's first float4
   float4 kr[C4], vr[C4], dka[C4], dva[C4];
 #pragma unroll
   for (int c = 0; c < C4; ++c) {
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    kr[c] = col_ok ? load4(k, kvoff + c * tpr) : z;
-    vr[c] = col_ok ? load4(v, kvoff + c * tpr) : z;
+    kr[c] = col_ok ? load4(k, kvoff + own + c * tpr) : z;
+    vr[c] = col_ok ? load4(v, kvoff + own + c * tpr) : z;
     dka[c] = z;
     dva[c] = z;
   }
@@ -1234,12 +1819,39 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < G; ++i) {
         x[i] = x[G + i] = 0.f;
         if (r0 + i < Sq) {
-          const size_t qr = (rowb + r0 + i) * D4 + part;
+          const size_t qr = (rowb + r0 + i) * D4 + part + own;
 #pragma unroll
           for (int c = 0; c < C4; ++c) {
             x[i] = dot4(kr[c], load4(q, qr + c * tpr), x[i]);
             x[G + i] = dot4(vr[c], load4(dout, qr + c * tpr), x[G + i]);
           }
+        }
+      }
+      if (SPLIT) {
+        // the other slices' partial dot products, summed in slice order
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          if (r0 + i >= Sq) continue;
+          const size_t qr = (rowb + r0 + i) * D4 + part;
+          float ts = 0.f, tp = 0.f;
+          for (int xs = 0; xs < nsl; ++xs) {
+            float ps = x[i], pp = x[G + i];
+            if (xs != sl) {
+              const size_t xo = (size_t)xs * W4;
+              ps = pp = 0.f;
+#pragma unroll
+              for (int c = 0; c < C4; ++c) {
+                ps = dot4(load4(k, kvoff + xo + c * tpr),
+                          load4(q, qr + xo + c * tpr), ps);
+                pp = dot4(load4(v, kvoff + xo + c * tpr),
+                          load4(dout, qr + xo + c * tpr), pp);
+              }
+            }
+            ts = xs == 0 ? ps : ts + ps;
+            tp = xs == 0 ? pp : tp + pp;
+          }
+          x[i] = ts;
+          x[G + i] = tp;
         }
       }
       wide::row_sums(x, red[buf], w0, nw);
@@ -1259,7 +1871,7 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
         }
         const float pv = operand<T>(pd_p);
         const float ds = operand<T>(dscore(p, pd, di[rowb + r], scale));
-        const size_t qr = (rowb + r) * D4 + part;
+        const size_t qr = (rowb + r) * D4 + part + own;
 #pragma unroll
         for (int c = 0; c < C4; ++c) {
           dva[c] = axpy4(pv, load4(dout, qr + c * tpr), dva[c]);
@@ -1272,18 +1884,22 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   if (col_ok) {
 #pragma unroll
     for (int c = 0; c < C4; ++c) {
-      store4(dk, kvoff + c * tpr, dka[c]);
-      store4(dv, kvoff + c * tpr, dva[c]);
+      store4(dk, kvoff + own + c * tpr, dka[c]);
+      store4(dv, kvoff + own + c * tpr, dva[c]);
     }
   }
 }
 
+// B*H (B*HK) on x (2^31 - 1), the row blocks on y, the column slices on z
 template <typename T, bool DROP>
 int launch_dq_wide(const Args& a, int D, void* dq) {
   if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = WIDE_Q_THREADS / (D / 32);
-  const dim3 grid(a.B * a.H, (a.Sq + rows - 1) / rows);
-  flash_dq_kernel_wide<T, DROP><<<grid, WIDE_Q_THREADS, 0, a.st>>>(
+  const int W = wide::slice(D);
+  const int rows = WIDE_Q_THREADS / (W / 32);
+  const dim3 grid(a.B * a.H, (a.Sq + rows - 1) / rows, D / W);
+  auto kernel = D > wide::SPLIT ? flash_dq_kernel_wide<T, true, DROP>
+                                : flash_dq_kernel_wide<T, false, DROP>;
+  kernel<<<grid, WIDE_Q_THREADS, 0, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D,
@@ -1294,9 +1910,12 @@ int launch_dq_wide(const Args& a, int D, void* dq) {
 template <typename T, bool DROP>
 int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
   if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = WIDE_KV_THREADS / (D / 16);
-  const dim3 grid(a.B * a.HK, (a.Sk + rows - 1) / rows);
-  flash_dkv_kernel_wide<T, DROP><<<grid, WIDE_KV_THREADS, 0, a.st>>>(
+  const int W = wide::slice(D);
+  const int rows = WIDE_KV_THREADS / (W / 16);
+  const dim3 grid(a.B * a.HK, (a.Sk + rows - 1) / rows, D / W);
+  auto kernel = D > wide::SPLIT ? flash_dkv_kernel_wide<T, true, DROP>
+                                : flash_dkv_kernel_wide<T, false, DROP>;
+  kernel<<<grid, WIDE_KV_THREADS, 0, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
@@ -1305,15 +1924,18 @@ int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
 }
 
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
-// the tensor cores; D 1024..8192 the wide bodies, everything else (f32
-// at every width up to 512, bf16 at 16, 32 and 512) the CUDA-core
-// bodies of their width; a seed takes each body's DROP instantiation.
+// the tensor cores, and at every wide width (D >= 1024) the wide
+// tensor-core bodies; f32 at the wide widths the wide CUDA-core bodies,
+// everything else (f32 at every width up to 512, bf16 at 16, 32 and 512)
+// the CUDA-core bodies of their width; a seed takes each body's DROP
+// instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
     if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
     if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
     if (D == 256) return launch_dq_tc<256, DROP>(a, dq);
+    if (D >= wide::MIN_D) return launch_dq_tc_wide<DROP>(a, D, dq);
   }
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   switch (D) {
@@ -1334,6 +1956,7 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
     if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
     if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);
+    if (D >= wide::MIN_D) return launch_dkv_tc_wide<DROP>(a, D, dk, dv);
   }
   if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   switch (D) {
@@ -1414,6 +2037,54 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   switch (dtype) {
     case F32: return dispatch_dkv<float>(a, D, dk, dv);
     case BF16: return dispatch_dkv<__nv_bfloat16>(a, D, dk, dv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wide CUDA-core dq and dk/dv bodies at D >= 1024 whatever the dtype
+// (same arguments as above): bf16 routes to the wide tensor-core bodies,
+// and these let a measurement time the CUDA-core bodies beside them on
+// the same inputs.  Any other width is refused.
+extern "C" int apex_flash_dq_cuda_cores(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* di, void* dq, const void* q_ids,
+    const void* kv_ids, int dtype, int B, int H, int HK, int Sq, int Sk, int D,
+    int causal, float scale, const void* seed, unsigned keep_below,
+    float keep_scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
+                           Sq, Sk, causal, scale, seed, keep_below,
+                           keep_scale, stream);
+  const bool drop = a.drop.seed != nullptr;
+  if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case F32:
+      return drop ? launch_dq_wide<float, true>(a, D, dq)
+                  : launch_dq_wide<float, false>(a, D, dq);
+    case BF16:
+      return drop ? launch_dq_wide<__nv_bfloat16, true>(a, D, dq)
+                  : launch_dq_wide<__nv_bfloat16, false>(a, D, dq);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int apex_flash_dkv_cuda_cores(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* di, void* dk, void* dv, const void* q_ids,
+    const void* kv_ids, int dtype, int B, int H, int HK, int Sq, int Sk, int D,
+    int causal, float scale, const void* seed, unsigned keep_below,
+    float keep_scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, di, q_ids, kv_ids, B, H, HK,
+                           Sq, Sk, causal, scale, seed, keep_below,
+                           keep_scale, stream);
+  const bool drop = a.drop.seed != nullptr;
+  if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case F32:
+      return drop ? launch_dkv_wide<float, true>(a, D, dk, dv)
+                  : launch_dkv_wide<float, false>(a, D, dk, dv);
+    case BF16:
+      return drop ? launch_dkv_wide<__nv_bfloat16, true>(a, D, dk, dv)
+                  : launch_dkv_wide<__nv_bfloat16, false>(a, D, dk, dv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

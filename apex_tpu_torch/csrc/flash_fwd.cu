@@ -26,13 +26,15 @@
 //   precision contract of docs/kernels.md makes f32 operands true f32,
 //   so no TF32), bf16 at D 16, 32 and 512, and a call with no keys
 //   (Sk == 0).
-// - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 1024..8192, a
-//   power of two (the wrapper pads wider heads to one), D a runtime
-//   width; a CTA owns 256 of O's columns and computes S over the whole D
-//   (below, before the route).
-// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 1024..8192 (and
-//   bf16 there with no keys), with D a runtime width and a row's sums
-//   across warps (hopper_mma.cuh, namespace wide).
+// - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D >= 1024 (the
+//   powers of two to 8192, then the multiples of 8192: the wrapper pads
+//   every wider head to one, wide::takes), D a runtime width; a CTA owns
+//   256 of O's columns and computes S over the whole D (below, before
+//   the route).
+// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D >= 1024 (and bf16
+//   there with no keys), with D a runtime width, a row's sums across
+//   warps (hopper_mma.cuh, namespace wide) and, past D 8192, O's columns
+//   split over CTAs.
 //
 // All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -313,24 +315,32 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// wide body: f32 at D 1024..8192, a power of two (wide::takes), and bf16
-// there with no keys (bf16 with keys takes flash_fwd_kernel_tc_wide)
+// wide body: f32 at D >= 1024 (wide::takes), and bf16 there with no keys
+// (bf16 with keys takes flash_fwd_kernel_tc_wide)
 // ---------------------------------------------------------------------------
 //
-// The CUDA-core body's arithmetic with D a runtime width.  A query row
-// spans TPR = D/32 threads (one to eight whole warps), each owning 32
+// The CUDA-core body's arithmetic with D a runtime width.  A CTA owns W =
+// wide::slice(D) of O's columns (the whole row up to D 8192; past it D /
+// 8192 CTAs on the grid's z each own 8192).  A query row spans TPR =
+// W/32 threads (one to eight whole warps), each owning 32 of the slice's
 // columns as eight float4 chunks interleaved across the row (chunk
 // c*TPR + part), so the row's reads of one key coalesce.  A CTA is 256
-// threads: 256/TPR rows (8 at D 1024, 1 at D 8192).  No K/V tiles: K and
-// V rows are read from device memory where they are used (the CTA's rows
-// read the same words, which L1 serves after the first), so shared memory
-// holds only the row sums (wide::row_sums) and no width runs out of it.
-// Keys go in groups of wide::GROUP, one barrier a group.
+// threads: 256/TPR rows (8 at D 1024, 1 from D 8192).  Past 8192 a
+// score is the sum, in slice order, of each slice's partial dot product,
+// every partial computed as its own slice's CTA computes it (each thread
+// on its 32 columns of the slice: its own slice's q in registers, the
+// others' read where used), so every slice CTA gets the same m, l and
+// p, bit for bit, and slice 0 writes the lse (the SPLIT instantiation;
+// up to 8192 the other one, whose code is one slice's).  No K/V tiles: K and V rows are read from device
+// memory where they are used (the CTA's rows read the same words, which
+// L1 serves after the first), so shared memory holds only the row sums
+// (wide::row_sums) and no width runs out of it.  Keys go in groups of
+// wide::GROUP, one barrier a group.
 
 constexpr int WIDE_THREADS = 256;
 constexpr int WIDE_C4 = 8;        // float4 chunks a thread: 32 columns
 
-template <typename T, bool DROP>
+template <typename T, bool SPLIT, bool DROP>
 __global__ void __launch_bounds__(WIDE_THREADS)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
@@ -340,10 +350,13 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       dropout::Params drop) {
   constexpr int G = wide::GROUP;
   __shared__ float red[2][WIDE_THREADS / 32 * G];
-  const int tpr = D / 32;                  // threads per query row
+  const int W = wide::slice(D);            // this CTA's columns of a row
+  const int nsl = SPLIT ? D / W : 1;       // the row's slices
+  const int sl = SPLIT ? blockIdx.z : 0;   // this CTA's slice
+  const int tpr = W / 32;                  // threads per query row
   const int rows = WIDE_THREADS / tpr;     // query rows a CTA
   const int nw = tpr / 32;                 // warps a row
-  const int D4 = D / 4;
+  const int D4 = D / 4, W4 = W / 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int hk = (bh % H) / (H / HK);
@@ -360,11 +373,13 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
   const size_t qoff = ((size_t)bh * Sq + (row_ok ? row : 0)) * D4 + part;
+  const size_t own = (size_t)sl * W4;      // the slice's first float4
 
   float4 qr[WIDE_C4], acc[WIDE_C4];
 #pragma unroll
   for (int c = 0; c < WIDE_C4; ++c) {
-    qr[c] = row_ok ? load4(q, qoff + c * tpr) : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[c] = row_ok ? load4(q, qoff + own + c * tpr)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
@@ -378,9 +393,31 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < G; ++j) {
       s[j] = 0.f;
       if (k0 + j < Sk) {
-        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+        const size_t kr = kvb + (size_t)(k0 + j) * D4 + own;
 #pragma unroll
         for (int c = 0; c < WIDE_C4; ++c) s[j] = dot4(qr[c], load4(k, kr + c * tpr), s[j]);
+      }
+    }
+    if (SPLIT) {
+      // the other slices' partial dot products, summed in slice order
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (k0 + j >= Sk) continue;
+        const size_t kr = kvb + (size_t)(k0 + j) * D4;
+        float t = 0.f;
+        for (int x = 0; x < nsl; ++x) {
+          float part = s[j];
+          if (x != sl) {
+            const size_t xo = (size_t)x * W4;
+            part = 0.f;
+#pragma unroll
+            for (int c = 0; c < WIDE_C4; ++c)
+              part = dot4(load4(q, qoff + xo + c * tpr),
+                          load4(k, kr + xo + c * tpr), part);
+          }
+          t = x == 0 ? part : t + part;
+        }
+        s[j] = t;
       }
     }
     wide::row_sums(s, red[buf], w0, nw);
@@ -408,7 +445,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       const float pv = operand<T>(
           DROP ? dropout::apply(drop, dropout::col_key(rkey, col), p) : p);
       if (col < Sk) {
-        const size_t vr = kvb + (size_t)col * D4;
+        const size_t vr = kvb + (size_t)col * D4 + own;
 #pragma unroll
         for (int c = 0; c < WIDE_C4; ++c) acc[c] = axpy4(pv, load4(v, vr + c * tpr), acc[c]);
       }
@@ -419,8 +456,8 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     const float linv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int c = 0; c < WIDE_C4; ++c) store4(o, qoff + c * tpr, scale4(acc[c], linv));
-    if (lse != nullptr && part == 0)
+    for (int c = 0; c < WIDE_C4; ++c) store4(o, qoff + own + c * tpr, scale4(acc[c], linv));
+    if (lse != nullptr && sl == 0 && part == 0)
       lse[(size_t)bh * Sq + row] = l > 0.f ? m + logf(l) : NEG;
   }
 }
@@ -431,9 +468,13 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
                 int HK, int Sq, int Sk, int D, int causal, float scale,
                 const dropout::Params& drop, cudaStream_t stream) {
   if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = WIDE_THREADS / (D / 32);
-  const dim3 grid(B * H, (Sq + rows - 1) / rows);
-  flash_fwd_kernel_wide<T, DROP><<<grid, WIDE_THREADS, 0, stream>>>(
+  const int W = wide::slice(D);
+  const int rows = WIDE_THREADS / (W / 32);
+  // B*H on x (2^31 - 1), the q blocks on y, the column slices on z
+  const dim3 grid(B * H, (Sq + rows - 1) / rows, D / W);
+  auto kernel = D > wide::SPLIT ? flash_fwd_kernel_wide<T, true, DROP>
+                                : flash_fwd_kernel_wide<T, false, DROP>;
+  kernel<<<grid, WIDE_THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
       HK, Sq, Sk, D, causal, scale, drop);
@@ -744,8 +785,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// wide tensor-core body: bf16 at D 1024..8192, a power of two (wgmma +
-// TMA; hopper_mma.cuh)
+// wide tensor-core body: bf16 at D >= 1024 (wide::takes; wgmma + TMA;
+// hopper_mma.cuh)
 // ---------------------------------------------------------------------------
 //
 // A 64-row O accumulator at D 1024 is 64 x 1024 f32, 256 KB: an SM's
@@ -1004,10 +1045,10 @@ int launch_tc_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 // The route: bf16 with keys to read takes the tensor cores, at D 64, 128
-// and 256 and (the wide tensor-core body) at D 1024..8192; the rest of D
-// 1024..8192 (f32, and bf16 with no keys) the wide CUDA-core body,
-// everything else the CUDA-core bodies of their width; a seed takes each
-// body's DROP instantiation.
+// and 256 and (the wide tensor-core body) at every wide width, D >= 1024;
+// the rest of the wide widths (f32, and bf16 with no keys) the wide
+// CUDA-core body, everything else the CUDA-core bodies of their width; a
+// seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,

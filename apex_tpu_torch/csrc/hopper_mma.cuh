@@ -329,22 +329,26 @@ __device__ __forceinline__ float apply(const Params& d, uint32_t key, float x) {
 }  // namespace dropout
 
 // ---------------------------------------------------------------------------
-// the wide flash bodies' row sums (head dims 1024..8192)
+// the wide flash bodies' widths and row sums (head dims from 1024)
 // ---------------------------------------------------------------------------
 //
-// Past D 512 a row of the CUDA-core flash bodies spans whole warps (D/32
-// threads in the forward and dq, D/16 in dk/dv), so its dot products meet
-// across warps through shared memory: a shuffle tree in each warp, lane
-// 0's sum stored, one barrier, then every thread of the row adds its
-// row's warps' sums in warp order.  A fixed order and no atomics: the
-// same bits every run.
+// Past D 512 a row of the CUDA-core flash bodies spans whole warps (W/32
+// threads in the forward and dq, W/16 in dk/dv, W the row's columns a CTA
+// owns), so its dot products meet across warps through shared memory: a
+// shuffle tree in each warp, lane 0's sum stored, one barrier, then every
+// thread of the row adds its row's warps' sums in warp order.  A fixed
+// order and no atomics: the same bits every run.
 namespace wide {
 
 constexpr int MIN_D = 1024;   // the narrowest wide width
-// The widest: the dk/dv body holds one key row's k, v, dk and dv (4·D
-// f32) in one CTA's registers; at D 16384 those alone are the 65,536
-// 32-bit registers of an SM.
-constexpr int MAX_D = 8192;
+// The widest row one CUDA-core CTA owns: the dk/dv body holds a key row's
+// k, v, dk and dv over its W columns (4·W f32) in one CTA's registers, and
+// at W 16384 those alone would be the 65,536 32-bit registers of an SM.
+// A wider head is a multiple of SPLIT and its columns are split over
+// D/SPLIT CTAs on the grid's z (slice()); each computes the dot products
+// over the whole D, slice by slice in one order, so every slice gets the
+// same scores, bit for bit.
+constexpr int SPLIT = 8192;
 constexpr int GROUP = 8;      // keys (query rows in dk/dv) summed a barrier
 
 // Sums each x[j] over the `nw` warps from `w0` that share this thread's
@@ -375,8 +379,16 @@ __device__ __forceinline__ void row_sums(float (&x)[N], float* red, int w0,
   }
 }
 
+// The wide widths: the powers of two 1024..8192, then the multiples of
+// 8192 (ops/attention.py:_kernel_width pads every head dim to one).
 __host__ __device__ constexpr bool takes(int D) {
-  return D >= MIN_D && D <= MAX_D && (D & (D - 1)) == 0;
+  return D >= MIN_D &&
+         (D <= SPLIT ? (D & (D - 1)) == 0 : D % SPLIT == 0);
+}
+
+// The columns of a row one CUDA-core wide CTA owns at width D.
+__host__ __device__ constexpr int slice(int D) {
+  return D < SPLIT ? D : SPLIT;
 }
 
 }  // namespace wide

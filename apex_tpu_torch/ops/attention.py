@@ -17,9 +17,9 @@ plain PyTorch, which repeat the reference kernels' arithmetic (bf16
 roundings of ``p`` and ``ds`` included).  There is no other switch, and
 nothing falls back.  As the reference pads D to its lanes, the wrappers
 pad a head dim that is not a kernel width (16, 32, ..., 8192, the powers
-of two) with zeros up to the next one and copy a strided or misaligned
-operand; a head dim above 8192 raises, naming the wide kernels' register
-limit (:func:`_kernel_width`).
+of two, then the multiples of 8192) with zeros up to the next one
+(:func:`_kernel_width`) and copy a strided or misaligned operand; every
+head dim runs.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ import torch
 from apex_tpu_torch import _build
 
 _NEG = -1e30
-# the kernels' widths, others padded: 1024..8192 run the wide bodies
+# the kernels' widths up to 8192, others padded: 1024 and wider run the
+# wide bodies; past 8192 a head pads to a multiple of WIDE_SPLIT
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+WIDE_SPLIT = 8192          # csrc/hopper_mma.cuh: wide::SPLIT
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = {torch.float32: 16, torch.bfloat16: 8}   # one 4-element vector
 
@@ -426,11 +428,10 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 
 
 # the kernel widths at which each kernel's bf16 body runs on the tensor
-# cores (wgmma + TMA); past 512 only the forward's does ("wide tensor
-# cores"), dq and dk/dv there stay on the wide CUDA-core bodies
+# cores (wgmma + TMA); past 512 every kernel's bf16 body does ("wide
+# tensor cores")
 _TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
               "flash_dkv": (64, 128, 256)}
-_TC_WIDE = ("flash_fwd",)
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
@@ -439,20 +440,21 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
     + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body),
-    "wide tensor cores" (``flash_fwd_kernel_tc_wide``: the bf16 forward
-    at D 1024..8192, a CTA on 256 of O's columns) or "wide CUDA cores"
-    (``..._kernel_wide``: f32 at D 1024..8192, and the bf16 dq and dk/dv
-    there).  The C dispatchers of ``csrc/flash_fwd.cu`` and
-    ``csrc/flash_bwd.cu`` route the same way, apart from a forward with
-    no keys (it takes the CUDA cores, or the wide CUDA cores past 512)."""
+    "wide tensor cores" (``..._kernel_tc_wide``: bf16 at every width
+    from 1024, a CTA on a slice of the output's columns: 256 of O's, 512
+    of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
+    (``..._kernel_wide``: f32 from 1024, a CTA on the whole row up to
+    8192 and on 8192 of its columns past it).  The C dispatchers of
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
+    apart from a forward with no keys (it takes the CUDA cores, or the
+    wide CUDA cores past 512)."""
     if kernel not in _TC_WIDTHS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
                          f"{sorted(_TC_WIDTHS)})")
     w = _kernel_width(d)
     bf16 = dtype == torch.bfloat16
     if w >= 1024:                 # csrc/hopper_mma.cuh: wide::MIN_D
-        return ("wide tensor cores" if bf16 and kernel in _TC_WIDE
-                else "wide CUDA cores")
+        return "wide tensor cores" if bf16 else "wide CUDA cores"
     if bf16 and w in _TC_WIDTHS[kernel]:
         return "tensor cores"
     return "CUDA cores"
@@ -468,18 +470,16 @@ def _align(dtype, d: int) -> int:
 
 def _kernel_width(d: int) -> int:
     """The kernel width a head dim runs at: the next of
-    :data:`HEAD_DIMS` (the reference pads D to its lanes the same way)."""
+    :data:`HEAD_DIMS`, and past 8192 the next multiple of
+    :data:`WIDE_SPLIT` (the reference pads D to its lanes the same way, and
+    takes any D).  The f32 wide bodies split a row that wide into CTAs of
+    8192 columns each (one CTA could not hold a key row's k, v, dk and dv
+    in registers past 8192), the bf16 ones into their slices of 256 and
+    512 columns, which every multiple of 8192 holds whole."""
     for w in HEAD_DIMS:
         if d <= w:
             return w
-    raise ValueError(
-        f"flash_attention on the card takes a head_dim up to "
-        f"{HEAD_DIMS[-1]}, got {d}: that is the limit of this port's wide "
-        "dk/dv kernel, which keeps one key row's k, v, dk and dv (4*D f32) "
-        "in one CTA's registers; at the next width, 16384, those alone "
-        "would fill the 65,536 32-bit registers of an H100 SM (dk and dv "
-        "accumulated in shared memory, or D split across CTAs, would go "
-        "further: ROADMAP Queue 2b)")
+    return -(-d // WIDE_SPLIT) * WIDE_SPLIT
 
 
 def _operands(*ts):
@@ -521,7 +521,8 @@ def _geometry(q, k, v, segment_ids):
     hk, sk = k.shape[1], k.shape[2]
     if _kernel_width(d) != d:
         raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{HEAD_DIMS} or a multiple of {WIDE_SPLIT}, got "
+                         f"{d}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes q in float32 or "
                         f"bfloat16, got {q.dtype}")

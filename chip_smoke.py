@@ -2003,23 +2003,45 @@ def _attn_costs(b, h, hk, s, d, elt, pairs):
 
 
 def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
-                      seed=None):
+                      seed=None, cuda_cores=False, out=None):
     """The dq and dk/dv kernels, each launched on its own with the
-    arguments the wrapper gives them (to time each)."""
+    arguments the wrapper gives them (to time each).  ``cuda_cores``:
+    the wide CUDA-core bodies instead, through their own entry points
+    (``apex_flash_{dq,dkv}_cuda_cores``, D >= 1024, not counted as
+    launches), to time them beside the routed bodies on the same
+    inputs.  ``out``: a list that receives the (dq, dk, dv) tensors the
+    calls write."""
+    import ctypes
     import torch
+    from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
     (b, h, hk, sq, sk, d), code, qp, kp = attn._geometry(q, k, v, seg)
     di = (do.float() * o.float()).sum(dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if out is not None:
+        out.extend((dq, dk, dv))
     common = (code, b, h, hk, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
               *attn._dropout_args(rate, seed, q.device),
               torch.cuda.current_stream().cuda_stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), di.data_ptr())
-    return (lambda: attn.FLASH_DQ.launch(*ins, dq.data_ptr(), qp, kp,
-                                         *common),
-            lambda: attn.FLASH_DKV.launch(*ins, dk.data_ptr(), dv.data_ptr(),
-                                          qp, kp, *common))
+    launch_dq, launch_dkv = attn.FLASH_DQ.launch, attn.FLASH_DKV.launch
+    if cuda_cores:
+        lib = _build.library("flash_bwd")
+        fns = []
+        for sym, kern in (("apex_flash_dq_cuda_cores", attn.FLASH_DQ),
+                          ("apex_flash_dkv_cuda_cores", attn.FLASH_DKV)):
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+
+            def launch(*args, fn=fn, sym=sym):
+                rc = fn(*args)
+                _check(rc == 0, f"{sym} failed to launch: CUDA error {rc}")
+            fns.append(launch)
+        launch_dq, launch_dkv = fns
+    return (lambda: launch_dq(*ins, dq.data_ptr(), qp, kp, *common),
+            lambda: launch_dkv(*ins, dk.data_ptr(), dv.data_ptr(), qp, kp,
+                               *common))
 
 
 FLASH_SYMS = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
@@ -2171,8 +2193,9 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               flush=True)
 
     # tensor-core bodies a library holds: the forward, dq and dk/dv at D
-    # 64, 128 and 256, the wide forward; each at rate 0 and with dropout
-    for lib, n_tc in (("flash_fwd", 8), ("flash_bwd", 12)):
+    # 64, 128 and 256 and their wide bodies; each at rate 0 and with
+    # dropout
+    for lib, n_tc in (("flash_fwd", 8), ("flash_bwd", 16)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
@@ -3086,13 +3109,13 @@ DROP_CASES = ("gpt2_block", "bert_large_unmasked", "bert_large_packed",
               "cross_sq130_sk70_causal")
 # the keep mask read out of the kernels: name, b, h, sq, sk, d, causal,
 # dtype (the tensor cores, the CUDA cores in f32 and in bf16 at D 32, the
-# wide tensor-core forward beside the wide dk/dv)
+# wide tensor-core forward, dq and dk/dv)
 DROP_KEEP_CASES = (
     ("gpt2_block", 8, 12, 512, 512, 64, True, "bf16"),
     ("f32_s300", 2, 12, 300, 300, 64, True, "f32"),
     ("d32_sq130_sk70", 2, 8, 130, 70, 32, False, "bf16"),
-    # the wide tensor-core forward: two windows of keys, all four column
-    # slices, against the wide dk/dv's mask
+    # the wide tensor-core bodies: two windows of keys, the forward's and
+    # dk/dv's four column slices, dq's two
     ("d1024_bf16", 1, 2, 200, 1100, 1024, True, "bf16"),
 )
 # the path: 12 layers at GPT-2 small's widths; Transformer-big's decoder
@@ -3136,18 +3159,35 @@ F5_CASES = (
 
 def keep_mask_readout(b, h, sq, sk, d, dt, causal, rate, seed, dev, side):
     """The (b, h, sq, sk) keep mask the kernels drew at ``rate`` and
-    ``seed``, read window by window with q = k = 0 (every visible p is
-    1/n): ``side="fwd"``, V one-hot on a window of D keys, the output is
+    ``seed``, read window by window with q = 0 (every visible p is 1/n):
+    ``side="fwd"``, V one-hot on a window of D keys, the output is
     nonzero there exactly where a pair is kept; ``side="dv"``, dO one-hot
     on a window of D query rows, dV[key, c] is nonzero exactly where
-    (r0 + c, key) is kept.  Hidden pairs read 0.  (The card tests of
-    ``tests/torch_port/test_torch_port_cuda.py`` read the mask with this
-    one too.)"""
+    (r0 + c, key) is kept; ``side="dq"``, K one-hot on a window of D keys,
+    V's and dO's first columns ones (dP = 1) and O taken as zeros (di =
+    0), so dS = p * keep * dP / (1 - rate) * scale and dQ[row, c] is
+    nonzero exactly where (row, w0 + c) is kept.  Hidden pairs read 0.
+    (The card tests of ``tests/torch_port/test_torch_port_cuda.py`` read
+    the mask with this one too.)"""
     import torch
     from apex_tpu_torch.ops import attention as attn
     q = torch.zeros(b, h, sq, d, dtype=dt, device=dev)
     k = v = torch.zeros(b, h, sk, d, dtype=dt, device=dev)
     got = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=dev)
+    if side == "dq":
+        lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)[1]
+        ones = torch.zeros_like(v)
+        ones[..., 0] = 1
+        do = torch.zeros_like(q)
+        do[..., 0] = 1
+        for w0 in range(0, sk, d):
+            n = min(d, sk - w0)
+            kw = torch.zeros_like(k)
+            kw[:, :, w0:w0 + n, :n] = torch.eye(n, dtype=dt, device=dev)
+            dq = attn._flash_bwd_cuda(q, kw, ones, torch.zeros_like(q), lse,
+                                      do, causal, None, None, rate, seed)[0]
+            got[..., w0:w0 + n] = dq[..., :n] != 0
+        return got
     if side == "fwd":
         for w0 in range(0, sk, d):
             n = min(d, sk - w0)
@@ -3374,14 +3414,17 @@ def dropout_kernel_phase(dev, smi: str) -> dict:
         dt = _dtype(dtn)
         vis = _visible(None, sq, sk, causal, dev)[:, None]
         want = attn.dropout_keep_ref(seed, b, h, sq, sk, DROP_RATE) & vis
-        fwd, dv = (keep_mask_readout(b, h, sq, sk, d, dt, causal,
-                                     DROP_RATE, seed, dev, side)
-                   for side in ("fwd", "dv"))
+        fwd, dv, dq = (keep_mask_readout(b, h, sq, sk, d, dt, causal,
+                                         DROP_RATE, seed, dev, side)
+                       for side in ("fwd", "dv", "dq"))
         _check(bool(torch.equal(fwd, want)), f"keep mask {name}: the "
                f"forward dropped {int((fwd != want).sum())} pairs other "
                "than dropout_keep_ref's")
         _check(bool(torch.equal(dv, want)), f"keep mask {name}: dk/dv "
                f"dropped {int((dv != want).sum())} pairs other than "
+               "dropout_keep_ref's")
+        _check(bool(torch.equal(dq, want)), f"keep mask {name}: dq "
+               f"dropped {int((dq != want).sum())} pairs other than "
                "dropout_keep_ref's")
         other = keep_mask_readout(b, h, sq, sk, d, dt, causal, DROP_RATE,
                                   seed + 1, dev, "fwd")
@@ -3392,12 +3435,12 @@ def dropout_kernel_phase(dev, smi: str) -> dict:
                f"the visible pairs (want {1 - DROP_RATE} +- 0.01) or the "
                "same mask")
         print(f"keep mask {name} ({b}, {h}, {sq}, {sk}) D {d} {dtn} causal="
-              f"{causal}: the forward's and dk/dv's masks equal "
+              f"{causal}: the forward's, dq's and dk/dv's masks equal "
               f"dropout_keep_ref bit for bit ({int(want.sum())} of "
               f"{int(n_vis)} visible pairs kept, "
               f"{float(want.sum()) / n_vis:.5f}); seed + 1: another mask, "
               f"{kept:.5f} kept", flush=True)
-        del want, fwd, dv, other
+        del want, fwd, dv, dq, other
 
     for name, qshape, kshape, dtn, kind in F5_CASES:
         dt = _dtype(dtn)
@@ -3671,6 +3714,8 @@ def dropout_path_phase(dev, smi: str) -> dict:
 WIDE = dict(hidden=1024, heads=4, seq=512, batch=8, steps=2)
 # F5c: SelfMultiheadAttn(2048, 2), head dim 1024, the wide bodies
 WIDE_1024 = dict(WIDE, hidden=2048, heads=2)
+# SelfMultiheadAttn(2048, 4), head dim 512 (the CUDA-core bodies): timed
+WIDE_512 = dict(WIDE, hidden=2048, heads=4)
 WIDE_CASES = (
     ("smha_1024_4", WIDE["batch"], WIDE["heads"], WIDE["seq"], 256, "bf16",
      DROP_RATE),
@@ -3692,6 +3737,15 @@ WIDE_CASES = (
     # (at the batch they are timed at)
     ("d1024_bf16", WIDE_1024["batch"], 2, 512, 1024, "bf16", DROP_RATE),
     ("d1024_bf16_rate0", WIDE_1024["batch"], 2, 512, 1024, "bf16", 0.0),
+    # F7: past 8192, padded to the next multiple of 8192 (8200 -> 16384)
+    ("d8200_f32", 1, 2, 96, 8200, "f32", DROP_RATE),
+    ("d8200_f32_rate0", 1, 2, 96, 8200, "f32", 0.0),
+    ("d8200_bf16", 1, 2, 96, 8200, "bf16", DROP_RATE),
+    ("d8200_bf16_rate0", 1, 2, 96, 8200, "bf16", 0.0),
+    ("d16384_f32", 1, 2, 70, 16384, "f32", DROP_RATE),
+    ("d16384_f32_rate0", 1, 2, 70, 16384, "f32", 0.0),
+    ("d16384_bf16", 1, 2, 70, 16384, "bf16", DROP_RATE),
+    ("d16384_bf16_rate0", 1, 2, 70, 16384, "bf16", 0.0),
 )
 
 
@@ -3704,34 +3758,39 @@ def _flash_route_of(d: int, dt: str) -> dict:
 
 
 def wide_head_phase(dev, smi: str) -> dict:
-    """F5b and F5c: flash at head dims past 128: bf16 at 256 (and 160,
-    200 padded to it) on the tensor-core forward, dq and dk/dv; f32 at
-    256 and both at 512 on the CUDA-core bodies (dynamic shared memory);
-    at 1024 (D 640 padded to it) the bf16 forward on the wide tensor-core
-    body, the rest on the wide CUDA-core bodies (a row's sums across
-    warps).  Each WIDE_CASES case causal, forward with lse, dq and dk/dv
-    against the twins (ATTN_TOL), the same bits twice, each body's route
-    and DROP instantiation read from the device kernels' names; then, for
-    ``SelfMultiheadAttn(1024, 4)`` (D 256) and ``SelfMultiheadAttn(2048,
-    2)`` (D 1024), the three bodies timed at the module's (8, heads, 512,
-    D) bf16 causal shape, rate 0 and 0.1, beside the twin, SDPA and the
-    bound, and the module trained 2 steps at each rate (forward,
+    """F5b, F5c and F7: flash at head dims past 128: bf16 at 256 (and
+    160, 200 padded to it) on the tensor-core forward, dq and dk/dv; f32
+    at 256 and both at 512 on the CUDA-core bodies (dynamic shared
+    memory); from 1024 (D 640 padded to it; past 8192 the next multiple
+    of 8192, F7) bf16 on the wide tensor-core bodies, f32 on the wide
+    CUDA-core bodies (a row's sums across warps, a row's columns split
+    over CTAs past 8192).  Each WIDE_CASES case causal, forward with
+    lse, dq and dk/dv against the twins (ATTN_TOL), the same bits twice,
+    each body's route and DROP instantiation read from the device
+    kernels' names; then, for ``SelfMultiheadAttn(1024, 4)`` (D 256),
+    ``(2048, 4)`` (D 512, timed only) and ``(2048, 2)`` (D 1024), the
+    three bodies timed at the module's (8, heads, 512, D) bf16 causal
+    shape, rate 0 and 0.1, beside the twin, SDPA and the bound (the wide
+    dq and dk/dv also beside their CUDA-core bodies in turns), and the
+    D-256 and D-1024 modules trained 2 steps at each rate (forward,
     backward, an SGD update of its params), finite losses, exact launch
-    counts and the routes of a profiled step; the bf16 forward at D 2048,
-    4096 and 8192 held and timed (``_wide_forward_widths``); the ptxas
-    registers and spills of the D-256 and wide tensor-core bodies.
-    Returns {kernel:
-    {"d256": its D-256 figures, "d1024": its D-1024 figures}}."""
+    counts and the routes of a profiled step; the bf16 forward, dq and
+    dk/dv at D 2048, 4096 and 8192 held and timed (``_wide_widths``);
+    the ptxas registers and spills of the D-256 and wide tensor-core
+    bodies.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
+    "d1024": ...}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
 
     # reports loaded by phase 16: the D-256 forward, dq and dk/dv and the
-    # wide forward, each at rate 0 and with DROP
+    # wide forward, dq and dk/dv, each at rate 0 and with DROP
+    wide_ptxas = {}
     for lib, kind, marker, n in (("flash_fwd", "D-256", "ILi256E", 2),
                                  ("flash_bwd", "D-256", "ILi256E", 4),
-                                 ("flash_fwd", "wide", "_tc_wide", 2)):
+                                 ("flash_fwd", "wide", "_tc_wide", 2),
+                                 ("flash_bwd", "wide", "_tc_wide", 4)):
         found = [r for r in _ptxas_report(_build.build_logs.get(lib, ""),
                                           "_tc") if marker in r[0]]
         _check(len(found) == n, f"ptxas reported {len(found)} {kind} "
@@ -3739,6 +3798,11 @@ def wide_head_phase(dev, smi: str) -> dict:
         for entry, regs, spill in found:
             print(f"ptxas {kind} tensor-core body {entry}: {regs}; {spill} "
                   f"[{smi}]", flush=True)
+            if kind == "wide":
+                kn = next(k for k, sym in FLASH_SYMS.items()
+                          if sym + "_tc_wide" in entry)
+                wide_ptxas.setdefault(kn, []).append(
+                    f"{entry}: {regs}; {spill}")
 
     gen = torch.Generator(device=dev).manual_seed(13)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -3803,31 +3867,120 @@ def wide_head_phase(dev, smi: str) -> dict:
         del prof
 
     rows = {}
-    for key, mod_cfg in (("d256", WIDE), ("d1024", WIDE_1024)):
+    for key, mod_cfg in (("d256", WIDE), ("d512", WIDE_512),
+                         ("d1024", WIDE_1024)):
         t0 = time.perf_counter()
         for kn, row in _wide_times(dev, smi, gen, seed, mod_cfg).items():
             rows.setdefault(kn, {})[key] = row
         t1 = time.perf_counter()
-        _wide_module_steps(dev, smi, gen, mod_cfg)
+        if key != "d512":
+            _wide_module_steps(dev, smi, gen, mod_cfg)
         torch.cuda.empty_cache()
         if key == "d1024":
             wide_s["times"] = t1 - t0
             wide_s["module steps"] = time.perf_counter() - t1
+    for kn, lines in wide_ptxas.items():
+        rows[kn]["d1024"]["ptxas"] = lines
     t0 = time.perf_counter()
-    _wide_forward_widths(dev, smi, gen, seed)
-    wide_s["forward widths"] = time.perf_counter() - t0
-    print("phase seconds 34, its F5c part (D 640 to 8192): "
+    _wide_widths(dev, smi, gen, seed)
+    wide_s["widths"] = time.perf_counter() - t0
+    print("phase seconds 34, its F5c and F7 part (D 640 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
     return rows
+
+
+def _in_turns(calls: dict, iters: int = 10) -> dict:
+    """{name: [ms, ms]}: each call timed twice by ``_ms``, in the order
+    a, b, b, a (a call's two turns bracket the other's)."""
+    names = list(calls)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for n in order:
+        out[n].append(_ms(calls[n], iters))
+    return out
+
+
+def _wide_bwd_times(q, k, v, o, lse, do, rate, sd) -> dict:
+    """The routed dq and dk/dv (the wide tensor-core bodies for bf16 past
+    512) and the wide CUDA-core bodies on the same inputs, in turns:
+    {kernel: (routed ms, CUDA-core ms)}, each the mean of its two
+    turns.  The CUDA-core bodies' gradients are held to the twin too, so
+    the two time the same function."""
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True, None,
+                                          rate, sd)
+    cc_out = []
+    cc_dq, cc_dkv = _bwd_kernel_calls(q, k, v, o, lse, do, True, None, rate,
+                                      sd, cuda_cores=True, out=cc_out)
+    cc_dq()
+    cc_dkv()
+    torch.cuda.synchronize()
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None, None, rate,
+                              sd)
+    atol, rtol = ATTN_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                            ("dq", "dk", "dv"), cc_out, want):
+        _held(kn, g, w, atol, rtol, f"{gn} of the CUDA-core body "
+              f"{tuple(q.shape)} dropout {rate}")
+    out = {}
+    for kn, (routed, cc) in (("flash_dq", (dq_call, cc_dq)),
+                             ("flash_dkv", (dkv_call, cc_dkv))):
+        t = _in_turns({"routed": routed, "cuda cores": cc})
+        print(f"time {kn} {tuple(q.shape)} dropout {rate} in turns: routed "
+              f"{t['routed'][0]:.4f} / {t['routed'][1]:.4f} ms, wide CUDA "
+              f"cores {t['cuda cores'][0]:.4f} / {t['cuda cores'][1]:.4f} ms",
+              flush=True)
+        out[kn] = (sum(t["routed"]) / 2, sum(t["cuda cores"]) / 2)
+    return out
+
+
+def _sdpa_f32(q, k, v, do) -> tuple:
+    """SDPA's f32 forward and backward at q's shape, causal, on the first
+    backend that takes it of memory-efficient attention and the math
+    path, pinned with ``torch.nn.attention.sdpa_kernel``: (backend name,
+    forward ms, backward ms, relative error of its output against an f64
+    evaluation).  TF32 products (a 10-bit mantissa) would leave an error
+    near 1e-3; f32 ones near 1e-6."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
+    s = s / math.sqrt(q.shape[-1])
+    n = q.shape[2]
+    s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device=q.device)
+                      .triu(1), float("-inf"))
+    ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+    del s
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                     is_causal=True)
+                fwd = _ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 3)
+                bwd = _ms(lambda: torch.autograd.grad(
+                    out, (qq, kk, vv), do, retain_graph=True), 3)
+        except RuntimeError as e:
+            print(f"SDPA f32 {tuple(q.shape)}: {backend.name} refused "
+                  f"({str(e).splitlines()[0][:120]})", flush=True)
+            continue
+        err = float((out.detach().double() - ref).abs().max()
+                    / ref.abs().max())
+        return backend.name, fwd, bwd, err
+    _check(False, f"SDPA took no f32 backend at {tuple(q.shape)}")
 
 
 def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     """The three flash bodies at ``SelfMultiheadAttn(cfg hidden, heads)``'s
     (batch, heads, seq, head dim) bf16 causal shape, rate 0 and 0.1,
     beside the twin, SDPA and the bound: {kernel: {"rate0": row,
-    "dropout": row}}.  Past D 512 it also prints the f32 wide bodies'
-    times at that shape (rate 0)."""
+    "dropout": row}}.  Past D 512 the wide dq and dk/dv are also timed
+    beside the wide CUDA-core bodies in turns (``cuda_cores_ms``), and
+    the f32 wide bodies at that shape (rate 0) beside SDPA's f32 forward
+    and backward."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as attn
@@ -3853,6 +4006,8 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                                               None, rate, sd)
         times = {"flash_fwd": _ms(fwd, 10), "flash_dq": _ms(dq_call, 10),
                  "flash_dkv": _ms(dkv_call, 10)}
+        cc = _wide_bwd_times(q, k, v, o, lse, do, rate, sd) if d >= 1024 \
+            else {}
         plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
                      q, k, v, True, None, None, rate, sd), 3, 1)}
         plain["flash_dq"] = plain["flash_dkv"] = _ms(
@@ -3877,14 +4032,26 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                        bound_by=bound_by, library_ms=lib[kn],
                        shape=f"({b}, {h}, {s}, {d}) bf16 causal",
                        rate=rate, body=body[kn])
+            turns = ""
+            if kn in cc:
+                row.update(ms_in_turns=cc[kn][0], cuda_cores_ms=cc[kn][1])
+                turns = (f", in turns {cc[kn][0]:.4f} ms against the wide "
+                         f"CUDA-core body's {cc[kn][1]:.4f} "
+                         f"({cc[kn][1] / cc[kn][0]:.2f}x)")
             rows.setdefault(kn, {})["rate0" if rate == 0 else "dropout"] = row
             print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) bf16 causal dropout "
                   f"{rate} ({body[kn]}): kernel {times[kn]:.4f} ms "
-                  f"({ops / times[kn] / 1e9:.1f} TFLOP/s), plain "
+                  f"({ops / times[kn] / 1e9:.1f} TFLOP/s){turns}, plain "
                   f"{plain[kn]:.4f} ms, SDPA "
                   f"{'forward' if kn == 'flash_fwd' else 'backward (dq, dk, dv)'}"
                   f" {lib[kn]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                   f" [{smi}]", flush=True)
+        if d >= 1024:
+            pair = times["flash_dq"] + times["flash_dkv"]
+            print(f"time flash backward pair D {d} dropout {rate}: dq + "
+                  f"dk/dv {pair:.4f} ms, {pair / lib['flash_dq']:.2f}x "
+                  f"SDPA's backward, {pair / plain['flash_dq']:.2f}x the "
+                  f"twin [{smi}]", flush=True)
         del o, lse
     if d >= 1024:
         # f32 at the same shape keeps the wide CUDA-core bodies (rate 0)
@@ -3896,42 +4063,52 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
             q32, k32, v32, o32, lse32, do32, True, None)))
         costs32 = _attn_costs(b, h, h, s, d, 4, pairs)
         body32 = _flash_route_of(d, "f32")
+        backend, lib_f, lib_b, lib_err = _sdpa_f32(q32, k32, v32, do32)
+        print(f"SDPA f32 ({b}, {h}, {s}, {d}) causal: backend {backend}, "
+              f"output within {lib_err:.2e} of an f64 evaluation (TF32 "
+              f"{'likely' if lib_err > 1e-5 else 'not used'}; allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}) [{smi}]",
+              flush=True)
         for kn, call in calls.items():
             t32 = _ms(call, 3)
             bound_ms, bound_by = _bound(*costs32[kn])
+            lib32 = lib_f if kn == "flash_fwd" else lib_b
             print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) f32 causal dropout "
                   f"0.0 ({body32[kn]}): kernel {t32:.4f} ms "
-                  f"({costs32[kn][1] / t32 / 1e9:.1f} TFLOP/s), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; operations at the f32 "
-                  f"FMA rate) [{smi}]", flush=True)
+                  f"({costs32[kn][1] / t32 / 1e9:.1f} TFLOP/s), SDPA f32 "
+                  f"{'forward' if kn == 'flash_fwd' else 'backward'} "
+                  f"({backend}) {lib32:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; operations at the f32 FMA rate) [{smi}]",
+                  flush=True)
         del q32, k32, v32, do32, o32, lse32, calls
     return rows
 
 
-# the bf16 wide forward at the wider widths, each at D 1024's bytes
+# the wide bodies at the wider widths, each at D 1024's bytes
 # (B·H·S·D = 8·2·512·1024): (batch, heads, seq, head dim)
 WIDE_FWD_SHAPES = ((4, 2, 512, 2048), (2, 2, 512, 4096), (1, 2, 512, 8192))
 
 
-def _wide_forward_widths(dev, smi: str, gen, seed) -> None:
-    """The bf16 forward at ``WIDE_FWD_SHAPES``, causal, rate 0 and 0.1:
-    held against the twin and to the same bits on a second call, then
-    timed beside SDPA's forward and the bound.  Every 256-column slice
-    of O computes the whole of S, so the FLOP the body executes grow
-    with D while the useful 4·D a pair, which the line's TFLOP/s count,
-    stay."""
+def _wide_widths(dev, smi: str, gen, seed) -> None:
+    """The bf16 forward, dq and dk/dv at ``WIDE_FWD_SHAPES``, causal,
+    rate 0 and 0.1: held against the twins and to the same bits on a
+    second call, then timed beside SDPA's forward and backward, the twin
+    and the bound, the wide dq and dk/dv also beside their CUDA-core
+    bodies in turns.  Every column slice computes the whole of S (and
+    dP), so the FLOP the tensor-core bodies execute grow with D while
+    the useful ones (4·D a pair forward, 6·D dq, 8·D dk/dv), which the
+    lines' TFLOP/s count, stay."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as attn
 
     atol, rtol = ATTN_TOL["bf16"]
     for b, h, s, d in WIDE_FWD_SHAPES:
-        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        nbytes, ops = _attn_costs(b, h, h, s, d, 2, _pairs(
-            None, b, h, s, True, dev))["flash_fwd"]
-        bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
-        body = _flash_route_of(d, "bf16")["flash_fwd"]
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        costs = _attn_costs(b, h, h, s, d, 2, _pairs(None, b, h, s, True,
+                                                     dev))
+        body = _flash_route_of(d, "bf16")
         for rate in (0.0, DROP_RATE):
             sd = seed if rate else None
             fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None,
@@ -3945,15 +4122,50 @@ def _wide_forward_widths(dev, smi: str, gen, seed) -> None:
             _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
             _check(torch.equal(again[0], o) and torch.equal(again[1], lse),
                    f"flash forward {what}: the bits differ run to run")
-            del o, lse, again, wo, wlse
-            ms = _ms(fwd, 10)
-            lib = _ms(lambda: F.scaled_dot_product_attention(
+            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, sd)
+            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                                        None, rate, sd)
+            for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                                    ("dq", "dk", "dv"), grads, wgrads):
+                _held(kn, g, w, atol, rtol, f"{gn} {what}")
+            again = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, sd)
+            _check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                   f"flash backward {what}: the bits differ run to run")
+            del again, wo, wlse, grads, wgrads
+            times = {"flash_fwd": _ms(fwd, 10)}
+            cc = _wide_bwd_times(q, k, v, o, lse, do, rate, sd)
+            times.update({kn: t[0] for kn, t in cc.items()})
+            lib_fwd = _ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=rate), 10)
-            print(f"time flash_fwd D {d} {what} ({body}): kernel {ms:.4f} "
-                  f"ms ({ops / ms / 1e9:.1f} TFLOP/s useful), SDPA forward "
-                  f"{lib:.4f} ms (kernel {ms / lib:.2f}x), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
-        del q, k, v
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                 dropout_p=rate)
+            lib_bwd = _ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True), 10)
+            plain = _ms(lambda: attn.flash_bwd_ref(
+                q, k, v, o, lse, do, True, None, None, rate, sd), 3, 1)
+            del qq, kk, vv, out, o, lse
+            for kn, ms in times.items():
+                nbytes, ops = costs[kn]
+                bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+                lib = lib_fwd if kn == "flash_fwd" else lib_bwd
+                extra = ("" if kn == "flash_fwd" else
+                         f", wide CUDA cores in turns {cc[kn][1]:.4f} ms, "
+                         f"twin (dq, dk, dv) {plain:.4f} ms")
+                print(f"time {kn} D {d} {what} ({body[kn]}): kernel "
+                      f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s useful)"
+                      f"{extra}, SDPA "
+                      f"{'forward' if kn == 'flash_fwd' else 'backward'} "
+                      f"{lib:.4f} ms (kernel {ms / lib:.2f}x), bound "
+                      f"{bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
+            pair = times["flash_dq"] + times["flash_dkv"]
+            print(f"time flash backward pair D {d} {what}: dq + dk/dv "
+                  f"{pair:.4f} ms ({pair / lib_bwd:.2f}x SDPA's backward), "
+                  f"wide CUDA cores {cc['flash_dq'][1] + cc['flash_dkv'][1]:.4f}"
+                  f" ms [{smi}]", flush=True)
+        del q, k, v, do
 
 
 def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:
@@ -5703,7 +5915,8 @@ def main() -> int:
             "library_ms", "atol", "rtol")
     kernels = [dict({k: e[k] for k in keys},
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
-                                         "dropout", "d256", "d1024",
+                                         "dropout", "d256", "d512",
+                                         "d1024",
                                          "gpt_model_launches") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries

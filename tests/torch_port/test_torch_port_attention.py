@@ -229,9 +229,35 @@ def test_flash_sources_route_bf16_d256_and_wide_forward_to_tensor_cores():
     assert wide_tc < route.index("return launch_wide<T, DROP>(")
 
 
+def test_flash_sources_route_bf16_wide_backward_to_the_tensor_cores():
+    """The backward's C dispatchers send bf16 at every wide width (D >=
+    1024, inside the branch that also needs queries and keys) to
+    ``flash_dq_kernel_tc_wide`` and ``flash_dkv_kernel_tc_wide`` ahead of
+    the wide CUDA-core bodies, which f32 keeps; the header's width rule
+    takes the powers of two to 8192 and the multiples of 8192 past it
+    (F7), as the wrappers' ``_kernel_width`` pads; the CUDA-core bodies
+    stay callable for bf16 through their own entry points."""
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    for kern, tc, fma in (("dq", "return launch_dq_tc_wide<DROP>(a, D, dq);",
+                           "return launch_dq_wide<T, DROP>(a, D, dq);"),
+                          ("dkv", "return launch_dkv_tc_wide<DROP>(a, D, dk, "
+                           "dv);", "return launch_dkv_wide<T, DROP>(a, D, "
+                           "dk, dv);")):
+        assert f"flash_{kern}_kernel_tc_wide(" in bwd
+        route = bwd[bwd.index(f"int route_{kern}("):]
+        route = route[:route.index("\n}\n")]
+        branch = route.index("if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {")
+        assert branch < route.index(tc) < route.index(fma)
+        assert f'extern "C" int apex_flash_{kern}_cuda_cores(' in bwd
+    assert "constexpr int SPLIT = 8192;" in hdr
+    assert "(D <= SPLIT ? (D & (D - 1)) == 0 : D % SPLIT == 0)" in hdr
+    assert tattn.WIDE_SPLIT == 8192
+
+
 # the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):
-# the tensor cores at these widths, the wide bodies from D 1024 (the bf16
-# forward there on the wide tensor-core body)
+# the tensor cores at these widths, the wide bodies from D 1024 (bf16
+# there on the wide tensor-core bodies)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
@@ -239,18 +265,18 @@ _TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 @pytest.mark.parametrize("kernel", sorted(_TC_ROUTE))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS + (16384, 24576))
 def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
     and dk/dv on the tensor cores at D 64, 128 and 256; every f32 width
-    and every other bf16 width up to 512 on the CUDA cores; 1024..8192
-    on the wide bodies, the bf16 forward there on the wide tensor-core
-    one.  A head dim pads to its kernel width first (D - 1 routes as D,
-    for D past 16); q, k, v and dO align to TMA's 16 bytes wherever a
-    kernel of the call takes either tensor-core route."""
+    and every other bf16 width up to 512 on the CUDA cores; from 1024
+    (past 8192 the multiples of 8192, F7) on the wide bodies, bf16 there
+    on the wide tensor-core ones.  A head dim pads to its kernel width
+    first (D - 1 routes as D, for D past 16); q, k, v and dO align to
+    TMA's 16 bytes wherever a kernel of the call takes either
+    tensor-core route."""
     bf16 = dtype == torch.bfloat16
-    want = ("wide tensor cores" if d >= 1024 and bf16
-            and kernel == "flash_fwd" else
+    want = ("wide tensor cores" if d >= 1024 and bf16 else
             "wide CUDA cores" if d >= 1024 else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
@@ -264,25 +290,29 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_d640_routes_only_the_bf16_forward_to_the_tensor_cores(dtype):
-    """A D-640 head pads to 1024: bf16 runs its forward on the wide
-    tensor-core body and its dq and dk/dv on the wide CUDA-core bodies;
-    f32 runs all three on the wide CUDA-core bodies.  Either way the
-    operands align to 16 bytes (the tensor-core forward's TMA, f32's
+    """A D-640 head pads to 1024: bf16 runs its forward, dq and dk/dv on
+    the wide tensor-core bodies (the backward's since their own bodies
+    came); f32 runs all three on the wide CUDA-core bodies.  Either way
+    the operands align to 16 bytes (the tensor-core bodies' TMA, f32's
     4-float vector)."""
     assert tattn._kernel_width(640) == 1024
     routes = {k: tattn.flash_route(k, dtype, 640) for k in _TC_ROUTE}
-    wide_fwd = ("wide tensor cores" if dtype == torch.bfloat16
-                else "wide CUDA cores")
-    assert routes == {"flash_fwd": wide_fwd, "flash_dq": "wide CUDA cores",
-                      "flash_dkv": "wide CUDA cores"}
+    wide = ("wide tensor cores" if dtype == torch.bfloat16
+            else "wide CUDA cores")
+    assert routes == {"flash_fwd": wide, "flash_dq": wide, "flash_dkv": wide}
     assert tattn._align(dtype, 640) == 16
 
 
 def test_flash_route_rejects_an_unknown_kernel_and_width():
+    """An unknown kernel raises; a width past 8192, which raised before
+    F7, routes at its padded width (8193 runs at 16384)."""
     with pytest.raises(ValueError, match="flash_softmax"):
         tattn.flash_route("flash_softmax", torch.bfloat16, 64)
-    with pytest.raises(ValueError, match="head_dim up to 8192"):
-        tattn.flash_route("flash_fwd", torch.bfloat16, 8193)
+    for kernel in _TC_ROUTE:
+        assert tattn.flash_route(kernel, torch.bfloat16, 8193) == (
+            "wide tensor cores")
+        assert tattn.flash_route(kernel, torch.float32, 8193) == (
+            "wide CUDA cores")
 
 
 def test_tensor_core_route_needs_16_byte_aligned_operands():
@@ -351,19 +381,19 @@ def test_mixed_dtypes_promote_as_the_reference_does():
 def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
     """What the card's wrappers do before a launch (F5): a head dim
     that is not a kernel width goes up to the next power of two from 16
-    with zeros (F5b: 129..512 as well; F5c: 513..8192, the wide bodies);
-    a strided operand is copied; a contiguous one that starts off its
-    alignment is cloned to an aligned start; a head dim above 8192 raises
-    naming the wide kernels' register limit; float64 raises TypeError."""
+    with zeros (F5b: 129..512 as well; F5c: 513..8192, the wide bodies;
+    F7: past 8192 the next multiple of 8192); a strided operand is
+    copied; a contiguous one that starts off its alignment is cloned to
+    an aligned start; float64 raises TypeError."""
     assert [tattn._kernel_width(d) for d in (1, 8, 16, 17, 33, 80, 96,
                                              128, 129, 160, 192, 256, 257,
                                              512, 513, 640, 1024, 1025,
-                                             5000, 8192)] == [
+                                             5000, 8192, 8193, 16384,
+                                             16385)] == [
         16, 16, 16, 32, 64, 128, 128, 128, 256, 256, 256, 256, 512, 512,
-        1024, 1024, 1024, 2048, 8192, 8192]
-    with pytest.raises(ValueError, match="up to 8192, got 8193.*65,536 "
-                                         "32-bit registers"):
-        tattn._kernel_width(8193)
+        1024, 1024, 1024, 2048, 8192, 8192, 16384, 16384, 24576]
+    (big,) = tattn._operands(torch.randn(1, 1, 2, 8193))
+    assert big.shape == (1, 1, 2, 16384) and torch.all(big[..., 8193:] == 0)
     (w,) = tattn._operands(torch.randn(1, 2, 3, 160))
     assert w.shape == (1, 2, 3, 256) and torch.all(w[..., 160:] == 0)
     q = torch.randn(2, 3, 5, 8)

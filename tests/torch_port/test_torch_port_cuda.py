@@ -17,14 +17,15 @@ kernels of the training paths against their twins (tolerances by the
 kernels' sections below); a GPT block step must not sync the host.
 dq and the LayerNorm backward are also held on each of their routes
 (each flash kernel's by ``ops.attention.flash_route``: the tensor-core
-forward and dk/dv for bf16 at D 64, 128 and 256, the tensor-core dq at
-64 and 128; the fused or three-launch LayerNorm backward by
+forward, dq and dk/dv for bf16 at D 64, 128 and 256 and the wide
+tensor-core ones from D 1024; the fused or three-launch LayerNorm
+backward by
 ``bwd_route``), each read from the device kernels' names under
 ``torch.profiler``.  The flash bodies' dropout
 instantiations are held against the twins at the same seed (FLASH_TOL),
 their keep mask read out of the kernels bit for bit, and the inputs the
-wrapper pads or copies (head dims 8, 80, 96; strided, misaligned; B*H
-65,600) with their gradients.
+wrapper pads or copies (head dims 8, 80, 96, 8200; strided,
+misaligned; B*H 65,600) with their gradients.
 """
 
 import importlib.util
@@ -95,15 +96,30 @@ def test_kernel_matches_plain_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
-    """float64 and a head dim above 8192 (the wide kernels' register limit, F5c) raise;
-    a head dim of 8 (padded to the kernels' 16) and a strided q (copied)
-    compute what the plain version does, each with one launch."""
+    """float64 raises; a head dim above 8192 (which raised before F7)
+    pads to 16384 and runs, forward and gradients, one launch of each
+    kernel, within the f32 tolerance of the twins; a head dim of 8
+    (padded to the kernels' 16) and a strided q (copied) compute what the
+    plain version does, each with one launch."""
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         attn.flash_attention(q.double(), q.double(), q.double())
-    wide = torch.zeros(1, 2, 8, 8200, device=cuda)
-    with pytest.raises(ValueError, match="up to 8192.*registers"):
-        attn.flash_attention(wide, wide, wide)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    wq, wk, wv, wdo = (torch.randn(1, 2, 8, 8200, generator=g, device=cuda)
+                       for _ in range(4))
+    kernels = (attn.FLASH_FWD, attn.FLASH_DQ, attn.FLASH_DKV)
+    before = [kk.launches for kk in kernels]
+    leaves = [t.clone().requires_grad_() for t in (wq, wk, wv)]
+    out = attn.flash_attention(*leaves, causal=True)
+    out.backward(wdo)
+    torch.cuda.synchronize()
+    assert [kk.launches - c for kk, c in zip(kernels, before)] == [1, 1, 1]
+    wo, wlse = attn.flash_fwd_ref(wq, wk, wv, True)
+    want = (wo,) + attn.flash_bwd_ref(wq, wk, wv, out.detach(), wlse, wdo,
+                                      True)
+    for got, w in zip([out.detach()] + [t.grad for t in leaves], want):
+        assert got.shape == w.shape
+        torch.testing.assert_close(got, w, **TOL)
     q8 = q[..., :8].contiguous()
     strided = q.transpose(2, 3).contiguous().transpose(2, 3)
     for args in ((q8, q8, q8), (strided, q, q)):
@@ -414,6 +430,15 @@ FLASH_TRAIN_CASES = {
                               torch.bfloat16),
     "d1024_bf16_gqa_causal_ragged": (2, 4, 2, 200, 1024, True, "ragged",
                                      torch.bfloat16),
+    # F7: past 8192, padded to a multiple of 8192 (two 8192-column
+    # slices on the CUDA cores; 32 / 64 slices of the tensor-core bodies)
+    "d8200_f32_gqa_causal": (1, 2, 1, 24, 8200, True, None, torch.float32),
+    "d8200_bf16_causal_s70": (1, 2, 1, 70, 8200, True, None,
+                              torch.bfloat16),
+    "d16384_f32_packed": (1, 1, 1, 20, 16384, False, "packed",
+                          torch.float32),
+    "d16384_bf16_gqa_causal": (1, 2, 1, 40, 16384, True, None,
+                               torch.bfloat16),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -495,6 +520,9 @@ TC_CROSS_CASES = {
     "sq200_sk130_causal_d128": (2, 4, 4, 200, 130, 128, True),
     "sq130_sk70_causal_d256": (2, 4, 4, 130, 70, 256, True),
     "sq70_sk200_causal_d256_gqa": (1, 4, 2, 70, 200, 256, True),
+    # the wide tensor-core dq and dk/dv (D 1024)
+    "sq130_sk70_causal_d1024": (1, 2, 2, 130, 70, 1024, True),
+    "sq70_sk200_causal_d1024_gqa": (1, 4, 2, 70, 200, 1024, True),
 }
 
 
@@ -682,6 +710,13 @@ DQ_CASES = {
                                       "packed", torch.bfloat16),
     "bf16_d256_gqa_sq200_sk330_causal": (2, 4, 2, 200, 330, 256, True, None,
                                          torch.bfloat16),
+    # the wide tensor-core dq: 512 of dQ's columns a CTA
+    "bf16_d1024_gqa_packed_causal": (2, 4, 2, 200, 200, 1024, True, "packed",
+                                     torch.bfloat16),
+    "bf16_d2048_sq200_sk330": (1, 2, 1, 200, 330, 2048, False, None,
+                               torch.bfloat16),
+    "f32_d1024_wide_cuda_cores": (1, 2, 2, 100, 100, 1024, True, None,
+                                  torch.float32),
 }
 
 
@@ -1621,14 +1656,16 @@ def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
 # Each body against its twin at the same seed (FLASH_TOL); the keep mask
 # read out of the kernels bit for bit: with q = k = 0 every visible p is
 # 1/n, so with V one-hot on a window of D keys the output is nonzero on
-# that window exactly where the pair is kept, and with dO one-hot on a
-# window of D query rows dV is nonzero exactly where kept.
+# that window exactly where the pair is kept, with dO one-hot on a
+# window of D query rows dV is nonzero exactly where kept, and with K
+# one-hot on a window of D keys (dP all ones, O taken as zeros so di is
+# 0) dQ is nonzero exactly where kept.
 
 DROP_CASES = {
     # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): each
     # kernel on its attn.flash_route (bf16 at D 64/128/256 the
-    # tensor-core bodies, the bf16 forward at D 1024..8192 the wide
-    # tensor-core body; the rest the CUDA cores)
+    # tensor-core bodies, bf16 from D 1024 the wide tensor-core bodies;
+    # the rest the CUDA cores)
     "tc_gpt_causal": (2, 12, 12, 256, 256, 64, True, None, torch.bfloat16,
                       0.1),
     "tc_bert_packed": (2, 16, 16, 192, 192, 64, False, "packed",
@@ -1679,6 +1716,11 @@ DROP_CASES = {
                                 torch.bfloat16, 0.1),
     "wide_tc_bf16_d1024_gqa_causal_ragged": (2, 4, 2, 200, 200, 1024, True,
                                              "ragged", torch.bfloat16, 0.1),
+    # F7: the split wide bodies' DROP instantiations past 8192
+    "wide_f32_d8200_gqa_causal": (1, 2, 1, 40, 40, 8200, True, None,
+                                  torch.float32, 0.1),
+    "wide_tc_bf16_d16384_cross": (1, 2, 2, 70, 100, 16384, False, None,
+                                  torch.bfloat16, 0.1),
 }
 
 
@@ -1745,6 +1787,8 @@ KEEP_CASES = {
     "tc_d256_cross": (1, 2, 70, 300, 256, False, torch.bfloat16, 0.25),
     "wide_tc_d1024_causal_cross": (1, 2, 130, 1100, 1024, True,
                                    torch.bfloat16, 0.1),
+    "wide_tc_d2048_cross": (1, 2, 70, 300, 2048, False, torch.bfloat16,
+                            0.25),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
 }
@@ -1760,10 +1804,11 @@ def test_dropout_keep_mask_read_out_of_the_kernels(cuda, name):
         want &= (torch.arange(sk, device=cuda)[None, :]
                  <= torch.arange(sq, device=cuda)[:, None])
     read = _keep_mask_readout()
-    fwd, dv = (read(b, h, sq, sk, d, dt, causal, rate, seed, cuda, side)
-               for side in ("fwd", "dv"))
+    fwd, dv, dq = (read(b, h, sq, sk, d, dt, causal, rate, seed, cuda, side)
+                   for side in ("fwd", "dv", "dq"))
     assert torch.equal(fwd, want)
     assert torch.equal(dv, want)
+    assert torch.equal(dq, want)
     kept = float(attn.dropout_keep_ref(seed, b, h, sq, sk, rate)
                  .float().mean())
     assert abs(kept - (1.0 - rate)) < 0.01
