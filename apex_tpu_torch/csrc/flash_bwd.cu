@@ -19,12 +19,13 @@
 //   padded to 256).
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
 //   precision contract of docs/kernels.md: f32 operands stay true f32,
-//   no TF32) and bf16 at D 16, 32 and 512.
+//   no TF32) and bf16 at D 16 and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
-//   flash_dkv_kernel_tc_wide: bf16 at D >= 1024 (the powers of two to
-//   8192, then the multiples of 8192: the wrapper pads every wider head
-//   to one, wide::takes), D a runtime width, a CTA on a slice of the
-//   output's columns (below).
+//   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
+//   padded to it) and D >= 1024 (the powers of two to 8192, then the
+//   multiples of 8192: the wrapper pads every wider head to one;
+//   wide::tc_takes), D a runtime width, a CTA on a slice of the output's
+//   columns (below).
 // - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
 //   at those widths (below, before the entry points).
 //
@@ -1082,8 +1083,8 @@ int launch_dq_tc(const Args& a, void* dq) {
 }
 
 // ---------------------------------------------------------------------------
-// wide tensor-core dq and dk/dv: bf16 at D >= 1024 (wide::takes; wgmma +
-// TMA; hopper_mma.cuh)
+// wide tensor-core dq and dk/dv: bf16 at D 512 and D >= 1024
+// (wide::tc_takes; wgmma + TMA; hopper_mma.cuh)
 // ---------------------------------------------------------------------------
 //
 // Past D 256 neither output fits a CTA: a 64-row dQ at D 1024 is 64 x
@@ -1571,7 +1572,7 @@ flash_dkv_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
 template <bool DROP>
 int launch_dq_tc_wide(const Args& a, int D, void* dq) {
   using G = BwdTcWide;
-  if (!wide::takes(D) || D % (2 * G::WG_COLS) != 0)
+  if (!wide::tc_takes(D) || D % (2 * G::WG_COLS) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mdo;
   int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::ROWS);
@@ -1596,7 +1597,7 @@ int launch_dq_tc_wide(const Args& a, int D, void* dq) {
 template <bool DROP>
 int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
   using G = BwdTcWide;
-  if (!wide::takes(D) || D % G::WG_COLS != 0)
+  if (!wide::tc_takes(D) || D % G::WG_COLS != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mdo;
   int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::TILE);
@@ -1624,7 +1625,8 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // ---------------------------------------------------------------------------
 //
 // The CUDA-core bodies' arithmetic with D a runtime width and rows that
-// span whole warps (the forward's flash_fwd_kernel_wide).  A CTA owns W =
+// span whole warps, their dot products meeting across warps through
+// shared memory (hopper_mma.cuh, namespace wide).  A CTA owns W =
 // wide::slice(D) columns of its rows' outputs (the whole row up to D
 // 8192; past it D / 8192 CTAs on the grid's z each own 8192): dq gives a
 // query row W/32 threads of 32 columns (256 threads a CTA, 256/(W/32)
@@ -1924,18 +1926,18 @@ int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
 }
 
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
-// the tensor cores, and at every wide width (D >= 1024) the wide
-// tensor-core bodies; f32 at the wide widths the wide CUDA-core bodies,
-// everything else (f32 at every width up to 512, bf16 at 16, 32 and 512)
-// the CUDA-core bodies of their width; a seed takes each body's DROP
-// instantiation.
+// the tensor cores, and at D 512 and every wide width (D >= 1024,
+// wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
+// wide CUDA-core bodies, everything else (f32 at every width up to 512,
+// bf16 at 16 and 32) the CUDA-core bodies of their width; a seed takes
+// each body's DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
     if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
     if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
     if (D == 256) return launch_dq_tc<256, DROP>(a, dq);
-    if (D >= wide::MIN_D) return launch_dq_tc_wide<DROP>(a, D, dq);
+    if (wide::tc_takes(D)) return launch_dq_tc_wide<DROP>(a, D, dq);
   }
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   switch (D) {
@@ -1956,7 +1958,7 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
     if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
     if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);
-    if (D >= wide::MIN_D) return launch_dkv_tc_wide<DROP>(a, D, dk, dv);
+    if (wide::tc_takes(D)) return launch_dkv_tc_wide<DROP>(a, D, dk, dv);
   }
   if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   switch (D) {
@@ -2041,10 +2043,11 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The wide CUDA-core dq and dk/dv bodies at D >= 1024 whatever the dtype
-// (same arguments as above): bf16 routes to the wide tensor-core bodies,
-// and these let a measurement time the CUDA-core bodies beside them on
-// the same inputs.  Any other width is refused.
+// The CUDA-core dq and dk/dv bodies at D 512 and the wide CUDA-core ones
+// at D >= 1024, whatever the dtype (same arguments as above): bf16 routes
+// to the wide tensor-core bodies there, and these let a measurement time
+// the CUDA-core bodies beside them on the same inputs.  Any other width
+// is refused.
 extern "C" int apex_flash_dq_cuda_cores(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, const void* q_ids,
@@ -2055,6 +2058,15 @@ extern "C" int apex_flash_dq_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
+  if (D == 512 && dtype == F32)
+    return drop ? route_dq<float, true>(a, D, dq) : route_dq<float, false>(a, D, dq);
+  if (D == 512 && dtype == BF16) {
+    if (drop)
+      launch_dq<__nv_bfloat16, 512, true>(a, dq);
+    else
+      launch_dq<__nv_bfloat16, 512, false>(a, dq);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case F32:
@@ -2077,6 +2089,16 @@ extern "C" int apex_flash_dkv_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
+  if (D == 512 && dtype == F32)
+    return drop ? route_dkv<float, true>(a, D, dk, dv)
+                : route_dkv<float, false>(a, D, dk, dv);
+  if (D == 512 && dtype == BF16) {
+    if (drop)
+      launch_dkv<__nv_bfloat16, 512, true>(a, dk, dv);
+    else
+      launch_dkv<__nv_bfloat16, 512, false>(a, dk, dv);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case F32:

@@ -24,17 +24,16 @@
 //   and the Gemma-class heads of 129..256, padded to 256).
 // - CUDA cores, flash_fwd_kernel: f32 up to D 512 (the serving path; the
 //   precision contract of docs/kernels.md makes f32 operands true f32,
-//   so no TF32), bf16 at D 16, 32 and 512, and a call with no keys
-//   (Sk == 0).
-// - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D >= 1024 (the
-//   powers of two to 8192, then the multiples of 8192: the wrapper pads
-//   every wider head to one, wide::takes), D a runtime width; a CTA owns
-//   256 of O's columns and computes S over the whole D (below, before
-//   the route).
+//   so no TF32), bf16 at D 16 and 32, and a call with no keys (Sk == 0)
+//   up to D 512.
+// - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 512 (and the
+//   heads of 257..511, padded to it) and D >= 1024 (the powers of two to
+//   8192, then the multiples of 8192: the wrapper pads every wider head
+//   to one; wide::tc_takes), D a runtime width; a CTA owns 256 of O's
+//   columns and computes S over the whole D (below, before the route).
 // - wide CUDA cores, flash_fwd_kernel_wide: f32 at D >= 1024 (and bf16
-//   there with no keys), with D a runtime width, a row's sums across
-//   warps (hopper_mma.cuh, namespace wide) and, past D 8192, O's columns
-//   split over CTAs.
+//   there with no keys), with D a runtime width: register tiles of S and
+//   O on the CUDA cores, a CTA on 32 query rows and 1024 of O's columns.
 //
 // All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -319,146 +318,316 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // (bf16 with keys takes flash_fwd_kernel_tc_wide)
 // ---------------------------------------------------------------------------
 //
-// The CUDA-core body's arithmetic with D a runtime width.  A CTA owns W =
-// wide::slice(D) of O's columns (the whole row up to D 8192; past it D /
-// 8192 CTAs on the grid's z each own 8192).  A query row spans TPR =
-// W/32 threads (one to eight whole warps), each owning 32 of the slice's
-// columns as eight float4 chunks interleaved across the row (chunk
-// c*TPR + part), so the row's reads of one key coalesce.  A CTA is 256
-// threads: 256/TPR rows (8 at D 1024, 1 from D 8192).  Past 8192 a
-// score is the sum, in slice order, of each slice's partial dot product,
-// every partial computed as its own slice's CTA computes it (each thread
-// on its 32 columns of the slice: its own slice's q in registers, the
-// others' read where used), so every slice CTA gets the same m, l and
-// p, bit for bit, and slice 0 writes the lse (the SPLIT instantiation;
-// up to 8192 the other one, whose code is one slice's).  No K/V tiles: K and V rows are read from device
-// memory where they are used (the CTA's rows read the same words, which
-// L1 serves after the first), so shared memory holds only the row sums
-// (wide::row_sums) and no width runs out of it.  Keys go in groups of
-// wide::GROUP, one barrier a group.
+// Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
+// contract of docs/kernels.md).  A CTA of 256 threads owns BQ = 32 query
+// rows and W = 1024 of O's columns (blockIdx.z counts the D/1024 column
+// slices), O's 32 x 1024 f32 held in registers: each thread 8 rows x 16
+// columns (128 registers).  The slices of a q block form a thread-block
+// cluster of NC = min(D/1024, 8) CTAs (on the grid's z), and CTA r of the
+// cluster computes S's partial dot products over the D/NC columns [r D/NC,
+// (r+1) D/NC).  Each key tile of BK = 64 keys takes two passes over one
+// ring of cp.async stages in shared memory:
+//
+// - the partial S = Q.K^T over the CTA's D/NC columns, DC = 64 columns of
+//   Q's 32 rows and K's 64 keys a stage.  A thread owns a 4 x 4 block of
+//   S (rows rg + 8a, keys kg + 16b) over half of each stage's columns
+//   (two halves of the CTA split the columns), so every float4 it reads
+//   from shared memory feeds four of its FMAs.  The halves go to shared
+//   memory (two buffers, a tile's and the last one's), one cluster
+//   barrier, and each score is the sum over the cluster's CTAs, in rank
+//   order, of half 0 plus half 1, read through distributed shared
+//   memory: every CTA of the cluster gets the same scores, bit for bit.
+// - the online softmax: eight threads a row, eight keys each, the row's
+//   max and sum over three shuffles; P (after the dropout keep, as the
+//   reference applies it) and the rescale factor go to shared memory.
+// - O += P.V over the slice's V columns, VK = 8 keys a stage: each thread
+//   reads its 8 rows' p (a broadcast) and its 16 columns of each key row
+//   (float4s that a warp reads contiguously), every V word feeding 8 FMAs
+//   and every p word 16.
+//
+// One counter runs over every ring item ((D/NC)/64 S stages and 8 V
+// stages a tile, 32 KB a stage, five stages); a stage is loaded STAGES -
+// 1 items ahead of its use, once the barrier that opens an item shows
+// every thread done with the stage's last use.  Rows past Sq and keys
+// past Sk arrive as zeros (cp.async's source size 0).  (Stages of 32
+// columns and 4 keys, twice the barriers, were slower on an H100.)  So the slices share S, and no FLOP
+// repeats up to D 8192 (4D a pair); past it (F7) each cluster of 8
+// computes the whole of S (D/8192 clusters: (D/8192)·2D + 2D a pair), the
+// same partials in the same order, so every slice gets the same m, l and
+// p, bit for bit, the dropout keep included, and slice 0 writes the lse.
+// A cluster's CTAs see the same keys, so they meet at the same barriers;
+// a last one keeps each CTA's shared memory alive until the others have
+// read it.  Heaviest q blocks first, the key loop's stop at the CTA's
+// last visible key, and no atomics (every sum in a fixed order: the same
+// bits every run), as in the other bodies.  bf16 reaches this body only
+// with no keys (Sk == 0): its instantiation writes the zero rows and the
+// -1e30 lse.
 
-constexpr int WIDE_THREADS = 256;
-constexpr int WIDE_C4 = 8;        // float4 chunks a thread: 32 columns
+struct FwdWide {
+  static constexpr int THREADS = 256;
+  static constexpr int BQ = 32;                 // query rows a CTA
+  static constexpr int BK = 64;                 // keys a tile
+  static constexpr int W = 1024;                // O's columns a CTA
+  static constexpr int DC = 64;                 // S's columns a stage
+  static constexpr int PAD = DC + 4;            // a staged row's floats
+  static constexpr int VK = 8;                  // V's keys a stage
+  static constexpr int STAGE = VK * W;          // floats a stage (Q+K fit)
+  static constexpr int STAGES = 5;
+  static constexpr int MAX_NC = 8;              // a cluster's CTAs (portable)
+  static constexpr int SROW = BK + 8;           // partial S row (floats)
+  static constexpr int PROW = BQ + 4;           // P's key row (floats)
+  static constexpr int SPART_OFF = STAGES * STAGE;
+  static constexpr int SPART = 2 * BQ * SROW;   // a tile's two halves
+  static constexpr int P_OFF = SPART_OFF + 2 * SPART;
+  static constexpr int ROW_OFF = P_OFF + BK * PROW;   // alpha, then l
+  static constexpr int SMEM = (ROW_OFF + 2 * BQ) * 4;
+};
+static_assert(FwdWide::BQ * FwdWide::PAD + FwdWide::BK * FwdWide::PAD <=
+                  FwdWide::STAGE, "an S stage fits a ring stage");
+static_assert(FwdWide::BQ * FwdWide::DC / 4 % FwdWide::THREADS == 0,
+              "every thread copies the same number of Q's float4s");
 
-template <typename T, bool SPLIT, bool DROP>
-__global__ void __launch_bounds__(WIDE_THREADS)
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(FwdWide::THREADS, 1)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, const int* __restrict__ q_ids,
                       const int* __restrict__ kv_ids, int H, int HK, int Sq,
                       int Sk, int D, int causal, float scale,
                       dropout::Params drop) {
-  constexpr int G = wide::GROUP;
-  __shared__ float red[2][WIDE_THREADS / 32 * G];
-  const int W = wide::slice(D);            // this CTA's columns of a row
-  const int nsl = SPLIT ? D / W : 1;       // the row's slices
-  const int sl = SPLIT ? blockIdx.z : 0;   // this CTA's slice
-  const int tpr = W / 32;                  // threads per query row
-  const int rows = WIDE_THREADS / tpr;     // query rows a CTA
-  const int nw = tpr / 32;                 // warps a row
-  const int D4 = D / 4, W4 = W / 4;
+  using G = FwdWide;
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int hk = (bh % H) / (H / HK);
-  // heaviest first: under the causal mask the last q block sees most keys
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;   // heaviest first
+  const int c0 = blockIdx.z * G::W;      // this CTA's columns of O and V
   const int tid = threadIdx.x;
-  const int part = tid % tpr;
-  const int row = q0 + tid / tpr;
-  const int w0 = (tid / tpr) * nw;         // the row's first warp
-  const bool row_ok = row < Sq;
-  const bool seg = q_ids != nullptr;
-  const uint32_t rkey =
-      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
-
-  const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
-  const size_t qoff = ((size_t)bh * Sq + (row_ok ? row : 0)) * D4 + part;
-  const size_t own = (size_t)sl * W4;      // the slice's first float4
-
-  float4 qr[WIDE_C4], acc[WIDE_C4];
-#pragma unroll
-  for (int c = 0; c < WIDE_C4; ++c) {
-    qr[c] = row_ok ? load4(q, qoff + own + c * tpr)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
-  float m = NEG, l = 0.f;
-
-  // causal: no row of this CTA sees a key at or past q0 + rows
-  const int kend = causal ? min(Sk, q0 + rows) : Sk;
-  for (int k0 = 0, buf = 0; k0 < kend; k0 += G, buf ^= 1) {
-    float s[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      s[j] = 0.f;
-      if (k0 + j < Sk) {
-        const size_t kr = kvb + (size_t)(k0 + j) * D4 + own;
-#pragma unroll
-        for (int c = 0; c < WIDE_C4; ++c) s[j] = dot4(qr[c], load4(k, kr + c * tpr), s[j]);
-      }
+  if constexpr (sizeof(T) == 2) {
+    // no keys: every row sees none
+    for (int i = tid; i < G::BQ * G::W / 4; i += G::THREADS) {
+      const int row = q0 + i / (G::W / 4);
+      if (row < Sq)
+        store4(o, (((size_t)bh * Sq + row) * D + c0) / 4 + i % (G::W / 4),
+               make_float4(0.f, 0.f, 0.f, 0.f));
     }
-    if (SPLIT) {
-      // the other slices' partial dot products, summed in slice order
+    if (lse != nullptr && blockIdx.z == 0 && tid < G::BQ && q0 + tid < Sq)
+      lse[(size_t)bh * Sq + q0 + tid] = NEG;
+  } else {
+    extern __shared__ float4 wide_smem[];
+    float* sm = reinterpret_cast<float*>(wide_smem);
+    float* spart = sm + G::SPART_OFF;    // [2 tiles][2 halves][BQ][SROW]
+    float* ps = sm + G::P_OFF;           // [BK][PROW]: p, key-major
+    float* alpha_s = sm + G::ROW_OFF;    // [BQ]
+    float* l_s = alpha_s + G::BQ;        // [BQ]
+
+    const int b = bh / H;
+    const int bhk = b * HK + (bh % H) / (H / HK);
+    const bool seg = q_ids != nullptr;
+    const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
+    const int ntile = (kend + G::BK - 1) / G::BK;
+    const int nc = min(D / G::W, G::MAX_NC);   // the cluster's CTAs
+    const int part = D / nc;             // S's columns this CTA sums
+    const int cs0 = static_cast<int>(hopper::cluster_rank()) * part;
+    const int nS = part / G::DC;         // S stages a tile
+    const int ipt = nS + G::BK / G::VK;  // ring items a tile
+    const int total = ntile * ipt;
+
+    // the ring's item j: S stage i < nS (Q's and K's columns cs0 + DC*i..)
+    // or V stage i - nS (keys VK*(i - nS).. of the tile, the slice's
+    // columns)
+    auto load = [&](int j) {
+      const int t = j / ipt, i = j - t * ipt, k0 = t * G::BK;
+      float* st = sm + (j % G::STAGES) * G::STAGE;
+      if (i < nS) {
+        // Q's BQ rows, then K's BK rows, DC/4 float4s each
+        constexpr int R4 = G::DC / 4;
+        const int c4 = 4 * (tid % R4), c = cs0 + G::DC * i + c4;
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if (k0 + j >= Sk) continue;
-        const size_t kr = kvb + (size_t)(k0 + j) * D4;
-        float t = 0.f;
-        for (int x = 0; x < nsl; ++x) {
-          float part = s[j];
-          if (x != sl) {
-            const size_t xo = (size_t)x * W4;
-            part = 0.f;
-#pragma unroll
-            for (int c = 0; c < WIDE_C4; ++c)
-              part = dot4(load4(q, qoff + xo + c * tpr),
-                          load4(k, kr + xo + c * tpr), part);
-          }
-          t = x == 0 ? part : t + part;
+        for (int x = 0; x < G::BQ * R4 / G::THREADS; ++x) {
+          const int r = tid / R4 + x * (G::THREADS / R4), row = q0 + r;
+          hopper::cp_async16(
+              st + r * G::PAD + c4,
+              q + ((size_t)bh * Sq + (row < Sq ? row : 0)) * D + c, row < Sq);
         }
-        s[j] = t;
+#pragma unroll
+        for (int x = 0; x < G::BK * R4 / G::THREADS; ++x) {
+          const int r = tid / R4 + x * (G::THREADS / R4), key = k0 + r;
+          hopper::cp_async16(
+              st + (G::BQ + r) * G::PAD + c4,
+              k + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c, key < Sk);
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < G::VK; ++x) {
+          const int key = k0 + G::VK * (i - nS) + x;
+          hopper::cp_async16(
+              st + x * G::W + 4 * tid,
+              v + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + 4 * tid,
+              key < Sk);
+        }
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < G::STAGES - 1; ++j) {
+      if (j < total) load(j);
+      hopper::cp_async_commit();
+    }
+
+    // S: half sh of the CTA, rows rg + 8a, keys kg + 16b
+    const int sh = tid >> 7, rg = (tid >> 4) & 7, kg = tid & 15;
+    // softmax: row sr, keys sp + 8j
+    const int sr = tid >> 3, sp = tid & 7, srow = q0 + sr;
+    const int qid = (seg && srow < Sq) ? q_ids[(size_t)b * Sq + srow] : 0;
+    const uint32_t rkey =
+        DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
+    float m = NEG, l = 0.f;
+    // O: rows 8 og.., columns 512 oc + 4 lane + 128 c of the slice
+    const int og = tid >> 6, oc = (tid >> 5) & 1, lane = tid & 31;
+    const int ocol = 512 * oc + 4 * lane;
+
+    float4 acc[8][4];
+    float sacc[4][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sacc[a][c] = 0.f;
+
+    for (int j = 0, t = 0, i = 0; j < total; ++j) {
+      hopper::cp_async_wait<G::STAGES - 2>();
+      __syncthreads();   // item j landed; every thread is done with j - 1
+      if (j + G::STAGES - 1 < total) load(j + G::STAGES - 1);
+      hopper::cp_async_commit();
+      const float* st = sm + (j % G::STAGES) * G::STAGE;
+      const int k0 = t * G::BK;
+      if (i < nS) {
+        const float* qs = st;
+        const float* ks = st + G::BQ * G::PAD;
+#pragma unroll
+        for (int f = 0; f < G::DC / 8; ++f) {
+          const int c = 4 * ((G::DC / 8) * sh + f);
+          float4 qv[4], kv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            qv[a] = *reinterpret_cast<const float4*>(qs + (rg + 8 * a) * G::PAD + c);
+#pragma unroll
+          for (int c2 = 0; c2 < 4; ++c2)
+            kv[c2] = *reinterpret_cast<const float4*>(ks + (kg + 16 * c2) * G::PAD + c);
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c2 = 0; c2 < 4; ++c2) sacc[a][c2] = dot4(qv[a], kv[c2], sacc[a][c2]);
+        }
+        if (i == nS - 1) {
+          // the cluster's partial scores meet; the online softmax of the
+          // tile
+          float* sb = spart + (t & 1) * G::SPART;
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c2 = 0; c2 < 4; ++c2) {
+              sb[(sh * G::BQ + rg + 8 * a) * G::SROW + kg + 16 * c2] = sacc[a][c2];
+              sacc[a][c2] = 0.f;
+            }
+          if (nc > 1)
+            hopper::cluster_sync();
+          else
+            __syncthreads();
+          float s[8];
+          unsigned vis = 0u;
+          float mt = m;
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int key = sp + 8 * x, col = k0 + key;
+            const float* h0 = sb + sr * G::SROW + key;
+            const float* h1 = sb + (G::BQ + sr) * G::SROW + key;
+            // in rank order: rank 0's halves first
+            float dot = nc == 1 ? *h0 + *h1
+                                : hopper::ld_cluster(h0, 0) + hopper::ld_cluster(h1, 0);
+            for (int r = 1; r < nc; ++r)
+              dot += hopper::ld_cluster(h0, r) + hopper::ld_cluster(h1, r);
+            const bool ok = col < Sk && (!causal || col <= srow) &&
+                            (!seg || kv_ids[(size_t)b * Sk + col] == qid);
+            s[x] = ok ? __fmul_rn(dot, scale) : NEG;
+            vis |= (ok ? 1u : 0u) << x;
+            mt = fmaxf(mt, s[x]);
+          }
+#pragma unroll
+          for (int off = 1; off < 8; off <<= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+          const float alpha = expf(m - mt);
+          float sum = 0.f;
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int key = sp + 8 * x;
+            const float p = ((vis >> x) & 1u) ? expf(s[x] - mt) : 0.f;
+            sum += p;
+            ps[key * G::PROW + sr] =
+                DROP ? dropout::apply(drop, dropout::col_key(rkey, k0 + key), p)
+                     : p;
+          }
+#pragma unroll
+          for (int off = 1; off < 8; off <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          l = l * alpha + sum;
+          m = mt;
+          if (sp == 0) alpha_s[sr] = alpha;
+        }
+      } else {
+        const int kk0 = G::VK * (i - nS);   // the stage's first key
+        if (kk0 == 0) {
+          // the tile's rescale of O (the barrier above ordered alpha)
+          const float4 a0 = *reinterpret_cast<const float4*>(alpha_s + 8 * og);
+          const float4 a1 = *reinterpret_cast<const float4*>(alpha_s + 8 * og + 4);
+          const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] = scale4(acc[r][c], al[r]);
+        }
+#pragma unroll
+        for (int x = 0; x < G::VK; ++x) {
+          const float* pr = ps + (kk0 + x) * G::PROW + 8 * og;
+          const float4 p0 = *reinterpret_cast<const float4*>(pr);
+          const float4 p1 = *reinterpret_cast<const float4*>(pr + 4);
+          const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          float4 vv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            vv[c] = *reinterpret_cast<const float4*>(st + x * G::W + ocol + 128 * c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] = axpy4(pv[r], vv[c], acc[r][c]);
+        }
+      }
+      if (++i == ipt) {
+        i = 0;
+        ++t;
       }
     }
-    wide::row_sums(s, red[buf], w0, nw);
+    hopper::cp_async_wait<0>();
+    // the other CTAs of the cluster are done reading this one's scores
+    if (nc > 1) hopper::cluster_sync();
 
-    unsigned vis = 0u;
-    float mt = m;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int col = k0 + j;
-      const bool ok = col < Sk && (!causal || col <= row) &&
-                      (!seg || kv_ids[(size_t)b * Sk + col] == qid);
-      s[j] = ok ? __fmul_rn(s[j], scale) : NEG;
-      vis |= (ok ? 1u : 0u) << j;
-      mt = fmaxf(mt, s[j]);
+    // epilogue: each row's l to shared memory, o = acc / l, slice 0 the lse
+    if (sp == 0) {
+      l_s[sr] = l;
+      if (lse != nullptr && blockIdx.z == 0 && srow < Sq)
+        lse[(size_t)bh * Sq + srow] = l > 0.f ? m + logf(l) : NEG;
     }
-    const float alpha = expf(m - mt);
-    l *= alpha;
+    __syncthreads();
 #pragma unroll
-    for (int c = 0; c < WIDE_C4; ++c) acc[c] = scale4(acc[c], alpha);
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + 8 * og + r;
+      if (row >= Sq) continue;
+      const float lr = l_s[8 * og + r];
+      const float linv = lr > 0.f ? 1.f / lr : 0.f;
+      const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int col = k0 + j;
-      const float p = ((vis >> j) & 1u) ? expf(s[j] - mt) : 0.f;
-      l += p;
-      const float pv = operand<T>(
-          DROP ? dropout::apply(drop, dropout::col_key(rkey, col), p) : p);
-      if (col < Sk) {
-        const size_t vr = kvb + (size_t)col * D4 + own;
-#pragma unroll
-        for (int c = 0; c < WIDE_C4; ++c) acc[c] = axpy4(pv, load4(v, vr + c * tpr), acc[c]);
-      }
+      for (int c = 0; c < 4; ++c) store4(o, base + 32 * c, scale4(acc[r][c], linv));
     }
-    m = mt;
-  }
-
-  if (row_ok) {
-    const float linv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int c = 0; c < WIDE_C4; ++c) store4(o, qoff + own + c * tpr, scale4(acc[c], linv));
-    if (lse != nullptr && sl == 0 && part == 0)
-      lse[(size_t)bh * Sq + row] = l > 0.f ? m + logf(l) : NEG;
   }
 }
 
@@ -467,18 +636,32 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
                 float* lse, const int* q_ids, const int* kv_ids, int B, int H,
                 int HK, int Sq, int Sk, int D, int causal, float scale,
                 const dropout::Params& drop, cudaStream_t stream) {
-  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int W = wide::slice(D);
-  const int rows = WIDE_THREADS / (W / 32);
-  // B*H on x (2^31 - 1), the q blocks on y, the column slices on z
-  const dim3 grid(B * H, (Sq + rows - 1) / rows, D / W);
-  auto kernel = D > wide::SPLIT ? flash_fwd_kernel_wide<T, true, DROP>
-                                : flash_fwd_kernel_wide<T, false, DROP>;
-  kernel<<<grid, WIDE_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
-      HK, Sq, Sk, D, causal, scale, drop);
-  return static_cast<int>(cudaGetLastError());
+  using G = FwdWide;
+  // bf16 with keys runs the wide tensor-core body
+  if (!wide::takes(D) || (sizeof(T) == 2 && Sk > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
+  static const bool sized =
+      hopper::allow_smem(flash_fwd_kernel_wide<T, DROP>, smem);
+  if (!sized) return static_cast<int>(cudaErrorInvalidValue);
+  // B*H on x (2^31 - 1), the q blocks on y, the column slices on z, a
+  // cluster of min(D/1024, 8) slices
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::W);
+  cfg.blockDim = dim3(G::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = min(D / G::W, G::MAX_NC);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_fwd_kernel_wide<T, DROP>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      lse, q_ids, kv_ids, H, HK, Sq, Sk, D, causal, scale, drop));
 }
 
 // ---------------------------------------------------------------------------
@@ -785,8 +968,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// wide tensor-core body: bf16 at D >= 1024 (wide::takes; wgmma + TMA;
-// hopper_mma.cuh)
+// wide tensor-core body: bf16 at D 512 and D >= 1024 (wide::tc_takes;
+// wgmma + TMA; hopper_mma.cuh)
 // ---------------------------------------------------------------------------
 //
 // A 64-row O accumulator at D 1024 is 64 x 1024 f32, 256 KB: an SM's
@@ -1026,7 +1209,7 @@ int launch_tc_wide(const void* q, const void* k, const void* v, void* o,
                    float scale, const dropout::Params& drop,
                    cudaStream_t stream) {
   using G = FwdTcWide;
-  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide::tc_takes(D)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ);
   if (rc == 0) rc = hopper::make_map_bf16(&mk, k, D, Sk, B * HK, TC_BK);
@@ -1045,10 +1228,11 @@ int launch_tc_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 // The route: bf16 with keys to read takes the tensor cores, at D 64, 128
-// and 256 and (the wide tensor-core body) at every wide width, D >= 1024;
-// the rest of the wide widths (f32, and bf16 with no keys) the wide
-// CUDA-core body, everything else the CUDA-core bodies of their width; a
-// seed takes each body's DROP instantiation.
+// and 256 and (the wide tensor-core body) at D 512 and every wide width,
+// D >= 1024 (wide::tc_takes); the rest of the wide widths (f32, and bf16
+// with no keys) the wide CUDA-core body, everything else (f32 up to 512,
+// bf16 at 16 and 32 or with no keys) the CUDA-core bodies of their width;
+// a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -1061,7 +1245,7 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_tc<128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 256)
       return launch_tc<256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
-    if (D >= wide::MIN_D)
+    if (wide::tc_takes(D))
       return launch_tc_wide<DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   }
   if (D >= wide::MIN_D)

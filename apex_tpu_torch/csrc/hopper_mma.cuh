@@ -2,7 +2,9 @@
 // csrc/flash_fwd.cu and csrc/flash_bwd.cu: warpgroup matrix multiplies
 // (wgmma) with their fence / commit / wait, shared-memory matrix
 // descriptors for the 128-byte swizzle, mbarrier helpers, the TMA tile
-// load, and the host-side encoding of the TMA tensor maps.
+// load, and the host-side encoding of the TMA tensor maps; the cp.async
+// copies, cluster barrier and distributed shared-memory reads of the
+// CUDA-core wide forward; the dropout hash and the wide bodies' widths.
 //
 // Conventions, after PTX ISA 8.x (wgmma.mma_async, cp.async.bulk.tensor,
 // mbarrier) and CUTLASS's cute/arch/mma_sm90_desc.hpp and
@@ -99,6 +101,58 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async (the CUDA-core bodies' staging): 16 bytes from `src` to shared
+// memory at `dst`, or 16 zero bytes where `valid` is false (source size
+// 0: nothing is read, but `src` must still be a device address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: distributed shared memory
+// ---------------------------------------------------------------------------
+
+// Every thread of every CTA of the cluster arrives, then waits for all:
+// the shared-memory writes before it (release) are visible to the reads
+// after it (acquire) in any CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The float at `local` (an address in this CTA's shared memory) in the
+// shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -329,19 +383,24 @@ __device__ __forceinline__ float apply(const Params& d, uint32_t key, float x) {
 }  // namespace dropout
 
 // ---------------------------------------------------------------------------
-// the wide flash bodies' widths and row sums (head dims from 1024)
+// the wide flash bodies' widths and row sums (head dims from 512)
 // ---------------------------------------------------------------------------
 //
-// Past D 512 a row of the CUDA-core flash bodies spans whole warps (W/32
-// threads in the forward and dq, W/16 in dk/dv, W the row's columns a CTA
-// owns), so its dot products meet across warps through shared memory: a
+// Past D 512 a row of the CUDA-core dq and dk/dv bodies spans whole warps
+// (W/32 threads in dq, W/16 in dk/dv, W the row's columns a CTA owns; the
+// forward keeps its rows in register tiles instead, csrc/flash_fwd.cu),
+// so its dot products meet across warps through shared memory: a
 // shuffle tree in each warp, lane 0's sum stored, one barrier, then every
 // thread of the row adds its row's warps' sums in warp order.  A fixed
 // order and no atomics: the same bits every run.
 namespace wide {
 
-constexpr int MIN_D = 1024;   // the narrowest wide width
-// The widest row one CUDA-core CTA owns: the dk/dv body holds a key row's
+constexpr int MIN_D = 1024;   // the narrowest wide width (the CUDA cores)
+// The narrowest width of the wide tensor-core bodies: D 512 divides into
+// their slices (256 columns of O, dK and dV, 512 of dQ), so bf16 at D 512
+// (and 257..511, padded to it) runs them too (tc_takes).
+constexpr int TC_MIN_D = 512;
+// The widest row one CUDA-core dq or dk/dv CTA owns: the dk/dv body holds a key row's
 // k, v, dk and dv over its W columns (4·W f32) in one CTA's registers, and
 // at W 16384 those alone would be the 65,536 32-bit registers of an SM.
 // A wider head is a multiple of SPLIT and its columns are split over
@@ -384,6 +443,11 @@ __device__ __forceinline__ void row_sums(float (&x)[N], float* red, int w0,
 __host__ __device__ constexpr bool takes(int D) {
   return D >= MIN_D &&
          (D <= SPLIT ? (D & (D - 1)) == 0 : D % SPLIT == 0);
+}
+
+// The widths of the wide tensor-core bodies: 512 and every wide width.
+__host__ __device__ constexpr bool tc_takes(int D) {
+  return D == TC_MIN_D || takes(D);
 }
 
 // The columns of a row one CUDA-core wide CTA owns at width D.

@@ -33,8 +33,9 @@ import torch
 from apex_tpu_torch import _build
 
 _NEG = -1e30
-# the kernels' widths up to 8192, others padded: 1024 and wider run the
-# wide bodies; past 8192 a head pads to a multiple of WIDE_SPLIT
+# the kernels' widths up to 8192, others padded: 1024 and wider (bf16: 512
+# and wider) run the wide bodies; past 8192 a head pads to a multiple of
+# WIDE_SPLIT
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 WIDE_SPLIT = 8192          # csrc/hopper_mma.cuh: wide::SPLIT
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -428,7 +429,7 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 
 
 # the kernel widths at which each kernel's bf16 body runs on the tensor
-# cores (wgmma + TMA); past 512 every kernel's bf16 body does ("wide
+# cores (wgmma + TMA); from 512 every kernel's bf16 body does ("wide
 # tensor cores")
 _TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
               "flash_dkv": (64, 128, 256)}
@@ -439,22 +440,26 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body),
-    "wide tensor cores" (``..._kernel_tc_wide``: bf16 at every width
-    from 1024, a CTA on a slice of the output's columns: 256 of O's, 512
-    of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
-    (``..._kernel_wide``: f32 from 1024, a CTA on the whole row up to
-    8192 and on 8192 of its columns past it).  The C dispatchers of
+    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32 up
+    to 512, bf16 at 16 and 32), "wide tensor cores"
+    (``..._kernel_tc_wide``: bf16 at 512 and every width from 1024, a CTA
+    on a slice of the output's columns: 256 of O's, 512 of dQ's, 256 of
+    dK's and dV's) or "wide CUDA cores" (``..._kernel_wide``: f32 from
+    1024; the forward a CTA on 32 rows and 1024 of O's columns in
+    register tiles, dq and dk/dv a CTA on the whole row up to 8192 and on
+    8192 of its columns past it).  The C dispatchers of
     ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
-    apart from a forward with no keys (it takes the CUDA cores, or the
-    wide CUDA cores past 512)."""
+    apart from a forward with no keys (it takes the CUDA cores up to 512,
+    the wide CUDA cores past it)."""
     if kernel not in _TC_WIDTHS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
                          f"{sorted(_TC_WIDTHS)})")
     w = _kernel_width(d)
     bf16 = dtype == torch.bfloat16
+    if bf16 and w >= 512:         # csrc/hopper_mma.cuh: wide::TC_MIN_D
+        return "wide tensor cores"
     if w >= 1024:                 # csrc/hopper_mma.cuh: wide::MIN_D
-        return "wide tensor cores" if bf16 else "wide CUDA cores"
+        return "wide CUDA cores"
     if bf16 and w in _TC_WIDTHS[kernel]:
         return "tensor cores"
     return "CUDA cores"
@@ -472,10 +477,11 @@ def _kernel_width(d: int) -> int:
     """The kernel width a head dim runs at: the next of
     :data:`HEAD_DIMS`, and past 8192 the next multiple of
     :data:`WIDE_SPLIT` (the reference pads D to its lanes the same way, and
-    takes any D).  The f32 wide bodies split a row that wide into CTAs of
-    8192 columns each (one CTA could not hold a key row's k, v, dk and dv
-    in registers past 8192), the bf16 ones into their slices of 256 and
-    512 columns, which every multiple of 8192 holds whole."""
+    takes any D).  The f32 wide dq and dk/dv split a row that wide into
+    CTAs of 8192 columns each (one CTA could not hold a key row's k, v, dk
+    and dv in registers past 8192), the f32 wide forward into slices of
+    1024 columns, the bf16 bodies into their slices of 256 and 512
+    columns, which every multiple of 8192 holds whole."""
     for w in HEAD_DIMS:
         if d <= w:
             return w

@@ -256,8 +256,8 @@ def test_flash_sources_route_bf16_wide_backward_to_the_tensor_cores():
 
 
 # the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):
-# the tensor cores at these widths, the wide bodies from D 1024 (bf16
-# there on the wide tensor-core bodies)
+# the tensor cores at these widths, the wide tensor-core bodies from D 512
+# (f32 the wide CUDA-core bodies from D 1024)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
@@ -268,15 +268,15 @@ _TC_ROUTES = ("tensor cores", "wide tensor cores")
 @pytest.mark.parametrize("d", tattn.HEAD_DIMS + (16384, 24576))
 def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
-    and dk/dv on the tensor cores at D 64, 128 and 256; every f32 width
-    and every other bf16 width up to 512 on the CUDA cores; from 1024
-    (past 8192 the multiples of 8192, F7) on the wide bodies, bf16 there
-    on the wide tensor-core ones.  A head dim pads to its kernel width
-    first (D - 1 routes as D, for D past 16); q, k, v and dO align to
-    TMA's 16 bytes wherever a kernel of the call takes either
-    tensor-core route."""
+    and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
+    tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
+    (past 8192 the multiples of 8192, F7); every f32 width up to 512 and
+    bf16 at 16 and 32 on the CUDA cores; f32 from 1024 on the wide
+    CUDA-core bodies.  A head dim pads to its kernel width first (D - 1
+    routes as D, for D past 16); q, k, v and dO align to TMA's 16 bytes
+    wherever a kernel of the call takes either tensor-core route."""
     bf16 = dtype == torch.bfloat16
-    want = ("wide tensor cores" if d >= 1024 and bf16 else
+    want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
@@ -303,6 +303,54 @@ def test_d640_routes_only_the_bf16_forward_to_the_tensor_cores(dtype):
     assert tattn._align(dtype, 640) == 16
 
 
+@pytest.mark.parametrize("d", [300, 257, 511, 512])
+def test_bf16_heads_257_to_512_run_the_wide_tensor_core_bodies(d):
+    """A bf16 head of 257..512 (D 300, for one) pads to 512 and runs its
+    forward, dq and dk/dv on the wide tensor-core bodies (D 512 divides
+    into their 256- and 512-column slices), its operands 16-byte aligned
+    for their TMA loads; f32 at those widths keeps the D-512 CUDA-core
+    bodies."""
+    assert tattn._kernel_width(d) == 512
+    routes = {k: tattn.flash_route(k, torch.bfloat16, d) for k in _TC_ROUTE}
+    assert routes == dict.fromkeys(_TC_ROUTE, "wide tensor cores")
+    assert tattn._align(torch.bfloat16, d) == 16
+    assert {tattn.flash_route(k, torch.float32, d) for k in _TC_ROUTE} == {
+        "CUDA cores"}
+    (p,) = tattn._operands(torch.randn(1, 2, 3, d).to(torch.bfloat16))
+    assert p.shape == (1, 2, 3, 512) and p.data_ptr() % 16 == 0
+
+
+def test_flash_sources_route_bf16_d512_to_the_wide_tensor_cores():
+    """The header's tensor-core wide gate takes 512 and every wide width;
+    the three C dispatchers and both wide tensor-core launchers use it,
+    while the f32 wide CUDA-core bodies keep ``wide::MIN_D`` (1024) and
+    the D-512 CUDA-core instantiations stay for f32 (and, in the
+    CUDA-core entry points, for bf16 beside the routed bodies)."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    assert "constexpr int TC_MIN_D = 512;" in hdr
+    assert "return D == TC_MIN_D || takes(D);" in hdr
+    assert "constexpr int MIN_D = 1024;" in hdr
+    route = fwd[fwd.index("int route("):]
+    route = route[:route.index("\n}\n")]
+    assert route.index("if (sizeof(T) == 2 && Sk > 0) {") < route.index(
+        "if (wide::tc_takes(D))\n      return launch_tc_wide<DROP>(")
+    assert "if (D >= wide::MIN_D)\n    return launch_wide<T, DROP>(" in route
+    assert "case 512: launch<T, 512, DROP>(" in route
+    for kern, call in (("dq", "launch_dq_tc_wide<DROP>(a, D, dq)"),
+                       ("dkv", "launch_dkv_tc_wide<DROP>(a, D, dk, dv)")):
+        route = bwd[bwd.index(f"int route_{kern}("):]
+        route = route[:route.index("\n}\n")]
+        assert f"if (wide::tc_takes(D)) return {call};" in route
+        assert f"if (D >= wide::MIN_D) return launch_{kern}_wide<T, DROP>(" \
+            in route
+        entry = bwd[bwd.index(f'int apex_flash_{kern}_cuda_cores('):]
+        assert f"launch_{kern}<__nv_bfloat16, 512, true>(" in entry
+    assert fwd.count("if (!wide::tc_takes(D))") == 1
+    assert bwd.count("if (!wide::tc_takes(D) || D % ") == 2
+
+
 def test_flash_route_rejects_an_unknown_kernel_and_width():
     """An unknown kernel raises; a width past 8192, which raised before
     F7, routes at its padded width (8193 runs at 16384)."""
@@ -316,20 +364,21 @@ def test_flash_route_rejects_an_unknown_kernel_and_width():
 
 
 def test_tensor_core_route_needs_16_byte_aligned_operands():
-    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, and the
-    bf16 forward at D 1024 the wide one, whose TMA loads need q, k, v and
-    dO 16-byte aligned: a tensor 4 elements (8 bytes) into its storage is
-    refused with a ValueError naming the alignment, where bf16 at D 32
-    and 512 (the CUDA-core bodies, 8-byte words) takes it."""
+    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, and bf16 at
+    D 512 and 1024 the wide ones, whose TMA loads need q, k, v and dO
+    16-byte aligned: a tensor 4 elements (8 bytes) into its storage is
+    refused with a ValueError naming the alignment, where bf16 at D 16
+    and 32 (the CUDA-core bodies, 8-byte words) takes it."""
     assert tattn._align(torch.bfloat16, 64) == 16
     assert tattn._align(torch.bfloat16, 128) == 16
     assert tattn._align(torch.bfloat16, 256) == 16
+    assert tattn._align(torch.bfloat16, 512) == 16
     assert tattn._align(torch.bfloat16, 1024) == 16
     assert tattn._align(torch.bfloat16, 32) == 8
-    assert tattn._align(torch.bfloat16, 512) == 8
+    assert tattn._align(torch.bfloat16, 16) == 8
     assert tattn._align(torch.float32, 64) == 16
-    for d, refused in ((64, True), (128, True), (256, True), (1024, True),
-                       (32, False), (512, False)):
+    for d, refused in ((64, True), (128, True), (256, True), (512, True),
+                       (1024, True), (32, False), (16, False)):
         t = torch.zeros(4 + 2 * 8 * d, dtype=torch.bfloat16)[4:]
         t = t.view(1, 2, 8, d)
         assert t.data_ptr() % 16 == 8

@@ -416,6 +416,19 @@ FLASH_TRAIN_CASES = {
                          torch.bfloat16),
     "d512_bf16_causal": (1, 2, 2, 100, 512, True, None, torch.bfloat16),
     "d512_f32": (1, 2, 1, 64, 512, False, None, torch.float32),
+    # bf16 at D 512 on the wide tensor-core bodies (two 256-column forward
+    # slices, one 512-column dq slice, two dk/dv slices): a ragged last
+    # tile, grouped-query heads under segment ids, causal and not
+    "d512_bf16_s300_gqa_packed_causal": (1, 4, 2, 300, 512, True, "packed",
+                                         torch.bfloat16),
+    "d512_bf16_s300_ragged": (2, 2, 2, 300, 512, False, "ragged",
+                              torch.bfloat16),
+    # the f32 wide forward in register tiles at D 640 (padded to 1024) and
+    # 2048 (two 1024-column slices), ragged, grouped-query, segment ids
+    "d640_f32_gqa_packed_causal": (2, 4, 2, 90, 640, True, "packed",
+                                   torch.float32),
+    "d2048_f32_gqa_ragged": (1, 4, 2, 70, 2048, False, "ragged",
+                             torch.float32),
     # F5c: the wide bodies (D 1024..8192, rows across warps; the bf16
     # forward on the wide tensor-core body, 256 of O's columns a CTA)
     "d1024_f32_gqa_causal": (2, 4, 2, 70, 1024, True, "ragged",
@@ -520,8 +533,10 @@ TC_CROSS_CASES = {
     "sq200_sk130_causal_d128": (2, 4, 4, 200, 130, 128, True),
     "sq130_sk70_causal_d256": (2, 4, 4, 130, 70, 256, True),
     "sq70_sk200_causal_d256_gqa": (1, 4, 2, 70, 200, 256, True),
-    # the wide tensor-core dq and dk/dv (D 1024)
+    # the wide tensor-core dq and dk/dv (D 1024), and all three at D 512
     "sq130_sk70_causal_d1024": (1, 2, 2, 130, 70, 1024, True),
+    "sq70_sk100_causal_d512": (1, 2, 2, 70, 100, 512, True),
+    "sq300_sk70_d512_gqa": (1, 4, 2, 300, 70, 512, False),
     "sq70_sk200_causal_d1024_gqa": (1, 4, 2, 70, 200, 1024, True),
 }
 
@@ -553,9 +568,9 @@ def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 1024])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
 def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
-    """bf16 at D 64/128/256 (and 1024, the wide tensor-core forward): q
+    """bf16 at D 64/128/256 (and 512, 1024, the wide tensor-core forward): q
     starting 8 bytes past a 16-byte boundary (TMA needs 16) is cloned to
     an aligned start by the wrapper (F5): one launch, on the tensor
     cores, the plain version's result."""
@@ -572,6 +587,42 @@ def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
     names = _device_kernel_names(
         lambda: attn.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
     assert names and all("flash_fwd_kernel_tc" in n for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [2048, 16384])
+def test_f32_wide_forward_slices_agree_bit_for_bit(cuda, d, rate):
+    """The f32 wide forward's column slices (1024 columns of O a CTA; a
+    cluster of up to 8 sums S's partials in rank order, and past D 8192
+    each cluster computes the whole of S) get the same m, l and p, bit for
+    bit: with V
+    made of D/1024 copies of one 1024-column block, every slice of O
+    holds the same bits, the dropout keep included; the lse, which slice 0
+    writes, is the same whatever V holds; both held to the twin, causal,
+    ragged (Sq 70 against Sk 100), grouped-query heads."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    q = torch.randn(1, 4, 70, d, generator=g, device=cuda)
+    k = torch.randn(1, 2, 100, d, generator=g, device=cuda)
+    block = torch.randn(1, 2, 100, 1024, generator=g, device=cuda)
+    v = block.repeat(1, 1, 1, d // 1024)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda)
+    sd = seed if rate else None
+    o, lse = attn._flash_fwd_cuda(q, k, v, True, None, None, True, rate, sd)
+    o2, lse2 = attn._flash_fwd_cuda(q, k, torch.randn_like(v), True, None,
+                                    None, True, rate, sd)
+    torch.cuda.synchronize()
+    slices = o.split(1024, dim=-1)
+    assert all(torch.equal(x, slices[0]) for x in slices[1:])
+    assert torch.equal(lse, lse2)
+    wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate, sd)
+    torch.testing.assert_close(o, wo, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-5)
+    names = _device_kernel_names(lambda: attn._flash_fwd_cuda(
+        q, k, v, True, None, None, True, rate, sd), "flash_fwd_kernel")
+    assert names and all(
+        re.search(r"flash_fwd_kernel_wide<float, %s>" % str(bool(rate))
+                  .lower(), n) for n in names), names
 
 
 @pytest.mark.cuda
@@ -1721,6 +1772,20 @@ DROP_CASES = {
                                   torch.float32, 0.1),
     "wide_tc_bf16_d16384_cross": (1, 2, 2, 70, 100, 16384, False, None,
                                   torch.bfloat16, 0.1),
+    # bf16 at D 512 on the wide tensor-core bodies (the case above named
+    # fma_bf16_d512 runs them too now), and the f32 wide forward in
+    # register tiles: padded from 640, two slices at 2048, sixteen at
+    # 16384
+    "wide_tc_bf16_d512_gqa_packed_s300": (1, 4, 2, 300, 300, 512, False,
+                                          "packed", torch.bfloat16, 0.1),
+    "wide_tc_bf16_d300_causal_ragged": (2, 2, 2, 130, 130, 300, True,
+                                        "ragged", torch.bfloat16, 0.25),
+    "wide_f32_d640_cross": (1, 2, 2, 70, 100, 640, False, None,
+                            torch.float32, 0.25),
+    "wide_f32_d2048_gqa_packed_causal": (1, 4, 2, 130, 130, 2048, True,
+                                         "packed", torch.float32, 0.1),
+    "wide_f32_d16384_cross_causal": (1, 2, 1, 40, 70, 16384, True, None,
+                                     torch.float32, 0.1),
 }
 
 
@@ -1766,7 +1831,8 @@ def test_dropout_bodies_match_the_twins_on_card(cuda, name):
     # the bodies' last template argument is DROP
     assert all(re.search(r"_kernel(_tc_wide|_tc|_wide)?<([^>]*, )?true>", n)
                for n in names)
-    assert all(("_wide<" in n) == (d >= 1024) for n in names)
+    wide = attn._kernel_width(d) >= (512 if dt == torch.bfloat16 else 1024)
+    assert all(("_wide<" in n) == wide for n in names)
 
 
 def _keep_mask_readout():
@@ -1789,6 +1855,10 @@ KEEP_CASES = {
                                    torch.bfloat16, 0.1),
     "wide_tc_d2048_cross": (1, 2, 70, 300, 2048, False, torch.bfloat16,
                             0.25),
+    "wide_tc_d512_causal": (1, 2, 130, 130, 512, True, torch.bfloat16, 0.1),
+    "wide_tc_d512_cross": (1, 2, 70, 600, 512, False, torch.bfloat16, 0.25),
+    "wide_f32_d1024_cross": (1, 2, 70, 300, 1024, False, torch.float32,
+                             0.25),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
 }
