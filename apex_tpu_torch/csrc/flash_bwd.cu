@@ -27,7 +27,9 @@
 //   wide::tc_takes), D a runtime width, a CTA on a slice of the output's
 //   columns (below).
 // - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
-//   at those widths (below, before the entry points).
+//   at those widths, register tiles on the CUDA cores with the column
+//   slices of a row block in a thread-block cluster that shares S and dP
+//   (below, before the entry points).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -119,9 +121,9 @@
 // tensor-core FLOP a pair where one takes 6 D), were measured 4-23%
 // slower at four causal D-256 shapes and not kept (PERF.md, row 2).
 //
-// The CUDA-core bodies, simple first (about S/4 operations per byte
-// moved against the card's 20 for f32 outside the tensor cores: bound by
-// arithmetic):
+// The CUDA-core bodies up to D 512, simple first (about S/4 operations
+// per byte moved against the card's 20 for f32 outside the tensor cores:
+// bound by arithmetic):
 //
 // - dq: one CTA per (b*h, BQ query rows), the CUDA-core forward's
 //   geometry (BQ 64 up to D 128, 8192/D past it; a row split over D/32
@@ -140,9 +142,11 @@
 // Every body puts B*H (dk/dv: B*HK) on the grid's x, up to 2^31 - 1, and
 // the row blocks on y (dq heaviest first under the causal mask).
 //
-// No atomics and no cross-CTA sums: every output element is owned by one
-// thread group that sums in a fixed order, so a run gives the same bits
-// every time (ROADMAP Queue 2 idiom (a)).
+// No atomics: every output element is owned by one thread that sums in a
+// fixed order, and the one sum across CTAs (the wide CUDA-core bodies'
+// partial scores, over a cluster's distributed shared memory) runs in
+// rank order, so a run gives the same bits every time (ROADMAP Queue 2
+// idiom (a)).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1624,31 +1628,217 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // bodies, above)
 // ---------------------------------------------------------------------------
 //
-// The CUDA-core bodies' arithmetic with D a runtime width and rows that
-// span whole warps, their dot products meeting across warps through
-// shared memory (hopper_mma.cuh, namespace wide).  A CTA owns W =
-// wide::slice(D) columns of its rows' outputs (the whole row up to D
-// 8192; past it D / 8192 CTAs on the grid's z each own 8192): dq gives a
-// query row W/32 threads of 32 columns (256 threads a CTA, 256/(W/32)
-// rows), dk/dv a key row W/16 threads of 16 columns (512 threads, 512/
-// (W/16) key rows; 64 registers of k, v, dk and dv a thread at any D).
-// Past 8192 a dot product is the sum, in slice order, of each slice's
-// partial, every partial computed as its own slice's CTA computes it
-// (each thread on its columns of the slice: its own slice's operands in
-// registers, the others' read where used), so every slice CTA gets the
-// same p and ds, bit for bit (the SPLIT instantiations; up to 8192 the
-// others, whose code is one slice's).  No tiles: the rows a step reads (K and V
-// in dq; q, dO, lse, di and the ids in dk/dv) come from device memory
-// where they are used, the CTA's rows reading the same words through L1,
-// and the dot products of a group of wide::GROUP keys (query rows in
-// dk/dv) meet across warps in shared memory (wide::row_sums), one
-// barrier a group.
+// Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
+// contract of docs/kernels.md), after the f32 wide forward
+// (csrc/flash_fwd.cu, flash_fwd_kernel_wide).  The two products over D
+// that the backward needs, S = Q.K^T and dP = dO.V^T, are shared by the
+// column slices of a row block: the slices are a thread-block cluster of
+// NC CTAs (on the grid's z, at most 8), CTA r computes the partials of S
+// and dP over the D/NC columns [r D/NC, (r+1) D/NC), and every CTA sums
+// the cluster's partials in rank order through distributed shared
+// memory, so every slice gets the same p and ds, bit for bit, the
+// dropout keep included.  256 threads a CTA; one cp.async ring of five
+// 32 KB stages carries every operand a tile reads (one counter over all
+// its items, a stage loaded STAGES - 1 items ahead of its use, once the
+// barrier that opens an item shows every thread done with the stage's
+// last use); rows and keys past Sq and Sk arrive as zeros (cp.async's
+// source size 0).  A tile takes three passes over the ring:
+//
+// - the partial S (S^T in dk/dv) over the CTA's D/NC columns, DC = 64
+//   columns of 32 rows and of the tile's 64 a stage: a thread owns a 4 x
+//   4 block of it over a part of each stage's columns, so every float4
+//   it reads from shared memory feeds four FMAs; the parts go to shared
+//   memory;
+// - the partial dP (dP^T) the same way; then one cluster barrier, and p
+//   and ds from the summed partials, in the reference's order, into
+//   shared memory.  The CTA arrives at a second cluster barrier once it
+//   has read the others' partials and waits on it only before it next
+//   writes its own (hopper::cluster_arrive / cluster_wait), so one buffer
+//   of each product serves every tile, and the wait comes a whole pass
+//   after the others' reads;
+// - the outputs' update over the slice's columns of the other operand.
+//
+// dq (DqWide): a CTA owns BQ = 32 query rows and W = 1024 of dQ's
+// columns, NC = min(D/1024, 8); dQ's 32 x 1024 f32 sit in registers, 8
+// rows x 16 columns a thread, as the forward's O.  Key tiles of 64, the
+// causal stop at the CTA's last visible key, heaviest q blocks first.
+// dQ += dS.K from stages of 8 keys x 1024 columns of K: every K word
+// feeds 8 FMAs and every dS word 16.
+//
+// dk/dv (DkvWide<ROWS>): a CTA owns ROWS key rows and W = 16384/ROWS
+// columns of both dK and dV (two accumulators of ROWS x W f32: 8 key
+// rows x 8 columns of each a thread), NC = min(D/W, 8).  ROWS is 32 (W
+// 512) while one cluster spans the row, D <= 4096, and 16 (W 1024) past
+// it: 32 rows give each staged q and dO word twice the reuse in S^T and
+// dP^T (7-18% faster on an H100 at D 1024..4096), but at D 8192 they
+// would need two clusters, each computing S^T and dP^T whole (16 rows
+// were 18% faster there: PERF.md, Findings).  A CTA walks the GQA
+// group's query heads in order and, inside each, q tiles of 64 rows
+// from the first row that sees its key block under the causal mask;
+// lse, di and the q segment ids are staged beside each tile.  dV +=
+// P^T.dO, then dK += dS^T.Q, from stages of 8 (ROWS 16: 4) query rows of
+// dO and q over the slice's columns: every dO and q word feeds 8 FMAs.
+//
+// No FLOP repeats while one cluster spans the row, up to D 8192 (6D a
+// visible pair in dq, 8D in dk/dv).  Past that a row block has D/8192
+// clusters, each computing the whole of S and dP: the same partials in
+// the same order, so all agree.  Every output element has one owner
+// thread that sums in a fixed order, no atomics: the same bits every run.
+// A last cluster wait keeps each CTA's shared memory alive until the
+// others have read it.  bf16 reaches these bodies only with no keys (dq)
+// or no queries (dk/dv): its instantiations write the zeros.
 
-constexpr int WIDE_Q_THREADS = 256;    // dq: 32 columns a thread
-constexpr int WIDE_KV_THREADS = 512;   // dk/dv: 16 columns a thread
+struct BwdWide {
+  static constexpr int THREADS = 256;
+  static constexpr int DC = 64;                 // S's and dP's columns a stage
+  static constexpr int PAD = DC + 4;            // a staged row's floats
+  static constexpr int STAGE = 8 * 1024;        // floats a stage (32 KB)
+  static constexpr int STAGES = 5;
+  static constexpr int MAX_NC = 8;              // a cluster's CTAs (portable)
+  static constexpr int TILE = 64;               // keys (dq), q rows (dk/dv) a tile
+  static constexpr int SROW = TILE + 8;         // a partial row (floats)
+  static constexpr int SPART = 64 * SROW;       // a product's partials
+  static constexpr int S_OFF = STAGES * STAGE;  // S's partials, then dP's
+  static constexpr int DP_OFF = S_OFF + SPART;
+  static constexpr int TILE_OFF = DP_OFF + SPART;
+};
 
-template <typename T, bool SPLIT, bool DROP>
-__global__ void __launch_bounds__(WIDE_Q_THREADS)
+struct DqWide : BwdWide {
+  static constexpr int BQ = 32;                 // query rows a CTA
+  static constexpr int W = 1024;                // dQ's columns a CTA
+  static constexpr int VK = STAGE / W;          // K's keys a dQ stage (8)
+  static constexpr int DSROW = BQ + 4;          // dS's key row (floats)
+  static constexpr int SMEM = (TILE_OFF + TILE * DSROW) * 4;
+};
+static_assert(DqWide::W / 4 == DqWide::THREADS,
+              "a thread copies one float4 of each staged K row");
+
+template <int ROWS_>
+struct DkvWide : BwdWide {
+  static constexpr int ROWS = ROWS_;            // key rows a CTA (32 or 16)
+  static constexpr int W = 16384 / ROWS;        // dK's and dV's columns a CTA
+  static constexpr int KS = 64 / ROWS;          // S^T: parts of a stage's columns
+  static constexpr int RS = ROWS / 4;           // S^T: key rows rg + RS a
+  static constexpr int TPR = THREADS / ROWS;    // p and dS: threads a key row
+  static constexpr int CG = W / 8;              // dK, dV: threads a row group
+  static constexpr int QK = STAGE / (2 * W);    // dO and Q rows a stage
+  static constexpr int PROW = ROWS + 4;         // p's (dS's) query row (floats)
+  static constexpr int P_OFF = TILE_OFF;
+  static constexpr int DS_OFF = P_OFF + TILE * PROW;
+  static constexpr int ROW_OFF = DS_OFF + TILE * PROW;   // lse, di, q ids
+  static constexpr int SMEM = (ROW_OFF + 3 * TILE) * 4;
+};
+static_assert(DkvWide<32>::KS * DkvWide<32>::RS * 16 == BwdWide::THREADS &&
+                  DkvWide<16>::KS * DkvWide<16>::RS * 16 == BwdWide::THREADS,
+              "the S^T tiles cover the CTA's threads");
+static_assert(DkvWide<32>::SMEM <= 227 * 1024 &&
+                  DkvWide<16>::SMEM <= 227 * 1024 && DqWide::SMEM <= 227 * 1024,
+              "one CTA an SM");
+
+// acc[a][b] += the dot products of A's rows ra + RS a with B's rows rb +
+// 16 b over NF float4 columns from c of a staged pair (PAD floats a row)
+template <int RS, int NF>
+__device__ __forceinline__ void stage_dots(float (&acc)[4][4], const float* A,
+                                           const float* B, int ra, int rb,
+                                           int c) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f, c += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      av[a] = *reinterpret_cast<const float4*>(A + (ra + RS * a) * BwdWide::PAD + c);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      bv[b] = *reinterpret_cast<const float4*>(B + (rb + 16 * b) * BwdWide::PAD + c);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = dot4(av[a], bv[b], acc[a][b]);
+  }
+}
+
+// A staged pair: NA rows of `a` from row a0 (of na; flat rows from
+// abase), then TILE rows of `b` from row b0 (of nb; from bbase), DC
+// columns from c of each; rows past the end arrive as zeros
+template <int NA, typename T>
+__device__ __forceinline__ void stage_pair(float* st, const T* a, size_t abase,
+                                           int a0, int na, const T* b,
+                                           size_t bbase, int b0, int nb,
+                                           int D, int c) {
+  constexpr int R4 = BwdWide::DC / 4;
+  constexpr int RPX = BwdWide::THREADS / R4;   // rows a round of copies
+  const int tid = threadIdx.x;
+  const int c4 = 4 * (tid % R4);
+#pragma unroll
+  for (int x = 0; x < NA / RPX; ++x) {
+    const int r = tid / R4 + x * RPX, row = a0 + r;
+    hopper::cp_async16(st + r * BwdWide::PAD + c4,
+                       a + (abase + (row < na ? row : 0)) * D + c + c4,
+                       row < na);
+  }
+#pragma unroll
+  for (int x = 0; x < BwdWide::TILE / RPX; ++x) {
+    const int r = tid / R4 + x * RPX, row = b0 + r;
+    hopper::cp_async16(st + (NA + r) * BwdWide::PAD + c4,
+                       b + (bbase + (row < nb ? row : 0)) * D + c + c4,
+                       row < nb);
+  }
+}
+
+// A thread's 4 x 4 block of partials (rows r + RS a, columns cb + 16 b)
+// into a partials buffer, and the block zeroed for the next pass
+template <int RS>
+__device__ __forceinline__ void part_store(float* pb, float (&acc)[4][4],
+                                           int r, int cb) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      pb[(r + RS * a) * BwdWide::SROW + cb + 16 * b] = acc[a][b];
+      acc[a][b] = 0.f;
+    }
+}
+
+// The sum of a score's NP parts (at p, NR rows apart) over the cluster's
+// nc CTAs, in rank order: every CTA of the cluster gets the same bits
+template <int NP, int NR>
+__device__ __forceinline__ float part_sum(const float* p, int nc) {
+  float dot = 0.f;
+  for (int r = 0; r < nc; ++r) {
+    float x = nc == 1 ? p[0] : hopper::ld_cluster(p, r);
+#pragma unroll
+    for (int s = 1; s < NP; ++s) {
+      const float* ps = p + s * NR * BwdWide::SROW;
+      x += nc == 1 ? *ps : hopper::ld_cluster(ps, r);
+    }
+    dot = r == 0 ? x : dot + x;
+  }
+  return dot;
+}
+
+// acc[r][c] += w[x][r] * X[x][c] over N rows x: the 8 weights of row x
+// at w + WS x (a broadcast), its C float4s at X + XS x + CS c
+template <int N, int WS, int XS, int CS, int C>
+__device__ __forceinline__ void rank_update(float4 (&acc)[8][C], const float* w,
+                                            const float* X) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    const float4 w0 = *reinterpret_cast<const float4*>(w + WS * x);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + WS * x + 4);
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    float4 xv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      xv[c] = *reinterpret_cast<const float4*>(X + XS * x + CS * c);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = axpy4(wv[r], xv[c], acc[r][c]);
+  }
+}
+
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(DqWide::THREADS, 1)
 flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -1657,113 +1847,156 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ kv_ids, int H, int HK, int Sq,
                      int Sk, int D, int causal, float scale,
                      dropout::Params drop) {
-  constexpr int G = wide::GROUP;
-  constexpr int C4 = 8;
-  __shared__ float red[2][WIDE_Q_THREADS / 32 * 2 * G];
-  const int W = wide::slice(D);            // this CTA's columns of a row
-  const int nsl = SPLIT ? D / W : 1;
-  const int sl = SPLIT ? blockIdx.z : 0;
-  const int tpr = W / 32;
-  const int rows = WIDE_Q_THREADS / tpr;
-  const int nw = tpr / 32;
-  const int D4 = D / 4, W4 = W / 4;
+  using G = DqWide;
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int hk = (bh % H) / (H / HK);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;   // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;   // heaviest first
+  const int c0 = blockIdx.z * G::W;      // this CTA's columns of dQ and K
   const int tid = threadIdx.x;
-  const int part = tid % tpr;
-  const int row = q0 + tid / tpr;
-  const int w0 = (tid / tpr) * nw;
-  const bool row_ok = row < Sq;
-  const bool seg = q_ids != nullptr;
-  const uint32_t rkey =
-      DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), row) : 0u;
+  if constexpr (sizeof(T) == 2) {
+    // no keys: every row's dQ is zero
+    for (int i = tid; i < G::BQ * G::W / 4; i += G::THREADS) {
+      const int row = q0 + i / (G::W / 4);
+      if (row < Sq)
+        store4(dq, (((size_t)bh * Sq + row) * D + c0) / 4 + i % (G::W / 4),
+               make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  } else {
+    extern __shared__ float4 wide_smem[];
+    float* sm = reinterpret_cast<float*>(wide_smem);
+    float* ds_s = sm + G::TILE_OFF;      // [TILE][DSROW]: dS, key-major
 
-  const size_t kvb = (size_t)(b * HK + hk) * Sk * D4 + part;
-  const size_t qrow = (size_t)bh * Sq + (row_ok ? row : 0);
-  const size_t qoff = qrow * D4 + part;
-  const size_t own = (size_t)sl * W4;      // the slice's first float4
+    const int b = bh / H;
+    const int bhk = b * HK + (bh % H) / (H / HK);
+    const bool seg = q_ids != nullptr;
+    const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
+    const int ntile = (kend + G::TILE - 1) / G::TILE;
+    const int nc = min(D / G::W, G::MAX_NC);   // the cluster's CTAs
+    const int part = D / nc;             // S's and dP's columns this CTA sums
+    const int cs0 = static_cast<int>(hopper::cluster_rank()) * part;
+    const int nS = part / G::DC;         // S stages a tile, and dP stages
+    const int ipt = 2 * nS + G::TILE / G::VK;   // ring items a tile
+    const int total = ntile * ipt;
 
-  float4 qr[C4], dr[C4], acc[C4];
+    // the ring's item j: S stage i < nS (Q's and K's columns cs0 +
+    // DC*i..), dP stage i - nS (dO's and V's), or K stage i - 2 nS (keys
+    // VK*(i - 2 nS).. of the tile, the slice's columns)
+    auto load = [&](int j) {
+      const int t = j / ipt, i = j - t * ipt, k0 = t * G::TILE;
+      float* st = sm + (j % G::STAGES) * G::STAGE;
+      if (i < 2 * nS) {
+        const bool s = i < nS;
+        stage_pair<G::BQ>(st, s ? q : dout, (size_t)bh * Sq, q0, Sq,
+                          s ? k : v, (size_t)bhk * Sk, k0, Sk, D,
+                          cs0 + G::DC * (s ? i : i - nS));
+      } else {
 #pragma unroll
-  for (int c = 0; c < C4; ++c) {
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[c] = row_ok ? load4(q, qoff + own + c * tpr) : z;
-    dr[c] = row_ok ? load4(dout, qoff + own + c * tpr) : z;
-    acc[c] = z;
-  }
-  const float lse_r = row_ok ? lse[qrow] : 0.f;
-  const float di_r = row_ok ? di[qrow] : 0.f;
-  const int qid = (seg && row_ok) ? q_ids[(size_t)b * Sq + row] : 0;
-
-  const int kend = causal ? min(Sk, q0 + rows) : Sk;
-  for (int k0 = 0, buf = 0; k0 < kend; k0 += G, buf ^= 1) {
-    float x[2 * G];   // q.k of the group's keys, then dO.v
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      x[j] = x[G + j] = 0.f;
-      if (k0 + j < Sk) {
-        const size_t kr = kvb + (size_t)(k0 + j) * D4 + own;
-#pragma unroll
-        for (int c = 0; c < C4; ++c) {
-          x[j] = dot4(qr[c], load4(k, kr + c * tpr), x[j]);
-          x[G + j] = dot4(dr[c], load4(v, kr + c * tpr), x[G + j]);
+        for (int x = 0; x < G::VK; ++x) {
+          const int key = k0 + G::VK * (i - 2 * nS) + x;
+          hopper::cp_async16(
+              st + x * G::W + 4 * tid,
+              k + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + 4 * tid,
+              key < Sk);
         }
       }
+    };
+#pragma unroll
+    for (int j = 0; j < G::STAGES - 1; ++j) {
+      if (j < total) load(j);
+      hopper::cp_async_commit();
     }
-    if (SPLIT) {
-      // the other slices' partial dot products, summed in slice order
+
+    // S and dP: half sh of the CTA, rows rg + 8a, keys kg + 16b
+    const int sh = tid >> 7, rg = (tid >> 4) & 7, kg = tid & 15;
+    // p and dS: row sr, keys sp + 8x
+    const int sr = tid >> 3, sp = tid & 7, srow = q0 + sr;
+    const bool srow_ok = srow < Sq;
+    const size_t qrow = (size_t)bh * Sq + (srow_ok ? srow : 0);
+    const float lse_r = srow_ok ? lse[qrow] : 0.f;
+    const float di_r = srow_ok ? di[qrow] : 0.f;
+    const int qid = (seg && srow_ok) ? q_ids[(size_t)b * Sq + srow] : 0;
+    const uint32_t rkey =
+        DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
+    // dQ: rows 8 og.., columns 512 oc + 4 lane + 128 c of the slice
+    const int og = tid >> 6, oc = (tid >> 5) & 1, lane = tid & 31;
+    const int ocol = 512 * oc + 4 * lane;
+
+    float4 acc[8][4];
+    float pacc[4][4];   // the pass's partial S or dP
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if (k0 + j >= Sk) continue;
-        const size_t kr = kvb + (size_t)(k0 + j) * D4;
-        float ts = 0.f, tp = 0.f;
-        for (int xs = 0; xs < nsl; ++xs) {
-          float ps = x[j], pp = x[G + j];
-          if (xs != sl) {
-            const size_t xo = (size_t)xs * W4;
-            ps = pp = 0.f;
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-            for (int c = 0; c < C4; ++c) {
-              ps = dot4(load4(q, qoff + xo + c * tpr),
-                        load4(k, kr + xo + c * tpr), ps);
-              pp = dot4(load4(dout, qoff + xo + c * tpr),
-                        load4(v, kr + xo + c * tpr), pp);
+      for (int c = 0; c < 4; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pacc[a][c] = 0.f;
+
+    for (int j = 0, t = 0, i = 0; j < total; ++j) {
+      hopper::cp_async_wait<G::STAGES - 2>();
+      __syncthreads();   // item j landed; every thread is done with j - 1
+      if (j + G::STAGES - 1 < total) load(j + G::STAGES - 1);
+      hopper::cp_async_commit();
+      const float* st = sm + (j % G::STAGES) * G::STAGE;
+      if (i < 2 * nS) {
+        stage_dots<8, G::DC / 8>(pacc, st, st + G::BQ * G::PAD, rg, kg,
+                                 G::DC / 2 * sh);
+        if (i == nS - 1 || i == 2 * nS - 1) {
+          // the pass's partials to shared memory (S's once the others are
+          // done reading the last tile's); after dP's the cluster's
+          // partials meet and give the tile's dS
+          const bool s = i == nS - 1;
+          if (s && t > 0 && nc > 1) hopper::cluster_wait();
+          part_store<8>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
+                        sh * G::BQ + rg, kg);
+          if (!s) {
+            if (nc > 1)
+              hopper::cluster_sync();
+            else
+              __syncthreads();
+            const int k0 = t * G::TILE;
+#pragma unroll
+            for (int x = 0; x < 8; ++x) {
+              const int key = sp + 8 * x, col = k0 + key;
+              const int o = sr * G::SROW + key;
+              const float dot = part_sum<2, G::BQ>(sm + G::S_OFF + o, nc);
+              float dp = part_sum<2, G::BQ>(sm + G::DP_OFF + o, nc);
+              const bool ok = srow_ok && col < Sk && (!causal || col <= srow) &&
+                              (!seg || kv_ids[(size_t)b * Sk + col] == qid);
+              const float p = prob(ok, dot, scale, lse_r);
+              if (DROP)
+                dp = dropout::apply(drop, dropout::col_key(rkey, col), dp);
+              ds_s[key * G::DSROW + sr] = dscore(p, dp, di_r, scale);
             }
+            if (nc > 1) hopper::cluster_arrive();
           }
-          ts = xs == 0 ? ps : ts + ps;
-          tp = xs == 0 ? pp : tp + pp;
         }
-        x[j] = ts;
-        x[G + j] = tp;
+      } else {
+        // dQ += dS.K over the stage's VK keys
+        rank_update<G::VK, G::DSROW, G::W, 128>(
+            acc, ds_s + G::VK * (i - 2 * nS) * G::DSROW + 8 * og, st + ocol);
+      }
+      if (++i == ipt) {
+        i = 0;
+        ++t;
       }
     }
-    wide::row_sums(x, red[buf], w0, nw);
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int col = k0 + j;
-      if (col >= Sk) continue;
-      const bool ok = row_ok && (!causal || col <= row) &&
-                      (!seg || kv_ids[(size_t)b * Sk + col] == qid);
-      const float p = prob(ok, x[j], scale, lse_r);
-      float pd = x[G + j];
-      if (DROP) pd = dropout::apply(drop, dropout::col_key(rkey, col), pd);
-      const float ds = operand<T>(dscore(p, pd, di_r, scale));
-      const size_t kr = kvb + (size_t)col * D4 + own;
-#pragma unroll
-      for (int c = 0; c < C4; ++c) acc[c] = axpy4(ds, load4(k, kr + c * tpr), acc[c]);
-    }
-  }
+    hopper::cp_async_wait<0>();
+    // the other CTAs of the cluster are done reading this one's partials
+    if (nc > 1 && total > 0) hopper::cluster_wait();
 
-  if (row_ok) {
 #pragma unroll
-    for (int c = 0; c < C4; ++c) store4(dq, qoff + own + c * tpr, acc[c]);
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + 8 * og + r;
+      if (row >= Sq) continue;
+      const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) store4(dq, base + 32 * c, acc[r][c]);
+    }
   }
 }
 
-template <typename T, bool SPLIT, bool DROP>
-__global__ void __launch_bounds__(WIDE_KV_THREADS, 1)
+template <typename T, int ROWS, bool DROP>
+__global__ void __launch_bounds__(BwdWide::THREADS, 1)
 flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -1772,157 +2005,242 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ kv_ids, int H, int HK, int Sq,
                       int Sk, int D, int causal, float scale,
                       dropout::Params drop) {
-  constexpr int G = wide::GROUP;
-  constexpr int C4 = 4;
-  __shared__ float red[2][WIDE_KV_THREADS / 32 * 2 * G];
-  const int W = wide::slice(D);            // this CTA's columns of a row
-  const int nsl = SPLIT ? D / W : 1;
-  const int sl = SPLIT ? blockIdx.z : 0;
-  const int tpr = W / 16;
-  const int rows = WIDE_KV_THREADS / tpr;   // key rows a CTA
-  const int nw = tpr / 32;
-  const int D4 = D / 4, W4 = W / 4;
+  using G = DkvWide<ROWS>;
   const int bhk = blockIdx.x;
-  const int b = bhk / HK;
-  const int hk = bhk % HK;
-  const int group = H / HK;
-  const int c0 = blockIdx.y * rows;   // the first key block sees most rows
+  const int c0 = blockIdx.y * G::ROWS;   // the first key block sees most rows
+  const int cw0 = blockIdx.z * G::W;     // this CTA's columns of dK and dV
   const int tid = threadIdx.x;
-  const int part = tid % tpr;
-  const int col = c0 + tid / tpr;
-  const int w0 = (tid / tpr) * nw;
-  const bool col_ok = col < Sk;
-  const bool seg = q_ids != nullptr;
-
-  const size_t kvoff = ((size_t)bhk * Sk + (col_ok ? col : 0)) * D4 + part;
-  const size_t own = (size_t)sl * W4;      // the slice's first float4
-  float4 kr[C4], vr[C4], dka[C4], dva[C4];
-#pragma unroll
-  for (int c = 0; c < C4; ++c) {
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    kr[c] = col_ok ? load4(k, kvoff + own + c * tpr) : z;
-    vr[c] = col_ok ? load4(v, kvoff + own + c * tpr) : z;
-    dka[c] = z;
-    dva[c] = z;
-  }
-  const int kid = (seg && col_ok) ? kv_ids[(size_t)b * Sk + col] : 0;
-
-  // causal: rows before c0 see none of this block's keys
-  const int rstart = causal ? min(c0, Sq) : 0;
-  int buf = 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const int bh = b * H + hk * group + hh;   // the flat q row
-    const size_t rowb = (size_t)bh * Sq;
-    const uint32_t ckey =
-        DROP ? dropout::col_key(dropout::head_key(*drop.seed, bh), col) : 0u;
-    for (int r0 = rstart; r0 < Sq; r0 += G, buf ^= 1) {
-      float x[2 * G];   // k.q of the group's rows, then v.dO
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        x[i] = x[G + i] = 0.f;
-        if (r0 + i < Sq) {
-          const size_t qr = (rowb + r0 + i) * D4 + part + own;
-#pragma unroll
-          for (int c = 0; c < C4; ++c) {
-            x[i] = dot4(kr[c], load4(q, qr + c * tpr), x[i]);
-            x[G + i] = dot4(vr[c], load4(dout, qr + c * tpr), x[G + i]);
-          }
-        }
-      }
-      if (SPLIT) {
-        // the other slices' partial dot products, summed in slice order
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          if (r0 + i >= Sq) continue;
-          const size_t qr = (rowb + r0 + i) * D4 + part;
-          float ts = 0.f, tp = 0.f;
-          for (int xs = 0; xs < nsl; ++xs) {
-            float ps = x[i], pp = x[G + i];
-            if (xs != sl) {
-              const size_t xo = (size_t)xs * W4;
-              ps = pp = 0.f;
-#pragma unroll
-              for (int c = 0; c < C4; ++c) {
-                ps = dot4(load4(k, kvoff + xo + c * tpr),
-                          load4(q, qr + xo + c * tpr), ps);
-                pp = dot4(load4(v, kvoff + xo + c * tpr),
-                          load4(dout, qr + xo + c * tpr), pp);
-              }
-            }
-            ts = xs == 0 ? ps : ts + ps;
-            tp = xs == 0 ? pp : tp + pp;
-          }
-          x[i] = ts;
-          x[G + i] = tp;
-        }
-      }
-      wide::row_sums(x, red[buf], w0, nw);
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const int r = r0 + i;
-        if (r >= Sq) continue;
-        const bool ok = col_ok && (!causal || col <= r) &&
-                        (!seg || q_ids[(size_t)b * Sq + r] == kid);
-        const float p = prob(ok, x[i], scale, lse[rowb + r]);
-        float pd = x[G + i];
-        float pd_p = p;   // the p of dV: keep * p / (1 - rate) under DROP
-        if (DROP) {
-          const bool keep = dropout::kept(drop, dropout::row_key(ckey, r));
-          pd_p = dropout::scaled(drop, keep, p);
-          pd = dropout::scaled(drop, keep, pd);
-        }
-        const float pv = operand<T>(pd_p);
-        const float ds = operand<T>(dscore(p, pd, di[rowb + r], scale));
-        const size_t qr = (rowb + r) * D4 + part + own;
-#pragma unroll
-        for (int c = 0; c < C4; ++c) {
-          dva[c] = axpy4(pv, load4(dout, qr + c * tpr), dva[c]);
-          dka[c] = axpy4(ds, load4(q, qr + c * tpr), dka[c]);
-        }
+  if constexpr (sizeof(T) == 2) {
+    // no queries: dK and dV are zero
+    for (int i = tid; i < G::ROWS * G::W / 4; i += G::THREADS) {
+      const int key = c0 + i / (G::W / 4);
+      if (key < Sk) {
+        const size_t o = (((size_t)bhk * Sk + key) * D + cw0) / 4 + i % (G::W / 4);
+        store4(dk, o, make_float4(0.f, 0.f, 0.f, 0.f));
+        store4(dv, o, make_float4(0.f, 0.f, 0.f, 0.f));
       }
     }
-  }
+  } else {
+    extern __shared__ float4 wide_smem[];
+    float* sm = reinterpret_cast<float*>(wide_smem);
+    float* p_s = sm + G::P_OFF;          // [TILE][PROW]: dV's p, q-row-major
+    float* ds_s = sm + G::DS_OFF;        // [TILE][PROW]: dS
+    float* lse_s = sm + G::ROW_OFF;      // [TILE]: the tile's rows' lse,
+    float* di_s = lse_s + G::TILE;       // di
+    int* qid_s = reinterpret_cast<int*>(di_s + G::TILE);   // and q ids
 
-  if (col_ok) {
+    const int b = bhk / HK;
+    const int hk = bhk % HK;
+    const int group = H / HK;
+    const bool seg = q_ids != nullptr;
+    // causal: rows before c0 see none of this block's keys
+    const int rstart = causal ? min(c0, Sq) : 0;
+    const int nqt = (Sq - rstart + G::TILE - 1) / G::TILE;   // q tiles a head
+    const int nc = min(D / G::W, G::MAX_NC);   // the cluster's CTAs
+    const int part = D / nc;             // S^T's and dP^T's columns this CTA sums
+    const int cs0 = static_cast<int>(hopper::cluster_rank()) * part;
+    const int nS = part / G::DC;         // S^T stages a tile, and dP^T stages
+    const int ipt = 2 * nS + G::TILE / G::QK;   // ring items a tile
+    const int total = group * nqt * ipt;
+
+    // tile t: the group's query head t / nqt (flat q row bh), rows from r0
+    auto tile_rows = [&](int t, int& bh, int& r0) {
+      const int hh = t / nqt;
+      bh = b * H + hk * group + hh;
+      r0 = rstart + (t - hh * nqt) * G::TILE;
+    };
+    // the ring's item j: S^T stage i < nS (K's and q's columns cs0 +
+    // DC*i..), dP^T stage i - nS (V's and dO's), or dV/dK stage i - 2 nS
+    // (QK q rows of dO, then of q, the slice's columns)
+    auto load = [&](int j) {
+      const int t = j / ipt, i = j - t * ipt;
+      int bh, r0;
+      tile_rows(t, bh, r0);
+      float* st = sm + (j % G::STAGES) * G::STAGE;
+      if (i < 2 * nS) {
+        const bool s = i < nS;
+        stage_pair<G::ROWS>(st, s ? k : v, (size_t)bhk * Sk, c0, Sk,
+                            s ? q : dout, (size_t)bh * Sq, r0, Sq, D,
+                            cs0 + G::DC * (s ? i : i - nS));
+      } else {
+        constexpr int R4 = G::W / 4;
 #pragma unroll
-    for (int c = 0; c < C4; ++c) {
-      store4(dk, kvoff + own + c * tpr, dka[c]);
-      store4(dv, kvoff + own + c * tpr, dva[c]);
+        for (int x = 0; x < G::STAGE / 4 / G::THREADS; ++x) {
+          const int f = tid + x * G::THREADS;   // the stage's float4
+          const int w = f % (2 * R4), row = r0 + G::QK * (i - 2 * nS) + f / (2 * R4);
+          hopper::cp_async16(
+              st + 4 * f,
+              (w < R4 ? dout : q) + ((size_t)bh * Sq + (row < Sq ? row : 0)) * D +
+                  cw0 + 4 * (w % R4),
+              row < Sq);
+        }
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < G::STAGES - 1; ++j) {
+      if (j < total) load(j);
+      hopper::cp_async_commit();
+    }
+
+    // S^T and dP^T: part sh of the stage's columns, key rows rg + RS a,
+    // q rows qg + 16 b
+    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, qg = tid % 16;
+    // p and dS: key row sr, q rows sp + TPR x
+    const int sr = tid / G::TPR, sp = tid % G::TPR, key = c0 + sr;
+    const bool key_ok = key < Sk;
+    const int kid = (seg && key_ok) ? kv_ids[(size_t)b * Sk + key] : 0;
+    // dK and dV: key rows 8 og.., columns 4 cg + W/2 c of the slice
+    const int og = tid / G::CG, ocol = 4 * (tid % G::CG);
+
+    float4 dka[8][2], dva[8][2];
+    float pacc[4][4];   // the pass's partial S^T or dP^T
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        dka[r][c] = dva[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pacc[a][c] = 0.f;
+
+    for (int j = 0, t = 0, i = 0; j < total; ++j) {
+      hopper::cp_async_wait<G::STAGES - 2>();
+      __syncthreads();   // item j landed; every thread is done with j - 1
+      if (j + G::STAGES - 1 < total) load(j + G::STAGES - 1);
+      hopper::cp_async_commit();
+      const float* st = sm + (j % G::STAGES) * G::STAGE;
+      if (i < 2 * nS) {
+        int bh, r0;
+        tile_rows(t, bh, r0);
+        if (i == 0 && tid < G::TILE) {
+          // the tile's lse, di and q ids (read past the barriers to come)
+          const int row = r0 + tid;
+          const bool ok = row < Sq;
+          const size_t fr = (size_t)bh * Sq + (ok ? row : 0);
+          lse_s[tid] = ok ? lse[fr] : 0.f;
+          di_s[tid] = ok ? di[fr] : 0.f;
+          qid_s[tid] = (seg && ok) ? q_ids[(size_t)b * Sq + row] : 0;
+        }
+        stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::ROWS * G::PAD,
+                                             rg, qg, G::DC / G::KS * sh);
+        if (i == nS - 1 || i == 2 * nS - 1) {
+          // the pass's partials to shared memory (S^T's once the others
+          // are done reading the last tile's); after dP^T's the
+          // cluster's partials meet and give the tile's p and dS
+          const bool s = i == nS - 1;
+          if (s && t > 0 && nc > 1) hopper::cluster_wait();
+          part_store<G::RS>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
+                            sh * G::ROWS + rg, qg);
+          if (!s) {
+            if (nc > 1)
+              hopper::cluster_sync();
+            else
+              __syncthreads();
+            const uint32_t ckey =
+                DROP ? dropout::col_key(dropout::head_key(*drop.seed, bh), key)
+                     : 0u;
+#pragma unroll
+            for (int x = 0; x < G::TILE / G::TPR; ++x) {
+              const int qr = sp + G::TPR * x, row = r0 + qr;
+              const int o = sr * G::SROW + qr;
+              const float dot = part_sum<G::KS, G::ROWS>(sm + G::S_OFF + o, nc);
+              float dp = part_sum<G::KS, G::ROWS>(sm + G::DP_OFF + o, nc);
+              const bool ok = key_ok && row < Sq && (!causal || key <= row) &&
+                              (!seg || qid_s[qr] == kid);
+              const float p = prob(ok, dot, scale, lse_s[qr]);
+              float pv = p;   // dV's p: keep * p / (1 - rate) under DROP
+              if (DROP) {
+                const bool keep = dropout::kept(drop, dropout::row_key(ckey, row));
+                pv = dropout::scaled(drop, keep, p);
+                dp = dropout::scaled(drop, keep, dp);
+              }
+              p_s[qr * G::PROW + sr] = pv;
+              ds_s[qr * G::PROW + sr] = dscore(p, dp, di_s[qr], scale);
+            }
+            if (nc > 1) hopper::cluster_arrive();
+          }
+        }
+      } else {
+        // dV += P^T.dO, then dK += dS^T.Q, over the stage's QK q rows
+        const int qq0 = G::QK * (i - 2 * nS);
+        rank_update<G::QK, G::PROW, 2 * G::W, G::W / 2>(
+            dva, p_s + qq0 * G::PROW + 8 * og, st + ocol);
+        rank_update<G::QK, G::PROW, 2 * G::W, G::W / 2>(
+            dka, ds_s + qq0 * G::PROW + 8 * og, st + G::W + ocol);
+      }
+      if (++i == ipt) {
+        i = 0;
+        ++t;
+      }
+    }
+    hopper::cp_async_wait<0>();
+    // the other CTAs of the cluster are done reading this one's partials
+    if (nc > 1 && total > 0) hopper::cluster_wait();
+
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int kr = c0 + 8 * og + r;
+      if (kr >= Sk) continue;
+      const size_t base = (((size_t)bhk * Sk + kr) * D + cw0 + ocol) / 4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        store4(dk, base + G::W / 8 * c, dka[r][c]);
+        store4(dv, base + G::W / 8 * c, dva[r][c]);
+      }
     }
   }
 }
 
-// B*H (B*HK) on x (2^31 - 1), the row blocks on y, the column slices on z
+// B*H (B*HK) on x (2^31 - 1), the row blocks on y, the column slices on
+// z, a cluster of up to 8 slices; bf16 (no keys or no queries) writes
+// zeros and takes no shared memory
 template <typename T, bool DROP>
 int launch_dq_wide(const Args& a, int D, void* dq) {
+  using G = DqWide;
   if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int W = wide::slice(D);
-  const int rows = WIDE_Q_THREADS / (W / 32);
-  const dim3 grid(a.B * a.H, (a.Sq + rows - 1) / rows, D / W);
-  auto kernel = D > wide::SPLIT ? flash_dq_kernel_wide<T, true, DROP>
-                                : flash_dq_kernel_wide<T, false, DROP>;
-  kernel<<<grid, WIDE_Q_THREADS, 0, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
-      static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D,
-      a.causal, a.scale, a.drop);
-  return static_cast<int>(cudaGetLastError());
+  const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
+  static const bool sized =
+      hopper::allow_smem(flash_dq_kernel_wide<T, DROP>, smem);
+  if (!sized) return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch_clusters(
+      flash_dq_kernel_wide<T, DROP>,
+      dim3(a.B * a.H, (a.Sq + G::BQ - 1) / G::BQ, D / G::W), G::THREADS, smem,
+      min(D / G::W, G::MAX_NC), a.st, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(dq),
+      a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D, a.causal, a.scale, a.drop);
 }
 
+template <typename T, int ROWS, bool DROP>
+int launch_dkv_wide_rows(const Args& a, int D, void* dk, void* dv) {
+  using G = DkvWide<ROWS>;
+  const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
+  static const bool sized =
+      hopper::allow_smem(flash_dkv_kernel_wide<T, ROWS, DROP>, smem);
+  if (!sized) return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch_clusters(
+      flash_dkv_kernel_wide<T, ROWS, DROP>,
+      dim3(a.B * a.HK, (a.Sk + G::ROWS - 1) / G::ROWS, D / G::W), G::THREADS,
+      smem, min(D / G::W, G::MAX_NC), a.st, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(dk),
+      static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D,
+      a.causal, a.scale, a.drop);
+}
+
+// dk/dv takes 32 key rows x 512 columns a CTA while one cluster of 8
+// spans the row (D <= 4096), and 16 x 1024 past it (above, DkvWide; bf16,
+// which only writes zeros here, takes the first)
 template <typename T, bool DROP>
 int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
   if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int W = wide::slice(D);
-  const int rows = WIDE_KV_THREADS / (W / 16);
-  const dim3 grid(a.B * a.HK, (a.Sk + rows - 1) / rows, D / W);
-  auto kernel = D > wide::SPLIT ? flash_dkv_kernel_wide<T, true, DROP>
-                                : flash_dkv_kernel_wide<T, false, DROP>;
-  kernel<<<grid, WIDE_KV_THREADS, 0, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
-      static_cast<T*>(dk), static_cast<T*>(dv), a.q_ids, a.kv_ids, a.H,
-      a.HK, a.Sq, a.Sk, D, a.causal, a.scale, a.drop);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2)
+    return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
+  else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)
+    return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
+  else
+    return launch_dkv_wide_rows<T, 16, DROP>(a, D, dk, dv);
 }
 
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
@@ -2043,11 +2361,11 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The CUDA-core dq and dk/dv bodies at D 512 and the wide CUDA-core ones
-// at D >= 1024, whatever the dtype (same arguments as above): bf16 routes
-// to the wide tensor-core bodies there, and these let a measurement time
-// the CUDA-core bodies beside them on the same inputs.  Any other width
-// is refused.
+// The CUDA-core dq and dk/dv bodies at D 512, whatever the dtype (same
+// arguments as above): bf16 there routes to the wide tensor-core bodies,
+// and these let a measurement time the CUDA-core bodies beside them on
+// the same inputs.  Any other width is refused (from D 1024 f32 routes
+// to the wide CUDA-core bodies, and bf16 has no CUDA-core body there).
 extern "C" int apex_flash_dq_cuda_cores(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, const void* q_ids,
@@ -2058,25 +2376,17 @@ extern "C" int apex_flash_dq_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D == 512 && dtype == F32)
+  if (D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == F32)
     return drop ? route_dq<float, true>(a, D, dq) : route_dq<float, false>(a, D, dq);
-  if (D == 512 && dtype == BF16) {
+  if (dtype == BF16) {
     if (drop)
       launch_dq<__nv_bfloat16, 512, true>(a, dq);
     else
       launch_dq<__nv_bfloat16, 512, false>(a, dq);
     return static_cast<int>(cudaGetLastError());
   }
-  if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case F32:
-      return drop ? launch_dq_wide<float, true>(a, D, dq)
-                  : launch_dq_wide<float, false>(a, D, dq);
-    case BF16:
-      return drop ? launch_dq_wide<__nv_bfloat16, true>(a, D, dq)
-                  : launch_dq_wide<__nv_bfloat16, false>(a, D, dq);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int apex_flash_dkv_cuda_cores(
@@ -2089,24 +2399,16 @@ extern "C" int apex_flash_dkv_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D == 512 && dtype == F32)
+  if (D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == F32)
     return drop ? route_dkv<float, true>(a, D, dk, dv)
                 : route_dkv<float, false>(a, D, dk, dv);
-  if (D == 512 && dtype == BF16) {
+  if (dtype == BF16) {
     if (drop)
       launch_dkv<__nv_bfloat16, 512, true>(a, dk, dv);
     else
       launch_dkv<__nv_bfloat16, 512, false>(a, dk, dv);
     return static_cast<int>(cudaGetLastError());
   }
-  if (D < wide::MIN_D) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case F32:
-      return drop ? launch_dkv_wide<float, true>(a, D, dk, dv)
-                  : launch_dkv_wide<float, false>(a, D, dk, dv);
-    case BF16:
-      return drop ? launch_dkv_wide<__nv_bfloat16, true>(a, D, dk, dv)
-                  : launch_dkv_wide<__nv_bfloat16, false>(a, D, dk, dv);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -646,22 +646,12 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
   if (!sized) return static_cast<int>(cudaErrorInvalidValue);
   // B*H on x (2^31 - 1), the q blocks on y, the column slices on z, a
   // cluster of min(D/1024, 8) slices
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::W);
-  cfg.blockDim = dim3(G::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = min(D / G::W, G::MAX_NC);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, flash_fwd_kernel_wide<T, DROP>, static_cast<const T*>(q),
+  return hopper::launch_clusters(
+      flash_fwd_kernel_wide<T, DROP>,
+      dim3(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::W), G::THREADS, smem,
+      min(D / G::W, G::MAX_NC), stream, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      lse, q_ids, kv_ids, H, HK, Sq, Sk, D, causal, scale, drop));
+      lse, q_ids, kv_ids, H, HK, Sq, Sk, D, causal, scale, drop);
 }
 
 // ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 // (wgmma) with their fence / commit / wait, shared-memory matrix
 // descriptors for the 128-byte swizzle, mbarrier helpers, the TMA tile
 // load, and the host-side encoding of the TMA tensor maps; the cp.async
-// copies, cluster barrier and distributed shared-memory reads of the
-// CUDA-core wide forward; the dropout hash and the wide bodies' widths.
+// copies, cluster launch, cluster barriers and distributed shared-memory
+// reads of the CUDA-core wide bodies; the dropout hash and the wide
+// bodies' widths.
 //
 // Conventions, after PTX ISA 8.x (wgmma.mma_async, cp.async.bulk.tensor,
 // mbarrier) and CUTLASS's cute/arch/mma_sm90_desc.hpp and
@@ -135,6 +136,18 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync, apart: a CTA arrives once it is done
+// reading the others' shared memory and waits only before it next writes
+// what they read, so the barrier's latency hides behind the work between.
+// Every thread calls them in turn (arrive, wait, arrive, ...).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -305,6 +318,28 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int cols, int rows,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// `kernel` on `grid` (`threads` a CTA, `smem` bytes of dynamic shared
+// memory) with the grid's z in clusters of nc CTAs: cudaLaunchKernelEx
+// with the cluster-dimension attribute.  A refused launch returns its
+// error.
+template <typename Kern, typename... Ts>
+int launch_clusters(Kern kernel, dim3 grid, int threads, int smem, int nc,
+                    cudaStream_t st, Ts... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = nc;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
 // A kernel may take more than 48 KB of dynamic shared memory only once it
 // has asked for it; asked once per instantiation (the first launch).
 template <typename Kern>
@@ -383,16 +418,8 @@ __device__ __forceinline__ float apply(const Params& d, uint32_t key, float x) {
 }  // namespace dropout
 
 // ---------------------------------------------------------------------------
-// the wide flash bodies' widths and row sums (head dims from 512)
+// the wide flash bodies' widths (head dims from 512)
 // ---------------------------------------------------------------------------
-//
-// Past D 512 a row of the CUDA-core dq and dk/dv bodies spans whole warps
-// (W/32 threads in dq, W/16 in dk/dv, W the row's columns a CTA owns; the
-// forward keeps its rows in register tiles instead, csrc/flash_fwd.cu),
-// so its dot products meet across warps through shared memory: a
-// shuffle tree in each warp, lane 0's sum stored, one barrier, then every
-// thread of the row adds its row's warps' sums in warp order.  A fixed
-// order and no atomics: the same bits every run.
 namespace wide {
 
 constexpr int MIN_D = 1024;   // the narrowest wide width (the CUDA cores)
@@ -400,43 +427,12 @@ constexpr int MIN_D = 1024;   // the narrowest wide width (the CUDA cores)
 // their slices (256 columns of O, dK and dV, 512 of dQ), so bf16 at D 512
 // (and 257..511, padded to it) runs them too (tc_takes).
 constexpr int TC_MIN_D = 512;
-// The widest row one CUDA-core dq or dk/dv CTA owns: the dk/dv body holds a key row's
-// k, v, dk and dv over its W columns (4·W f32) in one CTA's registers, and
-// at W 16384 those alone would be the 65,536 32-bit registers of an SM.
-// A wider head is a multiple of SPLIT and its columns are split over
-// D/SPLIT CTAs on the grid's z (slice()); each computes the dot products
-// over the whole D, slice by slice in one order, so every slice gets the
-// same scores, bit for bit.
+// A head wider than SPLIT pads to a multiple of it, which every wide
+// body's column slice divides (256, 512 and 1024 columns a CTA), and so
+// does a cluster of 8 of the f32 bodies' 1024-column slices.  Where a
+// row block has more than one cluster, each computes the scores over the
+// whole D, in one order, so all get the same bits.
 constexpr int SPLIT = 8192;
-constexpr int GROUP = 8;      // keys (query rows in dk/dv) summed a barrier
-
-// Sums each x[j] over the `nw` warps from `w0` that share this thread's
-// row.  `red` holds N floats a warp of the CTA; the caller alternates two
-// such buffers, so one barrier a call is enough (a thread that writes a
-// buffer again has passed the barrier that every reader of its last use
-// reached after reading).  Every thread of the CTA calls it.
-template <int N>
-__device__ __forceinline__ void row_sums(float (&x)[N], float* red, int w0,
-                                         int nw) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x[j] += __shfl_xor_sync(0xffffffffu, x[j], off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) red[warp * N + j] = x[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float t = red[w0 * N + j];
-    for (int w = 1; w < nw; ++w) t += red[(w0 + w) * N + j];
-    x[j] = t;
-  }
-}
 
 // The wide widths: the powers of two 1024..8192, then the multiples of
 // 8192 (ops/attention.py:_kernel_width pads every head dim to one).
@@ -448,11 +444,6 @@ __host__ __device__ constexpr bool takes(int D) {
 // The widths of the wide tensor-core bodies: 512 and every wide width.
 __host__ __device__ constexpr bool tc_takes(int D) {
   return D == TC_MIN_D || takes(D);
-}
-
-// The columns of a row one CUDA-core wide CTA owns at width D.
-__host__ __device__ constexpr int slice(int D) {
-  return D < SPLIT ? D : SPLIT;
 }
 
 }  // namespace wide

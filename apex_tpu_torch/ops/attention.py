@@ -445,9 +445,9 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     (``..._kernel_tc_wide``: bf16 at 512 and every width from 1024, a CTA
     on a slice of the output's columns: 256 of O's, 512 of dQ's, 256 of
     dK's and dV's) or "wide CUDA cores" (``..._kernel_wide``: f32 from
-    1024; the forward a CTA on 32 rows and 1024 of O's columns in
-    register tiles, dq and dk/dv a CTA on the whole row up to 8192 and on
-    8192 of its columns past it).  The C dispatchers of
+    1024, register tiles over a thread-block cluster of column slices: a
+    CTA on 32 rows and 1024 of O's or dQ's columns, or on 32 key rows and
+    512 of dK's and dV's, 16 and 1024 past D 4096).  The C dispatchers of
     ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
     apart from a forward with no keys (it takes the CUDA cores up to 512,
     the wide CUDA cores past it)."""
@@ -477,11 +477,10 @@ def _kernel_width(d: int) -> int:
     """The kernel width a head dim runs at: the next of
     :data:`HEAD_DIMS`, and past 8192 the next multiple of
     :data:`WIDE_SPLIT` (the reference pads D to its lanes the same way, and
-    takes any D).  The f32 wide dq and dk/dv split a row that wide into
-    CTAs of 8192 columns each (one CTA could not hold a key row's k, v, dk
-    and dv in registers past 8192), the f32 wide forward into slices of
-    1024 columns, the bf16 bodies into their slices of 256 and 512
-    columns, which every multiple of 8192 holds whole."""
+    takes any D).  The f32 wide bodies split a row into slices of 1024
+    columns (512 in dk/dv up to D 4096), a cluster of up to 8 slices
+    sharing the scores; the bf16 bodies into their slices of 256 and 512
+    columns.  Every multiple of 8192 holds whole clusters and slices."""
     for w in HEAD_DIMS:
         if d <= w:
             return w

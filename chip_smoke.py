@@ -2007,9 +2007,9 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
     """The dq and dk/dv kernels, each launched on its own with the
     arguments the wrapper gives them (to time each).  ``cuda_cores``:
     the CUDA-core bodies instead, through their own entry points
-    (``apex_flash_{dq,dkv}_cuda_cores``: D 512's, and the wide ones from
-    1024; not counted as launches), to time them beside the routed
-    bodies on the same inputs.  ``out``: a list that receives the (dq, dk, dv) tensors the
+    (``apex_flash_{dq,dkv}_cuda_cores``: D 512's; not counted as
+    launches), to time them beside the routed bodies on the same
+    inputs.  ``out``: a list that receives the (dq, dk, dv) tensors the
     calls write."""
     import ctypes
     import torch
@@ -3774,24 +3774,26 @@ def wide_head_phase(dev, smi: str) -> dict:
     at 256 and 512 on the CUDA-core bodies (dynamic shared memory); bf16
     at 512 and from 1024 (D 640 padded to it; past 8192 the next multiple
     of 8192, F7) on the wide tensor-core bodies, f32 from 1024 on the
-    wide CUDA-core bodies (the forward in register tiles, 1024 of O's
-    columns a CTA; dq and dk/dv a row's sums across warps, a row's
-    columns split over CTAs past 8192).  Each WIDE_CASES case causal,
-    forward with lse, dq and dk/dv against the twins (ATTN_TOL), the same
-    bits twice, each body's route and DROP instantiation read from the
-    device kernels' names; then, for ``SelfMultiheadAttn(1024, 4)`` (D
+    wide CUDA-core bodies (register tiles, the column slices of a row
+    block a thread-block cluster sharing the scores: 1024 of O's and dQ's
+    columns a CTA, 512 of dK's and dV's up to D 4096).  Each WIDE_CASES
+    case causal, forward with lse, dq and dk/dv against the twins
+    (ATTN_TOL), the same bits twice, each body's route and DROP
+    instantiation read from the device kernels' names; then, for
+    ``SelfMultiheadAttn(1024, 4)`` (D
     256), ``(2048, 4)`` (D 512) and ``(2048, 2)`` (D 1024), the three
     bodies timed at the module's (8, heads, 512, D) bf16 causal shape,
-    rate 0 and 0.1, beside the twin, SDPA and the bound (the wide
-    tensor-core dq and dk/dv also beside the CUDA-core bodies in turns),
-    and f32 at that shape beside SDPA's f32; each module trained 2 steps
-    at each rate (forward, backward, an SGD update of its params), finite
-    losses, exact launch counts and the routes of a profiled step; the
-    bf16 forward, dq and dk/dv at D 2048, 4096 and 8192 held and timed
-    (``_wide_widths``), and the f32 forward there (``_wide_f32_forward``);
-    the ptxas registers and spills of the D-256 and wide tensor-core
-    bodies and of the f32 wide forward.  Returns {kernel: {"d256": its
-    D-256 figures, "d512": ..., "d1024": ...}}."""
+    rate 0 and 0.1, beside the twin, SDPA and the bound (at D 512 the
+    wide tensor-core dq and dk/dv also beside the CUDA-core bodies in
+    turns), and f32 at that shape beside SDPA's f32; each module trained
+    2 steps at each rate (forward, backward, an SGD update of its
+    params), finite losses, exact launch counts and the routes of a
+    profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
+    8192 held and timed (``_wide_widths``), and the f32 ones there
+    (``_wide_f32_widths``); the ptxas registers and spills of the D-256
+    and wide tensor-core bodies and of the f32 wide forward, dq and
+    dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
+    "d1024": ...}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import _build
@@ -3817,17 +3819,21 @@ def wide_head_phase(dev, smi: str) -> dict:
                 wide_ptxas.setdefault(kn, []).append(
                     f"{entry}: {regs}; {spill}")
 
-    # the f32 wide forward (register tiles on the CUDA cores), rate 0 and
-    # DROP: its registers and spills
-    found = _ptxas_report(_build.build_logs.get("flash_fwd", ""),
-                          "flash_fwd_kernel_wideIf")
-    _check(len(found) == 2, f"ptxas reported {len(found)} f32 wide forward "
-           f"bodies in flash_fwd, expected 2 (rate 0, DROP)")
-    for entry, regs, spill in found:
-        print(f"ptxas f32 wide forward body {entry}: {regs}; {spill} "
-              f"[{smi}]", flush=True)
-        wide_ptxas.setdefault("flash_fwd_f32", []).append(
-            f"{entry}: {regs}; {spill}")
+    # the f32 wide forward, dq and dk/dv (register tiles on the CUDA
+    # cores), rate 0 and DROP: their registers and spills
+    for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
+                    ("flash_bwd", "flash_dkv")):
+        found = _ptxas_report(_build.build_logs.get(lib, ""),
+                              FLASH_SYMS[kn] + "_wideIf")
+        # dk/dv: 32 and 16 key rows a CTA, each at rate 0 and DROP
+        want = 4 if kn == "flash_dkv" else 2
+        _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
+               f"{kn} bodies in {lib}, expected {want}")
+        for entry, regs, spill in found:
+            print(f"ptxas f32 wide {kn} body {entry}: {regs}; {spill} "
+                  f"[{smi}]", flush=True)
+            wide_ptxas.setdefault(kn + "_f32", []).append(
+                f"{entry}: {regs}; {spill}")
 
     gen = torch.Generator(device=dev).manual_seed(13)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -3906,13 +3912,12 @@ def wide_head_phase(dev, smi: str) -> dict:
     for kn, lines in wide_ptxas.items():
         if kn in rows:
             rows[kn]["d1024"]["ptxas"] = lines
-    rows["flash_fwd"]["d1024"]["ptxas_f32"] = wide_ptxas["flash_fwd_f32"]
+    for kn in FLASH_SYMS:
+        rows[kn]["d1024"]["ptxas_f32"] = wide_ptxas[kn + "_f32"]
     t0 = time.perf_counter()
     _wide_widths(dev, smi, gen, seed)
     wide_s["widths"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _wide_f32_forward(dev, smi, gen, seed)
-    wide_s["f32 forward widths"] = time.perf_counter() - t0
+    wide_s.update(_wide_f32_widths(dev, smi, gen, seed))
     print("phase seconds 34, its D-512, F5c and F7 part (D 512 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
@@ -3931,12 +3936,11 @@ def _in_turns(calls: dict, iters: int = 10) -> dict:
 
 
 def _wide_bwd_times(q, k, v, o, lse, do, rate, sd) -> dict:
-    """The routed dq and dk/dv (the wide tensor-core bodies for bf16 from
-    512) and the CUDA-core bodies of that width (D 512's, or the wide
-    ones from 1024) on the same inputs, in turns: {kernel: (routed ms,
-    CUDA-core ms)}, each the mean of its two turns.  The CUDA-core
-    bodies' gradients are held to the twin too, so the two time the same
-    function."""
+    """The routed dq and dk/dv (bf16 at D 512: the wide tensor-core
+    bodies) and the D-512 CUDA-core bodies on the same inputs, in turns:
+    {kernel: (routed ms, CUDA-core ms)}, each the mean of its two turns.
+    The CUDA-core bodies' gradients are held to the twin too, so the two
+    time the same function."""
     import torch
     from apex_tpu_torch.ops import attention as attn
     dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True, None,
@@ -3959,8 +3963,7 @@ def _wide_bwd_times(q, k, v, o, lse, do, rate, sd) -> dict:
                              ("flash_dkv", (dkv_call, cc_dkv))):
         t = _in_turns({"routed": routed, "cuda cores": cc})
         print(f"time {kn} {tuple(q.shape)} dropout {rate} in turns: routed "
-              f"{t['routed'][0]:.4f} / {t['routed'][1]:.4f} ms, "
-              f"{'wide ' if q.shape[-1] >= 1024 else ''}CUDA cores "
+              f"{t['routed'][0]:.4f} / {t['routed'][1]:.4f} ms, CUDA cores "
               f"{t['cuda cores'][0]:.4f} / {t['cuda cores'][1]:.4f} ms",
               flush=True)
         out[kn] = (sum(t["routed"]) / 2, sum(t["cuda cores"]) / 2)
@@ -4008,8 +4011,8 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     """The three flash bodies at ``SelfMultiheadAttn(cfg hidden, heads)``'s
     (batch, heads, seq, head dim) bf16 causal shape, rate 0 and 0.1,
     beside the twin, SDPA and the bound: {kernel: {"rate0": row,
-    "dropout": row}}.  From D 512 the wide tensor-core dq and dk/dv are
-    also timed beside the CUDA-core bodies of that width in turns
+    "dropout": row}}.  At D 512 the wide tensor-core dq and dk/dv are
+    also timed beside the D-512 CUDA-core bodies in turns
     (``cuda_cores_ms``); and the f32 bodies at that shape (rate 0) beside
     SDPA's f32 forward and backward."""
     import torch
@@ -4037,8 +4040,7 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                                               None, rate, sd)
         times = {"flash_fwd": _ms(fwd, 10), "flash_dq": _ms(dq_call, 10),
                  "flash_dkv": _ms(dkv_call, 10)}
-        cc = (_wide_bwd_times(q, k, v, o, lse, do, rate, sd)
-              if body["flash_dq"] == "wide tensor cores" else {})
+        cc = _wide_bwd_times(q, k, v, o, lse, do, rate, sd) if d == 512 else {}
         plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
                      q, k, v, True, None, None, rate, sd), 3, 1)}
         plain["flash_dq"] = plain["flash_dkv"] = _ms(
@@ -4067,8 +4069,8 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
             if kn in cc:
                 row.update(ms_in_turns=cc[kn][0], cuda_cores_ms=cc[kn][1])
                 turns = (f", in turns {cc[kn][0]:.4f} ms against the "
-                         f"{'wide ' if d >= 1024 else ''}CUDA-core body's "
-                         f"{cc[kn][1]:.4f} ({cc[kn][1] / cc[kn][0]:.2f}x)")
+                         f"CUDA-core body's {cc[kn][1]:.4f} "
+                         f"({cc[kn][1] / cc[kn][0]:.2f}x)")
             rows.setdefault(kn, {})["rate0" if rate == 0 else "dropout"] = row
             print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) bf16 causal dropout "
                   f"{rate} ({body[kn]}): kernel {times[kn]:.4f} ms "
@@ -4077,7 +4079,7 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                   f"{'forward' if kn == 'flash_fwd' else 'backward (dq, dk, dv)'}"
                   f" {lib[kn]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                   f" [{smi}]", flush=True)
-        if cc:
+        if body["flash_dq"] == "wide tensor cores":
             pair = times["flash_dq"] + times["flash_dkv"]
             print(f"time flash backward pair D {d} dropout {rate}: dq + "
                   f"dk/dv {pair:.4f} ms, {pair / lib['flash_dq']:.2f}x "
@@ -4115,6 +4117,11 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
               f"({backend}) {lib32:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; operations at the f32 FMA rate) [{smi}]",
               flush=True)
+    pair = rows["flash_dq"]["f32"]["ms"] + rows["flash_dkv"]["f32"]["ms"]
+    print(f"time flash backward pair D {d} ({b}, {h}, {s}, {d}) f32 causal "
+          f"dropout 0.0 ({body32['flash_dq']}): dq + dk/dv {pair:.4f} ms, "
+          f"{pair / lib_b:.2f}x SDPA f32's backward ({backend}) [{smi}]",
+          flush=True)
     del q32, k32, v32, do32, o32, lse32, calls
     return rows
 
@@ -4128,8 +4135,7 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
     """The bf16 forward, dq and dk/dv at ``WIDE_FWD_SHAPES``, causal,
     rate 0 and 0.1: held against the twins and to the same bits on a
     second call, then timed beside SDPA's forward and backward, the twin
-    and the bound, the wide dq and dk/dv also beside their CUDA-core
-    bodies in turns.  Every column slice computes the whole of S (and
+    and the bound.  Every column slice computes the whole of S (and
     dP), so the FLOP the tensor-core bodies execute grow with D while
     the useful ones (4·D a pair forward, 6·D dq, 8·D dk/dv), which the
     lines' TFLOP/s count, stay."""
@@ -4169,9 +4175,10 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
             _check(all(torch.equal(a, g) for a, g in zip(again, grads)),
                    f"flash backward {what}: the bits differ run to run")
             del again, wo, wlse, grads, wgrads
-            times = {"flash_fwd": _ms(fwd, 10)}
-            cc = _wide_bwd_times(q, k, v, o, lse, do, rate, sd)
-            times.update({kn: t[0] for kn, t in cc.items()})
+            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
+                                                  None, rate, sd)
+            times = {"flash_fwd": _ms(fwd, 10), "flash_dq": _ms(dq_call, 10),
+                     "flash_dkv": _ms(dkv_call, 10)}
             lib_fwd = _ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=rate), 10)
             qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -4187,8 +4194,7 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
                 bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
                 lib = lib_fwd if kn == "flash_fwd" else lib_bwd
                 extra = ("" if kn == "flash_fwd" else
-                         f", wide CUDA cores in turns {cc[kn][1]:.4f} ms, "
-                         f"twin (dq, dk, dv) {plain:.4f} ms")
+                         f", twin (dq, dk, dv) {plain:.4f} ms")
                 print(f"time {kn} D {d} {what} ({body[kn]}): kernel "
                       f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s useful)"
                       f"{extra}, SDPA "
@@ -4197,33 +4203,37 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
                       f"{bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
             pair = times["flash_dq"] + times["flash_dkv"]
             print(f"time flash backward pair D {d} {what}: dq + dk/dv "
-                  f"{pair:.4f} ms ({pair / lib_bwd:.2f}x SDPA's backward), "
-                  f"wide CUDA cores {cc['flash_dq'][1] + cc['flash_dkv'][1]:.4f}"
-                  f" ms [{smi}]", flush=True)
+                  f"{pair:.4f} ms ({pair / lib_bwd:.2f}x SDPA's backward) "
+                  f"[{smi}]", flush=True)
         del q, k, v, do
 
 
-def _wide_f32_forward(dev, smi: str, gen, seed) -> None:
-    """The f32 wide forward (register tiles on the CUDA cores, 1024 of O's
-    columns a CTA) at ``WIDE_FWD_SHAPES``, causal, rate 0 and 0.1: held
-    against the twin and to the same bits on a second call, then timed
-    beside SDPA's f32 forward (``_sdpa_f32``: no TF32), the twin and the
-    bound at the f32 FMA rate.  The column slices of a q block (a cluster
-    of up to 8 CTAs) share S's partial sums, so up to D 8192 the FLOP
-    executed are the useful ones (4·D a pair)."""
+def _wide_f32_widths(dev, smi: str, gen, seed) -> dict:
+    """The f32 wide forward, dq and dk/dv (register tiles on the CUDA
+    cores, the column slices of a row block a cluster sharing the
+    scores) at ``WIDE_FWD_SHAPES``, causal, rate 0 and 0.1: held against
+    the twins and to the same bits on a second call, then timed beside
+    SDPA's f32 forward and backward (``_sdpa_f32``: no TF32), the twin
+    and the bound at the f32 FMA rate.  Up to D 8192 one cluster spans a
+    row block, so the FLOP executed are the useful ones (4·D a pair
+    forward, 6·D dq, 8·D dk/dv).  Returns the seconds of its forward and
+    backward parts."""
     import torch
     from apex_tpu_torch.ops import attention as attn
 
     atol, rtol = ATTN_TOL["f32"]
+    secs = {"f32 forward widths": 0.0, "f32 backward widths": 0.0}
     for b, h, s, d in WIDE_FWD_SHAPES:
+        t0 = time.perf_counter()
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
                        for _ in range(4))
-        pairs = _pairs(None, b, h, s, True, dev)
-        nbytes, ops = _attn_costs(b, h, h, s, d, 4, pairs)["flash_fwd"]
-        bound_ms, bound_by = _bound(nbytes, ops)
-        backend, lib_f, _, lib_err = _sdpa_f32(q, k, v, do)
-        body = _flash_route_of(d, "f32")["flash_fwd"]
+        costs = _attn_costs(b, h, h, s, d, 4, _pairs(None, b, h, s, True,
+                                                     dev))
+        backend, lib_f, lib_b, lib_err = _sdpa_f32(q, k, v, do)
+        body = _flash_route_of(d, "f32")
+        secs["f32 forward widths"] += time.perf_counter() - t0
         for rate in (0.0, DROP_RATE):
+            t0 = time.perf_counter()
             sd = seed if rate else None
             fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None,
                                                True, rate, sd)
@@ -4232,23 +4242,58 @@ def _wide_f32_forward(dev, smi: str, gen, seed) -> None:
             wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate,
                                           sd)
             what = f"({b}, {h}, {s}, {d}) f32 causal dropout {rate}"
-            err = _held("flash_fwd", o, wo, atol, rtol, "o " + what)
+            errs = {"flash_fwd": _held("flash_fwd", o, wo, atol, rtol,
+                                       "o " + what)}
             _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
             _check(torch.equal(again[0], o) and torch.equal(again[1], lse),
                    f"flash forward {what}: the bits differ run to run")
-            del again, wo, wlse, o, lse
-            ms = _ms(fwd, 5)
-            plain = _ms(lambda: attn.flash_fwd_ref(q, k, v, True, None, None,
-                                                   rate, sd), 2, 1)
-            lib = (f"SDPA f32 forward ({backend}, within {lib_err:.2e} of "
-                   f"f64) {lib_f:.4f} ms (kernel {ms / lib_f:.2f}x)"
-                   if rate == 0 else "SDPA f32: no dropout case timed")
-            print(f"time flash_fwd D {d} {what} ({body}): kernel {ms:.4f} ms "
-                  f"({ops / ms / 1e9:.1f} TFLOP/s), max_abs_err "
-                  f"{err:.3e}, twin {plain:.4f} ms, {lib}, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; the f32 FMA rate) "
-                  f"[{smi}]", flush=True)
+            del again, wo, wlse
+            times = {"flash_fwd": _ms(fwd, 5)}
+            plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
+                q, k, v, True, None, None, rate, sd), 2, 1)}
+            secs["f32 forward widths"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, sd)
+            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                                        None, rate, sd)
+            for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                                    ("dq", "dk", "dv"), grads, wgrads):
+                err = _held(kn, g, w, atol, rtol, f"{gn} {what}")
+                errs[kn] = max(errs.get(kn, 0.0), err)
+            again = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None, rate, sd)
+            _check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                   f"flash backward {what}: the bits differ run to run")
+            del again, grads, wgrads
+            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
+                                                  None, rate, sd)
+            times.update(flash_dq=_ms(dq_call, 5), flash_dkv=_ms(dkv_call, 5))
+            plain["flash_dq"] = plain["flash_dkv"] = _ms(
+                lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                                           None, rate, sd), 2, 1)
+            del o, lse
+            for kn, ms in times.items():
+                nbytes, ops = costs[kn]
+                bound_ms, bound_by = _bound(nbytes, ops)
+                lib_ms = lib_f if kn == "flash_fwd" else lib_b
+                lib = (f"SDPA f32 {'forward' if kn == 'flash_fwd' else 'backward'}"
+                       f" ({backend}, within {lib_err:.2e} of f64) "
+                       f"{lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x)"
+                       if rate == 0 else "SDPA f32: no dropout case timed")
+                print(f"time {kn} D {d} {what} ({body[kn]}): kernel "
+                      f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
+                      f"max_abs_err {errs[kn]:.3e}, twin {plain[kn]:.4f} "
+                      f"ms, {lib}, bound {bound_ms:.4f} ms ({bound_by}; the "
+                      f"f32 FMA rate) [{smi}]", flush=True)
+            pair = times["flash_dq"] + times["flash_dkv"]
+            print(f"time flash backward pair D {d} {what}: dq + dk/dv "
+                  f"{pair:.4f} ms"
+                  + (f" ({pair / lib_b:.2f}x SDPA f32's backward)"
+                     if rate == 0 else "") + f" [{smi}]", flush=True)
+            secs["f32 backward widths"] += time.perf_counter() - t0
         del q, k, v, do
+    return secs
 
 
 def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:

@@ -235,8 +235,8 @@ def test_flash_sources_route_bf16_wide_backward_to_the_tensor_cores():
     ``flash_dq_kernel_tc_wide`` and ``flash_dkv_kernel_tc_wide`` ahead of
     the wide CUDA-core bodies, which f32 keeps; the header's width rule
     takes the powers of two to 8192 and the multiples of 8192 past it
-    (F7), as the wrappers' ``_kernel_width`` pads; the CUDA-core bodies
-    stay callable for bf16 through their own entry points."""
+    (F7), as the wrappers' ``_kernel_width`` pads; the D-512 CUDA-core
+    bodies keep their own entry points."""
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
     for kern, tc, fma in (("dq", "return launch_dq_tc_wide<DROP>(a, D, dq);",
@@ -253,6 +253,59 @@ def test_flash_sources_route_bf16_wide_backward_to_the_tensor_cores():
     assert "constexpr int SPLIT = 8192;" in hdr
     assert "(D <= SPLIT ? (D & (D - 1)) == 0 : D % SPLIT == 0)" in hdr
     assert tattn.WIDE_SPLIT == 8192
+
+
+@pytest.mark.parametrize("kern", ["dq", "dkv"])
+def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
+    """The f32 wide dq and dk/dv (register tiles on the CUDA cores) launch
+    their column slices as thread-block clusters of at most 8 CTAs (the
+    header's ``launch_clusters``: ``cudaLaunchKernelEx`` with the
+    cluster-dimension attribute, as the f32 wide forward), whose
+    partial scores meet through distributed shared memory between split
+    cluster barriers; the backward source has no atomics (one owner
+    thread an output element, a fixed order of sums) and no longer the
+    row sums across warps; dk/dv takes 32 key rows a CTA up to D 4096 and
+    16 past it; the CUDA-core entry points take D 512 alone (from 1024
+    f32 routes to the wide CUDA-core bodies, and bf16 has none there)."""
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    rows = "_rows" if kern == "dkv" else ""
+    launcher = bwd[bwd.index(f"int launch_{kern}_wide{rows}("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert "return hopper::launch_clusters(" in launcher
+    assert f"flash_{kern}_kernel_wide<T, {'ROWS, ' if rows else ''}DROP>," \
+        in launcher
+    assert "min(D / G::W, G::MAX_NC)" in launcher
+    if rows:
+        # 32 key rows x 512 columns while one cluster spans the row, 16 x
+        # 1024 past it
+        pick = bwd[bwd.index("int launch_dkv_wide("):]
+        pick = pick[:pick.index("\n}\n")]
+        assert "else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)\n    return " \
+            "launch_dkv_wide_rows<T, 32, DROP>(" in pick
+        assert "launch_dkv_wide_rows<T, 16, DROP>(" in pick
+    helper = hdr[hdr.index("int launch_clusters("):]
+    helper = helper[:helper.index("\n}\n")]
+    assert "cudaLaunchAttributeClusterDimension" in helper
+    assert "cudaLaunchKernelEx(&cfg, kernel, args...)" in helper
+    assert "static constexpr int MAX_NC = 8;" in bwd
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    assert "return hopper::launch_clusters(\n      flash_fwd_kernel_wide<T, " \
+        "DROP>," in fwd
+    body = bwd[bwd.index(f"flash_{kern}_kernel_wide(const T*"):]
+    body = body[:body.index("\n}\n")]
+    for call in ("hopper::cluster_sync()", "hopper::cluster_arrive()",
+                 "hopper::cluster_wait()", "part_sum<"):
+        assert call in body
+    for ptx in ("barrier.cluster.arrive.release", "barrier.cluster.wait."
+                "acquire", "ld.shared::cluster.f32", "cp.async.cg.shared"):
+        assert ptx in hdr
+    assert "atomicAdd" not in bwd and "atom." not in bwd
+    assert "row_sums" not in hdr + bwd and "wide::slice" not in bwd
+    entry = bwd[bwd.index(f"int apex_flash_{kern}_cuda_cores("):]
+    entry = entry[:entry.index("\n}\n")]
+    assert "if (D != 512) return static_cast<int>(cudaErrorInvalidValue);" \
+        in entry and f"launch_{kern}_wide" not in entry
 
 
 # the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):

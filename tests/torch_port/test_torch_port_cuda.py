@@ -626,6 +626,118 @@ def test_f32_wide_forward_slices_agree_bit_for_bit(cuda, d, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [2048, 16384])
+def test_f32_wide_backward_slices_agree_bit_for_bit(cuda, d, rate):
+    """The f32 wide dq's and dk/dv's column slices (1024 of dQ's, 512 of
+    dK's and dV's columns a CTA, 1024 past D 4096; a cluster of up to 8
+    sums the partials of S and dP in rank order, and where a row block
+    has more than one cluster each computes the whole of both) get the
+    same p and ds, bit for bit, the dropout keep included: with K made of
+    D/1024 copies of one 1024-column block every slice of dQ holds the
+    same bits, and with q and dO made of D/512 copies of one 512-column
+    block every slice of dK and of dV; held to the twin, causal, ragged
+    (Sq 70 against Sk 100), grouped-query heads, each kernel the f32 wide
+    body of its DROP instantiation.  K is scaled by 32/sqrt(D), so q.k
+    keeps the spread of random rows of width D (the copies' correlation
+    alone would widen it sqrt(D/1024) times)."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q, do = (torch.randn(1, 4, 70, 512, generator=g, device=cuda)
+             .repeat(1, 1, 1, d // 512) for _ in range(2))
+    k = torch.randn(1, 2, 100, 1024, generator=g, device=cuda).repeat(
+        1, 1, 1, d // 1024) * (32 / d ** 0.5)
+    v = torch.randn(1, 2, 100, d, generator=g, device=cuda)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda)
+    sd = seed if rate else None
+    o, lse = attn._flash_fwd_cuda(q, k, v, True, None, None, True, rate, sd)
+    dq, dk, dv = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None, None,
+                                      rate, sd)
+    torch.cuda.synchronize()
+    for t, w in ((dq, 1024), (dk, 512), (dv, 512)):
+        slices = t.split(w, dim=-1)
+        assert all(torch.equal(x, slices[0]) for x in slices[1:])
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None, None, rate,
+                              sd)
+    for a, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[torch.float32])
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None, None,
+                                 rate, sd)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+    _assert_f32_wide_backward(q, k, v, o, lse, do, True, None, rate, sd)
+
+
+def _assert_f32_wide_backward(q, k, v, o, lse, do, causal, seg, rate, sd):
+    """dq and dk/dv of this call each ran the f32 wide body of its DROP
+    instantiation (dk/dv's key rows a CTA, 32 up to D 4096 and 16 past
+    it, its middle template argument), read from the device kernels'
+    names."""
+    names = _device_kernel_names(lambda: attn._flash_bwd_cuda(
+        q, k, v, o, lse, do, causal, None, seg, rate, sd), "flash_",
+        want=("flash_dq_kernel_wide", "flash_dkv_kernel_wide"))
+    drop = str(bool(rate)).lower()
+    rows = 32 if attn._kernel_width(q.shape[-1]) <= 4096 else 16
+    for want in (f"flash_dq_kernel_wide<float, {drop}>",
+                 f"flash_dkv_kernel_wide<float, {rows}, {drop}>"):
+        assert any(want in n for n in names), (want, names)
+    assert all("_kernel_wide<float, " in n for n in names), names
+
+
+F32_WIDE_BWD_CASES = {
+    # name: (b, h, hk, sq, sk, d, causal, seg kind): the f32 wide dq and
+    # dk/dv (register tiles over a cluster of column slices) at ragged
+    # query and key lengths, grouped-query heads and packed segment ids,
+    # D 640 (padded to 1024), 1024, 2048 and 8200 (padded to 16384)
+    "d640_sq130_sk70_causal": (1, 4, 2, 130, 70, 640, True, None),
+    "d1024_sq70_sk200_gqa_causal": (1, 4, 2, 70, 200, 1024, True, None),
+    "d1024_gqa_packed_causal": (2, 4, 2, 130, 130, 1024, True, "packed"),
+    "d2048_sq130_sk70_gqa": (1, 4, 2, 130, 70, 2048, False, None),
+    "d2048_sq70_sk200_causal": (1, 2, 2, 70, 200, 2048, True, None),
+    "d8200_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 8200, True, None),
+    "d8200_gqa_packed": (1, 2, 1, 70, 70, 8200, False, "packed"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(F32_WIDE_BWD_CASES))
+def test_f32_wide_backward_matches_the_twin_on_card(cuda, name, rate):
+    """The f32 wide dq and dk/dv against ``flash_bwd_ref`` on the card's
+    own o and lse (f32 within 1e-4), rate 0 and 0.1: the same bits on a
+    second call; rows of padding (packed ids) and, causal with Sk > Sq,
+    keys that no row sees give exact zeros; each kernel the f32 wide body
+    of its DROP instantiation, read from the device kernels' names."""
+    b, h, hk, sq, sk, d, causal, kind = F32_WIDE_BWD_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(43)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=g, device=cuda)
+            for _ in range(2))
+    seg = None if kind is None else _seg(kind, b, sq, cuda)
+    seed = torch.tensor([-98765], dtype=torch.int32, device=cuda)
+    sd = seed if rate else None
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, sd)
+    got = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
+                               sd)
+    torch.cuda.synchronize()
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg, rate,
+                              sd)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[torch.float32])
+    if seg is not None:
+        pad = seg[0] < 0                                  # (B, S)
+        assert bool(pad.any())
+        for t in got:
+            assert torch.all(t.transpose(1, 2)[pad] == 0)
+    if causal and sk > sq:
+        assert torch.all(got[1][:, :, sq:] == 0)
+        assert torch.all(got[2][:, :, sq:] == 0)
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                 rate, sd)
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+    _assert_f32_wide_backward(q, k, v, o, lse, do, causal, seg, rate, sd)
+
+
+@pytest.mark.cuda
 def test_flash_attention_refuses_dropout_on_card(cuda):
     """Dropout runs on the card: forward and gradients at rate 0.1 on
     the tensor-core route against the twins at the same seed, one
