@@ -17,9 +17,9 @@
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
 //   padded to 256).
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 512 (the
-//   precision contract of docs/kernels.md: f32 operands stay true f32,
-//   no TF32) and bf16 at D 16 and 32.
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 dq up to D 512
+//   and f32 dk/dv up to D 128 (the precision contract of docs/kernels.md:
+//   f32 operands stay true f32, no TF32) and bf16 at D 16 and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -27,9 +27,11 @@
 //   wide::tc_takes), D a runtime width, a CTA on a slice of the output's
 //   columns (below).
 // - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
-//   at those widths, register tiles on the CUDA cores with the column
+//   at D >= 1024, register tiles on the CUDA cores with the column
 //   slices of a row block in a thread-block cluster that shares S and dP
-//   (below, before the entry points).
+//   (below, before the entry points); and flash_dkv_kernel_wide at f32 D
+//   256 and 512 (and the heads of 129..511, padded to them), where one
+//   CTA spans the row of dK and dV (wide::row_takes).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1623,9 +1625,9 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// wide CUDA-core bodies: f32 at D >= 1024 (wide::takes), and bf16 there
-// with no queries or no keys (bf16 otherwise takes the wide tensor-core
-// bodies, above)
+// wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and f32 dk/dv at
+// D 256 and 512 (wide::row_takes), and bf16 at D >= 1024 with no queries
+// or no keys (bf16 otherwise takes the tensor-core bodies, above)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
@@ -1667,17 +1669,21 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 //
 // dk/dv (DkvWide<ROWS>): a CTA owns ROWS key rows and W = 16384/ROWS
 // columns of both dK and dV (two accumulators of ROWS x W f32: 8 key
-// rows x 8 columns of each a thread), NC = min(D/W, 8).  ROWS is 32 (W
-// 512) while one cluster spans the row, D <= 4096, and 16 (W 1024) past
-// it: 32 rows give each staged q and dO word twice the reuse in S^T and
-// dP^T (7-18% faster on an H100 at D 1024..4096), but at D 8192 they
-// would need two clusters, each computing S^T and dP^T whole (16 rows
-// were 18% faster there: PERF.md, Findings).  A CTA walks the GQA
-// group's query heads in order and, inside each, q tiles of 64 rows
-// from the first row that sees its key block under the causal mask;
-// lse, di and the q segment ids are staged beside each tile.  dV +=
-// P^T.dO, then dK += dS^T.Q, from stages of 8 (ROWS 16: 4) query rows of
-// dO and q over the slice's columns: every dO and q word feeds 8 FMAs.
+// rows x 8 columns of each a thread), NC = min(D/W, 8).  ROWS is 64 (W
+// 256) at D 256, 32 (W 512) from D 512 while one cluster spans the row,
+// D <= 4096, and 16 (W 1024) past it: more rows give each staged q and
+// dO word more reuse in S^T and dP^T (32 rows were 7-18% faster than 16
+// on an H100 at D 1024..4096), but at D 8192 32 rows would need two
+// clusters, each computing S^T and dP^T whole (16 rows were 18% faster
+// there: PERF.md, Findings).  At D 256 and 512 one CTA spans the row (NC
+// 1: no cluster barrier, the partials read from its own shared memory);
+// at 64 rows the ring has four stages (five and the partials would not
+// fit beside one another).  A CTA walks the GQA group's query heads in
+// order and, inside each, q tiles of 64 rows from the first row that
+// sees its key block under the causal mask; lse, di and the q segment
+// ids are staged beside each tile.  dV += P^T.dO, then dK += dS^T.Q, from
+// stages of 4096/W query rows of dO and q over the slice's columns: every
+// dO and q word feeds 8 FMAs.
 //
 // No FLOP repeats while one cluster spans the row, up to D 8192 (6D a
 // visible pair in dq, 8D in dk/dv).  Past that a row block has D/8192
@@ -1715,25 +1721,33 @@ static_assert(DqWide::W / 4 == DqWide::THREADS,
 
 template <int ROWS_>
 struct DkvWide : BwdWide {
-  static constexpr int ROWS = ROWS_;            // key rows a CTA (32 or 16)
+  static constexpr int ROWS = ROWS_;            // key rows a CTA (64, 32 or 16)
   static constexpr int W = 16384 / ROWS;        // dK's and dV's columns a CTA
   static constexpr int KS = 64 / ROWS;          // S^T: parts of a stage's columns
   static constexpr int RS = ROWS / 4;           // S^T: key rows rg + RS a
   static constexpr int TPR = THREADS / ROWS;    // p and dS: threads a key row
   static constexpr int CG = W / 8;              // dK, dV: threads a row group
-  static constexpr int QK = STAGE / (2 * W);    // dO and Q rows a stage
+  static constexpr int QK = BwdWide::STAGE / (2 * W);   // dO and Q rows a stage
   static constexpr int PROW = ROWS + 4;         // p's (dS's) query row (floats)
-  static constexpr int P_OFF = TILE_OFF;
+  // a ring stage: an update stage's 32 KB, or an S^T (dP^T) stage where
+  // it is larger (64 rows: 34 KB)
+  static constexpr int STAGE = (ROWS + TILE) * PAD > BwdWide::STAGE
+                                   ? (ROWS + TILE) * PAD : BwdWide::STAGE;
+  // past the ring: S^T's and dP^T's partials, p, dS, and the tile's lse,
+  // di and q ids; the ring has five stages where they fit beside it (one
+  // CTA an SM), four at 64 rows
+  static constexpr int TAIL = 2 * SPART + 2 * TILE * PROW + 3 * TILE;
+  static constexpr int STAGES = (5 * STAGE + TAIL) * 4 <= 227 * 1024 ? 5 : 4;
+  static constexpr int S_OFF = STAGES * STAGE;
+  static constexpr int DP_OFF = S_OFF + SPART;
+  static constexpr int P_OFF = DP_OFF + SPART;
   static constexpr int DS_OFF = P_OFF + TILE * PROW;
   static constexpr int ROW_OFF = DS_OFF + TILE * PROW;   // lse, di, q ids
   static constexpr int SMEM = (ROW_OFF + 3 * TILE) * 4;
+  static_assert(KS * RS * 16 == THREADS, "the S^T tiles cover the CTA's threads");
+  static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
-static_assert(DkvWide<32>::KS * DkvWide<32>::RS * 16 == BwdWide::THREADS &&
-                  DkvWide<16>::KS * DkvWide<16>::RS * 16 == BwdWide::THREADS,
-              "the S^T tiles cover the CTA's threads");
-static_assert(DkvWide<32>::SMEM <= 227 * 1024 &&
-                  DkvWide<16>::SMEM <= 227 * 1024 && DqWide::SMEM <= 227 * 1024,
-              "one CTA an SM");
+static_assert(DqWide::SMEM <= 227 * 1024, "one CTA an SM");
 
 // acc[a][b] += the dot products of A's rows ra + RS a with B's rows rb +
 // 16 b over NF float4 columns from c of a staged pair (PAD floats a row)
@@ -1797,23 +1811,6 @@ __device__ __forceinline__ void part_store(float* pb, float (&acc)[4][4],
       pb[(r + RS * a) * BwdWide::SROW + cb + 16 * b] = acc[a][b];
       acc[a][b] = 0.f;
     }
-}
-
-// The sum of a score's NP parts (at p, NR rows apart) over the cluster's
-// nc CTAs, in rank order: every CTA of the cluster gets the same bits
-template <int NP, int NR>
-__device__ __forceinline__ float part_sum(const float* p, int nc) {
-  float dot = 0.f;
-  for (int r = 0; r < nc; ++r) {
-    float x = nc == 1 ? p[0] : hopper::ld_cluster(p, r);
-#pragma unroll
-    for (int s = 1; s < NP; ++s) {
-      const float* ps = p + s * NR * BwdWide::SROW;
-      x += nc == 1 ? *ps : hopper::ld_cluster(ps, r);
-    }
-    dot = r == 0 ? x : dot + x;
-  }
-  return dot;
 }
 
 // acc[r][c] += w[x][r] * X[x][c] over N rows x: the 8 weights of row x
@@ -1958,8 +1955,8 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
             for (int x = 0; x < 8; ++x) {
               const int key = sp + 8 * x, col = k0 + key;
               const int o = sr * G::SROW + key;
-              const float dot = part_sum<2, G::BQ>(sm + G::S_OFF + o, nc);
-              float dp = part_sum<2, G::BQ>(sm + G::DP_OFF + o, nc);
+              const float dot = wide::part_sum<2, G::BQ * G::SROW>(sm + G::S_OFF + o, nc);
+              float dp = wide::part_sum<2, G::BQ * G::SROW>(sm + G::DP_OFF + o, nc);
               const bool ok = srow_ok && col < Sk && (!causal || col <= srow) &&
                               (!seg || kv_ids[(size_t)b * Sk + col] == qid);
               const float p = prob(ok, dot, scale, lse_r);
@@ -2065,7 +2062,7 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       } else {
         constexpr int R4 = G::W / 4;
 #pragma unroll
-        for (int x = 0; x < G::STAGE / 4 / G::THREADS; ++x) {
+        for (int x = 0; x < BwdWide::STAGE / 4 / G::THREADS; ++x) {
           const int f = tid + x * G::THREADS;   // the stage's float4
           const int w = f % (2 * R4), row = r0 + G::QK * (i - 2 * nS) + f / (2 * R4);
           hopper::cp_async16(
@@ -2144,8 +2141,8 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
             for (int x = 0; x < G::TILE / G::TPR; ++x) {
               const int qr = sp + G::TPR * x, row = r0 + qr;
               const int o = sr * G::SROW + qr;
-              const float dot = part_sum<G::KS, G::ROWS>(sm + G::S_OFF + o, nc);
-              float dp = part_sum<G::KS, G::ROWS>(sm + G::DP_OFF + o, nc);
+              const float dot = wide::part_sum<G::KS, G::ROWS * G::SROW>(sm + G::S_OFF + o, nc);
+              float dp = wide::part_sum<G::KS, G::ROWS * G::SROW>(sm + G::DP_OFF + o, nc);
               const bool ok = key_ok && row < Sq && (!causal || key <= row) &&
                               (!seg || qid_s[qr] == kid);
               const float p = prob(ok, dot, scale, lse_s[qr]);
@@ -2229,26 +2226,47 @@ int launch_dkv_wide_rows(const Args& a, int D, void* dk, void* dv) {
       a.causal, a.scale, a.drop);
 }
 
-// dk/dv takes 32 key rows x 512 columns a CTA while one cluster of 8
-// spans the row (D <= 4096), and 16 x 1024 past it (above, DkvWide; bf16,
-// which only writes zeros here, takes the first)
+// dk/dv takes 64 key rows x 256 columns a CTA at D 256 and 32 x 512 from
+// D 512 (f32 at 256 and 512: one CTA spans the row), the latter while one
+// cluster of 8 spans the row (D <= 4096), and 16 x 1024 past it (above,
+// DkvWide; bf16, which only writes zeros here, takes 32 x 512)
 template <typename T, bool DROP>
 int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
-  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide::takes(D) && !(sizeof(T) == 4 && wide::row_takes(D)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2)
     return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
+  else if (D == DkvWide<64>::W)
+    return launch_dkv_wide_rows<T, 64, DROP>(a, D, dk, dv);
   else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)
     return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
   else
     return launch_dkv_wide_rows<T, 16, DROP>(a, D, dk, dv);
 }
 
+// The CUDA-core dq body of width D
+template <typename T, bool DROP>
+int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
+  switch (D) {
+    case 16: launch_dq<T, 16, DROP>(a, dq); break;
+    case 32: launch_dq<T, 32, DROP>(a, dq); break;
+    case 64: launch_dq<T, 64, DROP>(a, dq); break;
+    case 128: launch_dq<T, 128, DROP>(a, dq); break;
+    case 256: launch_dq<T, 256, DROP>(a, dq); break;
+    case 512: launch_dq<T, 512, DROP>(a, dq); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
 // the tensor cores, and at D 512 and every wide width (D >= 1024,
 // wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
-// wide CUDA-core bodies, everything else (f32 at every width up to 512,
-// bf16 at 16 and 32) the CUDA-core bodies of their width; a seed takes
-// each body's DROP instantiation.
+// wide CUDA-core bodies (register tiles), and f32 dk/dv at 256 and 512
+// too (wide::row_takes: one CTA spans the row), everything else (f32 dq
+// at every width up to 512, f32 dk/dv up to 128, bf16 at 16 and 32) the
+// CUDA-core bodies of their width; a seed takes each body's DROP
+// instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2258,13 +2276,19 @@ int route_dq(const Args& a, int D, void* dq) {
     if (wide::tc_takes(D)) return launch_dq_tc_wide<DROP>(a, D, dq);
   }
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
+  return launch_dq_cuda_cores<T, DROP>(a, D, dq);
+}
+
+// The CUDA-core dk/dv body of width D
+template <typename T, bool DROP>
+int launch_dkv_cuda_cores(const Args& a, int D, void* dk, void* dv) {
   switch (D) {
-    case 16: launch_dq<T, 16, DROP>(a, dq); break;
-    case 32: launch_dq<T, 32, DROP>(a, dq); break;
-    case 64: launch_dq<T, 64, DROP>(a, dq); break;
-    case 128: launch_dq<T, 128, DROP>(a, dq); break;
-    case 256: launch_dq<T, 256, DROP>(a, dq); break;
-    case 512: launch_dq<T, 512, DROP>(a, dq); break;
+    case 16: launch_dkv<T, 16, DROP>(a, dk, dv); break;
+    case 32: launch_dkv<T, 32, DROP>(a, dk, dv); break;
+    case 64: launch_dkv<T, 64, DROP>(a, dk, dv); break;
+    case 128: launch_dkv<T, 128, DROP>(a, dk, dv); break;
+    case 256: launch_dkv<T, 256, DROP>(a, dk, dv); break;
+    case 512: launch_dkv<T, 512, DROP>(a, dk, dv); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -2278,17 +2302,10 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);
     if (wide::tc_takes(D)) return launch_dkv_tc_wide<DROP>(a, D, dk, dv);
   }
+  if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
-  switch (D) {
-    case 16: launch_dkv<T, 16, DROP>(a, dk, dv); break;
-    case 32: launch_dkv<T, 32, DROP>(a, dk, dv); break;
-    case 64: launch_dkv<T, 64, DROP>(a, dk, dv); break;
-    case 128: launch_dkv<T, 128, DROP>(a, dk, dv); break;
-    case 256: launch_dkv<T, 256, DROP>(a, dk, dv); break;
-    case 512: launch_dkv<T, 512, DROP>(a, dk, dv); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv_cuda_cores<T, DROP>(a, D, dk, dv);
 }
 
 template <typename T>
@@ -2361,11 +2378,12 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The CUDA-core dq and dk/dv bodies at D 512, whatever the dtype (same
-// arguments as above): bf16 there routes to the wide tensor-core bodies,
-// and these let a measurement time the CUDA-core bodies beside them on
-// the same inputs.  Any other width is refused (from D 1024 f32 routes
-// to the wide CUDA-core bodies, and bf16 has no CUDA-core body there).
+// The CUDA-core dq and dk/dv bodies at D 256 and 512, whatever the dtype
+// (same arguments as above): bf16 there routes to the tensor-core bodies
+// and f32 dk/dv to the register-tile body, and these let a measurement
+// time the CUDA-core bodies beside them on the same inputs.  Any other
+// width is refused (from D 1024 f32 routes to the wide CUDA-core bodies,
+// and bf16 has no CUDA-core body there).
 extern "C" int apex_flash_dq_cuda_cores(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, const void* q_ids,
@@ -2376,17 +2394,17 @@ extern "C" int apex_flash_dq_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D != 512) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == F32)
-    return drop ? route_dq<float, true>(a, D, dq) : route_dq<float, false>(a, D, dq);
-  if (dtype == BF16) {
-    if (drop)
-      launch_dq<__nv_bfloat16, 512, true>(a, dq);
-    else
-      launch_dq<__nv_bfloat16, 512, false>(a, dq);
-    return static_cast<int>(cudaGetLastError());
+  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case F32:
+      return drop ? launch_dq_cuda_cores<float, true>(a, D, dq)
+                  : launch_dq_cuda_cores<float, false>(a, D, dq);
+    case BF16:
+      return drop ? launch_dq_cuda_cores<__nv_bfloat16, true>(a, D, dq)
+                  : launch_dq_cuda_cores<__nv_bfloat16, false>(a, D, dq);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int apex_flash_dkv_cuda_cores(
@@ -2399,16 +2417,15 @@ extern "C" int apex_flash_dkv_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D != 512) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == F32)
-    return drop ? route_dkv<float, true>(a, D, dk, dv)
-                : route_dkv<float, false>(a, D, dk, dv);
-  if (dtype == BF16) {
-    if (drop)
-      launch_dkv<__nv_bfloat16, 512, true>(a, dk, dv);
-    else
-      launch_dkv<__nv_bfloat16, 512, false>(a, dk, dv);
-    return static_cast<int>(cudaGetLastError());
+  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case F32:
+      return drop ? launch_dkv_cuda_cores<float, true>(a, D, dk, dv)
+                  : launch_dkv_cuda_cores<float, false>(a, D, dk, dv);
+    case BF16:
+      return drop ? launch_dkv_cuda_cores<__nv_bfloat16, true>(a, D, dk, dv)
+                  : launch_dkv_cuda_cores<__nv_bfloat16, false>(a, D, dk, dv);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,18 +22,20 @@
 // - tensor cores, flash_fwd_kernel_tc: bf16 at D 64, 128 and 256 (every
 //   path that trains through flash: GPT-2, BERT-Large, Llama-class heads,
 //   and the Gemma-class heads of 129..256, padded to 256).
-// - CUDA cores, flash_fwd_kernel: f32 up to D 512 (the serving path; the
+// - CUDA cores, flash_fwd_kernel: f32 up to D 128 (the serving path; the
 //   precision contract of docs/kernels.md makes f32 operands true f32,
-//   so no TF32), bf16 at D 16 and 32, and a call with no keys (Sk == 0)
-//   up to D 512.
+//   so no TF32), bf16 at D 16 and 32, and bf16 with no keys (Sk == 0) up
+//   to D 512.
 // - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 512 (and the
 //   heads of 257..511, padded to it) and D >= 1024 (the powers of two to
 //   8192, then the multiples of 8192: the wrapper pads every wider head
 //   to one; wide::tc_takes), D a runtime width; a CTA owns 256 of O's
 //   columns and computes S over the whole D (below, before the route).
-// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D >= 1024 (and bf16
-//   there with no keys), with D a runtime width: register tiles of S and
-//   O on the CUDA cores, a CTA on 32 query rows and 1024 of O's columns.
+// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 256 and 512 (and the
+//   heads of 129..511, padded to them) and at D >= 1024 (and bf16 there
+//   with no keys), with D a runtime width: register tiles of S and O on
+//   the CUDA cores, a CTA on 64 query rows and all of O's columns at 256
+//   and 512, on 32 rows and 1024 of them from 1024.
 //
 // All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -101,7 +103,10 @@
 // stops at the CTA's diagonal tile (the TPU kernel's clamped index map).
 // As in the tensor-core body, B*H rides the grid's x (up to 2^31 - 1, so
 // the flat row the dropout hash takes is never split over launches) and
-// the q blocks its y, heaviest first.
+// the q blocks its y, heaviest first.  Past D 128 f32 runs the
+// register-tile body (below); the D-256 and D-512 instantiations here
+// stay for bf16 with no keys and for apex_flash_fwd_cuda_cores, which
+// times them beside it.
 //
 // Every output element is owned by one CTA that sums in a fixed order:
 // no atomics, the same bits every run.
@@ -314,88 +319,113 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// wide body: f32 at D >= 1024 (wide::takes), and bf16 there with no keys
-// (bf16 with keys takes flash_fwd_kernel_tc_wide)
+// register-tile body: f32 at D 256 and 512 (wide::row_takes: one CTA
+// spans a row of O) and at D >= 1024 (wide::takes: a cluster of column
+// slices), and bf16 at D >= 1024 with no keys (bf16 with keys takes the
+// tensor cores)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
-// contract of docs/kernels.md).  A CTA of 256 threads owns BQ = 32 query
-// rows and W = 1024 of O's columns (blockIdx.z counts the D/1024 column
-// slices), O's 32 x 1024 f32 held in registers: each thread 8 rows x 16
-// columns (128 registers).  The slices of a q block form a thread-block
-// cluster of NC = min(D/1024, 8) CTAs (on the grid's z), and CTA r of the
-// cluster computes S's partial dot products over the D/NC columns [r D/NC,
-// (r+1) D/NC).  Each key tile of BK = 64 keys takes two passes over one
-// ring of cp.async stages in shared memory:
+// contract of docs/kernels.md).  A CTA of 256 threads owns BQ query rows
+// and W of O's columns (blockIdx.z counts the D/W column slices): from D
+// 1024 BQ = 32 and W = 1024, at D 256 and 512 BQ = 64 and W = D.  O's BQ
+// x W f32 sit in registers, each thread 8 rows x 4C columns (C = BQ W /
+// 8192 float4s a row: 128 registers at 1024 and 512, 64 at 256).  From D
+// 1024 the slices of a q block form a thread-block cluster of NC =
+// min(D/1024, 8) CTAs (on the grid's z), and CTA r of the cluster
+// computes S's partial dot products over the D/NC columns [r D/NC, (r+1)
+// D/NC); at 256 and 512 the one CTA of a q block computes S whole (NC =
+// 1: no cluster barrier, no remote read).  Each key tile of BK = 64 keys
+// takes two passes over one ring of cp.async stages in shared memory:
 //
 // - the partial S = Q.K^T over the CTA's D/NC columns, DC = 64 columns of
-//   Q's 32 rows and K's 64 keys a stage.  A thread owns a 4 x 4 block of
-//   S (rows rg + 8a, keys kg + 16b) over half of each stage's columns
-//   (two halves of the CTA split the columns), so every float4 it reads
-//   from shared memory feeds four of its FMAs.  The halves go to shared
-//   memory (two buffers, a tile's and the last one's), one cluster
-//   barrier, and each score is the sum over the cluster's CTAs, in rank
-//   order, of half 0 plus half 1, read through distributed shared
-//   memory: every CTA of the cluster gets the same scores, bit for bit.
-// - the online softmax: eight threads a row, eight keys each, the row's
-//   max and sum over three shuffles; P (after the dropout keep, as the
-//   reference applies it) and the rescale factor go to shared memory.
-// - O += P.V over the slice's V columns, VK = 8 keys a stage: each thread
-//   reads its 8 rows' p (a broadcast) and its 16 columns of each key row
-//   (float4s that a warp reads contiguously), every V word feeding 8 FMAs
-//   and every p word 16.
+//   Q's BQ rows and K's 64 keys a stage.  A thread owns a 4 x 4 block of
+//   S (rows rg + (BQ/4) a, keys kg + 16 b) over a part of each stage's
+//   columns (at 32 rows two halves of the CTA split them; at 64 one
+//   thread takes all 64), so every float4 it reads from shared memory
+//   feeds four of its FMAs.  The parts go to shared memory (two buffers,
+//   a tile's and the last one's), one barrier (a cluster barrier when NC
+//   > 1), and each score is the sum over the cluster's CTAs, in rank
+//   order, of its parts in order (read through distributed shared memory
+//   when NC > 1): every CTA of the cluster gets the same scores, bit for
+//   bit.
+// - the online softmax: 256/BQ threads a row (8 or 4), 64/(256/BQ) keys
+//   each, the row's max and sum over their shuffles; P (after the
+//   dropout keep, as the reference applies it) and the rescale factor go
+//   to shared memory.
+// - O += P.V over the slice's V columns, VK = 8192/W keys a stage (8, 16
+//   and 32): each thread reads its 8 rows' p (a broadcast) and its 4C
+//   columns of each key row (float4s that a warp reads contiguously),
+//   every V word feeding 8 FMAs and every p word 4C.
 //
-// One counter runs over every ring item ((D/NC)/64 S stages and 8 V
-// stages a tile, 32 KB a stage, five stages); a stage is loaded STAGES -
-// 1 items ahead of its use, once the barrier that opens an item shows
-// every thread done with the stage's last use.  Rows past Sq and keys
-// past Sk arrive as zeros (cp.async's source size 0).  (Stages of 32
-// columns and 4 keys, twice the barriers, were slower on an H100.)  So the slices share S, and no FLOP
-// repeats up to D 8192 (4D a pair); past it (F7) each cluster of 8
-// computes the whole of S (D/8192 clusters: (D/8192)·2D + 2D a pair), the
-// same partials in the same order, so every slice gets the same m, l and
-// p, bit for bit, the dropout keep included, and slice 0 writes the lse.
-// A cluster's CTAs see the same keys, so they meet at the same barriers;
-// a last one keeps each CTA's shared memory alive until the others have
-// read it.  Heaviest q blocks first, the key loop's stop at the CTA's
-// last visible key, and no atomics (every sum in a fixed order: the same
-// bits every run), as in the other bodies.  bf16 reaches this body only
-// with no keys (Sk == 0): its instantiation writes the zero rows and the
+// One counter runs over every ring item ((D/NC)/64 S stages and 64/VK V
+// stages a tile, 32 KB a stage (34 KB at 64 rows, for an S stage), five
+// stages); a stage is loaded STAGES - 1 items ahead of its use, once the
+// barrier that opens an item shows every thread done with the stage's
+// last use.  Rows past Sq and keys past Sk arrive as zeros (cp.async's
+// source size 0).  (Stages of 32 columns and 4 keys, twice the barriers,
+// were slower on an H100; the rows a CTA at D 256 and 512: PERF.md,
+// Findings.)  So the slices share S, and no FLOP repeats up to D 8192 (4D
+// a pair); past it (F7) each cluster of 8 computes the whole of S (D/8192
+// clusters: (D/8192)·2D + 2D a pair), the same partials in the same
+// order, so every slice gets the same m, l and p, bit for bit, the
+// dropout keep included, and slice 0 writes the lse.  A cluster's CTAs
+// see the same keys, so they meet at the same barriers; a last one keeps
+// each CTA's shared memory alive until the others have read it.
+// Heaviest q blocks first, the key loop's stop at the CTA's last visible
+// key, and no atomics (every sum in a fixed order: the same bits every
+// run), as in the other bodies.  bf16 reaches this body only with no keys
+// (Sk == 0): its instantiation (W 1024) writes the zero rows and the
 // -1e30 lse.
 
+template <int W_>
 struct FwdWide {
   static constexpr int THREADS = 256;
-  static constexpr int BQ = 32;                 // query rows a CTA
+  static constexpr int W = W_;                  // O's columns a CTA
+  // query rows a CTA: 32 over a cluster's 1024-column slices; 64 where
+  // one CTA spans the row (a K and V tile read once for twice the rows:
+  // 17% and 13% faster than 32 at D 256 and 512 on an H100)
+  static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;
   static constexpr int BK = 64;                 // keys a tile
-  static constexpr int W = 1024;                // O's columns a CTA
   static constexpr int DC = 64;                 // S's columns a stage
   static constexpr int PAD = DC + 4;            // a staged row's floats
-  static constexpr int VK = 8;                  // V's keys a stage
-  static constexpr int STAGE = VK * W;          // floats a stage (Q+K fit)
+  static constexpr int KS = 64 / BQ;            // S: parts of a stage's columns
+  static constexpr int RS = BQ / 4;             // S: rows rg + RS a
+  static constexpr int TPR = THREADS / BQ;      // softmax: threads a row
+  static constexpr int NX = BK / TPR;           // softmax: keys a thread
+  static constexpr int C = BQ * W / 8192;       // O: float4s of a thread's row
+  static constexpr int CG = W / (4 * C);        // O: threads a row group
+  static constexpr int VK = 8192 / W;           // V's keys a stage (32 KB)
+  static constexpr int STAGE = (BQ + BK) * PAD > VK * W ? (BQ + BK) * PAD
+                                                        : VK * W;
   static constexpr int STAGES = 5;
   static constexpr int MAX_NC = 8;              // a cluster's CTAs (portable)
+  // from 1024 the slices of a q block share S over a cluster; at 256 and
+  // 512 one CTA spans the row
+  static constexpr bool CLUSTER = W >= wide::MIN_D;
   static constexpr int SROW = BK + 8;           // partial S row (floats)
   static constexpr int PROW = BQ + 4;           // P's key row (floats)
   static constexpr int SPART_OFF = STAGES * STAGE;
-  static constexpr int SPART = 2 * BQ * SROW;   // a tile's two halves
+  static constexpr int SPART = KS * BQ * SROW;  // a tile's parts
   static constexpr int P_OFF = SPART_OFF + 2 * SPART;
   static constexpr int ROW_OFF = P_OFF + BK * PROW;   // alpha, then l
   static constexpr int SMEM = (ROW_OFF + 2 * BQ) * 4;
+  static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA");
+  static_assert(BQ * DC / 4 % THREADS == 0,
+                "every thread copies the same number of Q's float4s");
+  static_assert(CG % 32 == 0, "a warp's O columns are contiguous");
+  static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
-static_assert(FwdWide::BQ * FwdWide::PAD + FwdWide::BK * FwdWide::PAD <=
-                  FwdWide::STAGE, "an S stage fits a ring stage");
-static_assert(FwdWide::BQ * FwdWide::DC / 4 % FwdWide::THREADS == 0,
-              "every thread copies the same number of Q's float4s");
 
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(FwdWide::THREADS, 1)
+template <typename T, int W, bool DROP>
+__global__ void __launch_bounds__(FwdWide<W>::THREADS, 1)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, const int* __restrict__ q_ids,
                       const int* __restrict__ kv_ids, int H, int HK, int Sq,
                       int Sk, int D, int causal, float scale,
                       dropout::Params drop) {
-  using G = FwdWide;
+  using G = FwdWide<W>;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;   // heaviest first
   const int c0 = blockIdx.z * G::W;      // this CTA's columns of O and V
@@ -413,7 +443,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   } else {
     extern __shared__ float4 wide_smem[];
     float* sm = reinterpret_cast<float*>(wide_smem);
-    float* spart = sm + G::SPART_OFF;    // [2 tiles][2 halves][BQ][SROW]
+    float* spart = sm + G::SPART_OFF;    // [2 tiles][KS parts][BQ][SROW]
     float* ps = sm + G::P_OFF;           // [BK][PROW]: p, key-major
     float* alpha_s = sm + G::ROW_OFF;    // [BQ]
     float* l_s = alpha_s + G::BQ;        // [BQ]
@@ -423,9 +453,11 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const bool seg = q_ids != nullptr;
     const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
     const int ntile = (kend + G::BK - 1) / G::BK;
-    const int nc = min(D / G::W, G::MAX_NC);   // the cluster's CTAs
+    // the cluster's CTAs
+    const int nc = G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1;
     const int part = D / nc;             // S's columns this CTA sums
-    const int cs0 = static_cast<int>(hopper::cluster_rank()) * part;
+    const int cs0 =
+        G::CLUSTER ? static_cast<int>(hopper::cluster_rank()) * part : 0;
     const int nS = part / G::DC;         // S stages a tile
     const int ipt = nS + G::BK / G::VK;  // ring items a tile
     const int total = ntile * ipt;
@@ -455,12 +487,15 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
               k + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c, key < Sk);
         }
       } else {
+        // V's VK key rows of W columns, RPX rows a round of copies
+        constexpr int R4 = G::W / 4, RPX = G::THREADS / R4;
+        const int vr = tid / R4, vc = 4 * (tid % R4);
 #pragma unroll
-        for (int x = 0; x < G::VK; ++x) {
-          const int key = k0 + G::VK * (i - nS) + x;
+        for (int x = 0; x < G::VK / RPX; ++x) {
+          const int r = vr + RPX * x, key = k0 + G::VK * (i - nS) + r;
           hopper::cp_async16(
-              st + x * G::W + 4 * tid,
-              v + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + 4 * tid,
+              st + r * G::W + vc,
+              v + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + vc,
               key < Sk);
         }
       }
@@ -471,24 +506,25 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_commit();
     }
 
-    // S: half sh of the CTA, rows rg + 8a, keys kg + 16b
-    const int sh = tid >> 7, rg = (tid >> 4) & 7, kg = tid & 15;
-    // softmax: row sr, keys sp + 8j
-    const int sr = tid >> 3, sp = tid & 7, srow = q0 + sr;
+    // S: part sh of the stage's columns, rows rg + RS a, keys kg + 16b
+    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, kg = tid % 16;
+    // softmax: row sr, keys sp + TPR x
+    const int sr = tid / G::TPR, sp = tid % G::TPR, srow = q0 + sr;
     const int qid = (seg && srow < Sq) ? q_ids[(size_t)b * Sq + srow] : 0;
     const uint32_t rkey =
         DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
     float m = NEG, l = 0.f;
-    // O: rows 8 og.., columns 512 oc + 4 lane + 128 c of the slice
-    const int og = tid >> 6, oc = (tid >> 5) & 1, lane = tid & 31;
-    const int ocol = 512 * oc + 4 * lane;
+    // O: rows 8 og.., columns ocol + 128 c of the slice (a warp's 32
+    // lanes on 128 contiguous columns)
+    const int og = tid / G::CG, lane = tid & 31;
+    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * lane;
 
-    float4 acc[8][4];
+    float4 acc[8][G::C];
     float sacc[4][4];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = 0; c < G::C; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -504,13 +540,14 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       if (i < nS) {
         const float* qs = st;
         const float* ks = st + G::BQ * G::PAD;
+        constexpr int NF = G::DC / 4 / G::KS;   // a part's float4 columns
 #pragma unroll
-        for (int f = 0; f < G::DC / 8; ++f) {
-          const int c = 4 * ((G::DC / 8) * sh + f);
+        for (int f = 0; f < NF; ++f) {
+          const int c = 4 * (NF * sh + f);
           float4 qv[4], kv[4];
 #pragma unroll
           for (int a = 0; a < 4; ++a)
-            qv[a] = *reinterpret_cast<const float4*>(qs + (rg + 8 * a) * G::PAD + c);
+            qv[a] = *reinterpret_cast<const float4*>(qs + (rg + G::RS * a) * G::PAD + c);
 #pragma unroll
           for (int c2 = 0; c2 < 4; ++c2)
             kv[c2] = *reinterpret_cast<const float4*>(ks + (kg + 16 * c2) * G::PAD + c);
@@ -527,26 +564,22 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
           for (int a = 0; a < 4; ++a)
 #pragma unroll
             for (int c2 = 0; c2 < 4; ++c2) {
-              sb[(sh * G::BQ + rg + 8 * a) * G::SROW + kg + 16 * c2] = sacc[a][c2];
+              sb[(sh * G::BQ + rg + G::RS * a) * G::SROW + kg + 16 * c2] = sacc[a][c2];
               sacc[a][c2] = 0.f;
             }
           if (nc > 1)
             hopper::cluster_sync();
           else
             __syncthreads();
-          float s[8];
+          float s[G::NX];
           unsigned vis = 0u;
           float mt = m;
 #pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            const int key = sp + 8 * x, col = k0 + key;
-            const float* h0 = sb + sr * G::SROW + key;
-            const float* h1 = sb + (G::BQ + sr) * G::SROW + key;
-            // in rank order: rank 0's halves first
-            float dot = nc == 1 ? *h0 + *h1
-                                : hopper::ld_cluster(h0, 0) + hopper::ld_cluster(h1, 0);
-            for (int r = 1; r < nc; ++r)
-              dot += hopper::ld_cluster(h0, r) + hopper::ld_cluster(h1, r);
+          for (int x = 0; x < G::NX; ++x) {
+            const int key = sp + G::TPR * x, col = k0 + key;
+            // in rank order, each rank's parts in order
+            const float dot = wide::part_sum<G::KS, G::BQ * G::SROW>(
+                sb + sr * G::SROW + key, nc);
             const bool ok = col < Sk && (!causal || col <= srow) &&
                             (!seg || kv_ids[(size_t)b * Sk + col] == qid);
             s[x] = ok ? __fmul_rn(dot, scale) : NEG;
@@ -554,13 +587,13 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
             mt = fmaxf(mt, s[x]);
           }
 #pragma unroll
-          for (int off = 1; off < 8; off <<= 1)
+          for (int off = 1; off < G::TPR; off <<= 1)
             mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
           const float alpha = expf(m - mt);
           float sum = 0.f;
 #pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            const int key = sp + 8 * x;
+          for (int x = 0; x < G::NX; ++x) {
+            const int key = sp + G::TPR * x;
             const float p = ((vis >> x) & 1u) ? expf(s[x] - mt) : 0.f;
             sum += p;
             ps[key * G::PROW + sr] =
@@ -568,7 +601,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      : p;
           }
 #pragma unroll
-          for (int off = 1; off < 8; off <<= 1)
+          for (int off = 1; off < G::TPR; off <<= 1)
             sum += __shfl_xor_sync(0xffffffffu, sum, off);
           l = l * alpha + sum;
           m = mt;
@@ -584,7 +617,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int r = 0; r < 8; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = scale4(acc[r][c], al[r]);
+            for (int c = 0; c < G::C; ++c) acc[r][c] = scale4(acc[r][c], al[r]);
         }
 #pragma unroll
         for (int x = 0; x < G::VK; ++x) {
@@ -592,14 +625,14 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
           const float4 p0 = *reinterpret_cast<const float4*>(pr);
           const float4 p1 = *reinterpret_cast<const float4*>(pr + 4);
           const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-          float4 vv[4];
+          float4 vv[G::C];
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
+          for (int c = 0; c < G::C; ++c)
             vv[c] = *reinterpret_cast<const float4*>(st + x * G::W + ocol + 128 * c);
 #pragma unroll
           for (int r = 0; r < 8; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = axpy4(pv[r], vv[c], acc[r][c]);
+            for (int c = 0; c < G::C; ++c) acc[r][c] = axpy4(pv[r], vv[c], acc[r][c]);
         }
       }
       if (++i == ipt) {
@@ -626,32 +659,51 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       const float linv = lr > 0.f ? 1.f / lr : 0.f;
       const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) store4(o, base + 32 * c, scale4(acc[r][c], linv));
+      for (int c = 0; c < G::C; ++c) store4(o, base + 32 * c, scale4(acc[r][c], linv));
     }
   }
 }
 
+// B*H on x (2^31 - 1), the q blocks on y, the D/W column slices on z, a
+// cluster of min(D/1024, 8) slices from W 1024 (1 at W 256 and 512); bf16
+// (no keys) writes zeros and takes no shared memory
+template <typename T, int W, bool DROP>
+int launch_wide_w(const void* q, const void* k, const void* v, void* o,
+                  float* lse, const int* q_ids, const int* kv_ids, int B,
+                  int H, int HK, int Sq, int Sk, int D, int causal,
+                  float scale, const dropout::Params& drop,
+                  cudaStream_t stream) {
+  using G = FwdWide<W>;
+  const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
+  static const bool sized =
+      hopper::allow_smem(flash_fwd_kernel_wide<T, W, DROP>, smem);
+  if (!sized) return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch_clusters(
+      flash_fwd_kernel_wide<T, W, DROP>,
+      dim3(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::W), G::THREADS, smem,
+      G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids, H,
+      HK, Sq, Sk, D, causal, scale, drop);
+}
+
+// f32 at 256 and 512 (one CTA spans the row) and at the wide widths (1024
+// of O's columns a CTA); bf16 only at the wide widths with no keys (with
+// keys it runs the wide tensor-core body)
 template <typename T, bool DROP>
 int launch_wide(const void* q, const void* k, const void* v, void* o,
                 float* lse, const int* q_ids, const int* kv_ids, int B, int H,
                 int HK, int Sq, int Sk, int D, int causal, float scale,
                 const dropout::Params& drop, cudaStream_t stream) {
-  using G = FwdWide;
-  // bf16 with keys runs the wide tensor-core body
+  if constexpr (sizeof(T) == 4) {
+    if (D == 256)
+      return launch_wide_w<T, 256, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
+    if (D == 512)
+      return launch_wide_w<T, 512, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
+  }
   if (!wide::takes(D) || (sizeof(T) == 2 && Sk > 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
-  static const bool sized =
-      hopper::allow_smem(flash_fwd_kernel_wide<T, DROP>, smem);
-  if (!sized) return static_cast<int>(cudaErrorInvalidValue);
-  // B*H on x (2^31 - 1), the q blocks on y, the column slices on z, a
-  // cluster of min(D/1024, 8) slices
-  return hopper::launch_clusters(
-      flash_fwd_kernel_wide<T, DROP>,
-      dim3(B * H, (Sq + G::BQ - 1) / G::BQ, D / G::W), G::THREADS, smem,
-      min(D / G::W, G::MAX_NC), stream, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      lse, q_ids, kv_ids, H, HK, Sq, Sk, D, causal, scale, drop);
+  return launch_wide_w<T, 1024, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1217,12 +1269,31 @@ int launch_tc_wide(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The CUDA-core body of width D
+template <typename T, bool DROP>
+int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
+                      float* lse, const int* qi, const int* ki, int B, int H,
+                      int HK, int Sq, int Sk, int D, int causal, float scale,
+                      const dropout::Params& dr, cudaStream_t st) {
+  switch (D) {
+    case 16: launch<T, 16, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 32: launch<T, 32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 64: launch<T, 64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 128: launch<T, 128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 256: launch<T, 256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    case 512: launch<T, 512, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The route: bf16 with keys to read takes the tensor cores, at D 64, 128
 // and 256 and (the wide tensor-core body) at D 512 and every wide width,
-// D >= 1024 (wide::tc_takes); the rest of the wide widths (f32, and bf16
-// with no keys) the wide CUDA-core body, everything else (f32 up to 512,
-// bf16 at 16 and 32 or with no keys) the CUDA-core bodies of their width;
-// a seed takes each body's DROP instantiation.
+// D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes) and the
+// rest of the wide widths (f32, and bf16 with no keys) the register-tile
+// body, everything else (f32 up to 128, bf16 at 16 and 32 or with no keys
+// up to 512) the CUDA-core bodies of their width; a seed takes each
+// body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -1238,18 +1309,11 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
     if (wide::tc_takes(D))
       return launch_tc_wide<DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   }
+  if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
-  switch (D) {
-    case 16: launch<T, 16, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    case 32: launch<T, 32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    case 64: launch<T, 64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    case 128: launch<T, 128, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    case 256: launch<T, 256, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    case 512: launch<T, 512, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cuda_cores<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
 }
 
 template <typename T>
@@ -1289,6 +1353,36 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
       return dispatch<float>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
     case BF16:
       return dispatch<__nv_bfloat16>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The CUDA-core forward at D 256 and 512, whatever the dtype (the
+// arguments of apex_flash_fwd): f32 there routes to the register-tile
+// body and bf16 with keys to the tensor cores, and this lets a
+// measurement time the CUDA-core body beside them on the same inputs.
+// Any other width is refused.
+extern "C" int apex_flash_fwd_cuda_cores(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_ids, const void* kv_ids, int dtype, int B, int H, int HK,
+    int Sq, int Sk, int D, int causal, float scale, const void* seed,
+    unsigned keep_below, float keep_scale, void* stream) {
+  float* lf = static_cast<float*>(lse);
+  const int* qi = static_cast<const int*>(q_ids);
+  const int* ki = static_cast<const int*>(kv_ids);
+  const dropout::Params dr{static_cast<const int*>(seed), keep_below,
+                           keep_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool drop = seed != nullptr;
+  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case F32:
+      return drop ? launch_cuda_cores<float, true>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st)
+                  : launch_cuda_cores<float, false>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
+    case BF16:
+      return drop ? launch_cuda_cores<__nv_bfloat16, true>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st)
+                  : launch_cuda_cores<__nv_bfloat16, false>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

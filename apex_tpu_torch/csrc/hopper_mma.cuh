@@ -446,4 +446,28 @@ __host__ __device__ constexpr bool tc_takes(int D) {
   return D == TC_MIN_D || takes(D);
 }
 
+// The narrower widths of the f32 register-tile forward and dk/dv (the
+// wide CUDA-core bodies, flash_{fwd,dkv}_kernel_wide): at 256 and 512
+// (and the heads of 129..511, padded to them) one CTA spans a row of O
+// (of dK and dV), so no cluster; f32 dq keeps its CUDA-core body there.
+__host__ __device__ constexpr bool row_takes(int D) {
+  return D == 256 || D == 512;
+}
+
+// The sum of a score's NP parts (STRIDE floats apart, from p) over the
+// cluster's nc CTAs, in rank order and each rank's parts in order: every
+// CTA of the cluster gets the same bits (with nc 1, its own parts)
+template <int NP, int STRIDE>
+__device__ __forceinline__ float part_sum(const float* p, int nc) {
+  float dot = 0.f;
+  for (int r = 0; r < nc; ++r) {
+    float x = nc == 1 ? p[0] : hopper::ld_cluster(p, r);
+#pragma unroll
+    for (int s = 1; s < NP; ++s)
+      x += nc == 1 ? p[s * STRIDE] : hopper::ld_cluster(p + s * STRIDE, r);
+    dot = r == 0 ? x : dot + x;
+  }
+  return dot;
+}
+
 }  // namespace wide

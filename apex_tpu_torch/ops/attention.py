@@ -434,23 +434,31 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 _TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
               "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
+# the narrower kernel widths at which each kernel's f32 body runs in
+# register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes),
+# as it does at every width from 1024
+_ROW_WIDTHS = {"flash_fwd": (256, 512), "flash_dq": (),
+               "flash_dkv": (256, 512)}
 
 
 def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32 up
-    to 512, bf16 at 16 and 32), "wide tensor cores"
-    (``..._kernel_tc_wide``: bf16 at 512 and every width from 1024, a CTA
-    on a slice of the output's columns: 256 of O's, 512 of dQ's, 256 of
-    dK's and dV's) or "wide CUDA cores" (``..._kernel_wide``: f32 from
-    1024, register tiles over a thread-block cluster of column slices: a
-    CTA on 32 rows and 1024 of O's or dQ's columns, or on 32 key rows and
-    512 of dK's and dV's, 16 and 1024 past D 4096).  The C dispatchers of
+    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32
+    dq up to 512, f32 forward and dk/dv up to 128, bf16 at 16 and 32),
+    "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
+    width from 1024, a CTA on a slice of the output's columns: 256 of O's,
+    512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
+    (``..._kernel_wide``, register tiles on the CUDA cores: f32 from 1024,
+    a thread-block cluster of column slices sharing the scores, a CTA on
+    32 rows and 1024 of O's or dQ's columns, or on 32 key rows and 512 of
+    dK's and dV's, 16 and 1024 past D 4096; and the f32 forward and dk/dv
+    at 256 and 512, where one CTA spans the row: 64 query rows, or 64 key
+    rows at 256 and 32 at 512).  The C dispatchers of
     ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
-    apart from a forward with no keys (it takes the CUDA cores up to 512,
-    the wide CUDA cores past it)."""
+    apart from a bf16 forward with no keys (it takes the CUDA cores up to
+    512, the wide CUDA cores past it)."""
     if kernel not in _TC_WIDTHS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
                          f"{sorted(_TC_WIDTHS)})")
@@ -458,8 +466,8 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     bf16 = dtype == torch.bfloat16
     if bf16 and w >= 512:         # csrc/hopper_mma.cuh: wide::TC_MIN_D
         return "wide tensor cores"
-    if w >= 1024:                 # csrc/hopper_mma.cuh: wide::MIN_D
-        return "wide CUDA cores"
+    if w >= 1024 or (not bf16 and w in _ROW_WIDTHS[kernel]):
+        return "wide CUDA cores"  # wide::MIN_D, wide::row_takes
     if bf16 and w in _TC_WIDTHS[kernel]:
         return "tensor cores"
     return "CUDA cores"
@@ -477,8 +485,9 @@ def _kernel_width(d: int) -> int:
     """The kernel width a head dim runs at: the next of
     :data:`HEAD_DIMS`, and past 8192 the next multiple of
     :data:`WIDE_SPLIT` (the reference pads D to its lanes the same way, and
-    takes any D).  The f32 wide bodies split a row into slices of 1024
-    columns (512 in dk/dv up to D 4096), a cluster of up to 8 slices
+    takes any D).  The f32 register-tile bodies take a row of 256 or 512
+    whole (the forward and dk/dv) and split a wider one into slices of
+    1024 columns (512 in dk/dv up to D 4096), a cluster of up to 8 slices
     sharing the scores; the bf16 bodies into their slices of 256 and 512
     columns.  Every multiple of 8192 holds whole clusters and slices."""
     for w in HEAD_DIMS:

@@ -1,17 +1,19 @@
-"""The f32 wide flash bodies (``flash_fwd_kernel_wide``,
-``flash_dq_kernel_wide``, ``flash_dkv_kernel_wide``; D >= 1024) of this
-tree against the same entry points built from another checkout's
-sources, timed in turns in one process on the card::
+"""The f32 flash bodies at D 256 and 512 and the f32 wide ones
+(``flash_fwd_kernel_wide``, ``flash_dq_kernel_wide``,
+``flash_dkv_kernel_wide``; D >= 1024) of this tree against the same
+entry points built from another checkout's sources, timed in turns in
+one process on the card::
 
-    python -m apex_tpu_torch.tools.flash_wide_f32 --other DIR [--kernels fwd,dq,dkv]
+    python -m apex_tpu_torch.tools.flash_wide_f32 --other DIR [--kernels fwd,dq,dkv] [--widths 256,512,...]
 
 ``DIR`` holds the other ``flash_fwd.cu`` / ``flash_bwd.cu`` and their
 headers (for instance ``apex_tpu_torch/csrc`` of an unpacked ``git
 archive`` of an earlier commit).  Each source builds with the port's nvcc
 flags into ``apex_tpu_torch/_build/`` (all at once) and is called
 through its C entry points with the arguments the wrapper gives them.
-At each causal f32 shape (D 1024, and 2048, 4096, 8192 at D 1024's
-bytes) and dropout rate each kernel of each source is held to its twin
+At each causal f32 shape ((8, 4, 512) at D 256 and 512, D 1024, and
+2048, 4096, 8192 at D 1024's bytes; ``--widths`` picks some) and
+dropout rate each kernel of each source is held to its twin
 (``flash_fwd_ref`` / ``flash_bwd_ref`` on this tree's o and lse) within
 the f32 tolerance and to its own bits on a second call; then each
 prints its device milliseconds a call (CUDA events around calls queued
@@ -27,7 +29,8 @@ import ctypes
 import os
 import subprocess
 
-SHAPES = ((8, 2, 512, 1024), (4, 2, 512, 2048), (2, 2, 512, 4096),
+SHAPES = ((8, 4, 512, 256), (8, 4, 512, 512), (8, 2, 512, 1024),
+          (4, 2, 512, 2048), (2, 2, 512, 4096),
           (1, 2, 512, 8192))                              # (B, H, S, D)
 TOL = dict(atol=1e-4, rtol=1e-4)
 # kernel: (source, C entry point, useful FLOP a visible pair / D)
@@ -113,8 +116,15 @@ def main(argv=None) -> int:
                          "flash_bwd.cu")
     ap.add_argument("--kernels", default="fwd,dq,dkv",
                     help="comma-separated, of fwd, dq and dkv")
+    ap.add_argument("--widths", default=",".join(str(x[3]) for x in SHAPES),
+                    help="comma-separated head dims of the shapes to run")
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
+    widths = [int(w) for w in args.widths.split(",")]
+    shapes = [x for x in SHAPES if x[3] in widths]
+    if len(shapes) != len(widths):
+        raise SystemExit(f"--widths takes {[x[3] for x in SHAPES]}, got "
+                         f"{widths}")
     if not set(kernels) <= set(KERNELS):
         raise SystemExit(f"--kernels takes {sorted(KERNELS)}, got {kernels}")
     if not torch.cuda.is_available():
@@ -126,7 +136,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(5)
     seed = torch.tensor([77], dtype=torch.int32, device=dev)
-    for b, h, s, d in SHAPES:
+    for b, h, s, d in shapes:
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
                        for _ in range(4))
         pairs = b * h * s * (s + 1) // 2
@@ -162,7 +172,9 @@ def main(argv=None) -> int:
                                 "dv": torch.empty_like(v)}
                         args_ = bwd_ins + (outs["dk"].data_ptr(),
                                            outs["dv"].data_ptr(), None, None)
-                    calls[name] = lambda fn=fn, a=args_: fn(*a, *common)
+                    # the call holds its outputs, whose pointers it passes
+                    calls[name] = (lambda fn=fn, a=args_, keep=outs:
+                                   fn(*a, *common))
                     if calls[name]() != 0:
                         raise RuntimeError(f"the {name} {kn} did not launch")
                     first = {n: t.clone() for n, t in outs.items()}

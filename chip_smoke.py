@@ -2007,7 +2007,7 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
     """The dq and dk/dv kernels, each launched on its own with the
     arguments the wrapper gives them (to time each).  ``cuda_cores``:
     the CUDA-core bodies instead, through their own entry points
-    (``apex_flash_{dq,dkv}_cuda_cores``: D 512's; not counted as
+    (``apex_flash_{dq,dkv}_cuda_cores``: D 256 and 512; not counted as
     launches), to time them beside the routed bodies on the same
     inputs.  ``out``: a list that receives the (dq, dk, dv) tensors the
     calls write."""
@@ -2039,9 +2039,45 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
                 _check(rc == 0, f"{sym} failed to launch: CUDA error {rc}")
             fns.append(launch)
         launch_dq, launch_dkv = fns
-    return (lambda: launch_dq(*ins, dq.data_ptr(), qp, kp, *common),
-            lambda: launch_dkv(*ins, dk.data_ptr(), dv.data_ptr(), qp, kp,
-                               *common))
+    # each call holds di, whose pointer it passes: freed, its block would
+    # go to the next tensor of its size (an lse), which the kernel would
+    # then read as di
+    return (lambda di=di: launch_dq(*ins, dq.data_ptr(), qp, kp, *common),
+            lambda di=di: launch_dkv(*ins, dk.data_ptr(), dv.data_ptr(), qp,
+                                     kp, *common))
+
+
+def _fwd_kernel_call(q, k, v, causal, rate=0.0, seed=None,
+                     cuda_cores=False, out=None):
+    """The forward (with lse) launched on its own with the arguments the
+    wrapper gives it.  ``cuda_cores``: the CUDA-core body instead, through
+    its own entry point (``apex_flash_fwd_cuda_cores``: D 256 and 512;
+    not counted as a launch), to time it beside the routed body on the
+    same inputs.  ``out``: a list that receives the (o, lse) it writes."""
+    import ctypes
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as attn
+    (b, h, hk, sq, sk, d), code, qp, kp = attn._geometry(q, k, v, None)
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+    if out is not None:
+        out.extend((o, lse))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), qp, kp, code, b, h, hk, sq, sk, d, int(causal),
+            1.0 / math.sqrt(d), *attn._dropout_args(rate, seed, q.device),
+            torch.cuda.current_stream().cuda_stream)
+    # the call holds o and lse, whose pointers it passes
+    if not cuda_cores:
+        return lambda keep=(o, lse): attn.FLASH_FWD.launch(*args)
+    fn = _build.library("flash_fwd").apex_flash_fwd_cuda_cores
+    fn.argtypes, fn.restype = attn.FLASH_FWD.argtypes, ctypes.c_int
+
+    def launch(keep=(o, lse)):
+        rc = fn(*args)
+        _check(rc == 0, f"apex_flash_fwd_cuda_cores failed to launch: CUDA "
+               f"error {rc}")
+    return launch
 
 
 FLASH_SYMS = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
@@ -3738,6 +3774,10 @@ WIDE_CASES = (
     ("d200_bf16_s190_rate0", 2, 2, 190, 200, "bf16", 0.0),
     ("d512_bf16_s300", 2, 2, 300, 512, "bf16", DROP_RATE),
     ("d512_f32_s130_rate0", 1, 2, 130, 512, "f32", 0.0),
+    # the f32 forward and dk/dv at 256 and 512 in register tiles, one CTA
+    # on a whole row (D 320 padded to 512)
+    ("d512_f32_s300", 2, 2, 300, 512, "f32", DROP_RATE),
+    ("d320_f32_s200_rate0", 2, 2, 200, 320, "f32", 0.0),
     # F5c: the wide bodies at D 1024 and at D 640 (padded to 1024)
     ("d640_f32", 4, 2, 512, 640, "f32", DROP_RATE),
     ("d640_f32_rate0", 4, 2, 512, 640, "f32", 0.0),
@@ -3771,8 +3811,9 @@ def _flash_route_of(d: int, dt: str) -> dict:
 def wide_head_phase(dev, smi: str) -> dict:
     """F5b, F5c and F7: flash at head dims past 128: bf16 at 256 (and
     160, 200 padded to it) on the tensor-core forward, dq and dk/dv; f32
-    at 256 and 512 on the CUDA-core bodies (dynamic shared memory); bf16
-    at 512 and from 1024 (D 640 padded to it; past 8192 the next multiple
+    at 256 and 512 (320 padded to it) with the forward and dk/dv in
+    register tiles, one CTA on a whole row, and dq on the CUDA-core body
+    (dynamic shared memory); bf16 at 512 and from 1024 (D 640 padded to it; past 8192 the next multiple
     of 8192, F7) on the wide tensor-core bodies, f32 from 1024 on the
     wide CUDA-core bodies (register tiles, the column slices of a row
     block a thread-block cluster sharing the scores: 1024 of O's and dQ's
@@ -3785,14 +3826,16 @@ def wide_head_phase(dev, smi: str) -> dict:
     bodies timed at the module's (8, heads, 512, D) bf16 causal shape,
     rate 0 and 0.1, beside the twin, SDPA and the bound (at D 512 the
     wide tensor-core dq and dk/dv also beside the CUDA-core bodies in
-    turns), and f32 at that shape beside SDPA's f32; each module trained
+    turns), and f32 at that shape beside SDPA's f32 (at D 256 and 512 the
+    register-tile forward and dk/dv beside their CUDA-core bodies in
+    turns); each module trained
     2 steps at each rate (forward, backward, an SGD update of its
     params), finite losses, exact launch counts and the routes of a
     profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
     8192 held and timed (``_wide_widths``), and the f32 ones there
     (``_wide_f32_widths``); the ptxas registers and spills of the D-256
-    and wide tensor-core bodies and of the f32 wide forward, dq and
-    dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
+    and wide tensor-core bodies and of every f32 register-tile forward,
+    dq and dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
     "d1024": ...}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3819,21 +3862,32 @@ def wide_head_phase(dev, smi: str) -> dict:
                 wide_ptxas.setdefault(kn, []).append(
                     f"{entry}: {regs}; {spill}")
 
-    # the f32 wide forward, dq and dk/dv (register tiles on the CUDA
-    # cores), rate 0 and DROP: their registers and spills
+    # the f32 register-tile forward, dq and dk/dv (the wide CUDA-core
+    # bodies), rate 0 and DROP: their registers and spills, every one at
+    # "d1024" and those of D 256 and 512 there too (the forward's W 256
+    # and 512; dk/dv's key rows a CTA, 64 at D 256 and 32 from D 512,
+    # and 16 past D 4096)
+    f32_ptxas = {}
+    widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
+              "flash_dq": {},
+              "flash_dkv": {"d256": "IfLi64E", "d512": "IfLi32E"}}
     for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
                     ("flash_bwd", "flash_dkv")):
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
-        # dk/dv: 32 and 16 key rows a CTA, each at rate 0 and DROP
-        want = 4 if kn == "flash_dkv" else 2
+        # each geometry at rate 0 and DROP: the forward's W 256, 512 and
+        # 1024, dq's one, dk/dv's 64, 32 and 16 rows
+        want = 2 if kn == "flash_dq" else 6
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
             print(f"ptxas f32 wide {kn} body {entry}: {regs}; {spill} "
                   f"[{smi}]", flush=True)
-            wide_ptxas.setdefault(kn + "_f32", []).append(
-                f"{entry}: {regs}; {spill}")
+            line = f"{entry}: {regs}; {spill}"
+            f32_ptxas.setdefault((kn, "d1024"), []).append(line)
+            for key, marker in widths[kn].items():
+                if FLASH_SYMS[kn] + "_wide" + marker in entry:
+                    f32_ptxas.setdefault((kn, key), []).append(line)
 
     gen = torch.Generator(device=dev).manual_seed(13)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -3912,8 +3966,8 @@ def wide_head_phase(dev, smi: str) -> dict:
     for kn, lines in wide_ptxas.items():
         if kn in rows:
             rows[kn]["d1024"]["ptxas"] = lines
-    for kn in FLASH_SYMS:
-        rows[kn]["d1024"]["ptxas_f32"] = wide_ptxas[kn + "_f32"]
+    for (kn, key), lines in f32_ptxas.items():
+        rows[kn][key]["ptxas_f32"] = lines
     t0 = time.perf_counter()
     _wide_widths(dev, smi, gen, seed)
     wide_s["widths"] = time.perf_counter() - t0
@@ -3935,35 +3989,44 @@ def _in_turns(calls: dict, iters: int = 10) -> dict:
     return out
 
 
-def _wide_bwd_times(q, k, v, o, lse, do, rate, sd) -> dict:
-    """The routed dq and dk/dv (bf16 at D 512: the wide tensor-core
-    bodies) and the D-512 CUDA-core bodies on the same inputs, in turns:
-    {kernel: (routed ms, CUDA-core ms)}, each the mean of its two turns.
-    The CUDA-core bodies' gradients are held to the twin too, so the two
-    time the same function."""
+def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
+    """The routed ``kernels`` (of "flash_fwd", "flash_dq", "flash_dkv")
+    and the CUDA-core bodies of D 256 or 512 (``apex_flash_*_cuda_cores``)
+    on the same inputs, in turns: {kernel: (routed ms, CUDA-core ms)},
+    each the mean of its two turns.  The CUDA-core bodies' outputs are
+    held to the twins too, so the two time the same function."""
     import torch
     from apex_tpu_torch.ops import attention as attn
-    dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True, None,
-                                          rate, sd)
-    cc_out = []
-    cc_dq, cc_dkv = _bwd_kernel_calls(q, k, v, o, lse, do, True, None, rate,
-                                      sd, cuda_cores=True, out=cc_out)
-    cc_dq()
-    cc_dkv()
+    routed = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+        q, k, v, o, lse, do, True, None, rate, sd)))
+    routed["flash_fwd"] = _fwd_kernel_call(q, k, v, True, rate, sd)
+    cc_out, cc_fwd = [], []
+    cc = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+        q, k, v, o, lse, do, True, None, rate, sd, cuda_cores=True,
+        out=cc_out)))
+    cc["flash_fwd"] = _fwd_kernel_call(q, k, v, True, rate, sd,
+                                       cuda_cores=True, out=cc_fwd)
+    for kn in kernels:
+        cc[kn]()
     torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    what = f"of the CUDA-core body {tuple(q.shape)} dropout {rate}"
+    if "flash_fwd" in kernels:
+        wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate, sd)
+        _held("flash_fwd", cc_fwd[0], wo, atol, rtol, f"o {what}")
+        _held("flash_fwd", cc_fwd[1], wlse, 1e-4, 1e-5, f"lse {what}")
     want = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None, None, rate,
                               sd)
-    atol, rtol = ATTN_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
     for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
                             ("dq", "dk", "dv"), cc_out, want):
-        _held(kn, g, w, atol, rtol, f"{gn} of the CUDA-core body "
-              f"{tuple(q.shape)} dropout {rate}")
+        if kn in kernels:
+            _held(kn, g, w, atol, rtol, f"{gn} {what}")
     out = {}
-    for kn, (routed, cc) in (("flash_dq", (dq_call, cc_dq)),
-                             ("flash_dkv", (dkv_call, cc_dkv))):
-        t = _in_turns({"routed": routed, "cuda cores": cc})
-        print(f"time {kn} {tuple(q.shape)} dropout {rate} in turns: routed "
-              f"{t['routed'][0]:.4f} / {t['routed'][1]:.4f} ms, CUDA cores "
+    for kn in kernels:
+        t = _in_turns({"routed": routed[kn], "cuda cores": cc[kn]})
+        print(f"time {kn} {tuple(q.shape)} {str(q.dtype)[6:]} dropout {rate} "
+              f"in turns: routed {t['routed'][0]:.4f} / "
+              f"{t['routed'][1]:.4f} ms, CUDA cores "
               f"{t['cuda cores'][0]:.4f} / {t['cuda cores'][1]:.4f} ms",
               flush=True)
         out[kn] = (sum(t["routed"]) / 2, sum(t["cuda cores"]) / 2)
@@ -4014,7 +4077,9 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     "dropout": row}}.  At D 512 the wide tensor-core dq and dk/dv are
     also timed beside the D-512 CUDA-core bodies in turns
     (``cuda_cores_ms``); and the f32 bodies at that shape (rate 0) beside
-    SDPA's f32 forward and backward."""
+    SDPA's f32 forward and backward, at D 256 and 512 the register-tile
+    forward and dk/dv also beside their CUDA-core bodies in turns
+    (``{"f32": {"ms_in_turns": ..., "cuda_cores_ms": ...}}``)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as attn
@@ -4040,7 +4105,8 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                                               None, rate, sd)
         times = {"flash_fwd": _ms(fwd, 10), "flash_dq": _ms(dq_call, 10),
                  "flash_dkv": _ms(dkv_call, 10)}
-        cc = _wide_bwd_times(q, k, v, o, lse, do, rate, sd) if d == 512 else {}
+        cc = (_cuda_core_turns(q, k, v, o, lse, do, rate, sd,
+                               ("flash_dq", "flash_dkv")) if d == 512 else {})
         plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
                      q, k, v, True, None, None, rate, sd), 3, 1)}
         plain["flash_dq"] = plain["flash_dkv"] = _ms(
@@ -4086,8 +4152,9 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                   f"SDPA's backward, {pair / plain['flash_dq']:.2f}x the "
                   f"twin [{smi}]", flush=True)
         del o, lse
-    # f32 at the same shape: the CUDA-core bodies (rate 0; from D 1024
-    # the wide ones, the forward in register tiles)
+    # f32 at the same shape (rate 0): register tiles (the wide CUDA-core
+    # bodies) but for dq at 256 and 512, whose CUDA-core body stays; there
+    # the forward and dk/dv also in turns with their CUDA-core bodies
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     fwd32 = lambda: attn._flash_fwd_cuda(q32, k32, v32, True, None, None,
                                          True)
@@ -4096,6 +4163,9 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
         q32, k32, v32, o32, lse32, do32, True, None)))
     costs32 = _attn_costs(b, h, h, s, d, 4, pairs)
     body32 = _flash_route_of(d, "f32")
+    cc32 = ({} if d > 512 else _cuda_core_turns(
+        q32, k32, v32, o32, lse32, do32, 0.0, None,
+        ("flash_fwd", "flash_dkv")))
     backend, lib_f, lib_b, lib_err = _sdpa_f32(q32, k32, v32, do32)
     print(f"SDPA f32 ({b}, {h}, {s}, {d}) causal: backend {backend}, "
           f"output within {lib_err:.2e} of an f64 evaluation (TF32 "
@@ -4110,9 +4180,16 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                                library_ms=lib32, library=f"SDPA {backend}",
                                body=body32[kn],
                                shape=f"({b}, {h}, {s}, {d}) f32 causal")
+        turns = ""
+        if kn in cc32:
+            rows[kn]["f32"].update(ms_in_turns=cc32[kn][0],
+                                   cuda_cores_ms=cc32[kn][1])
+            turns = (f", in turns {cc32[kn][0]:.4f} ms against the "
+                     f"CUDA-core body's {cc32[kn][1]:.4f} "
+                     f"({cc32[kn][1] / cc32[kn][0]:.2f}x)")
         print(f"time {kn} D {d} ({b}, {h}, {s}, {d}) f32 causal dropout "
               f"0.0 ({body32[kn]}): kernel {t32:.4f} ms "
-              f"({costs32[kn][1] / t32 / 1e9:.1f} TFLOP/s), SDPA f32 "
+              f"({costs32[kn][1] / t32 / 1e9:.1f} TFLOP/s){turns}, SDPA f32 "
               f"{'forward' if kn == 'flash_fwd' else 'backward'} "
               f"({backend}) {lib32:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; operations at the f32 FMA rate) [{smi}]",

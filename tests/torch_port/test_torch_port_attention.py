@@ -291,7 +291,7 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
     assert "static constexpr int MAX_NC = 8;" in bwd
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     assert "return hopper::launch_clusters(\n      flash_fwd_kernel_wide<T, " \
-        "DROP>," in fwd
+        "W, DROP>," in fwd
     body = bwd[bwd.index(f"flash_{kern}_kernel_wide(const T*"):]
     body = body[:body.index("\n}\n")]
     for call in ("hopper::cluster_sync()", "hopper::cluster_arrive()",
@@ -304,13 +304,86 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
     assert "row_sums" not in hdr + bwd and "wide::slice" not in bwd
     entry = bwd[bwd.index(f"int apex_flash_{kern}_cuda_cores("):]
     entry = entry[:entry.index("\n}\n")]
-    assert "if (D != 512) return static_cast<int>(cudaErrorInvalidValue);" \
-        in entry and f"launch_{kern}_wide" not in entry
+    assert "if (D != 256 && D != 512) return static_cast<int>(" \
+        "cudaErrorInvalidValue);" in entry
+    assert f"launch_{kern}_wide" not in entry
 
 
-# the body each kernel takes (bf16; f32 takes the CUDA cores up to D 512):
-# the tensor cores at these widths, the wide tensor-core bodies from D 512
-# (f32 the wide CUDA-core bodies from D 1024)
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
+def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
+    """The C dispatchers send the f32 forward and dk/dv at kernel widths
+    256 and 512 (the header's ``wide::row_takes``, ahead of the CUDA-core
+    bodies) to the register-tile bodies of the wide widths: the forward
+    to ``FwdWide<D>`` (a CTA on 64 rows and all D of O's columns: no
+    cluster), dk/dv to ``DkvWide<64>`` at 256 (four ring stages) and
+    ``DkvWide<32>`` at 512 (one CTA spans the row); f32 dq there stays on
+    its CUDA-core body (``launch_dq``); ``flash_route`` names the same
+    bodies, for D and the heads padded to it; the flash sources take no
+    atomics; and the CUDA-core entry points launch the CUDA-core bodies
+    at 256 and 512, for f32 as for bf16."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+
+    def body(src, start):
+        text = src[src.index(start):]
+        return text[:text.index("\n}\n")]
+
+    assert "constexpr bool row_takes(int D) {\n  return D == 256 || D == 512;" \
+        in hdr
+    src = fwd if kern == "fwd" else bwd
+    route = body(src, "int route(" if kern == "fwd" else f"int route_{kern}(")
+    cores = route.index(f"return launch_{'' if kern == 'fwd' else kern + '_'}"
+                        "cuda_cores<T, DROP>(")
+    if kern == "dq":
+        assert "row_takes" not in route
+        dq = body(bwd, "int launch_dq_cuda_cores(")
+        assert f"case {d}: launch_dq<T, {d}, DROP>(a, dq);" in dq
+    else:
+        wide = "launch_wide<T, DROP>(" if kern == "fwd" else \
+            "launch_dkv_wide<T, DROP>(a, D, dk, dv);"
+        row = route.index("if (sizeof(T) == 4 && wide::row_takes(D))\n"
+                          f"    return {wide}")
+        assert row < cores
+    if kern == "fwd":
+        launch = body(fwd, "int launch_wide(")
+        assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
+            f"if (D == {d})\n      return launch_wide_w<T, {d}, DROP>(")
+        assert "static constexpr bool CLUSTER = W >= wide::MIN_D;" in fwd
+        assert "static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;" in fwd
+        assert "G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1," in body(
+            fwd, "int launch_wide_w(")
+    if kern == "dkv":
+        launch = body(bwd, "int launch_dkv_wide(")
+        rows = 16384 // d
+        assert "static constexpr int W = 16384 / ROWS;" in bwd
+        assert (f"else if (D == DkvWide<64>::W)\n    return launch_dkv_wide_"
+                f"rows<T, 64, DROP>(" if d == 256 else
+                "else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)\n    return "
+                "launch_dkv_wide_rows<T, 32, DROP>(") in launch
+        assert rows == (64 if d == 256 else 32)
+        assert "static constexpr int STAGES = (5 * STAGE + TAIL) * 4 <= " \
+            "227 * 1024 ? 5 : 4;" in bwd
+    want = "CUDA cores" if kern == "dq" else "wide CUDA cores"
+    for width in (d, d - 1, d // 2 + 1):
+        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
+        assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
+                                 width) != "wide CUDA cores"
+    assert "atomicAdd" not in fwd + bwd and "atom." not in fwd + bwd
+    entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
+    assert "if (D != 256 && D != 512) return static_cast<int>(" \
+        "cudaErrorInvalidValue);" in entry
+    for dt in ("float", "__nv_bfloat16"):
+        for drop in ("true", "false"):
+            assert f"cuda_cores<{dt}, {drop}>(" in entry
+    assert "_wide" not in entry and "route" not in entry
+
+
+# the body each kernel takes (bf16; f32 takes the CUDA cores up to D 128,
+# and dq up to 512): the tensor cores at these widths, the wide
+# tensor-core bodies from D 512 (f32 the wide CUDA-core bodies, register
+# tiles, from D 1024, and the forward and dk/dv at 256 and 512 too)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
@@ -323,14 +396,18 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
     and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
     tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
-    (past 8192 the multiples of 8192, F7); every f32 width up to 512 and
-    bf16 at 16 and 32 on the CUDA cores; f32 from 1024 on the wide
-    CUDA-core bodies.  A head dim pads to its kernel width first (D - 1
-    routes as D, for D past 16); q, k, v and dO align to TMA's 16 bytes
-    wherever a kernel of the call takes either tensor-core route."""
+    (past 8192 the multiples of 8192, F7); f32 up to 128, f32 dq at 256
+    and 512, and bf16 at 16 and 32 on the CUDA cores; f32 from 1024, and
+    the f32 forward and dk/dv at 256 and 512 (one CTA on a whole row), on
+    the wide CUDA-core bodies (register tiles).  A head dim pads to its
+    kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
+    align to TMA's 16 bytes wherever a kernel of the call takes either
+    tensor-core route."""
     bf16 = dtype == torch.bfloat16
     want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
+            "wide CUDA cores" if not bf16 and d in (256, 512)
+            and kernel != "flash_dq" else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want
@@ -361,14 +438,16 @@ def test_bf16_heads_257_to_512_run_the_wide_tensor_core_bodies(d):
     """A bf16 head of 257..512 (D 300, for one) pads to 512 and runs its
     forward, dq and dk/dv on the wide tensor-core bodies (D 512 divides
     into their 256- and 512-column slices), its operands 16-byte aligned
-    for their TMA loads; f32 at those widths keeps the D-512 CUDA-core
-    bodies."""
+    for their TMA loads; f32 at those widths runs its forward and dk/dv in
+    register tiles (the wide CUDA-core bodies, one CTA on a whole row) and
+    its dq on the D-512 CUDA-core body."""
     assert tattn._kernel_width(d) == 512
     routes = {k: tattn.flash_route(k, torch.bfloat16, d) for k in _TC_ROUTE}
     assert routes == dict.fromkeys(_TC_ROUTE, "wide tensor cores")
     assert tattn._align(torch.bfloat16, d) == 16
-    assert {tattn.flash_route(k, torch.float32, d) for k in _TC_ROUTE} == {
-        "CUDA cores"}
+    assert {k: tattn.flash_route(k, torch.float32, d) for k in _TC_ROUTE} == {
+        "flash_fwd": "wide CUDA cores", "flash_dq": "CUDA cores",
+        "flash_dkv": "wide CUDA cores"}
     (p,) = tattn._operands(torch.randn(1, 2, 3, d).to(torch.bfloat16))
     assert p.shape == (1, 2, 3, 512) and p.data_ptr() % 16 == 0
 
@@ -377,8 +456,8 @@ def test_flash_sources_route_bf16_d512_to_the_wide_tensor_cores():
     """The header's tensor-core wide gate takes 512 and every wide width;
     the three C dispatchers and both wide tensor-core launchers use it,
     while the f32 wide CUDA-core bodies keep ``wide::MIN_D`` (1024) and
-    the D-512 CUDA-core instantiations stay for f32 (and, in the
-    CUDA-core entry points, for bf16 beside the routed bodies)."""
+    the D-512 CUDA-core instantiations stay for f32 dq (and, in the
+    CUDA-core entry points, for either dtype beside the routed bodies)."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
@@ -390,7 +469,11 @@ def test_flash_sources_route_bf16_d512_to_the_wide_tensor_cores():
     assert route.index("if (sizeof(T) == 2 && Sk > 0) {") < route.index(
         "if (wide::tc_takes(D))\n      return launch_tc_wide<DROP>(")
     assert "if (D >= wide::MIN_D)\n    return launch_wide<T, DROP>(" in route
-    assert "case 512: launch<T, 512, DROP>(" in route
+    assert "return launch_cuda_cores<T, DROP>(" in route
+    cores = fwd[fwd.index("int launch_cuda_cores("):]
+    assert "case 512: launch<T, 512, DROP>(" in cores[:cores.index("\n}\n")]
+    entry = fwd[fwd.index('int apex_flash_fwd_cuda_cores('):]
+    assert "launch_cuda_cores<__nv_bfloat16, true>(" in entry
     for kern, call in (("dq", "launch_dq_tc_wide<DROP>(a, D, dq)"),
                        ("dkv", "launch_dkv_tc_wide<DROP>(a, D, dk, dv)")):
         route = bwd[bwd.index(f"int route_{kern}("):]
@@ -398,8 +481,10 @@ def test_flash_sources_route_bf16_d512_to_the_wide_tensor_cores():
         assert f"if (wide::tc_takes(D)) return {call};" in route
         assert f"if (D >= wide::MIN_D) return launch_{kern}_wide<T, DROP>(" \
             in route
+        cores = bwd[bwd.index(f"int launch_{kern}_cuda_cores("):]
+        assert f"case 512: launch_{kern}<T, 512, DROP>(" in cores
         entry = bwd[bwd.index(f'int apex_flash_{kern}_cuda_cores('):]
-        assert f"launch_{kern}<__nv_bfloat16, 512, true>(" in entry
+        assert f"launch_{kern}_cuda_cores<__nv_bfloat16, true>(" in entry
     assert fwd.count("if (!wide::tc_takes(D))") == 1
     assert bwd.count("if (!wide::tc_takes(D) || D % ") == 2
 

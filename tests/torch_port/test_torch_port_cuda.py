@@ -621,7 +621,7 @@ def test_f32_wide_forward_slices_agree_bit_for_bit(cuda, d, rate):
     names = _device_kernel_names(lambda: attn._flash_fwd_cuda(
         q, k, v, True, None, None, True, rate, sd), "flash_fwd_kernel")
     assert names and all(
-        re.search(r"flash_fwd_kernel_wide<float, %s>" % str(bool(rate))
+        re.search(r"flash_fwd_kernel_wide<float, 1024, %s>" % str(bool(rate))
                   .lower(), n) for n in names), names
 
 
@@ -735,6 +735,81 @@ def test_f32_wide_backward_matches_the_twin_on_card(cuda, name, rate):
                                  rate, sd)
     assert all(torch.equal(a, w) for a, w in zip(again, got))
     _assert_f32_wide_backward(q, k, v, o, lse, do, causal, seg, rate, sd)
+
+
+F32_ROW_CASES = {
+    # name: (b, h, hk, sq, sk, d, causal, seg kind): the f32 forward and
+    # dk/dv in register tiles where one CTA spans the row (D 256 and 512,
+    # and 160 and 320 padded to them; dq keeps its CUDA-core body), at
+    # ragged query and key lengths, grouped-query heads and packed ids
+    "d256_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 256, True, None),
+    "d256_sq70_sk200_causal": (1, 2, 2, 70, 200, 256, True, None),
+    "d256_gqa_packed": (2, 4, 2, 130, 130, 256, False, "packed"),
+    "d160_sq70_sk200_gqa": (1, 4, 2, 70, 200, 160, False, None),
+    "d512_sq130_sk70_causal": (1, 2, 2, 130, 70, 512, True, None),
+    "d512_sq70_sk200_gqa_causal": (1, 4, 2, 70, 200, 512, True, None),
+    "d512_gqa_packed_causal": (2, 4, 2, 130, 130, 512, True, "packed"),
+    "d320_sq130_sk70": (1, 2, 2, 130, 70, 320, False, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(F32_ROW_CASES))
+def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
+    """The f32 forward (o and lse) and dk/dv at kernel widths 256 and 512,
+    register tiles with one CTA on a whole row, against
+    ``flash_fwd_ref`` / ``flash_bwd_ref`` (the backward on the card's own
+    o and lse; f32 within 1e-4), rate 0 and 0.1, dq beside them: the same
+    bits on a second call; rows of padding (packed ids) and, causal with
+    Sk > Sq, keys that no row sees give exact zeros; each kernel on its
+    ``flash_route`` and the body of its width and DROP instantiation, read
+    from the device kernels' names (the forward's W, dk/dv's key rows a
+    CTA: 64 at 256, 32 at 512; dq the CUDA-core body)."""
+    b, h, hk, sq, sk, d, causal, kind = F32_ROW_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(47)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=g, device=cuda)
+            for _ in range(2))
+    seg = None if kind is None else _seg(kind, b, sq, cuda)
+    seed = torch.tensor([24680], dtype=torch.int32, device=cuda)
+    sd = seed if rate else None
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, sd)
+    got = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
+                               sd)
+    torch.cuda.synchronize()
+    wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg, rate, sd)
+    torch.testing.assert_close(o, wo, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-5)
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg, rate,
+                              sd)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **FLASH_TOL[torch.float32])
+    if seg is not None:
+        pad = seg[0] < 0                                  # (B, S)
+        assert bool(pad.any())
+        for t in (o,) + got:
+            assert torch.all(t.transpose(1, 2)[pad] == 0)
+    if causal and sk > sq:
+        assert torch.all(got[1][:, :, sq:] == 0)
+        assert torch.all(got[2][:, :, sq:] == 0)
+    again = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, sd)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                 rate, sd)
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+    names = _device_kernel_names(lambda: (
+        attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, sd),
+        attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg, rate,
+                             sd)), "flash_", want=tuple(FLASH_BODIES.values()))
+    _assert_flash_routes(names, torch.float32, d)
+    w = attn._kernel_width(d)
+    drop = str(bool(rate)).lower()
+    for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",
+                 f"flash_dq_kernel<float, {w}, {drop}>",
+                 f"flash_dkv_kernel_wide<float, {16384 // w}, {drop}>"):
+        assert any(body in n for n in names), (body, names)
 
 
 @pytest.mark.cuda
@@ -1943,8 +2018,9 @@ def test_dropout_bodies_match_the_twins_on_card(cuda, name):
     # the bodies' last template argument is DROP
     assert all(re.search(r"_kernel(_tc_wide|_tc|_wide)?<([^>]*, )?true>", n)
                for n in names)
-    wide = attn._kernel_width(d) >= (512 if dt == torch.bfloat16 else 1024)
-    assert all(("_wide<" in n) == wide for n in names)
+    for kernel, sym in FLASH_BODIES.items():
+        wide = attn.flash_route(kernel, dt, d).startswith("wide")
+        assert all(("_wide<" in n) == wide for n in names if sym in n)
 
 
 def _keep_mask_readout():
@@ -1971,6 +2047,9 @@ KEEP_CASES = {
     "wide_tc_d512_cross": (1, 2, 70, 600, 512, False, torch.bfloat16, 0.25),
     "wide_f32_d1024_cross": (1, 2, 70, 300, 1024, False, torch.float32,
                              0.25),
+    "wide_f32_d256_causal_cross": (1, 2, 130, 300, 256, True, torch.float32,
+                                   0.1),
+    "wide_f32_d512_cross": (1, 2, 70, 600, 512, False, torch.float32, 0.25),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
 }
