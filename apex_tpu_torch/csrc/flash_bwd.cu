@@ -17,9 +17,9 @@
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
 //   padded to 256).
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 dq up to D 512
-//   and f32 dk/dv up to D 128 (the precision contract of docs/kernels.md:
-//   f32 operands stay true f32, no TF32) and bf16 at D 16 and 32.
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 128
+//   (the precision contract of docs/kernels.md: f32 operands stay true
+//   f32, no TF32) and bf16 at D 16 and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -29,9 +29,9 @@
 // - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
 //   at D >= 1024, register tiles on the CUDA cores with the column
 //   slices of a row block in a thread-block cluster that shares S and dP
-//   (below, before the entry points); and flash_dkv_kernel_wide at f32 D
-//   256 and 512 (and the heads of 129..511, padded to them), where one
-//   CTA spans the row of dK and dV (wide::row_takes).
+//   (below, before the entry points); and both at f32 D 256 and 512 (and
+//   the heads of 129..511, padded to them), where one CTA spans the row
+//   of dQ, of dK and dV (wide::row_takes).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1625,9 +1625,9 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and f32 dk/dv at
-// D 256 and 512 (wide::row_takes), and bf16 at D >= 1024 with no queries
-// or no keys (bf16 otherwise takes the tensor-core bodies, above)
+// wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and at D 256 and
+// 512 (wide::row_takes), and bf16 at D >= 1024 with no queries or no
+// keys (bf16 otherwise takes the tensor-core bodies, above)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
@@ -1647,10 +1647,10 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // source size 0).  A tile takes three passes over the ring:
 //
 // - the partial S (S^T in dk/dv) over the CTA's D/NC columns, DC = 64
-//   columns of 32 rows and of the tile's 64 a stage: a thread owns a 4 x
-//   4 block of it over a part of each stage's columns, so every float4
-//   it reads from shared memory feeds four FMAs; the parts go to shared
-//   memory;
+//   columns of its 32 or 64 rows and of the tile's 64 a stage: a thread
+//   owns a 4 x 4 block of it over a part of each stage's columns, so
+//   every float4 it reads from shared memory feeds four FMAs; the parts
+//   go to shared memory;
 // - the partial dP (dP^T) the same way; then one cluster barrier, and p
 //   and ds from the summed partials, in the reference's order, into
 //   shared memory.  The CTA arrives at a second cluster barrier once it
@@ -1660,12 +1660,18 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 //   after the others' reads;
 // - the outputs' update over the slice's columns of the other operand.
 //
-// dq (DqWide): a CTA owns BQ = 32 query rows and W = 1024 of dQ's
-// columns, NC = min(D/1024, 8); dQ's 32 x 1024 f32 sit in registers, 8
-// rows x 16 columns a thread, as the forward's O.  Key tiles of 64, the
-// causal stop at the CTA's last visible key, heaviest q blocks first.
-// dQ += dS.K from stages of 8 keys x 1024 columns of K: every K word
-// feeds 8 FMAs and every dS word 16.
+// dq (DqWide<W>): a CTA owns BQ query rows and W of dQ's columns: from
+// D 1024 BQ = 32 and W = 1024, NC = min(D/1024, 8); at D 256 and 512 BQ
+// = 64 and W = D, one CTA spans the row (NC 1: CLUSTER is false, so no
+// cluster barrier and no remote read is compiled in, and S and dP take
+// all 64 columns of a stage in one thread's part).  dQ's BQ x W f32 sit
+// in registers, 8 rows x 4C columns a thread (C = BQ W / 8192 float4s:
+// 16 columns at W 1024 and 512, 8 at 256), as the forward's O.  Key
+// tiles of 64, the causal stop at the CTA's last visible key, heaviest q
+// blocks first.  dQ += dS.K from stages of VK = 8192/W keys x W columns
+// of K (8, 16, 32): every K word feeds 8 FMAs and every dS word 4C.  An
+// S stage of 64 rows is (64 + 64) x 68 floats (34 KB), and five still
+// fit beside the partials and dS (228,352 bytes).
 //
 // dk/dv (DkvWide<ROWS>): a CTA owns ROWS key rows and W = 16384/ROWS
 // columns of both dK and dV (two accumulators of ROWS x W f32: 8 key
@@ -1709,15 +1715,38 @@ struct BwdWide {
   static constexpr int TILE_OFF = DP_OFF + SPART;
 };
 
+template <int W_>
 struct DqWide : BwdWide {
-  static constexpr int BQ = 32;                 // query rows a CTA
-  static constexpr int W = 1024;                // dQ's columns a CTA
-  static constexpr int VK = STAGE / W;          // K's keys a dQ stage (8)
+  static constexpr int W = W_;                  // dQ's columns a CTA
+  // query rows a CTA: 32 over a cluster's 1024-column slices; 64 where
+  // one CTA spans the row (each staged K and V word feeds twice the
+  // rows: 13-14% faster than 32 at D 256 and 512 on an H100)
+  static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;
+  // from 1024 the slices of a q block share S and dP over a cluster; at
+  // 256 and 512 one CTA spans the row
+  static constexpr bool CLUSTER = W >= wide::MIN_D;
+  static constexpr int KS = 64 / BQ;            // S, dP: parts of a stage's columns
+  static constexpr int RS = BQ / 4;             // S, dP: rows rg + RS a
+  static constexpr int TPR = THREADS / BQ;      // p and dS: threads a row
+  static constexpr int NX = TILE / TPR;         // p and dS: keys a thread
+  static constexpr int C = BQ * W / 8192;       // dQ: float4s of a thread's row
+  static constexpr int CG = W / (4 * C);        // dQ: threads a row group
+  static constexpr int VK = BwdWide::STAGE / W; // K's keys a dQ stage (32 KB)
   static constexpr int DSROW = BQ + 4;          // dS's key row (floats)
+  // a ring stage: a dQ stage's 32 KB, or an S (dP) stage where it is
+  // larger (64 rows: 34 KB)
+  static constexpr int STAGE = (BQ + TILE) * PAD > BwdWide::STAGE
+                                   ? (BQ + TILE) * PAD : BwdWide::STAGE;
+  static constexpr int S_OFF = STAGES * STAGE;
+  static constexpr int DP_OFF = S_OFF + SPART;
+  static constexpr int TILE_OFF = DP_OFF + SPART;
   static constexpr int SMEM = (TILE_OFF + TILE * DSROW) * 4;
+  static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA's threads");
+  static_assert(VK % (THREADS / (W / 4)) == 0,
+                "every thread copies the same number of K's float4s");
+  static_assert(CG % 32 == 0, "a warp's dQ columns are contiguous");
+  static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
-static_assert(DqWide::W / 4 == DqWide::THREADS,
-              "a thread copies one float4 of each staged K row");
 
 template <int ROWS_>
 struct DkvWide : BwdWide {
@@ -1747,7 +1776,6 @@ struct DkvWide : BwdWide {
   static_assert(KS * RS * 16 == THREADS, "the S^T tiles cover the CTA's threads");
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
-static_assert(DqWide::SMEM <= 227 * 1024, "one CTA an SM");
 
 // acc[a][b] += the dot products of A's rows ra + RS a with B's rows rb +
 // 16 b over NF float4 columns from c of a staged pair (PAD floats a row)
@@ -1834,8 +1862,8 @@ __device__ __forceinline__ void rank_update(float4 (&acc)[8][C], const float* w,
   }
 }
 
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(DqWide::THREADS, 1)
+template <typename T, int W, bool DROP>
+__global__ void __launch_bounds__(DqWide<W>::THREADS, 1)
 flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -1844,7 +1872,7 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ kv_ids, int H, int HK, int Sq,
                      int Sk, int D, int causal, float scale,
                      dropout::Params drop) {
-  using G = DqWide;
+  using G = DqWide<W>;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;   // heaviest first
   const int c0 = blockIdx.z * G::W;      // this CTA's columns of dQ and K
@@ -1867,9 +1895,11 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const bool seg = q_ids != nullptr;
     const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
     const int ntile = (kend + G::TILE - 1) / G::TILE;
-    const int nc = min(D / G::W, G::MAX_NC);   // the cluster's CTAs
+    // the cluster's CTAs
+    const int nc = G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1;
     const int part = D / nc;             // S's and dP's columns this CTA sums
-    const int cs0 = static_cast<int>(hopper::cluster_rank()) * part;
+    const int cs0 =
+        G::CLUSTER ? static_cast<int>(hopper::cluster_rank()) * part : 0;
     const int nS = part / G::DC;         // S stages a tile, and dP stages
     const int ipt = 2 * nS + G::TILE / G::VK;   // ring items a tile
     const int total = ntile * ipt;
@@ -1886,12 +1916,18 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                           s ? k : v, (size_t)bhk * Sk, k0, Sk, D,
                           cs0 + G::DC * (s ? i : i - nS));
       } else {
+        // K's VK key rows of W columns, RPX rows a round of copies (at W
+        // 1024 one float4 of each row a thread, its column fixed: the
+        // general tid / R4 and tid % R4 were 0.6% slower there on an H100)
+        constexpr int R4 = G::W / 4, RPX = G::THREADS / R4;
+        const int kr = RPX == 1 ? 0 : tid / R4;
+        const int kc = RPX == 1 ? 4 * tid : 4 * (tid % R4);
 #pragma unroll
-        for (int x = 0; x < G::VK; ++x) {
-          const int key = k0 + G::VK * (i - 2 * nS) + x;
+        for (int x = 0; x < G::VK / RPX; ++x) {
+          const int r = kr + RPX * x, key = k0 + G::VK * (i - 2 * nS) + r;
           hopper::cp_async16(
-              st + x * G::W + 4 * tid,
-              k + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + 4 * tid,
+              st + r * G::W + kc,
+              k + ((size_t)bhk * Sk + (key < Sk ? key : 0)) * D + c0 + kc,
               key < Sk);
         }
       }
@@ -1902,10 +1938,11 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_commit();
     }
 
-    // S and dP: half sh of the CTA, rows rg + 8a, keys kg + 16b
-    const int sh = tid >> 7, rg = (tid >> 4) & 7, kg = tid & 15;
-    // p and dS: row sr, keys sp + 8x
-    const int sr = tid >> 3, sp = tid & 7, srow = q0 + sr;
+    // S and dP: part sh of the stage's columns, rows rg + RS a, keys kg +
+    // 16 b
+    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, kg = tid % 16;
+    // p and dS: row sr, keys sp + TPR x
+    const int sr = tid / G::TPR, sp = tid % G::TPR, srow = q0 + sr;
     const bool srow_ok = srow < Sq;
     const size_t qrow = (size_t)bh * Sq + (srow_ok ? srow : 0);
     const float lse_r = srow_ok ? lse[qrow] : 0.f;
@@ -1913,16 +1950,17 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const int qid = (seg && srow_ok) ? q_ids[(size_t)b * Sq + srow] : 0;
     const uint32_t rkey =
         DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
-    // dQ: rows 8 og.., columns 512 oc + 4 lane + 128 c of the slice
-    const int og = tid >> 6, oc = (tid >> 5) & 1, lane = tid & 31;
-    const int ocol = 512 * oc + 4 * lane;
+    // dQ: rows 8 og.., columns ocol + 128 c of the slice (a warp's 32
+    // lanes on 128 contiguous columns)
+    const int og = tid / G::CG, lane = tid & 31;
+    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * lane;
 
-    float4 acc[8][4];
+    float4 acc[8][G::C];
     float pacc[4][4];   // the pass's partial S or dP
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = 0; c < G::C; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -1935,16 +1973,16 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_commit();
       const float* st = sm + (j % G::STAGES) * G::STAGE;
       if (i < 2 * nS) {
-        stage_dots<8, G::DC / 8>(pacc, st, st + G::BQ * G::PAD, rg, kg,
-                                 G::DC / 2 * sh);
+        stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::BQ * G::PAD,
+                                             rg, kg, G::DC / G::KS * sh);
         if (i == nS - 1 || i == 2 * nS - 1) {
           // the pass's partials to shared memory (S's once the others are
           // done reading the last tile's); after dP's the cluster's
           // partials meet and give the tile's dS
           const bool s = i == nS - 1;
           if (s && t > 0 && nc > 1) hopper::cluster_wait();
-          part_store<8>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
-                        sh * G::BQ + rg, kg);
+          part_store<G::RS>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
+                            sh * G::BQ + rg, kg);
           if (!s) {
             if (nc > 1)
               hopper::cluster_sync();
@@ -1952,11 +1990,13 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
               __syncthreads();
             const int k0 = t * G::TILE;
 #pragma unroll
-            for (int x = 0; x < 8; ++x) {
-              const int key = sp + 8 * x, col = k0 + key;
+            for (int x = 0; x < G::NX; ++x) {
+              const int key = sp + G::TPR * x, col = k0 + key;
               const int o = sr * G::SROW + key;
-              const float dot = wide::part_sum<2, G::BQ * G::SROW>(sm + G::S_OFF + o, nc);
-              float dp = wide::part_sum<2, G::BQ * G::SROW>(sm + G::DP_OFF + o, nc);
+              const float dot =
+                  wide::part_sum<G::KS, G::BQ * G::SROW>(sm + G::S_OFF + o, nc);
+              float dp =
+                  wide::part_sum<G::KS, G::BQ * G::SROW>(sm + G::DP_OFF + o, nc);
               const bool ok = srow_ok && col < Sk && (!causal || col <= srow) &&
                               (!seg || kv_ids[(size_t)b * Sk + col] == qid);
               const float p = prob(ok, dot, scale, lse_r);
@@ -1987,7 +2027,7 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       if (row >= Sq) continue;
       const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) store4(dq, base + 32 * c, acc[r][c]);
+      for (int c = 0; c < G::C; ++c) store4(dq, base + 32 * c, acc[r][c]);
     }
   }
 }
@@ -2190,23 +2230,37 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // B*H (B*HK) on x (2^31 - 1), the row blocks on y, the column slices on
-// z, a cluster of up to 8 slices; bf16 (no keys or no queries) writes
-// zeros and takes no shared memory
-template <typename T, bool DROP>
-int launch_dq_wide(const Args& a, int D, void* dq) {
-  using G = DqWide;
-  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+// z, a cluster of up to 8 slices from W 1024 (1 where one CTA spans the
+// row); bf16 (no keys or no queries) writes zeros and takes no shared
+// memory
+template <typename T, int W, bool DROP>
+int launch_dq_wide_w(const Args& a, int D, void* dq) {
+  using G = DqWide<W>;
   const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
   static const bool sized =
-      hopper::allow_smem(flash_dq_kernel_wide<T, DROP>, smem);
+      hopper::allow_smem(flash_dq_kernel_wide<T, W, DROP>, smem);
   if (!sized) return static_cast<int>(cudaErrorInvalidValue);
   return hopper::launch_clusters(
-      flash_dq_kernel_wide<T, DROP>,
+      flash_dq_kernel_wide<T, W, DROP>,
       dim3(a.B * a.H, (a.Sq + G::BQ - 1) / G::BQ, D / G::W), G::THREADS, smem,
-      min(D / G::W, G::MAX_NC), a.st, static_cast<const T*>(a.q),
-      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(dq),
-      a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D, a.causal, a.scale, a.drop);
+      G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1, a.st,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(dq), a.q_ids, a.kv_ids, a.H, a.HK, a.Sq, a.Sk, D,
+      a.causal, a.scale, a.drop);
+}
+
+// dq takes 64 query rows and all D of dQ's columns a CTA at f32 D 256
+// and 512 (one CTA spans the row), 32 rows x 1024 columns at the wide
+// widths (above, DqWide; bf16, which only writes zeros here, takes those)
+template <typename T, bool DROP>
+int launch_dq_wide(const Args& a, int D, void* dq) {
+  if constexpr (sizeof(T) == 4) {
+    if (D == 256) return launch_dq_wide_w<T, 256, DROP>(a, D, dq);
+    if (D == 512) return launch_dq_wide_w<T, 512, DROP>(a, D, dq);
+  }
+  if (!wide::takes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq_wide_w<T, 1024, DROP>(a, D, dq);
 }
 
 template <typename T, int ROWS, bool DROP>
@@ -2262,11 +2316,10 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
 // the tensor cores, and at D 512 and every wide width (D >= 1024,
 // wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
-// wide CUDA-core bodies (register tiles), and f32 dk/dv at 256 and 512
-// too (wide::row_takes: one CTA spans the row), everything else (f32 dq
-// at every width up to 512, f32 dk/dv up to 128, bf16 at 16 and 32) the
-// CUDA-core bodies of their width; a seed takes each body's DROP
-// instantiation.
+// wide CUDA-core bodies (register tiles), and at 256 and 512 too
+// (wide::row_takes: one CTA spans the row), everything else (f32 up to
+// 128, bf16 at 16 and 32) the CUDA-core bodies of their width; a seed
+// takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2275,6 +2328,8 @@ int route_dq(const Args& a, int D, void* dq) {
     if (D == 256) return launch_dq_tc<256, DROP>(a, dq);
     if (wide::tc_takes(D)) return launch_dq_tc_wide<DROP>(a, D, dq);
   }
+  if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_dq_wide<T, DROP>(a, D, dq);
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   return launch_dq_cuda_cores<T, DROP>(a, D, dq);
 }
@@ -2380,7 +2435,7 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
 
 // The CUDA-core dq and dk/dv bodies at D 256 and 512, whatever the dtype
 // (same arguments as above): bf16 there routes to the tensor-core bodies
-// and f32 dk/dv to the register-tile body, and these let a measurement
+// and f32 to the register-tile bodies, and these let a measurement
 // time the CUDA-core bodies beside them on the same inputs.  Any other
 // width is refused (from D 1024 f32 routes to the wide CUDA-core bodies,
 // and bf16 has no CUDA-core body there).

@@ -437,7 +437,7 @@ _TC_ROUTES = ("tensor cores", "wide tensor cores")
 # the narrower kernel widths at which each kernel's f32 body runs in
 # register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes),
 # as it does at every width from 1024
-_ROW_WIDTHS = {"flash_fwd": (256, 512), "flash_dq": (),
+_ROW_WIDTHS = {"flash_fwd": (256, 512), "flash_dq": (256, 512),
                "flash_dkv": (256, 512)}
 
 
@@ -446,16 +446,16 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
     + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32
-    dq up to 512, f32 forward and dk/dv up to 128, bf16 at 16 and 32),
+    up to 128, bf16 at 16 and 32),
     "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
     width from 1024, a CTA on a slice of the output's columns: 256 of O's,
     512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
     (``..._kernel_wide``, register tiles on the CUDA cores: f32 from 1024,
     a thread-block cluster of column slices sharing the scores, a CTA on
     32 rows and 1024 of O's or dQ's columns, or on 32 key rows and 512 of
-    dK's and dV's, 16 and 1024 past D 4096; and the f32 forward and dk/dv
-    at 256 and 512, where one CTA spans the row: 64 query rows, or 64 key
-    rows at 256 and 32 at 512).  The C dispatchers of
+    dK's and dV's, 16 and 1024 past D 4096; and f32 at 256 and 512, where
+    one CTA spans the row: 64 query rows in the forward and dq, 64 key
+    rows at 256 and 32 at 512 in dk/dv).  The C dispatchers of
     ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route the same way,
     apart from a bf16 forward with no keys (it takes the CUDA cores up to
     512, the wide CUDA cores past it)."""
@@ -486,7 +486,7 @@ def _kernel_width(d: int) -> int:
     :data:`HEAD_DIMS`, and past 8192 the next multiple of
     :data:`WIDE_SPLIT` (the reference pads D to its lanes the same way, and
     takes any D).  The f32 register-tile bodies take a row of 256 or 512
-    whole (the forward and dk/dv) and split a wider one into slices of
+    whole (the forward, dq and dk/dv) and split a wider one into slices of
     1024 columns (512 in dk/dv up to D 4096), a cluster of up to 8 slices
     sharing the scores; the bf16 bodies into their slices of 256 and 512
     columns.  Every multiple of 8192 holds whole clusters and slices."""

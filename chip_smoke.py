@@ -3811,9 +3811,8 @@ def _flash_route_of(d: int, dt: str) -> dict:
 def wide_head_phase(dev, smi: str) -> dict:
     """F5b, F5c and F7: flash at head dims past 128: bf16 at 256 (and
     160, 200 padded to it) on the tensor-core forward, dq and dk/dv; f32
-    at 256 and 512 (320 padded to it) with the forward and dk/dv in
-    register tiles, one CTA on a whole row, and dq on the CUDA-core body
-    (dynamic shared memory); bf16 at 512 and from 1024 (D 640 padded to it; past 8192 the next multiple
+    at 256 and 512 (320 padded to it) with the forward, dq and dk/dv in
+    register tiles, one CTA on a whole row; bf16 at 512 and from 1024 (D 640 padded to it; past 8192 the next multiple
     of 8192, F7) on the wide tensor-core bodies, f32 from 1024 on the
     wide CUDA-core bodies (register tiles, the column slices of a row
     block a thread-block cluster sharing the scores: 1024 of O's and dQ's
@@ -3827,13 +3826,15 @@ def wide_head_phase(dev, smi: str) -> dict:
     rate 0 and 0.1, beside the twin, SDPA and the bound (at D 512 the
     wide tensor-core dq and dk/dv also beside the CUDA-core bodies in
     turns), and f32 at that shape beside SDPA's f32 (at D 256 and 512 the
-    register-tile forward and dk/dv beside their CUDA-core bodies in
-    turns); each module trained
+    register-tile forward, dq and dk/dv beside their CUDA-core bodies in
+    turns); the f32 CUDA-core forward, dq and dk/dv at GPT-2's and
+    Llama's head dims (``F32_NARROW_SHAPES``) beside SDPA's f32; each
+    module trained
     2 steps at each rate (forward, backward, an SGD update of its
     params), finite losses, exact launch counts and the routes of a
     profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
     8192 held and timed (``_wide_widths``), and the f32 ones there
-    (``_wide_f32_widths``); the ptxas registers and spills of the D-256
+    (``_f32_widths``); the ptxas registers and spills of the D-256
     and wide tensor-core bodies and of every f32 register-tile forward,
     dq and dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
     "d1024": ...}}."""
@@ -3864,20 +3865,20 @@ def wide_head_phase(dev, smi: str) -> dict:
 
     # the f32 register-tile forward, dq and dk/dv (the wide CUDA-core
     # bodies), rate 0 and DROP: their registers and spills, every one at
-    # "d1024" and those of D 256 and 512 there too (the forward's W 256
-    # and 512; dk/dv's key rows a CTA, 64 at D 256 and 32 from D 512,
-    # and 16 past D 4096)
+    # "d1024" and those of D 256 and 512 there too (the forward's and
+    # dq's W 256 and 512; dk/dv's key rows a CTA, 64 at D 256 and 32 from
+    # D 512, and 16 past D 4096)
     f32_ptxas = {}
     widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
-              "flash_dq": {},
+              "flash_dq": {"d256": "IfLi256E", "d512": "IfLi512E"},
               "flash_dkv": {"d256": "IfLi64E", "d512": "IfLi32E"}}
     for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
                     ("flash_bwd", "flash_dkv")):
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
-        # each geometry at rate 0 and DROP: the forward's W 256, 512 and
-        # 1024, dq's one, dk/dv's 64, 32 and 16 rows
-        want = 2 if kn == "flash_dq" else 6
+        # each geometry at rate 0 and DROP: the forward's and dq's W 256,
+        # 512 and 1024, dk/dv's 64, 32 and 16 rows
+        want = 6
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
@@ -3971,7 +3972,10 @@ def wide_head_phase(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     _wide_widths(dev, smi, gen, seed)
     wide_s["widths"] = time.perf_counter() - t0
-    wide_s.update(_wide_f32_widths(dev, smi, gen, seed))
+    wide_s.update(_f32_widths(dev, smi, gen, seed, WIDE_FWD_SHAPES,
+                              "widths"))
+    wide_s.update(_f32_widths(dev, smi, gen, seed, F32_NARROW_SHAPES,
+                              "D 64 and 128"))
     print("phase seconds 34, its D-512, F5c and F7 part (D 512 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
@@ -4078,7 +4082,7 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     also timed beside the D-512 CUDA-core bodies in turns
     (``cuda_cores_ms``); and the f32 bodies at that shape (rate 0) beside
     SDPA's f32 forward and backward, at D 256 and 512 the register-tile
-    forward and dk/dv also beside their CUDA-core bodies in turns
+    forward, dq and dk/dv also beside their CUDA-core bodies in turns
     (``{"f32": {"ms_in_turns": ..., "cuda_cores_ms": ...}}``)."""
     import torch
     import torch.nn.functional as F
@@ -4153,8 +4157,7 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
                   f"twin [{smi}]", flush=True)
         del o, lse
     # f32 at the same shape (rate 0): register tiles (the wide CUDA-core
-    # bodies) but for dq at 256 and 512, whose CUDA-core body stays; there
-    # the forward and dk/dv also in turns with their CUDA-core bodies
+    # bodies); at 256 and 512 also in turns with their CUDA-core bodies
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     fwd32 = lambda: attn._flash_fwd_cuda(q32, k32, v32, True, None, None,
                                          True)
@@ -4165,7 +4168,7 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     body32 = _flash_route_of(d, "f32")
     cc32 = ({} if d > 512 else _cuda_core_turns(
         q32, k32, v32, o32, lse32, do32, 0.0, None,
-        ("flash_fwd", "flash_dkv")))
+        ("flash_fwd", "flash_dq", "flash_dkv")))
     backend, lib_f, lib_b, lib_err = _sdpa_f32(q32, k32, v32, do32)
     print(f"SDPA f32 ({b}, {h}, {s}, {d}) causal: backend {backend}, "
           f"output within {lib_err:.2e} of an f64 evaluation (TF32 "
@@ -4285,22 +4288,29 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
         del q, k, v, do
 
 
-def _wide_f32_widths(dev, smi: str, gen, seed) -> dict:
-    """The f32 wide forward, dq and dk/dv (register tiles on the CUDA
-    cores, the column slices of a row block a cluster sharing the
-    scores) at ``WIDE_FWD_SHAPES``, causal, rate 0 and 0.1: held against
-    the twins and to the same bits on a second call, then timed beside
-    SDPA's f32 forward and backward (``_sdpa_f32``: no TF32), the twin
-    and the bound at the f32 FMA rate.  Up to D 8192 one cluster spans a
-    row block, so the FLOP executed are the useful ones (4·D a pair
-    forward, 6·D dq, 8·D dk/dv).  Returns the seconds of its forward and
-    backward parts."""
+# the f32 CUDA-core bodies at the head dims f32 training runs them at:
+# GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128)
+F32_NARROW_SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128))
+
+
+def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
+    """The f32 forward, dq and dk/dv at ``shapes`` (``WIDE_FWD_SHAPES``:
+    the wide bodies, register tiles on the CUDA cores, the column slices
+    of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``:
+    the CUDA-core bodies), causal, rate 0 and 0.1: held against the twins
+    and to the same bits on a second call, then timed beside SDPA's f32
+    forward and backward (``_sdpa_f32``: no TF32), the twin and the bound
+    at the f32 FMA rate.  Up to D 8192 one cluster spans a row block, so
+    the FLOP executed are the useful ones (4·D a pair forward, 6·D dq,
+    8·D dk/dv).  Returns the seconds of its forward and backward parts,
+    named with ``label``."""
     import torch
     from apex_tpu_torch.ops import attention as attn
 
     atol, rtol = ATTN_TOL["f32"]
-    secs = {"f32 forward widths": 0.0, "f32 backward widths": 0.0}
-    for b, h, s, d in WIDE_FWD_SHAPES:
+    fwd_s, bwd_s = f"f32 forward {label}", f"f32 backward {label}"
+    secs = {fwd_s: 0.0, bwd_s: 0.0}
+    for b, h, s, d in shapes:
         t0 = time.perf_counter()
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
                        for _ in range(4))
@@ -4308,7 +4318,7 @@ def _wide_f32_widths(dev, smi: str, gen, seed) -> dict:
                                                      dev))
         backend, lib_f, lib_b, lib_err = _sdpa_f32(q, k, v, do)
         body = _flash_route_of(d, "f32")
-        secs["f32 forward widths"] += time.perf_counter() - t0
+        secs[fwd_s] += time.perf_counter() - t0
         for rate in (0.0, DROP_RATE):
             t0 = time.perf_counter()
             sd = seed if rate else None
@@ -4328,7 +4338,7 @@ def _wide_f32_widths(dev, smi: str, gen, seed) -> dict:
             times = {"flash_fwd": _ms(fwd, 5)}
             plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
                 q, k, v, True, None, None, rate, sd), 2, 1)}
-            secs["f32 forward widths"] += time.perf_counter() - t0
+            secs[fwd_s] += time.perf_counter() - t0
             t0 = time.perf_counter()
             grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
                                          None, rate, sd)
@@ -4368,7 +4378,7 @@ def _wide_f32_widths(dev, smi: str, gen, seed) -> dict:
                   f"{pair:.4f} ms"
                   + (f" ({pair / lib_b:.2f}x SDPA f32's backward)"
                      if rate == 0 else "") + f" [{smi}]", flush=True)
-            secs["f32 backward widths"] += time.perf_counter() - t0
+            secs[bwd_s] += time.perf_counter() - t0
         del q, k, v, do
     return secs
 

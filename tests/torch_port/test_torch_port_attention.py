@@ -265,16 +265,17 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
     cluster barriers; the backward source has no atomics (one owner
     thread an output element, a fixed order of sums) and no longer the
     row sums across warps; dk/dv takes 32 key rows a CTA up to D 4096 and
-    16 past it; the CUDA-core entry points take D 512 alone (from 1024
-    f32 routes to the wide CUDA-core bodies, and bf16 has none there)."""
+    16 past it; the CUDA-core entry points take D 256 and 512 alone (from
+    1024 f32 routes to the wide CUDA-core bodies, and bf16 has none
+    there)."""
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
-    rows = "_rows" if kern == "dkv" else ""
+    rows = "_rows" if kern == "dkv" else "_w"
     launcher = bwd[bwd.index(f"int launch_{kern}_wide{rows}("):]
     launcher = launcher[:launcher.index("\n}\n")]
     assert "return hopper::launch_clusters(" in launcher
-    assert f"flash_{kern}_kernel_wide<T, {'ROWS, ' if rows else ''}DROP>," \
-        in launcher
+    assert f"flash_{kern}_kernel_wide<T, {'ROWS' if kern == 'dkv' else 'W'}" \
+        f", DROP>," in launcher
     assert "min(D / G::W, G::MAX_NC)" in launcher
     if rows:
         # 32 key rows x 512 columns while one cluster spans the row, 16 x
@@ -312,16 +313,16 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
 @pytest.mark.parametrize("d", [256, 512])
 @pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
 def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
-    """The C dispatchers send the f32 forward and dk/dv at kernel widths
-    256 and 512 (the header's ``wide::row_takes``, ahead of the CUDA-core
-    bodies) to the register-tile bodies of the wide widths: the forward
-    to ``FwdWide<D>`` (a CTA on 64 rows and all D of O's columns: no
-    cluster), dk/dv to ``DkvWide<64>`` at 256 (four ring stages) and
-    ``DkvWide<32>`` at 512 (one CTA spans the row); f32 dq there stays on
-    its CUDA-core body (``launch_dq``); ``flash_route`` names the same
-    bodies, for D and the heads padded to it; the flash sources take no
-    atomics; and the CUDA-core entry points launch the CUDA-core bodies
-    at 256 and 512, for f32 as for bf16."""
+    """The C dispatchers send the f32 forward, dq and dk/dv at kernel
+    widths 256 and 512 (the header's ``wide::row_takes``, ahead of the
+    CUDA-core bodies) to the register-tile bodies of the wide widths: the
+    forward to ``FwdWide<D>`` and dq to ``DqWide<D>`` (a CTA on 64 rows
+    and all D of O's or dQ's columns: no cluster), dk/dv to
+    ``DkvWide<64>`` at 256 (four ring stages) and ``DkvWide<32>`` at 512
+    (one CTA spans the row); ``flash_route`` names the same bodies, for
+    D and the heads padded to it; the flash sources take no atomics; and
+    the CUDA-core entry points launch the CUDA-core bodies at 256 and
+    512, for f32 as for bf16."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
@@ -336,16 +337,15 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
     route = body(src, "int route(" if kern == "fwd" else f"int route_{kern}(")
     cores = route.index(f"return launch_{'' if kern == 'fwd' else kern + '_'}"
                         "cuda_cores<T, DROP>(")
-    if kern == "dq":
-        assert "row_takes" not in route
-        dq = body(bwd, "int launch_dq_cuda_cores(")
-        assert f"case {d}: launch_dq<T, {d}, DROP>(a, dq);" in dq
-    else:
-        wide = "launch_wide<T, DROP>(" if kern == "fwd" else \
-            "launch_dkv_wide<T, DROP>(a, D, dk, dv);"
-        row = route.index("if (sizeof(T) == 4 && wide::row_takes(D))\n"
-                          f"    return {wide}")
-        assert row < cores
+    wide = {"fwd": "launch_wide<T, DROP>(",
+            "dq": "launch_dq_wide<T, DROP>(a, D, dq);",
+            "dkv": "launch_dkv_wide<T, DROP>(a, D, dk, dv);"}[kern]
+    row = route.index("if (sizeof(T) == 4 && wide::row_takes(D))\n"
+                      f"    return {wide}")
+    assert row < cores
+    if kern != "fwd":
+        cc = body(bwd, f"int launch_{kern}_cuda_cores(")
+        assert f"case {d}: launch_{kern}<T, {d}, DROP>(" in cc
     if kern == "fwd":
         launch = body(fwd, "int launch_wide(")
         assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
@@ -354,6 +354,23 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
         assert "static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;" in fwd
         assert "G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1," in body(
             fwd, "int launch_wide_w(")
+    if kern == "dq":
+        launch = body(bwd, "int launch_dq_wide(")
+        assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
+            f"if (D == {d}) return launch_dq_wide_w<T, {d}, DROP>(")
+        assert launch.index("if (!wide::takes(D))") > launch.index(
+            f"launch_dq_wide_w<T, {d}, DROP>(")
+        dq = bwd[bwd.index("struct DqWide : BwdWide {"):]
+        dq = dq[:dq.index("\n};\n")]
+        assert "static constexpr bool CLUSTER = W >= wide::MIN_D;" in dq
+        assert "static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;" in dq
+        assert "G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1," in body(
+            bwd, "int launch_dq_wide_w(")
+        kern_body = body(bwd, "flash_dq_kernel_wide(const T*")
+        assert "const int nc = G::CLUSTER ? min(D / G::W, G::MAX_NC) : 1;" \
+            in kern_body
+        assert "G::CLUSTER ? static_cast<int>(hopper::cluster_rank()) * " \
+            "part : 0;" in kern_body
     if kern == "dkv":
         launch = body(bwd, "int launch_dkv_wide(")
         rows = 16384 // d
@@ -365,7 +382,7 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
         assert rows == (64 if d == 256 else 32)
         assert "static constexpr int STAGES = (5 * STAGE + TAIL) * 4 <= " \
             "227 * 1024 ? 5 : 4;" in bwd
-    want = "CUDA cores" if kern == "dq" else "wide CUDA cores"
+    want = "wide CUDA cores"
     for width in (d, d - 1, d // 2 + 1):
         assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
         assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
@@ -380,10 +397,10 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
     assert "_wide" not in entry and "route" not in entry
 
 
-# the body each kernel takes (bf16; f32 takes the CUDA cores up to D 128,
-# and dq up to 512): the tensor cores at these widths, the wide
-# tensor-core bodies from D 512 (f32 the wide CUDA-core bodies, register
-# tiles, from D 1024, and the forward and dk/dv at 256 and 512 too)
+# the body each kernel takes (bf16; f32 takes the CUDA cores up to D
+# 128): the tensor cores at these widths, the wide tensor-core bodies
+# from D 512 (f32 the wide CUDA-core bodies, register tiles, from D 1024,
+# and at 256 and 512 too)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
@@ -396,18 +413,16 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
     and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
     tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
-    (past 8192 the multiples of 8192, F7); f32 up to 128, f32 dq at 256
-    and 512, and bf16 at 16 and 32 on the CUDA cores; f32 from 1024, and
-    the f32 forward and dk/dv at 256 and 512 (one CTA on a whole row), on
-    the wide CUDA-core bodies (register tiles).  A head dim pads to its
+    (past 8192 the multiples of 8192, F7); f32 up to 128 and bf16 at 16
+    and 32 on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA
+    on a whole row), on the wide CUDA-core bodies (register tiles).  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
     align to TMA's 16 bytes wherever a kernel of the call takes either
     tensor-core route."""
     bf16 = dtype == torch.bfloat16
     want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
-            "wide CUDA cores" if not bf16 and d in (256, 512)
-            and kernel != "flash_dq" else
+            "wide CUDA cores" if not bf16 and d in (256, 512) else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want
@@ -438,16 +453,14 @@ def test_bf16_heads_257_to_512_run_the_wide_tensor_core_bodies(d):
     """A bf16 head of 257..512 (D 300, for one) pads to 512 and runs its
     forward, dq and dk/dv on the wide tensor-core bodies (D 512 divides
     into their 256- and 512-column slices), its operands 16-byte aligned
-    for their TMA loads; f32 at those widths runs its forward and dk/dv in
-    register tiles (the wide CUDA-core bodies, one CTA on a whole row) and
-    its dq on the D-512 CUDA-core body."""
+    for their TMA loads; f32 at those widths runs all three in register
+    tiles (the wide CUDA-core bodies, one CTA on a whole row)."""
     assert tattn._kernel_width(d) == 512
     routes = {k: tattn.flash_route(k, torch.bfloat16, d) for k in _TC_ROUTE}
     assert routes == dict.fromkeys(_TC_ROUTE, "wide tensor cores")
     assert tattn._align(torch.bfloat16, d) == 16
-    assert {k: tattn.flash_route(k, torch.float32, d) for k in _TC_ROUTE} == {
-        "flash_fwd": "wide CUDA cores", "flash_dq": "CUDA cores",
-        "flash_dkv": "wide CUDA cores"}
+    assert {k: tattn.flash_route(k, torch.float32, d) for k in _TC_ROUTE} == (
+        dict.fromkeys(_TC_ROUTE, "wide CUDA cores"))
     (p,) = tattn._operands(torch.randn(1, 2, 3, d).to(torch.bfloat16))
     assert p.shape == (1, 2, 3, 512) and p.data_ptr() % 16 == 0
 
@@ -456,8 +469,8 @@ def test_flash_sources_route_bf16_d512_to_the_wide_tensor_cores():
     """The header's tensor-core wide gate takes 512 and every wide width;
     the three C dispatchers and both wide tensor-core launchers use it,
     while the f32 wide CUDA-core bodies keep ``wide::MIN_D`` (1024) and
-    the D-512 CUDA-core instantiations stay for f32 dq (and, in the
-    CUDA-core entry points, for either dtype beside the routed bodies)."""
+    the D-512 CUDA-core instantiations stay for the CUDA-core entry
+    points (either dtype, beside the routed bodies)."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()

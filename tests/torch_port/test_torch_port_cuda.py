@@ -676,7 +676,7 @@ def _assert_f32_wide_backward(q, k, v, o, lse, do, causal, seg, rate, sd):
         want=("flash_dq_kernel_wide", "flash_dkv_kernel_wide"))
     drop = str(bool(rate)).lower()
     rows = 32 if attn._kernel_width(q.shape[-1]) <= 4096 else 16
-    for want in (f"flash_dq_kernel_wide<float, {drop}>",
+    for want in (f"flash_dq_kernel_wide<float, 1024, {drop}>",
                  f"flash_dkv_kernel_wide<float, {rows}, {drop}>"):
         assert any(want in n for n in names), (want, names)
     assert all("_kernel_wide<float, " in n for n in names), names
@@ -738,10 +738,10 @@ def test_f32_wide_backward_matches_the_twin_on_card(cuda, name, rate):
 
 
 F32_ROW_CASES = {
-    # name: (b, h, hk, sq, sk, d, causal, seg kind): the f32 forward and
-    # dk/dv in register tiles where one CTA spans the row (D 256 and 512,
-    # and 160 and 320 padded to them; dq keeps its CUDA-core body), at
-    # ragged query and key lengths, grouped-query heads and packed ids
+    # name: (b, h, hk, sq, sk, d, causal, seg kind): the f32 forward, dq
+    # and dk/dv in register tiles where one CTA spans the row (D 256 and
+    # 512, and 160 and 320 padded to them), at ragged query and key
+    # lengths, grouped-query heads and packed ids
     "d256_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 256, True, None),
     "d256_sq70_sk200_causal": (1, 2, 2, 70, 200, 256, True, None),
     "d256_gqa_packed": (2, 4, 2, 130, 130, 256, False, "packed"),
@@ -757,15 +757,15 @@ F32_ROW_CASES = {
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("name", sorted(F32_ROW_CASES))
 def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
-    """The f32 forward (o and lse) and dk/dv at kernel widths 256 and 512,
-    register tiles with one CTA on a whole row, against
+    """The f32 forward (o and lse), dq and dk/dv at kernel widths 256 and
+    512, register tiles with one CTA on a whole row, against
     ``flash_fwd_ref`` / ``flash_bwd_ref`` (the backward on the card's own
-    o and lse; f32 within 1e-4), rate 0 and 0.1, dq beside them: the same
-    bits on a second call; rows of padding (packed ids) and, causal with
-    Sk > Sq, keys that no row sees give exact zeros; each kernel on its
+    o and lse; f32 within 1e-4), rate 0 and 0.1: the same bits on a
+    second call; rows of padding (packed ids) and, causal with Sk > Sq,
+    keys that no row sees give exact zeros; each kernel on its
     ``flash_route`` and the body of its width and DROP instantiation, read
-    from the device kernels' names (the forward's W, dk/dv's key rows a
-    CTA: 64 at 256, 32 at 512; dq the CUDA-core body)."""
+    from the device kernels' names (the forward's and dq's W, dk/dv's key
+    rows a CTA: 64 at 256, 32 at 512)."""
     b, h, hk, sq, sk, d, causal, kind = F32_ROW_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(47)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
@@ -807,7 +807,7 @@ def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
     w = attn._kernel_width(d)
     drop = str(bool(rate)).lower()
     for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",
-                 f"flash_dq_kernel<float, {w}, {drop}>",
+                 f"flash_dq_kernel_wide<float, {w}, {drop}>",
                  f"flash_dkv_kernel_wide<float, {16384 // w}, {drop}>"):
         assert any(body in n for n in names), (body, names)
 
@@ -955,6 +955,16 @@ DQ_CASES = {
                                torch.bfloat16),
     "f32_d1024_wide_cuda_cores": (1, 2, 2, 100, 100, 1024, True, None,
                                   torch.float32),
+    # the f32 register-tile dq where one CTA spans the row: 64 rows and
+    # all of dQ's columns a CTA (D 256 and 512, 160 and 320 padded)
+    "f32_d256_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 256, True, None,
+                                       torch.float32),
+    "f32_d512_sq70_sk200_causal": (1, 2, 2, 70, 200, 512, True, None,
+                                   torch.float32),
+    "f32_d160_gqa_packed": (2, 4, 2, 130, 130, 160, False, "packed",
+                            torch.float32),
+    "f32_d320_gqa_packed_causal": (2, 4, 2, 200, 200, 320, True, "packed",
+                                   torch.float32),
 }
 
 
