@@ -17,9 +17,10 @@
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
 //   padded to 256).
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 up to D 128
-//   (the precision contract of docs/kernels.md: f32 operands stay true
-//   f32, no TF32) and bf16 at D 16 and 32.
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: the f32 dq up to D
+//   128 and the f32 dk/dv at D 16 and 32 (the precision contract of
+//   docs/kernels.md: f32 operands stay true f32, no TF32) and bf16 at D 16
+//   and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -29,9 +30,10 @@
 // - wide CUDA cores, flash_dq_kernel_wide and flash_dkv_kernel_wide: f32
 //   at D >= 1024, register tiles on the CUDA cores with the column
 //   slices of a row block in a thread-block cluster that shares S and dP
-//   (below, before the entry points); and both at f32 D 256 and 512 (and
-//   the heads of 129..511, padded to them), where one CTA spans the row
-//   of dQ, of dK and dV (wide::row_takes).
+//   (below, before the entry points); both at f32 D 256 and 512 (and the
+//   heads of 129..511, padded to them), where one CTA spans the row of dQ,
+//   of dK and dV (wide::row_takes); and the dk/dv at f32 D 64 and 128 (and
+//   the heads of 33..127), one CTA on a row too (wide::narrow_takes).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1626,8 +1628,9 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 
 // ---------------------------------------------------------------------------
 // wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and at D 256 and
-// 512 (wide::row_takes), and bf16 at D >= 1024 with no queries or no
-// keys (bf16 otherwise takes the tensor-core bodies, above)
+// 512 (wide::row_takes), the f32 dk/dv at 64 and 128 (wide::narrow_takes),
+// and bf16 at D >= 1024 with no queries or no keys (bf16 otherwise takes
+// the tensor-core bodies, above)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
@@ -1673,10 +1676,21 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // S stage of 64 rows is (64 + 64) x 68 floats (34 KB), and five still
 // fit beside the partials and dS (228,352 bytes).
 //
-// dk/dv (DkvWide<ROWS>): a CTA owns ROWS key rows and W = 16384/ROWS
+// dk/dv (DkvWide<ROWS, W>): a CTA owns ROWS key rows and W = 16384/ROWS
 // columns of both dK and dV (two accumulators of ROWS x W f32: 8 key
-// rows x 8 columns of each a thread), NC = min(D/W, 8).  ROWS is 64 (W
-// 256) at D 256, 32 (W 512) from D 512 while one cluster spans the row,
+// rows x 8 columns of each a thread), NC = min(D/W, 8); at D 64 and 128
+// 64 key rows and W = D (8 rows x 4 columns of each a thread at 128, 4 x
+// 4 at 64; one cluster-less CTA on a row, as at 256; the q tile's 64
+// rows of dO and q take two update stages at 128 and one at 64).  There
+// a thread's 4 x 4 blocks of S^T and dP^T are whole scores (it holds S^T
+// over the dP^T pass), so it computes p and dS of its own block straight
+// into shared memory: no partials, no barrier between the passes
+// (DIRECT; 1.3x and 1.6x faster at 128 and 64 on an H100 than the
+// partials).  The ring has five stages at 128 (one CTA an SM) and two at
+// 64, so that two CTAs of 103 KB share an SM (7% faster than four stages
+// there, spills of 108 bytes at the 128 registers two CTAs leave a
+// thread; two stages at 128 spill 356 bytes and take 29% longer).  ROWS
+// is 64 (W 256) at D 256, 32 (W 512) from D 512 while one cluster spans the row,
 // D <= 4096, and 16 (W 1024) past it: more rows give each staged q and
 // dO word more reuse in S^T and dP^T (32 rows were 7-18% faster than 16
 // on an H100 at D 1024..4096), but at D 8192 32 rows would need two
@@ -1689,7 +1703,7 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // sees its key block under the causal mask; lse, di and the q segment
 // ids are staged beside each tile.  dV += P^T.dO, then dK += dS^T.Q, from
 // stages of 4096/W query rows of dO and q over the slice's columns: every
-// dO and q word feeds 8 FMAs.
+// dO and q word feeds 8 FMAs (4 at D 64).
 //
 // No FLOP repeats while one cluster spans the row, up to D 8192 (6D a
 // visible pair in dq, 8D in dk/dv).  Past that a row block has D/8192
@@ -1748,32 +1762,50 @@ struct DqWide : BwdWide {
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
 
-template <int ROWS_>
+template <int ROWS_, int W_ = 16384 / ROWS_>
 struct DkvWide : BwdWide {
   static constexpr int ROWS = ROWS_;            // key rows a CTA (64, 32 or 16)
-  static constexpr int W = 16384 / ROWS;        // dK's and dV's columns a CTA
+  // dK's and dV's columns a CTA: 16384 / ROWS, or 128 and 64 at 64 rows
+  static constexpr int W = W_;
   static constexpr int KS = 64 / ROWS;          // S^T: parts of a stage's columns
   static constexpr int RS = ROWS / 4;           // S^T: key rows rg + RS a
   static constexpr int TPR = THREADS / ROWS;    // p and dS: threads a key row
-  static constexpr int CG = W / 8;              // dK, dV: threads a row group
+  // dK, dV: a thread's float4s a row (C) and rows (OR): 8 x 2 where ROWS W
+  // = 16384, 8 x 1 at 64 x 128, 4 x 1 at 64 x 64
+  static constexpr int C = ROWS * W >= 16384 ? 2 : 1;
+  static constexpr int OR = ROWS * W / (1024 * C);
+  static constexpr int CG = W / (4 * C);        // dK, dV: threads a row group
   static constexpr int QK = BwdWide::STAGE / (2 * W);   // dO and Q rows a stage
   static constexpr int PROW = ROWS + 4;         // p's (dS's) query row (floats)
   // a ring stage: an update stage's 32 KB, or an S^T (dP^T) stage where
   // it is larger (64 rows: 34 KB)
   static constexpr int STAGE = (ROWS + TILE) * PAD > BwdWide::STAGE
                                    ? (ROWS + TILE) * PAD : BwdWide::STAGE;
+  // at 64 and 128 columns (one CTA on a row, KS 1) each thread takes p
+  // and dS of its own blocks of S^T and dP^T, which it holds whole: no
+  // partials in shared memory
+  static constexpr bool DIRECT = W < 256;
+  static constexpr int PARTS = DIRECT ? 0 : 2 * SPART;
   // past the ring: S^T's and dP^T's partials, p, dS, and the tile's lse,
   // di and q ids; the ring has five stages where they fit beside it (one
   // CTA an SM), four at 64 rows
-  static constexpr int TAIL = 2 * SPART + 2 * TILE * PROW + 3 * TILE;
-  static constexpr int STAGES = (5 * STAGE + TAIL) * 4 <= 227 * 1024 ? 5 : 4;
+  static constexpr int TAIL = PARTS + 2 * TILE * PROW + 3 * TILE;
+  // (two at W 64: 103 KB, so that two CTAs share an SM)
+  static constexpr int RING = (5 * STAGE + TAIL) * 4 <= 227 * 1024 ? 5 : 4;
+  static constexpr int STAGES = W == 64 ? 2 : RING;
   static constexpr int S_OFF = STAGES * STAGE;
   static constexpr int DP_OFF = S_OFF + SPART;
-  static constexpr int P_OFF = DP_OFF + SPART;
+  static constexpr int P_OFF = S_OFF + PARTS;
   static constexpr int DS_OFF = P_OFF + TILE * PROW;
   static constexpr int ROW_OFF = DS_OFF + TILE * PROW;   // lse, di, q ids
   static constexpr int SMEM = (ROW_OFF + 3 * TILE) * 4;
+  // CTAs an SM its shared memory allows (the register budget follows)
+  static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
   static_assert(KS * RS * 16 == THREADS, "the S^T tiles cover the CTA's threads");
+  static_assert(OR % 4 == 0 && ROWS / OR * CG == THREADS,
+                "dK's and dV's tiles cover the CTA");
+  static_assert(TILE % QK == 0, "the update stages cover a tile");
+  static_assert(!DIRECT || KS == 1, "a thread's blocks hold whole scores");
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
 
@@ -1841,22 +1873,29 @@ __device__ __forceinline__ void part_store(float* pb, float (&acc)[4][4],
     }
 }
 
-// acc[r][c] += w[x][r] * X[x][c] over N rows x: the 8 weights of row x
-// at w + WS x (a broadcast), its C float4s at X + XS x + CS c
-template <int N, int WS, int XS, int CS, int C>
-__device__ __forceinline__ void rank_update(float4 (&acc)[8][C], const float* w,
+// acc[r][c] += w[x][r] * X[x][c] over N rows x: the R weights of row x
+// at w + WS x (a broadcast; R a multiple of 4), its C float4s at X + XS x
+// + CS c
+template <int N, int WS, int XS, int CS, int R, int C>
+__device__ __forceinline__ void rank_update(float4 (&acc)[R][C], const float* w,
                                             const float* X) {
 #pragma unroll
   for (int x = 0; x < N; ++x) {
-    const float4 w0 = *reinterpret_cast<const float4*>(w + WS * x);
-    const float4 w1 = *reinterpret_cast<const float4*>(w + WS * x + 4);
-    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    float wv[R];
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      const float4 f = *reinterpret_cast<const float4*>(w + WS * x + 4 * i);
+      wv[4 * i] = f.x;
+      wv[4 * i + 1] = f.y;
+      wv[4 * i + 2] = f.z;
+      wv[4 * i + 3] = f.w;
+    }
     float4 xv[C];
 #pragma unroll
     for (int c = 0; c < C; ++c)
       xv[c] = *reinterpret_cast<const float4*>(X + XS * x + CS * c);
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[r][c] = axpy4(wv[r], xv[c], acc[r][c]);
   }
@@ -2032,8 +2071,8 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int ROWS, bool DROP>
-__global__ void __launch_bounds__(BwdWide::THREADS, 1)
+template <typename T, int ROWS, int W, bool DROP>
+__global__ void __launch_bounds__(BwdWide::THREADS, DkvWide<ROWS, W>::CTAS)
 flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -2042,7 +2081,7 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ kv_ids, int H, int HK, int Sq,
                       int Sk, int D, int causal, float scale,
                       dropout::Params drop) {
-  using G = DkvWide<ROWS>;
+  using G = DkvWide<ROWS, W>;
   const int bhk = blockIdx.x;
   const int c0 = blockIdx.y * G::ROWS;   // the first key block sees most rows
   const int cw0 = blockIdx.z * G::W;     // this CTA's columns of dK and dV
@@ -2126,15 +2165,23 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const int sr = tid / G::TPR, sp = tid % G::TPR, key = c0 + sr;
     const bool key_ok = key < Sk;
     const int kid = (seg && key_ok) ? kv_ids[(size_t)b * Sk + key] : 0;
-    // dK and dV: key rows 8 og.., columns 4 cg + W/2 c of the slice
+    // DIRECT: the key ids of the thread's S^T rows rg + RS a
+    int kids[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kr = c0 + rg + G::RS * a;
+      kids[a] = (G::DIRECT && seg && kr < Sk) ? kv_ids[(size_t)b * Sk + kr] : 0;
+    }
+    // dK and dV: key rows OR og.., columns ocol + W/C c of the slice
     const int og = tid / G::CG, ocol = 4 * (tid % G::CG);
 
-    float4 dka[8][2], dva[8][2];
+    float4 dka[G::OR][G::C], dva[G::OR][G::C];
     float pacc[4][4];   // the pass's partial S^T or dP^T
+    float sacc[4][4];   // DIRECT: the tile's S^T block, over the dP^T pass
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < G::OR; ++r)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+      for (int c = 0; c < G::C; ++c)
         dka[r][c] = dva[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -2161,7 +2208,46 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
         }
         stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::ROWS * G::PAD,
                                              rg, qg, G::DC / G::KS * sh);
-        if (i == nS - 1 || i == 2 * nS - 1) {
+        if (G::DIRECT && i == nS - 1) {
+          // S^T whole: held for the dP^T pass
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              sacc[a][c] = pacc[a][c];
+              pacc[a][c] = 0.f;
+            }
+        } else if (G::DIRECT && i == 2 * nS - 1) {
+          // p and dS of the thread's key rows rg + RS a and q rows qg +
+          // 16 c (the barrier that opened this item ordered lse, di and
+          // the q ids; the next one orders p and dS for the update)
+          const uint32_t hkey =
+              DROP ? dropout::head_key(*drop.seed, bh) : 0u;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int qr = qg + 16 * c, row = r0 + qr;
+            const float lse_q = lse_s[qr], di_q = di_s[qr];
+            const int qid_q = qid_s[qr];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const int kr = rg + G::RS * a, kk = c0 + kr;
+              const bool ok = kk < Sk && row < Sq && (!causal || kk <= row) &&
+                              (!seg || qid_q == kids[a]);
+              const float p = prob(ok, sacc[a][c], scale, lse_q);
+              float dp = pacc[a][c];
+              float pv = p;   // dV's p: keep * p / (1 - rate) under DROP
+              if (DROP) {
+                const bool keep = dropout::kept(
+                    drop, dropout::row_key(dropout::col_key(hkey, kk), row));
+                pv = dropout::scaled(drop, keep, p);
+                dp = dropout::scaled(drop, keep, dp);
+              }
+              p_s[qr * G::PROW + kr] = pv;
+              ds_s[qr * G::PROW + kr] = dscore(p, dp, di_q, scale);
+              pacc[a][c] = 0.f;
+            }
+          }
+        } else if (!G::DIRECT && (i == nS - 1 || i == 2 * nS - 1)) {
           // the pass's partials to shared memory (S^T's once the others
           // are done reading the last tile's); after dP^T's the
           // cluster's partials meet and give the tile's p and dS
@@ -2201,10 +2287,10 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       } else {
         // dV += P^T.dO, then dK += dS^T.Q, over the stage's QK q rows
         const int qq0 = G::QK * (i - 2 * nS);
-        rank_update<G::QK, G::PROW, 2 * G::W, G::W / 2>(
-            dva, p_s + qq0 * G::PROW + 8 * og, st + ocol);
-        rank_update<G::QK, G::PROW, 2 * G::W, G::W / 2>(
-            dka, ds_s + qq0 * G::PROW + 8 * og, st + G::W + ocol);
+        rank_update<G::QK, G::PROW, 2 * G::W, G::W / G::C>(
+            dva, p_s + qq0 * G::PROW + G::OR * og, st + ocol);
+        rank_update<G::QK, G::PROW, 2 * G::W, G::W / G::C>(
+            dka, ds_s + qq0 * G::PROW + G::OR * og, st + G::W + ocol);
       }
       if (++i == ipt) {
         i = 0;
@@ -2216,14 +2302,14 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     if (nc > 1 && total > 0) hopper::cluster_wait();
 
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int kr = c0 + 8 * og + r;
+    for (int r = 0; r < G::OR; ++r) {
+      const int kr = c0 + G::OR * og + r;
       if (kr >= Sk) continue;
       const size_t base = (((size_t)bhk * Sk + kr) * D + cw0 + ocol) / 4;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        store4(dk, base + G::W / 8 * c, dka[r][c]);
-        store4(dv, base + G::W / 8 * c, dva[r][c]);
+      for (int c = 0; c < G::C; ++c) {
+        store4(dk, base + G::W / 4 / G::C * c, dka[r][c]);
+        store4(dv, base + G::W / 4 / G::C * c, dva[r][c]);
       }
     }
   }
@@ -2263,15 +2349,15 @@ int launch_dq_wide(const Args& a, int D, void* dq) {
   return launch_dq_wide_w<T, 1024, DROP>(a, D, dq);
 }
 
-template <typename T, int ROWS, bool DROP>
+template <typename T, int ROWS, int W, bool DROP>
 int launch_dkv_wide_rows(const Args& a, int D, void* dk, void* dv) {
-  using G = DkvWide<ROWS>;
+  using G = DkvWide<ROWS, W>;
   const int smem = sizeof(T) == 2 ? 0 : G::SMEM;
   static const bool sized =
-      hopper::allow_smem(flash_dkv_kernel_wide<T, ROWS, DROP>, smem);
+      hopper::allow_smem(flash_dkv_kernel_wide<T, ROWS, W, DROP>, smem);
   if (!sized) return static_cast<int>(cudaErrorInvalidValue);
   return hopper::launch_clusters(
-      flash_dkv_kernel_wide<T, ROWS, DROP>,
+      flash_dkv_kernel_wide<T, ROWS, W, DROP>,
       dim3(a.B * a.HK, (a.Sk + G::ROWS - 1) / G::ROWS, D / G::W), G::THREADS,
       smem, min(D / G::W, G::MAX_NC), a.st, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
@@ -2280,22 +2366,28 @@ int launch_dkv_wide_rows(const Args& a, int D, void* dk, void* dv) {
       a.causal, a.scale, a.drop);
 }
 
-// dk/dv takes 64 key rows x 256 columns a CTA at D 256 and 32 x 512 from
-// D 512 (f32 at 256 and 512: one CTA spans the row), the latter while one
-// cluster of 8 spans the row (D <= 4096), and 16 x 1024 past it (above,
-// DkvWide; bf16, which only writes zeros here, takes 32 x 512)
+// dk/dv takes 64 key rows x D columns a CTA at f32 D 64, 128 and 256, and
+// 32 x 512 from D 512 (f32 from 64 to 512: one CTA spans the row), the
+// latter while one cluster of 8 spans the row (D <= 4096), and 16 x 1024
+// past it (above, DkvWide; bf16, which only writes zeros here, takes 32 x
+// 512)
 template <typename T, bool DROP>
 int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
-  if (!wide::takes(D) && !(sizeof(T) == 4 && wide::row_takes(D)))
+  if (!wide::takes(D) && !(sizeof(T) == 4 && (wide::row_takes(D) ||
+                                              wide::narrow_takes(D))))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2)
-    return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
+    return launch_dkv_wide_rows<T, 32, 512, DROP>(a, D, dk, dv);
+  else if (D == 64)
+    return launch_dkv_wide_rows<T, 64, 64, DROP>(a, D, dk, dv);
+  else if (D == 128)
+    return launch_dkv_wide_rows<T, 64, 128, DROP>(a, D, dk, dv);
   else if (D == DkvWide<64>::W)
-    return launch_dkv_wide_rows<T, 64, DROP>(a, D, dk, dv);
+    return launch_dkv_wide_rows<T, 64, 256, DROP>(a, D, dk, dv);
   else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)
-    return launch_dkv_wide_rows<T, 32, DROP>(a, D, dk, dv);
+    return launch_dkv_wide_rows<T, 32, 512, DROP>(a, D, dk, dv);
   else
-    return launch_dkv_wide_rows<T, 16, DROP>(a, D, dk, dv);
+    return launch_dkv_wide_rows<T, 16, 1024, DROP>(a, D, dk, dv);
 }
 
 // The CUDA-core dq body of width D
@@ -2317,9 +2409,10 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
 // the tensor cores, and at D 512 and every wide width (D >= 1024,
 // wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
 // wide CUDA-core bodies (register tiles), and at 256 and 512 too
-// (wide::row_takes: one CTA spans the row), everything else (f32 up to
-// 128, bf16 at 16 and 32) the CUDA-core bodies of their width; a seed
-// takes each body's DROP instantiation.
+// (wide::row_takes: one CTA spans the row), as does the f32 dk/dv at 64
+// and 128 (wide::narrow_takes); everything else (f32 dq up to 128, f32
+// dk/dv at 16 and 32, bf16 at 16 and 32) the CUDA-core bodies of their
+// width; a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2358,6 +2451,8 @@ int route_dkv(const Args& a, int D, void* dk, void* dv) {
     if (wide::tc_takes(D)) return launch_dkv_tc_wide<DROP>(a, D, dk, dv);
   }
   if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_dkv_wide<T, DROP>(a, D, dk, dv);
+  if (sizeof(T) == 4 && wide::narrow_takes(D))
     return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   if (D >= wide::MIN_D) return launch_dkv_wide<T, DROP>(a, D, dk, dv);
   return launch_dkv_cuda_cores<T, DROP>(a, D, dk, dv);
@@ -2433,12 +2528,13 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The CUDA-core dq and dk/dv bodies at D 256 and 512, whatever the dtype
-// (same arguments as above): bf16 there routes to the tensor-core bodies
-// and f32 to the register-tile bodies, and these let a measurement
-// time the CUDA-core bodies beside them on the same inputs.  Any other
-// width is refused (from D 1024 f32 routes to the wide CUDA-core bodies,
-// and bf16 has no CUDA-core body there).
+// The CUDA-core dq and dk/dv bodies of every width they have (16..512),
+// whatever the dtype (same arguments as above): bf16 from 64 routes to
+// the tensor-core bodies and f32 dk/dv from 64 (dq from 256) to the
+// register-tile bodies, and these let a measurement time the CUDA-core
+// bodies beside them on the same inputs.  Any other width is refused
+// (from D 1024 f32 routes to the wide CUDA-core bodies, and bf16 has no
+// CUDA-core body there).
 extern "C" int apex_flash_dq_cuda_cores(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, const void* q_ids,
@@ -2449,7 +2545,6 @@ extern "C" int apex_flash_dq_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case F32:
       return drop ? launch_dq_cuda_cores<float, true>(a, D, dq)
@@ -2472,7 +2567,6 @@ extern "C" int apex_flash_dkv_cuda_cores(
                            Sq, Sk, causal, scale, seed, keep_below,
                            keep_scale, stream);
   const bool drop = a.drop.seed != nullptr;
-  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case F32:
       return drop ? launch_dkv_cuda_cores<float, true>(a, D, dk, dv)

@@ -22,20 +22,22 @@
 // - tensor cores, flash_fwd_kernel_tc: bf16 at D 64, 128 and 256 (every
 //   path that trains through flash: GPT-2, BERT-Large, Llama-class heads,
 //   and the Gemma-class heads of 129..256, padded to 256).
-// - CUDA cores, flash_fwd_kernel: f32 up to D 128 (the serving path; the
-//   precision contract of docs/kernels.md makes f32 operands true f32,
-//   so no TF32), bf16 at D 16 and 32, and bf16 with no keys (Sk == 0) up
-//   to D 512.
+// - CUDA cores, flash_fwd_kernel: f32 at D 16 and 32 (the precision
+//   contract of docs/kernels.md makes f32 operands true f32, so no TF32)
+//   and f32 with no keys (Sk == 0) up to D 128, bf16 at D 16 and 32, and
+//   bf16 with no keys up to D 512.
 // - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 512 (and the
 //   heads of 257..511, padded to it) and D >= 1024 (the powers of two to
 //   8192, then the multiples of 8192: the wrapper pads every wider head
 //   to one; wide::tc_takes), D a runtime width; a CTA owns 256 of O's
 //   columns and computes S over the whole D (below, before the route).
-// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 256 and 512 (and the
-//   heads of 129..511, padded to them) and at D >= 1024 (and bf16 there
-//   with no keys), with D a runtime width: register tiles of S and O on
-//   the CUDA cores, a CTA on 64 query rows and all of O's columns at 256
-//   and 512, on 32 rows and 1024 of them from 1024.
+// - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 64 and 128 with keys
+//   (the serving path's GPT-2 heads and Llama-class ones, and the heads
+//   of 33..127, padded to them), at D 256 and 512 (and the heads of
+//   129..511) and at D >= 1024 (and bf16 there with no keys), with D a
+//   runtime width: register tiles of S and O on the CUDA cores, a CTA on
+//   64 query rows and all of O's columns from 64 to 512, on 32 rows and
+//   1024 of them from 1024.
 //
 // All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -103,10 +105,10 @@
 // stops at the CTA's diagonal tile (the TPU kernel's clamped index map).
 // As in the tensor-core body, B*H rides the grid's x (up to 2^31 - 1, so
 // the flat row the dropout hash takes is never split over launches) and
-// the q blocks its y, heaviest first.  Past D 128 f32 runs the
-// register-tile body (below); the D-256 and D-512 instantiations here
-// stay for bf16 with no keys and for apex_flash_fwd_cuda_cores, which
-// times them beside it.
+// the q blocks its y, heaviest first.  From D 64 f32 with keys runs the
+// register-tile body (below); the instantiations from 64 here stay for
+// calls with no keys and for apex_flash_fwd_cuda_cores, which times them
+// beside it.
 //
 // Every output element is owned by one CTA that sums in a fixed order:
 // no atomics, the same bits every run.
@@ -191,6 +193,19 @@ __device__ __forceinline__ float4 axpy4(float p, float4 x, float4 y) {
 
 __device__ __forceinline__ float4 scale4(float4 x, float s) {
   return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+}
+
+// N consecutive floats of shared memory (16-byte aligned) into x
+template <int N>
+__device__ __forceinline__ void ld_rows(float (&x)[N], const float* p) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(p)[i];
+    x[4 * i] = f.x;
+    x[4 * i + 1] = f.y;
+    x[4 * i + 2] = f.z;
+    x[4 * i + 3] = f.w;
+  }
 }
 
 template <typename T, int D, bool DROP>
@@ -319,18 +334,19 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// register-tile body: f32 at D 256 and 512 (wide::row_takes: one CTA
-// spans a row of O) and at D >= 1024 (wide::takes: a cluster of column
-// slices), and bf16 at D >= 1024 with no keys (bf16 with keys takes the
-// tensor cores)
+// register-tile body: f32 at D 64 and 128 (wide::narrow_takes) and 256
+// and 512 (wide::row_takes), where one CTA spans a row of O, and at D >=
+// 1024 (wide::takes: a cluster of column slices), and bf16 at D >= 1024
+// with no keys (bf16 with keys takes the tensor cores)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
 // contract of docs/kernels.md).  A CTA of 256 threads owns BQ query rows
 // and W of O's columns (blockIdx.z counts the D/W column slices): from D
-// 1024 BQ = 32 and W = 1024, at D 256 and 512 BQ = 64 and W = D.  O's BQ
-// x W f32 sit in registers, each thread 8 rows x 4C columns (C = BQ W /
-// 8192 float4s a row: 128 registers at 1024 and 512, 64 at 256).  From D
+// 1024 BQ = 32 and W = 1024, from 64 to 512 BQ = 64 and W = D.  O's BQ x
+// W f32 sit in registers, each thread OR = 8 rows x 4C columns (C = BQ W
+// / 8192 float4s a row: 128 registers at 1024 and 512, 64 at 256, 32 at
+// 128) and at W 64 OR = 4 rows x 4 columns (a half-warp on a row).  From D
 // 1024 the slices of a q block form a thread-block cluster of NC =
 // min(D/1024, 8) CTAs (on the grid's z), and CTA r of the cluster
 // computes S's partial dot products over the D/NC columns [r D/NC, (r+1)
@@ -348,24 +364,28 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //   > 1), and each score is the sum over the cluster's CTAs, in rank
 //   order, of its parts in order (read through distributed shared memory
 //   when NC > 1): every CTA of the cluster gets the same scores, bit for
-//   bit.
+//   bit.  (At 64 and 128 one buffer of parts, above it two.)
 // - the online softmax: 256/BQ threads a row (8 or 4), 64/(256/BQ) keys
 //   each, the row's max and sum over their shuffles; P (after the
 //   dropout keep, as the reference applies it) and the rescale factor go
 //   to shared memory.
-// - O += P.V over the slice's V columns, VK = 8192/W keys a stage (8, 16
-//   and 32): each thread reads its 8 rows' p (a broadcast) and its 4C
-//   columns of each key row (float4s that a warp reads contiguously),
-//   every V word feeding 8 FMAs and every p word 4C.
+// - O += P.V over the slice's V columns, VK = 8192/W keys a stage (8, 16,
+//   32 and 64; the tile's 64 at W 64): each thread reads its OR rows' p (a
+//   broadcast) and its 4C columns of each key row (float4s that a warp
+//   reads contiguously), every V word feeding OR FMAs and every p word 4C.
 //
 // One counter runs over every ring item ((D/NC)/64 S stages and 64/VK V
 // stages a tile, 32 KB a stage (34 KB at 64 rows, for an S stage), five
-// stages); a stage is loaded STAGES - 1 items ahead of its use, once the
-// barrier that opens an item shows every thread done with the stage's
-// last use.  Rows past Sq and keys past Sk arrive as zeros (cp.async's
-// source size 0).  (Stages of 32 columns and 4 keys, twice the barriers,
-// were slower on an H100; the rows a CTA at D 256 and 512: PERF.md,
-// Findings.)  So the slices share S, and no FLOP repeats up to D 8192 (4D
+// stages; two at 64 and 128, whose tile is three items (two at 64), so
+// that two CTAs of 104 KB share an SM and each runs while the other
+// waits on its barriers: 15% and 4% faster at 64 and 128 on an H100 than
+// five stages and one CTA); a stage is loaded STAGES - 1 items ahead of
+// its use, once the barrier that opens an item shows every thread done
+// with the stage's last use.  Rows past Sq and keys past Sk arrive as
+// zeros (cp.async's source size 0).  (Stages of 32 columns and 4 keys,
+// twice the barriers, were slower on an H100; the rows a CTA at D 256
+// and 512: PERF.md, Findings.)  So the slices share S, and no FLOP
+// repeats up to D 8192 (4D
 // a pair); past it (F7) each cluster of 8 computes the whole of S (D/8192
 // clusters: (D/8192)·2D + 2D a pair), the same partials in the same
 // order, so every slice gets the same m, l and p, bit for bit, the
@@ -393,32 +413,50 @@ struct FwdWide {
   static constexpr int RS = BQ / 4;             // S: rows rg + RS a
   static constexpr int TPR = THREADS / BQ;      // softmax: threads a row
   static constexpr int NX = BK / TPR;           // softmax: keys a thread
-  static constexpr int C = BQ * W / 8192;       // O: float4s of a thread's row
+  // O: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and 64) and
+  // rows (8, 4 at W 64)
+  static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;
+  static constexpr int OR = BQ * W / (1024 * C);
   static constexpr int CG = W / (4 * C);        // O: threads a row group
-  static constexpr int VK = 8192 / W;           // V's keys a stage (32 KB)
+  // V's keys a stage (32 KB; the tile's 64 at W 64, 16 KB)
+  static constexpr int VK = W >= 128 ? 8192 / W : BK;
   static constexpr int STAGE = (BQ + BK) * PAD > VK * W ? (BQ + BK) * PAD
                                                         : VK * W;
-  static constexpr int STAGES = 5;
+  // the narrow widths (64 and 128): a tile's few items fit a short ring,
+  // and two CTAs share an SM
+  static constexpr bool NARROW = W < 256;
+  static constexpr int STAGES = NARROW ? 2 : 5;
   static constexpr int MAX_NC = 8;              // a cluster's CTAs (portable)
-  // from 1024 the slices of a q block share S over a cluster; at 256 and
-  // 512 one CTA spans the row
+  // from 1024 the slices of a q block share S over a cluster; from 512
+  // down one CTA spans the row
   static constexpr bool CLUSTER = W >= wide::MIN_D;
   static constexpr int SROW = BK + 8;           // partial S row (floats)
   static constexpr int PROW = BQ + 4;           // P's key row (floats)
   static constexpr int SPART_OFF = STAGES * STAGE;
   static constexpr int SPART = KS * BQ * SROW;  // a tile's parts
-  static constexpr int P_OFF = SPART_OFF + 2 * SPART;
+  // buffers of parts: a tile's and the last one's, which a cluster's
+  // other CTAs may still read; one at the narrow widths, where the
+  // barrier that opens the tile's V stage orders the reads before the next
+  // tile's writes (256 and 512 keep two: one CTA an SM either way)
+  static constexpr int NBUF = NARROW ? 1 : 2;
+  static constexpr int P_OFF = SPART_OFF + NBUF * SPART;
   static constexpr int ROW_OFF = P_OFF + BK * PROW;   // alpha, then l
   static constexpr int SMEM = (ROW_OFF + 2 * BQ) * 4;
+  // CTAs an SM its shared memory allows (the register budget follows)
+  static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
   static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA");
   static_assert(BQ * DC / 4 % THREADS == 0,
                 "every thread copies the same number of Q's float4s");
-  static_assert(CG % 32 == 0, "a warp's O columns are contiguous");
+  static_assert(CG % 32 == 0 || 32 % CG == 0,
+                "a warp's O columns are contiguous, or it spans whole rows");
+  static_assert(OR % 4 == 0 && BQ / OR * CG == THREADS,
+                "O's tiles cover the CTA");
+  static_assert(BK % VK == 0, "V's stages cover a tile");
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
 
 template <typename T, int W, bool DROP>
-__global__ void __launch_bounds__(FwdWide<W>::THREADS, 1)
+__global__ void __launch_bounds__(FwdWide<W>::THREADS, FwdWide<W>::CTAS)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, const int* __restrict__ q_ids,
@@ -514,15 +552,15 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const uint32_t rkey =
         DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
     float m = NEG, l = 0.f;
-    // O: rows 8 og.., columns ocol + 128 c of the slice (a warp's 32
-    // lanes on 128 contiguous columns)
-    const int og = tid / G::CG, lane = tid & 31;
-    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * lane;
+    // O: rows OR og.., columns ocol + 128 c of the slice (a warp's 32
+    // lanes on 128 contiguous columns; at W 64 a half-warp on a row's 64)
+    const int og = tid / G::CG;
+    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * (tid % G::CG % 32);
 
-    float4 acc[8][G::C];
+    float4 acc[G::OR][G::C];
     float sacc[4][4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < G::OR; ++r)
 #pragma unroll
       for (int c = 0; c < G::C; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -559,7 +597,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
         if (i == nS - 1) {
           // the cluster's partial scores meet; the online softmax of the
           // tile
-          float* sb = spart + (t & 1) * G::SPART;
+          float* sb = spart + (t % G::NBUF) * G::SPART;
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -611,26 +649,23 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
         const int kk0 = G::VK * (i - nS);   // the stage's first key
         if (kk0 == 0) {
           // the tile's rescale of O (the barrier above ordered alpha)
-          const float4 a0 = *reinterpret_cast<const float4*>(alpha_s + 8 * og);
-          const float4 a1 = *reinterpret_cast<const float4*>(alpha_s + 8 * og + 4);
-          const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          float al[G::OR];
+          ld_rows(al, alpha_s + G::OR * og);
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
+          for (int r = 0; r < G::OR; ++r)
 #pragma unroll
             for (int c = 0; c < G::C; ++c) acc[r][c] = scale4(acc[r][c], al[r]);
         }
 #pragma unroll
         for (int x = 0; x < G::VK; ++x) {
-          const float* pr = ps + (kk0 + x) * G::PROW + 8 * og;
-          const float4 p0 = *reinterpret_cast<const float4*>(pr);
-          const float4 p1 = *reinterpret_cast<const float4*>(pr + 4);
-          const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          float pv[G::OR];
+          ld_rows(pv, ps + (kk0 + x) * G::PROW + G::OR * og);
           float4 vv[G::C];
 #pragma unroll
           for (int c = 0; c < G::C; ++c)
             vv[c] = *reinterpret_cast<const float4*>(st + x * G::W + ocol + 128 * c);
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
+          for (int r = 0; r < G::OR; ++r)
 #pragma unroll
             for (int c = 0; c < G::C; ++c) acc[r][c] = axpy4(pv[r], vv[c], acc[r][c]);
         }
@@ -652,10 +687,10 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = q0 + 8 * og + r;
+    for (int r = 0; r < G::OR; ++r) {
+      const int row = q0 + G::OR * og + r;
       if (row >= Sq) continue;
-      const float lr = l_s[8 * og + r];
+      const float lr = l_s[G::OR * og + r];
       const float linv = lr > 0.f ? 1.f / lr : 0.f;
       const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
 #pragma unroll
@@ -665,7 +700,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // B*H on x (2^31 - 1), the q blocks on y, the D/W column slices on z, a
-// cluster of min(D/1024, 8) slices from W 1024 (1 at W 256 and 512); bf16
+// cluster of min(D/1024, 8) slices from W 1024 (1 from W 64 to 512); bf16
 // (no keys) writes zeros and takes no shared memory
 template <typename T, int W, bool DROP>
 int launch_wide_w(const void* q, const void* k, const void* v, void* o,
@@ -687,15 +722,19 @@ int launch_wide_w(const void* q, const void* k, const void* v, void* o,
       HK, Sq, Sk, D, causal, scale, drop);
 }
 
-// f32 at 256 and 512 (one CTA spans the row) and at the wide widths (1024
-// of O's columns a CTA); bf16 only at the wide widths with no keys (with
-// keys it runs the wide tensor-core body)
+// f32 at 64, 128, 256 and 512 (one CTA spans the row) and at the wide
+// widths (1024 of O's columns a CTA); bf16 only at the wide widths with no
+// keys (with keys it runs the wide tensor-core body)
 template <typename T, bool DROP>
 int launch_wide(const void* q, const void* k, const void* v, void* o,
                 float* lse, const int* q_ids, const int* kv_ids, int B, int H,
                 int HK, int Sq, int Sk, int D, int causal, float scale,
                 const dropout::Params& drop, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
+    if (D == 64)
+      return launch_wide_w<T, 64, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
+    if (D == 128)
+      return launch_wide_w<T, 128, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
     if (D == 256)
       return launch_wide_w<T, 256, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
     if (D == 512)
@@ -1289,11 +1328,12 @@ int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
 
 // The route: bf16 with keys to read takes the tensor cores, at D 64, 128
 // and 256 and (the wide tensor-core body) at D 512 and every wide width,
-// D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes) and the
-// rest of the wide widths (f32, and bf16 with no keys) the register-tile
-// body, everything else (f32 up to 128, bf16 at 16 and 32 or with no keys
-// up to 512) the CUDA-core bodies of their width; a seed takes each
-// body's DROP instantiation.
+// D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes), at 64
+// and 128 with keys to read (wide::narrow_takes) and the rest of the wide
+// widths (f32, and bf16 with no keys) the register-tile body, everything
+// else (f32 at 16 and 32 or with no keys up to 128, bf16 at 16 and 32 or
+// with no keys up to 512) the CUDA-core bodies of their width; a seed
+// takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -1310,6 +1350,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_tc_wide<DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   }
   if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
+  if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
@@ -1358,11 +1400,11 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The CUDA-core forward at D 256 and 512, whatever the dtype (the
-// arguments of apex_flash_fwd): f32 there routes to the register-tile
-// body and bf16 with keys to the tensor cores, and this lets a
-// measurement time the CUDA-core body beside them on the same inputs.
-// Any other width is refused.
+// The CUDA-core forward of every width it has (16..512), whatever the
+// dtype (the arguments of apex_flash_fwd): f32 at 64..512 routes to the
+// register-tile body and bf16 with keys from 64 to the tensor cores, and
+// this lets a measurement time the CUDA-core body beside them on the same
+// inputs.  Any other width is refused.
 extern "C" int apex_flash_fwd_cuda_cores(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_ids, const void* kv_ids, int dtype, int B, int H, int HK,
@@ -1375,7 +1417,6 @@ extern "C" int apex_flash_fwd_cuda_cores(
                            keep_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = seed != nullptr;
-  if (D != 256 && D != 512) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case F32:
       return drop ? launch_cuda_cores<float, true>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st)

@@ -446,12 +446,20 @@ __host__ __device__ constexpr bool tc_takes(int D) {
   return D == TC_MIN_D || takes(D);
 }
 
-// The narrower widths of the f32 register-tile forward, dq and dk/dv
+// The row widths of the f32 register-tile forward, dq and dk/dv
 // (the wide CUDA-core bodies, flash_{fwd,dq,dkv}_kernel_wide): at 256
 // and 512 (and the heads of 129..511, padded to them) one CTA spans a row
 // of O (of dQ, of dK and dV), so no cluster.
 __host__ __device__ constexpr bool row_takes(int D) {
   return D == 256 || D == 512;
+}
+
+// The narrow widths of the f32 register-tile forward and dk/dv: at 64 and
+// 128 (and the heads of 33..127, padded to them) one CTA spans a row of O
+// (of dK and dV), as at row_takes.  The f32 dq keeps its CUDA-core body
+// there (flash_dq_kernel).
+__host__ __device__ constexpr bool narrow_takes(int D) {
+  return D == 64 || D == 128;
 }
 
 // The sum of a score's NP parts (STRIDE floats apart, from p) over the

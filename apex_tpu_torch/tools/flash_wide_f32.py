@@ -1,4 +1,4 @@
-"""The f32 flash bodies at D 256 and 512 and the f32 wide ones
+"""The f32 flash bodies at D 64, 128, 256 and 512 and the f32 wide ones
 (``flash_fwd_kernel_wide``, ``flash_dq_kernel_wide``,
 ``flash_dkv_kernel_wide``; D >= 1024) of this tree against the same
 entry points built from another checkout's sources, timed in turns in
@@ -11,8 +11,9 @@ headers (for instance ``apex_tpu_torch/csrc`` of an unpacked ``git
 archive`` of an earlier commit).  Each source builds with the port's nvcc
 flags into ``apex_tpu_torch/_build/`` (all at once) and is called
 through its C entry points with the arguments the wrapper gives them.
-At each causal f32 shape ((8, 4, 512) at D 256 and 512, D 1024, and
-2048, 4096, 8192 at D 1024's bytes; ``--widths`` picks some) and
+At each causal f32 shape (GPT-2 small's (8, 12, 512, 64), a Llama-class
+(8, 8, 512, 128), (8, 4, 512) at D 256 and 512, D 1024, and 2048, 4096,
+8192 at D 1024's bytes; ``--widths`` picks some) and
 dropout rate each kernel of each source is held to its twin
 (``flash_fwd_ref`` / ``flash_bwd_ref`` on this tree's o and lse) within
 the f32 tolerance and to its own bits on a second call; then each
@@ -27,9 +28,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 
-SHAPES = ((8, 4, 512, 256), (8, 4, 512, 512), (8, 2, 512, 1024),
+SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128),
+          (8, 4, 512, 256), (8, 4, 512, 512), (8, 2, 512, 1024),
           (4, 2, 512, 2048), (2, 2, 512, 4096),
           (1, 2, 512, 8192))                              # (B, H, S, D)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -77,8 +80,9 @@ def _build_pairs(other: str, kernels) -> dict:
 
 
 def _ptxas_wide_f32(log: str) -> list:
-    """(kernel, registers, spills) of each f32 wide body in nvcc's
-    ``-Xptxas -v`` report."""
+    """(kernel, registers, spills) of each f32 wide body (and of the f32
+    CUDA-core dq and dk/dv at 64 and 128, ``..._kernelIfLi64E`` and
+    ``...Li128E``) in nvcc's ``-Xptxas -v`` report."""
     out, entry, spill = [], None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -86,7 +90,8 @@ def _ptxas_wide_f32(log: str) -> list:
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and entry \
-                and "_kernel_wideIf" in entry:
+                and ("_kernel_wideIf" in entry or re.search(
+                    r"_kernelIfLi(64|128)E", entry)):
             out.append((entry, line.split(":", 1)[-1].strip(), spill))
     return out
 

@@ -95,8 +95,9 @@ exits non-zero:
     zeros; the same bits on a second run; each case prints the route
     each kernel took, read from the device kernels' names under the
     profiler (each kernel's ``ops.attention.flash_route``: the tensor-core
-    bodies for bf16 at D 64 and 128, the CUDA-core bodies otherwise at
-    these widths); every tensor-core body's ptxas registers
+    bodies for bf16 at D 64 and 128, the register-tile forward and dk/dv
+    for f32 there, the CUDA-core bodies otherwise at these widths); every
+    tensor-core body's ptxas registers
     and spills (0 spill bytes required) and the host microseconds of one
     TMA tensor map; at GPT's and BERT-L's unmasked shapes each kernel
     timed beside its twin, its bound and SDPA's forward or backward in
@@ -235,7 +236,11 @@ exits non-zero:
     ``SelfMultiheadAttn(2048, 2)``'s (8, 2, 512, 1024) bf16 causal
     shapes beside the twin, SDPA and the bound (and the f32 wide bodies
     at the latter); each module trained 2 SGD steps at dropout 0.1 and
-    0 with exact launch counts and profiled routes;
+    0 with exact launch counts and profiled routes; the f32 forward and
+    dk/dv at (8, 12, 512, 64) and (8, 8, 512, 128) in register tiles
+    beside their CUDA-core bodies in turns, the dq, SDPA f32 and the
+    bound, with every register-tile body's ptxas registers and spills;
+    every flash kernel at D 16 and 32, f32 and bf16, beside SDPA;
 35. train (GPTModel; run after phase 20) — ``models.GPTModel`` at GPT-2
     small's published widths (12 x 768, 12 heads, vocab 50257, 1024
     positions), amp O2, FusedAdam lr 3e-4 through the flat pipeline,
@@ -3828,7 +3833,10 @@ def wide_head_phase(dev, smi: str) -> dict:
     turns), and f32 at that shape beside SDPA's f32 (at D 256 and 512 the
     register-tile forward, dq and dk/dv beside their CUDA-core bodies in
     turns); the f32 CUDA-core forward, dq and dk/dv at GPT-2's and
-    Llama's head dims (``F32_NARROW_SHAPES``) beside SDPA's f32; each
+    Llama's head dims (``F32_NARROW_SHAPES``; the forward and dk/dv in
+    register tiles, beside their CUDA-core bodies in turns) beside SDPA's
+    f32; the f32 and bf16 CUDA-core bodies at D 16 and 32
+    (``CUDA_CORE_SHAPES``) beside SDPA of their dtype; each
     module trained
     2 steps at each rate (forward, backward, an SGD update of its
     params), finite losses, exact launch counts and the routes of a
@@ -3866,19 +3874,21 @@ def wide_head_phase(dev, smi: str) -> dict:
     # the f32 register-tile forward, dq and dk/dv (the wide CUDA-core
     # bodies), rate 0 and DROP: their registers and spills, every one at
     # "d1024" and those of D 256 and 512 there too (the forward's and
-    # dq's W 256 and 512; dk/dv's key rows a CTA, 64 at D 256 and 32 from
-    # D 512, and 16 past D 4096)
+    # dq's W 256 and 512; dk/dv's key rows a CTA and W, 64 x 256 at D 256
+    # and 32 x 512 from D 512, and 16 x 1024 past D 4096); the forward's
+    # and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) are printed
     f32_ptxas = {}
     widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
               "flash_dq": {"d256": "IfLi256E", "d512": "IfLi512E"},
-              "flash_dkv": {"d256": "IfLi64E", "d512": "IfLi32E"}}
+              "flash_dkv": {"d256": "IfLi64ELi256E", "d512": "IfLi32ELi512E"}}
     for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
                     ("flash_bwd", "flash_dkv")):
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
-        # each geometry at rate 0 and DROP: the forward's and dq's W 256,
-        # 512 and 1024, dk/dv's 64, 32 and 16 rows
-        want = 6
+        # each geometry at rate 0 and DROP: the forward's W 64, 128, 256,
+        # 512 and 1024, dq's 256, 512 and 1024, dk/dv's 64 x 64, 64 x 128,
+        # 64 x 256, 32 x 512 and 16 x 1024
+        want = 6 if kn == "flash_dq" else 10
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
@@ -3976,6 +3986,9 @@ def wide_head_phase(dev, smi: str) -> dict:
                               "widths"))
     wide_s.update(_f32_widths(dev, smi, gen, seed, F32_NARROW_SHAPES,
                               "D 64 and 128"))
+    t0 = time.perf_counter()
+    _cuda_core_widths(dev, smi, gen)
+    wide_s["D 16 and 32"] = time.perf_counter() - t0
     print("phase seconds 34, its D-512, F5c and F7 part (D 512 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
@@ -4288,8 +4301,9 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
         del q, k, v, do
 
 
-# the f32 CUDA-core bodies at the head dims f32 training runs them at:
-# GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128)
+# the f32 bodies at the head dims f32 training and serving run them at:
+# GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128); the
+# forward and dk/dv there in register tiles, the dq on the CUDA cores
 F32_NARROW_SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128))
 
 
@@ -4297,10 +4311,12 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
     """The f32 forward, dq and dk/dv at ``shapes`` (``WIDE_FWD_SHAPES``:
     the wide bodies, register tiles on the CUDA cores, the column slices
     of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``:
-    the CUDA-core bodies), causal, rate 0 and 0.1: held against the twins
-    and to the same bits on a second call, then timed beside SDPA's f32
-    forward and backward (``_sdpa_f32``: no TF32), the twin and the bound
-    at the f32 FMA rate.  Up to D 8192 one cluster spans a row block, so
+    the register-tile forward and dk/dv with one CTA on a row, and the
+    CUDA-core dq), causal, rate 0 and 0.1: held against the twins and to
+    the same bits on a second call, then timed beside SDPA's f32 forward
+    and backward (``_sdpa_f32``: no TF32), the twin and the bound at the
+    f32 FMA rate; at D 64 and 128 the forward and dk/dv also in turns with
+    their CUDA-core bodies (``_cuda_core_turns``).  Up to D 8192 one cluster spans a row block, so
     the FLOP executed are the useful ones (4·D a pair forward, 6·D dq,
     8·D dk/dv).  Returns the seconds of its forward and backward parts,
     named with ``label``."""
@@ -4359,6 +4375,11 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
             plain["flash_dq"] = plain["flash_dkv"] = _ms(
                 lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
                                            None, rate, sd), 2, 1)
+            if d <= 128:
+                # the register-tile forward and dk/dv beside the CUDA-core
+                # bodies they replace, in turns
+                _cuda_core_turns(q, k, v, o, lse, do, rate, sd,
+                                 ("flash_fwd", "flash_dkv"))
             del o, lse
             for kn, ms in times.items():
                 nbytes, ops = costs[kn]
@@ -4382,6 +4403,79 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
         del q, k, v, do
     return secs
 
+
+
+# the flash widths only the CUDA-core bodies take, in either dtype:
+# (batch, heads, seq, head dim) at GPT-2 small's batch, heads and seq
+CUDA_CORE_SHAPES = ((8, 12, 512, 32), (8, 12, 512, 16))
+
+
+def _cuda_core_widths(dev, smi: str, gen) -> None:
+    """The f32 and bf16 forward, dq and dk/dv at ``CUDA_CORE_SHAPES`` (the
+    CUDA-core bodies, ``flash_{fwd,dq,dkv}_kernel``), causal, rate 0: held
+    against the twins, then timed beside SDPA of their dtype (f32:
+    ``_sdpa_f32``, memory-efficient with no TF32; bf16: the default
+    backend) and the bound (f32 at the FMA rate, bf16 at the card's bf16
+    rate)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+
+    for b, h, s, d in CUDA_CORE_SHAPES:
+        for dtn in ("f32", "bf16"):
+            dt = _dtype(dtn)
+            q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                           .to(dt) for _ in range(4))
+            costs = _attn_costs(b, h, h, s, d, 4 if dtn == "f32" else 2,
+                                _pairs(None, b, h, s, True, dev))
+            body = _flash_route_of(d, dtn)
+            if dtn == "f32":
+                backend, lib_f, lib_b, _ = _sdpa_f32(q, k, v, do)
+            else:
+                backend = "default backend"
+                lib_f = _ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 10)
+                qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                     is_causal=True)
+                lib_b = _ms(lambda: torch.autograd.grad(
+                    out, (qq, kk, vv), do, retain_graph=True), 10)
+                del qq, kk, vv, out
+            atol, rtol = ATTN_TOL[dtn]
+            what = f"({b}, {h}, {s}, {d}) {dtn} causal dropout 0.0"
+            o, lse = attn._flash_fwd_cuda(q, k, v, True, None, None, True)
+            wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None)
+            _held("flash_fwd", o, wo, atol, rtol, "o " + what)
+            _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
+            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                         None)
+            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                                        None)
+            for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                                    ("dq", "dk", "dv"), grads, wgrads):
+                _held(kn, g, w, atol, rtol, f"{gn} {what}")
+            del wo, wlse, grads, wgrads
+            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
+                                                  None)
+            times = {"flash_fwd": _ms(_fwd_kernel_call(q, k, v, True), 10),
+                     "flash_dq": _ms(dq_call, 10),
+                     "flash_dkv": _ms(dkv_call, 10)}
+            for kn, ms in times.items():
+                nbytes, ops = costs[kn]
+                bound_ms, bound_by = (_bound(nbytes, ops) if dtn == "f32"
+                                      else _bound(nbytes, ops, BF16_PEAK))
+                lib = lib_f if kn == "flash_fwd" else lib_b
+                print(f"time {kn} D {d} {what} ({body[kn]}): kernel "
+                      f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), SDPA "
+                      f"{'forward' if kn == 'flash_fwd' else 'backward'} "
+                      f"({backend}) {lib:.4f} ms (kernel {ms / lib:.2f}x), "
+                      f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]",
+                      flush=True)
+            pair = times["flash_dq"] + times["flash_dkv"]
+            print(f"time flash backward pair D {d} {what}: dq + dk/dv "
+                  f"{pair:.4f} ms ({pair / lib_b:.2f}x SDPA {dtn}'s "
+                  f"backward) [{smi}]", flush=True)
+            del q, k, v, do, o, lse, dq_call, dkv_call
 
 def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:
     """``SelfMultiheadAttn(cfg hidden, heads)`` trained ``cfg steps`` SGD
@@ -6066,7 +6160,8 @@ def main() -> int:
         {k: entry[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms", "atol",
                                "rtol")},
-        body="CUDA cores", shape="(4, 12, 1024, 64) f32 causal ragged")
+        body=_flash_route_of(64, "f32")["flash_fwd"],
+        shape="(4, 12, 1024, 64) f32 causal ragged")
     entry.update(rows["flash_fwd"], max_abs_err=worst["flash_fwd"],
                  atol=ATTN_TOL["bf16"][0], rtol=ATTN_TOL["bf16"][1],
                  shape="(8, 12, 512, 64) bf16 causal", launches=0)

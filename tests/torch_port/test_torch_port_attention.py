@@ -265,17 +265,17 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
     cluster barriers; the backward source has no atomics (one owner
     thread an output element, a fixed order of sums) and no longer the
     row sums across warps; dk/dv takes 32 key rows a CTA up to D 4096 and
-    16 past it; the CUDA-core entry points take D 256 and 512 alone (from
-    1024 f32 routes to the wide CUDA-core bodies, and bf16 has none
-    there)."""
+    16 past it; the CUDA-core entry points take only the widths of the
+    CUDA-core bodies, up to 512 (from 1024 f32 routes to the wide
+    CUDA-core bodies, and bf16 has none there)."""
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
     rows = "_rows" if kern == "dkv" else "_w"
     launcher = bwd[bwd.index(f"int launch_{kern}_wide{rows}("):]
     launcher = launcher[:launcher.index("\n}\n")]
     assert "return hopper::launch_clusters(" in launcher
-    assert f"flash_{kern}_kernel_wide<T, {'ROWS' if kern == 'dkv' else 'W'}" \
-        f", DROP>," in launcher
+    assert f"flash_{kern}_kernel_wide<T, " \
+        f"{'ROWS, W' if kern == 'dkv' else 'W'}, DROP>," in launcher
     assert "min(D / G::W, G::MAX_NC)" in launcher
     if rows:
         # 32 key rows x 512 columns while one cluster spans the row, 16 x
@@ -283,8 +283,8 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
         pick = bwd[bwd.index("int launch_dkv_wide("):]
         pick = pick[:pick.index("\n}\n")]
         assert "else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)\n    return " \
-            "launch_dkv_wide_rows<T, 32, DROP>(" in pick
-        assert "launch_dkv_wide_rows<T, 16, DROP>(" in pick
+            "launch_dkv_wide_rows<T, 32, 512, DROP>(" in pick
+        assert "launch_dkv_wide_rows<T, 16, 1024, DROP>(" in pick
     helper = hdr[hdr.index("int launch_clusters("):]
     helper = helper[:helper.index("\n}\n")]
     assert "cudaLaunchAttributeClusterDimension" in helper
@@ -305,8 +305,12 @@ def test_f32_wide_backward_launches_clusters_and_takes_no_atomics(kern):
     assert "row_sums" not in hdr + bwd and "wide::slice" not in bwd
     entry = bwd[bwd.index(f"int apex_flash_{kern}_cuda_cores("):]
     entry = entry[:entry.index("\n}\n")]
-    assert "if (D != 256 && D != 512) return static_cast<int>(" \
-        "cudaErrorInvalidValue);" in entry
+    assert f"launch_{kern}_cuda_cores<float, false>(a, D, " in entry
+    cores = bwd[bwd.index(f"int launch_{kern}_cuda_cores("):]
+    cores = cores[:cores.index("\n}\n")]
+    assert "case 512:" in cores and "case 1024:" not in cores
+    assert "default: return static_cast<int>(cudaErrorInvalidValue);" \
+        in cores
     assert f"launch_{kern}_wide" not in entry
 
 
@@ -322,7 +326,7 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
     (one CTA spans the row); ``flash_route`` names the same bodies, for
     D and the heads padded to it; the flash sources take no atomics; and
     the CUDA-core entry points launch the CUDA-core bodies at 256 and
-    512, for f32 as for bf16."""
+    512 (as at every width they have), for f32 as for bf16."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
@@ -374,14 +378,16 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
     if kern == "dkv":
         launch = body(bwd, "int launch_dkv_wide(")
         rows = 16384 // d
-        assert "static constexpr int W = 16384 / ROWS;" in bwd
+        assert "template <int ROWS_, int W_ = 16384 / ROWS_>\n" \
+            "struct DkvWide : BwdWide {" in bwd
         assert (f"else if (D == DkvWide<64>::W)\n    return launch_dkv_wide_"
-                f"rows<T, 64, DROP>(" if d == 256 else
+                f"rows<T, 64, 256, DROP>(" if d == 256 else
                 "else if (D <= BwdWide::MAX_NC * DkvWide<32>::W)\n    return "
-                "launch_dkv_wide_rows<T, 32, DROP>(") in launch
+                "launch_dkv_wide_rows<T, 32, 512, DROP>(") in launch
         assert rows == (64 if d == 256 else 32)
-        assert "static constexpr int STAGES = (5 * STAGE + TAIL) * 4 <= " \
+        assert "static constexpr int RING = (5 * STAGE + TAIL) * 4 <= " \
             "227 * 1024 ? 5 : 4;" in bwd
+        assert "static constexpr int STAGES = W == 64 ? 2 : RING;" in bwd
     want = "wide CUDA cores"
     for width in (d, d - 1, d // 2 + 1):
         assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
@@ -389,16 +395,93 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
                                  width) != "wide CUDA cores"
     assert "atomicAdd" not in fwd + bwd and "atom." not in fwd + bwd
     entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
-    assert "if (D != 256 && D != 512) return static_cast<int>(" \
-        "cudaErrorInvalidValue);" in entry
+    cores = body(src, "int launch_cuda_cores(" if kern == "fwd" else
+                 f"int launch_{kern}_cuda_cores(")
+    assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
+        "DROP>(" in cores
     for dt in ("float", "__nv_bfloat16"):
         for drop in ("true", "false"):
             assert f"cuda_cores<{dt}, {drop}>(" in entry
     assert "_wide" not in entry and "route" not in entry
 
 
-# the body each kernel takes (bf16; f32 takes the CUDA cores up to D
-# 128): the tensor cores at these widths, the wide tensor-core bodies
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
+def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
+    """The C dispatchers send the f32 forward (with keys to read) and
+    dk/dv at kernel widths 64 and 128 (the header's ``wide::narrow_takes``,
+    ahead of the CUDA-core bodies) to the register-tile bodies, one CTA on
+    a row: the forward to ``FwdWide<D>`` (64 query rows, a two-stage ring,
+    two CTAs an SM) and dk/dv to ``DkvWide<64, D>`` (64 key rows x D);
+    the f32 dq there, the f32 forward with no keys and every width of 16
+    and 32 keep their CUDA-core bodies; ``flash_route`` names the same
+    bodies for D and the heads padded to it (33..127); and the CUDA-core
+    entry points still launch the CUDA-core bodies at 64 and 128."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+
+    def body(src, start):
+        text = src[src.index(start):]
+        return text[:text.index("\n}\n")]
+
+    assert "constexpr bool narrow_takes(int D) {\n  return D == 64 || " \
+        "D == 128;" in hdr
+    src = fwd if kern == "fwd" else bwd
+    route = body(src, "int route(" if kern == "fwd" else f"int route_{kern}(")
+    cores = route.index(f"return launch_{'' if kern == 'fwd' else kern + '_'}"
+                        "cuda_cores<T, DROP>(")
+    narrow = {"fwd": "if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)"
+                     "\n    return launch_wide<T, DROP>(",
+              "dq": None,
+              "dkv": "if (sizeof(T) == 4 && wide::narrow_takes(D))\n    "
+                     "return launch_dkv_wide<T, DROP>(a, D, dk, dv);"}[kern]
+    if narrow is None:
+        assert "narrow_takes" not in route
+        assert "narrow_takes" not in body(bwd, "int launch_dq_wide(")
+    else:
+        assert route.index(narrow) < cores
+    if kern == "fwd":
+        launch = body(fwd, "int launch_wide(")
+        assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
+            f"if (D == {d})\n      return launch_wide_w<T, {d}, DROP>(")
+        geo = fwd[fwd.index("struct FwdWide {"):]
+        geo = geo[:geo.index("\n};\n")]
+        assert "static constexpr bool NARROW = W < 256;" in geo
+        assert "static constexpr int STAGES = NARROW ? 2 : 5;" in geo
+        assert "__launch_bounds__(FwdWide<W>::THREADS, FwdWide<W>::CTAS)" \
+            in fwd
+    if kern == "dkv":
+        launch = body(bwd, "int launch_dkv_wide(")
+        assert f"else if (D == {d})\n    return launch_dkv_wide_rows<T, 64, " \
+            f"{d}, DROP>(a, D, dk, dv);" in launch
+        assert "wide::narrow_takes(D)" in launch
+        assert "static constexpr bool DIRECT = W < 256;" in bwd
+        assert "__launch_bounds__(BwdWide::THREADS, DkvWide<ROWS, W>::CTAS)" \
+            in bwd
+    cc = body(src, "int launch_cuda_cores(" if kern == "fwd" else
+              f"int launch_{kern}_cuda_cores(")
+    assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
+        "DROP>(" in cc
+    want = "CUDA cores" if kern == "dq" else "wide CUDA cores"
+    for width in (d, d - 1, d // 2 + 1):
+        assert tattn._kernel_width(width) == d
+        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
+        assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
+                                 width) == "tensor cores"
+    for width in (16, 32):
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 width) == "CUDA cores"
+    assert tattn._align(torch.float32, d) == 16
+    entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
+    for dt in ("float", "__nv_bfloat16"):
+        for drop in ("true", "false"):
+            assert f"cuda_cores<{dt}, {drop}>(" in entry
+    assert "_wide" not in entry and "route" not in entry
+
+# the body each kernel takes (bf16; f32 takes the CUDA cores at D 16 and
+# 32, and its dq up to 128): the tensor cores at these widths, the wide tensor-core bodies
 # from D 512 (f32 the wide CUDA-core bodies, register tiles, from D 1024,
 # and at 256 and 512 too)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
@@ -414,8 +497,10 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
     tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
     (past 8192 the multiples of 8192, F7); f32 up to 128 and bf16 at 16
-    and 32 on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA
-    on a whole row), on the wide CUDA-core bodies (register tiles).  A head dim pads to its
+    and 32, and the f32 dq at 64 and 128, on the CUDA cores; f32 from
+    1024, and at 256 and 512 (one CTA on a whole row), and the f32
+    forward and dk/dv at 64 and 128 (one CTA on a row too), on the wide
+    CUDA-core bodies (register tiles).  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
     align to TMA's 16 bytes wherever a kernel of the call takes either
     tensor-core route."""
@@ -423,6 +508,8 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
             "wide CUDA cores" if not bf16 and d in (256, 512) else
+            "wide CUDA cores" if (not bf16 and d in (64, 128)
+                                  and kernel != "flash_dq") else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want
