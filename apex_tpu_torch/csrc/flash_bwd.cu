@@ -17,10 +17,9 @@
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
 //   padded to 256).
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: the f32 dq up to D
-//   128 and the f32 dk/dv at D 16 and 32 (the precision contract of
-//   docs/kernels.md: f32 operands stay true f32, no TF32) and bf16 at D 16
-//   and 32.
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at D 16 and 32
+//   (the precision contract of docs/kernels.md: f32 operands stay true
+//   f32, no TF32) and bf16 at D 16 and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -32,8 +31,8 @@
 //   slices of a row block in a thread-block cluster that shares S and dP
 //   (below, before the entry points); both at f32 D 256 and 512 (and the
 //   heads of 129..511, padded to them), where one CTA spans the row of dQ,
-//   of dK and dV (wide::row_takes); and the dk/dv at f32 D 64 and 128 (and
-//   the heads of 33..127), one CTA on a row too (wide::narrow_takes).
+//   of dK and dV (wide::row_takes); and both at f32 D 64 and 128 (and the
+//   heads of 33..127), one CTA on a row too (wide::narrow_takes).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -1628,7 +1627,7 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 
 // ---------------------------------------------------------------------------
 // wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and at D 256 and
-// 512 (wide::row_takes), the f32 dk/dv at 64 and 128 (wide::narrow_takes),
+// 512 (wide::row_takes), and at 64 and 128 (wide::narrow_takes),
 // and bf16 at D >= 1024 with no queries or no keys (bf16 otherwise takes
 // the tensor-core bodies, above)
 // ---------------------------------------------------------------------------
@@ -1664,17 +1663,27 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // - the outputs' update over the slice's columns of the other operand.
 //
 // dq (DqWide<W>): a CTA owns BQ query rows and W of dQ's columns: from
-// D 1024 BQ = 32 and W = 1024, NC = min(D/1024, 8); at D 256 and 512 BQ
+// D 1024 BQ = 32 and W = 1024, NC = min(D/1024, 8); from D 64 to 512 BQ
 // = 64 and W = D, one CTA spans the row (NC 1: CLUSTER is false, so no
 // cluster barrier and no remote read is compiled in, and S and dP take
 // all 64 columns of a stage in one thread's part).  dQ's BQ x W f32 sit
-// in registers, 8 rows x 4C columns a thread (C = BQ W / 8192 float4s:
-// 16 columns at W 1024 and 512, 8 at 256), as the forward's O.  Key
-// tiles of 64, the causal stop at the CTA's last visible key, heaviest q
-// blocks first.  dQ += dS.K from stages of VK = 8192/W keys x W columns
-// of K (8, 16, 32): every K word feeds 8 FMAs and every dS word 4C.  An
-// S stage of 64 rows is (64 + 64) x 68 floats (34 KB), and five still
-// fit beside the partials and dS (228,352 bytes).
+// in registers, OR = 8 rows x 4C columns a thread (C = BQ W / 8192
+// float4s: 16 columns at W 1024 and 512, 8 at 256, 4 at 128) and 4 x 4
+// at W 64 (a half-warp on a row), as the forward's O.  Key tiles of 64,
+// the causal stop at the CTA's last visible key, heaviest q blocks
+// first.  dQ += dS.K from stages of VK = 8192/W keys x W columns of K (8,
+// 16, 32, 64; the tile's 64 at W 64): every K word feeds OR FMAs and
+// every dS word 4C.  An S stage of 64 rows is (64 + 64) x 68 floats (34
+// KB), and from 256 five still fit beside the partials and dS (228,352
+// bytes).  At 64 and 128 (DIRECT, as dk/dv) a thread's 4 x 4 blocks of S
+// and dP are whole scores: it holds S over the dP pass and writes dS of
+// its own block straight into shared memory (its rows' lse, di, q ids
+// and dropout keys in registers, its keys' ids read as the tile opens):
+// no partials, no barrier between the passes, and a ring of two stages,
+// so that two CTAs of 85 KB share an SM (6% faster at 128 on an H100 than
+// five stages and one CTA, though 128 registers spill 136 bytes there;
+// the rows' lse, di and q ids in shared memory instead of registers were
+// up to 3% slower: PERF.md, Findings).
 //
 // dk/dv (DkvWide<ROWS, W>): a CTA owns ROWS key rows and W = 16384/ROWS
 // columns of both dK and dV (two accumulators of ROWS x W f32: 8 key
@@ -1743,22 +1752,40 @@ struct DqWide : BwdWide {
   static constexpr int RS = BQ / 4;             // S, dP: rows rg + RS a
   static constexpr int TPR = THREADS / BQ;      // p and dS: threads a row
   static constexpr int NX = TILE / TPR;         // p and dS: keys a thread
-  static constexpr int C = BQ * W / 8192;       // dQ: float4s of a thread's row
+  // dQ: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and 64)
+  // and rows (8, 4 at W 64)
+  static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;
+  static constexpr int OR = BQ * W / (1024 * C);
   static constexpr int CG = W / (4 * C);        // dQ: threads a row group
-  static constexpr int VK = BwdWide::STAGE / W; // K's keys a dQ stage (32 KB)
+  // K's keys a dQ stage (32 KB; the tile's 64 at W 64, 16 KB)
+  static constexpr int VK = W >= 128 ? BwdWide::STAGE / W : TILE;
   static constexpr int DSROW = BQ + 4;          // dS's key row (floats)
   // a ring stage: a dQ stage's 32 KB, or an S (dP) stage where it is
   // larger (64 rows: 34 KB)
   static constexpr int STAGE = (BQ + TILE) * PAD > BwdWide::STAGE
                                    ? (BQ + TILE) * PAD : BwdWide::STAGE;
+  // at 64 and 128 (one CTA on a row, KS 1) each thread takes dS of its
+  // own blocks of S and dP, which it holds whole: no partials in shared
+  // memory, and a two-stage ring (85 KB), so that two CTAs share an SM
+  static constexpr bool DIRECT = W < 256;
+  static constexpr int PARTS = DIRECT ? 0 : 2 * SPART;
+  static constexpr int STAGES = DIRECT ? 2 : BwdWide::STAGES;
   static constexpr int S_OFF = STAGES * STAGE;
   static constexpr int DP_OFF = S_OFF + SPART;
-  static constexpr int TILE_OFF = DP_OFF + SPART;
+  static constexpr int TILE_OFF = S_OFF + PARTS;
   static constexpr int SMEM = (TILE_OFF + TILE * DSROW) * 4;
+  // CTAs an SM its shared memory allows (the register budget follows)
+  static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
   static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA's threads");
-  static_assert(VK % (THREADS / (W / 4)) == 0,
-                "every thread copies the same number of K's float4s");
-  static_assert(CG % 32 == 0, "a warp's dQ columns are contiguous");
+  static_assert(VK % (THREADS / (W / 4)) == 0 && TILE % VK == 0,
+                "every thread copies the same number of K's float4s, and "
+                "K's stages cover a tile");
+  static_assert(VK * W <= STAGE, "a K stage fits a ring stage");
+  static_assert(CG % 32 == 0 || 32 % CG == 0,
+                "a warp's dQ columns are contiguous, or it spans whole rows");
+  static_assert(OR % 4 == 0 && BQ / OR * CG == THREADS,
+                "dQ's tiles cover the CTA");
+  static_assert(!DIRECT || KS == 1, "a thread's blocks hold whole scores");
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
 
@@ -1902,7 +1929,7 @@ __device__ __forceinline__ void rank_update(float4 (&acc)[R][C], const float* w,
 }
 
 template <typename T, int W, bool DROP>
-__global__ void __launch_bounds__(DqWide<W>::THREADS, 1)
+__global__ void __launch_bounds__(DqWide<W>::THREADS, DqWide<W>::CTAS)
 flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -1987,17 +2014,34 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const float lse_r = srow_ok ? lse[qrow] : 0.f;
     const float di_r = srow_ok ? di[qrow] : 0.f;
     const int qid = (seg && srow_ok) ? q_ids[(size_t)b * Sq + srow] : 0;
-    const uint32_t rkey =
-        DROP ? dropout::row_key(dropout::head_key(*drop.seed, bh), srow) : 0u;
-    // dQ: rows 8 og.., columns ocol + 128 c of the slice (a warp's 32
-    // lanes on 128 contiguous columns)
-    const int og = tid / G::CG, lane = tid & 31;
-    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * lane;
-
-    float4 acc[8][G::C];
-    float pacc[4][4];   // the pass's partial S or dP
+    const uint32_t hkey = DROP ? dropout::head_key(*drop.seed, bh) : 0u;
+    const uint32_t rkey = DROP ? dropout::row_key(hkey, srow) : 0u;
+    // DIRECT: the lse, di, q ids and dropout keys of the thread's S rows
+    // rg + RS a, and the key ids of its S columns kg + 16 c in this tile
+    float lse_a[4], di_a[4];
+    int qid_a[4], kid_c[4];
+    uint32_t rkey_a[4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+    for (int a = 0; a < 4; ++a) {
+      const int row = q0 + rg + G::RS * a;
+      const bool ok = G::DIRECT && row < Sq;
+      const size_t fr = (size_t)bh * Sq + (ok ? row : 0);
+      lse_a[a] = ok ? lse[fr] : 0.f;
+      di_a[a] = ok ? di[fr] : 0.f;
+      qid_a[a] = (ok && seg) ? q_ids[(size_t)b * Sq + row] : 0;
+      rkey_a[a] = (G::DIRECT && DROP) ? dropout::row_key(hkey, row) : 0u;
+      kid_c[a] = 0;
+    }
+    // dQ: rows OR og.., columns ocol + 128 c of the slice (a warp's 32
+    // lanes on 128 contiguous columns; at W 64 a half-warp on a row's 64)
+    const int og = tid / G::CG;
+    const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * (tid % G::CG % 32);
+
+    float4 acc[G::OR][G::C];
+    float pacc[4][4];   // the pass's partial S or dP
+    float sacc[4][4];   // DIRECT: the tile's S block, over the dP pass
+#pragma unroll
+    for (int r = 0; r < G::OR; ++r)
 #pragma unroll
       for (int c = 0; c < G::C; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -2012,9 +2056,48 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_commit();
       const float* st = sm + (j % G::STAGES) * G::STAGE;
       if (i < 2 * nS) {
+        if (G::DIRECT && seg && i == 0) {
+          // the tile's key ids of the thread's columns (read at its dS)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = t * G::TILE + kg + 16 * c;
+            kid_c[c] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+          }
+        }
         stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::BQ * G::PAD,
                                              rg, kg, G::DC / G::KS * sh);
-        if (i == nS - 1 || i == 2 * nS - 1) {
+        if (G::DIRECT && i == nS - 1) {
+          // S whole: held for the dP pass
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              sacc[a][c] = pacc[a][c];
+              pacc[a][c] = 0.f;
+            }
+        } else if (G::DIRECT && i == 2 * nS - 1) {
+          // dS of the thread's rows rg + RS a and keys kg + 16 c into
+          // shared memory (the barrier that opens the next item orders it
+          // for the update; the last update of the tile before was
+          // ordered by the one that opened this item)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = kg + 16 * c, col = t * G::TILE + key;
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const int row = q0 + rg + G::RS * a;
+              const bool ok = row < Sq && col < Sk && (!causal || col <= row) &&
+                              (!seg || kid_c[c] == qid_a[a]);
+              const float p = prob(ok, sacc[a][c], scale, lse_a[a]);
+              float dp = pacc[a][c];
+              if (DROP)
+                dp = dropout::apply(drop, dropout::col_key(rkey_a[a], col), dp);
+              ds_s[key * G::DSROW + rg + G::RS * a] =
+                  dscore(p, dp, di_a[a], scale);
+              pacc[a][c] = 0.f;
+            }
+          }
+        } else if (!G::DIRECT && (i == nS - 1 || i == 2 * nS - 1)) {
           // the pass's partials to shared memory (S's once the others are
           // done reading the last tile's); after dP's the cluster's
           // partials meet and give the tile's dS
@@ -2049,7 +2132,7 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       } else {
         // dQ += dS.K over the stage's VK keys
         rank_update<G::VK, G::DSROW, G::W, 128>(
-            acc, ds_s + G::VK * (i - 2 * nS) * G::DSROW + 8 * og, st + ocol);
+            acc, ds_s + G::VK * (i - 2 * nS) * G::DSROW + G::OR * og, st + ocol);
       }
       if (++i == ipt) {
         i = 0;
@@ -2061,8 +2144,8 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     if (nc > 1 && total > 0) hopper::cluster_wait();
 
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = q0 + 8 * og + r;
+    for (int r = 0; r < G::OR; ++r) {
+      const int row = q0 + G::OR * og + r;
       if (row >= Sq) continue;
       const size_t base = (((size_t)bh * Sq + row) * D + c0 + ocol) / 4;
 #pragma unroll
@@ -2336,12 +2419,15 @@ int launch_dq_wide_w(const Args& a, int D, void* dq) {
       a.causal, a.scale, a.drop);
 }
 
-// dq takes 64 query rows and all D of dQ's columns a CTA at f32 D 256
-// and 512 (one CTA spans the row), 32 rows x 1024 columns at the wide
-// widths (above, DqWide; bf16, which only writes zeros here, takes those)
+// dq takes 64 query rows and all D of dQ's columns a CTA at f32 D 64,
+// 128, 256 and 512 (one CTA spans the row), 32 rows x 1024 columns at
+// the wide widths (above, DqWide; bf16, which only writes zeros here,
+// takes those)
 template <typename T, bool DROP>
 int launch_dq_wide(const Args& a, int D, void* dq) {
   if constexpr (sizeof(T) == 4) {
+    if (D == 64) return launch_dq_wide_w<T, 64, DROP>(a, D, dq);
+    if (D == 128) return launch_dq_wide_w<T, 128, DROP>(a, D, dq);
     if (D == 256) return launch_dq_wide_w<T, 256, DROP>(a, D, dq);
     if (D == 512) return launch_dq_wide_w<T, 512, DROP>(a, D, dq);
   }
@@ -2409,10 +2495,10 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
 // the tensor cores, and at D 512 and every wide width (D >= 1024,
 // wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
 // wide CUDA-core bodies (register tiles), and at 256 and 512 too
-// (wide::row_takes: one CTA spans the row), as does the f32 dk/dv at 64
-// and 128 (wide::narrow_takes); everything else (f32 dq up to 128, f32
-// dk/dv at 16 and 32, bf16 at 16 and 32) the CUDA-core bodies of their
-// width; a seed takes each body's DROP instantiation.
+// (wide::row_takes: one CTA spans the row), and at 64 and 128
+// (wide::narrow_takes); everything else (f32 and bf16 at 16 and 32) the
+// CUDA-core bodies of their width; a seed takes each body's DROP
+// instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2422,6 +2508,8 @@ int route_dq(const Args& a, int D, void* dq) {
     if (wide::tc_takes(D)) return launch_dq_tc_wide<DROP>(a, D, dq);
   }
   if (sizeof(T) == 4 && wide::row_takes(D))
+    return launch_dq_wide<T, DROP>(a, D, dq);
+  if (sizeof(T) == 4 && wide::narrow_takes(D))
     return launch_dq_wide<T, DROP>(a, D, dq);
   if (D >= wide::MIN_D) return launch_dq_wide<T, DROP>(a, D, dq);
   return launch_dq_cuda_cores<T, DROP>(a, D, dq);
@@ -2530,9 +2618,9 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
 
 // The CUDA-core dq and dk/dv bodies of every width they have (16..512),
 // whatever the dtype (same arguments as above): bf16 from 64 routes to
-// the tensor-core bodies and f32 dk/dv from 64 (dq from 256) to the
-// register-tile bodies, and these let a measurement time the CUDA-core
-// bodies beside them on the same inputs.  Any other width is refused
+// the tensor-core bodies and f32 from 64 to the register-tile bodies,
+// and these let a measurement time the CUDA-core bodies beside them on
+// the same inputs.  Any other width is refused
 // (from D 1024 f32 routes to the wide CUDA-core bodies, and bf16 has no
 // CUDA-core body there).
 extern "C" int apex_flash_dq_cuda_cores(

@@ -454,10 +454,9 @@ __host__ __device__ constexpr bool row_takes(int D) {
   return D == 256 || D == 512;
 }
 
-// The narrow widths of the f32 register-tile forward and dk/dv: at 64 and
-// 128 (and the heads of 33..127, padded to them) one CTA spans a row of O
-// (of dK and dV), as at row_takes.  The f32 dq keeps its CUDA-core body
-// there (flash_dq_kernel).
+// The narrow widths of the f32 register-tile forward, dq and dk/dv: at 64
+// and 128 (and the heads of 33..127, padded to them) one CTA spans a row
+// of O (of dQ, of dK and dV), as at row_takes.
 __host__ __device__ constexpr bool narrow_takes(int D) {
   return D == 64 || D == 128;
 }

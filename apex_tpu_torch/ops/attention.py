@@ -435,10 +435,10 @@ _TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
               "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 # the narrower kernel widths at which each kernel's f32 body runs in
-# register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes,
-# and wide::narrow_takes for the forward and dk/dv), as it does at every
-# width from 1024
-_ROW_WIDTHS = {"flash_fwd": (64, 128, 256, 512), "flash_dq": (256, 512),
+# register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes
+# and wide::narrow_takes), as it does at every width from 1024
+_ROW_WIDTHS = {"flash_fwd": (64, 128, 256, 512),
+               "flash_dq": (64, 128, 256, 512),
                "flash_dkv": (64, 128, 256, 512)}
 
 
@@ -447,7 +447,7 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
     + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32
-    at 16 and 32, the f32 dq up to 128, bf16 at 16 and 32),
+    and bf16 at 16 and 32),
     "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
     width from 1024, a CTA on a slice of the output's columns: 256 of O's,
     512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
@@ -456,8 +456,8 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     32 rows and 1024 of O's or dQ's columns, or on 32 key rows and 512 of
     dK's and dV's, 16 and 1024 past D 4096; f32 at 256 and 512, where
     one CTA spans the row: 64 query rows in the forward and dq, 64 key
-    rows at 256 and 32 at 512 in dk/dv; and the f32 forward and dk/dv at
-    64 and 128, one CTA on a row too: 64 query rows, 64 key rows).  The C
+    rows at 256 and 32 at 512 in dk/dv; and all three at f32 64 and 128,
+    one CTA on a row too: 64 query rows, 64 key rows).  The C
     dispatchers of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route
     the same way, apart from a forward with no keys (bf16 takes the CUDA
     cores up to 512, the wide CUDA cores past it; f32 the CUDA cores at 64

@@ -2012,10 +2012,10 @@ def _bwd_kernel_calls(q, k, v, o, lse, do, causal, seg, rate=0.0,
     """The dq and dk/dv kernels, each launched on its own with the
     arguments the wrapper gives them (to time each).  ``cuda_cores``:
     the CUDA-core bodies instead, through their own entry points
-    (``apex_flash_{dq,dkv}_cuda_cores``: D 256 and 512; not counted as
-    launches), to time them beside the routed bodies on the same
-    inputs.  ``out``: a list that receives the (dq, dk, dv) tensors the
-    calls write."""
+    (``apex_flash_{dq,dkv}_cuda_cores``: every width they have, 16..512;
+    not counted as launches), to time them beside the routed bodies on
+    the same inputs.  ``out``: a list that receives the (dq, dk, dv)
+    tensors the calls write."""
     import ctypes
     import torch
     from apex_tpu_torch import _build
@@ -2056,8 +2056,8 @@ def _fwd_kernel_call(q, k, v, causal, rate=0.0, seed=None,
                      cuda_cores=False, out=None):
     """The forward (with lse) launched on its own with the arguments the
     wrapper gives it.  ``cuda_cores``: the CUDA-core body instead, through
-    its own entry point (``apex_flash_fwd_cuda_cores``: D 256 and 512;
-    not counted as a launch), to time it beside the routed body on the
+    its own entry point (``apex_flash_fwd_cuda_cores``: 16..512; not
+    counted as a launch), to time it beside the routed body on the
     same inputs.  ``out``: a list that receives the (o, lse) it writes."""
     import ctypes
     import torch
@@ -3832,14 +3832,12 @@ def wide_head_phase(dev, smi: str) -> dict:
     wide tensor-core dq and dk/dv also beside the CUDA-core bodies in
     turns), and f32 at that shape beside SDPA's f32 (at D 256 and 512 the
     register-tile forward, dq and dk/dv beside their CUDA-core bodies in
-    turns); the f32 CUDA-core forward, dq and dk/dv at GPT-2's and
-    Llama's head dims (``F32_NARROW_SHAPES``; the forward and dk/dv in
-    register tiles, beside their CUDA-core bodies in turns) beside SDPA's
-    f32; the f32 and bf16 CUDA-core bodies at D 16 and 32
-    (``CUDA_CORE_SHAPES``) beside SDPA of their dtype; each
-    module trained
-    2 steps at each rate (forward, backward, an SGD update of its
-    params), finite losses, exact launch counts and the routes of a
+    turns); the f32 forward, dq and dk/dv at GPT-2's and Llama's head
+    dims (``F32_NARROW_SHAPES``; register tiles, beside their CUDA-core
+    bodies in turns) beside SDPA's f32; the f32 and bf16 CUDA-core bodies
+    at D 16 and 32 (``CUDA_CORE_SHAPES``) beside SDPA of their dtype; each
+    module trained 2 steps at each rate (forward, backward, an SGD update
+    of its params), finite losses, exact launch counts and the routes of a
     profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
     8192 held and timed (``_wide_widths``), and the f32 ones there
     (``_f32_widths``); the ptxas registers and spills of the D-256
@@ -3875,8 +3873,9 @@ def wide_head_phase(dev, smi: str) -> dict:
     # bodies), rate 0 and DROP: their registers and spills, every one at
     # "d1024" and those of D 256 and 512 there too (the forward's and
     # dq's W 256 and 512; dk/dv's key rows a CTA and W, 64 x 256 at D 256
-    # and 32 x 512 from D 512, and 16 x 1024 past D 4096); the forward's
-    # and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) are printed
+    # and 32 x 512 from D 512, and 16 x 1024 past D 4096); the forward's,
+    # dq's and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) are
+    # printed
     f32_ptxas = {}
     widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
               "flash_dq": {"d256": "IfLi256E", "d512": "IfLi512E"},
@@ -3885,10 +3884,10 @@ def wide_head_phase(dev, smi: str) -> dict:
                     ("flash_bwd", "flash_dkv")):
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
-        # each geometry at rate 0 and DROP: the forward's W 64, 128, 256,
-        # 512 and 1024, dq's 256, 512 and 1024, dk/dv's 64 x 64, 64 x 128,
-        # 64 x 256, 32 x 512 and 16 x 1024
-        want = 6 if kn == "flash_dq" else 10
+        # each geometry at rate 0 and DROP: the forward's and dq's W 64,
+        # 128, 256, 512 and 1024, dk/dv's 64 x 64, 64 x 128, 64 x 256, 32 x
+        # 512 and 16 x 1024
+        want = 10
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
@@ -4008,7 +4007,7 @@ def _in_turns(calls: dict, iters: int = 10) -> dict:
 
 def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
     """The routed ``kernels`` (of "flash_fwd", "flash_dq", "flash_dkv")
-    and the CUDA-core bodies of D 256 or 512 (``apex_flash_*_cuda_cores``)
+    and the CUDA-core bodies of their width (``apex_flash_*_cuda_cores``)
     on the same inputs, in turns: {kernel: (routed ms, CUDA-core ms)},
     each the mean of its two turns.  The CUDA-core bodies' outputs are
     held to the twins too, so the two time the same function."""
@@ -4303,7 +4302,7 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
 
 # the f32 bodies at the head dims f32 training and serving run them at:
 # GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128); the
-# forward and dk/dv there in register tiles, the dq on the CUDA cores
+# forward, dq and dk/dv there in register tiles, one CTA on a row
 F32_NARROW_SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128))
 
 
@@ -4311,12 +4310,12 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
     """The f32 forward, dq and dk/dv at ``shapes`` (``WIDE_FWD_SHAPES``:
     the wide bodies, register tiles on the CUDA cores, the column slices
     of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``:
-    the register-tile forward and dk/dv with one CTA on a row, and the
-    CUDA-core dq), causal, rate 0 and 0.1: held against the twins and to
-    the same bits on a second call, then timed beside SDPA's f32 forward
-    and backward (``_sdpa_f32``: no TF32), the twin and the bound at the
-    f32 FMA rate; at D 64 and 128 the forward and dk/dv also in turns with
-    their CUDA-core bodies (``_cuda_core_turns``).  Up to D 8192 one cluster spans a row block, so
+    the register-tile forward, dq and dk/dv with one CTA on a row),
+    causal, rate 0 and 0.1: held against the twins and to the same bits
+    on a second call, then timed beside SDPA's f32 forward and backward
+    (``_sdpa_f32``: no TF32), the twin and the bound at the f32 FMA rate;
+    at D 64 and 128 all three also in turns with their CUDA-core bodies
+    (``_cuda_core_turns``).  Up to D 8192 one cluster spans a row block, so
     the FLOP executed are the useful ones (4·D a pair forward, 6·D dq,
     8·D dk/dv).  Returns the seconds of its forward and backward parts,
     named with ``label``."""
@@ -4376,10 +4375,10 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
                 lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
                                            None, rate, sd), 2, 1)
             if d <= 128:
-                # the register-tile forward and dk/dv beside the CUDA-core
-                # bodies they replace, in turns
+                # the register-tile forward, dq and dk/dv beside the
+                # CUDA-core bodies they replace, in turns
                 _cuda_core_turns(q, k, v, o, lse, do, rate, sd,
-                                 ("flash_fwd", "flash_dkv"))
+                                 ("flash_fwd", "flash_dq", "flash_dkv"))
             del o, lse
             for kn, ms in times.items():
                 nbytes, ops = costs[kn]

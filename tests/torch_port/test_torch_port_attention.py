@@ -409,15 +409,17 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
 def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
-    """The C dispatchers send the f32 forward (with keys to read) and
+    """The C dispatchers send the f32 forward (with keys to read), dq and
     dk/dv at kernel widths 64 and 128 (the header's ``wide::narrow_takes``,
     ahead of the CUDA-core bodies) to the register-tile bodies, one CTA on
     a row: the forward to ``FwdWide<D>`` (64 query rows, a two-stage ring,
-    two CTAs an SM) and dk/dv to ``DkvWide<64, D>`` (64 key rows x D);
-    the f32 dq there, the f32 forward with no keys and every width of 16
-    and 32 keep their CUDA-core bodies; ``flash_route`` names the same
-    bodies for D and the heads padded to it (33..127); and the CUDA-core
-    entry points still launch the CUDA-core bodies at 64 and 128."""
+    two CTAs an SM), dq to ``DqWide<D>`` (64 query rows, dS straight from
+    each thread's blocks, a two-stage ring, two CTAs an SM) and dk/dv to
+    ``DkvWide<64, D>`` (64 key rows x D); the f32 forward with no keys and
+    every width of 16 and 32 keep their CUDA-core bodies; ``flash_route``
+    names the same bodies for D and the heads padded to it (33..127); and
+    the CUDA-core entry points still launch the CUDA-core bodies at 64 and
+    128."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
@@ -434,14 +436,11 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
                         "cuda_cores<T, DROP>(")
     narrow = {"fwd": "if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)"
                      "\n    return launch_wide<T, DROP>(",
-              "dq": None,
+              "dq": "if (sizeof(T) == 4 && wide::narrow_takes(D))\n    "
+                    "return launch_dq_wide<T, DROP>(a, D, dq);",
               "dkv": "if (sizeof(T) == 4 && wide::narrow_takes(D))\n    "
                      "return launch_dkv_wide<T, DROP>(a, D, dk, dv);"}[kern]
-    if narrow is None:
-        assert "narrow_takes" not in route
-        assert "narrow_takes" not in body(bwd, "int launch_dq_wide(")
-    else:
-        assert route.index(narrow) < cores
+    assert route.index(narrow) < cores
     if kern == "fwd":
         launch = body(fwd, "int launch_wide(")
         assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
@@ -464,7 +463,7 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
               f"int launch_{kern}_cuda_cores(")
     assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
         "DROP>(" in cc
-    want = "CUDA cores" if kern == "dq" else "wide CUDA cores"
+    want = "wide CUDA cores"
     for width in (d, d - 1, d // 2 + 1):
         assert tattn._kernel_width(width) == d
         assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
@@ -480,10 +479,56 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
             assert f"cuda_cores<{dt}, {drop}>(" in entry
     assert "_wide" not in entry and "route" not in entry
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_dq_at_64_and_128_picks_the_register_tile_body_of_its_width(d):
+    """``launch_dq_wide`` picks ``launch_dq_wide_w<T, D, DROP>`` for f32 at
+    kernel widths 64 and 128 (ahead of the wide widths' guard, as at 256
+    and 512), which launches ``flash_dq_kernel_wide<T, D, DROP>``: 64
+    query rows and all D of dQ's columns a CTA, no cluster; ``DqWide``
+    gives those widths ``DIRECT`` (dS from each thread's whole blocks, no
+    partials), a two-stage ring and two CTAs an SM (85 KB of shared
+    memory a CTA), K's stages a whole 64-key tile at W 64, and dQ 4 rows x
+    4 columns a thread there; the C dispatcher takes that route for f32
+    only (bf16 keeps the tensor cores, and the dq with no keys never
+    reaches the kernel: the wrapper zeros it)."""
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+
+    def body(start):
+        text = bwd[bwd.index(start):]
+        return text[:text.index("\n}\n")]
+
+    launch = body("int launch_dq_wide(")
+    pick = f"if (D == {d}) return launch_dq_wide_w<T, {d}, DROP>(a, D, dq);"
+    assert launch.index("if constexpr (sizeof(T) == 4) {") < launch.index(
+        pick) < launch.index("if (!wide::takes(D))")
+    assert "flash_dq_kernel_wide<T, W, DROP>," in body(
+        "int launch_dq_wide_w(")
+    geo = bwd[bwd.index("struct DqWide : BwdWide {"):]
+    geo = geo[:geo.index("\n};\n")]
+    for line in ("static constexpr bool DIRECT = W < 256;",
+                 "static constexpr int PARTS = DIRECT ? 0 : 2 * SPART;",
+                 "static constexpr int STAGES = DIRECT ? 2 : BwdWide::STAGES;",
+                 "static constexpr int VK = W >= 128 ? BwdWide::STAGE / W : "
+                 "TILE;",
+                 "static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;",
+                 "static constexpr int OR = BQ * W / (1024 * C);",
+                 "static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);"):
+        assert line in geo, line
+    assert "__launch_bounds__(DqWide<W>::THREADS, DqWide<W>::CTAS)" in bwd
+    route = body("int route_dq(")
+    narrow = route.index("if (sizeof(T) == 4 && wide::narrow_takes(D))\n"
+                         "    return launch_dq_wide<T, DROP>(a, D, dq);")
+    assert route.index("if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {") \
+        < narrow < route.index("return launch_dq_cuda_cores<T, DROP>(")
+    assert f"if (D == {d}) return launch_dq_tc<{d}, DROP>(a, dq);" in route
+    assert tattn.flash_route("flash_dq", torch.float32, d) == \
+        "wide CUDA cores"
+    assert tattn.flash_route("flash_dq", torch.bfloat16, d) == "tensor cores"
+
+
 # the body each kernel takes (bf16; f32 takes the CUDA cores at D 16 and
-# 32, and its dq up to 128): the tensor cores at these widths, the wide tensor-core bodies
-# from D 512 (f32 the wide CUDA-core bodies, register tiles, from D 1024,
-# and at 256 and 512 too)
+# 32): the tensor cores at these widths, the wide tensor-core bodies from
+# D 512 (f32 the wide CUDA-core bodies, register tiles, from D 64)
 _TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
              "flash_dkv": (64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
@@ -496,11 +541,10 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
     and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
     tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
-    (past 8192 the multiples of 8192, F7); f32 up to 128 and bf16 at 16
-    and 32, and the f32 dq at 64 and 128, on the CUDA cores; f32 from
-    1024, and at 256 and 512 (one CTA on a whole row), and the f32
-    forward and dk/dv at 64 and 128 (one CTA on a row too), on the wide
-    CUDA-core bodies (register tiles).  A head dim pads to its
+    (past 8192 the multiples of 8192, F7); f32 and bf16 at 16 and 32 on
+    the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA on a whole
+    row), and the f32 forward, dq and dk/dv at 64 and 128 (one CTA on a
+    row too), on the wide CUDA-core bodies (register tiles).  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
     align to TMA's 16 bytes wherever a kernel of the call takes either
     tensor-core route."""
@@ -508,8 +552,7 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
             "wide CUDA cores" if not bf16 and d in (256, 512) else
-            "wide CUDA cores" if (not bf16 and d in (64, 128)
-                                  and kernel != "flash_dq") else
+            "wide CUDA cores" if not bf16 and d in (64, 128) else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want

@@ -751,9 +751,8 @@ F32_ROW_CASES = {
     "d512_sq70_sk200_gqa_causal": (1, 4, 2, 70, 200, 512, True, None),
     "d512_gqa_packed_causal": (2, 4, 2, 130, 130, 512, True, "packed"),
     "d320_sq130_sk70": (1, 2, 2, 130, 70, 320, False, None),
-    # the f32 forward and dk/dv at 64 and 128 (and 40 and 96 padded to
-    # them; the dq there stays on its CUDA-core body), and the f32 serve
-    # forward's shape with packed ids
+    # the f32 forward, dq and dk/dv at 64 and 128 (and 40 and 96 padded
+    # to them), and the f32 serve forward's shape with packed ids
     "d64_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 64, True, None),
     "d64_sq70_sk200_causal": (1, 2, 2, 70, 200, 64, True, None),
     "d64_gqa_packed_causal": (2, 4, 2, 130, 130, 64, True, "packed"),
@@ -764,6 +763,11 @@ F32_ROW_CASES = {
     "d96_sq130_sk70": (1, 2, 2, 130, 70, 96, False, None),
     "d64_serve_4x12x1024_packed_causal": (4, 12, 12, 1024, 1024, 64, True,
                                           "packed"),
+    # one partial tile on each axis: a query row, fewer keys than a tile
+    "d64_sq1_sk5_causal": (1, 2, 2, 1, 5, 64, True, None),
+    "d64_sq1_sk5_gqa": (2, 4, 2, 1, 5, 64, False, None),
+    "d128_sq1_sk5_gqa_causal": (1, 4, 2, 1, 5, 128, True, None),
+    "d128_sq1_sk5": (2, 2, 2, 1, 5, 128, False, None),
 }
 
 
@@ -771,16 +775,17 @@ F32_ROW_CASES = {
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("name", sorted(F32_ROW_CASES))
 def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
-    """The f32 forward (o and lse), dq and dk/dv at kernel widths 256 and
-    512, and the forward and dk/dv at 64 and 128 (the dq there on its
-    CUDA-core body), register tiles with one CTA on a whole row, against
+    """The f32 forward (o and lse), dq and dk/dv at kernel widths 64,
+    128, 256 and 512, register tiles with one CTA on a whole row, against
     ``flash_fwd_ref`` / ``flash_bwd_ref`` (the backward on the card's own
     o and lse; f32 within 1e-4), rate 0 and 0.1: the same bits on a
     second call; rows of padding (packed ids) and, causal with Sk > Sq,
     keys that no row sees give exact zeros; each kernel on its
     ``flash_route`` and the body of its width and DROP instantiation, read
     from the device kernels' names (the forward's and dq's W, dk/dv's key
-    rows a CTA and W: 64 x D at 64, 128 and 256, 32 x 512 at 512)."""
+    rows a CTA and W: 64 x D at 64, 128 and 256, 32 x 512 at 512).  At 64
+    and 128 the cases include one query row against 5 keys, a partial
+    tile on each axis."""
     b, h, hk, sq, sk, d, causal, kind = F32_ROW_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(47)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
@@ -822,9 +827,8 @@ def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
     w = attn._kernel_width(d)
     drop = str(bool(rate)).lower()
     rows = 16384 // w if w >= 256 else 64
-    dq = "flash_dq_kernel_wide" if w >= 256 else "flash_dq_kernel"
     for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",
-                 f"{dq}<float, {w}, {drop}>",
+                 f"flash_dq_kernel_wide<float, {w}, {drop}>",
                  f"flash_dkv_kernel_wide<float, {rows}, {w}, {drop}>"):
         assert any(body in n for n in names), (body, names)
 
