@@ -16,10 +16,12 @@
 // - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
-//   padded to 256).
+//   padded to 256); flash_dkv_kernel_tc at D 16 and 32 too (the BERT
+//   example's default proxy, heads of 32, and the heads of 9..31, padded
+//   to them), at the head's own width.
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at D 16 and 32
 //   (the precision contract of docs/kernels.md: f32 operands stay true
-//   f32, no TF32) and bf16 at D 16 and 32.
+//   f32, no TF32) and the bf16 dq at D 16 and 32.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -79,6 +81,21 @@
 // query rows under the causal mask; blockIdx.y counts them, the heads
 // in blockIdx.x).  Key rows past Sk are zeros from TMA and never
 // stored.
+//
+// At D 16 and 32 (DkvTc<16/32>) the head is one panel as wide as its
+// row, 32 or 64 bytes: K, V, q and dO come by TMA in boxes of D columns
+// with the 32- or 64-byte swizzle, and dV += P^T.dO and dK += dS^T.Q are
+// m64nDk16 products (8 or 16 f32 registers a thread for each of dK and
+// dV).  They read the MN-major view of the same swizzled q and dO tiles
+// that S^T = K.Q^T and dP^T = V.dO^T read K-major: one swizzle's atom is
+// the same 8 rows of 2D bytes either way (hopper_mma.cuh).  A causal (8,
+// 12, 512, 32) call does 3.2 GFLOP over 19.3 MB, 3.3 us at 989 TFLOP/s
+// against 5.8 us at 3.35 TB/s; in practice each CTA's chain of four
+// products and the probabilities between them, as at D 64.  64 key rows a
+// CTA (a warpgroup's M) and three q/dO stages (STAGES): on an H100 at 700
+// W (tools/flash_narrow_tc.py, in turns) three took 2.5% less than two on
+// the BERT proxy's unmasked (8, 4, 512, 32) and tied causal, four no
+// better, and one CTA an SM twice as long.
 //
 // At D 256 one warpgroup's dK and dV (two 64 x 256 f32 accumulators)
 // would take 256 registers a thread, past the 255 a thread may hold.
@@ -526,7 +543,7 @@ void launch_dkv(const Args& a, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv on the tensor cores: bf16, D 64, 128 and 256 (wgmma + TMA;
+// dk/dv on the tensor cores: bf16, D 16, 32, 64, 128 and 256 (wgmma + TMA;
 // hopper_mma.cuh).  Key rows are wgmma's M: S^T = K.Q^T, P^T, dV +=
 // P^T.dO, dP^T = V.dO^T, dS^T, dK += dS^T.Q.
 // ---------------------------------------------------------------------------
@@ -536,8 +553,16 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct DkvTc {
-  static constexpr int NP = D / 64;             // 64-column panels
+  // A panel is PW columns of the head: 64 (rows of 128 bytes, the 128-byte
+  // swizzle) from D 64; at D 16 and 32 one panel as wide as the head (rows
+  // of 32 and 64 bytes, the swizzle of that width: hopper_mma.cuh)
+  static constexpr int PW = D < 64 ? D : 64;
+  static constexpr int SW = 2 * PW;             // a row's bytes, its swizzle
+  static constexpr int NP = D / PW;             // panels
+  static constexpr int NA = PW / 2;             // dK's (dV's) f32 a panel
   static constexpr int BQT = 64;                // query rows a ring stage
+  // q / dO ring stages: three at D 16 and 32, where a stage is 4-8 KB
+  static constexpr int STAGES = D < 64 ? 3 : 2;
   // warpgroups a CTA, each owning NPW panels of dK and dV (two at D 256,
   // where one warpgroup could not hold both accumulators)
   static constexpr int WGS = D > 128 ? 2 : 1;
@@ -546,11 +571,11 @@ struct DkvTc {
   static constexpr int KV_BYTES = TC_BKV * D * 2;   // K or V, resident
   static constexpr int QT_BYTES = BQT * D * 2;      // one q or dO tile
   static constexpr int V_OFF = KV_BYTES;
-  static constexpr int Q_OFF = 2 * KV_BYTES;        // two stages each
-  static constexpr int DO_OFF = Q_OFF + 2 * QT_BYTES;
-  static constexpr int ROW_OFF = DO_OFF + 2 * QT_BYTES;   // lse2, di, q ids
-  static constexpr int BAR_OFF = ROW_OFF + 3 * 2 * BQT * 4;
-  static constexpr int SMEM = BAR_OFF + 3 * 8 + 1024;     // + alignment slack
+  static constexpr int Q_OFF = 2 * KV_BYTES;        // STAGES stages each
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int ROW_OFF = DO_OFF + STAGES * QT_BYTES;   // lse2, di, q ids
+  static constexpr int BAR_OFF = ROW_OFF + 3 * STAGES * BQT * 4;
+  static constexpr int SMEM = BAR_OFF + (STAGES + 1) * 8 + 1024;   // + slack
 };
 
 // P^T and dS^T of one tile from S^T (in sT) and dP^T (in dpT), in place.
@@ -602,7 +627,7 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     int Sk, int causal, float scale2, float scale,
                     dropout::Params drop) {
   using G = DkvTc<D>;
-  constexpr int BQT = G::BQT;
+  constexpr int BQT = G::BQT, SW = G::SW, NS = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw +
                 ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -610,9 +635,10 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   uint8_t* vs = sm + G::V_OFF;
   uint8_t* qs = sm + G::Q_OFF;
   uint8_t* dos = sm + G::DO_OFF;
-  float* lse2s = reinterpret_cast<float*>(sm + G::ROW_OFF);   // [2][BQT]
-  float* dis = lse2s + 2 * BQT;                                // [2][BQT]
-  int* qids = reinterpret_cast<int*>(dis + 2 * BQT);           // [2][BQT]
+  float* lse2s = reinterpret_cast<float*>(sm + G::ROW_OFF);   // [NS][BQT]
+  float* dis = lse2s + NS * BQT;                               // [NS][BQT]
+  int* qids = reinterpret_cast<int*>(dis + NS * BQT);          // [NS][BQT]
+  // bar[0 .. NS-1]: the ring's stages; bar[NS]: K and V
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
 
   const int bhk = blockIdx.x;
@@ -638,20 +664,19 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   const int ntile = group * nqt;   // tile t: head t / nqt, q tile t % nqt
 
   if (tid == 0) {
-    hopper::mbar_init(&bar[0], 1);
-    hopper::mbar_init(&bar[1], 1);
-    hopper::mbar_init(&bar[2], 1);
+#pragma unroll
+    for (int i = 0; i <= NS; ++i) hopper::mbar_init(&bar[i], 1);
     hopper::fence_barrier_init();
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(&bar[2], 2 * G::KV_BYTES);
+    hopper::mbar_expect_tx(&bar[NS], 2 * G::KV_BYTES);
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) {
-      hopper::tma_load_3d(ks + p * TC_BKV * 128, &map_k, &bar[2], 64 * p, c0,
-                          bhk);
-      hopper::tma_load_3d(vs + p * TC_BKV * 128, &map_v, &bar[2], 64 * p, c0,
-                          bhk);
+      hopper::tma_load_3d(ks + p * TC_BKV * SW, &map_k, &bar[NS], G::PW * p,
+                          c0, bhk);
+      hopper::tma_load_3d(vs + p * TC_BKV * SW, &map_v, &bar[NS], G::PW * p,
+                          c0, bhk);
     }
   }
   // the q-side tiles of tile t into stage stg: q and dO by TMA, the rows'
@@ -663,10 +688,10 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       hopper::mbar_expect_tx(&bar[stg], 2 * G::QT_BYTES);
 #pragma unroll
       for (int p = 0; p < G::NP; ++p) {
-        hopper::tma_load_3d(qs + stg * G::QT_BYTES + p * BQT * 128, &map_q,
-                            &bar[stg], 64 * p, r0, bh);
-        hopper::tma_load_3d(dos + stg * G::QT_BYTES + p * BQT * 128,
-                            &map_do, &bar[stg], 64 * p, r0, bh);
+        hopper::tma_load_3d(qs + stg * G::QT_BYTES + p * BQT * SW, &map_q,
+                            &bar[stg], G::PW * p, r0, bh);
+        hopper::tma_load_3d(dos + stg * G::QT_BYTES + p * BQT * SW,
+                            &map_do, &bar[stg], G::PW * p, r0, bh);
       }
     }
     for (int j = tid; j < BQT; j += G::THREADS) {
@@ -678,24 +703,30 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     }
   };
   if (ntile > 0) load_tile(0, 0);
+#pragma unroll
+  for (int i = 1; i + 1 < NS; ++i)
+    if (i < ntile) load_tile(i, i);
 
-  float dka[G::NPW][32], dva[G::NPW][32];   // panels p0 .. p0 + NPW - 1
+  float dka[G::NPW][G::NA], dva[G::NPW][G::NA];   // panels p0 .. p0 + NPW - 1
   float sT[32], dpT[32];                   // m64n64: BQT = 64 columns
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sT[i] = dpT[i] = 0.f;
+    if (i < G::NA) {
 #pragma unroll
-    for (int p = 0; p < G::NPW; ++p) dka[p][i] = dva[p][i] = 0.f;
+      for (int p = 0; p < G::NPW; ++p) dka[p][i] = dva[p][i] = 0.f;
+    }
   }
-  hopper::mbar_wait(&bar[2], 0);
+  hopper::mbar_wait(&bar[NS], 0);
   const uint32_t seed = DROP ? static_cast<uint32_t>(*drop.seed) : 0u;
 
   for (int t = 0; t < ntile; ++t) {
-    const int st = t & 1;
-    // every thread is done with tile t-1: its stage takes tile t+1
+    const int st = NS == 2 ? t & 1 : t % NS;
+    // every thread is done with tile t-1: its stage takes tile t+NS-1
     __syncthreads();
-    if (t + 1 < ntile) load_tile(t + 1, st ^ 1);
-    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    if (t + NS - 1 < ntile)
+      load_tile(t + NS - 1, NS == 2 ? st ^ 1 : (t + NS - 1) % NS);
+    hopper::mbar_wait(&bar[st], NS == 2 ? (t >> 1) & 1 : (t / NS) & 1);
     const int r0 = rstart + (t % nqt) * BQT;
     // the dropout hash's part of this thread's two keys at the tile's
     // query head (the flat q row b*H + hk*group + head)
@@ -709,23 +740,24 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     const uint8_t* qt = qs + st * G::QT_BYTES;
     const uint8_t* dot = dos + st * G::QT_BYTES;
 
-    // S^T = K . Q^T and dP^T = V . dO^T (A = K / V, B = Q / dO, K-major)
+    // S^T = K . Q^T and dP^T = V . dO^T (A = K / V, B = Q / dO, K-major;
+    // a k16 step is 32 bytes along a row)
     hopper::fence_acc(sT);
     hopper::fence_acc(dpT);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = (kk % 4) * 32;
+      const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
       hopper::wgmma_ss_n64<0>(
-          sT, hopper::desc_sw128(ks + p * TC_BKV * 128 + off, 16, 1024),
-          hopper::desc_sw128(qt + p * BQT * 128 + off, 16, 1024), kk > 0);
+          sT, hopper::desc_sw<SW>(ks + p * TC_BKV * SW + off, 16, 8 * SW),
+          hopper::desc_sw<SW>(qt + p * BQT * SW + off, 16, 8 * SW), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = (kk % 4) * 32;
+      const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
       hopper::wgmma_ss_n64<0>(
-          dpT, hopper::desc_sw128(vs + p * TC_BKV * 128 + off, 16, 1024),
-          hopper::desc_sw128(dot + p * BQT * 128 + off, 16, 1024), kk > 0);
+          dpT, hopper::desc_sw<SW>(vs + p * TC_BKV * SW + off, 16, 8 * SW),
+          hopper::desc_sw<SW>(dot + p * BQT * SW + off, 16, 8 * SW), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -746,8 +778,9 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                              drop);
 
     // P^T and dS^T rounded to bf16 in registers: the A operands of
-    // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major; this
-    // warpgroup's panels of them)
+    // dV += P^T . dO and dK += dS^T . Q (B = dO / Q, MN-major, the same
+    // tiles as above read down their rows: a k16 step is 16 q rows, 16 SW
+    // bytes; this warpgroup's panels of them)
     uint32_t pa[BQT / 16][4], da[BQT / 16][4];
 #pragma unroll
     for (int c = 0; c < BQT / 16; ++c)
@@ -767,18 +800,18 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     for (int c = 0; c < BQT / 16; ++c)
 #pragma unroll
       for (int p = 0; p < G::NPW; ++p)
-        hopper::wgmma_rs_n64<1>(
+        hopper::wgmma_rs<G::PW, 1>(
             dva[p], pa[c],
-            hopper::desc_sw128(dot + (p0 + p) * BQT * 128 + c * 2048,
-                               BQT * 128, 1024));
+            hopper::desc_sw<SW>(dot + (p0 + p) * BQT * SW + c * 16 * SW,
+                                BQT * SW, 8 * SW));
 #pragma unroll
     for (int c = 0; c < BQT / 16; ++c)
 #pragma unroll
       for (int p = 0; p < G::NPW; ++p)
-        hopper::wgmma_rs_n64<1>(
+        hopper::wgmma_rs<G::PW, 1>(
             dka[p], da[c],
-            hopper::desc_sw128(qt + (p0 + p) * BQT * 128 + c * 2048,
-                               BQT * 128, 1024));
+            hopper::desc_sw<SW>(qt + (p0 + p) * BQT * SW + c * 16 * SW,
+                                BQT * SW, 8 * SW));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -799,8 +832,8 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int p = 0; p < G::NPW; ++p)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int w = 32 * (p0 + p) + 4 * j + (lane & 3);
+      for (int j = 0; j < G::NA / 4; ++j) {
+        const int w = (G::PW / 2) * (p0 + p) + 4 * j + (lane & 3);
         krow[w] = hopper::pack_bf16(dka[p][4 * j + 2 * h],
                                     dka[p][4 * j + 2 * h + 1]);
         vrow[w] = hopper::pack_bf16(dva[p][4 * j + 2 * h],
@@ -812,11 +845,12 @@ flash_dkv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 template <int D, bool DROP>
 int launch_dkv_tc(const Args& a, void* dk, void* dv) {
   using G = DkvTc<D>;
+  const CUtensorMapSwizzle swz = hopper::swizzle_of(G::PW);
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQT);
-  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQT);
-  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, TC_BKV);
-  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, TC_BKV);
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQT, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQT, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, TC_BKV, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, TC_BKV, G::PW, swz);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
       flash_dkv_kernel_tc<D, DROP>,
@@ -1004,15 +1038,15 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < D / 16; ++kk) {
       const int p = kk / 4, off = (kk % 4) * 32;
       hopper::wgmma_ss_n64<0>(
-          s, hopper::desc_sw128(qs + p * G::BQ * 128 + off, 16, 1024),
-          hopper::desc_sw128(kt + p * BK * 128 + off, 16, 1024), kk > 0);
+          s, hopper::desc_sw<128>(qs + p * G::BQ * 128 + off, 16, 1024),
+          hopper::desc_sw<128>(kt + p * BK * 128 + off, 16, 1024), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int p = kk / 4, off = (kk % 4) * 32;
       hopper::wgmma_ss_n64<0>(
-          dp, hopper::desc_sw128(dos + p * G::BQ * 128 + off, 16, 1024),
-          hopper::desc_sw128(vt + p * BK * 128 + off, 16, 1024), kk > 0);
+          dp, hopper::desc_sw<128>(dos + p * G::BQ * 128 + off, 16, 1024),
+          hopper::desc_sw<128>(vt + p * BK * 128 + off, 16, 1024), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -1045,7 +1079,7 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       for (int p = 0; p < G::NP; ++p)
         hopper::wgmma_rs_n64<1>(
             acc[p], a[c],
-            hopper::desc_sw128(kt + p * BK * 128 + c * 2048, BK * 128, 1024));
+            hopper::desc_sw<128>(kt + p * BK * 128 + c * 2048, BK * 128, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -1174,8 +1208,8 @@ __device__ __forceinline__ void wide_scores(float (&x)[32], const uint8_t* ring,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       hopper::wgmma_ss_n64<0>(
-          x, hopper::desc_sw128(a + kk * 32, 16, 1024),
-          hopper::desc_sw128(a + G::PANEL + kk * 32, 16, 1024),
+          x, hopper::desc_sw<128>(a + kk * 32, 16, 1024),
+          hopper::desc_sw<128>(a + G::PANEL + kk * 32, 16, 1024),
           p > 0 || kk > 0);
     hopper::wgmma_commit();
     if (p > 0) {
@@ -1214,7 +1248,7 @@ __device__ __forceinline__ void wide_slice_products(
     for (int p = 0; p < G::WG_PANELS; ++p)
       hopper::wgmma_rs_n64<1>(
           acc[p], a[c],
-          hopper::desc_sw128(sl + p * G::PANEL + c * 2048, G::PANEL, 1024));
+          hopper::desc_sw<128>(sl + p * G::PANEL + c * 2048, G::PANEL, 1024));
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
 #pragma unroll
@@ -2492,13 +2526,13 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
 }
 
 // The route of both backward kernels: bf16 at D 64, 128 and 256 takes
-// the tensor cores, and at D 512 and every wide width (D >= 1024,
-// wide::tc_takes) the wide tensor-core bodies; f32 at the wide widths the
-// wide CUDA-core bodies (register tiles), and at 256 and 512 too
-// (wide::row_takes: one CTA spans the row), and at 64 and 128
-// (wide::narrow_takes); everything else (f32 and bf16 at 16 and 32) the
-// CUDA-core bodies of their width; a seed takes each body's DROP
-// instantiation.
+// the tensor cores (dk/dv at 16 and 32 too), and at D 512 and every wide
+// width (D >= 1024, wide::tc_takes) the wide tensor-core bodies; f32 at
+// the wide widths the wide CUDA-core bodies (register tiles), and at 256
+// and 512 too (wide::row_takes: one CTA spans the row), and at 64 and 128
+// (wide::narrow_takes); everything else (f32 at 16 and 32, the bf16 dq
+// there) the CUDA-core bodies of their width; a seed takes each body's
+// DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2533,6 +2567,8 @@ int launch_dkv_cuda_cores(const Args& a, int D, void* dk, void* dv) {
 template <typename T, bool DROP>
 int route_dkv(const Args& a, int D, void* dk, void* dv) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
+    if (D == 16) return launch_dkv_tc<16, DROP>(a, dk, dv);
+    if (D == 32) return launch_dkv_tc<32, DROP>(a, dk, dv);
     if (D == 64) return launch_dkv_tc<64, DROP>(a, dk, dv);
     if (D == 128) return launch_dkv_tc<128, DROP>(a, dk, dv);
     if (D == 256) return launch_dkv_tc<256, DROP>(a, dk, dv);
@@ -2617,8 +2653,8 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // The CUDA-core dq and dk/dv bodies of every width they have (16..512),
-// whatever the dtype (same arguments as above): bf16 from 64 routes to
-// the tensor-core bodies and f32 from 64 to the register-tile bodies,
+// whatever the dtype (same arguments as above): bf16 from 64 (dk/dv from
+// 16) routes to the tensor-core bodies and f32 from 64 to the register-tile bodies,
 // and these let a measurement time the CUDA-core bodies beside them on
 // the same inputs.  Any other width is refused
 // (from D 1024 f32 routes to the wide CUDA-core bodies, and bf16 has no

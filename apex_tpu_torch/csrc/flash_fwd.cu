@@ -21,11 +21,13 @@
 //
 // - tensor cores, flash_fwd_kernel_tc: bf16 at D 64, 128 and 256 (every
 //   path that trains through flash: GPT-2, BERT-Large, Llama-class heads,
-//   and the Gemma-class heads of 129..256, padded to 256).
+//   and the Gemma-class heads of 129..256, padded to 256), and at D 16
+//   and 32 (the BERT example's default proxy, 4 heads of 32, and the
+//   heads of 9..31, padded to them) at the head's own width.
 // - CUDA cores, flash_fwd_kernel: f32 at D 16 and 32 (the precision
 //   contract of docs/kernels.md makes f32 operands true f32, so no TF32)
-//   and f32 with no keys (Sk == 0) up to D 128, bf16 at D 16 and 32, and
-//   bf16 with no keys up to D 512.
+//   and f32 with no keys (Sk == 0) up to D 128, and bf16 with no keys up
+//   to D 512.
 // - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 512 (and the
 //   heads of 257..511, padded to it) and D >= 1024 (the powers of two to
 //   8192, then the multiples of 8192: the wrapper pads every wider head
@@ -74,6 +76,25 @@
 // fills rows past Sq or Sk with zeros, keys past Sk are masked and rows
 // past Sq are not stored.  No warp specialisation or persistent CTAs
 // yet: one thread of the CTA starts the loads.
+//
+// At D 16 and 32 a row of the head is 32 or 64 bytes, narrower than the
+// 128-byte swizzle's rows, and padding the head to 64 would move 2-4
+// times the bytes.  So FwdTc<16/32> is one panel as wide as the head: the
+// Q, K and V tiles come by TMA in boxes of D columns with the 32- or
+// 64-byte swizzle (hopper::swizzle_of), the descriptors take that
+// swizzle's layout type (8 rows of 2D bytes between 8-row groups; one or
+// two k16 steps of 32 bytes in Q.K^T), and O += P.V is m64nDk16 (8 or 16
+// f32 registers a thread).  What bounds it: a causal (8, 12, 512, 32)
+// call does 1.6 GFLOP over 12.8 MB, 1.6 us at 989 TFLOP/s against 3.8 us
+// at 3.35 TB/s; the products shrink with D but the softmax on S does not,
+// so each CTA's chain is the softmax's.  The design keeps 64-key tiles
+// and two ring stages: the tiles are 2-4 KB and a CTA takes 77-102
+// registers, so several CTAs share an SM and hide each other's chains.
+// On an H100 at 700 W (apex_tpu_torch/tools/flash_narrow_tc.py, in
+// turns) one CTA an SM took twice as long; 128-key tiles (124-128
+// registers) took 18-25% longer causal, where the diagonal tile's masked
+// half and fewer CTAs an SM cost more than the halved tile count saves,
+// and 13% less on the BERT proxy's unmasked (8, 4, 512, 32).
 //
 // At D 256 the same body holds a 64 x 256 f32 O accumulator (128
 // registers a thread) beside S (32) and P's bf16 fragment (16), within
@@ -746,7 +767,8 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core body: bf16, D 64, 128 and 256 (wgmma + TMA; hopper_mma.cuh)
+// tensor-core body: bf16, D 16, 32, 64, 128 and 256 (wgmma + TMA;
+// hopper_mma.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BK = 64;                       // keys per ring stage
@@ -755,50 +777,66 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct FwdTc {
-  static constexpr int NP = D / 64;             // 64-column panels
+  // A panel is PW columns of the head: 64 (rows of 128 bytes, the 128-byte
+  // swizzle) from D 64; at D 16 and 32 one panel as wide as the head (rows
+  // of 32 and 64 bytes, the swizzle of that width: hopper_mma.cuh)
+  static constexpr int PW = D < 64 ? D : 64;
+  static constexpr int SW = 2 * PW;             // a row's bytes, its swizzle
+  static constexpr int NP = D / PW;             // panels
+  static constexpr int NA = PW / 2;             // O's f32 registers a panel
+  static constexpr int BK = TC_BK;              // keys a ring stage
+  static constexpr int NS = BK / 2;             // S's f32 registers
   static constexpr int BQ = 64;                 // query rows a CTA
   static constexpr int THREADS = 128;           // one warpgroup
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = TC_BK * D * 2;   // one K or V tile
+  static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
   // K/V ring stages: two up to D 128; one at D 256, so that two CTAs
   // (96 KB of tiles each) share an SM and overlap each other's chains
   static constexpr int STAGES = D > 128 ? 1 : 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int KID_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = KID_OFF + 2 * TC_BK * 4;
+  static constexpr int BAR_OFF = KID_OFF + 2 * BK * 4;
   static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;   // + alignment slack
 };
+
+// A bit a score of the tile: 32 bits hold a 64-key tile's share of a
+// thread, 64 a 128-key tile's
+template <int NS>
+struct VisBits { using type = uint32_t; };
+template <>
+struct VisBits<64> { using type = uint64_t; };
 
 // One tile of scores in the accumulator fragment (s, base 2 after this):
 // scale, mask where MASK, fold into the running max m and sum l (this
 // thread's share of its two rows), return the rescale factors and leave
 // the probabilities in s; under DROP, after l has summed them, keep * p /
 // (1 - rate), each pair hashed from its row's key rkey (every tile).
-template <bool MASK, bool DROP>
+template <bool MASK, bool DROP, int NS>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float (&s)[NS], float (&m)[2], float (&l)[2], float (&alpha)[2],
     float scale2, int k0, int r_lo, int lane, int Sk, int causal,
     const int* kid, int qid_lo, int qid_hi, const uint32_t (&rkey)[2],
     const dropout::Params& drop) {
-  unsigned vis = 0xffffffffu;
+  using V = typename VisBits<NS>::type;
+  V vis = ~V(0);
   if (MASK) {
-    vis = 0u;
+    vis = V(0);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
       const int row = r_lo + 8 * ((i >> 1) & 1);
       const int col = k0 + c;
       const bool ok = col < Sk && (!causal || col <= row) &&
                       (kid == nullptr ||
                        kid[c] == (((i >> 1) & 1) ? qid_hi : qid_lo));
-      vis |= (ok ? 1u : 0u) << i;
+      vis |= V(ok ? 1 : 0) << i;
     }
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] = (!MASK || ((vis >> i) & 1u)) ? s[i] * scale2 : NEG;
+  for (int i = 0; i < NS; ++i) {
+    s[i] = (!MASK || ((vis >> i) & V(1))) ? s[i] * scale2 : NEG;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
 #pragma unroll
@@ -810,9 +848,9 @@ __device__ __forceinline__ void softmax_tile(
     m[h] = mx[h];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int h = (i >> 1) & 1;
-    const float p = (!MASK || ((vis >> i) & 1u)) ? exp2f(s[i] - mx[h]) : 0.f;
+    const float p = (!MASK || ((vis >> i) & V(1))) ? exp2f(s[i] - mx[h]) : 0.f;
     l[h] += p;
     const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
     s[i] = DROP ? dropout::apply(drop, dropout::col_key(rkey[h], col), p) : p;
@@ -829,6 +867,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                     const int* __restrict__ kv_ids, int H, int HK, int Sq,
                     int Sk, int causal, float scale2, dropout::Params drop) {
   using G = FwdTc<D>;
+  constexpr int BK = G::BK, SW = G::SW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw +
                 ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -848,7 +887,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   const int r_lo = q0 + 16 * (tid >> 5) + (lane >> 2);   // and r_lo + 8
   const bool seg = q_ids != nullptr;
   const int kend = causal ? min(Sk, q0 + G::BQ) : Sk;
-  const int ntile = (kend + TC_BK - 1) / TC_BK;
+  const int ntile = (kend + BK - 1) / BK;
   uint32_t rkey[2] = {0u, 0u};
   if (DROP) {
     const uint32_t head = dropout::head_key(*drop.seed, bh);
@@ -870,34 +909,34 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     if (G::STAGES == 1) hopper::mbar_expect_tx(vbar, G::KV_BYTES);
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) {
-      hopper::tma_load_3d(qs + p * G::BQ * 128, &map_q, &bar[0], 64 * p, q0,
-                          bh);
-      hopper::tma_load_3d(ks + p * TC_BK * 128, &map_k, &bar[0], 64 * p, 0,
+      hopper::tma_load_3d(qs + p * G::BQ * SW, &map_q, &bar[0], G::PW * p,
+                          q0, bh);
+      hopper::tma_load_3d(ks + p * BK * SW, &map_k, &bar[0], G::PW * p, 0,
                           bhk);
-      hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, vbar, 64 * p, 0,
+      hopper::tma_load_3d(vs + p * BK * SW, &map_v, vbar, G::PW * p, 0,
                           bhk);
     }
   }
   if (seg) {
-    for (int j = tid; j < TC_BK; j += G::THREADS)
+    for (int j = tid; j < BK; j += G::THREADS)
       kid[j] = j < Sk ? kv_ids[(size_t)b * Sk + j] : 0;
   }
   const int qid_lo = (seg && r_lo < Sq) ? q_ids[(size_t)b * Sq + r_lo] : 0;
   const int qid_hi =
       (seg && r_lo + 8 < Sq) ? q_ids[(size_t)b * Sq + r_lo + 8] : 0;
 
-  float acc[G::NP][32];
-  float s[32];
+  float acc[G::NP][G::NA];
+  float s[G::NS];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] = 0.f;
+  for (int i = 0; i < G::NS; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < G::NA; ++i)
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) acc[p][i] = 0.f;
-  }
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < ntile; ++t) {
-    const int k0 = t * TC_BK;
+    const int k0 = t * BK;
     const int st = t & 1;
     // every thread is done with tile t-1: with two stages its stage
     // takes tile t+1; with one, the V stage takes tile t
@@ -907,23 +946,23 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
 #pragma unroll
       for (int p = 0; p < G::NP; ++p) {
-        hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * TC_BK * 128,
-                            &map_k, &bar[nst], 64 * p, k0 + TC_BK, bhk);
-        hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * TC_BK * 128,
-                            &map_v, &bar[nst], 64 * p, k0 + TC_BK, bhk);
+        hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * BK * SW, &map_k,
+                            &bar[nst], G::PW * p, k0 + BK, bhk);
+        hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * BK * SW, &map_v,
+                            &bar[nst], G::PW * p, k0 + BK, bhk);
       }
     }
     if (G::STAGES == 1 && t > 0 && tid == 0) {
       hopper::mbar_expect_tx(vbar, G::KV_BYTES);
 #pragma unroll
       for (int p = 0; p < G::NP; ++p)
-        hopper::tma_load_3d(vs + p * TC_BK * 128, &map_v, vbar, 64 * p, k0,
+        hopper::tma_load_3d(vs + p * BK * SW, &map_v, vbar, G::PW * p, k0,
                             bhk);
     }
     if (seg && t + 1 < ntile) {
-      for (int j = tid; j < TC_BK; j += G::THREADS) {
-        const int col = k0 + TC_BK + j;
-        kid[(st ^ 1) * TC_BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+      for (int j = tid; j < BK; j += G::THREADS) {
+        const int col = k0 + BK + j;
+        kid[(st ^ 1) * BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
       }
     }
     if (G::STAGES == 2)
@@ -931,17 +970,17 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     else
       hopper::mbar_wait(&bar[0], t & 1);
 
-    // S = Q . K^T
+    // S = Q . K^T (K-major both; a k16 step is 32 bytes along a row)
     const uint8_t* kt = ks + (G::STAGES == 2 ? st : 0) * G::KV_BYTES;
     const uint8_t* vt = vs + (G::STAGES == 2 ? st : 0) * G::KV_BYTES;
     hopper::fence_acc(s);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_ss_n64<0>(
-          s, hopper::desc_sw128(qs + p * G::BQ * 128 + off, 16, 1024),
-          hopper::desc_sw128(kt + p * TC_BK * 128 + off, 16, 1024), kk > 0);
+      const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
+      hopper::wgmma_ss<BK, 0>(
+          s, hopper::desc_sw<SW>(qs + p * G::BQ * SW + off, 16, 8 * SW),
+          hopper::desc_sw<SW>(kt + p * BK * SW + off, 16, 8 * SW), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -953,26 +992,27 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
         hopper::mbar_expect_tx(&bar[0], G::KV_BYTES);
 #pragma unroll
         for (int p = 0; p < G::NP; ++p)
-          hopper::tma_load_3d(ks + p * TC_BK * 128, &map_k, &bar[0], 64 * p,
-                              k0 + TC_BK, bhk);
+          hopper::tma_load_3d(ks + p * BK * SW, &map_k, &bar[0], G::PW * p,
+                              k0 + BK, bhk);
       }
     }
 
     float alpha[2];
-    const bool need = seg || k0 + TC_BK > Sk ||
-                      (causal && k0 + TC_BK - 1 > q0);
+    const bool need = seg || k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q0);
     if (need)
       softmax_tile<true, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
-                               causal, seg ? kid + st * TC_BK : nullptr,
+                               causal, seg ? kid + st * BK : nullptr,
                                qid_lo, qid_hi, rkey, drop);
     else
       softmax_tile<false, DROP>(s, m, l, alpha, scale2, k0, r_lo, lane, Sk,
                                 causal, nullptr, 0, 0, rkey, drop);
 
-    // O = O * alpha + P . V, P rounded to bf16 in registers
-    uint32_t a[4][4];
+    // O = O * alpha + P . V, P rounded to bf16 in registers (V MN-major:
+    // a k16 step is 16 key rows, 16 SW bytes)
+    uint32_t a[BK / 16][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         a[c][r] = hopper::pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
@@ -980,19 +1020,19 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     for (int p = 0; p < G::NP; ++p) {
       hopper::fence_acc(acc[p]);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < G::NA; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
       hopper::fence_acc(acc[p]);
     }
     if (G::STAGES == 1) hopper::mbar_wait(vbar, t & 1);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
       for (int p = 0; p < G::NP; ++p)
-        hopper::wgmma_rs_n64<1>(
+        hopper::wgmma_rs<G::PW, 1>(
             acc[p], a[c],
-            hopper::desc_sw128(vt + p * TC_BK * 128 + c * 2048, TC_BK * 128,
-                               1024));
+            hopper::desc_sw<SW>(vt + p * BK * SW + c * 16 * SW, BK * SW,
+                                8 * SW));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -1016,8 +1056,8 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int p = 0; p < G::NP; ++p)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        orow[(64 * p + 8 * j + 2 * (lane & 3)) / 2] =
+      for (int j = 0; j < G::NA / 4; ++j)
+        orow[(G::PW * p + 8 * j + 2 * (lane & 3)) / 2] =
             hopper::pack_bf16(acc[p][4 * j + 2 * h] * linv[h],
                               acc[p][4 * j + 2 * h + 1] * linv[h]);
     if (lse != nullptr && (lane & 3) == 0)
@@ -1032,10 +1072,11 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               int HK, int Sq, int Sk, int causal, float scale,
               const dropout::Params& drop, cudaStream_t stream) {
   using G = FwdTc<D>;
+  const CUtensorMapSwizzle swz = hopper::swizzle_of(G::PW);
   CUtensorMap mq, mk, mv;
-  int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ);
-  if (rc == 0) rc = hopper::make_map_bf16(&mk, k, D, Sk, B * HK, TC_BK);
-  if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, Sk, B * HK, TC_BK);
+  int rc = hopper::make_map_bf16(&mq, q, D, Sq, B * H, G::BQ, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, k, D, Sk, B * HK, G::BK, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, Sk, B * HK, G::BK, G::PW, swz);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
       flash_fwd_kernel_tc<D, DROP>,
@@ -1045,6 +1086,119 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel_tc<D, DROP><<<grid, G::THREADS, G::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, q_ids, kv_ids, H, HK,
       Sq, Sk, causal, scale * LOG2E, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One 64 x D x 64 product of each kind the tensor-core bodies run, on
+// the card's own layouts, to hold the shared-memory descriptors of every
+// panel width against a plain matrix product (chip_smoke.py's narrow-head
+// phase): S = A.B^T (A 64 x D and B 64 x D K-major, as Q.K^T) and O =
+// P.V (P 64 x 64 bf16 as the register fragment, V 64 x D MN-major, as
+// P.V and dK += dS^T.Q), A, B and V by TMA with the swizzle of the
+// body's panels, S and O written in f32.  Not a path of the port.
+template <int D>
+__global__ void __launch_bounds__(128)
+wgmma_probe_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __nv_bfloat16* __restrict__ pm,
+                   float* __restrict__ s_out, float* __restrict__ o_out) {
+  using G = FwdTc<D>;
+  constexpr int SW = G::SW, TILE = 64 * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw +
+                ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* as = sm;
+  uint8_t* bs = sm + TILE;
+  uint8_t* vs = sm + 2 * TILE;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 3 * TILE);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r_lo = 16 * (tid >> 5) + (lane >> 2);   // and r_lo + 8
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, 3 * TILE);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p) {
+      hopper::tma_load_3d(as + p * 64 * SW, &map_a, bar, G::PW * p, 0, 0);
+      hopper::tma_load_3d(bs + p * 64 * SW, &map_b, bar, G::PW * p, 0, 0);
+      hopper::tma_load_3d(vs + p * 64 * SW, &map_v, bar, G::PW * p, 0, 0);
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  hopper::fence_acc(s);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
+    hopper::wgmma_ss<64, 0>(
+        s, hopper::desc_sw<SW>(as + p * 64 * SW + off, 16, 8 * SW),
+        hopper::desc_sw<SW>(bs + p * 64 * SW + off, 16, 8 * SW), kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(s);
+  // P's k16 chunk c as the A fragment: register r holds row r_lo + 8 (r %
+  // 2), columns 8 (2c + r / 2) + 2 (lane % 4) and the next
+  uint32_t a[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[c][r] = *reinterpret_cast<const uint32_t*>(
+          pm + (r_lo + 8 * (r & 1)) * 64 + 8 * (2 * c + (r >> 1)) +
+          2 * (lane & 3));
+  float acc[G::NP][G::NA];
+#pragma unroll
+  for (int p = 0; p < G::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < G::NA; ++i) acc[p][i] = 0.f;
+#pragma unroll
+  for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p)
+      hopper::wgmma_rs<G::PW, 1>(
+          acc[p], a[c],
+          hopper::desc_sw<SW>(vs + p * 64 * SW + c * 16 * SW, 64 * SW,
+                              8 * SW));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s_out[(r_lo + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * (lane & 3) +
+          (i & 1)] = s[i];
+#pragma unroll
+  for (int p = 0; p < G::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < G::NA; ++i)
+      o_out[(r_lo + 8 * ((i >> 1) & 1)) * D + G::PW * p + 8 * (i >> 2) +
+            2 * (lane & 3) + (i & 1)] = acc[p][i];
+}
+
+template <int D>
+int launch_probe(const void* a, const void* b, const void* v, const void* p,
+                 float* s, float* o, cudaStream_t stream) {
+  using G = FwdTc<D>;
+  const CUtensorMapSwizzle swz = hopper::swizzle_of(G::PW);
+  CUtensorMap ma, mb, mv;
+  int rc = hopper::make_map_bf16(&ma, a, D, 64, 1, 64, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mb, b, D, 64, 1, 64, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, v, D, 64, 1, 64, G::PW, swz);
+  if (rc != 0) return rc;
+  const int smem = 3 * 64 * D * 2 + 8 + 1024;
+  wgmma_probe_kernel<D><<<1, 128, smem, stream>>>(
+      ma, mb, mv, static_cast<const __nv_bfloat16*>(p), s, o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1197,8 +1351,8 @@ flash_fwd_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         hopper::wgmma_ss_n64<0>(
-            s, hopper::desc_sw128(qp + kk * 32, 16, 1024),
-            hopper::desc_sw128(qp + G::PANEL + kk * 32, 16, 1024),
+            s, hopper::desc_sw<128>(qp + kk * 32, 16, 1024),
+            hopper::desc_sw<128>(qp + G::PANEL + kk * 32, 16, 1024),
             p > 0 || kk > 0);
       hopper::wgmma_commit();
       if (p > 0) {
@@ -1248,7 +1402,7 @@ flash_fwd_kernel_tc_wide(const __grid_constant__ CUtensorMap map_q,
       for (int p = 0; p < G::SNP; ++p)
         hopper::wgmma_rs_n64<1>(
             acc[p], a[c],
-            hopper::desc_sw128(vs + p * G::PANEL + c * 2048, G::PANEL, 1024));
+            hopper::desc_sw<128>(vs + p * G::PANEL + c * 2048, G::PANEL, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -1326,20 +1480,24 @@ int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route: bf16 with keys to read takes the tensor cores, at D 64, 128
-// and 256 and (the wide tensor-core body) at D 512 and every wide width,
-// D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes), at 64
-// and 128 with keys to read (wide::narrow_takes) and the rest of the wide
-// widths (f32, and bf16 with no keys) the register-tile body, everything
-// else (f32 at 16 and 32 or with no keys up to 128, bf16 at 16 and 32 or
-// with no keys up to 512) the CUDA-core bodies of their width; a seed
-// takes each body's DROP instantiation.
+// The route: bf16 with keys to read takes the tensor cores, at D 16, 32,
+// 64, 128 and 256 and (the wide tensor-core body) at D 512 and every wide
+// width, D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes),
+// at 64 and 128 with keys to read (wide::narrow_takes) and the rest of the
+// wide widths (f32, and bf16 with no keys) the register-tile body,
+// everything else (f32 at 16 and 32 or with no keys up to 128, bf16 with
+// no keys up to 512) the CUDA-core bodies of their width; a seed takes
+// each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
              int Sk, int D, int causal, float scale,
              const dropout::Params& dr, cudaStream_t st) {
   if (sizeof(T) == 2 && Sk > 0) {
+    if (D == 16)
+      return launch_tc<16, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
+    if (D == 32)
+      return launch_tc<32, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 64)
       return launch_tc<64, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, st);
     if (D == 128)
@@ -1402,7 +1560,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 
 // The CUDA-core forward of every width it has (16..512), whatever the
 // dtype (the arguments of apex_flash_fwd): f32 at 64..512 routes to the
-// register-tile body and bf16 with keys from 64 to the tensor cores, and
+// register-tile body and bf16 with keys to the tensor cores, and
 // this lets a measurement time the CUDA-core body beside them on the same
 // inputs.  Any other width is refused.
 extern "C" int apex_flash_fwd_cuda_cores(
@@ -1426,6 +1584,23 @@ extern "C" int apex_flash_fwd_cuda_cores(
                   : launch_cuda_cores<__nv_bfloat16, false>(q, k, v, o, lf, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The descriptor probe (wgmma_probe_kernel) at D 16, 32 or 64: a (64, D),
+// b (64, D), v (64, D) and p (64, 64) bf16, contiguous and 16-byte
+// aligned; s (64, 64) and o (64, D) f32.  Returns a CUDA error code.
+extern "C" int apex_wgmma_probe(const void* a, const void* b, const void* v,
+                                const void* p, void* s, void* o, int D,
+                                void* stream) {
+  float* sf = static_cast<float*>(s);
+  float* of = static_cast<float*>(o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_probe<16>(a, b, v, p, sf, of, st);
+    case 32: return launch_probe<32>(a, b, v, p, sf, of, st);
+    case 64: return launch_probe<64>(a, b, v, p, sf, of, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

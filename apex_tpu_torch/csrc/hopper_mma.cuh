@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core bodies of
 // csrc/flash_fwd.cu and csrc/flash_bwd.cu: warpgroup matrix multiplies
 // (wgmma) with their fence / commit / wait, shared-memory matrix
-// descriptors for the 128-byte swizzle, mbarrier helpers, the TMA tile
+// descriptors for the 32-, 64- and 128-byte swizzles, mbarrier helpers, the TMA tile
 // load, and the host-side encoding of the TMA tensor maps; the cp.async
 // copies, cluster launch, cluster barriers and distributed shared-memory
 // reads of the CUDA-core wide bodies; the dropout hash and the wide
@@ -14,18 +14,32 @@
 // - A tile in shared memory is what a TMA load with the 128-byte swizzle
 //   writes: rows of 64 bf16 values (128 bytes), 8 rows to a 1024-byte
 //   swizzle atom; a width of 128 is two such 64-column panels, one after
-//   the other.  Every tile starts 1024-byte aligned.
+//   the other.  Every tile starts 1024-byte aligned.  A head of 16 or 32
+//   columns is one panel as wide as the row: 32 or 64 bytes, written by a
+//   TMA box of that width with the 32- or 64-byte swizzle (swizzle_of),
+//   8 rows to a 256- or 512-byte atom.  Below, SW is a row's bytes (32,
+//   64 or 128) and the swizzle's, desc_sw<SW> the descriptor of its
+//   layout type; the 128-byte numbers are SW = 128's.
 // - K-major operand (the reduction index runs along a row, as Q and K
 //   are stored for Q.K^T): the descriptor's stride byte offset is the
-//   1024 bytes between 8-row groups, its leading byte offset unused (16
-//   bytes, CUTLASS's 1); a step of 16 along the reduction index is 32
-//   bytes added to the start address inside the panel.
+//   8 SW (1024) bytes between 8-row groups, its leading byte offset
+//   unused (16 bytes, CUTLASS's 1); a step of 16 along the reduction
+//   index is 32 bytes added to the start address inside the panel (at
+//   SW 64 the second of two; at SW 32 there is one step).
 // - MN-major operand (the reduction index runs down the rows, as V is
 //   stored for P.V; wgmma's transpose bit, which 16-bit types allow):
-//   the stride byte offset is again the 1024 bytes between 8-row groups
-//   (now 8 steps of the reduction), the leading byte offset the distance
-//   between 64-column panels; a step of 16 along the reduction index is
-//   2048 bytes.
+//   the stride byte offset is again the 8 SW (1024) bytes between 8-row
+//   groups (now 8 steps of the reduction), the leading byte offset the
+//   distance between 64-column panels (unused at SW 32 and 64: N = 16 or
+//   32 is one atom wide); a step of 16 along the reduction index is 16
+//   SW (2048) bytes.  The K-major and MN-major atoms of one swizzle are
+//   the same 8 rows of SW bytes, so one TMA-written tile serves both
+//   majors (the dk/dv body reads its q and dO tiles both ways) at every
+//   width (CUTLASS's Layout_K_SW*_Atom and Layout_MN_SW*_Atom).
+// - Products: S = Q.K^T is m64n64k16 (m64n128k16 for 128-key tiles),
+//   SS; O += P.V, dV += P^T.dO and dK += dS^T.Q are m64nNk16, RS, with N
+//   = 64 a panel from D 64 and N = D at 16 and 32 (wgmma_rs<N>: 8 or 16
+//   accumulators a thread).
 // - The f32 accumulator of an m64nNk16 product gives thread t of the
 //   warpgroup (warp w = t / 32, lane l = t % 32) element i at row
 //   16 w + l / 4 + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 (l % 4) +
@@ -172,15 +186,21 @@ __device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
 // wgmma
 // ---------------------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1 in
-// bits 62-63), start address, leading and stride byte offsets in 16-byte
-// units; base offset 0 (every tile is 1024-byte aligned).
-__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor of a tile that a TMA load with the
+// SW-byte swizzle wrote (rows of SW bytes, 8 rows to an atom of 8 SW
+// bytes): start address, leading and stride byte offsets in 16-byte
+// units, layout type 1 (128-byte), 2 (64-byte) or 3 (32-byte swizzle) in
+// bits 62-63 (CUTLASS's GMMA::LayoutType); base offset 0 (every tile is
+// 1024-byte aligned).
+template <int SW>
+__device__ __forceinline__ uint64_t desc_sw(const void* smem, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(SW == 32 || SW == 64 || SW == 128,
+                "desc_sw: a swizzle of 32, 64 or 128 bytes");
   uint64_t d = static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
+  d |= static_cast<uint64_t>(SW == 128 ? 1 : SW == 64 ? 2 : 3) << 62;
   return d;
 }
 
@@ -239,6 +259,92 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
 }
 
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
+// (the narrow forward's 128-key tiles).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B in shared memory, N 64
+// or 128 (N / 2 f32 accumulators a thread).
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_ss_n64<TRANS_B>(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_ss_n128<TRANS_B>(d, desc_a, desc_b, accumulate);
+}
+
+// D[64 x 16] += A[64 x 16] * B[16 x 16], A in registers, B in shared
+// memory (O += P.V, dV += P^T.dO and dK += dS^T.Q at D 16).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B in shared
+// memory (the same products at D 32).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (the bf16
 // fragment of acc_to_a), B in shared memory.
 template <int TRANS_B>
@@ -263,6 +369,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
         "n"(TRANS_B));
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N], A in registers, B in shared
+// memory, N 16, 32 or 64 (N / 2 f32 accumulators a thread).
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs: N is 16, 32 or 64");
+  if constexpr (N == 64)
+    wgmma_rs_n64<TRANS_B>(d, a, desc_b);
+  else if constexpr (N == 32)
+    wgmma_rs_n32<TRANS_B>(d, a, desc_b);
+  else
+    wgmma_rs_n16<TRANS_B>(d, a, desc_b);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,27 +412,41 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The TMA swizzle of a box `box_cols` bf16 wide: its rows' bytes, 32, 64
+// or 128 (the narrow bodies' heads of 16 and 32 columns, and every 64-column
+// panel of the wider ones).
+inline CUtensorMapSwizzle swizzle_of(int box_cols) {
+  return box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+         : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
 // The map of a contiguous bf16 tensor (mats, rows, cols) read in boxes of
-// (1, box_rows, 64) with the 128-byte swizzle; rows past `rows` read as
-// zeros.  cols * 2 must be a multiple of 16 bytes and `base` 16-byte
-// aligned (TMA's rules).  Returns a CUDA error code (0 on success).
+// (1, box_rows, box_cols) with the swizzle `swz` of that row width
+// (swizzle_of: 64 columns and the 128-byte swizzle by default, 32 and the
+// 64-byte, 16 and the 32-byte); rows past `rows` read as zeros.  cols * 2
+// must be a multiple of 16 bytes and `base` 16-byte aligned (TMA's
+// rules).  Returns a CUDA error code (0 on success).
 inline int make_map_bf16(CUtensorMap* map, const void* base, int cols, int rows,
-                         int mats, int box_rows) {
+                         int mats, int box_rows, int box_cols = 64,
+                         CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || (cols * 2) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (swz != swizzle_of(box_cols))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(mats)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
                                  static_cast<cuuint64_t>(cols) * 2 * rows};
-  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1u};
   const cuuint32_t estride[3] = {1u, 1u, 1u};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -429,10 +429,11 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 
 
 # the kernel widths at which each kernel's bf16 body runs on the tensor
-# cores (wgmma + TMA); from 512 every kernel's bf16 body does ("wide
-# tensor cores")
-_TC_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
-              "flash_dkv": (64, 128, 256)}
+# cores (wgmma + TMA; at 16 and 32 a panel as wide as the head, with the
+# 32- and 64-byte swizzles); from 512 every kernel's bf16 body does
+# ("wide tensor cores")
+_TC_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256), "flash_dq": (64, 128, 256),
+              "flash_dkv": (16, 32, 64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 # the narrower kernel widths at which each kernel's f32 body runs in
 # register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes
@@ -446,8 +447,9 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA: bf16 at D 64, 128 and 256), "CUDA cores" (the FMA body: f32
-    and bf16 at 16 and 32),
+    + TMA: bf16 at D 64, 128 and 256, and the forward and dk/dv at 16 and
+    32 too), "CUDA cores" (the FMA body: f32 at 16 and 32, and the bf16
+    dq there),
     "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
     width from 1024, a CTA on a slice of the output's columns: 256 of O's,
     512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"

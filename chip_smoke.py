@@ -95,8 +95,9 @@ exits non-zero:
     zeros; the same bits on a second run; each case prints the route
     each kernel took, read from the device kernels' names under the
     profiler (each kernel's ``ops.attention.flash_route``: the tensor-core
-    bodies for bf16 at D 64 and 128, the register-tile forward and dk/dv
-    for f32 there, the CUDA-core bodies otherwise at these widths); every
+    bodies for bf16 at D 64 and 128 and the forward and dk/dv at D 32, the
+    register-tile forward and dk/dv for f32 there, the CUDA-core bodies
+    otherwise at these widths); every
     tensor-core body's ptxas registers
     and spills (0 spill bytes required) and the host microseconds of one
     TMA tensor map; at GPT's and BERT-L's unmasked shapes each kernel
@@ -179,7 +180,10 @@ exits non-zero:
     timed steps, exact launch counts (one xent_fwd and one xent_bwd a
     step; the vocab-30528 phases above count none);
 28. BERT proxy — the example's default 4 x h128 model at vocab 2048
-    trains 3 steps on the card with exact launch counts; one O0 step on
+    trains 3 steps on the card with exact launch counts; its device ms a
+    step (CUDA events between 4 steps) and the busy ms of one profiled
+    step, whose flash kernels must be the D-32 bodies of their routes
+    (forward and dk/dv on the tensor cores, dq on the CUDA cores); one O0 step on
     a packed 2 x 128 batch (labels -1 on padding) on the card and the
     CPU, the params within a tenth of the nearest of three wrong
     updates (label smoothing 0.1, padding not masked, lr 4% high);
@@ -258,7 +262,20 @@ exits non-zero:
     learned positions and packed RoPE rows: the first loss within rtol
     1e-5, the params within a tenth of the nearest wrong update run on
     the CPU (attention not causal or packed segments not masked; lr 4%
-    high).
+    high);
+37. narrow heads (run after phase 34) — the bf16 forward and dk/dv at
+    D 16 and 32 on the tensor cores: first one 64 x D x 64 product of
+    each kind at D 16, 32 and 64 against ``torch.matmul`` (every
+    shared-memory descriptor of the 32-, 64- and 128-byte swizzles);
+    then causal and not, ragged S 200, Sq != Sk (keys no row sees),
+    grouped-query heads, segment ids with rows that see no key, heads of
+    12, 17, 24 and 31 padded, the BERT proxy's (8, 4, 512, 32), dropout
+    0.1, against the twins (ATTN_TOL) with each kernel's route read from
+    the device kernels' names; the keep masks bit for bit; q off 16
+    bytes; the new bodies' ptxas lines (0 spills); then at (8, 12, 512,
+    32) and (8, 12, 512, 16) causal and the proxy's shape, the forward
+    and dk/dv in turns with their CUDA-core bodies and the D-64 bodies on
+    zero-padded operands, beside the twin, SDPA and the bound.
 
 Phase 11 also reads every LayerNorm forward's route (the register body
 up to h 8192 at 16-byte alignment, the wide one past it and off it)
@@ -283,7 +300,8 @@ flash_fwd's is GPT-2 small's bf16 training shape (its launches those of
 the GPT step), with the serve path's f32 row under ``serve_f32``; each
 of the three carries its dropout body's figures under ``dropout``
 (launches those of phase 32's 12-layer stack); the wide heads' under
-``d256`` and ``d1024``.  The kernels of
+``d256`` and ``d1024``; the BERT proxy's (8, 4, 512, 32) rows under
+``d32_proxy``, with their launches in phase 28's 3 steps.  The kernels of
 the GPTModel step carry their launches in phase 35's timed steps under
 ``gpt_model_launches``.  Nothing of JAX is imported.
 """
@@ -2244,9 +2262,9 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               flush=True)
 
     # tensor-core bodies a library holds: the forward, dq and dk/dv at D
-    # 64, 128 and 256 and their wide bodies; each at rate 0 and with
-    # dropout
-    for lib, n_tc in (("flash_fwd", 8), ("flash_bwd", 16)):
+    # 64, 128 and 256, the forward and dk/dv at 16 and 32, and their wide
+    # bodies; each at rate 0 and with dropout
+    for lib, n_tc in (("flash_fwd", 12), ("flash_bwd", 20)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
@@ -3159,8 +3177,9 @@ DROP_CASES = ("gpt2_block", "bert_large_unmasked", "bert_large_packed",
               "gqa_12_to_4_s200", "f32_gqa_s300", "d32_causal",
               "cross_sq130_sk70_causal")
 # the keep mask read out of the kernels: name, b, h, sq, sk, d, causal,
-# dtype (the tensor cores, the CUDA cores in f32 and in bf16 at D 32, the
-# wide tensor-core forward, dq and dk/dv)
+# dtype (the tensor cores, the CUDA cores in f32 and the bf16 dq at D 32,
+# the bf16 forward and dk/dv on the tensor cores there, the wide
+# tensor-core forward, dq and dk/dv)
 DROP_KEEP_CASES = (
     ("gpt2_block", 8, 12, 512, 512, 64, True, "bf16"),
     ("f32_s300", 2, 12, 300, 300, 64, True, "f32"),
@@ -4476,6 +4495,368 @@ def _cuda_core_widths(dev, smi: str, gen) -> None:
                   f"backward) [{smi}]", flush=True)
             del q, k, v, do, o, lse, dq_call, dkv_call
 
+# the bf16 forward and dk/dv at head dims 16 and 32 on the tensor cores
+# (flash_fwd_kernel_tc / flash_dkv_kernel_tc at the head's own width: one
+# panel of 32 or 64 bytes a row, the 32- and 64-byte swizzles; the dq
+# stays on the CUDA cores there): each case against the twins, with its
+# routes from the device kernels' names
+NARROW_CASES = (
+    # name, b, h, hk, sq, sk, d, causal, segment ids, dropout rate
+    ("d32_causal", 2, 8, 8, 256, 256, 32, True, None, 0.0),
+    ("d32_unmasked", 2, 8, 8, 256, 256, 32, False, None, 0.0),
+    ("d16_causal", 2, 8, 8, 256, 256, 16, True, None, 0.0),
+    ("d16_unmasked", 2, 8, 8, 256, 256, 16, False, None, 0.0),
+    ("d32_causal_s200", 2, 8, 8, 200, 200, 32, True, None, 0.0),
+    ("d16_s200", 2, 8, 8, 200, 200, 16, False, None, 0.0),
+    ("d32_sq130_sk70_causal", 2, 8, 8, 130, 70, 32, True, None, 0.0),
+    # keys past Sq that no row sees under the causal mask
+    ("d16_sq70_sk200_causal_gqa", 1, 8, 4, 70, 200, 16, True, None, 0.0),
+    ("d32_sq200_sk330", 1, 8, 8, 200, 330, 32, False, None, 0.0),
+    ("d32_gqa_8_to_2_causal", 2, 8, 2, 256, 256, 32, True, None, 0.0),
+    ("d16_gqa_8_to_2_ragged", 2, 8, 2, 200, 200, 16, False, "ragged", 0.0),
+    # pad rows that see no key (exact zeros, lse -1e30)
+    ("d32_packed", 2, 8, 8, 256, 256, 32, False, "packed", 0.0),
+    ("d16_packed_causal", 2, 8, 8, 192, 192, 16, True, "packed", 0.0),
+    # heads of 17..31 padded to 32 (and 9..15 to 16)
+    ("d24_causal", 2, 8, 8, 256, 256, 24, True, None, 0.0),
+    ("d17_packed", 2, 8, 8, 192, 192, 17, False, "packed", 0.0),
+    ("d31_gqa_s200", 2, 8, 4, 200, 200, 31, True, None, 0.0),
+    ("d12_causal", 2, 8, 8, 130, 130, 12, True, None, 0.0),
+    # the BERT example's default proxy: (8, 4, 512, 32) unmasked
+    ("proxy_d32", 8, 4, 4, 512, 512, 32, False, None, 0.0),
+    ("d32_dropout_causal", 2, 8, 8, 256, 256, 32, True, None, DROP_RATE),
+    ("d16_dropout_packed", 2, 8, 8, 192, 192, 16, False, "packed",
+     DROP_RATE),
+    ("d32_dropout_gqa_s200", 2, 8, 4, 200, 200, 32, False, None, DROP_RATE),
+)
+# (name, b, h, sq, sk, d, causal): the keep masks read out of the new
+# forward and dk/dv bodies (and the dq's) against dropout_keep_ref
+NARROW_KEEP_CASES = (("d32_causal", 1, 2, 100, 100, 32, True),
+                     ("d16_unmasked_sq70_sk90", 1, 2, 70, 90, 16, False))
+# timed: GPT-2 small's batch, heads and seq at D 32 and 16, causal (the
+# CUDA_CORE_SHAPES), and the BERT proxy's own (8, 4, 512, 32) unmasked
+NARROW_SHAPES = ((8, 12, 512, 32, True), (8, 12, 512, 16, True),
+                 (8, 4, 512, 32, False))
+
+
+def _wgmma_probe(dev, smi: str) -> None:
+    """One 64 x D x 64 product of each kind the tensor-core bodies run
+    (``apex_wgmma_probe``: S = A.B^T K-major, O = P.V MN-major, A, B and V
+    by TMA with the swizzle of the body's panels) at D 16, 32 and 64 (the
+    64-column panels' known-good layout as the control), against
+    ``torch.matmul`` in f32 on the same bf16 values: every descriptor of
+    the narrow bodies proven before the bodies are trusted."""
+    import ctypes
+    import torch
+    from apex_tpu_torch import _build
+    fn = _build.library("flash_fwd").apex_wgmma_probe
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for d in (16, 32, 64):
+        a, b, v = (torch.randn(64, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        p = torch.rand(64, 64, generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.full((64, 64), float("nan"), device=dev)
+        o = torch.full((64, d), float("nan"), device=dev)
+        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), p.data_ptr(),
+                s.data_ptr(), o.data_ptr(), d,
+                torch.cuda.current_stream().cuda_stream)
+        _check(rc == 0, f"apex_wgmma_probe D {d}: CUDA error {rc}")
+        torch.cuda.synchronize()
+        want_s = torch.matmul(a.float(), b.float().t())
+        want_o = torch.matmul(p.float(), v.float())
+        es = _held("wgmma probe", s, want_s, 1e-4, 1e-5, f"S = A.B^T D {d}")
+        eo = _held("wgmma probe", o, want_o, 1e-4, 1e-5, f"O = P.V D {d}")
+        print(f"kernel wgmma probe D {d} (swizzle {min(2 * d, 128)} bytes): "
+              f"S = A.B^T (K-major) max_abs_err {es:.3e}, O = P.V "
+              f"(MN-major, n{min(d, 64)}) {eo:.3e} against torch.matmul f32 "
+              f"(atol 1e-4, rtol 1e-5) [{smi}]", flush=True)
+
+
+def _narrow_case(gen, case, dev) -> tuple:
+    """One ``NARROW_CASES`` case through the wrappers: held against the
+    twins, exact zeros where nothing is seen, the same bits twice.
+    Returns the worst errors {kernel: err} and {kernel: launches}."""
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    name, b, h, hk, sq, sk, d, causal, kind, rate = case
+    kern = {"flash_fwd": attn.FLASH_FWD, "flash_dq": attn.FLASH_DQ,
+            "flash_dkv": attn.FLASH_DKV}
+    before = {kn: kt.launches for kn, kt in kern.items()}
+    q, k, v, do = (torch.randn(b, n, length, d, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for n, length in ((h, sq), (hk, sk), (hk, sk), (h, sq)))
+    seg = _case_ids(kind, b, sq, dev)
+    sd = (torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+          if rate else None)
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg, True, rate, sd)
+    grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                 rate, sd)
+    torch.cuda.synchronize()
+    wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg, rate, sd)
+    wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg,
+                                rate, sd)
+    atol, rtol = ATTN_TOL["bf16"]
+    what = f"{name} q={tuple(q.shape)} k={tuple(k.shape)} bf16 rate {rate}"
+    errs = {"flash_fwd": _held("flash_fwd", o, wo, atol, rtol, "o " + what)}
+    el = _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
+    for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                            ("dq", "dk", "dv"), grads, wgrads):
+        errs[kn] = max(errs.get(kn, 0.0), _held(kn, g, w, atol, rtol,
+                                                f"{gn} {what}"))
+    if seg is not None:
+        for t, ids in zip((o,) + grads, (seg[0], seg[0], seg[1], seg[1])):
+            pad = (ids < 0)[:, None, :, None].expand_as(t)
+            _check(bool(torch.all(t[pad] == 0)),
+                   f"{what}: a row that sees no key (or a key no row sees) "
+                   "is not exactly 0")
+        _check(bool(torch.all(lse.view(b, h, sq)[(seg[0] < 0)[:, None, :]
+                                                 .expand(b, h, sq)]
+                              == -1e30)),
+               f"{what}: a row that sees no key has an lse other than -1e30")
+    if causal and sk > sq:
+        _check(bool(torch.all(grads[1][:, :, sq:] == 0)
+                    and torch.all(grads[2][:, :, sq:] == 0)),
+               f"{what}: keys no row sees have nonzero dk or dv")
+    again_o, again_lse = attn._flash_fwd_cuda(q, k, v, causal, None, seg,
+                                              True, rate, sd)
+    again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, seg,
+                                 rate, sd)
+    _check(bool(torch.equal(again_o, o) and torch.equal(again_lse, lse)
+                and all(torch.equal(a, g) for a, g in zip(again, grads))),
+           f"{what}: the result differs run to run")
+    print(f"kernel flash narrow {what} causal={causal} seg={kind}: "
+          f"max_abs_err o {errs['flash_fwd']:.3e}, lse {el:.3e}, dq "
+          f"{errs['flash_dq']:.3e}, dk/dv {errs['flash_dkv']:.3e} (atol="
+          f"{atol}, rtol={rtol}); exact zeros where nothing is seen; the "
+          "same bits on a second run", flush=True)
+    return errs, {kn: kt.launches - before[kn] for kn, kt in kern.items()}
+
+
+def _narrow_off_alignment(gen, dev) -> None:
+    """q 8 bytes past a 16-byte boundary at D 16 and 32 bf16 (TMA needs
+    16): the wrapper clones it to an aligned start (``_align`` is 16
+    there now), so the forward and dk/dv run their tensor-core bodies and
+    give the twins' result, with gradients."""
+    import torch
+    from apex_tpu_torch.ops import attention as attn
+    atol, rtol = ATTN_TOL["bf16"]
+    for d in (16, 32):
+        _check(attn._align(torch.bfloat16, d) == 16,
+               f"_align(bf16, {d}) is not TMA's 16 bytes")
+        base = torch.randn(4 + 2 * 4 * 96 * d, generator=gen, device=dev)
+        q = base.to(torch.bfloat16)[4:].view(2, 4, 96, d)
+        _check(q.data_ptr() % 16 == 8, "the off-alignment q is aligned")
+        k, v, do = (torch.randn(2, 4, 96, d, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(3))
+        before = [kt.launches for kt in (attn.FLASH_FWD, attn.FLASH_DKV)]
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = attn.flash_attention(qq, kk, vv, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        _check([kt.launches - n for kt, n in zip(
+            (attn.FLASH_FWD, attn.FLASH_DKV), before)] == [1, 1],
+            f"D {d} off alignment: not one forward and one dk/dv launch")
+        qa = q.contiguous().clone()
+        wo, wlse = attn.flash_fwd_ref(qa, k, v, True)
+        want = attn.flash_bwd_ref(qa, k, v, o.detach(), wlse, do, True)
+        errs = [_held("flash_fwd", o.detach(), wo, atol, rtol,
+                      f"o D {d} q off 16 bytes")]
+        errs += [_held("flash_dq" if gn == "dq" else "flash_dkv", g, w,
+                       atol, rtol, f"{gn} D {d} q off 16 bytes")
+                 for gn, g, w in zip(("dq", "dk", "dv"),
+                                     (qq.grad, kk.grad, vv.grad), want)]
+        print(f"kernel flash narrow D {d} bf16 causal, q 8 bytes past a "
+              f"16-byte boundary (cloned by the wrapper): max_abs_err o "
+              f"{errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
+              f"{errs[3]:.3e}", flush=True)
+
+
+def _narrow_times(dev, smi: str, gen, shape) -> dict:
+    """At ``shape`` (b, h, s, d, causal) bf16, rate 0: the forward and
+    dk/dv on their tensor-core bodies, the old CUDA-core bodies
+    (``apex_flash_{fwd,dkv}_cuda_cores``, held to the twins too) and the
+    D-64 tensor-core bodies on the operands padded with zeros to 64 (a
+    padded baseline, its scale 1/8: the same work), in turns; then the
+    dq (CUDA cores), each kernel's twin, SDPA's bf16 forward / backward
+    (the default backend) and the bound.  Returns {kernel: row}."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+    b, h, s, d, causal = shape
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = attn._flash_fwd_cuda(q, k, v, causal, None, None, True)
+    pad = [torch.nn.functional.pad(t, (0, 64 - d)) for t in (q, k, v, do)]
+    po, plse = attn._flash_fwd_cuda(*pad[:3], causal, None, None, True)
+    routed = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+        q, k, v, o, lse, do, causal, None)))
+    routed["flash_fwd"] = _fwd_kernel_call(q, k, v, causal)
+    cc_out, cc_fwd = [], []
+    cc = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+        q, k, v, o, lse, do, causal, None, cuda_cores=True, out=cc_out)))
+    cc["flash_fwd"] = _fwd_kernel_call(q, k, v, causal, cuda_cores=True,
+                                       out=cc_fwd)
+    padded = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+        *pad[:3], po, plse, pad[3], causal, None)))
+    padded["flash_fwd"] = _fwd_kernel_call(*pad[:3], causal)
+    for kn in ("flash_fwd", "flash_dkv"):
+        cc[kn]()
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL["bf16"]
+    what = f"({b}, {h}, {s}, {d}) bf16 causal={causal}"
+    wo, wlse = attn.flash_fwd_ref(q, k, v, causal)
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal)
+    errs = {"flash_fwd": _held("flash_fwd", o, wo, atol, rtol, "o " + what),
+            "flash_dq": 0.0, "flash_dkv": 0.0}
+    _held("flash_fwd", cc_fwd[0], wo, atol, rtol,
+          f"o of the CUDA-core body {what}")
+    grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None, None)
+    for kn, gn, g, c, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                               ("dq", "dk", "dv"), grads, cc_out, want):
+        errs[kn] = max(errs[kn], _held(kn, g, w, atol, rtol,
+                                       f"{gn} {what}"))
+        if kn == "flash_dkv":
+            _held(kn, c, w, atol, rtol, f"{gn} of the CUDA-core body {what}")
+    lib_f = _ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal), 10)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)
+    lib_b = _ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                            retain_graph=True), 10)
+    plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(q, k, v, causal),
+                              3, 1)}
+    plain["flash_dq"] = plain["flash_dkv"] = _ms(
+        lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, causal), 3, 1)
+    costs = _attn_costs(b, h, h, s, d, 2, _pairs(None, b, h, s, causal, dev))
+    rows = {}
+    for kn in ("flash_fwd", "flash_dq", "flash_dkv"):
+        calls = ({"tensor cores": routed[kn], "CUDA cores": cc[kn],
+                  "padded to 64": padded[kn]} if kn != "flash_dq" else
+                 {"CUDA cores": routed[kn], "padded to 64": padded[kn]})
+        t = _in_turns(calls)
+        mean = {n: sum(x) / 2 for n, x in t.items()}
+        ms = mean["tensor cores" if kn != "flash_dq" else "CUDA cores"]
+        nbytes, ops = costs[kn]
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
+        lib = lib_f if kn == "flash_fwd" else lib_b
+        print(f"time {kn} narrow {what} in turns: "
+              + ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in xs)
+                          + " ms" for n, xs in t.items())
+              + f"; plain {plain[kn]:.4f} ms, SDPA "
+              f"{'forward' if kn == 'flash_fwd' else 'backward'} {lib:.4f} "
+              f"ms (kernel {ms / lib:.2f}x), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s"
+              + (f"; {mean['CUDA cores'] / ms:.2f}x faster than the CUDA-"
+                 f"core body, {mean['padded to 64'] / ms:.2f}x than D 64 "
+                 "padded" if kn != "flash_dq" else "")
+              + f" [{smi}]", flush=True)
+        rows[kn] = dict(ms=ms, plain_ms=plain[kn], bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib,
+                        max_abs_err=errs[kn], atol=atol, rtol=rtol,
+                        padded_64_ms=mean["padded to 64"],
+                        body=_flash_route_of(d, "bf16")[kn],
+                        shape=f"({b}, {h}, {s}, {d}) bf16 "
+                              f"{'causal' if causal else 'unmasked'}")
+        if kn != "flash_dq":
+            rows[kn]["cuda_cores_ms"] = mean["CUDA cores"]
+    pair = rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"]
+    print(f"time flash backward pair narrow {what}: dq + dk/dv {pair:.4f} "
+          f"ms ({pair / lib_b:.2f}x SDPA bf16's backward) [{smi}]",
+          flush=True)
+    return rows
+
+
+def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
+    """Phase 37: the bf16 forward and dk/dv at D 16 and 32 on the tensor
+    cores.  The descriptors first (``_wgmma_probe``); then every
+    ``NARROW_CASES`` case against the twins with its routes read from the
+    device kernels' names (forward and dk/dv ``..._kernel_tc``, dq the
+    CUDA-core ``flash_dq_kernel``), the keep masks bit for bit, an operand
+    off 16 bytes, the ptxas registers and spills of the new bodies (0
+    spill bytes); then the times at ``NARROW_SHAPES`` in turns with the
+    CUDA-core bodies and the padded D-64 bodies beside SDPA and the bound.
+    Returns {kernel: {"d32_proxy": the proxy shape's row, its launches in
+    phase 28's steps}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as attn
+
+    _wgmma_probe(dev, smi)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for drop in (False, True):
+        cases = [c for c in NARROW_CASES if (c[-1] > 0) == drop]
+        case_launches = []
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        _prime_profiler()
+        for case in cases:
+            errs, launches = _narrow_case(gen, case, dev)
+            case_launches.append((case[0], launches))
+            if case[0] == "proxy_d32":
+                worst = errs
+        torch.cuda.synchronize()
+        prof.stop()
+        case_routes = _flash_routes(prof, case_launches, drop=drop)
+        del prof
+        for case in cases:
+            name, d = case[0], case[6]
+            want = _flash_route_of(d, "bf16")
+            _check(want["flash_fwd"] == want["flash_dkv"] == "tensor cores"
+                   and want["flash_dq"] == "CUDA cores",
+                   f"flash_route at bf16 D {d}: {want}")
+            _check(case_routes[name] == want, f"{name}: routes "
+                   f"{case_routes[name]}, expected {want}")
+            print(f"route narrow {name} bf16 D {d} (kernel width "
+                  f"{attn._kernel_width(d)}) dropout {case[-1]}: "
+                  + ", ".join(f"{kn} {r}" for kn, r in
+                              case_routes[name].items()), flush=True)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    for name, b, h, sq, sk, d, causal in NARROW_KEEP_CASES:
+        dt = torch.bfloat16
+        vis = _visible(None, sq, sk, causal, dev)[:, None]
+        want = attn.dropout_keep_ref(seed, b, h, sq, sk, DROP_RATE) & vis
+        for side in ("fwd", "dv", "dq"):
+            got = keep_mask_readout(b, h, sq, sk, d, dt, causal, DROP_RATE,
+                                    seed, dev, side)
+            _check(bool(torch.equal(got, want)), f"keep mask narrow {name} "
+                   f"{side}: {int((got != want).sum())} pairs other than "
+                   "dropout_keep_ref's")
+        print(f"keep mask narrow {name} ({b}, {h}, {sq}, {sk}) D {d} bf16 "
+              f"causal={causal}: the forward's, dk/dv's and dq's masks "
+              f"equal dropout_keep_ref bit for bit ({int(want.sum())} "
+              "pairs kept)", flush=True)
+    _narrow_off_alignment(gen, dev)
+
+    for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dkv")):
+        for d in (16, 32):
+            found = _ptxas_report(_build.build_logs.get(lib, ""),
+                                  f"{FLASH_SYMS[kn]}_tcILi{d}E")
+            _check(len(found) == 2, f"ptxas reported {len(found)} {kn} "
+                   f"tensor-core bodies at D {d}, expected 2 (rate 0, DROP)")
+            for entry, regs, spill in found:
+                print(f"ptxas narrow tensor-core body {entry}: {regs}; "
+                      f"{spill} [{smi}]", flush=True)
+                _check(spill is not None and "0 bytes spill stores" in spill
+                       and "0 bytes spill loads" in spill,
+                       f"ptxas reports spills for {entry}: {spill}")
+
+    rows = {}
+    for shape in NARROW_SHAPES:
+        got = _narrow_times(dev, smi, gen, shape)
+        if shape == NARROW_SHAPES[-1]:
+            rows = got
+    out = {}
+    for kn, row in rows.items():
+        row.update(max_abs_err=max(row["max_abs_err"], worst[kn]),
+                   launches=proxy_launches[kn])
+        out[kn] = {"d32_proxy": row}
+    return out
+
+
 def _wide_module_steps(dev, smi: str, gen, cfg: dict) -> None:
     """``SelfMultiheadAttn(cfg hidden, heads)`` trained ``cfg steps`` SGD
     steps at rate 0.1 and 0 (bf16, causal): finite losses and gradients,
@@ -5674,11 +6055,15 @@ def bert_proxy_phase(dev, smi: str) -> None:
     and on the CPU from one seed: the first loss within rtol 1e-4 (f32
     on both), the params within a tenth of the nearest of three wrong
     updates run on the CPU (label smoothing 0.1, the padding not masked,
-    lr 4% high)."""
+    lr 4% high).  Also the proxy's device ms a step
+    (``tools/bert_proxy_step.py``) and its flash bodies at D 32 by name.  Returns the flash kernels'
+    launches in the 3 steps."""
+    import numpy as np
     import torch
     from apex_tpu_torch import _build
     from apex_tpu_torch._tree import tree_leaves
     from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+    from apex_tpu_torch.tools import bert_proxy_step as proxy_step
 
     t_phase = time.perf_counter()
     _build.reset_launch_counts()
@@ -5694,11 +6079,30 @@ def bert_proxy_phase(dev, smi: str) -> None:
                                    xent=True)
     _check(launches == want, f"bert proxy: launches {launches}, expected "
                              f"{want}")
+    # the step again (tools/bert_proxy_step.py): its device ms, and the
+    # device names of its flash kernels under the profiler (a session may
+    # lose a record, so the counts are the counters' above)
+    step = proxy_step.measure(dev)
+    for kn, body in PROXY_FLASH_BODIES.items():
+        names = step["flash"][kn][1]
+        _check(names and all(body in n for n in names),
+               f"bert proxy profiled step: {kn} ran {names}, expected "
+               f"{body}")
+    device = ("not measured" if step["device_ms"] is None
+              else f"{step['device_ms']:.3f}")
     print(f"train bert proxy ({model.num_layers} x h{model.hidden_size}, "
           f"vocab {model.vocab_size}) O2 b8 s512 on the card: losses "
           f"{[round(v, 4) for v in res.losses]}, "
           f"{res.tokens_per_sec:.1f} tokens/s over the steps after the "
-          f"first, launches {launches} [{smi}]", flush=True)
+          f"first, launches {launches}; device ms a step {device} (CUDA "
+          f"events around {proxy_step.STEPS} steps queued behind a device "
+          f"spin), host pace {float(np.median(step['pace_ms'])):.3f} ms a "
+          f"step (CUDA events between steps), {step['busy_ms']:.3f} ms busy "
+          "in a profiled step, of which attention "
+          f"{sum(ms for ms, _ in step['flash'].values()):.3f} ("
+          + ", ".join(f"{kn} {step['flash'][kn][0]:.3f} ms on {body}"
+                      for kn, body in PROXY_FLASH_BODIES.items())
+          + f") [{smi}]", flush=True)
 
     params = model.init(0, "cpu")
     init = [t.numpy() for t in tree_leaves(params)]
@@ -5746,6 +6150,14 @@ def bert_proxy_phase(dev, smi: str) -> None:
            f"bert proxy consistency: first loss differs by {rel0}")
     _check(gap <= limit, f"bert proxy consistency: params' gap {gap} over "
                          f"{limit}")
+    return {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+
+# the BERT proxy's flash bodies at its D 32, bf16: the forward and dk/dv on
+# the tensor cores, the dq on the CUDA cores (the device kernels' names)
+PROXY_FLASH_BODIES = {"flash_fwd": "flash_fwd_kernel_tc<32, false>",
+                      "flash_dkv": "flash_dkv_kernel_tc<32, false>",
+                      "flash_dq": "flash_dq_kernel<__nv_bfloat16, 32, false>"}
 
 
 def welford_kernel_phase(dev, smi: str) -> dict:
@@ -6135,7 +6547,7 @@ def main() -> int:
     del bert_params
     torch.cuda.empty_cache()
     with timed("28 BERT proxy"):
-        bert_proxy_phase(dev, smi)
+        proxy_launches = bert_proxy_phase(dev, smi)
     with timed("15 consistency (BERT)"):
         bert_consistency_phase(dev)
 
@@ -6188,12 +6600,17 @@ def main() -> int:
     with timed("34 wide heads (F5b, F5c)"):
         wide_rows = wide_head_phase(dev, smi)
     torch.cuda.empty_cache()
+    with timed("37 narrow heads (bf16 D 16 and 32 on the tensor cores)"):
+        narrow_rows = narrow_head_phase(dev, smi, proxy_launches)
+    torch.cuda.empty_cache()
     for e in [entry] + gpt_entries:
         if e["name"] in drop_rows:
             e["dropout"] = dict(drop_rows[e["name"]],
                                 launches=drop_counts[e["name"]])
         if e["name"] in wide_rows:
             e.update(wide_rows[e["name"]])
+        if e["name"] in narrow_rows:
+            e.update(narrow_rows[e["name"]])
 
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
@@ -6235,7 +6652,7 @@ def main() -> int:
     kernels = [dict({k: e[k] for k in keys},
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
                                          "dropout", "d256", "d512",
-                                         "d1024",
+                                         "d1024", "d32_proxy",
                                          "gpt_model_launches") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries

@@ -527,10 +527,11 @@ def test_f32_dq_at_64_and_128_picks_the_register_tile_body_of_its_width(d):
 
 
 # the body each kernel takes (bf16; f32 takes the CUDA cores at D 16 and
-# 32): the tensor cores at these widths, the wide tensor-core bodies from
-# D 512 (f32 the wide CUDA-core bodies, register tiles, from D 64)
-_TC_ROUTE = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
-             "flash_dkv": (64, 128, 256)}
+# 32, and so does the bf16 dq): the tensor cores at these widths, the wide
+# tensor-core bodies from D 512 (f32 the wide CUDA-core bodies, register
+# tiles, from D 64)
+_TC_ROUTE = {"flash_fwd": (16, 32, 64, 128, 256), "flash_dq": (64, 128, 256),
+             "flash_dkv": (16, 32, 64, 128, 256)}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
@@ -539,10 +540,11 @@ _TC_ROUTES = ("tensor cores", "wide tensor cores")
 @pytest.mark.parametrize("d", tattn.HEAD_DIMS + (16384, 24576))
 def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
-    and dk/dv on the tensor cores at D 64, 128 and 256, on the wide
+    and dk/dv on the tensor cores at D 64, 128 and 256 (the forward and
+    dk/dv at 16 and 32 too), on the wide
     tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
-    (past 8192 the multiples of 8192, F7); f32 and bf16 at 16 and 32 on
-    the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA on a whole
+    (past 8192 the multiples of 8192, F7); f32 at 16 and 32, and the bf16
+    dq there, on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA on a whole
     row), and the f32 forward, dq and dk/dv at 64 and 128 (one CTA on a
     row too), on the wide CUDA-core bodies (register tiles).  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
@@ -645,24 +647,29 @@ def test_flash_route_rejects_an_unknown_kernel_and_width():
 
 
 def test_tensor_core_route_needs_16_byte_aligned_operands():
-    """bf16 at D 64, 128 and 256 takes the tensor-core bodies, and bf16 at
-    D 512 and 1024 the wide ones, whose TMA loads need q, k, v and dO
-    16-byte aligned: a tensor 4 elements (8 bytes) into its storage is
-    refused with a ValueError naming the alignment, where bf16 at D 16
-    and 32 (the CUDA-core bodies, 8-byte words) takes it."""
+    """bf16 at D 16, 32, 64, 128 and 256 takes the tensor-core bodies (at
+    16 and 32 the forward and dk/dv), and bf16 at D 512 and 1024 the wide
+    ones, whose TMA loads need q, k, v and dO 16-byte aligned: a tensor 4
+    elements (8 bytes) into its storage is refused with a ValueError
+    naming the alignment; the same tensor from a 16-byte boundary is
+    taken (bf16's own 8-byte word is the rule only where no kernel of the
+    call reads by TMA, which no bf16 width is now)."""
     assert tattn._align(torch.bfloat16, 64) == 16
     assert tattn._align(torch.bfloat16, 128) == 16
     assert tattn._align(torch.bfloat16, 256) == 16
     assert tattn._align(torch.bfloat16, 512) == 16
     assert tattn._align(torch.bfloat16, 1024) == 16
-    assert tattn._align(torch.bfloat16, 32) == 8
-    assert tattn._align(torch.bfloat16, 16) == 8
+    assert tattn._align(torch.bfloat16, 32) == 16
+    assert tattn._align(torch.bfloat16, 16) == 16
     assert tattn._align(torch.float32, 64) == 16
+    assert all(tattn._align(torch.bfloat16, d) == 16
+               for d in tattn.HEAD_DIMS)
     for d, refused in ((64, True), (128, True), (256, True), (512, True),
-                       (1024, True), (32, False), (16, False)):
-        t = torch.zeros(4 + 2 * 8 * d, dtype=torch.bfloat16)[4:]
-        t = t.view(1, 2, 8, d)
-        assert t.data_ptr() % 16 == 8
+                       (1024, True), (32, True), (16, True), (16, False),
+                       (32, False)):
+        t = torch.zeros(8 + 2 * 8 * d, dtype=torch.bfloat16)
+        t = (t[4:-4] if refused else t[8:]).view(1, 2, 8, d)
+        assert t.data_ptr() % 16 == (8 if refused else 0)
         check = lambda: tattn._check("q", t, t.dtype, t.device, t.shape,
                                      tattn._align(t.dtype, d))
         if refused:
@@ -742,3 +749,241 @@ def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
     assert same is c
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tattn._operands(q.double())
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
+def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
+    """The C dispatchers send the bf16 forward (with keys to read) and
+    dk/dv (with queries and keys) at D 16 and 32 to their tensor-core
+    bodies at the head's own width, ahead of every other route; the bf16
+    dq there, the f32 bodies and the forward with no keys keep their
+    CUDA-core bodies, which the CUDA-core entry points still launch at 16
+    and 32; ``flash_route`` names the same bodies for D and the heads
+    padded to it, and q, k, v and dO align to TMA's 16 bytes there."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+
+    def body(src, start):
+        text = src[src.index(start):]
+        return text[:text.index("\n}\n")]
+
+    src = fwd if kern == "fwd" else bwd
+    route = body(src, "int route(" if kern == "fwd" else f"int route_{kern}(")
+    branch = route.index("if (sizeof(T) == 2 && Sk > 0) {" if kern == "fwd"
+                         else "if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {")
+    cores = route.index(f"return launch_{'' if kern == 'fwd' else kern + '_'}"
+                        "cuda_cores<T, DROP>(")
+    line = {"fwd": f"if (D == {d})\n      return launch_tc<{d}, DROP>(q, k, "
+                   "v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, "
+                   "st);",
+            "dq": f"return launch_dq_tc<{d}, DROP>(",
+            "dkv": f"if (D == {d}) return launch_dkv_tc<{d}, DROP>(a, dk, "
+                   "dv);"}[kern]
+    if kern == "dq":
+        assert line not in route
+    else:
+        assert branch < route.index(line) < cores
+        assert route.index(line) < route.index(
+            "if (D == 64)\n      return launch_tc<64" if kern == "fwd"
+            else "if (D == 64) return launch_dkv_tc<64")
+    cc = body(src, "int launch_cuda_cores(" if kern == "fwd" else
+              f"int launch_{kern}_cuda_cores(")
+    assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
+        "DROP>(" in cc
+    entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
+    for dt in ("float", "__nv_bfloat16"):
+        for drop in ("true", "false"):
+            assert f"cuda_cores<{dt}, {drop}>(" in entry
+    want = "CUDA cores" if kern == "dq" else "tensor cores"
+    for width in (d, d - 1, d // 2 + 1):
+        assert tattn._kernel_width(width) == d
+        assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
+                                 width) == want
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 width) == "CUDA cores"
+        assert tattn._align(torch.bfloat16, width) == 16
+        assert tattn._align(torch.float32, width) == 16
+
+
+@pytest.mark.parametrize("d, swizzle", [(16, "32B"), (32, "64B"),
+                                        (64, "128B")])
+def test_narrow_tensor_core_tiles_take_the_swizzle_of_their_width(d, swizzle):
+    """A head of 16 or 32 columns is one panel as wide as the row: the
+    forward's and dk/dv's TMA maps take a box of ``PW`` columns (``D`` at
+    16 and 32, 64 from 64) with the swizzle of that row's bytes
+    (``swizzle_of``: 32, 64, 128), which ``make_map_bf16`` refuses to
+    pair with any other box; the wgmma descriptors take the layout type
+    of the same swizzle (CUTLASS's GMMA::LayoutType: 3, 2, 1), 8 rows of
+    ``SW`` bytes between 8-row groups, and the products of width ``PW``
+    (``wgmma_rs<PW>``: m64n16k16, m64n32k16, m64n64k16)."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    sw = {16: 32, 32: 64, 64: 128}[d]
+    lines = {16: "return box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B",
+             32: ": box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B",
+             64: ": CU_TENSOR_MAP_SWIZZLE_128B;"}
+    swizzle_of = hdr[hdr.index("inline CUtensorMapSwizzle swizzle_of("):]
+    assert lines[d] in swizzle_of[:swizzle_of.index("\n}\n")]
+    assert f"CU_TENSOR_MAP_SWIZZLE_{swizzle}" in lines[d]
+    make = hdr[hdr.index("inline int make_map_bf16("):]
+    make = make[:make.index("\n}\n")]
+    assert "int box_rows, int box_cols = 64,\n" \
+        "                         CUtensorMapSwizzle swz = " \
+        "CU_TENSOR_MAP_SWIZZLE_128B) {" in make
+    assert "if (swz != swizzle_of(box_cols))" in make
+    assert "const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols)," \
+        in make
+    desc = hdr[hdr.index("__device__ __forceinline__ uint64_t desc_sw("):]
+    assert "(SW == 128 ? 1 : SW == 64 ? 2 : 3) << 62" in desc
+    wrappers = {16: "m64n16k16", 32: "m64n32k16", 64: "m64n64k16"}
+    assert f"wgmma.mma_async.sync.aligned.{wrappers[d]}.f32.bf16.bf16" in hdr
+    for src, geo, launch in ((fwd, "struct FwdTc {", "int launch_tc("),
+                             (bwd, "struct DkvTc {", "int launch_dkv_tc(")):
+        g = src[src.index(geo):]
+        g = g[:g.index("\n};\n")]
+        assert "static constexpr int PW = D < 64 ? D : 64;" in g
+        assert "static constexpr int SW = 2 * PW;" in g
+        assert min(d, 64) * 2 == sw
+        lb = src[src.index(launch):]
+        lb = lb[:lb.index("\n}\n")]
+        assert "const CUtensorMapSwizzle swz = hopper::swizzle_of(G::PW);" \
+            in lb
+        assert lb.count(", G::PW, swz);") == (3 if src is fwd else 4)
+        assert "hopper::wgmma_rs<G::PW, 1>(" in src
+        assert "hopper::desc_sw<SW>(" in src and "8 * SW)" in src
+
+
+# the twins at the BERT proxy's head dim (and 16), bf16, against the
+# reference's Pallas kernels in interpret mode: a small proxy-like shape
+# unmasked, and packed segment ids with pad rows under the causal mask.
+# Both round p (before P.V and dV) and ds (before dQ and dK) to bf16 and
+# each result once; a last-bit f32 difference (exp or summation order)
+# can flip one of those roundings, so the outputs agree within one bf16
+# rounding, 2**-7 of their scale; lse is f32 and agrees within 1e-5
+NARROW_TWIN_CASES = {
+    # name: (b, h, s, d, causal, packed)
+    "proxy_like_d32": (2, 4, 64, 32, False, False),
+    "d32_packed_causal": (2, 4, 64, 32, True, True),
+    "d16_unmasked": (2, 4, 64, 16, False, False),
+    "d16_packed": (2, 4, 60, 16, False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NARROW_TWIN_CASES))
+def test_narrow_bf16_twins_match_the_pallas_kernels(name):
+    b, h, s, d, causal, packed = NARROW_TWIN_CASES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    q, k, v, do = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+                   for _ in range(4))
+    seg = _packed_seg(b, s) if packed else None
+    jseg = None if seg is None else jattn.packed_segment_ids(
+        jnp.asarray(seg))
+    tseg = None if seg is None else tattn.packed_segment_ids(
+        torch.from_numpy(seg))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    sc = 1.0 / np.sqrt(d)
+    jo, jlse = jattn._fwd_pallas(jq, jk, jv, sc, causal, jseg, need_lse=True)
+    to, tlse = tattn.flash_fwd_ref(tq, tk, tv, causal, sc, tseg)
+
+    def close(got, want):
+        got = got.float().numpy()
+        want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+        np.testing.assert_allclose(
+            got, want, rtol=0,
+            atol=2.0 ** -7 * max(float(np.abs(want).max()), 1e-30))
+
+    close(to, jo)
+    lse = np.array(jlse)[:, :s, 0]
+    np.testing.assert_allclose(tlse.numpy(), lse, rtol=1e-5, atol=1e-5)
+    want = jattn._bwd_pallas(jq, jk, jv, jo, jnp.asarray(lse), jdo, sc,
+                             causal, jseg)
+    got = tattn.flash_bwd_ref(
+        tq, tk, tv, torch.from_numpy(np.array(jo.astype(jnp.float32)))
+        .to(torch.bfloat16), torch.from_numpy(lse), tdo, causal, sc, tseg)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == (b, h, s, d)
+        close(g, w)
+    if seg is not None:
+        pad = seg == 0
+        for t in (to,) + tuple(got):
+            assert np.all(t.float().numpy().transpose(0, 2, 1, 3)[pad] == 0)
+
+
+# the port's standing rules: no module of the port (nor chip_smoke.py)
+# imports JAX or the JAX package, even inside a function; the entry points
+# run on the card unless given device="cpu"; a wrapper takes its plain
+# twin only for a CPU tensor
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_PORT = os.path.join(_ROOT, "apex_tpu_torch")
+_PORT_PARTS = sorted(
+    {n for n in os.listdir(_PORT)
+     if os.path.isdir(os.path.join(_PORT, n)) and not n.startswith("_")
+     and any(f.endswith(".py") for f in os.listdir(os.path.join(_PORT, n)))}
+    | {"(top level)", "chip_smoke.py"})
+
+
+@pytest.mark.parametrize("part", _PORT_PARTS)
+def test_no_port_module_imports_jax_even_lazily(part):
+    """Every import statement anywhere in the port's files (module level
+    or inside a function, where a fresh-interpreter import check cannot
+    see it) and in chip_smoke.py names neither jax, jaxlib, flax nor the
+    JAX package."""
+    import ast
+    if part == "chip_smoke.py":
+        files = [os.path.join(_ROOT, part)]
+    elif part == "(top level)":
+        files = [os.path.join(_PORT, f) for f in os.listdir(_PORT)
+                 if f.endswith(".py")]
+    else:
+        files = [os.path.join(r, f)
+                 for r, _, fs in os.walk(os.path.join(_PORT, part))
+                 for f in fs if f.endswith(".py")]
+    assert files
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            bad = [n for n in names if n.split(".")[0] in
+                   ("jax", "jaxlib", "flax", "apex_tpu")]
+            assert not bad, (path, node.lineno, bad)
+
+
+@pytest.mark.parametrize("example", ["bert_pretrain_mlm", "gpt_train_block",
+                                     "imagenet_main_amp"])
+def test_entry_points_run_on_the_card_unless_given_the_cpu(example):
+    """A trainer called without ``device=`` means the card: with none
+    visible it raises naming ``device="cpu"`` before it builds anything
+    (where a card is visible, the default resolves to it)."""
+    import importlib
+    from apex_tpu_torch._device import resolve_device
+    mod = importlib.import_module(f"apex_tpu_torch.examples.{example}")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mod.train(steps=1, log=None)
+
+
+@pytest.mark.parametrize("side", ["fwd", "bwd"])
+def test_flash_wrappers_take_the_twin_only_for_a_cpu_tensor(side):
+    """A tensor off the CPU (here the meta device, which no kernel takes)
+    goes to the kernel's wrapper and is refused there; it never reaches
+    ``flash_fwd_ref`` / ``flash_bwd_ref``."""
+    q = torch.empty(1, 2, 8, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        if side == "fwd":
+            tattn._fwd(q, q, q, True, None, None, True, 0.0, None)
+        else:
+            lse = torch.empty(2, 8, device="meta")
+            tattn._bwd(q, q, q, q, lse, q, True, None, None, 0.0, None)

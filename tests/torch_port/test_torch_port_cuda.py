@@ -17,8 +17,8 @@ kernels of the training paths against their twins (tolerances by the
 kernels' sections below); a GPT block step must not sync the host.
 dq and the LayerNorm backward are also held on each of their routes
 (each flash kernel's by ``ops.attention.flash_route``: the tensor-core
-forward, dq and dk/dv for bf16 at D 64, 128 and 256 and the wide
-tensor-core ones from D 1024; the fused or three-launch LayerNorm
+forward, dq and dk/dv for bf16 at D 64, 128 and 256, the forward and
+dk/dv at 16 and 32 too, and the wide tensor-core ones from D 1024; the fused or three-launch LayerNorm
 backward by
 ``bwd_route``), each read from the device kernels' names under
 ``torch.profiler``.  The flash bodies' dropout
@@ -452,6 +452,22 @@ FLASH_TRAIN_CASES = {
                           torch.float32),
     "d16384_bf16_gqa_causal": (1, 2, 1, 40, 16384, True, None,
                                torch.bfloat16),
+    # the bf16 forward and dk/dv at D 16 and 32 on the tensor cores (a
+    # panel as wide as the head, the 32- and 64-byte swizzles; the dq on
+    # the CUDA cores): a ragged last tile, grouped-query heads under
+    # segment ids, heads of 12, 17 and 24 padded to 16 and 32, the BERT
+    # proxy's unmasked rows
+    "tc_d32_bf16_causal_s200": (2, 8, 8, 200, 32, True, None,
+                                torch.bfloat16),
+    "tc_d16_bf16_gqa_8_to_2_packed": (2, 8, 2, 192, 16, False, "packed",
+                                      torch.bfloat16),
+    "tc_d24_bf16_causal_ragged": (2, 4, 4, 130, 24, True, "ragged",
+                                  torch.bfloat16),
+    "tc_d17_bf16_gqa_packed_causal": (1, 4, 2, 100, 17, True, "packed",
+                                      torch.bfloat16),
+    "tc_d12_bf16_unmasked": (1, 4, 4, 70, 12, False, None, torch.bfloat16),
+    "tc_d32_bf16_proxy_unmasked": (2, 4, 4, 512, 32, False, None,
+                                   torch.bfloat16),
 }
 # f32: the kernels sum in their own order (1e-4, the forward's bound);
 # bf16: one bf16 rounding of each output, plus the forward's p rounded
@@ -538,6 +554,10 @@ TC_CROSS_CASES = {
     "sq70_sk100_causal_d512": (1, 2, 2, 70, 100, 512, True),
     "sq300_sk70_d512_gqa": (1, 4, 2, 300, 70, 512, False),
     "sq70_sk200_causal_d1024_gqa": (1, 4, 2, 70, 200, 1024, True),
+    # the forward and dk/dv at D 16 and 32 (keys past Sq no row sees)
+    "sq130_sk70_causal_d32": (2, 4, 4, 130, 70, 32, True),
+    "sq70_sk200_causal_d16_gqa": (1, 4, 2, 70, 200, 16, True),
+    "sq200_sk330_d32_gqa": (1, 4, 2, 200, 330, 32, False),
 }
 
 
@@ -568,9 +588,9 @@ def test_tensor_core_bodies_at_cross_lengths_match_the_twins(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 512, 1024])
 def test_tensor_core_route_refuses_an_operand_off_16_bytes(cuda, d):
-    """bf16 at D 64/128/256 (and 512, 1024, the wide tensor-core forward): q
+    """bf16 at D 16/32/64/128/256 (and 512, 1024, the wide tensor-core forward): q
     starting 8 bytes past a 16-byte boundary (TMA needs 16) is cloned to
     an aligned start by the wrapper (F5): one launch, on the tensor
     cores, the plain version's result."""
@@ -2004,6 +2024,14 @@ DROP_CASES = {
                                          "packed", torch.float32, 0.1),
     "wide_f32_d16384_cross_causal": (1, 2, 1, 40, 70, 16384, True, None,
                                      torch.float32, 0.1),
+    # the DROP instantiations of the bf16 forward and dk/dv at D 16 and
+    # 32 on the tensor cores
+    "tc_d32_gqa_packed_causal": (2, 8, 2, 192, 192, 32, True, "packed",
+                                 torch.bfloat16, 0.1),
+    "tc_d16_cross_causal_r25": (1, 4, 4, 130, 70, 16, True, None,
+                                torch.bfloat16, 0.25),
+    "tc_d24_ragged_r50": (2, 4, 4, 130, 130, 24, False, "ragged",
+                          torch.bfloat16, 0.5),
 }
 
 
@@ -2083,6 +2111,8 @@ KEEP_CASES = {
     "wide_f32_d512_cross": (1, 2, 70, 600, 512, False, torch.float32, 0.25),
     "fma_f32": (2, 3, 130, 97, 32, False, torch.float32, 0.25),
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
+    "tc_d32_causal": (2, 3, 200, 200, 32, True, torch.bfloat16, 0.1),
+    "tc_d16_cross": (1, 2, 70, 150, 16, False, torch.bfloat16, 0.25),
 }
 
 
