@@ -16,12 +16,12 @@
 // - tensor cores, flash_dq_kernel_tc and flash_dkv_kernel_tc: bf16 at D
 //   64 and 128 (every path that trains through flash: GPT-2, BERT-Large,
 //   Llama-class heads) and at D 256 (the Gemma-class heads of 129..256,
-//   padded to 256); flash_dkv_kernel_tc at D 16 and 32 too (the BERT
-//   example's default proxy, heads of 32, and the heads of 9..31, padded
-//   to them), at the head's own width.
+//   padded to 256), and at D 16 and 32 (the BERT example's default proxy,
+//   heads of 32, and the heads of 9..31, padded to them) at the head's
+//   own width.
 // - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at D 16 and 32
 //   (the precision contract of docs/kernels.md: f32 operands stay true
-//   f32, no TF32) and the bf16 dq at D 16 and 32.
+//   f32, no TF32).
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -127,6 +127,22 @@
 // and rounds to bf16 once.  The mask, the heaviest-first order of the q
 // blocks under the causal mask and the key loop's stop at the diagonal
 // tile are the forward's.
+//
+// At D 16 and 32 (DqTc<16/32>) the head is one panel as wide as its row,
+// as in DkvTc<16/32>: Q, dO, K and V come by TMA in boxes of D columns
+// with the 32- or 64-byte swizzle, S and dP are one or two k16 steps, and
+// dQ += dS.K is m64nDk16 over the MN-major view of the same swizzled K
+// tile that S reads K-major (8 or 16 f32 registers a thread).  A causal
+// (8, 12, 512, 32) call does 2.4 GFLOP over 16.1 MB, 2.4 us at 989
+// TFLOP/s against 4.8 us at 3.35 TB/s; in practice, as at D 64, each
+// CTA's chain (two products, wait, dS, one product, wait), which several
+// CTAs an SM (tiles of 2-4 KB, 110-122 registers) overlap.  On an H100 at
+// 700 W (apex_tpu_torch/tools/flash_narrow_tc.py, in turns) the shipped
+// 64-key tiles and two stages took 0.0181 ms at that shape; 128-key tiles
+// took 41% more causal (13% less on the BERT proxy's unmasked (8, 4, 512,
+// 32)), three stages 3% more, one CTA an SM twice as long, and issuing
+// tile t+1's S and dP before tile t's dS (three stages, 179 registers)
+// 12-47% more.
 //
 // At D 256 the same body holds dQ's 64 x 256 f32 (128 registers a
 // thread, the D-256 forward's O) beside S and dP (32 each): one
@@ -865,7 +881,7 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
 }
 
 // ---------------------------------------------------------------------------
-// dq on the tensor cores: bf16, D 64, 128 and 256 (wgmma + TMA;
+// dq on the tensor cores: bf16, D 16, 32, 64, 128 and 256 (wgmma + TMA;
 // hopper_mma.cuh).  Query rows are wgmma's M: S = Q.K^T, dP = dO.V^T,
 // dS, dQ += dS.K (the forward's geometry, K in V's place).  At D 256
 // dQ's 64 x 256 f32 is the D-256 forward's O accumulator: 128 registers
@@ -874,32 +890,40 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
 
 template <int D>
 struct DqTc {
-  static constexpr int NP = D / 64;             // 64-column panels
+  // A panel is PW columns of the head (DkvTc's): 64 (rows of 128 bytes,
+  // the 128-byte swizzle) from D 64; at D 16 and 32 one panel as wide as
+  // the head (rows of 32 and 64 bytes, the swizzle of that width)
+  static constexpr int PW = D < 64 ? D : 64;
+  static constexpr int SW = 2 * PW;             // a row's bytes, its swizzle
+  static constexpr int NP = D / PW;             // panels
+  static constexpr int NA = PW / 2;             // dQ's f32 registers a panel
   static constexpr int BQ = 64;                 // query rows a CTA
   static constexpr int BK = 64;                 // keys a ring stage
+  static constexpr int NS = BK / 2;             // S's (dP's) f32 registers
+  static constexpr int STAGES = 2;              // K/V ring stages
   static constexpr int THREADS = 128;           // one warpgroup
   static constexpr int Q_BYTES = BQ * D * 2;    // q or dO, resident
   static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
   static constexpr int DO_OFF = Q_BYTES;
-  static constexpr int K_OFF = 2 * Q_BYTES;        // two stages each
-  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;
-  static constexpr int KID_OFF = V_OFF + 2 * KV_BYTES;
-  static constexpr int BAR_OFF = KID_OFF + 2 * BK * 4;
-  static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;   // + alignment slack
+  static constexpr int K_OFF = 2 * Q_BYTES;        // STAGES stages each
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int KID_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = KID_OFF + STAGES * BK * 4;
+  static constexpr int SMEM = BAR_OFF + STAGES * 8 + 1024;   // + alignment slack
 };
 
 // dS of one tile from S (in s) and dP (in dp), into dp: p = exp2(s *
 // scale2 - lse2) selected to 0 where MASK finds the pair hidden; under
 // DROP (every tile) dp is first keep * dp / (1 - rate), each pair hashed
 // from its row's key rkey.
-template <bool MASK, bool DROP>
+template <bool MASK, bool DROP, int NS>
 __device__ __forceinline__ void dq_scores(
-    const float (&s)[32], float (&dp)[32], const float (&lse2)[2],
+    const float (&s)[NS], float (&dp)[NS], const float (&lse2)[2],
     const float (&dir)[2], int k0, int r_lo, int lane, int Sk, int causal,
     const int* kid, int qid_lo, int qid_hi, float scale2, float scale,
     const uint32_t (&rkey)[2], const dropout::Params& drop) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // key in tile
     const int h = (i >> 1) & 1;
     bool ok = true;
@@ -931,7 +955,7 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                    int Sk, int causal, float scale2, float scale,
                    dropout::Params drop) {
   using G = DqTc<D>;
-  constexpr int BK = G::BK;
+  constexpr int BK = G::BK, SW = G::SW, NS = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw +
                 ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -939,7 +963,8 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   uint8_t* dos = sm + G::DO_OFF;
   uint8_t* ks = sm + G::K_OFF;
   uint8_t* vs = sm + G::V_OFF;
-  int* kid = reinterpret_cast<int*>(sm + G::KID_OFF);          // [2][BK]
+  int* kid = reinterpret_cast<int*>(sm + G::KID_OFF);          // [NS][BK]
+  // bar[0 .. NS-1]: the ring's stages (bar[0] also Q and dO)
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + G::BAR_OFF);
 
   const int bh = blockIdx.x;
@@ -955,27 +980,47 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
   const int ntile = (kend + BK - 1) / BK;
 
   if (tid == 0) {
-    hopper::mbar_init(&bar[0], 1);
-    hopper::mbar_init(&bar[1], 1);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) hopper::mbar_init(&bar[i], 1);
     hopper::fence_barrier_init();
   }
   __syncthreads();
+  // the K and V tiles of tile t into stage stg (by TMA), and the keys'
+  // segment ids (by the CTA's threads)
+  auto load_tile = [&](int t, int stg) {
+    if (tid == 0) {
+#pragma unroll
+      for (int p = 0; p < G::NP; ++p) {
+        hopper::tma_load_3d(ks + stg * G::KV_BYTES + p * BK * SW, &map_k,
+                            &bar[stg], G::PW * p, t * BK, bhk);
+        hopper::tma_load_3d(vs + stg * G::KV_BYTES + p * BK * SW, &map_v,
+                            &bar[stg], G::PW * p, t * BK, bhk);
+      }
+    }
+    if (seg) {
+      for (int j = tid; j < BK; j += G::THREADS) {
+        const int col = t * BK + j;
+        kid[stg * BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
+      }
+    }
+  };
   if (tid == 0) {
     hopper::mbar_expect_tx(&bar[0], 2 * G::Q_BYTES + 2 * G::KV_BYTES);
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) {
-      hopper::tma_load_3d(qs + p * G::BQ * 128, &map_q, &bar[0], 64 * p, q0,
-                          bh);
-      hopper::tma_load_3d(dos + p * G::BQ * 128, &map_do, &bar[0], 64 * p,
+      hopper::tma_load_3d(qs + p * G::BQ * SW, &map_q, &bar[0], G::PW * p,
                           q0, bh);
-      hopper::tma_load_3d(ks + p * BK * 128, &map_k, &bar[0], 64 * p, 0, bhk);
-      hopper::tma_load_3d(vs + p * BK * 128, &map_v, &bar[0], 64 * p, 0, bhk);
+      hopper::tma_load_3d(dos + p * G::BQ * SW, &map_do, &bar[0], G::PW * p,
+                          q0, bh);
     }
+#pragma unroll
+    for (int i = 1; i + 1 < NS; ++i)
+      if (i < ntile) hopper::mbar_expect_tx(&bar[i], 2 * G::KV_BYTES);
   }
-  if (seg) {
-    for (int j = tid; j < BK; j += G::THREADS)
-      kid[j] = j < Sk ? kv_ids[(size_t)b * Sk + j] : 0;
-  }
+  load_tile(0, 0);
+#pragma unroll
+  for (int i = 1; i + 1 < NS; ++i)
+    if (i < ntile) load_tile(i, i);
   // this thread's two rows never change: lse (times log2 e), di and the
   // query segment ids stay in registers (rows past Sq: zeros, never
   // stored)
@@ -993,60 +1038,49 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     if (DROP) rkey[h] = dropout::row_key(head, row);
   }
 
-  float acc[G::NP][32];
-  float s[32], dp[32];
+  float acc[G::NP][G::NA];   // dQ's panels
+  float s[G::NS], dp[G::NS];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < G::NS; ++i) {
     s[i] = dp[i] = 0.f;
+    if (i < G::NA) {
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p) acc[p][i] = 0.f;
+      for (int p = 0; p < G::NP; ++p) acc[p][i] = 0.f;
+    }
   }
 
   for (int t = 0; t < ntile; ++t) {
     const int k0 = t * BK;
-    const int st = t & 1;
-    // every thread is done with tile t-1: its stage takes tile t+1
+    const int st = NS == 2 ? t & 1 : t % NS;
+    // every thread is done with tile t-1: its stage takes tile t+NS-1
     __syncthreads();
-    if (t + 1 < ntile) {
-      const int nst = st ^ 1;
-      if (tid == 0) {
-        hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
-#pragma unroll
-        for (int p = 0; p < G::NP; ++p) {
-          hopper::tma_load_3d(ks + nst * G::KV_BYTES + p * BK * 128, &map_k,
-                              &bar[nst], 64 * p, k0 + BK, bhk);
-          hopper::tma_load_3d(vs + nst * G::KV_BYTES + p * BK * 128, &map_v,
-                              &bar[nst], 64 * p, k0 + BK, bhk);
-        }
-      }
-      if (seg) {
-        for (int j = tid; j < BK; j += G::THREADS) {
-          const int col = k0 + BK + j;
-          kid[nst * BK + j] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
-        }
-      }
+    if (t + NS - 1 < ntile) {
+      const int nst = NS == 2 ? st ^ 1 : (t + NS - 1) % NS;
+      if (tid == 0) hopper::mbar_expect_tx(&bar[nst], 2 * G::KV_BYTES);
+      load_tile(t + NS - 1, nst);
     }
-    hopper::mbar_wait(&bar[st], (t >> 1) & 1);
+    hopper::mbar_wait(&bar[st], NS == 2 ? (t >> 1) & 1 : (t / NS) & 1);
     const uint8_t* kt = ks + st * G::KV_BYTES;
     const uint8_t* vt = vs + st * G::KV_BYTES;
 
-    // S = Q . K^T and dP = dO . V^T (A = Q / dO, B = K / V, K-major)
+    // S = Q . K^T and dP = dO . V^T (A = Q / dO, B = K / V, K-major; a
+    // k16 step is 32 bytes along a row)
     hopper::fence_acc(s);
     hopper::fence_acc(dp);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_ss_n64<0>(
-          s, hopper::desc_sw<128>(qs + p * G::BQ * 128 + off, 16, 1024),
-          hopper::desc_sw<128>(kt + p * BK * 128 + off, 16, 1024), kk > 0);
+      const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
+      hopper::wgmma_ss<BK, 0>(
+          s, hopper::desc_sw<SW>(qs + p * G::BQ * SW + off, 16, 8 * SW),
+          hopper::desc_sw<SW>(kt + p * BK * SW + off, 16, 8 * SW), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int p = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_ss_n64<0>(
-          dp, hopper::desc_sw<128>(dos + p * G::BQ * 128 + off, 16, 1024),
-          hopper::desc_sw<128>(vt + p * BK * 128 + off, 16, 1024), kk > 0);
+      const int p = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
+      hopper::wgmma_ss<BK, 0>(
+          dp, hopper::desc_sw<SW>(dos + p * G::BQ * SW + off, 16, 8 * SW),
+          hopper::desc_sw<SW>(vt + p * BK * SW + off, 16, 8 * SW), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -1063,7 +1097,8 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                              nullptr, 0, 0, scale2, scale, rkey, drop);
 
     // dS rounded to bf16 in registers: the A operand of dQ += dS . K
-    // (B = the K tile, MN-major through the transpose bit)
+    // (B = the K tile, MN-major through the transpose bit: a k16 step is
+    // 16 key rows, 16 SW bytes)
     uint32_t a[BK / 16][4];
 #pragma unroll
     for (int c = 0; c < BK / 16; ++c)
@@ -1077,16 +1112,18 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
     for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
       for (int p = 0; p < G::NP; ++p)
-        hopper::wgmma_rs_n64<1>(
+        hopper::wgmma_rs<G::PW, 1>(
             acc[p], a[c],
-            hopper::desc_sw<128>(kt + p * BK * 128 + c * 2048, BK * 128, 1024));
+            hopper::desc_sw<SW>(kt + p * BK * SW + c * 16 * SW, BK * SW,
+                                8 * SW));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
     for (int p = 0; p < G::NP; ++p) hopper::fence_acc(acc[p]);
   }
 
-  // epilogue: each query row's dq, rounded to bf16 once
+  // epilogue: each query row's dq, rounded to bf16 once (PW columns a
+  // panel, NA / 4 words of two a thread)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + 8 * h;
@@ -1096,8 +1133,8 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int p = 0; p < G::NP; ++p)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        qrow[32 * p + 4 * j + (lane & 3)] =
+      for (int j = 0; j < G::NA / 4; ++j)
+        qrow[(G::PW / 2) * p + 4 * j + (lane & 3)] =
             hopper::pack_bf16(acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
   }
 }
@@ -1105,11 +1142,12 @@ flash_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
 template <int D, bool DROP>
 int launch_dq_tc(const Args& a, void* dq) {
   using G = DqTc<D>;
+  const CUtensorMapSwizzle swz = hopper::swizzle_of(G::PW);
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQ);
-  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQ);
-  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, G::BK);
-  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::BK);
+  int rc = hopper::make_map_bf16(&mq, a.q, D, a.Sq, a.B * a.H, G::BQ, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mdo, a.dout, D, a.Sq, a.B * a.H, G::BQ, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mk, a.k, D, a.Sk, a.B * a.HK, G::BK, G::PW, swz);
+  if (rc == 0) rc = hopper::make_map_bf16(&mv, a.v, D, a.Sk, a.B * a.HK, G::BK, G::PW, swz);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
       flash_dq_kernel_tc<D, DROP>,
@@ -2525,17 +2563,18 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route of both backward kernels: bf16 at D 64, 128 and 256 takes
-// the tensor cores (dk/dv at 16 and 32 too), and at D 512 and every wide
+// The route of both backward kernels: bf16 at D 16, 32, 64, 128 and 256
+// takes the tensor cores, and at D 512 and every wide
 // width (D >= 1024, wide::tc_takes) the wide tensor-core bodies; f32 at
 // the wide widths the wide CUDA-core bodies (register tiles), and at 256
 // and 512 too (wide::row_takes: one CTA spans the row), and at 64 and 128
-// (wide::narrow_takes); everything else (f32 at 16 and 32, the bf16 dq
-// there) the CUDA-core bodies of their width; a seed takes each body's
-// DROP instantiation.
+// (wide::narrow_takes); everything else (f32 at 16 and 32) the CUDA-core
+// bodies of their width; a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
+    if (D == 16) return launch_dq_tc<16, DROP>(a, dq);
+    if (D == 32) return launch_dq_tc<32, DROP>(a, dq);
     if (D == 64) return launch_dq_tc<64, DROP>(a, dq);
     if (D == 128) return launch_dq_tc<128, DROP>(a, dq);
     if (D == 256) return launch_dq_tc<256, DROP>(a, dq);
@@ -2653,8 +2692,8 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // The CUDA-core dq and dk/dv bodies of every width they have (16..512),
-// whatever the dtype (same arguments as above): bf16 from 64 (dk/dv from
-// 16) routes to the tensor-core bodies and f32 from 64 to the register-tile bodies,
+// whatever the dtype (same arguments as above): bf16 routes to the
+// tensor-core bodies and f32 from 64 to the register-tile bodies,
 // and these let a measurement time the CUDA-core bodies beside them on
 // the same inputs.  Any other width is refused
 // (from D 1024 f32 routes to the wide CUDA-core bodies, and bf16 has no

@@ -24,10 +24,8 @@
 //   and the Gemma-class heads of 129..256, padded to 256), and at D 16
 //   and 32 (the BERT example's default proxy, 4 heads of 32, and the
 //   heads of 9..31, padded to them) at the head's own width.
-// - CUDA cores, flash_fwd_kernel: f32 at D 16 and 32 (the precision
-//   contract of docs/kernels.md makes f32 operands true f32, so no TF32)
-//   and f32 with no keys (Sk == 0) up to D 128, and bf16 with no keys up
-//   to D 512.
+// - CUDA cores, flash_fwd_kernel: f32 with no keys (Sk == 0) up to D
+//   128, and bf16 with no keys up to D 512.
 // - wide tensor cores, flash_fwd_kernel_tc_wide: bf16 at D 512 (and the
 //   heads of 257..511, padded to it) and D >= 1024 (the powers of two to
 //   8192, then the multiples of 8192: the wrapper pads every wider head
@@ -35,11 +33,13 @@
 //   columns and computes S over the whole D (below, before the route).
 // - wide CUDA cores, flash_fwd_kernel_wide: f32 at D 64 and 128 with keys
 //   (the serving path's GPT-2 heads and Llama-class ones, and the heads
-//   of 33..127, padded to them), at D 256 and 512 (and the heads of
-//   129..511) and at D >= 1024 (and bf16 there with no keys), with D a
-//   runtime width: register tiles of S and O on the CUDA cores, a CTA on
-//   64 query rows and all of O's columns from 64 to 512, on 32 rows and
-//   1024 of them from 1024.
+//   of 33..127, padded to them), at D 16 and 32 with keys (the BERT
+//   example's proxy at --opt-level O0, and the heads of 9..31), at D 256
+//   and 512 (and the heads of 129..511) and at D >= 1024 (and bf16 there
+//   with no keys), with D a runtime width: register tiles of S and O on
+//   the CUDA cores (the precision contract of docs/kernels.md makes f32
+//   operands true f32, so no TF32), a CTA on 64 query rows and all of O's
+//   columns from 16 to 512, on 32 rows and 1024 of them from 1024.
 //
 // All follow the reference's arithmetic: bf16 products with f32 sums
 // (the tensor cores compute exactly that; the CUDA-core body converts
@@ -126,10 +126,10 @@
 // stops at the CTA's diagonal tile (the TPU kernel's clamped index map).
 // As in the tensor-core body, B*H rides the grid's x (up to 2^31 - 1, so
 // the flat row the dropout hash takes is never split over launches) and
-// the q blocks its y, heaviest first.  From D 64 f32 with keys runs the
-// register-tile body (below); the instantiations from 64 here stay for
-// calls with no keys and for apex_flash_fwd_cuda_cores, which times them
-// beside it.
+// the q blocks its y, heaviest first.  f32 with keys runs the
+// register-tile body (below) at every width; the f32 instantiations here
+// stay for calls with no keys and for apex_flash_fwd_cuda_cores, which
+// times them beside it.
 //
 // Every output element is owned by one CTA that sums in a fixed order:
 // no atomics, the same bits every run.
@@ -216,16 +216,26 @@ __device__ __forceinline__ float4 scale4(float4 x, float s) {
   return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 
-// N consecutive floats of shared memory (16-byte aligned) into x
+// N consecutive floats of shared memory into x, in the widest vectors N
+// divides (p aligned to them: 16 bytes from N 4, 8 at N 2)
 template <int N>
 __device__ __forceinline__ void ld_rows(float (&x)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 f = reinterpret_cast<const float4*>(p)[i];
-    x[4 * i] = f.x;
-    x[4 * i + 1] = f.y;
-    x[4 * i + 2] = f.z;
-    x[4 * i + 3] = f.w;
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 f = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = f.x;
+      x[4 * i + 1] = f.y;
+      x[4 * i + 2] = f.z;
+      x[4 * i + 3] = f.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
   }
 }
 
@@ -355,15 +365,17 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// register-tile body: f32 at D 64 and 128 (wide::narrow_takes) and 256
-// and 512 (wide::row_takes), where one CTA spans a row of O, and at D >=
+// register-tile body: f32 at D 16 and 32 (wide::fwd_narrow_takes), 64 and
+// 128 (wide::narrow_takes) and 256 and 512 (wide::row_takes), where one
+// CTA spans a row of O, and at D >=
 // 1024 (wide::takes: a cluster of column slices), and bf16 at D >= 1024
 // with no keys (bf16 with keys takes the tensor cores)
 // ---------------------------------------------------------------------------
 //
 // Register tiles on the CUDA cores, f32 FMAs (no TF32: the precision
-// contract of docs/kernels.md).  A CTA of 256 threads owns BQ query rows
-// and W of O's columns (blockIdx.z counts the D/W column slices): from D
+// contract of docs/kernels.md).  A CTA of 256 threads (128 at W 16 and
+// 32, below) owns BQ query rows and W of O's columns (blockIdx.z counts
+// the D/W column slices): from D
 // 1024 BQ = 32 and W = 1024, from 64 to 512 BQ = 64 and W = D.  O's BQ x
 // W f32 sit in registers, each thread OR = 8 rows x 4C columns (C = BQ W
 // / 8192 float4s a row: 128 registers at 1024 and 512, 64 at 256, 32 at
@@ -418,26 +430,48 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // run), as in the other bodies.  bf16 reaches this body only with no keys
 // (Sk == 0): its instantiation (W 1024) writes the zero rows and the
 // -1e30 lse.
+//
+// At W 32 and 16 (f32 D 32 and 16 with keys, wide::fwd_narrow_takes: the
+// forward alone, whose CUDA-core body lost to SDPA's f32 forward at D
+// 32) the same two passes run with a stage of S as wide as the head (DC =
+// W) and 128 threads: a thread owns a 4 x 8 block of S (rows rg + 16 a,
+// keys kg + 8 b), two threads a row in the softmax (32 keys each), and 4
+// x 4 (at 16, 2 x 4) of O's 64 x W.  A causal (8, 12, 512, 32) call does
+// 1.6 GFLOP, 24.1 us at the card's 67 TFLOP/s of f32 FMAs against 7.6
+// us for its 25.4 MB: bound by the FMAs.  Two stages and 73 KB (W 32) a
+// CTA, so three CTAs share an SM (168 registers at W 32, no spills).  On
+// an H100 at 700 W (apex_tpu_torch/tools/flash_wide_f32.py, in turns)
+// that shape took 0.0784-0.0801 ms, against 0.1440-0.1453 on the
+// CUDA-core body and 0.0902-0.0904 with 256 threads (4 x 4 blocks of S,
+// 2 rows of O: 80 registers and 52 bytes of spill under three CTAs an
+// SM); at D 16 0.0514-0.0520, against 0.0895 and 0.0697.
 
 template <int W_>
 struct FwdWide {
-  static constexpr int THREADS = 256;
   static constexpr int W = W_;                  // O's columns a CTA
+  // 256 threads; 128 at W 16 and 32, where a thread's 4 x 8 block of S
+  // reads a float4 of shared memory for every 10.7 FMAs (a 4 x 4 block:
+  // 8) and, at W 32, each V row it reads feeds 4 rows of O (2 at 256)
+  static constexpr int THREADS = W < 64 ? 128 : 256;
   // query rows a CTA: 32 over a cluster's 1024-column slices; 64 where
   // one CTA spans the row (a K and V tile read once for twice the rows:
   // 17% and 13% faster than 32 at D 256 and 512 on an H100)
   static constexpr int BQ = W >= wide::MIN_D ? 32 : 64;
   static constexpr int BK = 64;                 // keys a tile
-  static constexpr int DC = 64;                 // S's columns a stage
+  static constexpr int DC = W < 64 ? W : 64;    // S's columns a stage
   static constexpr int PAD = DC + 4;            // a staged row's floats
   static constexpr int KS = 64 / BQ;            // S: parts of a stage's columns
   static constexpr int RS = BQ / 4;             // S: rows rg + RS a
+  // S: a thread's keys kg + KG b (b < SB): 4 x 4 blocks at 256 threads,
+  // 4 x 8 at 128
+  static constexpr int SB = BK * RS * KS / THREADS;
+  static constexpr int KG = BK / SB;
   static constexpr int TPR = THREADS / BQ;      // softmax: threads a row
   static constexpr int NX = BK / TPR;           // softmax: keys a thread
-  // O: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and 64) and
-  // rows (8, 4 at W 64)
+  // O: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and below)
+  // and rows (8, 4 at W 64 and 32, 2 at W 16)
   static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;
-  static constexpr int OR = BQ * W / (1024 * C);
+  static constexpr int OR = BQ * W / (4 * THREADS * C);
   static constexpr int CG = W / (4 * C);        // O: threads a row group
   // V's keys a stage (32 KB; the tile's 64 at W 64, 16 KB)
   static constexpr int VK = W >= 128 ? 8192 / W : BK;
@@ -465,13 +499,13 @@ struct FwdWide {
   static constexpr int SMEM = (ROW_OFF + 2 * BQ) * 4;
   // CTAs an SM its shared memory allows (the register budget follows)
   static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
-  static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA");
+  static_assert(KS * RS * KG == THREADS && NX <= 32,
+                "the S tiles cover the CTA; a thread's keys fit its mask");
   static_assert(BQ * DC / 4 % THREADS == 0,
                 "every thread copies the same number of Q's float4s");
   static_assert(CG % 32 == 0 || 32 % CG == 0,
                 "a warp's O columns are contiguous, or it spans whole rows");
-  static_assert(OR % 4 == 0 && BQ / OR * CG == THREADS,
-                "O's tiles cover the CTA");
+  static_assert(BQ / OR * CG == THREADS, "O's tiles cover the CTA");
   static_assert(BK % VK == 0, "V's stages cover a tile");
   static_assert(SMEM <= 227 * 1024, "one CTA an SM");
 };
@@ -565,8 +599,9 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_commit();
     }
 
-    // S: part sh of the stage's columns, rows rg + RS a, keys kg + 16b
-    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, kg = tid % 16;
+    // S: part sh of the stage's columns, rows rg + RS a, keys kg + KG b
+    const int sh = tid / (G::RS * G::KG), rg = (tid / G::KG) % G::RS,
+              kg = tid % G::KG;
     // softmax: row sr, keys sp + TPR x
     const int sr = tid / G::TPR, sp = tid % G::TPR, srow = q0 + sr;
     const int qid = (seg && srow < Sq) ? q_ids[(size_t)b * Sq + srow] : 0;
@@ -579,7 +614,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * (tid % G::CG % 32);
 
     float4 acc[G::OR][G::C];
-    float sacc[4][4];
+    float sacc[4][G::SB];
 #pragma unroll
     for (int r = 0; r < G::OR; ++r)
 #pragma unroll
@@ -587,7 +622,7 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sacc[a][c] = 0.f;
+      for (int c = 0; c < G::SB; ++c) sacc[a][c] = 0.f;
 
     for (int j = 0, t = 0, i = 0; j < total; ++j) {
       hopper::cp_async_wait<G::STAGES - 2>();
@@ -603,17 +638,17 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
           const int c = 4 * (NF * sh + f);
-          float4 qv[4], kv[4];
+          float4 qv[4], kv[G::SB];
 #pragma unroll
           for (int a = 0; a < 4; ++a)
             qv[a] = *reinterpret_cast<const float4*>(qs + (rg + G::RS * a) * G::PAD + c);
 #pragma unroll
-          for (int c2 = 0; c2 < 4; ++c2)
-            kv[c2] = *reinterpret_cast<const float4*>(ks + (kg + 16 * c2) * G::PAD + c);
+          for (int c2 = 0; c2 < G::SB; ++c2)
+            kv[c2] = *reinterpret_cast<const float4*>(ks + (kg + G::KG * c2) * G::PAD + c);
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c2 = 0; c2 < 4; ++c2) sacc[a][c2] = dot4(qv[a], kv[c2], sacc[a][c2]);
+            for (int c2 = 0; c2 < G::SB; ++c2) sacc[a][c2] = dot4(qv[a], kv[c2], sacc[a][c2]);
         }
         if (i == nS - 1) {
           // the cluster's partial scores meet; the online softmax of the
@@ -622,8 +657,8 @@ flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c2 = 0; c2 < 4; ++c2) {
-              sb[(sh * G::BQ + rg + G::RS * a) * G::SROW + kg + 16 * c2] = sacc[a][c2];
+            for (int c2 = 0; c2 < G::SB; ++c2) {
+              sb[(sh * G::BQ + rg + G::RS * a) * G::SROW + kg + G::KG * c2] = sacc[a][c2];
               sacc[a][c2] = 0.f;
             }
           if (nc > 1)
@@ -743,7 +778,7 @@ int launch_wide_w(const void* q, const void* k, const void* v, void* o,
       HK, Sq, Sk, D, causal, scale, drop);
 }
 
-// f32 at 64, 128, 256 and 512 (one CTA spans the row) and at the wide
+// f32 at 16, 32, 64, 128, 256 and 512 (one CTA spans the row) and at the wide
 // widths (1024 of O's columns a CTA); bf16 only at the wide widths with no
 // keys (with keys it runs the wide tensor-core body)
 template <typename T, bool DROP>
@@ -752,6 +787,10 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
                 int HK, int Sq, int Sk, int D, int causal, float scale,
                 const dropout::Params& drop, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
+    if (D == 16)
+      return launch_wide_w<T, 16, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
+    if (D == 32)
+      return launch_wide_w<T, 32, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
     if (D == 64)
       return launch_wide_w<T, 64, DROP>(q, k, v, o, lse, q_ids, kv_ids, B, H, HK, Sq, Sk, D, causal, scale, drop, stream);
     if (D == 128)
@@ -1483,11 +1522,11 @@ int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
 // The route: bf16 with keys to read takes the tensor cores, at D 16, 32,
 // 64, 128 and 256 and (the wide tensor-core body) at D 512 and every wide
 // width, D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes),
-// at 64 and 128 with keys to read (wide::narrow_takes) and the rest of the
-// wide widths (f32, and bf16 with no keys) the register-tile body,
-// everything else (f32 at 16 and 32 or with no keys up to 128, bf16 with
-// no keys up to 512) the CUDA-core bodies of their width; a seed takes
-// each body's DROP instantiation.
+// at 64 and 128 (wide::narrow_takes) and 16 and 32 (wide::fwd_narrow_takes)
+// with keys to read and the rest of the wide widths (f32, and bf16 with
+// no keys) the register-tile body, everything else (f32 with no keys up to
+// 128, bf16 with no keys up to 512) the CUDA-core bodies of their width;
+// a seed takes each body's DROP instantiation.
 template <typename T, bool DROP>
 int route(const void* q, const void* k, const void* v, void* o, float* lse,
              const int* qi, const int* ki, int B, int H, int HK, int Sq,
@@ -1510,6 +1549,8 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
   if (sizeof(T) == 4 && wide::row_takes(D))
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)
+    return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
+  if (sizeof(T) == 4 && wide::fwd_narrow_takes(D) && Sk > 0)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
@@ -1559,7 +1600,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The CUDA-core forward of every width it has (16..512), whatever the
-// dtype (the arguments of apex_flash_fwd): f32 at 64..512 routes to the
+// dtype (the arguments of apex_flash_fwd): f32 with keys routes to the
 // register-tile body and bf16 with keys to the tensor cores, and
 // this lets a measurement time the CUDA-core body beside them on the same
 // inputs.  Any other width is refused.

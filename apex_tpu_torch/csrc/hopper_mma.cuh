@@ -595,6 +595,15 @@ __host__ __device__ constexpr bool narrow_takes(int D) {
   return D == 64 || D == 128;
 }
 
+// The narrowest widths of the f32 register-tile forward alone: at 16 and
+// 32 (and the heads of 9..31, padded to them) one CTA of 128 threads
+// spans a row of O.  The f32 dq and dk/dv there keep their CUDA-core
+// bodies (flash_{dq,dkv}_kernel), which beat the library's f32 backward,
+// so route_dq and route_dkv do not read this.
+__host__ __device__ constexpr bool fwd_narrow_takes(int D) {
+  return D == 16 || D == 32;
+}
+
 // The sum of a score's NP parts (STRIDE floats apart, from p) over the
 // cluster's nc CTAs, in rank order and each rank's parts in order: every
 // CTA of the cluster gets the same bits (with nc 1, its own parts)

@@ -432,13 +432,14 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
 # cores (wgmma + TMA; at 16 and 32 a panel as wide as the head, with the
 # 32- and 64-byte swizzles); from 512 every kernel's bf16 body does
 # ("wide tensor cores")
-_TC_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256), "flash_dq": (64, 128, 256),
-              "flash_dkv": (16, 32, 64, 128, 256)}
+_TC_WIDTHS = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                           (16, 32, 64, 128, 256))
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 # the narrower kernel widths at which each kernel's f32 body runs in
 # register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes
-# and wide::narrow_takes), as it does at every width from 1024
-_ROW_WIDTHS = {"flash_fwd": (64, 128, 256, 512),
+# and wide::narrow_takes, and the forward's wide::fwd_narrow_takes), as it
+# does at every width from 1024
+_ROW_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256, 512),
                "flash_dq": (64, 128, 256, 512),
                "flash_dkv": (64, 128, 256, 512)}
 
@@ -447,9 +448,8 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
     to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA: bf16 at D 64, 128 and 256, and the forward and dk/dv at 16 and
-    32 too), "CUDA cores" (the FMA body: f32 at 16 and 32, and the bf16
-    dq there),
+    + TMA: bf16 at D 16, 32, 64, 128 and 256), "CUDA cores" (the FMA
+    body: the f32 dq and dk/dv at 16 and 32),
     "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
     width from 1024, a CTA on a slice of the output's columns: 256 of O's,
     512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
@@ -458,12 +458,13 @@ def flash_route(kernel: str, dtype, d: int) -> str:
     32 rows and 1024 of O's or dQ's columns, or on 32 key rows and 512 of
     dK's and dV's, 16 and 1024 past D 4096; f32 at 256 and 512, where
     one CTA spans the row: 64 query rows in the forward and dq, 64 key
-    rows at 256 and 32 at 512 in dk/dv; and all three at f32 64 and 128,
-    one CTA on a row too: 64 query rows, 64 key rows).  The C
+    rows at 256 and 32 at 512 in dk/dv; all three at f32 64 and 128,
+    one CTA on a row too: 64 query rows, 64 key rows; and the f32 forward
+    at 16 and 32, 64 query rows a CTA of 128 threads).  The C
     dispatchers of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route
     the same way, apart from a forward with no keys (bf16 takes the CUDA
-    cores up to 512, the wide CUDA cores past it; f32 the CUDA cores at 64
-    and 128)."""
+    cores up to 512, the wide CUDA cores past it; f32 the CUDA cores up
+    to 128)."""
     if kernel not in _TC_WIDTHS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
                          f"{sorted(_TC_WIDTHS)})")

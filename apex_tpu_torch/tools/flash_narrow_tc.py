@@ -1,25 +1,27 @@
-"""The bf16 tensor-core forward and dk/dv at head dims 16 and 32 (the
-shipped ``FwdTc`` / ``DkvTc`` geometry in ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``) against variants of the same sources, each with one
-line changed, timed in turns in one process on the card::
+"""The bf16 tensor-core forward, dq and dk/dv at head dims 16 and 32 (the
+shipped ``FwdTc`` / ``DqTc`` / ``DkvTc`` geometry in ``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu``) against variants of the same sources, each
+with one line changed, timed in turns in one process on the card::
 
     python -m apex_tpu_torch.tools.flash_narrow_tc [--variants NAME,...]
 
-The variants (``VARIANTS``) change only the D-16 and D-32 bodies: the
-forward with 128-key tiles (S = Q.K^T as m64n128k16, twice the softmax
-a tile) or padded to one CTA an SM (where the shipped bodies' few KB of
-tiles let several share one), the dk/dv with two or four q/dO ring
-stages (three shipped) or one CTA an SM.  Every source builds with the port's nvcc flags
-into ``apex_tpu_torch/_build/`` (all at once) and prints the ptxas line
-of each D-16/32 body; each is called through its C entry point with the
-arguments the wrapper gives it.  At each bf16 shape (GPT-2 small's batch,
-heads and seq at D 32 and 16, causal; the BERT proxy's (8, 4, 512, 32)
-unmasked) and dropout rate each variant is held to the twin
-(``flash_fwd_ref`` / ``flash_bwd_ref``) within the bf16 tolerance, then
-timed against the shipped body in the order shipped, variant, variant,
-shipped (device milliseconds a call: CUDA events around calls queued
-behind a device spin, so the host's launching is hidden), with the
-card's name and power limit.
+The variants (``VARIANTS``; a name starts with the kernel it changes)
+change only the D-16 and D-32 bodies: the forward or the dq with 128-key
+tiles (S = Q.K^T, and the dq's dP = dO.V^T, as m64n128k16: twice the
+scores a tile) or padded to one CTA an SM (where the shipped bodies' few
+KB of tiles let several share one), the dq with three K/V ring stages
+(two shipped), the dk/dv with two or four q/dO ring stages (three
+shipped) or one CTA an SM.  Every source builds with the port's nvcc
+flags into ``apex_tpu_torch/_build/`` (all at once) and prints the ptxas
+line of each D-16/32 tensor-core body; each is called through its C
+entry point with the arguments the wrapper gives it.  At each bf16 shape
+(GPT-2 small's batch, heads and seq at D 32 and 16, causal; the BERT
+proxy's (8, 4, 512, 32) unmasked) and dropout rate each variant is held
+to the twin (``flash_fwd_ref`` / ``flash_bwd_ref``) within the bf16
+tolerance, then timed against the shipped body in the order shipped,
+variant, variant, shipped (device milliseconds a call: CUDA events
+around calls queued behind a device spin, so the host's launching is
+hidden), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ VARIANTS = {
         "flash_fwd", "static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;",
         "static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024 + "
         "(D < 64 ? 120 * 1024 : 0);"),
+    "dq 128-key tiles": (
+        "flash_bwd", "static constexpr int BK = 64;                 "
+        "// keys a ring stage",
+        "static constexpr int BK = D < 64 ? 128 : 64;"),
+    "dq 3 stages": (
+        "flash_bwd", "static constexpr int STAGES = 2;              "
+        "// K/V ring stages",
+        "static constexpr int STAGES = D < 64 ? 3 : 2;"),
+    "dq one CTA an SM": (
+        "flash_bwd", "static constexpr int SMEM = BAR_OFF + STAGES * 8 + "
+        "1024;",
+        "static constexpr int SMEM = BAR_OFF + STAGES * 8 + 1024 + "
+        "(D < 64 ? 120 * 1024 : 0);"),
     "dkv 2 stages": (
         "flash_bwd", "static constexpr int STAGES = D < 64 ? 3 : 2;",
         "static constexpr int STAGES = 2;"),
@@ -56,9 +71,10 @@ VARIANTS = {
 SHAPES = ((8, 12, 512, 32, True), (8, 12, 512, 16, True),
           (8, 4, 512, 32, False))                  # (B, H, S, D, causal)
 TOL = dict(atol=2e-2, rtol=2e-2)        # chip_smoke.ATTN_TOL["bf16"]
-ENTRY = {"flash_fwd": "apex_flash_fwd", "flash_bwd": "apex_flash_dkv"}
-MARK = {"flash_fwd": "flash_fwd_kernel_tcILi", "flash_bwd":
-        "flash_dkv_kernel_tcILi"}
+KINDS = {"fwd": ("flash_fwd", "apex_flash_fwd", "FLASH_FWD"),
+         "dq": ("flash_bwd", "apex_flash_dq", "FLASH_DQ"),
+         "dkv": ("flash_bwd", "apex_flash_dkv", "FLASH_DKV")}
+MARK = re.compile(r"flash_(fwd|dq|dkv)_kernel_tcILi(16|32)E")
 
 
 def _stem(name: str) -> str:
@@ -68,8 +84,8 @@ def _stem(name: str) -> str:
 
 
 def _build_variants(names) -> dict:
-    """{name: the C entry point}: "shipped fwd" / "shipped dkv" and each
-    named variant, every source compiled at once."""
+    """{(name, kind): the C entry point} for each named variant and the
+    shipped source of its kind, every source compiled at once."""
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -91,25 +107,28 @@ def _build_variants(names) -> dict:
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
              "-o", _stem(name) + ".so", _stem(name) + ".cu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
+    libs = {}
     for name, proc in procs.items():
         out = proc.communicate()[0]
-        lib = srcs[name][0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         entry = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif "Used" in line and entry and MARK[lib] in entry and (
-                    "ILi16E" in entry or "ILi32E" in entry):
+            elif "Used" in line and entry and MARK.search(entry):
                 print(f"ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}",
                       flush=True)
-        fn = getattr(ctypes.CDLL(_stem(name) + ".so"), ENTRY[lib])
-        fn.argtypes = (attn.FLASH_FWD if lib == "flash_fwd"
-                       else attn.FLASH_DKV).argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        libs[name] = ctypes.CDLL(_stem(name) + ".so")
+    fns = {}
+    for n in names:
+        kind = n.split()[0]
+        lib, sym, kern = KINDS[kind]
+        for name in (n, f"shipped {lib}"):
+            fn = getattr(libs[name], sym)
+            fn.argtypes = getattr(attn, kern).argtypes
+            fn.restype = ctypes.c_int
+            fns[name, kind] = fn
     return fns
 
 
@@ -156,50 +175,54 @@ def main(argv=None) -> int:
             drop = attn._dropout_args(rate, sd, dev)
             wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, None, rate,
                                           sd)
-            _, wdk, wdv = attn.flash_bwd_ref(q, k, v, wo, wlse, do, causal,
-                                             None, None, rate, sd)
+            wdq, wdk, wdv = attn.flash_bwd_ref(q, k, v, wo, wlse, do, causal,
+                                               None, None, rate, sd)
             di = (do.float() * wo.float()).sum(dim=-1)
             calls, outs = {}, {}
-            for name, fn in fns.items():
-                if name.startswith("shipped flash_fwd") or name.startswith(
-                        "fwd"):
+            for (name, kind), fn in fns.items():
+                if kind == "fwd":
                     o = torch.empty_like(q)
                     lse = torch.empty(b * h, s, device=dev)
                     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), None, None, 1, b,
-                            h, h, s, s, d, int(causal), d ** -0.5, *drop,
-                            stream)
-                    outs[name] = ((o, wo), (lse, wlse))
+                            o.data_ptr(), lse.data_ptr())
+                    pairs = ((o, wo), (lse, wlse))
+                elif kind == "dq":
+                    dq = torch.empty_like(q)
+                    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), wlse.data_ptr(), di.data_ptr(),
+                            dq.data_ptr())
+                    pairs = ((dq, wdq),)
                 else:
                     dk, dv = torch.empty_like(k), torch.empty_like(v)
                     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             do.data_ptr(), wlse.data_ptr(), di.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), None, None, 1, b,
-                            h, h, s, s, d, int(causal), d ** -0.5, *drop,
-                            stream)
-                    outs[name] = ((dk, wdk), (dv, wdv))
-                calls[name] = lambda fn=fn, args=args, keep=outs[name]: fn(
+                            dk.data_ptr(), dv.data_ptr())
+                    pairs = ((dk, wdk), (dv, wdv))
+                args += (None, None, 1, b, h, h, s, s, d, int(causal),
+                         d ** -0.5, *drop, stream)
+                outs[name, kind] = pairs
+                # the call holds its outputs, whose pointers it passes
+                calls[name, kind] = lambda fn=fn, args=args, keep=pairs: fn(
                     *args)
-                if calls[name]() != 0:
-                    raise RuntimeError(f"{name} did not launch")
+                if calls[name, kind]() != 0:
+                    raise RuntimeError(f"{name} ({kind}) did not launch")
             torch.cuda.synchronize()
-            for name, pairs in outs.items():
-                for i, (got, want) in enumerate(pairs):
+            for pairs in outs.values():
+                for got, want in pairs:
                     if got.dtype == torch.float32:    # lse
                         torch.testing.assert_close(got, want, atol=1e-4,
                                                    rtol=1e-5)
                     else:
                         torch.testing.assert_close(got, want, **TOL)
             for name in names:
-                lib = VARIANTS[name][0]
-                base = f"shipped {lib}"
-                ms = {base: [], name: []}
-                for n in (base, name, name, base):
+                kind = name.split()[0]
+                base = (f"shipped {VARIANTS[name][0]}", kind)
+                ms = {base: [], (name, kind): []}
+                for n in (base, (name, kind), (name, kind), base):
                     ms[n].append(_device_ms(calls[n]))
-                print(f"flash {'forward' if lib == 'flash_fwd' else 'dk/dv'}"
-                      f" ({b}, {h}, {s}, {d}) bf16 causal={causal} dropout "
-                      f"{rate}: " + "; ".join(
-                          f"{n} " + " / ".join(f"{t:.4f}" for t in ts)
+                print(f"flash {kind} ({b}, {h}, {s}, {d}) bf16 causal="
+                      f"{causal} dropout {rate}: " + "; ".join(
+                          f"{n[0]} " + " / ".join(f"{t:.4f}" for t in ts)
                           + " ms" for n, ts in ms.items())
                       + f" (each within the bf16 tolerance of the twin) "
                       f"[{smi}]", flush=True)

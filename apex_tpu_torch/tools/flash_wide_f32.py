@@ -1,5 +1,5 @@
-"""The f32 flash bodies at D 64, 128, 256 and 512 and the f32 wide ones
-(``flash_fwd_kernel_wide``, ``flash_dq_kernel_wide``,
+"""The f32 flash bodies at D 16, 32, 64, 128, 256 and 512 and the f32
+wide ones (``flash_fwd_kernel_wide``, ``flash_dq_kernel_wide``,
 ``flash_dkv_kernel_wide``; D >= 1024) of this tree against the same
 entry points built from another checkout's sources, timed in turns in
 one process on the card::
@@ -13,7 +13,8 @@ flags into ``apex_tpu_torch/_build/`` (all at once) and is called
 through its C entry points with the arguments the wrapper gives them.
 At each causal f32 shape (GPT-2 small's (8, 12, 512, 64), a Llama-class
 (8, 8, 512, 128), (8, 4, 512) at D 256 and 512, D 1024, and 2048, 4096,
-8192 at D 1024's bytes; ``--widths`` picks some) and
+8192 at D 1024's bytes; GPT-2 small's batch, heads and seq at D 32 and
+16; ``--widths`` picks some) and
 dropout rate each kernel of each source is held to its twin
 (``flash_fwd_ref`` / ``flash_bwd_ref`` on this tree's o and lse) within
 the f32 tolerance and to its own bits on a second call; then each
@@ -34,7 +35,8 @@ import subprocess
 SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128),
           (8, 4, 512, 256), (8, 4, 512, 512), (8, 2, 512, 1024),
           (4, 2, 512, 2048), (2, 2, 512, 4096),
-          (1, 2, 512, 8192))                              # (B, H, S, D)
+          (1, 2, 512, 8192), (8, 12, 512, 32),
+          (8, 12, 512, 16))                               # (B, H, S, D)
 TOL = dict(atol=1e-4, rtol=1e-4)
 # kernel: (source, C entry point, useful FLOP a visible pair / D)
 KERNELS = {"fwd": ("flash_fwd", "apex_flash_fwd", 4),
@@ -81,7 +83,7 @@ def _build_pairs(other: str, kernels) -> dict:
 
 def _ptxas_wide_f32(log: str) -> list:
     """(kernel, registers, spills) of each f32 wide body (and of the f32
-    CUDA-core dq and dk/dv at 64 and 128, ``..._kernelIfLi64E`` and
+    CUDA-core bodies at 16, 32, 64 and 128, ``..._kernelIfLi16E`` ..
     ``...Li128E``) in nvcc's ``-Xptxas -v`` report."""
     out, entry, spill = [], None, None
     for line in log.splitlines():
@@ -91,7 +93,7 @@ def _ptxas_wide_f32(log: str) -> list:
             spill = line.strip()
         elif "Used" in line and "registers" in line and entry \
                 and ("_kernel_wideIf" in entry or re.search(
-                    r"_kernelIfLi(64|128)E", entry)):
+                    r"_kernelIfLi(16|32|64|128)E", entry)):
             out.append((entry, line.split(":", 1)[-1].strip(), spill))
     return out
 

@@ -2262,9 +2262,9 @@ def attn_train_kernel_phase(dev, smi: str) -> dict:
               flush=True)
 
     # tensor-core bodies a library holds: the forward, dq and dk/dv at D
-    # 64, 128 and 256, the forward and dk/dv at 16 and 32, and their wide
-    # bodies; each at rate 0 and with dropout
-    for lib, n_tc in (("flash_fwd", 12), ("flash_bwd", 20)):
+    # 16, 32, 64, 128 and 256, and their wide bodies; each at rate 0 and
+    # with dropout
+    for lib, n_tc in (("flash_fwd", 12), ("flash_bwd", 24)):
         _check(lib in _build.build_logs, f"no ptxas report of {lib}: its "
                "library was loaded without the log of its build")
         tc_kernels = _ptxas_report(_build.build_logs[lib], "_tc")
@@ -3853,8 +3853,9 @@ def wide_head_phase(dev, smi: str) -> dict:
     register-tile forward, dq and dk/dv beside their CUDA-core bodies in
     turns); the f32 forward, dq and dk/dv at GPT-2's and Llama's head
     dims (``F32_NARROW_SHAPES``; register tiles, beside their CUDA-core
-    bodies in turns) beside SDPA's f32; the f32 and bf16 CUDA-core bodies
-    at D 16 and 32 (``CUDA_CORE_SHAPES``) beside SDPA of their dtype; each
+    bodies in turns) beside SDPA's f32; the f32 forward (register tiles,
+    in turns with its CUDA-core body), dq and dk/dv (CUDA cores) at D 16
+    and 32 (``F32_NARROWEST_SHAPES``) beside SDPA's f32; each
     module trained 2 steps at each rate (forward, backward, an SGD update
     of its params), finite losses, exact launch counts and the routes of a
     profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
@@ -3862,7 +3863,7 @@ def wide_head_phase(dev, smi: str) -> dict:
     (``_f32_widths``); the ptxas registers and spills of the D-256
     and wide tensor-core bodies and of every f32 register-tile forward,
     dq and dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
-    "d1024": ...}}."""
+    "d1024": ...}}, and the f32 forward's "d32_f32"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import _build
@@ -3893,8 +3894,8 @@ def wide_head_phase(dev, smi: str) -> dict:
     # "d1024" and those of D 256 and 512 there too (the forward's and
     # dq's W 256 and 512; dk/dv's key rows a CTA and W, 64 x 256 at D 256
     # and 32 x 512 from D 512, and 16 x 1024 past D 4096); the forward's,
-    # dq's and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) are
-    # printed
+    # dq's and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) and the
+    # forward's at 16 and 32 are printed, the last with no spills
     f32_ptxas = {}
     widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
               "flash_dq": {"d256": "IfLi256E", "d512": "IfLi512E"},
@@ -3904,14 +3905,19 @@ def wide_head_phase(dev, smi: str) -> dict:
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
         # each geometry at rate 0 and DROP: the forward's and dq's W 64,
-        # 128, 256, 512 and 1024, dk/dv's 64 x 64, 64 x 128, 64 x 256, 32 x
-        # 512 and 16 x 1024
-        want = 10
+        # 128, 256, 512 and 1024 (the forward's 16 and 32 too), dk/dv's 64
+        # x 64, 64 x 128, 64 x 256, 32 x 512 and 16 x 1024
+        want = 14 if kn == "flash_fwd" else 10
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
             print(f"ptxas f32 wide {kn} body {entry}: {regs}; {spill} "
                   f"[{smi}]", flush=True)
+            if kn == "flash_fwd" and ("IfLi16E" in entry
+                                      or "IfLi32E" in entry):
+                _check(spill is not None and "0 bytes spill stores" in spill
+                       and "0 bytes spill loads" in spill,
+                       f"ptxas reports spills for {entry}: {spill}")
             line = f"{entry}: {regs}; {spill}"
             f32_ptxas.setdefault((kn, "d1024"), []).append(line)
             for key, marker in widths[kn].items():
@@ -4004,9 +4010,8 @@ def wide_head_phase(dev, smi: str) -> dict:
                               "widths"))
     wide_s.update(_f32_widths(dev, smi, gen, seed, F32_NARROW_SHAPES,
                               "D 64 and 128"))
-    t0 = time.perf_counter()
-    _cuda_core_widths(dev, smi, gen)
-    wide_s["D 16 and 32"] = time.perf_counter() - t0
+    wide_s.update(_f32_widths(dev, smi, gen, seed, F32_NARROWEST_SHAPES,
+                              "D 16 and 32", rows))
     print("phase seconds 34, its D-512, F5c and F7 part (D 512 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
@@ -4323,9 +4328,14 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
 # GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128); the
 # forward, dq and dk/dv there in register tiles, one CTA on a row
 F32_NARROW_SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128))
+# GPT-2 small's batch, heads and seq at D 32 and 16: the f32 forward there
+# in register tiles (the BERT proxy's heads at --opt-level O0), the dq and
+# dk/dv on the CUDA cores
+F32_NARROWEST_SHAPES = ((8, 12, 512, 32), (8, 12, 512, 16))
 
 
-def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
+def _f32_widths(dev, smi: str, gen, seed, shapes, label: str,
+                rows=None) -> dict:
     """The f32 forward, dq and dk/dv at ``shapes`` (``WIDE_FWD_SHAPES``:
     the wide bodies, register tiles on the CUDA cores, the column slices
     of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``:
@@ -4333,11 +4343,12 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
     causal, rate 0 and 0.1: held against the twins and to the same bits
     on a second call, then timed beside SDPA's f32 forward and backward
     (``_sdpa_f32``: no TF32), the twin and the bound at the f32 FMA rate;
-    at D 64 and 128 all three also in turns with their CUDA-core bodies
-    (``_cuda_core_turns``).  Up to D 8192 one cluster spans a row block, so
-    the FLOP executed are the useful ones (4·D a pair forward, 6·D dq,
-    8·D dk/dv).  Returns the seconds of its forward and backward parts,
-    named with ``label``."""
+    up to D 128 each kernel whose body is not the CUDA-core one also in
+    turns with its CUDA-core body (``_cuda_core_turns``).  Up to D 8192
+    one cluster spans a row block, so the FLOP executed are the useful
+    ones (4·D a pair forward, 6·D dq, 8·D dk/dv).  Returns the seconds of
+    its forward and backward parts, named with ``label``; into ``rows``
+    (where given) the forward's rate-0 row at D 32, "d32_f32"."""
     import torch
     from apex_tpu_torch.ops import attention as attn
 
@@ -4393,11 +4404,13 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
             plain["flash_dq"] = plain["flash_dkv"] = _ms(
                 lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
                                            None, rate, sd), 2, 1)
+            turns = {}
             if d <= 128:
-                # the register-tile forward, dq and dk/dv beside the
-                # CUDA-core bodies they replace, in turns
-                _cuda_core_turns(q, k, v, o, lse, do, rate, sd,
-                                 ("flash_fwd", "flash_dq", "flash_dkv"))
+                # the register-tile bodies beside the CUDA-core bodies
+                # they replace, in turns
+                turns = _cuda_core_turns(
+                    q, k, v, o, lse, do, rate, sd,
+                    tuple(kn for kn, r in body.items() if r != "CUDA cores"))
             del o, lse
             for kn, ms in times.items():
                 nbytes, ops = costs[kn]
@@ -4417,89 +4430,26 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str) -> dict:
                   f"{pair:.4f} ms"
                   + (f" ({pair / lib_b:.2f}x SDPA f32's backward)"
                      if rate == 0 else "") + f" [{smi}]", flush=True)
+            if rows is not None and d == 32 and rate == 0:
+                bound_ms, bound_by = _bound(*costs["flash_fwd"])
+                rows.setdefault("flash_fwd", {})["d32_f32"] = dict(
+                    ms=times["flash_fwd"],
+                    cuda_cores_ms=turns["flash_fwd"][1],
+                    plain_ms=plain["flash_fwd"], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_f,
+                    max_abs_err=errs["flash_fwd"], atol=atol, rtol=rtol,
+                    body=body["flash_fwd"],
+                    shape=f"({b}, {h}, {s}, {d}) f32 causal")
             secs[bwd_s] += time.perf_counter() - t0
         del q, k, v, do
     return secs
 
 
 
-# the flash widths only the CUDA-core bodies take, in either dtype:
-# (batch, heads, seq, head dim) at GPT-2 small's batch, heads and seq
-CUDA_CORE_SHAPES = ((8, 12, 512, 32), (8, 12, 512, 16))
-
-
-def _cuda_core_widths(dev, smi: str, gen) -> None:
-    """The f32 and bf16 forward, dq and dk/dv at ``CUDA_CORE_SHAPES`` (the
-    CUDA-core bodies, ``flash_{fwd,dq,dkv}_kernel``), causal, rate 0: held
-    against the twins, then timed beside SDPA of their dtype (f32:
-    ``_sdpa_f32``, memory-efficient with no TF32; bf16: the default
-    backend) and the bound (f32 at the FMA rate, bf16 at the card's bf16
-    rate)."""
-    import torch
-    import torch.nn.functional as F
-    from apex_tpu_torch.ops import attention as attn
-
-    for b, h, s, d in CUDA_CORE_SHAPES:
-        for dtn in ("f32", "bf16"):
-            dt = _dtype(dtn)
-            q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
-                           .to(dt) for _ in range(4))
-            costs = _attn_costs(b, h, h, s, d, 4 if dtn == "f32" else 2,
-                                _pairs(None, b, h, s, True, dev))
-            body = _flash_route_of(d, dtn)
-            if dtn == "f32":
-                backend, lib_f, lib_b, _ = _sdpa_f32(q, k, v, do)
-            else:
-                backend = "default backend"
-                lib_f = _ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 10)
-                qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-                out = F.scaled_dot_product_attention(qq, kk, vv,
-                                                     is_causal=True)
-                lib_b = _ms(lambda: torch.autograd.grad(
-                    out, (qq, kk, vv), do, retain_graph=True), 10)
-                del qq, kk, vv, out
-            atol, rtol = ATTN_TOL[dtn]
-            what = f"({b}, {h}, {s}, {d}) {dtn} causal dropout 0.0"
-            o, lse = attn._flash_fwd_cuda(q, k, v, True, None, None, True)
-            wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None)
-            _held("flash_fwd", o, wo, atol, rtol, "o " + what)
-            _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
-            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
-                                         None)
-            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
-                                        None)
-            for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
-                                    ("dq", "dk", "dv"), grads, wgrads):
-                _held(kn, g, w, atol, rtol, f"{gn} {what}")
-            del wo, wlse, grads, wgrads
-            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
-                                                  None)
-            times = {"flash_fwd": _ms(_fwd_kernel_call(q, k, v, True), 10),
-                     "flash_dq": _ms(dq_call, 10),
-                     "flash_dkv": _ms(dkv_call, 10)}
-            for kn, ms in times.items():
-                nbytes, ops = costs[kn]
-                bound_ms, bound_by = (_bound(nbytes, ops) if dtn == "f32"
-                                      else _bound(nbytes, ops, BF16_PEAK))
-                lib = lib_f if kn == "flash_fwd" else lib_b
-                print(f"time {kn} D {d} {what} ({body[kn]}): kernel "
-                      f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), SDPA "
-                      f"{'forward' if kn == 'flash_fwd' else 'backward'} "
-                      f"({backend}) {lib:.4f} ms (kernel {ms / lib:.2f}x), "
-                      f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]",
-                      flush=True)
-            pair = times["flash_dq"] + times["flash_dkv"]
-            print(f"time flash backward pair D {d} {what}: dq + dk/dv "
-                  f"{pair:.4f} ms ({pair / lib_b:.2f}x SDPA {dtn}'s "
-                  f"backward) [{smi}]", flush=True)
-            del q, k, v, do, o, lse, dq_call, dkv_call
-
-# the bf16 forward and dk/dv at head dims 16 and 32 on the tensor cores
-# (flash_fwd_kernel_tc / flash_dkv_kernel_tc at the head's own width: one
-# panel of 32 or 64 bytes a row, the 32- and 64-byte swizzles; the dq
-# stays on the CUDA cores there): each case against the twins, with its
-# routes from the device kernels' names
+# the bf16 forward, dq and dk/dv at head dims 16 and 32 on the tensor
+# cores (flash_{fwd,dq,dkv}_kernel_tc at the head's own width: one panel
+# of 32 or 64 bytes a row, the 32- and 64-byte swizzles): each case
+# against the twins, with its routes from the device kernels' names
 NARROW_CASES = (
     # name, b, h, hk, sq, sk, d, causal, segment ids, dropout rate
     ("d32_causal", 2, 8, 8, 256, 256, 32, True, None, 0.0),
@@ -4529,12 +4479,12 @@ NARROW_CASES = (
      DROP_RATE),
     ("d32_dropout_gqa_s200", 2, 8, 4, 200, 200, 32, False, None, DROP_RATE),
 )
-# (name, b, h, sq, sk, d, causal): the keep masks read out of the new
-# forward and dk/dv bodies (and the dq's) against dropout_keep_ref
+# (name, b, h, sq, sk, d, causal): the keep masks read out of the
+# forward, dk/dv and dq bodies against dropout_keep_ref
 NARROW_KEEP_CASES = (("d32_causal", 1, 2, 100, 100, 32, True),
                      ("d16_unmasked_sq70_sk90", 1, 2, 70, 90, 16, False))
-# timed: GPT-2 small's batch, heads and seq at D 32 and 16, causal (the
-# CUDA_CORE_SHAPES), and the BERT proxy's own (8, 4, 512, 32) unmasked
+# timed: GPT-2 small's batch, heads and seq at D 32 and 16, causal, and
+# the BERT proxy's own (8, 4, 512, 32) unmasked
 NARROW_SHAPES = ((8, 12, 512, 32, True), (8, 12, 512, 16, True),
                  (8, 4, 512, 32, False))
 
@@ -4637,7 +4587,7 @@ def _narrow_case(gen, case, dev) -> tuple:
 def _narrow_off_alignment(gen, dev) -> None:
     """q 8 bytes past a 16-byte boundary at D 16 and 32 bf16 (TMA needs
     16): the wrapper clones it to an aligned start (``_align`` is 16
-    there now), so the forward and dk/dv run their tensor-core bodies and
+    there), so the forward, dq and dk/dv run their tensor-core bodies and
     give the twins' result, with gradients."""
     import torch
     from apex_tpu_torch.ops import attention as attn
@@ -4650,14 +4600,15 @@ def _narrow_off_alignment(gen, dev) -> None:
         _check(q.data_ptr() % 16 == 8, "the off-alignment q is aligned")
         k, v, do = (torch.randn(2, 4, 96, d, generator=gen, device=dev)
                     .to(torch.bfloat16) for _ in range(3))
-        before = [kt.launches for kt in (attn.FLASH_FWD, attn.FLASH_DKV)]
+        kern = (attn.FLASH_FWD, attn.FLASH_DQ, attn.FLASH_DKV)
+        before = [kt.launches for kt in kern]
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
         o = attn.flash_attention(qq, kk, vv, causal=True)
         o.backward(do)
         torch.cuda.synchronize()
-        _check([kt.launches - n for kt, n in zip(
-            (attn.FLASH_FWD, attn.FLASH_DKV), before)] == [1, 1],
-            f"D {d} off alignment: not one forward and one dk/dv launch")
+        _check([kt.launches - n for kt, n in zip(kern, before)] == [1, 1, 1],
+               f"D {d} off alignment: not one forward, one dq and one dk/dv "
+               "launch")
         qa = q.contiguous().clone()
         wo, wlse = attn.flash_fwd_ref(qa, k, v, True)
         want = attn.flash_bwd_ref(qa, k, v, o.detach(), wlse, do, True)
@@ -4674,13 +4625,13 @@ def _narrow_off_alignment(gen, dev) -> None:
 
 
 def _narrow_times(dev, smi: str, gen, shape) -> dict:
-    """At ``shape`` (b, h, s, d, causal) bf16, rate 0: the forward and
+    """At ``shape`` (b, h, s, d, causal) bf16, rate 0: the forward, dq and
     dk/dv on their tensor-core bodies, the old CUDA-core bodies
-    (``apex_flash_{fwd,dkv}_cuda_cores``, held to the twins too) and the
-    D-64 tensor-core bodies on the operands padded with zeros to 64 (a
-    padded baseline, its scale 1/8: the same work), in turns; then the
-    dq (CUDA cores), each kernel's twin, SDPA's bf16 forward / backward
-    (the default backend) and the bound.  Returns {kernel: row}."""
+    (``apex_flash_{fwd,dq,dkv}_cuda_cores``, held to the twins too) and
+    the D-64 tensor-core bodies on the operands padded with zeros to 64
+    (a padded baseline, its scale 1/8: the same work), in turns; then
+    each kernel's twin, SDPA's bf16 forward / backward (the default
+    backend) and the bound.  Returns {kernel: row}."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as attn
@@ -4701,8 +4652,8 @@ def _narrow_times(dev, smi: str, gen, shape) -> dict:
     padded = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
         *pad[:3], po, plse, pad[3], causal, None)))
     padded["flash_fwd"] = _fwd_kernel_call(*pad[:3], causal)
-    for kn in ("flash_fwd", "flash_dkv"):
-        cc[kn]()
+    for call in cc.values():
+        call()
     torch.cuda.synchronize()
     atol, rtol = ATTN_TOL["bf16"]
     what = f"({b}, {h}, {s}, {d}) bf16 causal={causal}"
@@ -4717,8 +4668,7 @@ def _narrow_times(dev, smi: str, gen, shape) -> dict:
                                ("dq", "dk", "dv"), grads, cc_out, want):
         errs[kn] = max(errs[kn], _held(kn, g, w, atol, rtol,
                                        f"{gn} {what}"))
-        if kn == "flash_dkv":
-            _held(kn, c, w, atol, rtol, f"{gn} of the CUDA-core body {what}")
+        _held(kn, c, w, atol, rtol, f"{gn} of the CUDA-core body {what}")
     lib_f = _ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=causal), 10)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -4732,12 +4682,10 @@ def _narrow_times(dev, smi: str, gen, shape) -> dict:
     costs = _attn_costs(b, h, h, s, d, 2, _pairs(None, b, h, s, causal, dev))
     rows = {}
     for kn in ("flash_fwd", "flash_dq", "flash_dkv"):
-        calls = ({"tensor cores": routed[kn], "CUDA cores": cc[kn],
-                  "padded to 64": padded[kn]} if kn != "flash_dq" else
-                 {"CUDA cores": routed[kn], "padded to 64": padded[kn]})
-        t = _in_turns(calls)
+        t = _in_turns({"tensor cores": routed[kn], "CUDA cores": cc[kn],
+                       "padded to 64": padded[kn]})
         mean = {n: sum(x) / 2 for n, x in t.items()}
-        ms = mean["tensor cores" if kn != "flash_dq" else "CUDA cores"]
+        ms = mean["tensor cores"]
         nbytes, ops = costs[kn]
         bound_ms, bound_by = _bound(nbytes, ops, BF16_PEAK)
         lib = lib_f if kn == "flash_fwd" else lib_b
@@ -4747,20 +4695,18 @@ def _narrow_times(dev, smi: str, gen, shape) -> dict:
               + f"; plain {plain[kn]:.4f} ms, SDPA "
               f"{'forward' if kn == 'flash_fwd' else 'backward'} {lib:.4f} "
               f"ms (kernel {ms / lib:.2f}x), bound {bound_ms:.4f} ms "
-              f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s"
-              + (f"; {mean['CUDA cores'] / ms:.2f}x faster than the CUDA-"
-                 f"core body, {mean['padded to 64'] / ms:.2f}x than D 64 "
-                 "padded" if kn != "flash_dq" else "")
-              + f" [{smi}]", flush=True)
+              f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+              f"{mean['CUDA cores'] / ms:.2f}x faster than the CUDA-core "
+              f"body, {mean['padded to 64'] / ms:.2f}x than D 64 padded "
+              f"[{smi}]", flush=True)
         rows[kn] = dict(ms=ms, plain_ms=plain[kn], bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=lib,
                         max_abs_err=errs[kn], atol=atol, rtol=rtol,
                         padded_64_ms=mean["padded to 64"],
+                        cuda_cores_ms=mean["CUDA cores"],
                         body=_flash_route_of(d, "bf16")[kn],
                         shape=f"({b}, {h}, {s}, {d}) bf16 "
                               f"{'causal' if causal else 'unmasked'}")
-        if kn != "flash_dq":
-            rows[kn]["cuda_cores_ms"] = mean["CUDA cores"]
     pair = rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"]
     print(f"time flash backward pair narrow {what}: dq + dk/dv {pair:.4f} "
           f"ms ({pair / lib_b:.2f}x SDPA bf16's backward) [{smi}]",
@@ -4769,14 +4715,14 @@ def _narrow_times(dev, smi: str, gen, shape) -> dict:
 
 
 def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
-    """Phase 37: the bf16 forward and dk/dv at D 16 and 32 on the tensor
-    cores.  The descriptors first (``_wgmma_probe``); then every
+    """Phase 37: the bf16 forward, dq and dk/dv at D 16 and 32 on the
+    tensor cores.  The descriptors first (``_wgmma_probe``); then every
     ``NARROW_CASES`` case against the twins with its routes read from the
-    device kernels' names (forward and dk/dv ``..._kernel_tc``, dq the
-    CUDA-core ``flash_dq_kernel``), the keep masks bit for bit, an operand
-    off 16 bytes, the ptxas registers and spills of the new bodies (0
-    spill bytes); then the times at ``NARROW_SHAPES`` in turns with the
-    CUDA-core bodies and the padded D-64 bodies beside SDPA and the bound.
+    device kernels' names (``..._kernel_tc`` all three), the keep masks
+    bit for bit, an operand off 16 bytes, the ptxas registers and spills
+    of the narrow bodies (0 spill bytes); then the times at
+    ``NARROW_SHAPES`` in turns with the CUDA-core bodies and the padded
+    D-64 bodies beside SDPA and the bound.
     Returns {kernel: {"d32_proxy": the proxy shape's row, its launches in
     phase 28's steps}}."""
     import torch
@@ -4805,8 +4751,7 @@ def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
         for case in cases:
             name, d = case[0], case[6]
             want = _flash_route_of(d, "bf16")
-            _check(want["flash_fwd"] == want["flash_dkv"] == "tensor cores"
-                   and want["flash_dq"] == "CUDA cores",
+            _check(set(want.values()) == {"tensor cores"},
                    f"flash_route at bf16 D {d}: {want}")
             _check(case_routes[name] == want, f"{name}: routes "
                    f"{case_routes[name]}, expected {want}")
@@ -4831,7 +4776,8 @@ def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
               "pairs kept)", flush=True)
     _narrow_off_alignment(gen, dev)
 
-    for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dkv")):
+    for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
+                    ("flash_bwd", "flash_dkv")):
         for d in (16, 32):
             found = _ptxas_report(_build.build_logs.get(lib, ""),
                                   f"{FLASH_SYMS[kn]}_tcILi{d}E")
@@ -6056,8 +6002,10 @@ def bert_proxy_phase(dev, smi: str) -> None:
     on both), the params within a tenth of the nearest of three wrong
     updates run on the CPU (label smoothing 0.1, the padding not masked,
     lr 4% high).  Also the proxy's device ms a step
-    (``tools/bert_proxy_step.py``) and its flash bodies at D 32 by name.  Returns the flash kernels'
-    launches in the 3 steps."""
+    (``tools/bert_proxy_step.py``) and its flash bodies at D 32 by name.
+    Returns the flash kernels' launches in the 3 steps, and as
+    "flash_fwd_f32" the f32 forward's (register tiles at D 32) in the
+    card's O0 step."""
     import numpy as np
     import torch
     from apex_tpu_torch import _build
@@ -6129,7 +6077,12 @@ def bert_proxy_phase(dev, smi: str) -> None:
         return value, [p.float().cpu().numpy()
                        for p in tree_leaves(opt.params)]
 
+    _build.reset_launch_counts()
     card_l, card_p = run(dev)
+    torch.cuda.synchronize()
+    f32_fwd = {k.name: k.launches for k in _build.KERNELS}["flash_fwd"]
+    _check(f32_fwd == model.num_layers, f"bert proxy O0 step: {f32_fwd} "
+           f"flash forward launches, expected {model.num_layers}")
     cpu_l, cpu_p = run("cpu")
     mutants = {"label smoothing 0.1": run("cpu", smoothing=0.1)[1],
                "padding not masked": run("cpu", padding_idx=-2)[1],
@@ -6150,14 +6103,16 @@ def bert_proxy_phase(dev, smi: str) -> None:
            f"bert proxy consistency: first loss differs by {rel0}")
     _check(gap <= limit, f"bert proxy consistency: params' gap {gap} over "
                          f"{limit}")
-    return {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    return dict({k: launches[k] for k in ("flash_fwd", "flash_dq",
+                                          "flash_dkv")},
+                flash_fwd_f32=f32_fwd)
 
 
-# the BERT proxy's flash bodies at its D 32, bf16: the forward and dk/dv on
-# the tensor cores, the dq on the CUDA cores (the device kernels' names)
+# the BERT proxy's flash bodies at its D 32, bf16: all three on the tensor
+# cores (the device kernels' names)
 PROXY_FLASH_BODIES = {"flash_fwd": "flash_fwd_kernel_tc<32, false>",
                       "flash_dkv": "flash_dkv_kernel_tc<32, false>",
-                      "flash_dq": "flash_dq_kernel<__nv_bfloat16, 32, false>"}
+                      "flash_dq": "flash_dq_kernel_tc<32, false>"}
 
 
 def welford_kernel_phase(dev, smi: str) -> dict:
@@ -6611,6 +6566,8 @@ def main() -> int:
             e.update(wide_rows[e["name"]])
         if e["name"] in narrow_rows:
             e.update(narrow_rows[e["name"]])
+        if "d32_f32" in e:
+            e["d32_f32"]["launches"] = proxy_launches["flash_fwd_f32"]
 
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
@@ -6652,7 +6609,7 @@ def main() -> int:
     kernels = [dict({k: e[k] for k in keys},
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
                                          "dropout", "d256", "d512",
-                                         "d1024", "d32_proxy",
+                                         "d1024", "d32_proxy", "d32_f32",
                                          "gpt_model_launches") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries

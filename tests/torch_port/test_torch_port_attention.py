@@ -416,7 +416,9 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
     two CTAs an SM), dq to ``DqWide<D>`` (64 query rows, dS straight from
     each thread's blocks, a two-stage ring, two CTAs an SM) and dk/dv to
     ``DkvWide<64, D>`` (64 key rows x D); the f32 forward with no keys and
-    every width of 16 and 32 keep their CUDA-core bodies; ``flash_route``
+    the f32 dq and dk/dv at 16 and 32 keep their CUDA-core bodies (the
+    forward with keys at 16 and 32 takes the register tiles too, through
+    its own predicate); ``flash_route``
     names the same bodies for D and the heads padded to it (33..127); and
     the CUDA-core entry points still launch the CUDA-core bodies at 64 and
     128."""
@@ -470,8 +472,8 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
         assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
                                  width) == "tensor cores"
     for width in (16, 32):
-        assert tattn.flash_route(f"flash_{kern}", torch.float32,
-                                 width) == "CUDA cores"
+        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == (
+            "wide CUDA cores" if kern == "fwd" else "CUDA cores")
     assert tattn._align(torch.float32, d) == 16
     entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
     for dt in ("float", "__nv_bfloat16"):
@@ -526,12 +528,13 @@ def test_f32_dq_at_64_and_128_picks_the_register_tile_body_of_its_width(d):
     assert tattn.flash_route("flash_dq", torch.bfloat16, d) == "tensor cores"
 
 
-# the body each kernel takes (bf16; f32 takes the CUDA cores at D 16 and
-# 32, and so does the bf16 dq): the tensor cores at these widths, the wide
+# the body each kernel takes (bf16; the f32 dq and dk/dv take the CUDA
+# cores at D 16 and 32): the tensor cores at these widths, the wide
 # tensor-core bodies from D 512 (f32 the wide CUDA-core bodies, register
-# tiles, from D 64)
-_TC_ROUTE = {"flash_fwd": (16, 32, 64, 128, 256), "flash_dq": (64, 128, 256),
-             "flash_dkv": (16, 32, 64, 128, 256)}
+# tiles, from D 64, and the f32 forward from D 16)
+_TC_ROUTE = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                          (16, 32, 64, 128, 256))
+_F32_ROW_FROM = {"flash_fwd": 16, "flash_dq": 64, "flash_dkv": 64}
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
@@ -540,21 +543,20 @@ _TC_ROUTES = ("tensor cores", "wide tensor cores")
 @pytest.mark.parametrize("d", tattn.HEAD_DIMS + (16384, 24576))
 def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
-    and dk/dv on the tensor cores at D 64, 128 and 256 (the forward and
-    dk/dv at 16 and 32 too), on the wide
-    tensor-core bodies at 512 (and 257..511, padded to it) and from 1024
-    (past 8192 the multiples of 8192, F7); f32 at 16 and 32, and the bf16
-    dq there, on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA on a whole
-    row), and the f32 forward, dq and dk/dv at 64 and 128 (one CTA on a
-    row too), on the wide CUDA-core bodies (register tiles).  A head dim pads to its
+    and dk/dv on the tensor cores at D 16, 32, 64, 128 and 256, on the
+    wide tensor-core bodies at 512 (and 257..511, padded to it) and from
+    1024 (past 8192 the multiples of 8192, F7); the f32 dq and dk/dv at 16
+    and 32 on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA
+    on a whole row), the f32 forward, dq and dk/dv at 64 and 128 and the
+    f32 forward at 16 and 32 (one CTA on a row too), on the wide CUDA-core
+    bodies (register tiles).  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
     align to TMA's 16 bytes wherever a kernel of the call takes either
     tensor-core route."""
     bf16 = dtype == torch.bfloat16
     want = ("wide tensor cores" if d >= 512 and bf16 else
             "wide CUDA cores" if d >= 1024 else
-            "wide CUDA cores" if not bf16 and d in (256, 512) else
-            "wide CUDA cores" if not bf16 and d in (64, 128) else
+            "wide CUDA cores" if not bf16 and d >= _F32_ROW_FROM[kernel] else
             "tensor cores" if bf16 and d in _TC_ROUTE[kernel] else
             "CUDA cores")
     assert tattn.flash_route(kernel, dtype, d) == want
@@ -754,13 +756,14 @@ def test_wrapper_pads_the_head_dim_and_copies_bad_operands():
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
 def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
-    """The C dispatchers send the bf16 forward (with keys to read) and
+    """The C dispatchers send the bf16 forward (with keys to read), dq and
     dk/dv (with queries and keys) at D 16 and 32 to their tensor-core
-    bodies at the head's own width, ahead of every other route; the bf16
-    dq there, the f32 bodies and the forward with no keys keep their
-    CUDA-core bodies, which the CUDA-core entry points still launch at 16
-    and 32; ``flash_route`` names the same bodies for D and the heads
-    padded to it, and q, k, v and dO align to TMA's 16 bytes there."""
+    bodies at the head's own width, ahead of every other route; the f32
+    dq and dk/dv and the forward with no keys keep their CUDA-core bodies
+    (the f32 forward with keys takes the register tiles), which the
+    CUDA-core entry points still launch at 16 and 32; ``flash_route``
+    names the same bodies for D and the heads padded to it, and q, k, v
+    and dO align to TMA's 16 bytes there."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
 
@@ -777,16 +780,13 @@ def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
     line = {"fwd": f"if (D == {d})\n      return launch_tc<{d}, DROP>(q, k, "
                    "v, o, lse, qi, ki, B, H, HK, Sq, Sk, causal, scale, dr, "
                    "st);",
-            "dq": f"return launch_dq_tc<{d}, DROP>(",
+            "dq": f"if (D == {d}) return launch_dq_tc<{d}, DROP>(a, dq);",
             "dkv": f"if (D == {d}) return launch_dkv_tc<{d}, DROP>(a, dk, "
                    "dv);"}[kern]
-    if kern == "dq":
-        assert line not in route
-    else:
-        assert branch < route.index(line) < cores
-        assert route.index(line) < route.index(
-            "if (D == 64)\n      return launch_tc<64" if kern == "fwd"
-            else "if (D == 64) return launch_dkv_tc<64")
+    assert branch < route.index(line) < cores
+    assert route.index(line) < route.index(
+        "if (D == 64)\n      return launch_tc<64" if kern == "fwd"
+        else f"if (D == 64) return launch_{kern}_tc<64")
     cc = body(src, "int launch_cuda_cores(" if kern == "fwd" else
               f"int launch_{kern}_cuda_cores(")
     assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
@@ -795,13 +795,12 @@ def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
     for dt in ("float", "__nv_bfloat16"):
         for drop in ("true", "false"):
             assert f"cuda_cores<{dt}, {drop}>(" in entry
-    want = "CUDA cores" if kern == "dq" else "tensor cores"
     for width in (d, d - 1, d // 2 + 1):
         assert tattn._kernel_width(width) == d
         assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
-                                 width) == want
-        assert tattn.flash_route(f"flash_{kern}", torch.float32,
-                                 width) == "CUDA cores"
+                                 width) == "tensor cores"
+        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == (
+            "wide CUDA cores" if kern == "fwd" else "CUDA cores")
         assert tattn._align(torch.bfloat16, width) == 16
         assert tattn._align(torch.float32, width) == 16
 
@@ -810,8 +809,8 @@ def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
                                         (64, "128B")])
 def test_narrow_tensor_core_tiles_take_the_swizzle_of_their_width(d, swizzle):
     """A head of 16 or 32 columns is one panel as wide as the row: the
-    forward's and dk/dv's TMA maps take a box of ``PW`` columns (``D`` at
-    16 and 32, 64 from 64) with the swizzle of that row's bytes
+    forward's, dq's and dk/dv's TMA maps take a box of ``PW`` columns
+    (``D`` at 16 and 32, 64 from 64) with the swizzle of that row's bytes
     (``swizzle_of``: 32, 64, 128), which ``make_map_bf16`` refuses to
     pair with any other box; the wgmma descriptors take the layout type
     of the same swizzle (CUTLASS's GMMA::LayoutType: 3, 2, 1), 8 rows of
@@ -840,7 +839,8 @@ def test_narrow_tensor_core_tiles_take_the_swizzle_of_their_width(d, swizzle):
     wrappers = {16: "m64n16k16", 32: "m64n32k16", 64: "m64n64k16"}
     assert f"wgmma.mma_async.sync.aligned.{wrappers[d]}.f32.bf16.bf16" in hdr
     for src, geo, launch in ((fwd, "struct FwdTc {", "int launch_tc("),
-                             (bwd, "struct DkvTc {", "int launch_dkv_tc(")):
+                             (bwd, "struct DkvTc {", "int launch_dkv_tc("),
+                             (bwd, "struct DqTc {", "int launch_dq_tc(")):
         g = src[src.index(geo):]
         g = g[:g.index("\n};\n")]
         assert "static constexpr int PW = D < 64 ? D : 64;" in g
@@ -853,6 +853,125 @@ def test_narrow_tensor_core_tiles_take_the_swizzle_of_their_width(d, swizzle):
         assert lb.count(", G::PW, swz);") == (3 if src is fwd else 4)
         assert "hopper::wgmma_rs<G::PW, 1>(" in src
         assert "hopper::desc_sw<SW>(" in src and "8 * SW)" in src
+
+
+def _src_body(src, start, end="\n}\n"):
+    text = src[src.index(start):]
+    return text[:text.index(end)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_tensor_core_dq_takes_panels_of_the_heads_width(d):
+    """``DqTc<D>`` has ``DkvTc``'s panel geometry: ``PW`` columns a panel
+    (the head's own 16 or 32, else 64), rows of ``SW = 2 PW`` bytes, ``NP
+    = D / PW`` panels and ``NA = PW / 2`` f32 of dQ a thread a panel.  S
+    and dP read Q, dO, K and V K-major (k16 steps of 32 bytes within a
+    panel), dQ += dS.K reads the same K tile MN-major (a k16 step is 16
+    key rows, 16 SW bytes) as m64nPWk16 products; the epilogue writes
+    ``NA / 4`` words of two bf16 a thread a panel, which over the
+    fragment's 32 lanes cover each row's D columns once; the ring's
+    stages and shared memory follow ``STAGES``."""
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    geo = _src_body(bwd, "struct DqTc {", "\n};\n")
+    for line in ("static constexpr int PW = D < 64 ? D : 64;",
+                 "static constexpr int SW = 2 * PW;",
+                 "static constexpr int NP = D / PW;",
+                 "static constexpr int NA = PW / 2;",
+                 "static constexpr int NS = BK / 2;",
+                 "static constexpr int KID_OFF = V_OFF + STAGES * KV_BYTES;",
+                 "static constexpr int BAR_OFF = KID_OFF + STAGES * BK * 4;"):
+        assert line in geo, line
+    kern = _src_body(bwd, "flash_dq_kernel_tc(const __grid_constant__")
+    for text in ("hopper::desc_sw<SW>(qs + p * G::BQ * SW + off, 16, 8 * SW)",
+                 "hopper::desc_sw<SW>(kt + p * BK * SW + off, 16, 8 * SW)",
+                 "hopper::desc_sw<SW>(dos + p * G::BQ * SW + off, 16, 8 * SW)",
+                 "hopper::desc_sw<SW>(vt + p * BK * SW + off, 16, 8 * SW)",
+                 "hopper::wgmma_rs<G::PW, 1>(",
+                 "hopper::desc_sw<SW>(kt + p * BK * SW + c * 16 * SW, BK * SW,",
+                 "for (int j = 0; j < G::NA / 4; ++j)",
+                 "qrow[(G::PW / 2) * p + 4 * j + (lane & 3)] ="):
+        assert text in kern, text
+    assert "desc_sw<128>" not in kern and "64 * p" not in kern
+    pw = d if d < 64 else 64
+    na = pw // 2
+    # the m64nN fragment: lane l's words j of a panel hold columns 8 j +
+    # 2 (l & 3) and the next, of rows r_lo and r_lo + 8
+    words = sorted((pw // 2) * p + 4 * j + (lane & 3)
+                   for p in range(d // pw) for j in range(na // 4)
+                   for lane in range(4))
+    assert words == list(range(d // 2))
+    launch = _src_body(bwd, "int launch_dq_tc(")
+    assert "hopper::swizzle_of(G::PW)" in launch
+    assert launch.count(", G::PW, swz);") == 4
+    route = _src_body(bwd, "int route_dq(")
+    assert route.index(f"if (D == {d}) return launch_dq_tc<{d}, DROP>(a, "
+                       "dq);") < route.index("return launch_dq_cuda_cores<")
+    assert tattn.flash_route("flash_dq", torch.bfloat16, d) == "tensor cores"
+
+
+def _fwd_wide_geometry(w):
+    """``FwdWide<W>``'s constants (csrc/flash_fwd.cu), for a width W."""
+    threads = 128 if w < 64 else 256
+    bq = 32 if w >= 1024 else 64
+    bk, dc = 64, (w if w < 64 else 64)
+    ks, rs = 64 // bq, bq // 4
+    sb = bk * rs * ks // threads
+    c = bq * w // 8192 if bq * w >= 8192 else 1
+    return dict(threads=threads, bq=bq, dc=dc, ks=ks, rs=rs, sb=sb,
+                kg=bk // sb, tpr=threads // bq, nx=bk // (threads // bq),
+                c=c, orows=bq * w // (4 * threads * c), cg=w // (4 * c))
+
+
+@pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
+def test_f32_forward_alone_takes_register_tiles_at_16_and_32(kern):
+    """The header's forward-only predicate ``wide::fwd_narrow_takes`` (D
+    16 and 32) sends the f32 forward with keys there to the register-tile
+    body, ahead of its CUDA-core body; ``route_dq`` and ``route_dkv``
+    (and the backward's register-tile launchers) never read it, so the
+    f32 dq and dk/dv at 16 and 32 keep their CUDA-core bodies.
+    ``FwdWide<16 / 32>`` takes a stage of S as wide as the head and 128
+    threads: 4 x 8 blocks of S, two threads a row in the softmax, 4 and 2
+    rows of O's 64 x W a thread; its tiles cover the CTA at every width
+    (the static_asserts' arithmetic)."""
+    fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
+    bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
+    hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
+    assert "constexpr bool fwd_narrow_takes(int D) {\n  return D == 16 || " \
+        "D == 32;" in hdr
+    if kern == "fwd":
+        route = _src_body(fwd, "int route(")
+        line = route.index("if (sizeof(T) == 4 && wide::fwd_narrow_takes(D) "
+                           "&& Sk > 0)\n    return launch_wide<T, DROP>(")
+        assert line < route.index("return launch_cuda_cores<T, DROP>(")
+        launch = _src_body(fwd, "int launch_wide(")
+        for w in (16, 32):
+            assert launch.index("if constexpr (sizeof(T) == 4) {") < \
+                launch.index(f"if (D == {w})\n      return launch_wide_w<T, "
+                             f"{w}, DROP>(")
+        geo = _src_body(fwd, "struct FwdWide {", "\n};\n")
+        for text in ("static constexpr int THREADS = W < 64 ? 128 : 256;",
+                     "static constexpr int DC = W < 64 ? W : 64;",
+                     "static constexpr int SB = BK * RS * KS / THREADS;",
+                     "static constexpr int OR = BQ * W / (4 * THREADS * C);"):
+            assert text in geo, text
+    else:
+        for start in (f"int route_{kern}(", f"int launch_{kern}_wide("):
+            assert "fwd_narrow_takes" not in _src_body(bwd, start)
+        cores = _src_body(bwd, f"int launch_{kern}_cuda_cores(")
+        for w in (16, 32):
+            assert f"case {w}: launch_{kern}<T, {w}, DROP>(" in cores
+    for w in (16, 32, 64, 128, 256, 512, 1024):
+        g = _fwd_wide_geometry(w)
+        assert g["ks"] * g["rs"] * g["kg"] == g["threads"] and g["nx"] <= 32
+        assert g["bq"] // g["orows"] * g["cg"] == g["threads"]
+        assert g["bq"] * g["dc"] // 4 % g["threads"] == 0
+    assert (_fwd_wide_geometry(32)["sb"], _fwd_wide_geometry(32)["orows"],
+            _fwd_wide_geometry(16)["orows"]) == (8, 4, 2)
+    for w in (16, 32):
+        want = "wide CUDA cores" if kern == "fwd" else "CUDA cores"
+        assert tattn.flash_route(f"flash_{kern}", torch.float32, w) == want
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 w - 3) == want
 
 
 # the twins at the BERT proxy's head dim (and 16), bf16, against the

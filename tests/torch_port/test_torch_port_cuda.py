@@ -788,6 +788,19 @@ F32_ROW_CASES = {
     "d64_sq1_sk5_gqa": (2, 4, 2, 1, 5, 64, False, None),
     "d128_sq1_sk5_gqa_causal": (1, 4, 2, 1, 5, 128, True, None),
     "d128_sq1_sk5": (2, 2, 2, 1, 5, 128, False, None),
+    # the f32 forward at 32 and 16 (and 24 and 12 padded to them) in
+    # register tiles, 128 threads a CTA; the dq and dk/dv there keep their
+    # CUDA-core bodies
+    "d32_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 32, True, None),
+    "d32_sq70_sk200_causal": (1, 2, 2, 70, 200, 32, True, None),
+    "d32_gqa_packed_causal": (2, 4, 2, 130, 130, 32, True, "packed"),
+    "d32_proxy_packed": (2, 4, 4, 128, 128, 32, False, "packed"),
+    "d24_sq70_sk200_gqa": (1, 4, 2, 70, 200, 24, False, None),
+    "d16_sq130_sk70_causal": (1, 2, 2, 130, 70, 16, True, None),
+    "d16_gqa_packed": (2, 4, 2, 130, 130, 16, False, "packed"),
+    "d12_sq70_sk200_gqa_causal": (1, 4, 2, 70, 200, 12, True, None),
+    "d32_sq1_sk5_causal": (1, 2, 2, 1, 5, 32, True, None),
+    "d16_sq1_sk5_gqa": (2, 4, 2, 1, 5, 16, False, None),
 }
 
 
@@ -796,16 +809,17 @@ F32_ROW_CASES = {
 @pytest.mark.parametrize("name", sorted(F32_ROW_CASES))
 def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
     """The f32 forward (o and lse), dq and dk/dv at kernel widths 64,
-    128, 256 and 512, register tiles with one CTA on a whole row, against
+    128, 256 and 512, register tiles with one CTA on a whole row (at 16
+    and 32 the forward alone, the dq and dk/dv on the CUDA cores), against
     ``flash_fwd_ref`` / ``flash_bwd_ref`` (the backward on the card's own
     o and lse; f32 within 1e-4), rate 0 and 0.1: the same bits on a
     second call; rows of padding (packed ids) and, causal with Sk > Sq,
     keys that no row sees give exact zeros; each kernel on its
     ``flash_route`` and the body of its width and DROP instantiation, read
     from the device kernels' names (the forward's and dq's W, dk/dv's key
-    rows a CTA and W: 64 x D at 64, 128 and 256, 32 x 512 at 512).  At 64
-    and 128 the cases include one query row against 5 keys, a partial
-    tile on each axis."""
+    rows a CTA and W: 64 x D at 64, 128 and 256, 32 x 512 at 512).  At 16,
+    32, 64 and 128 the cases include one query row against 5 keys, a
+    partial tile on each axis."""
     b, h, hk, sq, sk, d, causal, kind = F32_ROW_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(47)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
@@ -847,9 +861,11 @@ def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
     w = attn._kernel_width(d)
     drop = str(bool(rate)).lower()
     rows = 16384 // w if w >= 256 else 64
-    for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",
-                 f"flash_dq_kernel_wide<float, {w}, {drop}>",
-                 f"flash_dkv_kernel_wide<float, {rows}, {w}, {drop}>"):
+    bwd = ((f"flash_dq_kernel<float, {w}, {drop}>",
+            f"flash_dkv_kernel<float, {w}, {drop}>") if w < 64 else
+           (f"flash_dq_kernel_wide<float, {w}, {drop}>",
+            f"flash_dkv_kernel_wide<float, {rows}, {w}, {drop}>"))
+    for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",) + bwd:
         assert any(body in n for n in names), (body, names)
 
 
@@ -968,8 +984,8 @@ def _device_kernel_names(fn, keep, want=None, calls=3, sessions=3):
 
 
 DQ_CASES = {
-    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 64,
-    # 128 and 256 is the tensor-core route, the rest the CUDA cores
+    # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype): bf16 at D 16,
+    # 32, 64, 128 and 256 is the tensor-core route
     "gpt2_small_causal": (8, 12, 12, 512, 512, 64, True, None,
                           torch.bfloat16),
     "bert_large_unmasked": (8, 16, 16, 512, 512, 64, False, None,
@@ -983,8 +999,30 @@ DQ_CASES = {
     "sq130_sk70_causal": (2, 4, 4, 130, 70, 64, True, None, torch.bfloat16),
     "f32_d64_cuda_cores": (2, 4, 4, 200, 200, 64, True, "packed",
                            torch.float32),
-    "bf16_d32_cuda_cores": (2, 4, 4, 200, 200, 32, True, None,
-                            torch.bfloat16),
+    # bf16 at D 32 and 16 (24 and 12 padded to them): one panel as wide
+    # as the head
+    "bf16_d32_causal_s200": (2, 4, 4, 200, 200, 32, True, None,
+                             torch.bfloat16),
+    "bf16_d32_proxy_unmasked": (8, 4, 4, 512, 512, 32, False, None,
+                                torch.bfloat16),
+    "bf16_d16_causal": (2, 8, 8, 256, 256, 16, True, None, torch.bfloat16),
+    "bf16_d16_ragged_s200": (2, 4, 4, 200, 200, 16, False, "ragged",
+                             torch.bfloat16),
+    "bf16_d32_sq130_sk70_causal": (2, 4, 4, 130, 70, 32, True, None,
+                                   torch.bfloat16),
+    "bf16_d16_sq200_sk330_gqa": (1, 4, 2, 200, 330, 16, False, None,
+                                 torch.bfloat16),
+    "bf16_d32_gqa_12_to_4_ragged_causal": (2, 12, 4, 200, 200, 32, True,
+                                           "ragged", torch.bfloat16),
+    "bf16_d16_gqa_12_to_4": (2, 12, 4, 256, 256, 16, False, None,
+                             torch.bfloat16),
+    "bf16_d32_packed": (2, 4, 4, 256, 256, 32, False, "packed",
+                        torch.bfloat16),
+    "bf16_d16_packed_causal": (2, 4, 4, 192, 192, 16, True, "packed",
+                               torch.bfloat16),
+    "bf16_d24_causal": (2, 4, 4, 256, 256, 24, True, None, torch.bfloat16),
+    "bf16_d12_packed": (2, 4, 4, 130, 130, 12, False, "packed",
+                        torch.bfloat16),
     "bf16_d256_tensor_cores_packed": (2, 4, 2, 200, 200, 256, True,
                                       "packed", torch.bfloat16),
     "bf16_d256_gqa_sq200_sk330_causal": (2, 4, 2, 200, 330, 256, True, None,
@@ -1016,7 +1054,7 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     within one bf16 rounding (2e-2), f32 within 1e-4; rows that see no
     key give exact zeros; the same bits on a second call; the route read
     from the kernel's name (``attn.flash_route``: ``flash_dq_kernel_tc``
-    exactly for bf16 at D 64, 128 and 256)."""
+    exactly for bf16 at D 16, 32, 64, 128 and 256)."""
     b, h, hk, sq, sk, d, causal, kind, dt = DQ_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(31)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
@@ -1952,9 +1990,9 @@ def test_welford_off_the_gate_runs_the_plain_version_on_card(cuda):
 
 DROP_CASES = {
     # name: (b, h, hk, sq, sk, d, causal, seg kind, dtype, rate): each
-    # kernel on its attn.flash_route (bf16 at D 64/128/256 the
-    # tensor-core bodies, bf16 from D 1024 the wide tensor-core bodies;
-    # the rest the CUDA cores)
+    # kernel on its attn.flash_route (bf16 at D 16/32/64/128/256 the
+    # tensor-core bodies, bf16 from D 512 the wide tensor-core bodies; f32
+    # the register tiles or the CUDA cores)
     "tc_gpt_causal": (2, 12, 12, 256, 256, 64, True, None, torch.bfloat16,
                       0.1),
     "tc_bert_packed": (2, 16, 16, 192, 192, 64, False, "packed",
@@ -2024,8 +2062,8 @@ DROP_CASES = {
                                          "packed", torch.float32, 0.1),
     "wide_f32_d16384_cross_causal": (1, 2, 1, 40, 70, 16384, True, None,
                                      torch.float32, 0.1),
-    # the DROP instantiations of the bf16 forward and dk/dv at D 16 and
-    # 32 on the tensor cores
+    # the DROP instantiations of the bf16 forward, dq and dk/dv at D 16
+    # and 32 on the tensor cores
     "tc_d32_gqa_packed_causal": (2, 8, 2, 192, 192, 32, True, "packed",
                                  torch.bfloat16, 0.1),
     "tc_d16_cross_causal_r25": (1, 4, 4, 130, 70, 16, True, None,
@@ -2113,6 +2151,9 @@ KEEP_CASES = {
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
     "tc_d32_causal": (2, 3, 200, 200, 32, True, torch.bfloat16, 0.1),
     "tc_d16_cross": (1, 2, 70, 150, 16, False, torch.bfloat16, 0.25),
+    # the f32 register-tile forward at 32 and 16
+    "wide_f32_d32_causal": (2, 3, 200, 200, 32, True, torch.float32, 0.1),
+    "wide_f32_d16_cross": (1, 2, 70, 150, 16, False, torch.float32, 0.25),
 }
 
 
