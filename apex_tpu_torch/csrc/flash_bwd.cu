@@ -19,9 +19,11 @@
 //   padded to 256), and at D 16 and 32 (the BERT example's default proxy,
 //   heads of 32, and the heads of 9..31, padded to them) at the head's
 //   own width.
-// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: f32 at D 16 and 32
-//   (the precision contract of docs/kernels.md: f32 operands stay true
-//   f32, no TF32).
+// - CUDA cores, flash_dq_kernel and flash_dkv_kernel: no width with
+//   queries and keys to read (bf16 with none, which the wrapper answers
+//   with zeros before it launches, is all that reaches them); the
+//   *_cuda_cores entry points keep them so that a measurement can time
+//   them beside the routed bodies.
 // - wide tensor cores, flash_dq_kernel_tc_wide and
 //   flash_dkv_kernel_tc_wide: bf16 at D 512 (and the heads of 257..511,
 //   padded to it) and D >= 1024 (the powers of two to 8192, then the
@@ -33,8 +35,10 @@
 //   slices of a row block in a thread-block cluster that shares S and dP
 //   (below, before the entry points); both at f32 D 256 and 512 (and the
 //   heads of 129..511, padded to them), where one CTA spans the row of dQ,
-//   of dK and dV (wide::row_takes); and both at f32 D 64 and 128 (and the
-//   heads of 33..127), one CTA on a row too (wide::narrow_takes).
+//   of dK and dV (wide::row_takes); and both at f32 D 16, 32, 64 and 128
+//   (and the heads of 9..127), one CTA on a row too (wide::narrow_takes;
+//   128 threads a CTA at 16 and 32).  The f32 bodies keep f32 operands
+//   true f32, no TF32 (the precision contract of docs/kernels.md).
 //
 // Arithmetic, in the reference body's order: s = (q.k) * scale,
 // p = exp(s - lse) SELECTED to 0 where masked (a row that sees no key
@@ -157,9 +161,10 @@
 // tensor-core FLOP a pair where one takes 6 D), were measured 4-23%
 // slower at four causal D-256 shapes and not kept (PERF.md, row 2).
 //
-// The CUDA-core bodies up to D 512, simple first (about S/4 operations
-// per byte moved against the card's 20 for f32 outside the tensor cores:
-// bound by arithmetic):
+// The CUDA-core bodies up to D 512 (no route's since the f32 dq and
+// dk/dv at D 16 and 32 came to the register tiles; kept for timing in
+// turns), simple first (about S/4 operations per byte moved against the
+// card's 20 for f32 outside the tensor cores: bound by arithmetic):
 //
 // - dq: one CTA per (b*h, BQ query rows), the CUDA-core forward's
 //   geometry (BQ 64 up to D 128, 8192/D past it; a row split over D/32
@@ -1699,7 +1704,7 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 
 // ---------------------------------------------------------------------------
 // wide CUDA-core bodies: f32 at D >= 1024 (wide::takes) and at D 256 and
-// 512 (wide::row_takes), and at 64 and 128 (wide::narrow_takes),
+// 512 (wide::row_takes), and at 16, 32, 64 and 128 (wide::narrow_takes),
 // and bf16 at D >= 1024 with no queries or no keys (bf16 otherwise takes
 // the tensor-core bodies, above)
 // ---------------------------------------------------------------------------
@@ -1794,6 +1799,25 @@ int launch_dkv_tc_wide(const Args& a, int D, void* dk, void* dv) {
 // A last cluster wait keeps each CTA's shared memory alive until the
 // others have read it.  bf16 reaches these bodies only with no keys (dq)
 // or no queries (dk/dv): its instantiations write the zeros.
+//
+// At W 32 and 16 (f32 D 32 and 16, and the heads of 9..31 padded to
+// them; the BERT example's default proxy trains at D 32 under
+// --opt-level O0) both take the D-64 design with FwdWide<16 | 32>'s
+// narrow geometry: a stage of S (S^T) as wide as the head (DC = W, so
+// one S stage and one dP stage a tile, nS = 1), 128 threads, each
+// holding a 4 x 8 block of S and of dP (rows rg + 16 a, keys kg + 8 b;
+// in dk/dv key rows and q rows), DIRECT as at 64 and 128, and 4 x 4 (2 x
+// 4 at 16) of each output's 64 x W.  dQ's K stage is the tile's whole K
+// again (the ring has two stages, so the S stage's K is gone by then);
+// dk/dv's update stage the tile's 64 rows of dO and q.  A causal (8, 12,
+// 512, 32) call does 2.4 GFLOP in the dq and 3.2 in the dk/dv: 36 and 48
+// us at the card's 67 TFLOP/s of f32 FMAs against 5-6 us for their bytes,
+// bound by the FMAs.  The one path that runs these widths, the BERT
+// example at --opt-level O0, runs them unmasked at (8, 4, 512, 32): there
+// the dq took 0.069 ms and the dk/dv 0.088 on an H100 at 700 W
+// (tools/flash_wide_f32.py, in turns), against 0.108 and 0.112 on the
+// CUDA-core bodies.  256 threads (4 x 4 blocks of S) were 3-26% slower
+// there and at D 16, and 128-key (128-row) tiles 13-41% slower.
 
 struct BwdWide {
   static constexpr int THREADS = 256;
@@ -1813,6 +1837,13 @@ struct BwdWide {
 template <int W_>
 struct DqWide : BwdWide {
   static constexpr int W = W_;                  // dQ's columns a CTA
+  // 256 threads; 128 at W 16 and 32, where a thread's 4 x 8 block of S
+  // (and of dP) reads a float4 of shared memory for every 10.7 FMAs (a 4
+  // x 4 block: 8), as in the forward's FwdWide<16 | 32>
+  static constexpr int THREADS = W < 64 ? 128 : BwdWide::THREADS;
+  // S's and dP's columns a stage: the head's own at W 16 and 32
+  static constexpr int DC = W < 64 ? W : BwdWide::DC;
+  static constexpr int PAD = DC + 4;            // a staged row's floats
   // query rows a CTA: 32 over a cluster's 1024-column slices; 64 where
   // one CTA spans the row (each staged K and V word feeds twice the
   // rows: 13-14% faster than 32 at D 256 and 512 on an H100)
@@ -1822,23 +1853,30 @@ struct DqWide : BwdWide {
   static constexpr bool CLUSTER = W >= wide::MIN_D;
   static constexpr int KS = 64 / BQ;            // S, dP: parts of a stage's columns
   static constexpr int RS = BQ / 4;             // S, dP: rows rg + RS a
+  // S, dP: a thread's keys kg + KG b (b < SB): 4 x 4 blocks at 256
+  // threads, 4 x 8 at 128
+  static constexpr int SB = TILE * RS * KS / THREADS;
+  static constexpr int KG = TILE / SB;
   static constexpr int TPR = THREADS / BQ;      // p and dS: threads a row
   static constexpr int NX = TILE / TPR;         // p and dS: keys a thread
-  // dQ: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and 64)
-  // and rows (8, 4 at W 64)
+  // dQ: a thread's float4s a row (C = BQ W / 8192, 1 at W 128 and below)
+  // and rows (8, 4 at W 64 and 32, 2 at W 16)
   static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;
-  static constexpr int OR = BQ * W / (1024 * C);
+  static constexpr int OR = BQ * W / (4 * THREADS * C);
   static constexpr int CG = W / (4 * C);        // dQ: threads a row group
-  // K's keys a dQ stage (32 KB; the tile's 64 at W 64, 16 KB)
+  // K's keys a dQ stage (32 KB; the tile's 64 at W 64 and below)
   static constexpr int VK = W >= 128 ? BwdWide::STAGE / W : TILE;
+  // a K stage's floats: 32 KB, the tile's K alone at W 16 and 32
+  static constexpr int KSTAGE = W < 64 ? VK * W : BwdWide::STAGE;
   static constexpr int DSROW = BQ + 4;          // dS's key row (floats)
-  // a ring stage: a dQ stage's 32 KB, or an S (dP) stage where it is
-  // larger (64 rows: 34 KB)
-  static constexpr int STAGE = (BQ + TILE) * PAD > BwdWide::STAGE
-                                   ? (BQ + TILE) * PAD : BwdWide::STAGE;
-  // at 64 and 128 (one CTA on a row, KS 1) each thread takes dS of its
+  // a ring stage: a K stage, or an S (dP) stage where it is larger (64
+  // rows: 34 KB; 18 and 10 KB at W 32 and 16)
+  static constexpr int STAGE = (BQ + TILE) * PAD > KSTAGE
+                                   ? (BQ + TILE) * PAD : KSTAGE;
+  // from 16 to 128 (one CTA on a row, KS 1) each thread takes dS of its
   // own blocks of S and dP, which it holds whole: no partials in shared
-  // memory, and a two-stage ring (85 KB), so that two CTAs share an SM
+  // memory, and a two-stage ring (85 KB at 64 and 128), so that two CTAs
+  // share an SM
   static constexpr bool DIRECT = W < 256;
   static constexpr int PARTS = DIRECT ? 0 : 2 * SPART;
   static constexpr int STAGES = DIRECT ? 2 : BwdWide::STAGES;
@@ -1846,41 +1884,60 @@ struct DqWide : BwdWide {
   static constexpr int DP_OFF = S_OFF + SPART;
   static constexpr int TILE_OFF = S_OFF + PARTS;
   static constexpr int SMEM = (TILE_OFF + TILE * DSROW) * 4;
-  // CTAs an SM its shared memory allows (the register budget follows)
-  static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
-  static_assert(KS * RS * 16 == THREADS, "the S tiles cover the CTA's threads");
+  // CTAs an SM: what its shared memory allows (the register budget
+  // follows); at W 16 and 32 (37 and 53 KB) two, chosen, whose 255
+  // registers a thread hold the S and dP blocks with no spills: unmasked
+  // on an H100, three CTAs' 168 registers spill 12 and 108 bytes and take
+  // 1% and 5% longer (8% and 17% less causal, which no path runs here)
+  static constexpr int CTAS = W < 64 ? 2 : 228 * 1024 / (SMEM + 1024);
+  static_assert(KS * RS * KG == THREADS, "the S tiles cover the CTA's threads");
   static_assert(VK % (THREADS / (W / 4)) == 0 && TILE % VK == 0,
                 "every thread copies the same number of K's float4s, and "
                 "K's stages cover a tile");
   static_assert(VK * W <= STAGE, "a K stage fits a ring stage");
   static_assert(CG % 32 == 0 || 32 % CG == 0,
                 "a warp's dQ columns are contiguous, or it spans whole rows");
-  static_assert(OR % 4 == 0 && BQ / OR * CG == THREADS,
+  static_assert((OR % 4 == 0 || OR < 4) && BQ / OR * CG == THREADS,
                 "dQ's tiles cover the CTA");
   static_assert(!DIRECT || KS == 1, "a thread's blocks hold whole scores");
-  static_assert(SMEM <= 227 * 1024, "one CTA an SM");
+  static_assert(SMEM <= 227 * 1024 && (SMEM + 1024) * CTAS <= 228 * 1024,
+                "the CTAs an SM fit its shared memory");
 };
 
 template <int ROWS_, int W_ = 16384 / ROWS_>
 struct DkvWide : BwdWide {
   static constexpr int ROWS = ROWS_;            // key rows a CTA (64, 32 or 16)
-  // dK's and dV's columns a CTA: 16384 / ROWS, or 128 and 64 at 64 rows
+  // dK's and dV's columns a CTA: 16384 / ROWS, or 128, 64, 32 and 16 at
+  // 64 rows
   static constexpr int W = W_;
+  // 256 threads; 128 at W 16 and 32 (4 x 8 blocks of S^T and dP^T, as
+  // DqWide there)
+  static constexpr int THREADS = W < 64 ? 128 : BwdWide::THREADS;
+  // S^T's and dP^T's columns a stage: the head's own at W 16 and 32
+  static constexpr int DC = W < 64 ? W : BwdWide::DC;
+  static constexpr int PAD = DC + 4;            // a staged row's floats
   static constexpr int KS = 64 / ROWS;          // S^T: parts of a stage's columns
   static constexpr int RS = ROWS / 4;           // S^T: key rows rg + RS a
+  // S^T, dP^T: a thread's q rows qg + KG b (b < SB): 4 x 4 blocks at 256
+  // threads, 4 x 8 at 128
+  static constexpr int SB = TILE * RS * KS / THREADS;
+  static constexpr int KG = TILE / SB;
   static constexpr int TPR = THREADS / ROWS;    // p and dS: threads a key row
   // dK, dV: a thread's float4s a row (C) and rows (OR): 8 x 2 where ROWS W
-  // = 16384, 8 x 1 at 64 x 128, 4 x 1 at 64 x 64
+  // = 16384, 8 x 1 at 64 x 128, 4 x 1 at 64 x 64 and 64 x 32, 2 x 1 at 64
+  // x 16
   static constexpr int C = ROWS * W >= 16384 ? 2 : 1;
-  static constexpr int OR = ROWS * W / (1024 * C);
+  static constexpr int OR = ROWS * W / (4 * THREADS * C);
   static constexpr int CG = W / (4 * C);        // dK, dV: threads a row group
-  static constexpr int QK = BwdWide::STAGE / (2 * W);   // dO and Q rows a stage
+  // dO and Q rows an update stage (32 KB; the tile's 64 at W 16 and 32)
+  static constexpr int QK = W < 64 ? TILE : BwdWide::STAGE / (2 * W);
+  static constexpr int USTAGE = QK * 2 * W;     // an update stage's floats
   static constexpr int PROW = ROWS + 4;         // p's (dS's) query row (floats)
-  // a ring stage: an update stage's 32 KB, or an S^T (dP^T) stage where
-  // it is larger (64 rows: 34 KB)
-  static constexpr int STAGE = (ROWS + TILE) * PAD > BwdWide::STAGE
-                                   ? (ROWS + TILE) * PAD : BwdWide::STAGE;
-  // at 64 and 128 columns (one CTA on a row, KS 1) each thread takes p
+  // a ring stage: an update stage, or an S^T (dP^T) stage where it is
+  // larger (64 rows: 34 KB; 18 and 10 KB at W 32 and 16)
+  static constexpr int STAGE = (ROWS + TILE) * PAD > USTAGE
+                                   ? (ROWS + TILE) * PAD : USTAGE;
+  // at 16 to 128 columns (one CTA on a row, KS 1) each thread takes p
   // and dS of its own blocks of S^T and dP^T, which it holds whole: no
   // partials in shared memory
   static constexpr bool DIRECT = W < 256;
@@ -1889,105 +1946,129 @@ struct DkvWide : BwdWide {
   // di and q ids; the ring has five stages where they fit beside it (one
   // CTA an SM), four at 64 rows
   static constexpr int TAIL = PARTS + 2 * TILE * PROW + 3 * TILE;
-  // (two at W 64: 103 KB, so that two CTAs share an SM)
+  // (two at W 64 and below: 103 KB at 64, so that two CTAs share an SM)
   static constexpr int RING = (5 * STAGE + TAIL) * 4 <= 227 * 1024 ? 5 : 4;
-  static constexpr int STAGES = W == 64 ? 2 : RING;
+  static constexpr int STAGES = W <= 64 ? 2 : RING;
   static constexpr int S_OFF = STAGES * STAGE;
   static constexpr int DP_OFF = S_OFF + SPART;
   static constexpr int P_OFF = S_OFF + PARTS;
   static constexpr int DS_OFF = P_OFF + TILE * PROW;
   static constexpr int ROW_OFF = DS_OFF + TILE * PROW;   // lse, di, q ids
   static constexpr int SMEM = (ROW_OFF + 3 * TILE) * 4;
-  // CTAs an SM its shared memory allows (the register budget follows)
-  static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);
-  static_assert(KS * RS * 16 == THREADS, "the S^T tiles cover the CTA's threads");
-  static_assert(OR % 4 == 0 && ROWS / OR * CG == THREADS,
+  // CTAs an SM: what its shared memory allows (the register budget
+  // follows); chosen at W 16 and 32 (56 and 72 KB): three at 16 (168
+  // registers a thread, 24 bytes of spill), two at 32, whose two 4 x 8
+  // blocks and 4 x 4 of dK and dV a thread spill 176 bytes under three
+  // CTAs' 168 registers and none under two's 255 (14-22% faster on an
+  // H100; at 16 two CTAs were 20% slower causal, from 2% faster to 5%
+  // slower unmasked)
+  static constexpr int CTAS = W == 32 ? 2 : W < 64 ? 3 :
+                              228 * 1024 / (SMEM + 1024);
+  static_assert(KS * RS * KG == THREADS, "the S^T tiles cover the CTA's threads");
+  static_assert((OR % 4 == 0 || OR < 4) && ROWS / OR * CG == THREADS,
                 "dK's and dV's tiles cover the CTA");
-  static_assert(TILE % QK == 0, "the update stages cover a tile");
+  static_assert(TILE % QK == 0 && USTAGE / 4 % THREADS == 0,
+                "the update stages cover a tile, every thread copying the "
+                "same number of float4s");
   static_assert(!DIRECT || KS == 1, "a thread's blocks hold whole scores");
-  static_assert(SMEM <= 227 * 1024, "one CTA an SM");
+  static_assert(SMEM <= 227 * 1024 && (SMEM + 1024) * CTAS <= 228 * 1024,
+                "the CTAs an SM fit its shared memory");
+  static_assert(THREADS >= TILE, "a thread stages each row's lse, di, q id");
 };
 
 // acc[a][b] += the dot products of A's rows ra + RS a with B's rows rb +
-// 16 b over NF float4 columns from c of a staged pair (PAD floats a row)
-template <int RS, int NF>
-__device__ __forceinline__ void stage_dots(float (&acc)[4][4], const float* A,
-                                           const float* B, int ra, int rb,
-                                           int c) {
+// KG b (b < SB) over NF float4 columns from c of a staged pair (PAD floats
+// a row; the geometry G's)
+template <class G, int NF>
+__device__ __forceinline__ void stage_dots(float (&acc)[4][G::SB],
+                                           const float* A, const float* B,
+                                           int ra, int rb, int c) {
 #pragma unroll
   for (int f = 0; f < NF; ++f, c += 4) {
-    float4 av[4], bv[4];
+    float4 av[4], bv[G::SB];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
-      av[a] = *reinterpret_cast<const float4*>(A + (ra + RS * a) * BwdWide::PAD + c);
+      av[a] = *reinterpret_cast<const float4*>(A + (ra + G::RS * a) * G::PAD + c);
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      bv[b] = *reinterpret_cast<const float4*>(B + (rb + 16 * b) * BwdWide::PAD + c);
+    for (int b = 0; b < G::SB; ++b)
+      bv[b] = *reinterpret_cast<const float4*>(B + (rb + G::KG * b) * G::PAD + c);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = dot4(av[a], bv[b], acc[a][b]);
+      for (int b = 0; b < G::SB; ++b) acc[a][b] = dot4(av[a], bv[b], acc[a][b]);
   }
 }
 
 // A staged pair: NA rows of `a` from row a0 (of na; flat rows from
 // abase), then TILE rows of `b` from row b0 (of nb; from bbase), DC
-// columns from c of each; rows past the end arrive as zeros
-template <int NA, typename T>
+// columns from c of each (the geometry G's); rows past the end arrive as
+// zeros
+template <class G, int NA, typename T>
 __device__ __forceinline__ void stage_pair(float* st, const T* a, size_t abase,
                                            int a0, int na, const T* b,
                                            size_t bbase, int b0, int nb,
                                            int D, int c) {
-  constexpr int R4 = BwdWide::DC / 4;
-  constexpr int RPX = BwdWide::THREADS / R4;   // rows a round of copies
+  constexpr int R4 = G::DC / 4;
+  constexpr int RPX = G::THREADS / R4;         // rows a round of copies
+  static_assert(NA % RPX == 0 && G::TILE % RPX == 0,
+                "every thread copies the same number of float4s");
   const int tid = threadIdx.x;
   const int c4 = 4 * (tid % R4);
 #pragma unroll
   for (int x = 0; x < NA / RPX; ++x) {
     const int r = tid / R4 + x * RPX, row = a0 + r;
-    hopper::cp_async16(st + r * BwdWide::PAD + c4,
+    hopper::cp_async16(st + r * G::PAD + c4,
                        a + (abase + (row < na ? row : 0)) * D + c + c4,
                        row < na);
   }
 #pragma unroll
-  for (int x = 0; x < BwdWide::TILE / RPX; ++x) {
+  for (int x = 0; x < G::TILE / RPX; ++x) {
     const int r = tid / R4 + x * RPX, row = b0 + r;
-    hopper::cp_async16(st + (NA + r) * BwdWide::PAD + c4,
+    hopper::cp_async16(st + (NA + r) * G::PAD + c4,
                        b + (bbase + (row < nb ? row : 0)) * D + c + c4,
                        row < nb);
   }
 }
 
-// A thread's 4 x 4 block of partials (rows r + RS a, columns cb + 16 b)
+// A thread's 4 x SB block of partials (rows r + RS a, columns cb + KG b)
 // into a partials buffer, and the block zeroed for the next pass
-template <int RS>
-__device__ __forceinline__ void part_store(float* pb, float (&acc)[4][4],
+template <int RS, int SB, int KG>
+__device__ __forceinline__ void part_store(float* pb, float (&acc)[4][SB],
                                            int r, int cb) {
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      pb[(r + RS * a) * BwdWide::SROW + cb + 16 * b] = acc[a][b];
+    for (int b = 0; b < SB; ++b) {
+      pb[(r + RS * a) * BwdWide::SROW + cb + KG * b] = acc[a][b];
       acc[a][b] = 0.f;
     }
 }
 
 // acc[r][c] += w[x][r] * X[x][c] over N rows x: the R weights of row x
-// at w + WS x (a broadcast; R a multiple of 4), its C float4s at X + XS x
-// + CS c
+// at w + WS x (a broadcast; R a multiple of 4, or 2 or 1), its C float4s
+// at X + XS x + CS c
 template <int N, int WS, int XS, int CS, int R, int C>
 __device__ __forceinline__ void rank_update(float4 (&acc)[R][C], const float* w,
                                             const float* X) {
+  static_assert(R % 4 == 0 || R == 2 || R == 1, "the weights load whole");
 #pragma unroll
   for (int x = 0; x < N; ++x) {
     float wv[R];
+    if constexpr (R % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < R / 4; ++i) {
-      const float4 f = *reinterpret_cast<const float4*>(w + WS * x + 4 * i);
-      wv[4 * i] = f.x;
-      wv[4 * i + 1] = f.y;
-      wv[4 * i + 2] = f.z;
-      wv[4 * i + 3] = f.w;
+      for (int i = 0; i < R / 4; ++i) {
+        const float4 f = *reinterpret_cast<const float4*>(w + WS * x + 4 * i);
+        wv[4 * i] = f.x;
+        wv[4 * i + 1] = f.y;
+        wv[4 * i + 2] = f.z;
+        wv[4 * i + 3] = f.w;
+      }
+    } else if constexpr (R == 2) {
+      const float2 f = *reinterpret_cast<const float2*>(w + WS * x);
+      wv[0] = f.x;
+      wv[1] = f.y;
+    } else {
+      wv[0] = w[WS * x];
     }
     float4 xv[C];
 #pragma unroll
@@ -2050,9 +2131,9 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       float* st = sm + (j % G::STAGES) * G::STAGE;
       if (i < 2 * nS) {
         const bool s = i < nS;
-        stage_pair<G::BQ>(st, s ? q : dout, (size_t)bh * Sq, q0, Sq,
-                          s ? k : v, (size_t)bhk * Sk, k0, Sk, D,
-                          cs0 + G::DC * (s ? i : i - nS));
+        stage_pair<G, G::BQ>(st, s ? q : dout, (size_t)bh * Sq, q0, Sq,
+                             s ? k : v, (size_t)bhk * Sk, k0, Sk, D,
+                             cs0 + G::DC * (s ? i : i - nS));
       } else {
         // K's VK key rows of W columns, RPX rows a round of copies (at W
         // 1024 one float4 of each row a thread, its column fixed: the
@@ -2077,8 +2158,9 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // S and dP: part sh of the stage's columns, rows rg + RS a, keys kg +
-    // 16 b
-    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, kg = tid % 16;
+    // KG b
+    const int sh = tid / (G::RS * G::KG), rg = (tid / G::KG) % G::RS,
+              kg = tid % G::KG;
     // p and dS: row sr, keys sp + TPR x
     const int sr = tid / G::TPR, sp = tid % G::TPR, srow = q0 + sr;
     const bool srow_ok = srow < Sq;
@@ -2089,9 +2171,9 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const uint32_t hkey = DROP ? dropout::head_key(*drop.seed, bh) : 0u;
     const uint32_t rkey = DROP ? dropout::row_key(hkey, srow) : 0u;
     // DIRECT: the lse, di, q ids and dropout keys of the thread's S rows
-    // rg + RS a, and the key ids of its S columns kg + 16 c in this tile
+    // rg + RS a, and the key ids of its S columns kg + KG c in this tile
     float lse_a[4], di_a[4];
-    int qid_a[4], kid_c[4];
+    int qid_a[4], kid_c[G::SB];
     uint32_t rkey_a[4];
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -2102,16 +2184,17 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       di_a[a] = ok ? di[fr] : 0.f;
       qid_a[a] = (ok && seg) ? q_ids[(size_t)b * Sq + row] : 0;
       rkey_a[a] = (G::DIRECT && DROP) ? dropout::row_key(hkey, row) : 0u;
-      kid_c[a] = 0;
     }
+#pragma unroll
+    for (int c = 0; c < G::SB; ++c) kid_c[c] = 0;
     // dQ: rows OR og.., columns ocol + 128 c of the slice (a warp's 32
     // lanes on 128 contiguous columns; at W 64 a half-warp on a row's 64)
     const int og = tid / G::CG;
     const int ocol = 128 * G::C * ((tid % G::CG) / 32) + 4 * (tid % G::CG % 32);
 
     float4 acc[G::OR][G::C];
-    float pacc[4][4];   // the pass's partial S or dP
-    float sacc[4][4];   // DIRECT: the tile's S block, over the dP pass
+    float pacc[4][G::SB];   // the pass's partial S or dP
+    float sacc[4][G::SB];   // DIRECT: the tile's S block, over the dP pass
 #pragma unroll
     for (int r = 0; r < G::OR; ++r)
 #pragma unroll
@@ -2119,7 +2202,7 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) pacc[a][c] = 0.f;
+      for (int c = 0; c < G::SB; ++c) pacc[a][c] = 0.f;
 
     for (int j = 0, t = 0, i = 0; j < total; ++j) {
       hopper::cp_async_wait<G::STAGES - 2>();
@@ -2131,30 +2214,30 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
         if (G::DIRECT && seg && i == 0) {
           // the tile's key ids of the thread's columns (read at its dS)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = t * G::TILE + kg + 16 * c;
+          for (int c = 0; c < G::SB; ++c) {
+            const int col = t * G::TILE + kg + G::KG * c;
             kid_c[c] = col < Sk ? kv_ids[(size_t)b * Sk + col] : 0;
           }
         }
-        stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::BQ * G::PAD,
-                                             rg, kg, G::DC / G::KS * sh);
+        stage_dots<G, G::DC / G::KS / 4>(pacc, st, st + G::BQ * G::PAD, rg,
+                                         kg, G::DC / G::KS * sh);
         if (G::DIRECT && i == nS - 1) {
           // S whole: held for the dP pass
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
+            for (int c = 0; c < G::SB; ++c) {
               sacc[a][c] = pacc[a][c];
               pacc[a][c] = 0.f;
             }
         } else if (G::DIRECT && i == 2 * nS - 1) {
-          // dS of the thread's rows rg + RS a and keys kg + 16 c into
+          // dS of the thread's rows rg + RS a and keys kg + KG c into
           // shared memory (the barrier that opens the next item orders it
           // for the update; the last update of the tile before was
           // ordered by the one that opened this item)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int key = kg + 16 * c, col = t * G::TILE + key;
+          for (int c = 0; c < G::SB; ++c) {
+            const int key = kg + G::KG * c, col = t * G::TILE + key;
 #pragma unroll
             for (int a = 0; a < 4; ++a) {
               const int row = q0 + rg + G::RS * a;
@@ -2175,8 +2258,8 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
           // partials meet and give the tile's dS
           const bool s = i == nS - 1;
           if (s && t > 0 && nc > 1) hopper::cluster_wait();
-          part_store<G::RS>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
-                            sh * G::BQ + rg, kg);
+          part_store<G::RS, G::SB, G::KG>(sm + (s ? G::S_OFF : G::DP_OFF),
+                                          pacc, sh * G::BQ + rg, kg);
           if (!s) {
             if (nc > 1)
               hopper::cluster_sync();
@@ -2227,7 +2310,8 @@ flash_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int ROWS, int W, bool DROP>
-__global__ void __launch_bounds__(BwdWide::THREADS, DkvWide<ROWS, W>::CTAS)
+__global__ void __launch_bounds__(DkvWide<ROWS, W>::THREADS,
+                                  DkvWide<ROWS, W>::CTAS)
 flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -2290,13 +2374,13 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
       float* st = sm + (j % G::STAGES) * G::STAGE;
       if (i < 2 * nS) {
         const bool s = i < nS;
-        stage_pair<G::ROWS>(st, s ? k : v, (size_t)bhk * Sk, c0, Sk,
-                            s ? q : dout, (size_t)bh * Sq, r0, Sq, D,
-                            cs0 + G::DC * (s ? i : i - nS));
+        stage_pair<G, G::ROWS>(st, s ? k : v, (size_t)bhk * Sk, c0, Sk,
+                               s ? q : dout, (size_t)bh * Sq, r0, Sq, D,
+                               cs0 + G::DC * (s ? i : i - nS));
       } else {
         constexpr int R4 = G::W / 4;
 #pragma unroll
-        for (int x = 0; x < BwdWide::STAGE / 4 / G::THREADS; ++x) {
+        for (int x = 0; x < G::USTAGE / 4 / G::THREADS; ++x) {
           const int f = tid + x * G::THREADS;   // the stage's float4
           const int w = f % (2 * R4), row = r0 + G::QK * (i - 2 * nS) + f / (2 * R4);
           hopper::cp_async16(
@@ -2314,8 +2398,9 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // S^T and dP^T: part sh of the stage's columns, key rows rg + RS a,
-    // q rows qg + 16 b
-    const int sh = tid / (G::RS * 16), rg = (tid / 16) % G::RS, qg = tid % 16;
+    // q rows qg + KG b
+    const int sh = tid / (G::RS * G::KG), rg = (tid / G::KG) % G::RS,
+              qg = tid % G::KG;
     // p and dS: key row sr, q rows sp + TPR x
     const int sr = tid / G::TPR, sp = tid % G::TPR, key = c0 + sr;
     const bool key_ok = key < Sk;
@@ -2331,8 +2416,8 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     const int og = tid / G::CG, ocol = 4 * (tid % G::CG);
 
     float4 dka[G::OR][G::C], dva[G::OR][G::C];
-    float pacc[4][4];   // the pass's partial S^T or dP^T
-    float sacc[4][4];   // DIRECT: the tile's S^T block, over the dP^T pass
+    float pacc[4][G::SB];   // the pass's partial S^T or dP^T
+    float sacc[4][G::SB];   // DIRECT: the tile's S^T block, over the dP^T pass
 #pragma unroll
     for (int r = 0; r < G::OR; ++r)
 #pragma unroll
@@ -2341,7 +2426,7 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) pacc[a][c] = 0.f;
+      for (int c = 0; c < G::SB; ++c) pacc[a][c] = 0.f;
 
     for (int j = 0, t = 0, i = 0; j < total; ++j) {
       hopper::cp_async_wait<G::STAGES - 2>();
@@ -2361,26 +2446,26 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
           di_s[tid] = ok ? di[fr] : 0.f;
           qid_s[tid] = (seg && ok) ? q_ids[(size_t)b * Sq + row] : 0;
         }
-        stage_dots<G::RS, G::DC / G::KS / 4>(pacc, st, st + G::ROWS * G::PAD,
-                                             rg, qg, G::DC / G::KS * sh);
+        stage_dots<G, G::DC / G::KS / 4>(pacc, st, st + G::ROWS * G::PAD,
+                                         rg, qg, G::DC / G::KS * sh);
         if (G::DIRECT && i == nS - 1) {
           // S^T whole: held for the dP^T pass
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
+            for (int c = 0; c < G::SB; ++c) {
               sacc[a][c] = pacc[a][c];
               pacc[a][c] = 0.f;
             }
         } else if (G::DIRECT && i == 2 * nS - 1) {
           // p and dS of the thread's key rows rg + RS a and q rows qg +
-          // 16 c (the barrier that opened this item ordered lse, di and
+          // KG c (the barrier that opened this item ordered lse, di and
           // the q ids; the next one orders p and dS for the update)
           const uint32_t hkey =
               DROP ? dropout::head_key(*drop.seed, bh) : 0u;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int qr = qg + 16 * c, row = r0 + qr;
+          for (int c = 0; c < G::SB; ++c) {
+            const int qr = qg + G::KG * c, row = r0 + qr;
             const float lse_q = lse_s[qr], di_q = di_s[qr];
             const int qid_q = qid_s[qr];
 #pragma unroll
@@ -2408,8 +2493,8 @@ flash_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
           // cluster's partials meet and give the tile's p and dS
           const bool s = i == nS - 1;
           if (s && t > 0 && nc > 1) hopper::cluster_wait();
-          part_store<G::RS>(sm + (s ? G::S_OFF : G::DP_OFF), pacc,
-                            sh * G::ROWS + rg, qg);
+          part_store<G::RS, G::SB, G::KG>(sm + (s ? G::S_OFF : G::DP_OFF),
+                                          pacc, sh * G::ROWS + rg, qg);
           if (!s) {
             if (nc > 1)
               hopper::cluster_sync();
@@ -2491,13 +2576,15 @@ int launch_dq_wide_w(const Args& a, int D, void* dq) {
       a.causal, a.scale, a.drop);
 }
 
-// dq takes 64 query rows and all D of dQ's columns a CTA at f32 D 64,
-// 128, 256 and 512 (one CTA spans the row), 32 rows x 1024 columns at
-// the wide widths (above, DqWide; bf16, which only writes zeros here,
-// takes those)
+// dq takes 64 query rows and all D of dQ's columns a CTA at f32 D 16,
+// 32, 64, 128, 256 and 512 (one CTA spans the row), 32 rows x 1024
+// columns at the wide widths (above, DqWide; bf16, which only writes
+// zeros here, takes those)
 template <typename T, bool DROP>
 int launch_dq_wide(const Args& a, int D, void* dq) {
   if constexpr (sizeof(T) == 4) {
+    if (D == 16) return launch_dq_wide_w<T, 16, DROP>(a, D, dq);
+    if (D == 32) return launch_dq_wide_w<T, 32, DROP>(a, D, dq);
     if (D == 64) return launch_dq_wide_w<T, 64, DROP>(a, D, dq);
     if (D == 128) return launch_dq_wide_w<T, 128, DROP>(a, D, dq);
     if (D == 256) return launch_dq_wide_w<T, 256, DROP>(a, D, dq);
@@ -2524,11 +2611,11 @@ int launch_dkv_wide_rows(const Args& a, int D, void* dk, void* dv) {
       a.causal, a.scale, a.drop);
 }
 
-// dk/dv takes 64 key rows x D columns a CTA at f32 D 64, 128 and 256, and
-// 32 x 512 from D 512 (f32 from 64 to 512: one CTA spans the row), the
-// latter while one cluster of 8 spans the row (D <= 4096), and 16 x 1024
-// past it (above, DkvWide; bf16, which only writes zeros here, takes 32 x
-// 512)
+// dk/dv takes 64 key rows x D columns a CTA at f32 D 16, 32, 64, 128 and
+// 256, and 32 x 512 from D 512 (f32 from 16 to 512: one CTA spans the
+// row), the latter while one cluster of 8 spans the row (D <= 4096), and
+// 16 x 1024 past it (above, DkvWide; bf16, which only writes zeros here,
+// takes 32 x 512)
 template <typename T, bool DROP>
 int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
   if (!wide::takes(D) && !(sizeof(T) == 4 && (wide::row_takes(D) ||
@@ -2536,6 +2623,10 @@ int launch_dkv_wide(const Args& a, int D, void* dk, void* dv) {
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2)
     return launch_dkv_wide_rows<T, 32, 512, DROP>(a, D, dk, dv);
+  else if (D == 16)
+    return launch_dkv_wide_rows<T, 64, 16, DROP>(a, D, dk, dv);
+  else if (D == 32)
+    return launch_dkv_wide_rows<T, 64, 32, DROP>(a, D, dk, dv);
   else if (D == 64)
     return launch_dkv_wide_rows<T, 64, 64, DROP>(a, D, dk, dv);
   else if (D == 128)
@@ -2567,9 +2658,11 @@ int launch_dq_cuda_cores(const Args& a, int D, void* dq) {
 // takes the tensor cores, and at D 512 and every wide
 // width (D >= 1024, wide::tc_takes) the wide tensor-core bodies; f32 at
 // the wide widths the wide CUDA-core bodies (register tiles), and at 256
-// and 512 too (wide::row_takes: one CTA spans the row), and at 64 and 128
-// (wide::narrow_takes); everything else (f32 at 16 and 32) the CUDA-core
-// bodies of their width; a seed takes each body's DROP instantiation.
+// and 512 too (wide::row_takes: one CTA spans the row), and at 16, 32, 64
+// and 128 (wide::narrow_takes); what is left (bf16 with no queries or no
+// keys, which the wrapper answers with zeros before it launches) the
+// CUDA-core bodies of their width; a seed takes each body's DROP
+// instantiation.
 template <typename T, bool DROP>
 int route_dq(const Args& a, int D, void* dq) {
   if (sizeof(T) == 2 && a.Sq > 0 && a.Sk > 0) {
@@ -2693,7 +2786,7 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
 
 // The CUDA-core dq and dk/dv bodies of every width they have (16..512),
 // whatever the dtype (same arguments as above): bf16 routes to the
-// tensor-core bodies and f32 from 64 to the register-tile bodies,
+// tensor-core bodies and f32 from 16 to the register-tile bodies,
 // and these let a measurement time the CUDA-core bodies beside them on
 // the same inputs.  Any other width is refused
 // (from D 1024 f32 routes to the wide CUDA-core bodies, and bf16 has no

@@ -365,8 +365,8 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// register-tile body: f32 at D 16 and 32 (wide::fwd_narrow_takes), 64 and
-// 128 (wide::narrow_takes) and 256 and 512 (wide::row_takes), where one
+// register-tile body: f32 at D 16, 32, 64 and 128 (wide::narrow_takes)
+// and 256 and 512 (wide::row_takes), where one
 // CTA spans a row of O, and at D >=
 // 1024 (wide::takes: a cluster of column slices), and bf16 at D >= 1024
 // with no keys (bf16 with keys takes the tensor cores)
@@ -431,9 +431,9 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // (Sk == 0): its instantiation (W 1024) writes the zero rows and the
 // -1e30 lse.
 //
-// At W 32 and 16 (f32 D 32 and 16 with keys, wide::fwd_narrow_takes: the
-// forward alone, whose CUDA-core body lost to SDPA's f32 forward at D
-// 32) the same two passes run with a stage of S as wide as the head (DC =
+// At W 32 and 16 (f32 D 32 and 16 with keys, wide::narrow_takes; the
+// CUDA-core body lost to SDPA's f32 forward at D 32) the same two passes
+// run with a stage of S as wide as the head (DC =
 // W) and 128 threads: a thread owns a 4 x 8 block of S (rows rg + 16 a,
 // keys kg + 8 b), two threads a row in the softmax (32 keys each), and 4
 // x 4 (at 16, 2 x 4) of O's 64 x W.  A causal (8, 12, 512, 32) call does
@@ -1522,7 +1522,7 @@ int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
 // The route: bf16 with keys to read takes the tensor cores, at D 16, 32,
 // 64, 128 and 256 and (the wide tensor-core body) at D 512 and every wide
 // width, D >= 1024 (wide::tc_takes); f32 at 256 and 512 (wide::row_takes),
-// at 64 and 128 (wide::narrow_takes) and 16 and 32 (wide::fwd_narrow_takes)
+// at 16, 32, 64 and 128 (wide::narrow_takes)
 // with keys to read and the rest of the wide widths (f32, and bf16 with
 // no keys) the register-tile body, everything else (f32 with no keys up to
 // 128, bf16 with no keys up to 512) the CUDA-core bodies of their width;
@@ -1549,8 +1549,6 @@ int route(const void* q, const void* k, const void* v, void* o, float* lse,
   if (sizeof(T) == 4 && wide::row_takes(D))
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)
-    return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
-  if (sizeof(T) == 4 && wide::fwd_narrow_takes(D) && Sk > 0)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);
   if (D >= wide::MIN_D)
     return launch_wide<T, DROP>(q, k, v, o, lse, qi, ki, B, H, HK, Sq, Sk, D, causal, scale, dr, st);

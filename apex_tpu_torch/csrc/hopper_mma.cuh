@@ -588,20 +588,12 @@ __host__ __device__ constexpr bool row_takes(int D) {
   return D == 256 || D == 512;
 }
 
-// The narrow widths of the f32 register-tile forward, dq and dk/dv: at 64
-// and 128 (and the heads of 33..127, padded to them) one CTA spans a row
-// of O (of dQ, of dK and dV), as at row_takes.
+// The narrow widths of the f32 register-tile forward, dq and dk/dv: at
+// 16, 32, 64 and 128 (and the heads of 9..127, padded to them) one CTA
+// spans a row of O (of dQ, of dK and dV), as at row_takes; 128 threads a
+// CTA at 16 and 32, 256 at 64 and 128.
 __host__ __device__ constexpr bool narrow_takes(int D) {
-  return D == 64 || D == 128;
-}
-
-// The narrowest widths of the f32 register-tile forward alone: at 16 and
-// 32 (and the heads of 9..31, padded to them) one CTA of 128 threads
-// spans a row of O.  The f32 dq and dk/dv there keep their CUDA-core
-// bodies (flash_{dq,dkv}_kernel), which beat the library's f32 backward,
-// so route_dq and route_dkv do not read this.
-__host__ __device__ constexpr bool fwd_narrow_takes(int D) {
-  return D == 16 || D == 32;
+  return D == 16 || D == 32 || D == 64 || D == 128;
 }
 
 // The sum of a score's NP parts (STRIDE floats apart, from p) over the

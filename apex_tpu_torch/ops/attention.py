@@ -428,62 +428,47 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape,
                          f"{align}-byte aligned")
 
 
-# the kernel widths at which each kernel's bf16 body runs on the tensor
-# cores (wgmma + TMA; at 16 and 32 a panel as wide as the head, with the
-# 32- and 64-byte swizzles); from 512 every kernel's bf16 body does
-# ("wide tensor cores")
-_TC_WIDTHS = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
-                           (16, 32, 64, 128, 256))
+# the three flash kernels, which take one route by dtype and kernel width
+_FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
-# the narrower kernel widths at which each kernel's f32 body runs in
-# register tiles ("wide CUDA cores"; csrc/hopper_mma.cuh: wide::row_takes
-# and wide::narrow_takes, and the forward's wide::fwd_narrow_takes), as it
-# does at every width from 1024
-_ROW_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256, 512),
-               "flash_dq": (64, 128, 256, 512),
-               "flash_dkv": (64, 128, 256, 512)}
 
 
 def flash_route(kernel: str, dtype, d: int) -> str:
     """The body that ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
     takes on the card for operands of ``dtype`` at head dim ``d`` (padded
-    to its kernel width first): "tensor cores" (``..._kernel_tc``, wgmma
-    + TMA: bf16 at D 16, 32, 64, 128 and 256), "CUDA cores" (the FMA
-    body: the f32 dq and dk/dv at 16 and 32),
-    "wide tensor cores" (``..._kernel_tc_wide``: bf16 at 512 and every
-    width from 1024, a CTA on a slice of the output's columns: 256 of O's,
-    512 of dQ's, 256 of dK's and dV's) or "wide CUDA cores"
-    (``..._kernel_wide``, register tiles on the CUDA cores: f32 from 1024,
-    a thread-block cluster of column slices sharing the scores, a CTA on
-    32 rows and 1024 of O's or dQ's columns, or on 32 key rows and 512 of
-    dK's and dV's, 16 and 1024 past D 4096; f32 at 256 and 512, where
-    one CTA spans the row: 64 query rows in the forward and dq, 64 key
-    rows at 256 and 32 at 512 in dk/dv; all three at f32 64 and 128,
-    one CTA on a row too: 64 query rows, 64 key rows; and the f32 forward
-    at 16 and 32, 64 query rows a CTA of 128 threads).  The C
-    dispatchers of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` route
-    the same way, apart from a forward with no keys (bf16 takes the CUDA
-    cores up to 512, the wide CUDA cores past it; f32 the CUDA cores up
-    to 128)."""
-    if kernel not in _TC_WIDTHS:
+    to its kernel width first); all three take the same route.  bf16:
+    "tensor cores" (``..._kernel_tc``, wgmma + TMA) at D 16, 32, 64, 128
+    and 256, "wide tensor cores" (``..._kernel_tc_wide``) at 512 and every
+    width from 1024, a CTA on a slice of the output's columns (256 of
+    O's, 512 of dQ's, 256 of dK's and dV's).  f32: "wide CUDA cores"
+    (``..._kernel_wide``, register tiles on the CUDA cores) at every
+    width: from 1024 a thread-block cluster of column slices sharing the
+    scores, a CTA on 32 rows and 1024 of O's or dQ's columns, or on 32
+    key rows and 512 of dK's and dV's, 16 and 1024 past D 4096; at 256
+    and 512 one CTA spans the row (64 query rows in the forward and dq,
+    64 key rows at 256 and 32 at 512 in dk/dv); at 64 and 128 one CTA on
+    a row too (64 query rows, 64 key rows); at 16 and 32 the same with 128
+    threads a CTA.  The C dispatchers of ``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu`` route the same way, apart from a forward with no
+    keys, which takes the FMA body (``flash_fwd_kernel``, "CUDA cores")
+    for f32 up to 128 and bf16 up to 512, the wide CUDA-core body past
+    it; the ``apex_flash_*_cuda_cores`` entry points keep the FMA bodies
+    of every width for timing in turns."""
+    if kernel not in _FLASH_KERNELS:
         raise ValueError(f"flash_route: no kernel {kernel!r} (one of "
-                         f"{sorted(_TC_WIDTHS)})")
-    w = _kernel_width(d)
-    bf16 = dtype == torch.bfloat16
-    if bf16 and w >= 512:         # csrc/hopper_mma.cuh: wide::TC_MIN_D
-        return "wide tensor cores"
-    if w >= 1024 or (not bf16 and w in _ROW_WIDTHS[kernel]):
-        return "wide CUDA cores"  # wide::MIN_D, wide::row_takes
-    if bf16 and w in _TC_WIDTHS[kernel]:
-        return "tensor cores"
-    return "CUDA cores"
+                         f"{sorted(_FLASH_KERNELS)})")
+    # csrc/hopper_mma.cuh: wide::narrow_takes, row_takes and takes (f32);
+    # wide::TC_MIN_D (bf16)
+    if dtype != torch.bfloat16:
+        return "wide CUDA cores"
+    return "wide tensor cores" if _kernel_width(d) >= 512 else "tensor cores"
 
 
 def _align(dtype, d: int) -> int:
-    """The bytes q, k, v and dO must start aligned to: TMA's 16 where a
-    kernel of the call takes either tensor-core route
-    (:func:`flash_route`), else one 4-element vector."""
-    tc = any(flash_route(k, dtype, d) in _TC_ROUTES for k in _TC_WIDTHS)
+    """The bytes q, k, v and dO must start aligned to: TMA's 16 where the
+    call's kernels take either tensor-core route (:func:`flash_route`),
+    else one 4-element vector."""
+    tc = flash_route("flash_fwd", dtype, d) in _TC_ROUTES
     return 16 if tc else _ALIGN[dtype]
 
 

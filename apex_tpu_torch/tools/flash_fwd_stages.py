@@ -4,8 +4,8 @@ same body with two stages, timed in turns in one process on the card::
 
     python -m apex_tpu_torch.tools.flash_fwd_stages
 
-The two-stage copy is ``csrc/flash_fwd.cu`` with the line that sets the
-stage count changed; both build with the port's nvcc flags into
+The two-stage copy is ``csrc/flash_fwd.cu`` with ``FwdTc::STAGES`` set
+to 2 (``tools/variants.py``); both build with the port's nvcc flags into
 ``apex_tpu_torch/_build/`` and are called through their C entry points
 with the arguments the wrapper gives them.  At each causal shape and
 dropout rate it checks that the two give the same bits and are within
@@ -19,60 +19,28 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
-STAGE_LINE = "static constexpr int STAGES = D > 128 ? 1 : 2;"
+from apex_tpu_torch.tools import variants
+
 SHAPES = ((8, 4, 512, 256), (16, 8, 512, 256), (4, 8, 1024, 256),
           (2, 4, 2048, 256), (1, 8, 4096, 256))          # (B, H, S, D)
+TWO_STAGES = [("FwdTc", "STAGES", "2")]   # (struct, constant, expression)
 
 
 def _build_variants() -> dict:
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as attn
-    src = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
-    if STAGE_LINE not in src:
-        raise RuntimeError(f"csrc/flash_fwd.cu lacks {STAGE_LINE!r}")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    srcs = {"one stage": src,
-            "two stages": src.replace(STAGE_LINE, STAGE_LINE.replace(
-                "D > 128 ? 1 : 2", "2"))}
-    procs = {}
-    for name, text in srcs.items():
-        stem = os.path.join(_build.BUILD_DIR,
-                            "flash_fwd_" + name.replace(" ", "_"))
-        with open(f"{stem}.cu", "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-             "-o", f"{stem}.so", f"{stem}.cu"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    two = variants.write("flash_fwd_stages", "two stages", variants.variant(
+        "flash_fwd", TWO_STAGES))
+    libs = variants.build("flash_fwd_stages", {
+        "one stage": (os.path.join(_build.CSRC, "flash_fwd.cu"), _build.CSRC),
+        "two stages": (two, _build.CSRC)})
     fns = {}
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n{out}")
-        stem = os.path.join(_build.BUILD_DIR,
-                            "flash_fwd_" + name.replace(" ", "_"))
-        fn = ctypes.CDLL(f"{stem}.so").apex_flash_fwd
+    for name, (lib, _) in libs.items():
+        fn = lib.apex_flash_fwd
         fn.argtypes, fn.restype = attn.FLASH_FWD.argtypes, ctypes.c_int
         fns[name] = fn
     return fns
-
-
-def _device_ms(call, iters: int = 50) -> float:
-    import torch
-    for _ in range(3):
-        call()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)         # ~0.1 s: outlasts the launches
-    start.record()
-    for _ in range(iters):
-        call()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> int:
@@ -80,9 +48,7 @@ def main() -> int:
     from apex_tpu_torch.ops import attention as attn
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_stages needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = variants.card()
     fns = _build_variants()
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -116,7 +82,7 @@ def main() -> int:
             ms = {name: [] for name in fns}
             for name in ("one stage", "two stages", "two stages",
                          "one stage"):
-                ms[name].append(_device_ms(calls[name]))
+                ms[name].append(variants.device_ms(calls[name]))
             print(f"flash forward ({b}, {h}, {s}, {d}) bf16 causal dropout "
                   f"{rate}: " + "; ".join(
                       f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"

@@ -183,10 +183,12 @@ exits non-zero:
     trains 3 steps on the card with exact launch counts; its device ms a
     step (CUDA events between 4 steps) and the busy ms of one profiled
     step, whose flash kernels must be the D-32 bodies of their routes
-    (forward and dk/dv on the tensor cores, dq on the CUDA cores); one O0 step on
-    a packed 2 x 128 batch (labels -1 on padding) on the card and the
-    CPU, the params within a tenth of the nearest of three wrong
-    updates (label smoothing 0.1, padding not masked, lr 4% high);
+    (all three on the tensor cores); one O0 step on a packed 2 x 128
+    batch (labels -1 on padding) on the card and the CPU, the params
+    within a tenth of the nearest of three wrong updates (label
+    smoothing 0.1, padding not masked, lr 4% high), the card's step with
+    exact f32 flash launches (4 forwards, 4 dq, 4 dk/dv) on the D-32
+    register-tile bodies, read from the device kernels' names;
 29. kernel vs plain (Welford) — welford_mean_var at ResNet-50's
     SyncBatchNorm inputs at batch 128 and 224x224 ((401,408, 256) bf16
     and f32, (100,352, 512), (6,272, 2048)), a ragged (100,001, 384) and
@@ -243,8 +245,13 @@ exits non-zero:
     0 with exact launch counts and profiled routes; the f32 forward and
     dk/dv at (8, 12, 512, 64) and (8, 8, 512, 128) in register tiles
     beside their CUDA-core bodies in turns, the dq, SDPA f32 and the
-    bound, with every register-tile body's ptxas registers and spills;
-    every flash kernel at D 16 and 32, f32 and bf16, beside SDPA;
+    bound, with every register-tile body's ptxas registers and spills
+    (none in the forward and dq at 16 and 32 and dk/dv at 32);
+    the f32 forward, dq and dk/dv at D 32 and 16 (register tiles) in
+    turns with their CUDA-core bodies at (8, 12, 512, D) causal and the
+    BERT proxy's (8, 4, 512, 32) unmasked, beside SDPA f32 and the bound;
+    the forward, dq and dk/dv at (8, 2, 512, 640) causal, bf16 and f32
+    (padded to the D-1024 bodies), beside SDPA;
 35. train (GPTModel; run after phase 20) — ``models.GPTModel`` at GPT-2
     small's published widths (12 x 768, 12 heads, vocab 50257, 1024
     positions), amp O2, FusedAdam lr 3e-4 through the flat pipeline,
@@ -263,8 +270,8 @@ exits non-zero:
     1e-5, the params within a tenth of the nearest wrong update run on
     the CPU (attention not causal or packed segments not masked; lr 4%
     high);
-37. narrow heads (run after phase 34) — the bf16 forward and dk/dv at
-    D 16 and 32 on the tensor cores: first one 64 x D x 64 product of
+37. narrow heads (run after phase 34) — the bf16 forward, dq and dk/dv
+    at D 16 and 32 on the tensor cores: first one 64 x D x 64 product of
     each kind at D 16, 32 and 64 against ``torch.matmul`` (every
     shared-memory descriptor of the 32-, 64- and 128-byte swizzles);
     then causal and not, ragged S 200, Sq != Sk (keys no row sees),
@@ -275,7 +282,9 @@ exits non-zero:
     bytes; the new bodies' ptxas lines (0 spills); then at (8, 12, 512,
     32) and (8, 12, 512, 16) causal and the proxy's shape, the forward
     and dk/dv in turns with their CUDA-core bodies and the D-64 bodies on
-    zero-padded operands, beside the twin, SDPA and the bound.
+    zero-padded operands, beside the twin, SDPA and the bound; the same
+    edge cases in f32 (every kernel in register tiles) against the twins
+    with their routes, and the f32 keep masks bit for bit.
 
 Phase 11 also reads every LayerNorm forward's route (the register body
 up to h 8192 at 16-byte alignment, the wide one past it and off it)
@@ -301,7 +310,10 @@ the GPT step), with the serve path's f32 row under ``serve_f32``; each
 of the three carries its dropout body's figures under ``dropout``
 (launches those of phase 32's 12-layer stack); the wide heads' under
 ``d256`` and ``d1024``; the BERT proxy's (8, 4, 512, 32) rows under
-``d32_proxy``, with their launches in phase 28's 3 steps.  The kernels of
+``d32_proxy``, with their launches in phase 28's 3 steps; the f32 D-32
+rows (GPT-2 small's batch, heads and seq, causal) under ``d32_f32`` and
+the proxy's f32 O0 shape under ``d32_proxy_f32``, with their launches in
+phase 28's card O0 step.  The kernels of
 the GPTModel step carry their launches in phase 35's timed steps under
 ``gpt_model_launches``.  Nothing of JAX is imported.
 """
@@ -3853,9 +3865,11 @@ def wide_head_phase(dev, smi: str) -> dict:
     register-tile forward, dq and dk/dv beside their CUDA-core bodies in
     turns); the f32 forward, dq and dk/dv at GPT-2's and Llama's head
     dims (``F32_NARROW_SHAPES``; register tiles, beside their CUDA-core
-    bodies in turns) beside SDPA's f32; the f32 forward (register tiles,
-    in turns with its CUDA-core body), dq and dk/dv (CUDA cores) at D 16
-    and 32 (``F32_NARROWEST_SHAPES``) beside SDPA's f32; each
+    bodies in turns) beside SDPA's f32; the f32 forward, dq and dk/dv
+    (register tiles, in turns with their CUDA-core bodies) at D 16 and 32
+    and the BERT proxy's unmasked shape (``F32_NARROWEST_SHAPES``) beside
+    SDPA's f32; the forward, dq and dk/dv at D 640 beside SDPA
+    (``_d640_times``); each
     module trained 2 steps at each rate (forward, backward, an SGD update
     of its params), finite losses, exact launch counts and the routes of a
     profiled step; the bf16 forward, dq and dk/dv at D 2048, 4096 and
@@ -3863,7 +3877,8 @@ def wide_head_phase(dev, smi: str) -> dict:
     (``_f32_widths``); the ptxas registers and spills of the D-256
     and wide tensor-core bodies and of every f32 register-tile forward,
     dq and dk/dv.  Returns {kernel: {"d256": its D-256 figures, "d512": ...,
-    "d1024": ...}}, and the f32 forward's "d32_f32"."""
+    "d1024": ...}}, and each kernel's f32 "d32_f32" and
+    "d32_proxy_f32"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import _build
@@ -3894,8 +3909,9 @@ def wide_head_phase(dev, smi: str) -> dict:
     # "d1024" and those of D 256 and 512 there too (the forward's and
     # dq's W 256 and 512; dk/dv's key rows a CTA and W, 64 x 256 at D 256
     # and 32 x 512 from D 512, and 16 x 1024 past D 4096); the forward's,
-    # dq's and dk/dv's at 64 and 128 (W 64 and 128, 64 key rows) and the
-    # forward's at 16 and 32 are printed, the last with no spills
+    # dq's and dk/dv's at 16, 32, 64 and 128 (W 16..128, 64 key rows) are
+    # printed, the forward's and dq's at 16 and 32 and dk/dv's at 32 with
+    # no spills (dk/dv's three CTAs at 16 spill 24 bytes, by choice)
     f32_ptxas = {}
     widths = {"flash_fwd": {"d256": "IfLi256E", "d512": "IfLi512E"},
               "flash_dq": {"d256": "IfLi256E", "d512": "IfLi512E"},
@@ -3904,17 +3920,18 @@ def wide_head_phase(dev, smi: str) -> dict:
                     ("flash_bwd", "flash_dkv")):
         found = _ptxas_report(_build.build_logs.get(lib, ""),
                               FLASH_SYMS[kn] + "_wideIf")
-        # each geometry at rate 0 and DROP: the forward's and dq's W 64,
-        # 128, 256, 512 and 1024 (the forward's 16 and 32 too), dk/dv's 64
-        # x 64, 64 x 128, 64 x 256, 32 x 512 and 16 x 1024
-        want = 14 if kn == "flash_fwd" else 10
+        # each geometry at rate 0 and DROP: the forward's and dq's W 16,
+        # 32, 64, 128, 256, 512 and 1024, dk/dv's 64 x 16, 64 x 32, 64 x
+        # 64, 64 x 128, 64 x 256, 32 x 512 and 16 x 1024
+        want = 14
         _check(len(found) == want, f"ptxas reported {len(found)} f32 wide "
                f"{kn} bodies in {lib}, expected {want}")
         for entry, regs, spill in found:
             print(f"ptxas f32 wide {kn} body {entry}: {regs}; {spill} "
                   f"[{smi}]", flush=True)
-            if kn == "flash_fwd" and ("IfLi16E" in entry
-                                      or "IfLi32E" in entry):
+            if (kn != "flash_dkv" and ("IfLi16E" in entry
+                                       or "IfLi32E" in entry)) \
+                    or (kn == "flash_dkv" and "IfLi64ELi32E" in entry):
                 _check(spill is not None and "0 bytes spill stores" in spill
                        and "0 bytes spill loads" in spill,
                        f"ptxas reports spills for {entry}: {spill}")
@@ -4012,6 +4029,9 @@ def wide_head_phase(dev, smi: str) -> dict:
                               "D 64 and 128"))
     wide_s.update(_f32_widths(dev, smi, gen, seed, F32_NARROWEST_SHAPES,
                               "D 16 and 32", rows))
+    t0 = time.perf_counter()
+    _d640_times(dev, smi, gen)
+    wide_s["D 640"] = time.perf_counter() - t0
     print("phase seconds 34, its D-512, F5c and F7 part (D 512 to 16384): "
           + ", ".join(f"{k} {v:.1f} s" for k, v in wide_s.items())
           + f", together {sum(wide_s.values()):.1f} s", flush=True)
@@ -4029,7 +4049,8 @@ def _in_turns(calls: dict, iters: int = 10) -> dict:
     return out
 
 
-def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
+def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels,
+                     causal=True) -> dict:
     """The routed ``kernels`` (of "flash_fwd", "flash_dq", "flash_dkv")
     and the CUDA-core bodies of their width (``apex_flash_*_cuda_cores``)
     on the same inputs, in turns: {kernel: (routed ms, CUDA-core ms)},
@@ -4038,24 +4059,25 @@ def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
     import torch
     from apex_tpu_torch.ops import attention as attn
     routed = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
-        q, k, v, o, lse, do, True, None, rate, sd)))
-    routed["flash_fwd"] = _fwd_kernel_call(q, k, v, True, rate, sd)
+        q, k, v, o, lse, do, causal, None, rate, sd)))
+    routed["flash_fwd"] = _fwd_kernel_call(q, k, v, causal, rate, sd)
     cc_out, cc_fwd = [], []
     cc = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
-        q, k, v, o, lse, do, True, None, rate, sd, cuda_cores=True,
+        q, k, v, o, lse, do, causal, None, rate, sd, cuda_cores=True,
         out=cc_out)))
-    cc["flash_fwd"] = _fwd_kernel_call(q, k, v, True, rate, sd,
+    cc["flash_fwd"] = _fwd_kernel_call(q, k, v, causal, rate, sd,
                                        cuda_cores=True, out=cc_fwd)
     for kn in kernels:
         cc[kn]()
     torch.cuda.synchronize()
     atol, rtol = ATTN_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
-    what = f"of the CUDA-core body {tuple(q.shape)} dropout {rate}"
+    what = (f"of the CUDA-core body {tuple(q.shape)} causal={causal} "
+            f"dropout {rate}")
     if "flash_fwd" in kernels:
-        wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate, sd)
+        wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, None, rate, sd)
         _held("flash_fwd", cc_fwd[0], wo, atol, rtol, f"o {what}")
         _held("flash_fwd", cc_fwd[1], wlse, 1e-4, 1e-5, f"lse {what}")
-    want = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None, None, rate,
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, None, rate,
                               sd)
     for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
                             ("dq", "dk", "dv"), cc_out, want):
@@ -4064,7 +4086,8 @@ def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
     out = {}
     for kn in kernels:
         t = _in_turns({"routed": routed[kn], "cuda cores": cc[kn]})
-        print(f"time {kn} {tuple(q.shape)} {str(q.dtype)[6:]} dropout {rate} "
+        print(f"time {kn} {tuple(q.shape)} {str(q.dtype)[6:]} "
+              f"{'causal' if causal else 'unmasked'} dropout {rate} "
               f"in turns: routed {t['routed'][0]:.4f} / "
               f"{t['routed'][1]:.4f} ms, CUDA cores "
               f"{t['cuda cores'][0]:.4f} / {t['cuda cores'][1]:.4f} ms",
@@ -4073,21 +4096,22 @@ def _cuda_core_turns(q, k, v, o, lse, do, rate, sd, kernels) -> dict:
     return out
 
 
-def _sdpa_f32(q, k, v, do) -> tuple:
-    """SDPA's f32 forward and backward at q's shape, causal, on the first
-    backend that takes it of memory-efficient attention and the math
-    path, pinned with ``torch.nn.attention.sdpa_kernel``: (backend name,
-    forward ms, backward ms, relative error of its output against an f64
-    evaluation).  TF32 products (a 10-bit mantissa) would leave an error
-    near 1e-3; f32 ones near 1e-6."""
+def _sdpa_f32(q, k, v, do, causal=True) -> tuple:
+    """SDPA's f32 forward and backward at q's shape, causal or not, on the
+    first backend that takes it of memory-efficient attention and the
+    math path, pinned with ``torch.nn.attention.sdpa_kernel``: (backend
+    name, forward ms, backward ms, relative error of its output against
+    an f64 evaluation).  TF32 products (a 10-bit mantissa) would leave an
+    error near 1e-3; f32 ones near 1e-6."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
     s = s / math.sqrt(q.shape[-1])
     n = q.shape[2]
-    s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device=q.device)
-                      .triu(1), float("-inf"))
+    if causal:
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool,
+                                     device=q.device).triu(1), float("-inf"))
     ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
     del s
     for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
@@ -4095,9 +4119,9 @@ def _sdpa_f32(q, k, v, do) -> tuple:
             with sdpa_kernel([backend]):
                 qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
                 out = F.scaled_dot_product_attention(qq, kk, vv,
-                                                     is_causal=True)
+                                                     is_causal=causal)
                 fwd = _ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 3)
+                    q, k, v, is_causal=causal), 3)
                 bwd = _ms(lambda: torch.autograd.grad(
                     out, (qq, kk, vv), do, retain_graph=True), 3)
         except RuntimeError as e:
@@ -4242,6 +4266,83 @@ def _wide_times(dev, smi: str, gen, seed, cfg: dict) -> dict:
     return rows
 
 
+# a head of 640 (513..1023 pad to 1024), timed: (batch, heads, seq, D)
+D640_SHAPE = (8, 2, 512, 640)
+
+
+def _d640_times(dev, smi: str, gen) -> None:
+    """The forward, dq and dk/dv at ``D640_SHAPE`` causal, bf16 and f32,
+    rate 0: the D-1024 bodies alone on operands padded with zeros
+    beforehand (each kernel by itself), and the wrappers, which pad D 640
+    to 1024 themselves (their copies included: the forward, and the
+    backward's dq and dk/dv together with di); held against the twins;
+    beside SDPA's forward and backward at D 640 (bf16 its default
+    backend, f32 ``_sdpa_f32``: no TF32) and the bound of D 640's useful
+    work (bf16 at the tensor cores' rate, f32 at the FMA rate)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as attn
+    b, h, s, d = D640_SHAPE
+    w = attn._kernel_width(d)
+    pairs = _pairs(None, b, h, s, True, dev)
+    for dtn in ("bf16", "f32"):
+        dt = _dtype(dtn)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                       .to(dt) for _ in range(4))
+        fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None, True)
+        o, lse = fwd()
+        bwd = lambda: attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+                                           None)
+        grads = bwd()
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dtn]
+        what = f"({b}, {h}, {s}, {d}) {dtn} causal (padded to {w})"
+        wo, wlse = attn.flash_fwd_ref(q, k, v, True)
+        _held("flash_fwd", o, wo, atol, rtol, "o " + what)
+        want = attn.flash_bwd_ref(q, k, v, o, lse, do, True)
+        for kn, gn, g, x in zip(("flash_dq", "flash_dkv", "flash_dkv"),
+                                ("dq", "dk", "dv"), grads, want):
+            _held(kn, g, x, atol, rtol, f"{gn} {what}")
+        del wo, wlse, want, grads
+        pad = [torch.nn.functional.pad(t, (0, w - d)) for t in (q, k, v, do)]
+        po, plse = attn._flash_fwd_cuda(*pad[:3], True, None, None, True)
+        kernel = dict(zip(("flash_dq", "flash_dkv"), _bwd_kernel_calls(
+            *pad[:3], po, plse, pad[3], True, None)))
+        kernel["flash_fwd"] = _fwd_kernel_call(*pad[:3], True)
+        kms = {kn: _ms(call, 5) for kn, call in kernel.items()}
+        wrap_f, wrap_b = _ms(fwd, 5), _ms(bwd, 5)
+        if dtn == "f32":
+            backend, lib_f, lib_b, _ = _sdpa_f32(q, k, v, do)
+        else:
+            backend = "default backend"
+            lib_f = _ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 5)
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+            lib_b = _ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True), 5)
+            del qq, kk, vv, out
+        costs = _attn_costs(b, h, h, s, d, 2 if dtn == "bf16" else 4, pairs)
+        peak = BF16_PEAK if dtn == "bf16" else F32_PEAK
+        body = _flash_route_of(d, dtn)
+        for kn in ("flash_fwd", "flash_dq", "flash_dkv"):
+            bound_ms, bound_by = _bound(*costs[kn], peak)
+            lib = lib_f if kn == "flash_fwd" else lib_b
+            print(f"time {kn} D 640 {what} ({body[kn]}): the D-{w} body "
+                  f"alone {kms[kn]:.4f} ms (SDPA "
+                  f"{'forward' if kn == 'flash_fwd' else 'backward'}, "
+                  f"{backend}, {lib:.4f} ms: kernel {kms[kn] / lib:.2f}x), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, D 640's useful "
+                  f"work) [{smi}]", flush=True)
+        pair = kms["flash_dq"] + kms["flash_dkv"]
+        print(f"time flash D 640 {what} through the wrappers (padding "
+              f"included): forward {wrap_f:.4f} ms ({wrap_f / lib_f:.2f}x "
+              f"SDPA's), backward {wrap_b:.4f} ms ({wrap_b / lib_b:.2f}x "
+              f"SDPA's); the D-{w} dq + dk/dv alone {pair:.4f} ms "
+              f"({pair / lib_b:.2f}x) [{smi}]", flush=True)
+        del q, k, v, do, o, lse, pad, po, plse, kernel
+
+
 # the wide bodies at the wider widths, each at D 1024's bytes
 # (B·H·S·D = 8·2·512·1024): (batch, heads, seq, head dim)
 WIDE_FWD_SHAPES = ((4, 2, 512, 2048), (2, 2, 512, 4096), (1, 2, 512, 8192))
@@ -4328,52 +4429,59 @@ def _wide_widths(dev, smi: str, gen, seed) -> None:
 # GPT-2 small's (8, 12, 512, 64) and a Llama-class (8, 8, 512, 128); the
 # forward, dq and dk/dv there in register tiles, one CTA on a row
 F32_NARROW_SHAPES = ((8, 12, 512, 64), (8, 8, 512, 128))
-# GPT-2 small's batch, heads and seq at D 32 and 16: the f32 forward there
-# in register tiles (the BERT proxy's heads at --opt-level O0), the dq and
-# dk/dv on the CUDA cores
-F32_NARROWEST_SHAPES = ((8, 12, 512, 32), (8, 12, 512, 16))
+# GPT-2 small's batch, heads and seq at D 32 and 16, causal, and the BERT
+# proxy's (8, 4, 512, 32) unmasked (the shape it trains at --opt-level
+# O0): the f32 forward, dq and dk/dv there in register tiles, 128 threads
+# a CTA (b, h, s, d, causal)
+F32_NARROWEST_SHAPES = ((8, 12, 512, 32, True), (8, 12, 512, 16, True),
+                        (8, 4, 512, 32, False))
 
 
 def _f32_widths(dev, smi: str, gen, seed, shapes, label: str,
                 rows=None) -> dict:
     """The f32 forward, dq and dk/dv at ``shapes`` (``WIDE_FWD_SHAPES``:
     the wide bodies, register tiles on the CUDA cores, the column slices
-    of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``:
-    the register-tile forward, dq and dk/dv with one CTA on a row),
-    causal, rate 0 and 0.1: held against the twins and to the same bits
-    on a second call, then timed beside SDPA's f32 forward and backward
+    of a row block a cluster sharing the scores; ``F32_NARROW_SHAPES``
+    and ``F32_NARROWEST_SHAPES``: the register-tile forward, dq and dk/dv
+    with one CTA on a row), causal (or as a shape's fifth item says),
+    rate 0 and 0.1: held against the twins and to the same bits on a
+    second call, then timed beside SDPA's f32 forward and backward
     (``_sdpa_f32``: no TF32), the twin and the bound at the f32 FMA rate;
     up to D 128 each kernel whose body is not the CUDA-core one also in
     turns with its CUDA-core body (``_cuda_core_turns``).  Up to D 8192
     one cluster spans a row block, so the FLOP executed are the useful
     ones (4·D a pair forward, 6·D dq, 8·D dk/dv).  Returns the seconds of
     its forward and backward parts, named with ``label``; into ``rows``
-    (where given) the forward's rate-0 row at D 32, "d32_f32"."""
+    (where given) each kernel's rate-0 row at D 32, "d32_f32" causal and
+    "d32_proxy_f32" unmasked."""
     import torch
     from apex_tpu_torch.ops import attention as attn
 
     atol, rtol = ATTN_TOL["f32"]
     fwd_s, bwd_s = f"f32 forward {label}", f"f32 backward {label}"
     secs = {fwd_s: 0.0, bwd_s: 0.0}
-    for b, h, s, d in shapes:
+    for shape in shapes:
+        b, h, s, d = shape[:4]
+        causal = shape[4] if len(shape) > 4 else True
+        mask = "causal" if causal else "unmasked"
         t0 = time.perf_counter()
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
                        for _ in range(4))
-        costs = _attn_costs(b, h, h, s, d, 4, _pairs(None, b, h, s, True,
+        costs = _attn_costs(b, h, h, s, d, 4, _pairs(None, b, h, s, causal,
                                                      dev))
-        backend, lib_f, lib_b, lib_err = _sdpa_f32(q, k, v, do)
+        backend, lib_f, lib_b, lib_err = _sdpa_f32(q, k, v, do, causal)
         body = _flash_route_of(d, "f32")
         secs[fwd_s] += time.perf_counter() - t0
         for rate in (0.0, DROP_RATE):
             t0 = time.perf_counter()
             sd = seed if rate else None
-            fwd = lambda: attn._flash_fwd_cuda(q, k, v, True, None, None,
+            fwd = lambda: attn._flash_fwd_cuda(q, k, v, causal, None, None,
                                                True, rate, sd)
             o, lse = fwd()
             again = fwd()
-            wo, wlse = attn.flash_fwd_ref(q, k, v, True, None, None, rate,
+            wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, None, rate,
                                           sd)
-            what = f"({b}, {h}, {s}, {d}) f32 causal dropout {rate}"
+            what = f"({b}, {h}, {s}, {d}) f32 {mask} dropout {rate}"
             errs = {"flash_fwd": _held("flash_fwd", o, wo, atol, rtol,
                                        "o " + what)}
             _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
@@ -4382,27 +4490,27 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str,
             del again, wo, wlse
             times = {"flash_fwd": _ms(fwd, 5)}
             plain = {"flash_fwd": _ms(lambda: attn.flash_fwd_ref(
-                q, k, v, True, None, None, rate, sd), 2, 1)}
+                q, k, v, causal, None, None, rate, sd), 2, 1)}
             secs[fwd_s] += time.perf_counter() - t0
             t0 = time.perf_counter()
-            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+            grads = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None,
                                          None, rate, sd)
-            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+            wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None,
                                         None, rate, sd)
             for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
                                     ("dq", "dk", "dv"), grads, wgrads):
                 err = _held(kn, g, w, atol, rtol, f"{gn} {what}")
                 errs[kn] = max(errs.get(kn, 0.0), err)
-            again = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None,
+            again = attn._flash_bwd_cuda(q, k, v, o, lse, do, causal, None,
                                          None, rate, sd)
             _check(all(torch.equal(a, g) for a, g in zip(again, grads)),
                    f"flash backward {what}: the bits differ run to run")
             del again, grads, wgrads
-            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do, True,
-                                                  None, rate, sd)
+            dq_call, dkv_call = _bwd_kernel_calls(q, k, v, o, lse, do,
+                                                  causal, None, rate, sd)
             times.update(flash_dq=_ms(dq_call, 5), flash_dkv=_ms(dkv_call, 5))
             plain["flash_dq"] = plain["flash_dkv"] = _ms(
-                lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, True, None,
+                lambda: attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None,
                                            None, rate, sd), 2, 1)
             turns = {}
             if d <= 128:
@@ -4410,7 +4518,8 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str,
                 # they replace, in turns
                 turns = _cuda_core_turns(
                     q, k, v, o, lse, do, rate, sd,
-                    tuple(kn for kn, r in body.items() if r != "CUDA cores"))
+                    tuple(kn for kn, r in body.items() if r != "CUDA cores"),
+                    causal)
             del o, lse
             for kn, ms in times.items():
                 nbytes, ops = costs[kn]
@@ -4431,15 +4540,16 @@ def _f32_widths(dev, smi: str, gen, seed, shapes, label: str,
                   + (f" ({pair / lib_b:.2f}x SDPA f32's backward)"
                      if rate == 0 else "") + f" [{smi}]", flush=True)
             if rows is not None and d == 32 and rate == 0:
-                bound_ms, bound_by = _bound(*costs["flash_fwd"])
-                rows.setdefault("flash_fwd", {})["d32_f32"] = dict(
-                    ms=times["flash_fwd"],
-                    cuda_cores_ms=turns["flash_fwd"][1],
-                    plain_ms=plain["flash_fwd"], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=lib_f,
-                    max_abs_err=errs["flash_fwd"], atol=atol, rtol=rtol,
-                    body=body["flash_fwd"],
-                    shape=f"({b}, {h}, {s}, {d}) f32 causal")
+                for kn, ms in times.items():
+                    bound_ms, bound_by = _bound(*costs[kn])
+                    rows.setdefault(kn, {})[
+                        "d32_f32" if causal else "d32_proxy_f32"] = dict(
+                        ms=ms, ms_in_turns=turns[kn][0],
+                        cuda_cores_ms=turns[kn][1], plain_ms=plain[kn],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=lib_f if kn == "flash_fwd" else lib_b,
+                        max_abs_err=errs[kn], atol=atol, rtol=rtol,
+                        body=body[kn], shape=f"({b}, {h}, {s}, {d}) f32 {mask}")
             secs[bwd_s] += time.perf_counter() - t0
         del q, k, v, do
     return secs
@@ -4524,10 +4634,11 @@ def _wgmma_probe(dev, smi: str) -> None:
               f"(atol 1e-4, rtol 1e-5) [{smi}]", flush=True)
 
 
-def _narrow_case(gen, case, dev) -> tuple:
-    """One ``NARROW_CASES`` case through the wrappers: held against the
-    twins, exact zeros where nothing is seen, the same bits twice.
-    Returns the worst errors {kernel: err} and {kernel: launches}."""
+def _narrow_case(gen, case, dev, dtn="bf16") -> tuple:
+    """One ``NARROW_CASES`` case through the wrappers in ``dtn`` ("bf16"
+    or "f32"): held against the twins, exact zeros where nothing is seen,
+    the same bits twice.  Returns the worst errors {kernel: err} and
+    {kernel: launches}."""
     import torch
     from apex_tpu_torch.ops import attention as attn
     name, b, h, hk, sq, sk, d, causal, kind, rate = case
@@ -4535,7 +4646,7 @@ def _narrow_case(gen, case, dev) -> tuple:
             "flash_dkv": attn.FLASH_DKV}
     before = {kn: kt.launches for kn, kt in kern.items()}
     q, k, v, do = (torch.randn(b, n, length, d, generator=gen, device=dev)
-                   .to(torch.bfloat16)
+                   .to(_dtype(dtn))
                    for n, length in ((h, sq), (hk, sk), (hk, sk), (h, sq)))
     seg = _case_ids(kind, b, sq, dev)
     sd = (torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -4547,8 +4658,8 @@ def _narrow_case(gen, case, dev) -> tuple:
     wo, wlse = attn.flash_fwd_ref(q, k, v, causal, None, seg, rate, sd)
     wgrads = attn.flash_bwd_ref(q, k, v, o, lse, do, causal, None, seg,
                                 rate, sd)
-    atol, rtol = ATTN_TOL["bf16"]
-    what = f"{name} q={tuple(q.shape)} k={tuple(k.shape)} bf16 rate {rate}"
+    atol, rtol = ATTN_TOL[dtn]
+    what = f"{name} q={tuple(q.shape)} k={tuple(k.shape)} {dtn} rate {rate}"
     errs = {"flash_fwd": _held("flash_fwd", o, wo, atol, rtol, "o " + what)}
     el = _held("flash_fwd", lse, wlse, 1e-4, 1e-5, "lse " + what)
     for kn, gn, g, w in zip(("flash_dq", "flash_dkv", "flash_dkv"),
@@ -4718,8 +4829,9 @@ def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
     """Phase 37: the bf16 forward, dq and dk/dv at D 16 and 32 on the
     tensor cores.  The descriptors first (``_wgmma_probe``); then every
     ``NARROW_CASES`` case against the twins with its routes read from the
-    device kernels' names (``..._kernel_tc`` all three), the keep masks
-    bit for bit, an operand off 16 bytes, the ptxas registers and spills
+    device kernels' names (``..._kernel_tc`` all three), and in f32
+    (``..._kernel_wide`` all three, register tiles), the keep masks of
+    both bit for bit, an operand off 16 bytes, the ptxas registers and spills
     of the narrow bodies (0 spill bytes); then the times at
     ``NARROW_SHAPES`` in turns with the CUDA-core bodies and the padded
     D-64 bodies beside SDPA and the bound.
@@ -4733,47 +4845,50 @@ def narrow_head_phase(dev, smi: str, proxy_launches: dict) -> dict:
     _wgmma_probe(dev, smi)
     gen = torch.Generator(device=dev).manual_seed(38)
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    for drop in (False, True):
-        cases = [c for c in NARROW_CASES if (c[-1] > 0) == drop]
-        case_launches = []
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-        _prime_profiler()
-        for case in cases:
-            errs, launches = _narrow_case(gen, case, dev)
-            case_launches.append((case[0], launches))
-            if case[0] == "proxy_d32":
-                worst = errs
-        torch.cuda.synchronize()
-        prof.stop()
-        case_routes = _flash_routes(prof, case_launches, drop=drop)
-        del prof
-        for case in cases:
-            name, d = case[0], case[6]
-            want = _flash_route_of(d, "bf16")
-            _check(set(want.values()) == {"tensor cores"},
-                   f"flash_route at bf16 D {d}: {want}")
-            _check(case_routes[name] == want, f"{name}: routes "
-                   f"{case_routes[name]}, expected {want}")
-            print(f"route narrow {name} bf16 D {d} (kernel width "
-                  f"{attn._kernel_width(d)}) dropout {case[-1]}: "
-                  + ", ".join(f"{kn} {r}" for kn, r in
-                              case_routes[name].items()), flush=True)
+    # bf16 (the tensor cores), then f32 (register tiles, 128 threads a
+    # CTA): the same edge cases, each kernel's route from its device name
+    for dtn, route in (("bf16", "tensor cores"), ("f32", "wide CUDA cores")):
+        for drop in (False, True):
+            cases = [c for c in NARROW_CASES if (c[-1] > 0) == drop]
+            case_launches = []
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            _prime_profiler()
+            for case in cases:
+                errs, launches = _narrow_case(gen, case, dev, dtn)
+                case_launches.append((case[0], launches))
+                if case[0] == "proxy_d32" and dtn == "bf16":
+                    worst = errs
+            torch.cuda.synchronize()
+            prof.stop()
+            case_routes = _flash_routes(prof, case_launches, drop=drop)
+            del prof
+            for case in cases:
+                name, d = case[0], case[6]
+                want = _flash_route_of(d, dtn)
+                _check(set(want.values()) == {route},
+                       f"flash_route at {dtn} D {d}: {want}")
+                _check(case_routes[name] == want, f"{name} {dtn}: routes "
+                       f"{case_routes[name]}, expected {want}")
+                print(f"route narrow {name} {dtn} D {d} (kernel width "
+                      f"{attn._kernel_width(d)}) dropout {case[-1]}: "
+                      + ", ".join(f"{kn} {r}" for kn, r in
+                                  case_routes[name].items()), flush=True)
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
     for name, b, h, sq, sk, d, causal in NARROW_KEEP_CASES:
-        dt = torch.bfloat16
         vis = _visible(None, sq, sk, causal, dev)[:, None]
         want = attn.dropout_keep_ref(seed, b, h, sq, sk, DROP_RATE) & vis
-        for side in ("fwd", "dv", "dq"):
-            got = keep_mask_readout(b, h, sq, sk, d, dt, causal, DROP_RATE,
-                                    seed, dev, side)
-            _check(bool(torch.equal(got, want)), f"keep mask narrow {name} "
-                   f"{side}: {int((got != want).sum())} pairs other than "
-                   "dropout_keep_ref's")
-        print(f"keep mask narrow {name} ({b}, {h}, {sq}, {sk}) D {d} bf16 "
-              f"causal={causal}: the forward's, dk/dv's and dq's masks "
-              f"equal dropout_keep_ref bit for bit ({int(want.sum())} "
-              "pairs kept)", flush=True)
+        for dtn in ("bf16", "f32"):
+            for side in ("fwd", "dv", "dq"):
+                got = keep_mask_readout(b, h, sq, sk, d, _dtype(dtn), causal,
+                                        DROP_RATE, seed, dev, side)
+                _check(bool(torch.equal(got, want)), f"keep mask narrow "
+                       f"{name} {dtn} {side}: {int((got != want).sum())} "
+                       "pairs other than dropout_keep_ref's")
+            print(f"keep mask narrow {name} ({b}, {h}, {sq}, {sk}) D {d} "
+                  f"{dtn} causal={causal}: the forward's, dk/dv's and dq's "
+                  f"masks equal dropout_keep_ref bit for bit "
+                  f"({int(want.sum())} pairs kept)", flush=True)
     _narrow_off_alignment(gen, dev)
 
     for lib, kn in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_dq"),
@@ -6002,10 +6117,13 @@ def bert_proxy_phase(dev, smi: str) -> None:
     on both), the params within a tenth of the nearest of three wrong
     updates run on the CPU (label smoothing 0.1, the padding not masked,
     lr 4% high).  Also the proxy's device ms a step
-    (``tools/bert_proxy_step.py``) and its flash bodies at D 32 by name.
-    Returns the flash kernels' launches in the 3 steps, and as
-    "flash_fwd_f32" the f32 forward's (register tiles at D 32) in the
-    card's O0 step."""
+    (``tools/bert_proxy_step.py``) and its flash bodies at D 32 by name;
+    the card's O0 step launches each f32 flash kernel once a layer, on the
+    D-32 register-tile bodies (``PROXY_F32_FLASH_BODIES``, read from the
+    device kernels' names in a profiled step).  Returns the flash
+    kernels' launches in the 3 steps, and as "flash_fwd_f32",
+    "flash_dq_f32" and "flash_dkv_f32" the f32 ones in the card's O0
+    step."""
     import numpy as np
     import torch
     from apex_tpu_torch import _build
@@ -6077,12 +6195,31 @@ def bert_proxy_phase(dev, smi: str) -> None:
         return value, [p.float().cpu().numpy()
                        for p in tree_leaves(opt.params)]
 
+    from torch.profiler import ProfilerActivity, profile
     _build.reset_launch_counts()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    _prime_profiler()
     card_l, card_p = run(dev)
     torch.cuda.synchronize()
-    f32_fwd = {k.name: k.launches for k in _build.KERNELS}["flash_fwd"]
-    _check(f32_fwd == model.num_layers, f"bert proxy O0 step: {f32_fwd} "
-           f"flash forward launches, expected {model.num_layers}")
+    prof.stop()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    f32_flash = {kn: counts[kn] for kn in PROXY_F32_FLASH_BODIES}
+    _check(f32_flash == dict.fromkeys(PROXY_F32_FLASH_BODIES,
+                                      model.num_layers),
+           f"bert proxy O0 step: f32 flash launches {f32_flash}, expected "
+           f"{model.num_layers} of each")
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "flash_" in e.name]
+    del prof
+    for kn, body in PROXY_F32_FLASH_BODIES.items():
+        seen = [n for n in names if FLASH_SYMS[kn] in n]
+        _check(seen and all(body in n for n in seen),
+               f"bert proxy O0 step: {kn} ran {seen}, expected {body}")
+    print(f"route bert proxy O0 step (f32, D 32): launches {f32_flash}, "
+          + ", ".join(f"{kn} on {body}" for kn, body in
+                      PROXY_F32_FLASH_BODIES.items()), flush=True)
     cpu_l, cpu_p = run("cpu")
     mutants = {"label smoothing 0.1": run("cpu", smoothing=0.1)[1],
                "padding not masked": run("cpu", padding_idx=-2)[1],
@@ -6105,7 +6242,7 @@ def bert_proxy_phase(dev, smi: str) -> None:
                          f"{limit}")
     return dict({k: launches[k] for k in ("flash_fwd", "flash_dq",
                                           "flash_dkv")},
-                flash_fwd_f32=f32_fwd)
+                **{f"{kn}_f32": n for kn, n in f32_flash.items()})
 
 
 # the BERT proxy's flash bodies at its D 32, bf16: all three on the tensor
@@ -6113,6 +6250,11 @@ def bert_proxy_phase(dev, smi: str) -> None:
 PROXY_FLASH_BODIES = {"flash_fwd": "flash_fwd_kernel_tc<32, false>",
                       "flash_dkv": "flash_dkv_kernel_tc<32, false>",
                       "flash_dq": "flash_dq_kernel_tc<32, false>"}
+# and its f32 bodies at --opt-level O0: all three in register tiles
+PROXY_F32_FLASH_BODIES = {
+    "flash_fwd": "flash_fwd_kernel_wide<float, 32, false>",
+    "flash_dq": "flash_dq_kernel_wide<float, 32, false>",
+    "flash_dkv": "flash_dkv_kernel_wide<float, 64, 32, false>"}
 
 
 def welford_kernel_phase(dev, smi: str) -> dict:
@@ -6555,7 +6697,7 @@ def main() -> int:
     with timed("34 wide heads (F5b, F5c)"):
         wide_rows = wide_head_phase(dev, smi)
     torch.cuda.empty_cache()
-    with timed("37 narrow heads (bf16 D 16 and 32 on the tensor cores)"):
+    with timed("37 narrow heads (D 16 and 32, bf16 and f32)"):
         narrow_rows = narrow_head_phase(dev, smi, proxy_launches)
     torch.cuda.empty_cache()
     for e in [entry] + gpt_entries:
@@ -6566,8 +6708,9 @@ def main() -> int:
             e.update(wide_rows[e["name"]])
         if e["name"] in narrow_rows:
             e.update(narrow_rows[e["name"]])
-        if "d32_f32" in e:
-            e["d32_f32"]["launches"] = proxy_launches["flash_fwd_f32"]
+        for key in ("d32_f32", "d32_proxy_f32"):
+            if key in e:
+                e[key]["launches"] = proxy_launches[e["name"] + "_f32"]
 
     t0 = time.perf_counter()
     gpt_params = gpt_train_block.GPTBlocks(
@@ -6610,6 +6753,7 @@ def main() -> int:
                     **{k: e[k] for k in ("body", "shape", "serve_f32",
                                          "dropout", "d256", "d512",
                                          "d1024", "d32_proxy", "d32_f32",
+                                         "d32_proxy_f32",
                                          "gpt_model_launches") if k in e})
                for e in [entry] + flat_entries + bert_entries + gpt_entries
                + tail_entries + softmax_entries + xent_entries

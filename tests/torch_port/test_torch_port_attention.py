@@ -387,7 +387,7 @@ def test_f32_forward_and_dkv_at_256_and_512_take_register_tiles(kern, d):
         assert rows == (64 if d == 256 else 32)
         assert "static constexpr int RING = (5 * STAGE + TAIL) * 4 <= " \
             "227 * 1024 ? 5 : 4;" in bwd
-        assert "static constexpr int STAGES = W == 64 ? 2 : RING;" in bwd
+        assert "static constexpr int STAGES = W <= 64 ? 2 : RING;" in bwd
     want = "wide CUDA cores"
     for width in (d, d - 1, d // 2 + 1):
         assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == want
@@ -415,10 +415,9 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
     a row: the forward to ``FwdWide<D>`` (64 query rows, a two-stage ring,
     two CTAs an SM), dq to ``DqWide<D>`` (64 query rows, dS straight from
     each thread's blocks, a two-stage ring, two CTAs an SM) and dk/dv to
-    ``DkvWide<64, D>`` (64 key rows x D); the f32 forward with no keys and
-    the f32 dq and dk/dv at 16 and 32 keep their CUDA-core bodies (the
-    forward with keys at 16 and 32 takes the register tiles too, through
-    its own predicate); ``flash_route``
+    ``DkvWide<64, D>`` (64 key rows x D); the f32 forward with no keys
+    keeps its CUDA-core body (the three at 16 and 32 take the register
+    tiles too, through the same predicate); ``flash_route``
     names the same bodies for D and the heads padded to it (33..127); and
     the CUDA-core entry points still launch the CUDA-core bodies at 64 and
     128."""
@@ -430,8 +429,8 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
         text = src[src.index(start):]
         return text[:text.index("\n}\n")]
 
-    assert "constexpr bool narrow_takes(int D) {\n  return D == 64 || " \
-        "D == 128;" in hdr
+    assert "constexpr bool narrow_takes(int D) {\n  return D == 16 || " \
+        "D == 32 || D == 64 || D == 128;" in hdr
     src = fwd if kern == "fwd" else bwd
     route = body(src, "int route(" if kern == "fwd" else f"int route_{kern}(")
     cores = route.index(f"return launch_{'' if kern == 'fwd' else kern + '_'}"
@@ -459,8 +458,8 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
             f"{d}, DROP>(a, D, dk, dv);" in launch
         assert "wide::narrow_takes(D)" in launch
         assert "static constexpr bool DIRECT = W < 256;" in bwd
-        assert "__launch_bounds__(BwdWide::THREADS, DkvWide<ROWS, W>::CTAS)" \
-            in bwd
+        assert "__launch_bounds__(DkvWide<ROWS, W>::THREADS,\n" \
+            "                                  DkvWide<ROWS, W>::CTAS)" in bwd
     cc = body(src, "int launch_cuda_cores(" if kern == "fwd" else
               f"int launch_{kern}_cuda_cores(")
     assert f"case {d}: launch{'' if kern == 'fwd' else '_' + kern}<T, {d}, " \
@@ -472,8 +471,8 @@ def test_f32_forward_and_dkv_at_64_and_128_take_register_tiles(kern, d):
         assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
                                  width) == "tensor cores"
     for width in (16, 32):
-        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == (
-            "wide CUDA cores" if kern == "fwd" else "CUDA cores")
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 width) == "wide CUDA cores"
     assert tattn._align(torch.float32, d) == 16
     entry = body(src, f"int apex_flash_{kern}_cuda_cores(")
     for dt in ("float", "__nv_bfloat16"):
@@ -513,8 +512,9 @@ def test_f32_dq_at_64_and_128_picks_the_register_tile_body_of_its_width(d):
                  "static constexpr int VK = W >= 128 ? BwdWide::STAGE / W : "
                  "TILE;",
                  "static constexpr int C = BQ * W >= 8192 ? BQ * W / 8192 : 1;",
-                 "static constexpr int OR = BQ * W / (1024 * C);",
-                 "static constexpr int CTAS = 228 * 1024 / (SMEM + 1024);"):
+                 "static constexpr int OR = BQ * W / (4 * THREADS * C);",
+                 "static constexpr int CTAS = W < 64 ? 2 : 228 * 1024 / "
+                 "(SMEM + 1024);"):
         assert line in geo, line
     assert "__launch_bounds__(DqWide<W>::THREADS, DqWide<W>::CTAS)" in bwd
     route = body("int route_dq(")
@@ -528,13 +528,12 @@ def test_f32_dq_at_64_and_128_picks_the_register_tile_body_of_its_width(d):
     assert tattn.flash_route("flash_dq", torch.bfloat16, d) == "tensor cores"
 
 
-# the body each kernel takes (bf16; the f32 dq and dk/dv take the CUDA
-# cores at D 16 and 32): the tensor cores at these widths, the wide
-# tensor-core bodies from D 512 (f32 the wide CUDA-core bodies, register
-# tiles, from D 64, and the f32 forward from D 16)
+# the body each kernel takes (bf16): the tensor cores at these widths,
+# the wide tensor-core bodies from D 512 (f32 the wide CUDA-core bodies,
+# register tiles, from D 16: all three kernels at every width)
 _TC_ROUTE = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
                           (16, 32, 64, 128, 256))
-_F32_ROW_FROM = {"flash_fwd": 16, "flash_dq": 64, "flash_dkv": 64}
+_F32_ROW_FROM = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 16)
 _TC_ROUTES = ("tensor cores", "wide tensor cores")
 
 
@@ -545,11 +544,10 @@ def test_flash_route_names_each_kernels_body(kernel, dtype, d):
     """``flash_route`` names the body each kernel takes: bf16 forward, dq
     and dk/dv on the tensor cores at D 16, 32, 64, 128 and 256, on the
     wide tensor-core bodies at 512 (and 257..511, padded to it) and from
-    1024 (past 8192 the multiples of 8192, F7); the f32 dq and dk/dv at 16
-    and 32 on the CUDA cores; f32 from 1024, and at 256 and 512 (one CTA
-    on a whole row), the f32 forward, dq and dk/dv at 64 and 128 and the
-    f32 forward at 16 and 32 (one CTA on a row too), on the wide CUDA-core
-    bodies (register tiles).  A head dim pads to its
+    1024 (past 8192 the multiples of 8192, F7); f32 from 1024, and at 256
+    and 512 (one CTA on a whole row), the f32 forward, dq and dk/dv at 16,
+    32, 64 and 128 (one CTA on a row too), on the wide CUDA-core bodies
+    (register tiles): no width routes to the CUDA-core bodies.  A head dim pads to its
     kernel width first (D - 1 routes as D, for D past 16); q, k, v and dO
     align to TMA's 16 bytes wherever a kernel of the call takes either
     tensor-core route."""
@@ -759,9 +757,9 @@ def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
     """The C dispatchers send the bf16 forward (with keys to read), dq and
     dk/dv (with queries and keys) at D 16 and 32 to their tensor-core
     bodies at the head's own width, ahead of every other route; the f32
-    dq and dk/dv and the forward with no keys keep their CUDA-core bodies
-    (the f32 forward with keys takes the register tiles), which the
-    CUDA-core entry points still launch at 16 and 32; ``flash_route``
+    forward with no keys keeps its CUDA-core body (the f32 forward with
+    keys, dq and dk/dv take the register tiles), which the CUDA-core
+    entry points still launch at 16 and 32; ``flash_route``
     names the same bodies for D and the heads padded to it, and q, k, v
     and dO align to TMA's 16 bytes there."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
@@ -799,8 +797,8 @@ def test_bf16_forward_and_dkv_at_16_and_32_take_the_tensor_cores(kern, d):
         assert tattn._kernel_width(width) == d
         assert tattn.flash_route(f"flash_{kern}", torch.bfloat16,
                                  width) == "tensor cores"
-        assert tattn.flash_route(f"flash_{kern}", torch.float32, width) == (
-            "wide CUDA cores" if kern == "fwd" else "CUDA cores")
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 width) == "wide CUDA cores"
         assert tattn._align(torch.bfloat16, width) == 16
         assert tattn._align(torch.float32, width) == 16
 
@@ -922,56 +920,173 @@ def _fwd_wide_geometry(w):
                 c=c, orows=bq * w // (4 * threads * c), cg=w // (4 * c))
 
 
+# BwdWide's constants (csrc/flash_bwd.cu)
+_BWD = dict(threads=256, dc=64, stage=8192, stages=5, tile=64)
+_BWD["spart"] = 64 * (_BWD["tile"] + 8)
+
+
+def _dq_wide_geometry(w):
+    """``DqWide<W>``'s constants (csrc/flash_bwd.cu), for a width W."""
+    threads = 128 if w < 64 else _BWD["threads"]
+    tile = _BWD["tile"]
+    dc = w if w < 64 else _BWD["dc"]
+    pad = dc + 4
+    bq = 32 if w >= 1024 else 64
+    ks, rs = 64 // bq, bq // 4
+    sb = tile * rs * ks // threads
+    c = bq * w // 8192 if bq * w >= 8192 else 1
+    vk = _BWD["stage"] // w if w >= 128 else tile
+    kstage = vk * w if w < 64 else _BWD["stage"]
+    stage = max((bq + tile) * pad, kstage)
+    direct = w < 256
+    stages = 2 if direct else _BWD["stages"]
+    smem = (stages * stage + (0 if direct else 2 * _BWD["spart"])
+            + tile * (bq + 4)) * 4
+    return dict(threads=threads, tile=tile, dc=dc, bq=bq, ks=ks, rs=rs,
+                sb=sb, kg=tile // sb, c=c, orows=bq * w // (4 * threads * c),
+                cg=w // (4 * c), vk=vk, stage=stage, direct=direct,
+                smem=smem,
+                ctas=2 if w < 64 else 228 * 1024 // (smem + 1024))
+
+
+def _dkv_wide_geometry(w):
+    """``DkvWide<ROWS, W>``'s constants (csrc/flash_bwd.cu) at the rows
+    ``launch_dkv_wide`` gives a width W (64 up to 256, 32 at 512)."""
+    rows = 64 if w <= 256 else 32
+    threads = 128 if w < 64 else _BWD["threads"]
+    tile = _BWD["tile"]
+    dc = w if w < 64 else _BWD["dc"]
+    pad = dc + 4
+    ks, rs = 64 // rows, rows // 4
+    sb = tile * rs * ks // threads
+    c = 2 if rows * w >= 16384 else 1
+    qk = tile if w < 64 else _BWD["stage"] // (2 * w)
+    ustage = qk * 2 * w
+    stage = max((rows + tile) * pad, ustage)
+    direct = w < 256
+    prow = rows + 4
+    tail = (0 if direct else 2 * _BWD["spart"]) + 2 * tile * prow + 3 * tile
+    ring = 5 if (5 * stage + tail) * 4 <= 227 * 1024 else 4
+    stages = 2 if w <= 64 else ring
+    smem = (stages * stage + tail) * 4
+    return dict(threads=threads, tile=tile, rows=rows, ks=ks, rs=rs, sb=sb,
+                kg=tile // sb, c=c, orows=rows * w // (4 * threads * c),
+                cg=w // (4 * c), qk=qk, ustage=ustage, stage=stage,
+                direct=direct, smem=smem,
+                ctas=(2 if w == 32 else 3 if w < 64
+                      else 228 * 1024 // (smem + 1024)))
+
+
 @pytest.mark.parametrize("kern", ["fwd", "dq", "dkv"])
 def test_f32_forward_alone_takes_register_tiles_at_16_and_32(kern):
-    """The header's forward-only predicate ``wide::fwd_narrow_takes`` (D
-    16 and 32) sends the f32 forward with keys there to the register-tile
-    body, ahead of its CUDA-core body; ``route_dq`` and ``route_dkv``
-    (and the backward's register-tile launchers) never read it, so the
-    f32 dq and dk/dv at 16 and 32 keep their CUDA-core bodies.
-    ``FwdWide<16 / 32>`` takes a stage of S as wide as the head and 128
-    threads: 4 x 8 blocks of S, two threads a row in the softmax, 4 and 2
-    rows of O's 64 x W a thread; its tiles cover the CTA at every width
-    (the static_asserts' arithmetic)."""
+    """(Named when the forward alone took them.)  The header's
+    ``wide::narrow_takes`` (D 16, 32, 64 and 128) sends the f32 forward
+    with keys, the dq and the dk/dv at 16 and 32 to their register-tile
+    bodies, ahead of the CUDA-core bodies, which the CUDA-core entry
+    points still launch there for timing in turns.  ``FwdWide``,
+    ``DqWide`` and ``DkvWide<64, W>`` at W 16 / 32 take a stage of S as
+    wide as the head and 128 threads: 4 x 8 blocks of S (of S^T in
+    dk/dv), 4 and 2 rows of the output's 64 x W a thread, two CTAs an SM
+    (three in dk/dv at 16); their tiles cover the CTA and fit the SM at
+    every width from 16 to 512 (the static_asserts' arithmetic);
+    ``flash_route`` names "wide CUDA cores" at D and at the heads padded
+    to it."""
     fwd = open(os.path.join(_build.CSRC, "flash_fwd.cu")).read()
     bwd = open(os.path.join(_build.CSRC, "flash_bwd.cu")).read()
     hdr = open(os.path.join(_build.CSRC, "hopper_mma.cuh")).read()
-    assert "constexpr bool fwd_narrow_takes(int D) {\n  return D == 16 || " \
-        "D == 32;" in hdr
-    if kern == "fwd":
-        route = _src_body(fwd, "int route(")
-        line = route.index("if (sizeof(T) == 4 && wide::fwd_narrow_takes(D) "
-                           "&& Sk > 0)\n    return launch_wide<T, DROP>(")
-        assert line < route.index("return launch_cuda_cores<T, DROP>(")
-        launch = _src_body(fwd, "int launch_wide(")
-        for w in (16, 32):
-            assert launch.index("if constexpr (sizeof(T) == 4) {") < \
-                launch.index(f"if (D == {w})\n      return launch_wide_w<T, "
-                             f"{w}, DROP>(")
-        geo = _src_body(fwd, "struct FwdWide {", "\n};\n")
-        for text in ("static constexpr int THREADS = W < 64 ? 128 : 256;",
-                     "static constexpr int DC = W < 64 ? W : 64;",
-                     "static constexpr int SB = BK * RS * KS / THREADS;",
-                     "static constexpr int OR = BQ * W / (4 * THREADS * C);"):
-            assert text in geo, text
-    else:
-        for start in (f"int route_{kern}(", f"int launch_{kern}_wide("):
-            assert "fwd_narrow_takes" not in _src_body(bwd, start)
-        cores = _src_body(bwd, f"int launch_{kern}_cuda_cores(")
-        for w in (16, 32):
-            assert f"case {w}: launch_{kern}<T, {w}, DROP>(" in cores
-    for w in (16, 32, 64, 128, 256, 512, 1024):
-        g = _fwd_wide_geometry(w)
-        assert g["ks"] * g["rs"] * g["kg"] == g["threads"] and g["nx"] <= 32
-        assert g["bq"] // g["orows"] * g["cg"] == g["threads"]
-        assert g["bq"] * g["dc"] // 4 % g["threads"] == 0
-    assert (_fwd_wide_geometry(32)["sb"], _fwd_wide_geometry(32)["orows"],
-            _fwd_wide_geometry(16)["orows"]) == (8, 4, 2)
+    assert "constexpr bool narrow_takes(int D) {\n  return D == 16 || " \
+        "D == 32 || D == 64 || D == 128;" in hdr
+    assert "fwd_narrow_takes" not in hdr + fwd + bwd
+    src = fwd if kern == "fwd" else bwd
+    route = _src_body(src, "int route(" if kern == "fwd"
+                      else f"int route_{kern}(")
+    line = {"fwd": "if (sizeof(T) == 4 && wide::narrow_takes(D) && Sk > 0)"
+                   "\n    return launch_wide<T, DROP>(",
+            "dq": "if (sizeof(T) == 4 && wide::narrow_takes(D))\n    "
+                  "return launch_dq_wide<T, DROP>(a, D, dq);",
+            "dkv": "if (sizeof(T) == 4 && wide::narrow_takes(D))\n    "
+                   "return launch_dkv_wide<T, DROP>(a, D, dk, dv);"}[kern]
+    assert route.index(line) < route.index(
+        f"return launch_{'' if kern == 'fwd' else kern + '_'}cuda_cores<T, "
+        "DROP>(")
+    launch = _src_body(src, "int launch_wide(" if kern == "fwd" else
+                       f"int launch_{kern}_wide(")
+    cores = _src_body(src, "int launch_cuda_cores(" if kern == "fwd" else
+                      f"int launch_{kern}_cuda_cores(")
     for w in (16, 32):
-        want = "wide CUDA cores" if kern == "fwd" else "CUDA cores"
-        assert tattn.flash_route(f"flash_{kern}", torch.float32, w) == want
+        pick = {"fwd": f"if (D == {w})\n      return launch_wide_w<T, {w}, "
+                       "DROP>(",
+                "dq": f"if (D == {w}) return launch_dq_wide_w<T, {w}, "
+                      "DROP>(a, D, dq);",
+                "dkv": f"else if (D == {w})\n    return launch_dkv_wide_rows"
+                       f"<T, 64, {w}, DROP>(a, D, dk, dv);"}[kern]
+        assert launch.index(pick) < launch.index(
+            "if (D == 64)" if kern != "dkv" else "else if (D == 64)")
+        assert f"case {w}: launch{'' if kern == 'fwd' else '_' + kern}<T, " \
+            f"{w}, DROP>(" in cores
+    geo = _src_body(src, {"fwd": "struct FwdWide {", "dq": "struct DqWide : "
+                          "BwdWide {", "dkv": "struct DkvWide : BwdWide {"}
+                    [kern], "\n};\n")
+    lines = ["static constexpr int DC = W < 64 ? W : "
+             + ("64;" if kern == "fwd" else "BwdWide::DC;"),
+             "static constexpr int THREADS = W < 64 ? 128 : "
+             + ("256;" if kern == "fwd" else "BwdWide::THREADS;")]
+    if kern == "fwd":
+        lines += ["static constexpr int SB = BK * RS * KS / THREADS;",
+                  "static constexpr int OR = BQ * W / (4 * THREADS * C);"]
+    else:
+        rows = "BQ" if kern == "dq" else "ROWS"
+        lines += ["static constexpr int SB = TILE * RS * KS / THREADS;",
+                  f"static constexpr int OR = {rows} * W / (4 * THREADS * C);",
+                  "static constexpr int CTAS = W < 64 ? 2 : 228 * 1024 / "
+                  "(SMEM + 1024);" if kern == "dq" else
+                  "static constexpr int CTAS = W == 32 ? 2 : W < 64 ? 3 :\n"
+                  "                              228 * 1024 / (SMEM + 1024);",
+                  "static_assert(KS * RS * KG == THREADS,"]
+    for text in lines:
+        assert text in geo, text
+    for w in (16, 32, 64, 128, 256, 512):
+        if kern == "fwd":
+            g = _fwd_wide_geometry(w)
+            assert g["ks"] * g["rs"] * g["kg"] == g["threads"]
+            assert g["nx"] <= 32 and g["bq"] * g["dc"] // 4 % g["threads"] == 0
+            assert g["bq"] // g["orows"] * g["cg"] == g["threads"]
+            continue
+        g = (_dq_wide_geometry if kern == "dq" else _dkv_wide_geometry)(w)
+        rows = g["bq"] if kern == "dq" else g["rows"]
+        assert g["ks"] * g["rs"] * g["kg"] == g["threads"]
+        assert g["orows"] % 4 == 0 or g["orows"] < 4
+        assert rows // g["orows"] * g["cg"] == g["threads"]
+        assert g["smem"] <= 227 * 1024
+        assert (g["smem"] + 1024) * g["ctas"] <= 228 * 1024
+        assert not g["direct"] or g["ks"] == 1
+        if kern == "dq":
+            assert g["vk"] % (g["threads"] // (w // 4)) == 0
+            assert g["tile"] % g["vk"] == 0 and g["vk"] * w <= g["stage"]
+            assert g["cg"] % 32 == 0 or 32 % g["cg"] == 0
+        else:
+            assert g["tile"] % g["qk"] == 0
+            assert g["ustage"] // 4 % g["threads"] == 0
+            assert g["threads"] >= g["tile"]
+    narrow = {w: (_fwd_wide_geometry if kern == "fwd" else _dq_wide_geometry
+                  if kern == "dq" else _dkv_wide_geometry)(w) for w in (16, 32)}
+    assert (narrow[32]["threads"], narrow[32]["sb"], narrow[32]["orows"],
+            narrow[16]["orows"]) == (128, 8, 4, 2)
+    if kern != "fwd":
+        assert (narrow[32]["ctas"], narrow[16]["ctas"]) == (
+            (2, 2) if kern == "dq" else (2, 3))
+        # the narrow ring stages: a stage of S (S^T) as wide as the head
+        assert [narrow[w]["stage"] for w in (16, 32)] == [128 * 20, 128 * 36]
+        assert [narrow[w]["smem"] for w in (16, 32)] == (
+            [37888, 54272] if kern == "dq" else [56064, 72448])
+        for w in (64, 128, 256, 512):
+            g = (_dq_wide_geometry if kern == "dq" else _dkv_wide_geometry)(w)
+            assert (g["threads"], g["sb"], g["kg"]) == (256, 4, 16)
+    for w in (16, 32):
         assert tattn.flash_route(f"flash_{kern}", torch.float32,
-                                 w - 3) == want
+                                 w) == "wide CUDA cores"
+        assert tattn.flash_route(f"flash_{kern}", torch.float32,
+                                 w - 3) == "wide CUDA cores"
 
 
 # the twins at the BERT proxy's head dim (and 16), bf16, against the

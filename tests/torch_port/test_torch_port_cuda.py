@@ -788,9 +788,8 @@ F32_ROW_CASES = {
     "d64_sq1_sk5_gqa": (2, 4, 2, 1, 5, 64, False, None),
     "d128_sq1_sk5_gqa_causal": (1, 4, 2, 1, 5, 128, True, None),
     "d128_sq1_sk5": (2, 2, 2, 1, 5, 128, False, None),
-    # the f32 forward at 32 and 16 (and 24 and 12 padded to them) in
-    # register tiles, 128 threads a CTA; the dq and dk/dv there keep their
-    # CUDA-core bodies
+    # the f32 forward, dq and dk/dv at 32 and 16 (and 24, 31, 17 and 12
+    # padded to them) in register tiles, 128 threads a CTA
     "d32_sq130_sk70_gqa_causal": (1, 4, 2, 130, 70, 32, True, None),
     "d32_sq70_sk200_causal": (1, 2, 2, 70, 200, 32, True, None),
     "d32_gqa_packed_causal": (2, 4, 2, 130, 130, 32, True, "packed"),
@@ -801,6 +800,11 @@ F32_ROW_CASES = {
     "d12_sq70_sk200_gqa_causal": (1, 4, 2, 70, 200, 12, True, None),
     "d32_sq1_sk5_causal": (1, 2, 2, 1, 5, 32, True, None),
     "d16_sq1_sk5_gqa": (2, 4, 2, 1, 5, 16, False, None),
+    "d32_gqa_12_to_4_ragged_s200_causal": (2, 12, 4, 200, 200, 32, True,
+                                           "ragged"),
+    "d16_sq200_sk330_gqa": (1, 4, 2, 200, 330, 16, False, None),
+    "d31_gqa_s200_causal": (2, 8, 4, 200, 200, 31, True, None),
+    "d17_packed": (2, 4, 4, 192, 192, 17, False, "packed"),
 }
 
 
@@ -808,16 +812,16 @@ F32_ROW_CASES = {
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("name", sorted(F32_ROW_CASES))
 def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
-    """The f32 forward (o and lse), dq and dk/dv at kernel widths 64,
-    128, 256 and 512, register tiles with one CTA on a whole row (at 16
-    and 32 the forward alone, the dq and dk/dv on the CUDA cores), against
+    """The f32 forward (o and lse), dq and dk/dv at kernel widths 16,
+    32, 64, 128, 256 and 512, register tiles with one CTA on a whole row
+    (128 threads a CTA at 16 and 32), against
     ``flash_fwd_ref`` / ``flash_bwd_ref`` (the backward on the card's own
     o and lse; f32 within 1e-4), rate 0 and 0.1: the same bits on a
     second call; rows of padding (packed ids) and, causal with Sk > Sq,
     keys that no row sees give exact zeros; each kernel on its
     ``flash_route`` and the body of its width and DROP instantiation, read
     from the device kernels' names (the forward's and dq's W, dk/dv's key
-    rows a CTA and W: 64 x D at 64, 128 and 256, 32 x 512 at 512).  At 16,
+    rows a CTA and W: 64 x D from 16 to 256, 32 x 512 at 512).  At 16,
     32, 64 and 128 the cases include one query row against 5 keys, a
     partial tile on each axis."""
     b, h, hk, sq, sk, d, causal, kind = F32_ROW_CASES[name]
@@ -861,12 +865,39 @@ def test_f32_row_bodies_match_the_twins_on_card(cuda, name, rate):
     w = attn._kernel_width(d)
     drop = str(bool(rate)).lower()
     rows = 16384 // w if w >= 256 else 64
-    bwd = ((f"flash_dq_kernel<float, {w}, {drop}>",
-            f"flash_dkv_kernel<float, {w}, {drop}>") if w < 64 else
-           (f"flash_dq_kernel_wide<float, {w}, {drop}>",
-            f"flash_dkv_kernel_wide<float, {rows}, {w}, {drop}>"))
-    for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",) + bwd:
+    for body in (f"flash_fwd_kernel_wide<float, {w}, {drop}>",
+                 f"flash_dq_kernel_wide<float, {w}, {drop}>",
+                 f"flash_dkv_kernel_wide<float, {rows}, {w}, {drop}>"):
         assert any(body in n for n in names), (body, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("empty", ["keys", "queries"])
+def test_f32_narrow_backward_with_no_keys_or_no_queries_on_card(cuda, d,
+                                                                 empty):
+    """f32 at D 16 and 32 with no keys (Sk 0: dq is zero) or no queries
+    (Sq 0: dk and dv are zero), grouped-query heads: the wrapper answers
+    with zeros of the twin's shapes and bits and launches neither
+    backward kernel, so the register-tile bodies never take an empty
+    grid."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sq, sk = (40, 0) if empty == "keys" else (0, 40)
+    q, do = (torch.randn(2, 4, sq, d, generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, sk, d, generator=g, device=cuda)
+            for _ in range(2))
+    # the forward's answer for rows that see no key: zeros, lse -1e30
+    o = torch.zeros_like(q)
+    lse = torch.full((2 * 4, sq), -1e30, device=cuda)
+    before = (attn.FLASH_DQ.launches, attn.FLASH_DKV.launches)
+    got = attn._flash_bwd_cuda(q, k, v, o, lse, do, True, None, None)
+    torch.cuda.synchronize()
+    assert (attn.FLASH_DQ.launches, attn.FLASH_DKV.launches) == before
+    want = attn.flash_bwd_ref(q, k, v, o, lse, do, True)
+    for a, w, t in zip(got, want, (q, k, v)):
+        assert a.shape == t.shape and a.dtype == torch.float32
+        assert torch.equal(a, torch.zeros_like(t)) and torch.equal(a, w)
 
 
 @pytest.mark.cuda
@@ -1044,6 +1075,22 @@ DQ_CASES = {
                             torch.float32),
     "f32_d320_gqa_packed_causal": (2, 4, 2, 200, 200, 320, True, "packed",
                                    torch.float32),
+    # the f32 register-tile dq at D 32 and 16 (24 and 12 padded to them):
+    # 64 rows a CTA of 128 threads, a stage of S as wide as the head
+    "f32_d32_causal_s200": (2, 4, 4, 200, 200, 32, True, None,
+                            torch.float32),
+    "f32_d32_proxy_unmasked": (8, 4, 4, 512, 512, 32, False, None,
+                               torch.float32),
+    "f32_d16_ragged_s200": (2, 4, 4, 200, 200, 16, False, "ragged",
+                            torch.float32),
+    "f32_d32_gqa_12_to_4_ragged_causal": (2, 12, 4, 200, 200, 32, True,
+                                          "ragged", torch.float32),
+    "f32_d16_sq200_sk330_gqa": (1, 4, 2, 200, 330, 16, False, None,
+                                torch.float32),
+    "f32_d24_packed_causal": (2, 4, 4, 192, 192, 24, True, "packed",
+                              torch.float32),
+    "f32_d12_sq130_sk70_causal": (2, 4, 4, 130, 70, 12, True, None,
+                                  torch.float32),
 }
 
 
@@ -1054,7 +1101,8 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     within one bf16 rounding (2e-2), f32 within 1e-4; rows that see no
     key give exact zeros; the same bits on a second call; the route read
     from the kernel's name (``attn.flash_route``: ``flash_dq_kernel_tc``
-    exactly for bf16 at D 16, 32, 64, 128 and 256)."""
+    exactly for bf16 at D 16, 32, 64, 128 and 256, ``flash_dq_kernel_wide``
+    for f32 at every width, ``<float, 32, false>`` at D 17..32)."""
     b, h, hk, sq, sk, d, causal, kind, dt = DQ_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(31)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda).to(dt)
@@ -1079,6 +1127,10 @@ def test_flash_dq_on_its_route_matches_the_twin(cuda, name):
     want = attn.flash_route("flash_dq", dt, d)
     assert names and all(_body_route(n, "flash_dq_kernel") == want
                          for n in names)
+    w = attn._kernel_width(d)
+    if dt == torch.float32 and w <= 512:
+        assert all(f"flash_dq_kernel_wide<float, {w}, false>" in n
+                   for n in names), names
 
 
 LN_BWD_CASES = {
@@ -2151,7 +2203,9 @@ KEEP_CASES = {
     "fma_bf16_d16_causal": (1, 2, 90, 90, 16, True, torch.bfloat16, 0.9),
     "tc_d32_causal": (2, 3, 200, 200, 32, True, torch.bfloat16, 0.1),
     "tc_d16_cross": (1, 2, 70, 150, 16, False, torch.bfloat16, 0.25),
-    # the f32 register-tile forward at 32 and 16
+    # the f32 register-tile forward, dq and dk/dv at 32 and 16 (the
+    # f32 "fma_f32" case above has run them too since they came to the
+    # register tiles)
     "wide_f32_d32_causal": (2, 3, 200, 200, 32, True, torch.float32, 0.1),
     "wide_f32_d16_cross": (1, 2, 70, 150, 16, False, torch.float32, 0.25),
 }

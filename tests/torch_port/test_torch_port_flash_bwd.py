@@ -8,7 +8,8 @@ port's plain twins ``flash_fwd_ref`` / ``flash_bwd_ref``; then
 port's ``flash_attention`` under autograd on the CPU (its autograd
 Function with the twins).  The cases cover causal or not, packed
 segment ids with pad rows, grouped-query heads and Sq = 200 (not a
-multiple of the TPU kernel's 128-row blocks), in f32 and bf16.
+multiple of the TPU kernel's 128-row blocks), in f32 and bf16, f32 at D
+16 and 32 among them.
 
 Tolerances (each with its reason):
 - f32: the two sum the same products in another order: within 1e-5 of
@@ -50,6 +51,11 @@ CASES = {
     "non_causal_bf16": (1, 2, 2, 48, 64, False, None, "bf16"),
     "mqa_causal_packed_d128_bf16": (1, 2, 1, 40, 128, True, "packed",
                                     "bf16"),
+    # f32 at the narrow widths (the register-tile dq and dk/dv at D 32 and
+    # 16): grouped-query heads, Sq = 200 ragged and packed segment ids
+    "gqa_causal_ragged_s200_d32_f32": (2, 4, 2, 200, 32, True, "ragged",
+                                       "f32"),
+    "gqa_packed_s200_d16_f32": (2, 4, 2, 200, 16, False, "packed", "f32"),
 }
 
 
