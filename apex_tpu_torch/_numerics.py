@@ -47,8 +47,12 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
 def conv2d(x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
     """``F.conv2d(x, w, **kw)`` in x's dtype.  On the CPU, a float
     narrower than f64 is summed in f64 and rounded once (its gradients
-    too, through the casts); on the card it is ``F.conv2d``."""
+    too, through the casts); on the card, and inside an amp O1 call
+    (whose rule gives a convolution its half operands and result), it
+    is ``F.conv2d``."""
+    from apex_tpu_torch.amp import wrap
+
     if (x.device.type == "cpu" and x.is_floating_point()
-            and x.dtype != torch.float64):
+            and x.dtype != torch.float64 and not wrap.active()):
         return F.conv2d(x.double(), w.double(), **kw).to(x.dtype)
     return F.conv2d(x, w, **kw)

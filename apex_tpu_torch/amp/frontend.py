@@ -5,54 +5,33 @@ tree, returns the cast params plus an :class:`AmpState` carrying the
 policy, the optional f32 masters and the loss-scaler state.  O2 casts
 every float param to the half type (BatchNorm's scale and bias
 included) and takes the masters from the ORIGINAL f32 values, not from
-the rounded half params.
-
-O1 — the op-list rewrite of ``amp/wrap.py`` and ``amp/lists.py`` —
-is not ported yet (ROADMAP Queue 1, slice 2 item T1); neither is fp8.
+the rounded half params.  O1 leaves the params in f32, and
+:meth:`AmpState.wrap_forward` runs the forward under the op-list
+rewrite (:func:`apex_tpu_torch.amp.wrap.auto_cast`) in the half type
+``initialize`` was given.  fp8 is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import warnings
 from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch._tree import tree_leaves, tree_map
-from apex_tpu_torch.amp.policies import Properties, opt_level_properties
+from apex_tpu_torch.amp.policies import (Policy, Properties,
+                                         opt_level_properties)
 from apex_tpu_torch.amp.scaler import (LossScaleConfig, LossScaleState,
                                        update_state)
+from apex_tpu_torch.amp.wrap import auto_cast, cast_inputs
 
 Tree = Any
-
-O1_TODO = ("amp O1 (the op-list rewrite of amp/wrap.py + amp/lists.py) is "
-           "not ported yet: ROADMAP Queue 1, slice 2 item T1")
 
 
 def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
-
-
-def cast_inputs(fn, dtype, argnums=None):
-    """O2/O3 forward patch: cast floating tensor inputs to the model
-    dtype (only the positional args in ``argnums`` when given: the data
-    inputs, not the params or state)."""
-    def cast(x):
-        return x.to(dtype) if _is_float(x) else x
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        if argnums is None:
-            args = tree_map(cast, args)
-            kwargs = tree_map(cast, kwargs)
-        else:
-            args = tuple(tree_map(cast, a) if i in argnums else a
-                         for i, a in enumerate(args))
-        return fn(*args, **kwargs)
-
-    return wrapped
 
 
 @dataclasses.dataclass
@@ -63,16 +42,22 @@ class AmpState:
     properties: Properties = dataclasses.field(default_factory=Properties)
     scaler_config: LossScaleConfig = dataclasses.field(
         default_factory=LossScaleConfig)
+    half_dtype: Any = torch.bfloat16
+
+    @property
+    def policy(self) -> Policy:
+        return self.properties.policy(self.half_dtype)
 
     def wrap_forward(self, fn, cast_argnums=None):
-        """This opt level's casting applied to an unmodified forward:
-        O2/O3 cast the floating inputs (``cast_argnums``: the data args)
-        to the model half dtype; O0 and disabled are the identity."""
+        """This opt level's casting applied to an unmodified forward: O1
+        runs it under the op-list rewrite in the half type; O2/O3 cast
+        the floating inputs (``cast_argnums``: the data args) to the
+        model half dtype; O0 and disabled are the identity."""
         props = self.properties
         if not props.enabled:
             return fn
         if props.patch_torch_functions:
-            raise NotImplementedError(O1_TODO)
+            return auto_cast(fn, self.policy)
         if props.cast_model_type is not None:
             return cast_inputs(fn, props.cast_model_type, cast_argnums)
         return fn
@@ -118,8 +103,6 @@ def initialize(params: Tree, opt_level: str = "O1",
         raise NotImplementedError(
             "amp fp8 is not ported yet: ROADMAP Queue 1, slice 6 item 17")
     props = opt_level_properties(opt_level, half_dtype)
-    if props.patch_torch_functions:
-        raise NotImplementedError(O1_TODO)
     if cast_model_type is not None:
         props.cast_model_type = cast_model_type
     if keep_batchnorm_fp32 is not None:
@@ -137,7 +120,8 @@ def initialize(params: Tree, opt_level: str = "O1",
     if not enabled:
         return params, AmpState(
             master_params=None, scaler=LossScaleState.create(1.0, dev),
-            properties=props, scaler_config=LossScaleConfig(dynamic=False))
+            properties=props, scaler_config=LossScaleConfig(dynamic=False),
+            half_dtype=half_dtype)
 
     masters = None
     cast_params = params
@@ -156,7 +140,7 @@ def initialize(params: Tree, opt_level: str = "O1",
     cfg = LossScaleConfig(init_scale=init_scale, dynamic=dynamic)
     return cast_params, AmpState(
         master_params=masters, scaler=LossScaleState.create(init_scale, dev),
-        properties=props, scaler_config=cfg)
+        properties=props, scaler_config=cfg, half_dtype=half_dtype)
 
 
 def master_params_to_model_params(model_params: Tree,
@@ -169,3 +153,28 @@ def master_params_to_model_params(model_params: Tree,
 def update_scaler(state: AmpState, found_inf, skipped=None) -> AmpState:
     return dataclasses.replace(state, scaler=update_state(
         state.scaler, found_inf, state.scaler_config, skipped=skipped))
+
+
+def state_dict(*states: AmpState) -> dict:
+    """N amp states in the reference's multi-scaler layout
+    (``loss_scaler0`` .. ``loss_scaler<N-1>``): one AmpState per loss
+    plays the part of ``amp.initialize(..., num_losses=N)``."""
+    return {f"loss_scaler{i}": s.state_dict()["loss_scaler0"]
+            for i, s in enumerate(states)}
+
+
+def load_state_dict(sd: dict, *states: AmpState):
+    """The inverse of :func:`state_dict`: the restored states (one
+    AmpState when one was passed, else a tuple in order).  Warns when the
+    checkpoint's scaler count differs; an unmatched state keeps its
+    config's initial scale."""
+    saved = sum(1 for k in sd if k.startswith("loss_scaler"))
+    if saved != len(states):
+        warnings.warn(
+            f"amp.load_state_dict: checkpoint has {saved} loss scaler(s) "
+            f"but {len(states)} AmpState(s) were passed; unmatched "
+            "states keep their initial scale", stacklevel=2)
+    restored = tuple(
+        s.load_state_dict({"loss_scaler0": sd.get(f"loss_scaler{i}", {})})
+        for i, s in enumerate(states))
+    return restored[0] if len(restored) == 1 else restored

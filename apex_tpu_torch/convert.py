@@ -16,6 +16,10 @@ over it has the reference's ``layout()`` and the same bucket bytes.  The
 forward takes torch's OIHW and (out, in) views of those kernels at use.
 :func:`bert_from_jax` does the same for the flax BERT's ``params``, and
 :func:`gpt_from_jax` for the flax ``GPTModel``'s.
+:func:`dcgan_from_jax` takes the flax DCGAN's two trees
+(``examples/dcgan/main_amp.py``): the port's models keep flax's names
+and layouts too (kernels HWIO, dense ``(in, out)``) and take torch's
+views at use, the transposed convolutions' flip included.
 :func:`gpt_block_from_jax` takes the flax GPT block stack of
 ``examples/gpt/train_block.py`` (or a flax ``SelfMultiheadAttn``'s
 params): the port keeps their names and layouts but two,
@@ -110,3 +114,14 @@ def gpt_block_from_jax(params, device=None):
     ``kernel`` -> ``weight`` and ``FusedLayerNorm_0`` -> ``norm`` renames;
     ``q_proj``, ``kv_proj`` and ``out_proj`` keep their names)."""
     return _from_numpy(_renamed(params), resolve_device(device))
+
+
+def dcgan_from_jax(params_g, params_d, device=None):
+    """The flax DCGAN's ``Generator`` and ``Discriminator`` ``params``
+    with numpy leaves -> the port's ``(params_g, params_d)``
+    (:mod:`apex_tpu_torch.examples.dcgan_main_amp` keeps flax's names
+    and layouts; its forward flips the ``ConvTranspose`` kernels, which
+    flax applies unflipped), each leaf keeping its float dtype, on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return _from_numpy(params_g, dev), _from_numpy(params_d, dev)

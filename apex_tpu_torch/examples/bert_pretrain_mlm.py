@@ -25,6 +25,12 @@ bert-large-uncased, ``bert_large(vocab_size=30592)`` through
 ``xent_fwd``/``xent_bwd`` kernels, the padding's label -1 included
 (masked by ``padding_idx``).  BERT-Large's 30528 is off the gate.
 
+At ``--opt-level O1`` the params stay f32 (LAMB keeps no masters), the
+model computes in bf16 as at O2, and the loss runs under the op-list
+rewrite: the flash attention, the fused norms and the cross entropy are
+opaque to it and run at their traced dtypes, the MLM logits come back
+bf16 and are restored to f32 at the cross entropy.
+
 ``--offload-state`` raises ``NotImplementedError`` (optimizer state
 offload, ROADMAP Queue 1 slice 2 item T4).
 """

@@ -22,8 +22,12 @@ pipeline (the reference's ``grads_layout="flat"``): packed once, one
 ``flat_unscale_norm`` per bucket, then one ``flat_adam`` per bucket.
 The step never syncs the host; the loss is echoed one step in five.
 
-``--offload-activations`` raises ``NotImplementedError``
-(:data:`OFFLOAD_TODO`).
+``--offload-activations`` rematerializes each block
+(:func:`apex_tpu_torch.offload.offload_checkpoint`, the reference's
+``nn.remat(Block, policy=offload_policy(("ffn_hidden",)))``): the MLP's
+GELU output, tagged ``ffn_hidden``, is saved for ``fc2``'s backward in
+pinned host memory and comes back for it; the rest of the block is
+recomputed in the backward, up to the GELU (``fc2`` is not rerun).
 """
 
 from __future__ import annotations
@@ -42,13 +46,10 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch._tree import tree_map
 from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.offload import checkpoint_name, offload_checkpoint
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer.tensor_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear)
-
-OFFLOAD_TODO = ("--offload-activations (remat with the ffn hidden in "
-                "pinned host memory, apex_tpu.offload) is not ported yet: "
-                "ROADMAP Queue 1, slice 4 item 12c")
 
 # the reference's widths by device (examples/gpt/train_block.py:109-115)
 CARD = dict(layers=12, hidden=768, heads=12, seq=512, batch=8, vocab=50257)
@@ -76,22 +77,28 @@ class Block:
     def __call__(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         x, _ = self.attn(params["attn"], x, attn_mask="causal")
         h = self.ln2(params["ln2"], x).to(self.dtype)
-        h = F.gelu(self.fc1(params["fc1"], h), approximate="tanh")
+        # offload tag: the identity unless the block runs under
+        # offload_checkpoint (--offload-activations)
+        h = checkpoint_name(F.gelu(self.fc1(params["fc1"], h),
+                                   approximate="tanh"), "ffn_hidden")
         return x + self.fc2(params["fc2"], h)
 
 
 class GPTBlocks:
     """Token + learned position embeddings, ``layers`` blocks, a final
-    LayerNorm and the tied f32 head.  Parameters are a nested dict with
-    the flax model's names (``embed`` (V, h), ``pos`` (max_seq, h),
+    LayerNorm and the tied f32 head; ``offload_activations`` remats each
+    block with its ``ffn_hidden`` in pinned host memory.  Parameters are
+    a nested dict with the flax model's names (``embed`` (V, h), ``pos`` (max_seq, h),
     ``block<i>/{attn,ln2,fc1,fc2}``, ``lnf``), so the tree flattens in
     the reference's order (``convert.gpt_block_from_jax``)."""
+
+    # the tags that offload_activations sends to the host
+    OFFLOAD_NAMES = ("ffn_hidden",)
 
     def __init__(self, vocab: int, hidden: int, heads: int, layers: int,
                  max_seq: int, dtype: torch.dtype = torch.bfloat16,
                  offload_activations: bool = False):
-        if offload_activations:
-            raise NotImplementedError(OFFLOAD_TODO)
+        self.offload_activations = offload_activations
         self.vocab, self.hidden, self.heads = vocab, hidden, heads
         self.layers, self.max_seq, self.dtype = layers, max_seq, dtype
         self.block = Block(hidden, heads, dtype)
@@ -118,8 +125,12 @@ class GPTBlocks:
         emb = params["embed"]
         x = F.embedding(tokens, emb) + params["pos"][:s][None]
         x = x.transpose(0, 1).to(self.dtype)                   # (s, b, h)
+        block = self.block
+        if self.offload_activations:
+            block = offload_checkpoint(self.block,
+                                       offload_names=self.OFFLOAD_NAMES)
         for i in range(self.layers):
-            x = self.block(params[f"block{i}"], x)
+            x = block(params[f"block{i}"], x)
         x = self.lnf(params["lnf"], x)
         return torch.matmul(x.float(), emb.float().t())
 

@@ -1,5 +1,5 @@
 """ImageNet AMP training on the card (port of examples/imagenet/main_amp.py:
-ResNet, amp O0/O2/O3, bucketed FusedSGD, the flat grad-accum pipeline).
+ResNet, amp O0-O3, bucketed FusedSGD, the flat grad-accum pipeline).
 
 Data is synthetic ImageNet-shaped batches (the training math, the amp
 plumbing and the throughput accounting are the real thing):
@@ -12,7 +12,9 @@ Defaults follow the reference: batch 128 at 224x224 on the card (8 at
 64x64 on the CPU), lr 0.1, momentum 0.9, weight decay 1e-4.  The step
 never syncs the host; the loss is echoed one step in ten.  f32 convs
 and matmuls run in full f32 (TF32 off), as the reference's O2 model
-computes in f32.
+computes in f32.  At O1 the params stay f32 and the loss runs under the
+op-list rewrite (``AmpState.wrap_forward``): the convolutions and the
+dense layer in bf16, the BatchNorms and the loss in f32.
 
 ``--sync-bn`` runs ResNet with
 :class:`~apex_tpu_torch.parallel.SyncBatchNorm` as the reference's
@@ -163,7 +165,8 @@ def train(arch: str = "resnet50", opt_level: str = "O2", batch: int = 0,
                            y.long()[:, None])
         return ll.mean(), new_bs
 
-    # O2/O3 cast the data input (arg 2) to the model half dtype
+    # O1 rewrites the ops; O2/O3 cast the data input (arg 2) to the model
+    # half dtype
     wrapped_loss = amp_state.wrap_forward(loss_fn, cast_argnums=(2,))
 
     if grad_accum > 1:

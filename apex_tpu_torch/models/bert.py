@@ -60,7 +60,11 @@ class _MatmulF32Out(torch.autograd.Function):
     bf16 ``torch.matmul`` would round the result to bf16.  The backward
     takes the f32 gradient through f32 GEMMs (the reference's transpose
     rule promotes the bf16 operand to f32) and returns each gradient in
-    its operand's dtype."""
+    its operand's dtype.  Under amp O1 it is a HALF op (its result comes
+    back in the compute dtype), as the reference's plain ``dot_general``
+    is."""
+
+    amp_o1 = "half"
 
     @staticmethod
     def forward(ctx, x, w):

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models.bert import _normal, matmul_f32_out
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.offload import checkpoint_name
 from apex_tpu_torch.ops.attention import flash_attention, packed_segment_ids
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
 from apex_tpu_torch.transformer import tensor_parallel as tp
@@ -135,11 +136,15 @@ class GPTLayer:
         seg = None if segment_ids is None else packed_segment_ids(segment_ids)
         attn = flash_attention(q, k, v, causal=True, segment_ids=seg)
         attn = attn.permute(2, 0, 1, 3).reshape(s, b, self.hidden_size)
+        # offload tags (the identity outside an offload scope): the two
+        # largest activations, for apex_tpu_torch.offload.offload_checkpoint
+        attn = checkpoint_name(attn, "attn_out")
         x = x + self.attn_proj(params["attn_proj"], attn).to(x.dtype)
 
         y = self.post_attn_layernorm(params["post_attn_layernorm"],
                                      x).to(self.dtype)
-        y = F.gelu(self.mlp_fc1(params["mlp_fc1"], y), approximate="tanh")
+        y = checkpoint_name(F.gelu(self.mlp_fc1(params["mlp_fc1"], y),
+                                   approximate="tanh"), "ffn_hidden")
         return x + self.mlp_fc2(params["mlp_fc2"], y).to(x.dtype)
 
 

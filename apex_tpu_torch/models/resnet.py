@@ -13,7 +13,9 @@ channels_last (on the CPU, NCHW).
 Precision is the reference's: every layer computes in ``dtype`` (f32 by
 default) whatever the params' dtype, so under amp O2 the bf16 params
 and the bf16-cast input are promoted to f32, and the gradient of a bf16
-param comes back bf16.  BatchNorm always computes in f32.
+param comes back bf16.  BatchNorm computes in f32; inside an amp O1
+call it is flax's decomposition at the dtypes the reference's rewrite
+gives it (:func:`_flax_batch_norm`).
 
 BatchNorm has flax's semantics, not ``torch.nn.BatchNorm2d``'s: the
 running averages move by ``momentum=0.9`` (the weight of the OLD value)
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch import _numerics
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp import wrap as amp_wrap
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -74,6 +77,8 @@ def batch_norm(x: torch.Tensor, params: Dict, stats: Dict, train: bool,
     the unbiased one, so it is not used for the update)."""
     x = x.float()
     scale, bias = params["scale"].float(), params["bias"].float()
+    if amp_wrap.active():
+        return _flax_batch_norm(x, scale, bias, stats, train, momentum, eps)
     if not train:
         return F.batch_norm(x, stats["mean"], stats["var"], scale, bias,
                             training=False, eps=eps), None
@@ -82,6 +87,36 @@ def batch_norm(x: torch.Tensor, params: Dict, stats: Dict, train: bool,
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         new = {"mean": momentum * stats["mean"] + (1.0 - momentum) * mean,
                "var": momentum * stats["var"] + (1.0 - momentum) * var}
+    return y, new
+
+
+def _flax_batch_norm(x, scale, bias, stats, train, momentum, eps):
+    """flax ``nn.BatchNorm``'s own decomposition: the fast variance
+    ``max(0, E[x^2] - E[x]^2)``, then ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, at the dtypes the reference's O1 rewrite gives each
+    of its primitives: a bf16 input stays bf16 (flax's upcast is not in
+    the f32 trace), its square is rounded to bf16, the means sum in f32
+    and the normalisation promotes to f32.  The dtypes are written out
+    and the engine suspended, so that no f32 copy of the input is made
+    for a mean or a difference."""
+    dims, shape = (0, 2, 3), (1, -1, 1, 1)
+    with torch._C.DisableTorchFunction():
+        if train:
+            mean = x.mean(dim=dims, dtype=torch.float32)
+            var = torch.clamp(
+                torch.square(x).mean(dim=dims, dtype=torch.float32)
+                - torch.square(mean), min=0.0)
+        else:
+            mean, var = stats["mean"], stats["var"]
+        y = (x - mean.reshape(shape)) * (torch.rsqrt(var + eps)
+                                         * scale).reshape(shape)
+        y = y + bias.reshape(shape)
+        if not train:
+            return y, None
+        with torch.no_grad():
+            new = {"mean": momentum * stats["mean"]
+                   + (1.0 - momentum) * mean,
+                   "var": momentum * stats["var"] + (1.0 - momentum) * var}
     return y, new
 
 
@@ -208,7 +243,8 @@ class ResNet:
         # HWIO param -> OIHW view, in the compute dtype; channels_last on
         # the card, NCHW on the CPU (torch's multi-threaded oneDNN conv
         # backward in channels_last segfaults at some small CPU shapes);
-        # on the CPU summed in f64, so the host does not decide the bits
+        # on the CPU summed in f64 outside amp O1, so the host does not
+        # decide the bits
         fmt = (torch.channels_last if x.device.type == "cuda"
                else torch.contiguous_format)
         w = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=fmt)

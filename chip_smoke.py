@@ -284,7 +284,18 @@ exits non-zero:
     and dk/dv in turns with their CUDA-core bodies and the D-64 bodies on
     zero-padded operands, beside the twin, SDPA and the bound; the same
     edge cases in f32 (every kernel in register tiles) against the twins
-    with their routes, and the f32 keep masks bit for bit.
+    with their routes, and the f32 keep masks bit for bit;
+38. amp O1 and offload — ResNet-50 at O1 (b128 at 224x224, FusedSGD,
+    ``grad_accum`` 2 and 1) beside phase 8's O2 figures, with the
+    convolutions' kernels from a profiled step and the host time the
+    O1 mode adds; card against CPU at O1 on ResNet-18 and the BERT
+    proxy (the first loss, the proxy's first gradient per leaf, the
+    params after one step, each limit printed with the planted faults it
+    rejects); the BERT proxy and BERT-Large at O1 with their kernel
+    launches; the DCGAN example (two scalers in one ``state_dict``);
+    the GPT block at GPT-2 small's widths plain, under plain
+    recomputation and with ``--offload-activations`` (loss and grads
+    alike, peak device memory and device ms of each).
 
 Phase 11 also reads every LayerNorm forward's route (the register body
 up to h 8192 at 16-byte alignment, the wide one past it and off it)
@@ -320,6 +331,7 @@ the GPTModel step carry their launches in phase 35's timed steps under
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -1002,7 +1014,10 @@ def _train_once(dev, grad_accum: int, steps: int, step_events=None):
     return res, launches
 
 
-def train_phase(dev, smi: str, entries: list) -> None:
+def train_phase(dev, smi: str, entries: list) -> dict:
+    """ResNet-50 O2 b128 x 224; returns its figures by ``grad_accum``
+    (imgs/s and host ms a step, medians; device ms a step at ACCUM) for
+    phase 38's O1 lines."""
     import numpy as np
     import torch
 
@@ -1039,6 +1054,11 @@ def train_phase(dev, smi: str, entries: list) -> None:
     first_launches = runs[0][1]
     for e in entries:
         e["launches"] = first_launches[e["name"]]
+    return {ACCUM: dict(imgs=float(np.median(imgs)),
+                        ms=float(np.median(ms)),
+                        device_ms=float(np.median(
+                            [m for _, _, s in runs for m in s]))),
+            1: dict(imgs=res1.imgs_per_sec, ms=1e3 * res1.step_seconds)}
 
 
 CONSIST = dict(arch="resnet18", batch=8, image=64, grad_accum=2, seed=0,
@@ -1208,9 +1228,10 @@ def train_consistency_phase(dev) -> None:
                    f"{steps} step(s) does not reject '{name}'")
 
 
-def train_profile_phase(dev, smi: str, grad_accum: int) -> None:
-    """Device time by kernel over one training step (the second of a
-    2-step run; the first warms up), from ``torch.profiler``."""
+def _profile_second_step(dev, **train_kw):
+    """(host wall ms, {device kernel name: (us, count)}) of the second
+    step of a 2-step ImageNet run (the first warms up), from
+    ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch.examples import imagenet_main_amp as main_amp
@@ -1227,15 +1248,21 @@ def train_profile_phase(dev, smi: str, grad_accum: int) -> None:
             clock["wall"] = time.perf_counter() - clock["t0"]
             prof.stop()
 
-    main_amp.train(device=dev, grad_accum=grad_accum, steps=2, log=None,
-                   on_step=on_step, **TRAIN)
+    main_amp.train(device=dev, steps=2, log=None, on_step=on_step,
+                   **train_kw)
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             tot, cnt = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    return 1e3 * clock["wall"], by_name
+
+
+def train_profile_phase(dev, smi: str, grad_accum: int) -> None:
+    """Device time by kernel over one training step (the second of a
+    2-step run; the first warms up), from ``torch.profiler``."""
+    wall, by_name = _profile_second_step(dev, grad_accum=grad_accum, **TRAIN)
     busy = sum(t for t, _ in by_name.values()) / 1e3
-    wall = 1e3 * clock["wall"]
     flat = sum(t for name, (t, _) in by_name.items()
                if any(_owns(name, syms) for syms, _ in FLAT_SYMBOL.values()))
     flat /= 1e3
@@ -6520,6 +6547,525 @@ def syncbn_train_phase(dev, smi: str, entry: dict) -> None:
     entry["launches"] = 0       # SyncBN's statistics are the plain ones
 
 
+# ---------------------------------------------------------------------------
+# phase 38: amp O1 (the op-list rewrite) and activation offload
+# ---------------------------------------------------------------------------
+
+O1_STEPS = 4
+# card against CPU at O1: the BERT proxy's first loss (three times its
+# reading of 1.6e-4 on an H100), and its first gradient's worst leaf
+# (max |card - cpu| over max |cpu|; the BERT O1 CPU test's bound)
+O1_FIRST_LOSS_RTOL = 5e-4
+# ResNet-18's first loss at O1: a few times the card's reading of 7.4e-4
+# (the CPU's own one-ulp spread reads 8.1e-4)
+O1_RESNET_FIRST_LOSS_RTOL = 2e-3
+O1_GRAD_LEAF_TOL = 5e-2
+O1_SPREAD_FACTOR = 3.0           # ResNet at O1: see o1_consistency_phase
+O1_BERT_STEPS = 3
+DCGAN_STEPS = 5
+OFFLOAD_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_offload.py:16
+
+
+def _is_conv(name: str) -> bool:
+    return any(s in name for s in ("fprop", "dgrad", "wgrad", "conv"))
+
+
+def o1_resnet_phase(dev, smi: str, o2: dict) -> dict:
+    """ResNet-50 at O1, b128 x 224, FusedSGD, ``grad_accum`` 2 and 1: the
+    imgs/s and device ms a step beside phase 8's O2, the launches of the
+    flat tail, the convolutions' device kernels (bf16 cuDNN ones, not
+    phase 10's f32 FFMA ones) from a profiled step, and the host time the
+    mode adds: one forward enqueued under ``auto_cast`` against the same
+    forward without it, both behind an idle device."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+    from apex_tpu_torch.models import resnet50
+
+    cfg = dict(TRAIN, opt_level="O1")
+    launches = {}
+    for ga in (ACCUM, 1):
+        events = []
+
+        def on_step(step):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        _build.reset_launch_counts()
+        res = main_amp.train(device=dev, grad_accum=ga, steps=O1_STEPS,
+                             log=None, on_step=on_step, **cfg)
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in _build.KERNELS}
+        want = {k.name: 0 for k in _build.KERNELS}
+        want.update({"flat_accumulate": ga * O1_STEPS if ga > 1 else 0,
+                     "flat_unscale_norm": O1_STEPS if ga > 1 else 0,
+                     "flat_sgd": O1_STEPS})
+        _check(all(math.isfinite(v) for v in res.losses),
+               f"O1 train: non-finite loss {res.losses}")
+        _check(got == want, f"O1 train grad_accum={ga}: launches {got}, "
+                            f"expected {want}")
+        _check(all(t.dtype == torch.float32
+                   for t in tree_leaves(res.opt.params)),
+               "O1 train: the params are not f32")
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        launches[f"resnet50_o1_ga{ga}"] = {k: v for k, v in got.items()
+                                           if v}
+        o2_line = o2.get(ga, {})
+        print(f"train resnet50 O1 batch {res.batch} {res.image}x"
+              f"{res.image} grad_accum {ga}: {O1_STEPS} steps, "
+              f"{res.imgs_per_sec:.1f} imgs/s over the {O1_STEPS - 1} after "
+              f"the first, {1e3 * res.step_seconds:.2f} ms/step (host "
+              f"clock), device ms/step median "
+              f"{float(np.median(step_ms)):.2f} (CUDA events between "
+              f"steps); O2 in phase 8 of this run: "
+              f"{o2_line.get('imgs', float('nan')):.1f} imgs/s, "
+              f"{o2_line.get('ms', float('nan')):.2f} ms/step (host clock)"
+              + (f", device ms/step median {o2_line['device_ms']:.2f}"
+                 if "device_ms" in o2_line else "")
+              + f"; losses {[round(v, 4) for v in res.losses]}, launches "
+              f"{launches[f'resnet50_o1_ga{ga}']} [{smi}]", flush=True)
+
+    # one profiled O1 step (the second of two, as phase 10 profiles O2):
+    # the convolutions' device kernels and the device's busy time
+    wall, by_name = _profile_second_step(dev, **dict(cfg, grad_accum=1))
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    convs = collections.Counter({n: c for n, (_, c) in by_name.items()
+                                 if _is_conv(n)})
+    f32 = {n: c for n, c in convs.items()
+           if "f32f32_f32f32" in n or "ffma" in n or "<float," in n
+           or "engine<float" in n}
+    bf16 = {n: c for n, c in convs.items() if "bf16" in n}
+    conv_ms = sum(by_name[n][0] for n in convs) / 1e3
+    print(f"profile resnet50 O1 b128 grad_accum 1 (the second of 2 steps): "
+          f"wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"{sum(c for _, c in by_name.values())} device kernels; "
+          f"{sum(convs.values())} convolution kernels ({conv_ms:.2f} ms), "
+          f"of which {sum(bf16.values())} bf16 and {sum(f32.values())} "
+          f"f32; top convolutions: "
+          + "; ".join(f"{c}x {n[:90]}" for n, c in convs.most_common(4))
+          + f" [{smi}]", flush=True)
+    for name, (t_us, c) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:8]:
+        print(f"profile   {t_us / 1e3:9.3f} ms {c:6d}x {name[:90]}",
+              flush=True)
+    _check(bf16 and not f32, f"O1 step: convolutions ran f32 kernels "
+                             f"{sorted(f32)[:3]}")
+
+    # the host time of the mode: one forward, enqueued behind an idle device
+    model = resnet50()
+    params, stats = model.init(0, dev)
+    x = torch.randn(128, 224, 224, 3, device=dev)
+    y = torch.randint(0, 1000, (128,), device=dev)
+
+    def loss_fn(p, bs, xx, yy):
+        logits, _ = model.apply(p, bs, xx, train=True)
+        return F.cross_entropy(logits.float(), yy.long())
+
+    _, st = amp.initialize(params, opt_level="O1", device=dev)
+    wrapped = st.wrap_forward(loss_fn)
+    host = {"O1 (auto_cast)": [], "no mode (f32)": []}
+    for _ in range(4):
+        for what, fn in (("O1 (auto_cast)", wrapped),
+                         ("no mode (f32)", loss_fn)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn(params, stats, x, y)
+            host[what].append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+    med = {k: float(np.median(v[1:])) for k, v in host.items()}
+    add = med["O1 (auto_cast)"] - med["no mode (f32)"]
+    print(f"host resnet50 forward b128 enqueue (median of 3 after one warm-"
+          f"up, device idle at the start): O1 {med['O1 (auto_cast)']:.2f} ms"
+          f", no mode {med['no mode (f32)']:.2f} ms: the mode adds "
+          f"{add:.2f} ms a forward, {ACCUM * add:.2f} ms a grad_accum-"
+          f"{ACCUM} step (the backward runs in the autograd engine, outside "
+          f"the mode) [{smi}]", flush=True)
+    del params, stats, x, y
+    return launches
+
+
+def o1_consistency_phase(dev) -> None:
+    """Card against CPU at O1, from one seed: ResNet-18 (``CONSIST``: b8
+    64x64, ``grad_accum`` 2; one step at lr 0.1, phase 9's O2 case) and
+    the BERT proxy (one FusedLAMB step, eps 1e-4, on the packed batch).
+
+    Three limits, each printed with the planted faults (run on the CPU)
+    it rejects: the first loss (the proxy's within ``O1_FIRST_LOSS_RTOL``,
+    which must reject unmasked padding; ResNet-18's within
+    ``O1_RESNET_FIRST_LOSS_RTOL``, which rejects none, see below);
+    the proxy's first gradient, before the optimizer, within
+    ``O1_GRAD_LEAF_TOL`` of each leaf's largest entry (it must reject
+    label smoothing 0.1 and unmasked padding); the params after the
+    step.  Phases 9 and 15's rule for those (the params' gap, ``_gap``,
+    under a tenth of the nearest wrong update) cannot hold at O1, where
+    bf16 roundings move a first step by more than a wrong update does:
+    the CPU alone, from an init moved by one ulp, lands further from its
+    own step than "lr 4% high" does.  So each case's params are held to
+    ``O1_SPREAD_FACTOR`` times that one-ulp spread, measured in the run
+    (the rule of the O1 CPU tests, ``test_torch_port_amp_o1.py``).  The
+    proxy's LAMB takes ``m / sqrt(v)`` on its first step, so an element
+    whose gradient is within bf16 noise of zero moves a whole ``lr``
+    either way.
+
+    ResNet-18 holds no gradient, and its first loss no planted fault:
+    under O1 its BatchNorms (flax's arithmetic: bf16 squares, and a
+    backward that sums bf16-rounded, nearly cancelling terms) make its
+    first step chaotic, the gradient 0.30 of its norm from the f32 one
+    in the reference itself (``test_torch_port_amp_o1.py``), and a
+    one-ulp change of the init moves the CPU's first loss about as far
+    as f32 arithmetic (O0) does."""
+    from apex_tpu_torch._tree import tree_leaves, tree_map
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+    from apex_tpu_torch.models import resnet18
+
+    params, stats = resnet18().init(CONSIST["seed"], "cpu")
+    init = [t.numpy() for t in tree_leaves(params)]
+    ulp = tree_map(_next_ulp, params)
+
+    def run(device, lr=0.1, start=params, opt_level="O1"):
+        var = tuple(tree_map(lambda t: t.to(device), v)
+                    for v in (start, stats))
+        res = main_amp.train(device=device, opt_level=opt_level, steps=1,
+                             variables=var, lr=lr, **CONSIST)
+        return res.losses, [m.float().cpu().numpy()
+                            for m in tree_leaves(res.opt.params)]
+
+    card_l, card_m = run(dev)
+    cpu_l, cpu_m = run("cpu")
+    ulp_l, ulp_m = run("cpu", start=ulp)
+    spread = _gap(ulp_m, cpu_m, init)
+    lspread = _loss_rel(ulp_l, cpu_l)
+    f32_l, _ = run("cpu", opt_level="O0")
+    _o1_held("resnet18 O1 lr 0.1 b8 64x64 grad_accum 2, 1 step", card_l,
+             cpu_l, (O1_RESNET_FIRST_LOSS_RTOL,
+                     f"a few times the card's reading (the cpu's one-ulp "
+                     f"spread {lspread:.3e})"),
+             {"f32 arithmetic (O0)": _loss_rel(f32_l, cpu_l)}, (), None,
+             _gap(card_m, cpu_m, init),
+             {"lr 4% high": _gap(run("cpu", lr=0.104)[1], cpu_m, init)},
+             (O1_SPREAD_FACTOR * spread,
+              f"{O1_SPREAD_FACTOR:g} x the cpu's one-ulp spread "
+              f"{spread:.3e}"))
+
+    model = pretrain.model_for(False, PROXY["seq"], "O1")
+    bparams = model.init(0, "cpu")
+    binit = [t.numpy() for t in tree_leaves(bparams)]
+    batch, real, _ = pretrain.synthetic_batch(model.vocab_size,
+                                              PROXY["batch"], PROXY["seq"],
+                                              True, "cpu")
+    real_loss = pretrain.softmax_cross_entropy_loss
+    bulp = tree_map(_next_ulp, bparams)
+
+    def brun(device, lr=1e-3, start=bparams, **loss_kw):
+        """(first loss, first gradient per leaf, params after one step)."""
+        def loss(logits, labels, smoothing=0.0, padding_idx=0,
+                 half_to_float=False):
+            kw = dict(smoothing=smoothing, padding_idx=padding_idx,
+                      half_to_float=half_to_float)
+            return real_loss(logits, labels, **{**kw, **loss_kw})
+        pretrain.softmax_cross_entropy_loss = loss
+        try:
+            opt, state, step = pretrain.setup(
+                model, start, device, opt_level="O1", lr=lr, **PROXY_LAMB)
+            grads = []
+            opt_step = opt.step
+
+            def capture(g, found_inf=None):
+                grads.extend(tree_leaves(g))
+                return opt_step(g, found_inf=found_inf)
+
+            opt.step = capture
+            scale = float(state.scaler.loss_scale)
+            out, _ = step(state, **{k: t.to(device)
+                                    for k, t in batch.items()})
+            value = float(out)
+        finally:
+            pretrain.softmax_cross_entropy_loss = real_loss
+        return ([value], [g.float().cpu().numpy() / scale for g in grads],
+                [p.float().cpu().numpy() for p in tree_leaves(opt.params)])
+
+    card_l, card_g, card_p = brun(dev)
+    cpu_l, cpu_g, cpu_p = brun("cpu")
+    faults = {"label smoothing 0.1": brun("cpu", smoothing=0.1),
+              "padding not masked": brun("cpu", padding_idx=-2),
+              "lr 4% high": brun("cpu", lr=1.04e-3)}
+    spread = _gap(brun("cpu", start=bulp)[2], cpu_p, binit)
+    _o1_held(f"bert proxy O1 FusedLAMB (eps 1e-4) packed b{PROXY['batch']} "
+             f"s{PROXY['seq']} ({real} real tokens), 1 step", card_l, cpu_l,
+             (O1_FIRST_LOSS_RTOL, "a few times the card's readings"),
+             {k: _loss_rel(v[0], cpu_l) for k, v in faults.items()},
+             ("padding not masked",),
+             (_worst_leaf(card_g, cpu_g),
+              {k: _worst_leaf(faults[k][1], cpu_g)
+               for k in ("label smoothing 0.1", "padding not masked")}),
+             _gap(card_p, cpu_p, binit),
+             {k: _gap(v[2], cpu_p, binit) for k, v in faults.items()},
+             (O1_SPREAD_FACTOR * spread,
+              f"{O1_SPREAD_FACTOR:g} x the cpu's one-ulp spread "
+              f"{spread:.3e}"))
+
+
+def _next_ulp(t):
+    """``t`` moved by one ulp towards +inf."""
+    import torch
+    return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+
+def _worst_leaf(got, want) -> float:
+    """The largest over leaves of ``max |got - want| / max |want|``."""
+    import numpy as np
+    return max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+               for a, b in zip(got, want))
+
+
+def _rejects(tol, readings) -> str:
+    return ", ".join(f"{k} {g:.3e} ({'rejected' if g > tol else 'passes'})"
+                     for k, g in readings.items())
+
+
+def _o1_held(what, card_l, cpu_l, loss_limit, loss_faults, must_reject,
+             grad, gap, gaps, limit) -> None:
+    """Prints and checks one O1 card-vs-CPU case.  ``loss_limit``: the
+    first loss's ``(rtol, what it is)``; ``loss_faults``: the planted
+    faults' first-loss distances from the CPU's, of which those named in
+    ``must_reject`` must exceed it; ``grad``: None, or ``(the card's
+    worst leaf, {fault: worst leaf})``, every fault beyond
+    ``O1_GRAD_LEAF_TOL``; ``gap`` and ``gaps``: the params' gap and the
+    faults', ``limit``: ``(tol, what it is)``."""
+    rel0 = _loss_rel(card_l[:1], cpu_l[:1])
+    tol, held = limit
+    ltol, lheld = loss_limit
+    print(f"consistency O1 {what}: card losses "
+          f"{[round(v, 6) for v in card_l]}, cpu "
+          f"{[round(v, 6) for v in cpu_l]}; first loss rel diff "
+          f"{rel0:.3e}, tol {ltol:.3e} = {lheld}, planted on the cpu: "
+          f"{_rejects(ltol, loss_faults)}", flush=True)
+    if grad is not None:
+        print(f"consistency O1 {what}: first gradient's worst leaf (max "
+              f"|card - cpu| / max |cpu|) {grad[0]:.3e}, tol "
+              f"{O1_GRAD_LEAF_TOL:g}, planted on the cpu: "
+              f"{_rejects(O1_GRAD_LEAF_TOL, grad[1])}", flush=True)
+    print(f"consistency O1 {what}: params' gap {gap:.3e} of their "
+          f"displacement, tol {tol:.3e} = {held}, planted on the cpu: "
+          f"{_rejects(tol, gaps)}", flush=True)
+    _check(all(math.isfinite(v) for v in card_l + cpu_l),
+           f"O1 consistency {what}: non-finite loss")
+    _check(rel0 <= ltol,
+           f"O1 consistency {what}: first loss differs by {rel0}")
+    for k in must_reject:
+        _check(loss_faults[k] > ltol,
+               f"O1 consistency {what}: the first-loss limit does not "
+               f"reject '{k}'")
+    if grad is not None:
+        _check(grad[0] <= O1_GRAD_LEAF_TOL,
+               f"O1 consistency {what}: first gradient's worst leaf "
+               f"{grad[0]} over {O1_GRAD_LEAF_TOL}")
+        for k, g in grad[1].items():
+            _check(g > O1_GRAD_LEAF_TOL, f"O1 consistency {what}: the "
+                                         f"gradient limit does not reject "
+                                         f"'{k}'")
+    _check(gap <= tol, f"O1 consistency {what}: gap {gap} over {tol}")
+
+
+def o1_bert_phase(dev, smi: str) -> dict:
+    """The BERT example at O1: its default proxy and ``--large``, a few
+    steps each, with exact launch counts (flash forward, dq and dk/dv a
+    layer, LayerNorm forward and backward, the cross entropy where the
+    vocabulary is on its gate, the LAMB tail)."""
+    import torch
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import bert_pretrain_mlm as pretrain
+
+    launches = {}
+    for large in (False, True):
+        _build.reset_launch_counts()
+        res = pretrain.train(large=large, steps=O1_BERT_STEPS,
+                             opt_level="O1", device=dev, log=None)
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in _build.KERNELS}
+        model = pretrain.model_for(large, 512, "O1")
+        want = _bert_launches_expected(
+            O1_BERT_STEPS, len(res.opt._plan.buckets),
+            layers=model.num_layers, flash=True,
+            xent=model.vocab_size % 128 == 0)
+        what = "bert-large" if large else "bert proxy"
+        key = "bert_large_o1" if large else "bert_proxy_o1"
+        _check(all(math.isfinite(v) for v in res.losses),
+               f"O1 {what}: non-finite loss {res.losses}")
+        _check(got == want, f"O1 {what}: launches {got}, expected {want}")
+        launches[key] = {k: v for k, v in got.items() if v}
+        print(f"train {what} O1 FusedLAMB b8 s512 unmasked: "
+              f"{O1_BERT_STEPS} steps, {1e3 * res.step_seconds:.2f} ms/step "
+              f"(host clock), {res.tokens_per_sec:.1f} tokens/s over the "
+              f"steps after the first, losses "
+              f"{[round(v, 4) for v in res.losses]}, launches (flash, "
+              f"LayerNorm, cross entropy, LAMB tail) "
+              f"{launches[key]} [{smi}]",
+              flush=True)
+    return launches
+
+
+def dcgan_phase(dev, smi: str) -> dict:
+    """The DCGAN example (two models, two FusedAdam, two scalers) for a
+    few steps at O1: both scalers in one ``amp.state_dict``, which round-
+    trips; one ``flat_adam`` a bucket per optimizer step."""
+    import torch
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.examples import dcgan_main_amp as dcgan
+
+    _build.reset_launch_counts()
+    res = dcgan.train(steps=DCGAN_STEPS, device=dev, log=None)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in _build.KERNELS}
+    buckets = (len(res.opt_d._plan.buckets)
+               + len(res.opt_g._plan.buckets))
+    want = {k.name: 0 for k in _build.KERNELS}
+    want["flat_adam"] = buckets * DCGAN_STEPS
+    sd = res.state_dict
+    again = amp.state_dict(*amp.load_state_dict(sd, res.amp_d, res.amp_g))
+    print(f"train dcgan O1 b16 nz32: {DCGAN_STEPS} steps, lossD "
+          f"{[round(v, 4) for v in res.losses_d]}, lossG "
+          f"{[round(v, 4) for v in res.losses_g]}, "
+          f"{1e3 * res.step_seconds:.2f} ms/step (host clock), launches "
+          f"{ {k: v for k, v in got.items() if v} }; amp.state_dict {sd}, "
+          f"round trip {'equal' if again == sd else again} [{smi}]",
+          flush=True)
+    _check(all(math.isfinite(v) for v in res.losses_d + res.losses_g),
+           "dcgan: non-finite loss")
+    _check(got == want, f"dcgan: launches {got}, expected {want}")
+    _check(sorted(sd) == ["loss_scaler0", "loss_scaler1"],
+           f"dcgan: state_dict keys {sorted(sd)}")
+    _check(again == sd, f"dcgan: state_dict round trip {again} != {sd}")
+    return {"dcgan_o1": {k: v for k, v in got.items() if v}}
+
+
+def offload_phase(dev, smi: str) -> dict:
+    """The GPT block stack at GPT-2 small's widths (12 x h768, b8 s512,
+    vocab 50257, bf16 compute, amp O2's bf16 params) with
+    ``--offload-activations`` against the same step without it and
+    against plain recomputation (each block under ``offload_checkpoint``
+    with no names): the loss and every gradient within ``OFFLOAD_TOL``,
+    peak device memory (``max_memory_allocated``) and the
+    forward+backward's device ms (CUDA events) of each; then the
+    example's own step with offload for a few steps, with its launches
+    (each block's forward runs in the forward and again, up to its GELU,
+    in the backward)."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import _build, amp, offload
+    from apex_tpu_torch._tree import tree_leaves
+    from apex_tpu_torch.examples import gpt_train_block as ex
+
+    g = GPT
+    params = ex.GPTBlocks(g["vocab"], g["hidden"], g["heads"], g["layers"],
+                          max_seq=g["seq"]).init(0, dev)
+    params, _ = amp.initialize(params, opt_level="O2", device=dev)
+    tokens = ex.synthetic_tokens(g["batch"], g["seq"], g["vocab"],
+                                 device=dev)
+    class Recomputed(ex.GPTBlocks):
+        OFFLOAD_NAMES = ()          # remat with nothing on the host
+
+    out = {}
+    for name, cls, off in (("plain", ex.GPTBlocks, False),
+                           ("recomputed", Recomputed, True),
+                           ("offloaded", ex.GPTBlocks, True)):
+        model = cls(g["vocab"], g["hidden"], g["heads"], g["layers"],
+                    max_seq=g["seq"], offload_activations=off)
+
+        def fwd_bwd():
+            return amp.value_and_grad(
+                lambda p, t: ex.next_token_loss(model(p, t), t), params,
+                tokens)
+
+        fwd_bwd()                                   # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        offload.host_copies.clear()
+        ms = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            (loss, _), grads = fwd_bwd()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        copies = dict(offload.host_copies)
+        _, by_name = _profile_step(fwd_bwd)
+        busy = sum(t for t, _ in by_name.values()) / 1e3
+        memcpy = sum(t for n, (t, _) in by_name.items()
+                     if n.startswith("Memcpy")) / 1e3
+        out[name] = (float(loss), [t.float() for t in tree_leaves(grads)],
+                     peak, float(np.median(ms)), copies, busy, memcpy)
+        del grads
+    l0, g0 = out["plain"][:2]
+    worst = {k: max(float(((a - b).abs() - OFFLOAD_TOL["rtol"] * b.abs())
+                          .max()) for a, b in zip(v[1], g0))
+             for k, v in out.items() if k != "plain"}
+    print(f"offload gpt block 12 x h768 b8 s512 bf16 forward+backward: "
+          + "; ".join(f"{k}: loss {v[0]:.6f}, peak device memory above the "
+                      f"params and inputs {v[2] / 2**30:.3f} GiB, device ms "
+                      f"median of 3 {v[3]:.2f} (CUDA events), device busy "
+                      f"{v[5]:.2f} ms of which copies {v[6]:.2f} (one "
+                      f"profiled call), host copies {v[4]}"
+                      for k, v in out.items())
+          + "; grads' worst |diff| - rtol*|plain| "
+          + ", ".join(f"{k} {w:.3e}" for k, w in worst.items())
+          + f" (atol {OFFLOAD_TOL['atol']:g}, rtol {OFFLOAD_TOL['rtol']:g})"
+          f" [{smi}]", flush=True)
+    for k, v in out.items():
+        _check(abs(v[0] - l0) <= OFFLOAD_TOL["atol"] + OFFLOAD_TOL["rtol"]
+               * abs(l0), f"offload: {k} loss {v[0]} against {l0}")
+    for k, w in worst.items():
+        _check(w <= OFFLOAD_TOL["atol"], f"offload: {k} grads differ by {w}")
+    _check(out["offloaded"][4] == {"ffn_hidden": 3 * g["layers"]},
+           f"offload: host copies {out['offloaded'][4]}")
+    _check(out["recomputed"][4] == {}, "recompute: host copies "
+                                       f"{out['recomputed'][4]}")
+    _check(out["offloaded"][2] < out["plain"][2],
+           f"offload: peak memory {out['offloaded'][2]} not under "
+           f"{out['plain'][2]}")
+    del out, g0, params
+
+    _build.reset_launch_counts()
+    res = ex.train(steps=3, device=dev, offload_activations=True, log=None)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in _build.KERNELS}
+    _check(all(math.isfinite(v) for v in res.losses),
+           f"offload train: non-finite loss {res.losses}")
+    for kn in ("flash_fwd", "layer_norm_fwd"):
+        _check(got[kn] > 0, f"offload train: {kn} never launched")
+    print(f"train gpt block O2 --offload-activations: 3 steps, "
+          f"{1e3 * res.step_seconds:.2f} ms/step (host clock), "
+          f"{res.tokens_per_sec:.1f} tokens/s, losses "
+          f"{[round(v, 4) for v in res.losses]}, launches "
+          f"{ {k: v for k, v in got.items() if v} } [{smi}]", flush=True)
+    return {"gpt_block_offload": {k: v for k, v in got.items() if v}}
+
+
+def o1_offload_phase(dev, smi: str, o2: dict) -> dict:
+    """Phase 38: amp O1 and activation offload.  Returns each path's
+    launches by kernel."""
+    import torch
+    launches = o1_resnet_phase(dev, smi, o2)
+    torch.cuda.empty_cache()
+    o1_consistency_phase(dev)
+    launches.update(o1_bert_phase(dev, smi))
+    torch.cuda.empty_cache()
+    launches.update(dcgan_phase(dev, smi))
+    launches.update(offload_phase(dev, smi))
+    torch.cuda.empty_cache()
+    return launches
+
+
 class _PhaseClock:
     """Host-clock seconds of each phase: ``with clock(name): ...`` prints
     the phase's seconds when it ends; ``summary`` prints every phase's
@@ -6610,7 +7156,7 @@ def main() -> int:
         flat_entries = flat_kernel_phase(dev, smi)
     torch.cuda.empty_cache()
     with timed("8 train (ResNet-50)"):
-        train_phase(dev, smi, flat_entries)
+        o2_figures = train_phase(dev, smi, flat_entries)
     with timed("9 consistency (train)"):
         train_consistency_phase(dev)
     with timed("10 profile (train)"):
@@ -6744,7 +7290,19 @@ def main() -> int:
     with timed("30 train (ResNet-50, --sync-bn)"):
         syncbn_train_phase(dev, smi, welford_entry)
     torch.cuda.empty_cache()
+    with timed("38 amp O1 and offload"):
+        o1_launches = o1_offload_phase(dev, smi, o2_figures)
+    torch.cuda.empty_cache()
     timed.summary(smi)
+    all_entries = ([entry] + flat_entries + bert_entries + gpt_entries
+                   + tail_entries + softmax_entries + xent_entries
+                   + [welford_entry])
+    for e in all_entries:
+        # the launches on phase 38's paths (O1 and offload), by path
+        paths = {path: got[e["name"]] for path, got in o1_launches.items()
+                 if got.get(e["name"])}
+        if paths:
+            e["o1_offload_launches"] = paths
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6754,10 +7312,9 @@ def main() -> int:
                                          "dropout", "d256", "d512",
                                          "d1024", "d32_proxy", "d32_f32",
                                          "d32_proxy_f32",
-                                         "gpt_model_launches") if k in e})
-               for e in [entry] + flat_entries + bert_entries + gpt_entries
-               + tail_entries + softmax_entries + xent_entries
-               + [welford_entry]]
+                                         "gpt_model_launches",
+                                         "o1_offload_launches") if k in e})
+               for e in all_entries]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "
            f"{len(_build.KERNELS)} kernels")

@@ -132,8 +132,14 @@ def test_initialize_overrides_and_what_waits():
     assert float(ts.scaler.loss_scale) == float(js.scaler.loss_scale) \
         == 2.0 ** 16
     assert ts.scaler_config.dynamic and js.scaler_config.dynamic
-    with pytest.raises(NotImplementedError, match="T1"):
-        tamp.initialize(_t(p), opt_level="O1")
+    # O1 leaves the params in f32 and resolves the reference's table
+    t1, ts1 = tamp.initialize(_t(p), opt_level="O1")
+    _, js1 = jamp.initialize(_j(p), opt_level="O1")
+    assert all(t.dtype == torch.float32 for t in tree_leaves(t1))
+    assert ts1.master_params is None and js1.master_params is None
+    assert ts1.properties.patch_torch_functions \
+        and js1.properties.patch_torch_functions
+    assert float(ts1.scaler.loss_scale) == float(js1.scaler.loss_scale)
     with pytest.raises(NotImplementedError, match="fp8"):
         tamp.initialize(_t(p), opt_level="O2", fp8=True)
     sd = ts.state_dict()
