@@ -12,6 +12,9 @@ first use.
 Every failure raises: a missing ``nvcc``, a compile error, a library
 that does not load.  There is no fallback to the plain PyTorch version
 for a tensor on the card.
+
+Host C++ (``csrc/<name>.cpp``, no CUDA) builds the same way with ``g++``
+(:func:`host_library`): the checkpoint helpers of :mod:`apex_tpu_torch._native`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,41 +57,57 @@ def nvcc_path() -> str:
                        "the port's kernels are built from source at first use")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, host: bool = False) -> str:
     """The library's path, named by a hash of ``csrc/<name>.cu``, every
-    header ``csrc/*.cuh`` (any source may include one) and the flags."""
+    header ``csrc/*.cuh`` (any source may include one) and the flags; for
+    host C++, of ``csrc/<name>.cpp`` and the ``g++`` flags."""
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for src in [f"{name}.cu"] + headers:
+    if host:
+        srcs, flags = [f"{name}.cpp"], GXX_FLAGS
+    else:
+        srcs = [f"{name}.cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+        flags = NVCC_FLAGS
+    for src in srcs:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path."""
-    path = _lib_path(name)
+def _build(name: str, host: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` (``host``: ``csrc/<name>.cpp`` with
+    ``g++``) unless its library exists; returns the library's path."""
+    path = _lib_path(name, host)
     if os.path.exists(path):
-        if os.path.exists(f"{path}.log"):
+        if not host and os.path.exists(f"{path}.log"):
             with open(f"{path}.log") as f:
                 build_logs[name] = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    if host:
+        src = f"{name}.cpp"
+        tool, cmd = "g++", ["g++", *GXX_FLAGS, os.path.join(CSRC, src),
+                            "-o", tmp]
+    else:
+        src = f"{name}.cu"
+        tool, cmd = "nvcc", [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                             os.path.join(CSRC, src)]
     try:
-        out = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            timeout=600)
+        out = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             timeout=600)
     except subprocess.TimeoutExpired:
-        raise RuntimeError(f"nvcc timed out building {name}.cu")
+        raise RuntimeError(f"{tool} timed out building {src}")
+    except FileNotFoundError:
+        raise RuntimeError(f"{tool} not found: {src} is built from "
+                           "source at first use")
     if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu "
+        raise RuntimeError(f"{tool} failed on {src} "
                            f"(exit {out.returncode}):\n{out.stdout}")
-    build_logs[name] = out.stdout
+    if not host:
+        build_logs[name] = out.stdout
     # publish atomically, the log first: a concurrent process never loads
     # a torn file
     with open(f"{tmp}.log", "w") as f:
@@ -112,6 +133,17 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(_build(name))
         return _libs[name]
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host C++ source ``csrc/<name>.cpp``,
+    built with ``g++`` on first use; raises when it cannot be built or
+    loaded."""
+    key = f"{name}.cpp"
+    with _lock:
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(_build(name, host=True))
+        return _libs[key]
 
 
 class Kernel:

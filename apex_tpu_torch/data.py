@@ -10,12 +10,19 @@ The consumer's stream waits on the batch's copy event (no host sync)
 and the batch's tensors are recorded on it, so the caching allocator
 never hands their memory out while the step still reads it.  On the CPU
 the batches are plain tensors.
+
+The reference's loop idiom ``x, y = prefetcher.next()`` works too: it
+returns None at the end, and keeps returning it.  An error raised by the
+source surfaces in the consumer when it reaches the batch that failed,
+after the batches before it.  ``close()`` (or the context manager) drops
+the batches in flight and closes the source on an early exit.
+:func:`prefetch_to_device` is the functional spelling.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Iterable, Iterator
+from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -27,8 +34,9 @@ from apex_tpu_torch._tree import tree_leaves, tree_map
 class DevicePrefetcher:
     """Iterate device-resident batches, ``depth`` copies in flight.
 
-    >>> for x, y in DevicePrefetcher(loader, depth=2):
-    ...     step(x, y)        # the next batches' copies already issued
+    >>> with DevicePrefetcher(loader, depth=2) as pf:
+    ...     for x, y in pf:
+    ...         step(x, y)    # the next batches' copies already issued
     """
 
     def __init__(self, it: Iterable[Any], depth: int = 2, device=None):
@@ -40,6 +48,8 @@ class DevicePrefetcher:
         self._stream = (torch.cuda.Stream(self.device) if self._cuda
                         else None)
         self._ready = collections.deque()
+        self._error: Optional[BaseException] = None
+        self._done = False
         for _ in range(depth):
             if not self._issue():
                 break
@@ -50,10 +60,19 @@ class DevicePrefetcher:
             if isinstance(a, np.ndarray) else a
 
     def _issue(self) -> bool:
-        """Start the copy of the next host batch; False at exhaustion."""
+        """Start the copy of the next host batch; False at exhaustion or
+        when the source failed (its error is raised when the consumer
+        gets to it)."""
+        if self._done:
+            return False
         try:
             batch = next(self._src)
         except StopIteration:
+            self._done = True
+            return False
+        except Exception as e:
+            self._done = True
+            self._error = e
             return False
         host = tree_map(self._host, batch)
         if not self._cuda:
@@ -75,6 +94,9 @@ class DevicePrefetcher:
 
     def __next__(self):
         if not self._ready:
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise err
             raise StopIteration
         batch, pending = self._ready.popleft()
         if pending is not None:
@@ -84,6 +106,36 @@ class DevicePrefetcher:
                 t.record_stream(stream)
         self._issue()
         return batch
+
+    def next(self):
+        """The reference's idiom: the next batch, or None at the end (and
+        on every call after it)."""
+        try:
+            return self.__next__()
+        except StopIteration:
+            return None
+
+    def close(self) -> None:
+        """Drop the batches in flight and close the source (a generator's
+        ``close()``); the prefetcher is then exhausted."""
+        self._done = True
+        self._ready.clear()
+        self._error = None
+        close = getattr(self._src, "close", None)
+        if close is not None:
+            close()
+
+    def __enter__(self) -> "DevicePrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def prefetch_to_device(it: Iterable[Any], depth: int = 2, device=None
+                       ) -> DevicePrefetcher:
+    """Functional spelling of :class:`DevicePrefetcher`."""
+    return DevicePrefetcher(it, depth=depth, device=device)
 
 
 def pack_sequences(sequences, max_len: int, pad_id: int = 0):

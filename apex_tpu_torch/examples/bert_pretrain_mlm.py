@@ -7,7 +7,7 @@ are the real thing:
 
     python -m apex_tpu_torch.examples.bert_pretrain_mlm [--large] \
         [--steps 20] [--batch-size 8] [--seq-len 512] [--opt-level O2] \
-        [--packed] [--device cpu]
+        [--packed] [--offload-state] [--device cpu]
 
 The default batch is unmasked (random tokens and labels on every
 position), so attention runs through ``flash_attention`` with gradients
@@ -31,8 +31,9 @@ rewrite: the flash attention, the fused norms and the cross entropy are
 opaque to it and run at their traced dtypes, the MLM logits come back
 bf16 and are restored to f32 at the cross entropy.
 
-``--offload-state`` raises ``NotImplementedError`` (optimizer state
-offload, ROADMAP Queue 1 slice 2 item T4).
+``--offload-state`` runs FusedLAMB with ``offload_state=True``: its
+moments live in pinned host memory between steps, and each step copies
+them to the card, runs the same LAMB kernels and copies them back.
 """
 
 from __future__ import annotations
@@ -222,7 +223,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="pack a varlen synthetic corpus into fixed rows "
                         "(segment-masked attention, per-sequence "
                         "positions, padding excluded from the loss)")
-    p.add_argument("--offload-state", action="store_true")
+    p.add_argument("--offload-state", action="store_true",
+                   help="keep the LAMB moments in pinned host memory "
+                        "between steps")
     p.add_argument("--device", default=None,
                    help="default: the card (cuda); 'cpu' runs the plain "
                         "PyTorch versions of the kernels")

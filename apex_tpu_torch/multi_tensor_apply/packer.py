@@ -29,11 +29,15 @@ from apex_tpu_torch.ops.multi_tensor import segment_offsets
 Tree = Any
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
-                torch.float16: "float16", torch.float64: "float64"}
+                torch.float16: "float16", torch.float64: "float64",
+                torch.int8: "int8", torch.int16: "int16",
+                torch.int32: "int32", torch.int64: "int64",
+                torch.uint8: "uint8", torch.bool: "bool"}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """numpy's name of a torch float dtype (``float32``, ``bfloat16``)."""
+    """numpy's name of a torch dtype (``float32``, ``bfloat16``): the
+    names the plan's layout and the checkpoint headers use."""
     return _DTYPE_NAMES[dtype]
 
 

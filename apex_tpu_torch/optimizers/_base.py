@@ -19,9 +19,27 @@ kernels take ``found_inf`` and write nothing when it is set, the
 per-leaf path selects the old values with ``torch.where``, and the step
 clock (a device i32) steps back on a skipped step.
 
+``offload_state=True`` keeps every optimizer-state buffer in host memory
+between steps (pinned when the optimizer lives on the card, allocated
+once): ``step`` copies each bucket's state to the device
+(``non_blocking``, on the compute stream), runs the same flat kernels on
+it and copies it back, so the device holds one bucket's state only while
+that bucket steps.  Host readers (``state_dict``, ``packed_snapshot``,
+``load_state_dict``) first wait on the event recorded after the last
+copy back.  The per-leaf path runs only on the CPU, where its state
+already lives in host memory: there the flag is a no-op
+(``offload_state`` reads False).
+
+:meth:`~FusedOptimizerBase.packed_snapshot` and
+:meth:`~FusedOptimizerBase.load_packed_snapshot` are the bucket-native
+checkpoint's capture and adoption (``apex_tpu_torch.checkpoint`` v2): one
+copy per packed buffer and no per-leaf unpack.  The step writes the
+packed buffers in place, so the snapshot's copies are taken on the
+compute stream before it returns (offloaded state is copied on the
+host), and a later step cannot tear a checkpoint still being written.
+
 Not ported yet (each raises ``NotImplementedError`` naming its item):
-``offload_state``, ``rechunk`` and the fp8 slots (ROADMAP Queue 1,
-slice 2 item T4).
+``rechunk`` and the fp8 slots (ROADMAP Queue 1, slice 2 item T4).
 """
 
 from __future__ import annotations
@@ -35,13 +53,42 @@ from apex_tpu_torch.multi_tensor_apply.packer import BucketPlan
 
 Tree = Any
 
-STATE_TODO = ("optimizer state offload, rechunk and fp8 slots are not "
-              "ported yet: ROADMAP Queue 1, slice 2 item T4")
+STATE_TODO = ("rechunk and the fp8 slots are not ported yet: ROADMAP "
+              "Queue 1, slice 2 item T4")
 PER_LEAF_CPU_ONLY = (
     "the per-leaf optimizer step is plain PyTorch and runs only on the "
     "CPU; on {device} the step runs through the flat kernels, which need "
     "a bucket plan: pass fuse_buckets=True and a non-empty tree of "
     "floating-point leaves, or put the params on the CPU (device='cpu')")
+
+
+def _device_copy(buf: torch.Tensor) -> torch.Tensor:
+    """A copy of one packed buffer where it lives (on the card: on the
+    current stream, returns at once).  The bucket-native checkpoint takes
+    every copy through this seam, so tests can count them: one per packed
+    buffer and nothing else."""
+    return buf.clone()
+
+
+def _adopt(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a checkpoint's buffer into a live packed buffer in place (for
+    a host ``src`` and a device ``dst``: one host-to-device copy).  The
+    bucket-native restore takes every copy through this seam."""
+    dst.copy_(src.reshape(dst.shape))
+
+
+def place_on_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A host copy of ``t``, in pinned memory when ``pin``."""
+    out = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=pin)
+    out.copy_(t)
+    return out
+
+
+def place_on_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A copy of host tensor ``t`` on ``device`` (``non_blocking``: from
+    pinned memory the copy is queued on the current stream)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(
+        t, non_blocking=True)
 
 
 def _is_low_precision(tree) -> bool:
@@ -90,8 +137,6 @@ class FusedOptimizerBase:
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
         self.hypers.update(hypers)
-        if offload_state:
-            raise NotImplementedError(STATE_TODO)
         if masters is not None:
             # masters from amp.initialize, taken from the ORIGINAL f32
             # values (upcasting the rounded half params would lose bits)
@@ -116,13 +161,17 @@ class FusedOptimizerBase:
                                masters if masters is not None else params)
         work = masters if masters is not None else params
         self.device = tree_leaves(params)[0].device
-
         self._plan = (BucketPlan.from_tree(
             work, params if masters is not None else None,
             max_bucket_bytes=max_bucket_bytes) if fuse_buckets else None)
         if self._plan is None and self.device.type != "cpu":
             raise ValueError(PER_LEAF_CPU_ONLY.format(device=self.device))
         self.fuse_buckets = self._plan is not None
+        # the per-leaf path's state is on the host already
+        self.offload_state = bool(offload_state) and self.fuse_buckets
+        # offloaded state is made on the host: it never occupies the card
+        state_like = (tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype),
+                               work) if self.offload_state else work)
         if self._plan is not None:
             self._param_bufs = self._plan.pack_model(params)
             self._master_bufs = (self._plan.pack_work(masters)
@@ -132,13 +181,33 @@ class FusedOptimizerBase:
             self._params_view = self._plan.unpack_model(self._param_bufs)
             self._masters_view = (self._plan.unpack(self._master_bufs)
                                   if masters is not None else None)
-            self.opt_state = self.init_state_packed(self._plan, work)
+            self.opt_state = self.init_state_packed(self._plan, state_like)
         else:
             self._params_tree = tree_map(lambda x: x.detach(), params)
             self._masters_tree = masters
-            self.opt_state = self.init_state(work)
+            self.opt_state = self.init_state(state_like)
         self.step_count = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
+        # the event recorded after the last step's copies back to the host
+        self._offload_done: Optional[torch.cuda.Event] = None
+        if self.offload_state:
+            self.opt_state = tree_map(self._host_copy, self.opt_state)
+
+    # ---- offloaded state -------------------------------------------------
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        return place_on_host(t, pin=self.device.type == "cuda")
+
+    def _wait_offload(self) -> None:
+        """Block the host until the last step's copies of the offloaded
+        state are done (before the host reads or writes it)."""
+        if self._offload_done is not None:
+            self._offload_done.synchronize()
+            self._offload_done = None
+
+    def _mark_offload(self) -> None:
+        if self.device.type == "cuda":
+            self._offload_done = torch.cuda.Event()
+            self._offload_done.record()
 
     # ---- views -------------------------------------------------------------
     @property
@@ -229,8 +298,20 @@ class FusedOptimizerBase:
                                     hypers)
         for bi, (p, g) in enumerate(zip(work_bufs, grad_bufs)):
             state = {k: v[bi] for k, v in self.opt_state.items()}
+            if self.offload_state:
+                # this bucket's state to the device and back: the device
+                # copy is freed when the bucket is done
+                host = state
+                state = {k: place_on_device(v, self.device)
+                         for k, v in host.items()}
             self._flat_bucket_step(bi, p, g, state, step, grad_scale,
                                    hypers, found_inf, extra)
+            if self.offload_state:
+                for k, v in state.items():
+                    host[k].copy_(v, non_blocking=True)
+                del state
+        if self.offload_state:
+            self._mark_offload()
         if self._master_bufs is not None:
             for pb, wb in zip(self._param_bufs, self._master_bufs):
                 pb.copy_(wb)
@@ -287,10 +368,73 @@ class FusedOptimizerBase:
     def enable_fp8(self, policy=None) -> None:
         raise NotImplementedError(STATE_TODO)
 
+    # ---- bucket-native checkpoint capture --------------------------------
+    def packed_snapshot(self) -> Dict:
+        """The bucket-native checkpoint's capture: one copy of every
+        packed buffer (params, masters, each state field), through
+        :func:`_device_copy`, and no per-leaf unpack.
+
+        The step writes the packed buffers in place, so the copies are
+        what a later step cannot tear: device buffers are copied on the
+        current stream before this returns (a writer on another thread
+        waits on an event recorded after them).  Offloaded state is
+        copied in place on the host.  Returns ``{"step", "hypers",
+        "plan", "param_bufs", "master_bufs", "state"}``.  Reads the step
+        clock to the host."""
+        if self._plan is None:
+            raise ValueError(
+                "packed_snapshot requires the bucketed path "
+                "(fuse_buckets=False or the packer declined this tree);"
+                " use state_dict() / the v1 checkpoint format instead")
+        self._wait_offload()
+        return {
+            "step": int(self.step_count),
+            "hypers": dict(self.hypers),
+            "plan": self._plan,
+            "param_bufs": [_device_copy(b) for b in self._param_bufs],
+            "master_bufs": ([_device_copy(b) for b in self._master_bufs]
+                            if self._master_bufs is not None else None),
+            "state": {k: [_device_copy(b) for b in v]
+                      for k, v in self.opt_state.items()},
+        }
+
+    def load_packed_snapshot(self, step, hypers, param_bufs, master_bufs,
+                             state) -> None:
+        """The inverse of :meth:`packed_snapshot`: copy packed buffers
+        (host tensors fresh from a checkpoint, or a snapshot's) into the
+        live ones in place, one :func:`_adopt` per buffer, so the params'
+        views stay valid.  Offloaded state is adopted on the host.  The
+        caller has matched the layout against this optimizer's plan
+        (``checkpoint`` compares the v2 header's plan with
+        ``self._plan.layout()``)."""
+        if self._plan is None:
+            raise ValueError(
+                "load_packed_snapshot requires the bucketed path")
+        if (master_bufs is None) != (self._master_bufs is None):
+            raise ValueError("the snapshot's masters do not match this "
+                             "optimizer's master_weights setting")
+        if sorted(state) != sorted(self.opt_state):
+            raise ValueError(f"snapshot state fields {sorted(state)} do "
+                             f"not match {sorted(self.opt_state)}")
+        self._wait_offload()
+        self.step_count = torch.full((), int(step), dtype=torch.int32,
+                                     device=self.device)
+        self.hypers.update(hypers)
+        for dst, src in zip(self._param_bufs, param_bufs):
+            _adopt(dst, src)
+        if master_bufs is not None:
+            for dst, src in zip(self._master_bufs, master_bufs):
+                _adopt(dst, src)
+        for k, bufs in state.items():
+            for dst, src in zip(self.opt_state[k], bufs):
+                _adopt(dst, src)
+
     # ---- serialization (torch Optimizer.state_dict shape) ---------------
     def state_dict(self):
         """Per-leaf checkpoint layout (the same for both paths), copied
-        out of the live buffers.  Reads the step clock to the host."""
+        out of the live buffers (offloaded state: host tensors).  Reads
+        the step clock to the host."""
+        self._wait_offload()
         if self._plan is not None:
             state = {k: tree_map(torch.clone,
                                  self._plan.unpack_state_field(v))
@@ -309,7 +453,17 @@ class FusedOptimizerBase:
                                      device=self.device)
         self.hypers.update(sd["hypers"])
         to_dev = (lambda x: x.to(self.device, copy=True))
-        if self._plan is not None:
+        if self.offload_state:
+            # re-homed on the host now, into the buffers allocated once:
+            # the restored state never passes through device memory
+            self._wait_offload()
+            to_host = (lambda x: x.to("cpu"))
+            for k, v in sd["state"].items():
+                for dst, src in zip(self.opt_state[k],
+                                    self._plan.pack_state_field(
+                                        tree_map(to_host, v))):
+                    dst.copy_(src)
+        elif self._plan is not None:
             self.opt_state = {
                 k: [b.to(self.device) for b in
                     self._plan.pack_state_field(tree_map(to_dev, v))]

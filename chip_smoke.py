@@ -295,7 +295,21 @@ exits non-zero:
     launches; the DCGAN example (two scalers in one ``state_dict``);
     the GPT block at GPT-2 small's widths plain, under plain
     recomputation and with ``--offload-activations`` (loss and grads
-    alike, peak device memory and device ms of each).
+    alike, peak device memory and device ms of each);
+39. checkpoint, resume and offload — the native checkpoint library
+    must load; ResNet-50 O2 b128 x 224 through the ImageNet example's
+    main() with deterministic cuDNN, preempted at step 4 of 8 by
+    ``--checkpoint-dir --save-every 2 --preempt-at-step 4`` and resumed
+    by the same command, at ``grad_accum`` 1 and 2 and through
+    ``--checkpoint`` (v1), each equal to the uninterrupted run bit for
+    bit, and preempted at step 3 the restored state equal to the saved;
+    GPT-2 small's block stack at O2 with FusedAdam: v1 and v2 save and
+    restore ms and bytes, the ms an async v2 save blocks the loop beside
+    a step's, the async file untorn by the next step, the v2 restore one
+    host-to-device copy a packed buffer; BERT-L O2 FusedLAMB b8 x 512
+    with ``offload_state`` against resident in turns (bits equal, ms a
+    step, peak and held device memory) and a v2 save and restore of the
+    offloaded optimizer, its state pinned on the host through both.
 
 Phase 11 also reads every LayerNorm forward's route (the register body
 up to h 8192 at 16-byte alignment, the wide one past it and off it)
@@ -7066,6 +7080,494 @@ def o1_offload_phase(dev, smi: str, o2: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 39: checkpoint, resume and optimizer state offload
+# ---------------------------------------------------------------------------
+
+# (a) ResNet-50 v1.5 O2 FusedSGD b128 x 224 through the example's main()
+CKPT_RUN = ["--arch", "resnet50", "--opt-level", "O2", "--batch-size", "128",
+            "--image-size", "224"]
+CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT, CKPT_PREEMPT_OFF = 8, 2, 4, 3
+# (b) GPT-2 small's block stack at O2 with FusedAdam: save and restore
+CKPT_GPT_TIMED = 3            # steps timed without a save
+# (c) BERT-L O2 FusedLAMB b8 x 512 unmasked, resident and offloaded in turns
+OFFLOAD_BERT = dict(batch=8, seq=512, steps=3,
+                    turns=(False, True, True, False))
+
+
+def _host_state(res) -> dict:
+    """Host copies of what a resumed run is held to: params, masters,
+    momentum, BatchNorm statistics, loss scale and growth tracker, the
+    optimizer's step clock."""
+    import torch
+    from apex_tpu_torch._tree import tree_leaves
+    opt = res.opt
+    out = {"params": [b.cpu() for b in opt._param_bufs],
+           "masters": [b.cpu() for b in opt._master_bufs],
+           "state": {k: [b.cpu() for b in v]
+                     for k, v in opt.opt_state.items()},
+           "batch_stats": [t.cpu() for t in tree_leaves(res.batch_stats)],
+           "loss_scale": res.amp_state.scaler.loss_scale.cpu(),
+           "growth_tracker": res.amp_state.scaler.growth_tracker.cpu(),
+           "step": opt.step_count.cpu()}
+    torch.cuda.synchronize()
+    return out
+
+
+def _bits_differ(a: dict, b: dict) -> list:
+    """The names of the entries of two ``_host_state`` dicts whose bits
+    differ (an empty list: equal bit for bit)."""
+    import torch
+    from apex_tpu_torch._tree import tree_leaves
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    bad = []
+    for k in a:
+        la, lb = tree_leaves(a[k]), tree_leaves(b[k])
+        if len(la) != len(lb) or not all(
+                x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(raw(x), raw(y)) for x, y in zip(la, lb)):
+            bad.append(k)
+    return bad
+
+
+def _ckpt_main(argv):
+    """The ImageNet example's main() on ``argv``, its printed lines kept;
+    returns (result, lines, launches by kernel)."""
+    import contextlib
+    import io
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.examples import imagenet_main_amp as main_amp
+    buf = io.StringIO()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        res = main_amp.main(argv)
+    import torch
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in _build.KERNELS if k.launches}
+    return res, buf.getvalue().splitlines(), got
+
+
+def ckpt_resnet_phase(dev, smi: str, tmp: str) -> dict:
+    """(a) ResNet-50 O2 b128 x 224 through the example's own main() with
+    deterministic cuDNN: an uninterrupted 8-step run; ``--checkpoint-dir
+    D --save-every 2 --steps 8 --preempt-at-step 4`` (a clean exit with a
+    final file at step 4); the same command again (``resumed at step 4``,
+    finishes).  The final masters, params, momentum, batch_stats, loss
+    scale and step count bit for bit against the uninterrupted run; the
+    same with ``--checkpoint F`` (v1, 4 steps then 8) and with
+    ``--grad-accum 2``; at ``--preempt-at-step 3`` the state restored
+    from the file against the state saved.  Returns the resumed runs'
+    launches."""
+    import os
+    import torch
+    cudnn = torch.backends.cudnn
+    old = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    print("checkpoint phase: cuDNN deterministic, no autotuning, for every "
+          "run of (a) (the example's default autotunes)", flush=True)
+    launches = {}
+    try:
+        for ga in (1, ACCUM):
+            base = CKPT_RUN + ["--steps", str(CKPT_STEPS),
+                               "--grad-accum", str(ga)]
+            t0 = time.perf_counter()
+            want, _, _ = _ckpt_main(base)
+            want_state = _host_state(want)
+            n_buckets = len(want.opt._plan.buckets)
+            del want
+            d = os.path.join(tmp, f"resnet-ga{ga}")
+            cmd = base + ["--checkpoint-dir", d, "--save-every",
+                          str(CKPT_EVERY), "--preempt-at-step",
+                          str(CKPT_PREEMPT)]
+            cut, lines, _ = _ckpt_main(cmd)
+            _check(cut.preempted and int(cut.opt.step_count) == CKPT_PREEMPT,
+                   f"checkpoint ga{ga}: the run was not preempted at step "
+                   f"{CKPT_PREEMPT}: {lines[-3:]}")
+            files = sorted(os.listdir(d))
+            _check(files == [f"step-{s}.ckpt" for s in
+                             range(CKPT_EVERY, CKPT_PREEMPT + 1, CKPT_EVERY)],
+                   f"checkpoint ga{ga}: files {files}")
+            _check(any(f"preempted: final checkpoint durable at step "
+                       f"{CKPT_PREEMPT}" in l for l in lines),
+                   f"checkpoint ga{ga}: no preemption line in {lines}")
+            del cut
+            got, lines, counts = _ckpt_main(cmd)
+            _check(any(l.startswith(f"resumed at step {CKPT_PREEMPT} scale")
+                       for l in lines),
+                   f"checkpoint ga{ga}: no 'resumed at step "
+                   f"{CKPT_PREEMPT}' in {lines[:3]}")
+            rest = CKPT_STEPS - CKPT_PREEMPT
+            _check(not got.preempted and len(got.losses) == rest,
+                   f"checkpoint ga{ga}: the resumed run took "
+                   f"{len(got.losses)} steps")
+            want_counts = {"flat_sgd": rest * n_buckets}
+            if ga > 1:
+                want_counts.update(flat_accumulate=ga * rest * n_buckets,
+                                   flat_unscale_norm=rest * n_buckets)
+            _check(counts == want_counts,
+                   f"checkpoint ga{ga}: launches {counts}, expected "
+                   f"{want_counts}")
+            launches[f"resnet50_resume_ga{ga}"] = counts
+            bad = _bits_differ(_host_state(got), want_state)
+            del got
+            _check(not bad, f"checkpoint ga{ga}: preempted at "
+                            f"{CKPT_PREEMPT} and resumed differs from the "
+                            f"uninterrupted run in {bad}")
+            print(f"checkpoint resnet50 O2 b128 224 grad_accum {ga}: "
+                  f"--checkpoint-dir --save-every {CKPT_EVERY} "
+                  f"--preempt-at-step {CKPT_PREEMPT} then the same command: "
+                  f"masters, params, momentum, batch_stats, loss scale and "
+                  f"step count equal the uninterrupted {CKPT_STEPS}-step "
+                  f"run bit for bit; resumed run's launches {counts}; "
+                  f"{time.perf_counter() - t0:.1f} s for the three runs "
+                  f"[{smi}]", flush=True)
+            if ga > 1:
+                continue
+            # v1: --checkpoint F, 4 steps then the same file to step 8
+            f = os.path.join(tmp, "resnet.v1")
+            _ckpt_main(CKPT_RUN + ["--steps", str(CKPT_PREEMPT),
+                                   "--checkpoint", f])
+            got, lines, _ = _ckpt_main(base + ["--checkpoint", f])
+            _check(any(l.startswith(f"resumed at step {CKPT_PREEMPT} ")
+                       for l in lines), f"checkpoint v1: {lines[:3]}")
+            bad = _bits_differ(_host_state(got), want_state)
+            del got
+            _check(not bad, f"checkpoint v1: resumed differs in {bad}")
+            print(f"checkpoint resnet50 v1 (--checkpoint, {CKPT_PREEMPT} "
+                  f"steps then {CKPT_STEPS}): equal to the uninterrupted "
+                  f"run bit for bit [{smi}]", flush=True)
+            # at step 3 the resumed run's batches differ (the reference's
+            # pool restarts): the restored state equals the saved state
+            d3 = os.path.join(tmp, "resnet-at3")
+            cut, _, _ = _ckpt_main(CKPT_RUN + [
+                "--steps", str(CKPT_STEPS), "--checkpoint-dir", d3,
+                "--save-every", str(CKPT_EVERY), "--preempt-at-step",
+                str(CKPT_PREEMPT_OFF)])
+            _check(cut.preempted, "checkpoint at 3: not preempted")
+            saved = _host_state(cut)
+            del cut
+            got, _, _ = _ckpt_main(CKPT_RUN + [
+                "--steps", str(CKPT_PREEMPT_OFF), "--checkpoint-dir", d3])
+            _check(got.start_step == CKPT_PREEMPT_OFF and not got.losses,
+                   f"checkpoint at 3: resumed at {got.start_step}")
+            bad = _bits_differ(_host_state(got), saved)
+            del got
+            _check(not bad, f"checkpoint at 3: restored differs from saved "
+                            f"in {bad}")
+            print(f"checkpoint resnet50 --preempt-at-step "
+                  f"{CKPT_PREEMPT_OFF}: the restored state equals the saved "
+                  f"state bit for bit [{smi}]", flush=True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
+    return launches
+
+
+def _synced_ms(fn):
+    """(result, ms) of ``fn()`` on the host clock, the card synchronized
+    before each clock read."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _packed_copy(opt) -> list:
+    return ([b.clone() for b in opt._param_bufs]
+            + [b.clone() for b in opt._master_bufs]
+            + [b.clone() for k in sorted(opt.opt_state)
+               for b in opt.opt_state[k]])
+
+
+def _packed_equal(opt, want) -> bool:
+    import torch
+    have = _packed_copy(opt)
+    return len(have) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a.to(b.device), b)
+        for a, b in zip(have, want))
+
+
+def ckpt_gpt_phase(dev, smi: str, tmp: str) -> dict:
+    """(b) GPT-2 small's block stack, amp O2, FusedAdam (one bucket of
+    124,046,592; params, masters and both moments in a file): bytes
+    written, v1 and v2 save and restore ms (synchronized clock reads),
+    the ms an AsyncCheckpointer v2 save blocks the loop for beside a
+    step's ms without a save; an async save followed at once by a step
+    gives a file equal to the state before the step; the v2 restore
+    adopts the buffers, one host-to-device copy per packed buffer."""
+    import os
+    import numpy as np
+    import torch
+    from apex_tpu_torch import checkpoint as ck
+    from apex_tpu_torch.examples import gpt_train_block as ex
+    from apex_tpu_torch.optimizers import _base
+
+    model = ex.GPTBlocks(GPT["vocab"], GPT["hidden"], GPT["heads"],
+                         GPT["layers"], max_seq=GPT["seq"])
+    s = ex.setup(model, model.init(0, "cpu"), dev, opt_level="O2",
+                 lr=GPT["lr"])
+    tokens = ex.synthetic_tokens(GPT["batch"], GPT["seq"], GPT["vocab"],
+                                 device=dev)
+    state = s.amp_state
+    for _ in range(GPT["warmup"]):
+        _, state = s.step(state, tokens)
+    step_ms = []
+    for _ in range(CKPT_GPT_TIMED):
+        (_, state), ms = _synced_ms(lambda: s.step(state, tokens))
+        step_ms.append(ms)
+    opt = s.opt
+    n_bufs = 2 + sum(len(v) for v in opt.opt_state.values())
+    fig = {}
+    # an async v2 save, then a step at once
+    want = _packed_copy(opt)
+    p2 = os.path.join(tmp, "gpt.v2")
+    ac = ck.AsyncCheckpointer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ac.save_training_state(p2, optimizer=opt, step=1,
+                           amp_state=state.state_dict())
+    fig["async_blocked_ms"] = 1e3 * (time.perf_counter() - t0)
+    (_, state), fig["step_after_save_ms"] = _synced_ms(
+        lambda: s.step(state, tokens))
+    _, fig["async_wait_ms"] = _synced_ms(ac.wait_until_finished)
+    ac.close()
+    fig["v2_bytes"] = os.path.getsize(p2)
+    _check(not _packed_equal(opt, want), "ckpt gpt: the step after the save "
+                                         "changed nothing")
+    adopted = []
+    real_adopt = _base._adopt
+
+    def counting(dst, src):
+        adopted.append((dst.device.type, src.device.type))
+        real_adopt(dst, src)
+
+    _base._adopt = counting
+    try:
+        _, fig["v2_restore_ms"] = _synced_ms(lambda: ck.load_training_state(
+            p2, opt.params, opt))
+    finally:
+        _base._adopt = real_adopt
+    _check(_packed_equal(opt, want), "ckpt gpt: the async v2 file is not "
+                                     "the state from before the next step")
+    _check(adopted == [("cuda", "cpu")] * n_bufs,
+           f"ckpt gpt: the v2 restore made {adopted}, expected one "
+           f"host-to-device copy into each of the {n_bufs} packed buffers")
+    # a second async save: the pinned staging buffers of the first are
+    # cached by PyTorch's host allocator now
+    ac = ck.AsyncCheckpointer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ac.save_training_state(p2, optimizer=opt, step=1,
+                           amp_state=state.state_dict())
+    fig["async2_blocked_ms"] = 1e3 * (time.perf_counter() - t0)
+    (_, state), fig["step_after_save2_ms"] = _synced_ms(
+        lambda: s.step(state, tokens))
+    _, fig["async2_wait_ms"] = _synced_ms(ac.wait_until_finished)
+    ac.close()
+    os.remove(p2)
+    del want
+    fig["v2_save_bytes"], fig["v2_save_ms"] = _synced_ms(
+        lambda: ck.save_training_state(p2, optimizer=opt, step=2))
+    os.remove(p2)
+    p1 = os.path.join(tmp, "gpt.v1")
+    fig["v1_bytes"], fig["v1_save_ms"] = _synced_ms(
+        lambda: ck.save_training_state(p1, optimizer=opt, step=2,
+                                       format="v1"))
+    want = _packed_copy(opt)
+    _, state = s.step(state, tokens)
+    _, fig["v1_restore_ms"] = _synced_ms(lambda: ck.load_training_state(
+        p1, opt.params, opt))
+    _check(_packed_equal(opt, want), "ckpt gpt: the v1 restore is not the "
+                                     "saved state")
+    os.remove(p1)
+    del want, s, opt
+    torch.cuda.empty_cache()
+    gb = fig["v2_bytes"] / 1e9
+    print(f"checkpoint gpt-2 small O2 FusedAdam (one bucket of "
+          f"{GPT_BUCKET}): v2 file {fig['v2_bytes']} bytes, v1 file "
+          f"{fig['v1_bytes']} bytes; v2 save {fig['v2_save_ms']:.1f} ms "
+          f"({gb / fig['v2_save_ms'] * 1e3:.2f} GB/s), v2 restore "
+          f"{fig['v2_restore_ms']:.1f} ms, v1 save {fig['v1_save_ms']:.1f} "
+          f"ms, v1 restore {fig['v1_restore_ms']:.1f} ms (host clock, card "
+          f"synchronized before each read; files in a temporary directory, "
+          f"reads warm); async v2 save blocks the loop "
+          f"{fig['async_blocked_ms']:.2f} ms, the step right after it "
+          f"{fig['step_after_save_ms']:.2f} ms, a step without a save "
+          f"median {float(np.median(step_ms)):.2f} ms (of "
+          f"{[round(v, 2) for v in step_ms]}), the wait for the write "
+          f"after that step {fig['async_wait_ms']:.1f} ms; a second "
+          f"async save (pinned buffers cached) blocks "
+          f"{fig['async2_blocked_ms']:.2f} ms, the step after it "
+          f"{fig['step_after_save2_ms']:.2f} ms, the wait "
+          f"{fig['async2_wait_ms']:.1f} ms; the async file "
+          f"equals the state before the step, the v2 restore made "
+          f"{n_bufs} host-to-device copies ({n_bufs} packed buffers) "
+          f"[{smi}]", flush=True)
+    return fig
+
+
+def offload_state_phase(dev, smi: str, tmp: str) -> dict:
+    """(c) BERT-L, amp O2, FusedLAMB, b8 x 512 unmasked, 3 steps a run,
+    ``--offload-state`` against resident in turns (ABBA): the final
+    masters, params and moments bit for bit, ms a step (CUDA events) and
+    ``max_memory_allocated`` over the steps (and in the setup) of each,
+    the device memory held between steps; then a v2 save and restore of the offloaded optimizer, its
+    state in pinned host memory after both.  Returns the offloaded run's
+    launches."""
+    import gc
+    import os
+    import torch
+    from apex_tpu_torch import _build, checkpoint as ck
+    from apex_tpu_torch.examples import bert_pretrain_mlm as ex
+    from apex_tpu_torch.models import bert_large
+
+    c = OFFLOAD_BERT
+    model = bert_large(dtype=torch.bfloat16, max_seq_len=c["seq"])
+    t0 = time.perf_counter()
+    params = model.init(0, "cpu")
+    print(f"offload: bert-large init on the cpu "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    inputs, _, _ = ex.synthetic_batch(model.vocab_size, c["batch"],
+                                      c["seq"], False, dev)
+    runs, final, launches = [], {}, None
+    for off in c["turns"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt, state, step = ex.setup(model, params, dev, offload_state=off)
+        setup_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for bufs in opt.opt_state.values():
+            _check(all(b.is_pinned() == off and (b.device.type == "cpu")
+                       == off for b in bufs),
+                   f"offload={off}: the state lives on {bufs[0].device}")
+        state_bytes = sum(b.numel() * b.element_size()
+                          for v in opt.opt_state.values() for b in v)
+        _build.reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(c["steps"] + 1)]
+        events[0].record()
+        losses = []
+        for i in range(c["steps"]):
+            loss, state = step(state, **inputs)
+            losses.append(loss)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in _build.KERNELS if k.launches}
+        if off:
+            launches = got
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        held = torch.cuda.memory_allocated(dev)
+        # the bytes the live tensors asked for: memory_allocated counts
+        # whole allocator blocks, whose unsplit tails (up to 1 MiB a
+        # block) depend on the turn's allocation history
+        held_req = torch.cuda.memory_stats(dev)[
+            "requested_bytes.all.current"]
+        peak = torch.cuda.max_memory_allocated(dev)
+        host = [b.cpu() for b in opt._param_bufs + opt._master_bufs] + [
+            b.cpu() for k in sorted(opt.opt_state)
+            for b in opt.opt_state[k]]
+        runs.append(dict(off=off, ms=ms, peak=peak, held=held,
+                         held_req=held_req, setup_peak=setup_peak,
+                         losses=[float(v) for v in losses], got=got))
+        if off not in final:
+            final[off] = host
+        else:
+            _check(all(torch.equal(a, b) for a, b in zip(host, final[off])),
+                   f"offload={off}: two turns differ")
+        if off and len([r for r in runs if r["off"]]) == 2:
+            # a v2 save and restore of the offloaded optimizer
+            p = os.path.join(tmp, "bert.v2")
+            nbytes, save_ms = _synced_ms(lambda: ck.save_training_state(
+                p, optimizer=opt, step=c["steps"]))
+            # one more step, so a restore that does nothing fails below
+            step(state, **inputs)
+            torch.cuda.synchronize()
+            _check(not all(torch.equal(a.cpu(), b) for a, b in zip(
+                opt._param_bufs + opt._master_bufs, host)),
+                "offload: the step after the v2 save changed nothing")
+            _, restore_ms = _synced_ms(lambda: ck.load_training_state(
+                p, opt.params, opt))
+            os.remove(p)
+            for bufs in opt.opt_state.values():
+                _check(all(b.is_pinned() for b in bufs),
+                       "offload: the state left pinned host memory in the "
+                       "v2 save or restore")
+            _check(all(torch.equal(a, b) for a, b in zip(
+                [b.cpu() for b in opt._param_bufs + opt._master_bufs]
+                + [b.cpu() for k in sorted(opt.opt_state)
+                   for b in opt.opt_state[k]], host)),
+                "offload: the v2 restore is not the saved state")
+            print(f"offload v2 checkpoint of the offloaded BERT-L "
+                  f"optimizer: {nbytes} bytes, save {save_ms:.1f} ms, "
+                  f"restore {restore_ms:.1f} ms (host clock, synchronized); "
+                  f"the moments stayed in pinned host memory through both "
+                  f"[{smi}]", flush=True)
+        del opt, state, step, losses
+    _check(all(torch.equal(a, b) for a, b in zip(final[True], final[False])),
+           "offload: the offloaded run's masters, params or moments differ "
+           "from the resident run's")
+    res = [r for r in runs if not r["off"]]
+    off = [r for r in runs if r["off"]]
+    _check(res[0]["got"] == off[0]["got"],
+           f"offload: launches {off[0]['got']} against {res[0]['got']}")
+    _check(off[0]["got"].get("flat_lamb_moments") == c["steps"]
+           and off[0]["got"].get("flat_l2norm") == c["steps"],
+           f"offload: LAMB launches {off[0]['got']}")
+    _check(min(r["held_req"] for r in res)
+           - max(r["held_req"] for r in off) >= state_bytes,
+           f"offload: live tensors hold {max(r['held_req'] for r in off)} "
+           f"bytes of the device between steps against "
+           f"{min(r['held_req'] for r in res)} resident ({state_bytes} "
+           f"bytes of state)")
+    _check(max(r["peak"] for r in off) < min(r["peak"] for r in res),
+           "offload: the peak device memory is not lower")
+    print("offload bert-large O2 FusedLAMB b8 s512 unmasked, 3 steps a "
+          "turn, turns resident/offloaded/offloaded/resident: "
+          + "; ".join(f"{'offloaded' if r['off'] else 'resident'} ms/step "
+                      f"{[round(v, 2) for v in r['ms']]} (CUDA events), "
+                      f"max_memory_allocated over the steps "
+                      f"{r['peak'] / 2**30:.3f} GiB (in the setup "
+                      f"{r['setup_peak'] / 2**30:.3f}), held between steps "
+                      f"{r['held'] / 2**30:.3f} GiB ({r['held_req']} bytes "
+                      f"requested by live tensors)"
+                      for r in runs)
+          + f"; LAMB state {state_bytes / 2**30:.3f} GiB; final masters, "
+          f"params and moments equal bit for bit; losses "
+          f"{runs[0]['losses']}; offloaded launches {launches} [{smi}]",
+          flush=True)
+    return {"bert_large_offload_state": launches}
+
+
+def checkpoint_phase(dev, smi: str) -> dict:
+    """Phase 39: checkpoint, resume and optimizer state offload; every
+    file under one temporary directory, removed at the end.  Returns each
+    path's launches by kernel."""
+    import shutil
+    import tempfile
+    import torch
+    from apex_tpu_torch import _native
+    _check(_native.available(), f"the native checkpoint library did not "
+                                f"load: {_native.load_error}")
+    print("native checkpoint library (csrc/apex_c.cpp, g++): loaded",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="apex_ckpt_")
+    try:
+        launches = ckpt_resnet_phase(dev, smi, tmp)
+        torch.cuda.empty_cache()
+        ckpt_gpt_phase(dev, smi, tmp)
+        torch.cuda.empty_cache()
+        launches.update(offload_state_phase(dev, smi, tmp))
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 class _PhaseClock:
     """Host-clock seconds of each phase: ``with clock(name): ...`` prints
     the phase's seconds when it ends; ``summary`` prints every phase's
@@ -7293,6 +7795,9 @@ def main() -> int:
     with timed("38 amp O1 and offload"):
         o1_launches = o1_offload_phase(dev, smi, o2_figures)
     torch.cuda.empty_cache()
+    with timed("39 checkpoint, resume and offload"):
+        ckpt_launches = checkpoint_phase(dev, smi)
+    torch.cuda.empty_cache()
     timed.summary(smi)
     all_entries = ([entry] + flat_entries + bert_entries + gpt_entries
                    + tail_entries + softmax_entries + xent_entries
@@ -7303,6 +7808,11 @@ def main() -> int:
                  if got.get(e["name"])}
         if paths:
             e["o1_offload_launches"] = paths
+        # phase 39's paths (resumed ResNet-50 runs, BERT-L --offload-state)
+        paths = {path: got[e["name"]] for path, got in ckpt_launches.items()
+                 if got.get(e["name"])}
+        if paths:
+            e["ckpt_offload_launches"] = paths
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7313,7 +7823,9 @@ def main() -> int:
                                          "d1024", "d32_proxy", "d32_f32",
                                          "d32_proxy_f32",
                                          "gpt_model_launches",
-                                         "o1_offload_launches") if k in e})
+                                         "o1_offload_launches",
+                                         "ckpt_offload_launches")
+                       if k in e})
                for e in all_entries]
     _check(len(kernels) == len(_build.KERNELS),
            f"the kernels line has {len(kernels)} entries for "

@@ -2375,3 +2375,155 @@ def test_offloaded_gpt_block_step_matches_plain_on_card(cuda):
                                    atol=1e-6)
     assert copies == {"ffn_hidden": kw["layers"]}
     assert p1 < p0, (p1, p0)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and optimizer state offload
+# ---------------------------------------------------------------------------
+def _ckpt_tree(device, n=1 << 20):
+    g = torch.Generator().manual_seed(0)
+    return {"w": torch.randn(n, generator=g).to(torch.bfloat16).to(device),
+            "b": torch.randn(4096, generator=g).to(device)}
+
+
+def _ckpt_grads(tree, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {k: (torch.randn(v.shape, generator=g) * 0.1).to(v.dtype)
+            .to(v.device) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_native_checkpoint_library_loads(cuda):
+    """The host C++ helpers build with g++ and load: the NumPy fallback
+    must not hide on the card's machine."""
+    from apex_tpu_torch import _native
+    assert _native.available(), _native.load_error
+    a = [np.arange(10, dtype=np.int32), np.ones(3, np.float32)]
+    back = _native.host_unflatten(_native.host_flatten(a), a)
+    assert all((x == y).all() for x, y in zip(a, back))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["v1", "v2"])
+def test_async_save_is_not_torn_by_the_next_steps_on_card(cuda, fmt,
+                                                          tmp_path):
+    """An async save, then steps at once on the compute stream while the
+    writer is held back: the file holds the state of the save's moment,
+    bit for bit."""
+    import threading
+    from apex_tpu_torch import checkpoint as ck
+    from apex_tpu_torch.optimizers import FusedAdam
+    tree = _ckpt_tree(cuda)
+    opt = FusedAdam(tree, lr=1e-2)
+    opt.step(_ckpt_grads(tree, 1))
+    want_p = [b.clone() for b in opt._param_bufs]
+    want_s = {k: [b.clone() for b in v] for k, v in opt.opt_state.items()}
+    stepped = threading.Event()
+
+    class SlowIO(ck.CheckpointIO):
+        def write_array(self, f, arr):
+            assert stepped.wait(60)
+            super().write_array(f, arr)
+
+    prev = ck.set_io(SlowIO())
+    try:
+        p = str(tmp_path / f"a.{fmt}")
+        with ck.AsyncCheckpointer() as ac:
+            ac.save_training_state(p, optimizer=opt, step=1, format=fmt)
+            for i in range(3):
+                opt.step(_ckpt_grads(tree, 2 + i))
+            stepped.set()
+    finally:
+        ck.set_io(prev)
+    assert not torch.equal(opt._param_bufs[0], want_p[0])
+    fresh = FusedAdam(_ckpt_tree(cuda), lr=1e-2)
+    ck.load_training_state(p, {k: torch.zeros_like(v) for k, v in
+                               tree.items()}, fresh)
+    for a, b in zip(fresh._param_bufs, want_p):
+        assert torch.equal(a, b)
+    for k in want_s:
+        for a, b in zip(fresh.opt_state[k], want_s[k]):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sgd", "adam", "lamb"])
+def test_offloaded_step_gives_the_resident_bits_on_card(cuda, kind):
+    """The offloaded optimizer's state sits in pinned host memory, leaves
+    the device between steps, and its steps (one skipped on found_inf)
+    give the resident steps' bits."""
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+    cls, kw = {"sgd": (FusedSGD, dict(lr=0.1, momentum=0.9)),
+               "adam": (FusedAdam, dict(lr=1e-2, weight_decay=0.01)),
+               "lamb": (FusedLAMB, dict(lr=1e-2, weight_decay=0.01))}[kind]
+    import gc
+    tree = _ckpt_tree(cuda, n=1 << 24)
+    held = {}
+    for o in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        opt = cls(tree, offload_state=o, **kw)
+        opt.step(_ckpt_grads(tree, 9))
+        gc.collect()
+        torch.cuda.synchronize()
+        held[o] = torch.cuda.memory_allocated(cuda) - before
+        del opt
+    res = cls(tree, **kw)
+    off = cls(tree, offload_state=True, **kw)
+    for bufs in off.opt_state.values():
+        assert all(b.device.type == "cpu" and b.is_pinned() for b in bufs)
+    state_bytes = sum(b.numel() * b.element_size()
+                      for v in res.opt_state.values() for b in v)
+    for i, flag in enumerate([0, 1, 0]):
+        g = _ckpt_grads(tree, i)
+        fi = torch.tensor(flag, dtype=torch.int32, device=cuda)
+        res.step(g, found_inf=fi)
+        off.step(g, found_inf=fi)
+    torch.cuda.synchronize()
+    for a, b in zip(off._param_bufs + (off._master_bufs or []),
+                    res._param_bufs + (res._master_bufs or [])):
+        assert torch.equal(a, b)
+    sd_off, sd_res = off.state_dict(), res.state_dict()
+    for k in sd_res["state"]:
+        for a, b in zip(sd_off["state"][k].values(),
+                        sd_res["state"][k].values()):
+            assert torch.equal(a.cpu(), b.cpu())
+    assert int(off.step_count) == int(res.step_count) == 2
+    # the offloaded optimizer holds no state on the device between steps
+    assert held[False] - held[True] >= state_bytes, (held, state_bytes)
+
+
+@pytest.mark.cuda
+def test_state_device_after_load_state_dict_on_card(cuda, tmp_path):
+    """Restored state lands where the optimizer keeps it: resident on the
+    card, offloaded in the pinned host buffers it had, through
+    load_state_dict and through a v2 restore."""
+    from apex_tpu_torch import checkpoint as ck
+    from apex_tpu_torch.optimizers import FusedAdam
+    tree = _ckpt_tree(cuda)
+    src = FusedAdam(tree, lr=1e-2)
+    src.step(_ckpt_grads(tree, 3))
+    sd = src.state_dict()
+    sd["state"] = {k: {n: t.cpu() for n, t in v.items()}
+                   for k, v in sd["state"].items()}
+    res = FusedAdam(tree, lr=1e-2)
+    res.load_state_dict(sd)
+    assert all(b.device.type == "cuda"
+               for v in res.opt_state.values() for b in v)
+    off = FusedAdam(tree, lr=1e-2, offload_state=True)
+    ptrs = [b.data_ptr() for v in off.opt_state.values() for b in v]
+    off.load_state_dict(sd)
+    assert [b.data_ptr() for v in off.opt_state.values() for b in v] == ptrs
+    assert all(b.is_pinned() for v in off.opt_state.values() for b in v)
+    p = str(tmp_path / "o.ckpt")
+    ck.save_training_state(p, optimizer=src, step=1)
+    off2 = FusedAdam(tree, lr=1e-2, offload_state=True)
+    ck.load_training_state(p, {k: torch.zeros_like(v) for k, v in
+                               tree.items()}, off2)
+    assert all(b.is_pinned() for v in off2.opt_state.values() for b in v)
+    for k in src.opt_state:
+        for a, b in zip(off2.opt_state[k], src.opt_state[k]):
+            assert torch.equal(a, b.cpu())
+    for a, b in zip(off2._param_bufs, src._param_bufs):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -225,7 +225,7 @@ def test_options_the_port_does_not_read_are_rejected(option):
 def test_what_waits_for_later_slices_says_so():
     params = _params()
     with pytest.raises(NotImplementedError, match="T4"):
-        FusedSGD(params, offload_state=True, **HYPERS)
+        FusedSGD(params, **HYPERS).enable_fp8()
     with pytest.raises(NotImplementedError, match="T4"):
         FusedSGD(params, **HYPERS).rechunk(1 << 20)
     with pytest.raises(ValueError, match="Nesterov"):
